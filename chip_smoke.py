@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch / CUDA port's wide-aggregation path on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed S] [--bitmaps N]
+
+Phases (each timed; any mismatch raises, so the script exits non-zero):
+
+1. print the card's name and power limit, build the CUDA kernels with nvcc;
+2. dense resident set: ``synthetic_bitmaps(N=4096, universe=2^24,
+   density=0.0025)``; or/xor/and on the "cuda" engine are bit-equal to the
+   "torch" engine, and a set of the first 512 bitmaps equals the host fold;
+3. counts set (uscensus2000-shaped: 2N = 8,192 bitmaps of 4 containers of
+   4 values on uniform keys): ``layout="auto"`` must choose counts; or/xor
+   checked as in 2;
+4. compact set over the first 1,024 bitmaps of 2; or/xor/and checked as in 2;
+5. ad-hoc calls over 1,024 bitmaps: ``or_``, ``xor``, ``or_cardinality``,
+   ``xor_cardinality``, and ``and_`` over bitmaps that share keys;
+6. each kernel against its plain PyTorch version on the card, at the shapes
+   of 2-5: bit-equal words and cards, CUDA-event median times, the bound.
+
+Kernel launch counts are set to 0 just before each main-path call and read
+just after it; the ``kernels`` line reports their sums.  The last line is
+the device JSON.  Needs one CUDA device; without one it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the non-tensor
+#: float32 rate, used as the peak of the kernels' integer word operations.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
+#: bitmaps whose host fold checks each layout
+HOST_CHECK_N = 512
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Smoke:
+    def __init__(self, torch_mod, kernels_mod):
+        self.torch = torch_mod
+        self.kernels = kernels_mod
+        self.launches = {k.name: 0 for k in kernels_mod.KERNELS}
+
+    def main_path(self, label: str, fn):
+        """Run one main-path call with the launch counts set to 0 just
+        before it and read just after it."""
+        self.kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in self.kernels.KERNELS}
+        for name, c in counts.items():
+            self.launches[name] += c
+        used = ", ".join(f"{n}={c}" for n, c in counts.items() if c) or "none"
+        log(f"  [{label}] {dt:.3f} s, launches: {used}")
+        return out
+
+
+def host_fold(op: str, bitmaps):
+    acc = bitmaps[0]
+    for b in bitmaps[1:]:
+        acc = acc | b if op == "or" else acc ^ b if op == "xor" else acc & b
+    return acc
+
+
+def require(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def check_set(smoke: Smoke, label: str, ds, ops, unpack) -> None:
+    """Each op through the user entry point on the cuda engine, bit-equal to
+    the torch engine's device words and cards.  Then the same query split
+    into its device part (to synchronize) and its host unpack."""
+    torch = smoke.torch
+    for op in ops:
+        got = smoke.main_path(f"{label} {op}", lambda op=op: ds.aggregate(op))
+        words, cards = ds.aggregate_device(op, engine="torch")
+        want = unpack(ds.keys, words, cards)
+        require(got == want, f"{label} {op}: cuda engine != torch engine")
+        t0 = time.perf_counter()
+        words, cards = ds.aggregate_device(op)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        unpack(ds.keys, words, cards)
+        t2 = time.perf_counter()
+        log(f"    {op}: cardinality {got.cardinality} (cuda == torch); "
+            f"device {(t1 - t0) * 1e3:.3f} ms, host unpack "
+            f"{(t2 - t1) * 1e3:.3f} ms")
+
+
+def timed_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_abs_err(torch, a, b) -> int:
+    """Largest |difference| of two word/card results, as u32 values."""
+    err = 0
+    for x, y in zip(a, b):
+        x64 = x.to(torch.int64) & 0xFFFFFFFF
+        y64 = y.to(torch.int64) & 0xFFFFFFFF
+        err = max(err, int((x64 - y64).abs().max()) if x.numel() else 0)
+    return err
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bitmaps", type=int, default=4096,
+                    help="bitmaps of the dense set (phase 2); the counts set "
+                         "(phase 3) holds twice as many")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation
+    from roaringbitmap_tpu_torch.ops import build, kernels, packing
+    from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
+    from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+
+    t_all = time.perf_counter()
+
+    def unpack(keys, words, cards):
+        return packing.unpack_result(keys, to_u32(words), cards.cpu().numpy())
+
+    # ------------------------------------------------------------ phase 1
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    reports = build.build()
+    log(f"  built {len(reports)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s (torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda})")
+    for src, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {src}: {line.strip()}")
+    smoke = Smoke(torch, kernels)
+    shapes = {}
+
+    # ------------------------------------------------------------ phase 2
+    n = args.bitmaps
+    log(f"phase 2: dense set, {n} bitmaps")
+    t0 = time.perf_counter()
+    bms = synthetic_bitmaps(n, seed=args.seed, universe=1 << 24,
+                            density=0.0025)
+    log(f"  generated in {time.perf_counter() - t0:.1f} s")
+    ds = smoke.main_path("dense build",
+                         lambda: DeviceBitmapSet(bms, layout="dense"))
+    log(f"  rows {ds.words.shape[0]}, bytes {ds.hbm_bytes()}, "
+        f"block {ds.block}, K {ds.keys.size}")
+    check_set(smoke, "dense", ds, ("or", "xor", "and"), unpack)
+    shapes["segmented_reduce_blocked"] = (ds.words, ds.blk_seg,
+                                          ds.keys.size, ds.block)
+    sub = bms[:HOST_CHECK_N]
+    t0 = time.perf_counter()
+    host = {op: host_fold(op, sub) for op in ("or", "xor", "and")}
+    log(f"  host folds of {len(sub)} bitmaps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds_sub = DeviceBitmapSet(sub, layout="dense")
+    for op in ("or", "xor", "and"):
+        got = smoke.main_path(f"dense[{len(sub)}] {op}",
+                              lambda op=op: ds_sub.aggregate(op))
+        require(got == host[op], f"dense {op} over {len(sub)} != host fold")
+    log(f"    first {len(sub)}: or/xor/and equal the host fold")
+
+    # ------------------------------------------------------------ phase 3
+    log(f"phase 3: counts set, {2 * n} bitmaps x 4 containers x 4 values")
+    rng = np.random.default_rng(args.seed + 1)
+    cbms = []
+    for _ in range(2 * n):
+        keys = rng.choice(1 << 16, 4, replace=False).astype(np.uint32)
+        lows = np.stack([rng.choice(1 << 16, 4, replace=False)
+                         for _ in range(4)]).astype(np.uint32)
+        cbms.append(RoaringBitmap.from_values(
+            ((keys[:, None] << np.uint32(16)) | lows).ravel()))
+    cds = smoke.main_path("counts build", lambda: DeviceBitmapSet(cbms))
+    require(cds.layout == "counts", f"auto chose {cds.layout}, not counts")
+    log(f"  layout auto -> counts; groups {cds.counts.shape[0]}, "
+        f"bytes {cds.hbm_bytes()}, K {cds.keys.size}")
+    check_set(smoke, "counts", cds, ("or", "xor"), unpack)
+    shapes["counts_segmented_reduce"] = (cds.counts, cds._grp_seg_counts,
+                                         cds.keys.size)
+    csub = cbms[:HOST_CHECK_N]
+    cds_sub = DeviceBitmapSet(csub)
+    require(cds_sub.layout == "counts", "auto subset did not choose counts")
+    for op in ("or", "xor"):
+        got = smoke.main_path(f"counts[{len(csub)}] {op}",
+                              lambda op=op: cds_sub.aggregate(op))
+        require(got == host_fold(op, csub),
+                f"counts {op} over {len(csub)} != host fold")
+    log(f"    first {len(csub)}: or/xor equal the host fold")
+
+    # ------------------------------------------------------------ phase 4
+    m = min(1024, n)
+    log(f"phase 4: compact set, first {m} bitmaps")
+    xds = smoke.main_path("compact build",
+                          lambda: DeviceBitmapSet(bms[:m], layout="compact"))
+    log(f"  chunks {xds._chunks[0].shape[0]}, rows {xds._n_rows}, "
+        f"bytes {xds.hbm_bytes()}, K {xds.keys.size}")
+    check_set(smoke, "compact", xds, ("or", "xor", "and"), unpack)
+    shapes["densify_chunks"] = (*xds._chunks, xds._n_rows)
+    xds_sub = DeviceBitmapSet(sub, layout="compact")
+    for op in ("or", "xor", "and"):
+        got = smoke.main_path(f"compact[{len(sub)}] {op}",
+                              lambda op=op: xds_sub.aggregate(op))
+        require(got == host[op], f"compact {op} over {len(sub)} != host fold")
+    log(f"    first {len(sub)}: or/xor/and equal the host fold")
+
+    # ------------------------------------------------------------ phase 5
+    log(f"phase 5: ad-hoc calls over {m} bitmaps")
+    adhoc = bms[:m]
+    for name, fn in (("or_", aggregation.or_), ("xor", aggregation.xor)):
+        got = smoke.main_path(name, lambda fn=fn: fn(adhoc))
+        want = fn(adhoc, engine="torch")
+        require(got == want, f"ad-hoc {name}: cuda != torch")
+        log(f"    {name}: cardinality {got.cardinality} (cuda == torch)")
+        if name == "or_":
+            union = got
+    require(smoke.main_path("or_ host", lambda: aggregation.or_(sub))
+            == host["or"], "ad-hoc or_ != host fold")
+    for name, fn in (("or_cardinality", aggregation.or_cardinality),
+                     ("xor_cardinality", aggregation.xor_cardinality)):
+        got = smoke.main_path(name, lambda fn=fn: fn(adhoc))
+        want = fn(adhoc, engine="torch")
+        require(got == want, f"{name}: cuda {got} != torch {want}")
+        log(f"    {name}: {got}")
+    require(aggregation.or_cardinality(adhoc) == union.cardinality,
+            "or_cardinality != or_ cardinality")
+    t0 = time.perf_counter()
+    packing.pack_blocked_compact(adhoc, block=aggregation.BLOCK,
+                                 round_blocks=64, carry_slot=False)
+    t1 = time.perf_counter()
+    shapes["segmented_reduce"] = packing.pack_for_aggregation(adhoc)
+    t2 = time.perf_counter()
+    log(f"    host pack: or_/xor streams {(t1 - t0) * 1e3:.1f} ms, "
+        f"*_cardinality dense rows {(t2 - t1) * 1e3:.1f} ms")
+    rng = np.random.default_rng(args.seed + 2)
+    common = rng.integers(0, 1 << 21, 20000)
+    abms = [RoaringBitmap.from_values(np.concatenate(
+        [common, rng.integers(0, 1 << 21, 20000)]).astype(np.uint32))
+        for _ in range(m)]
+    got = smoke.main_path("and_", lambda: aggregation.and_(abms))
+    want = host_fold("and", abms)
+    require(got == want, "ad-hoc and_ != host fold")
+    require(got.keys.size > 0 and got.cardinality >= np.unique(common).size,
+            "ad-hoc and_ lost the shared values")
+    log(f"    and_: K {got.keys.size}, cardinality {got.cardinality} "
+        f"(equals the host fold)")
+
+    # ------------------------------------------------------------ phase 6
+    log("phase 6: each kernel against its plain version "
+        "(tolerance: bit-exact, max_abs_err must be 0)")
+    rows_out = []
+
+    def row_bytes(starts, ends, per_row):
+        return int((ends - starts).sum()) * per_row
+
+    def record(kernel, run, plain, bytes_moved, ops, shape_note):
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        require(err == 0, f"{kernel.name}: kernel != plain (max err {err})")
+        ms = timed_ms(torch, run, 20)
+        plain_ms = timed_ms(torch, plain, 3)
+        t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"  {kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({bytes_moved} bytes), {bound / ms:.1%} of bound")
+        rows_out.append({
+            "name": kernel.name, "route": "cuda",
+            "source": f"roaringbitmap_tpu_torch/ops/csrc/{kernel.source}",
+            "replaces": kernel.replaces,
+            "launches": smoke.launches[kernel.name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+
+    # B1: ragged reduce at the or_cardinality shape
+    pk = shapes["segmented_reduce"]
+    w1, s1 = as_i32(pk.words, "cuda"), as_i32(pk.seg_ids, "cuda")
+    k1 = pk.num_keys
+    b1 = pk.m * 8192 + s1.numel() * 4 + k1 * (8192 + 4)
+    record(kernels.B1,
+           lambda: kernels.segmented_reduce("or", w1, s1, k1),
+           lambda: kernels.segmented_reduce_plain("or", w1, s1, k1),
+           b1, pk.m * 2048, f"rows {pk.words.shape[0]}, K {k1}")
+    # B2: blocked reduce at the dense set's shape
+    w2, blk2, k2, block2 = shapes["segmented_reduce_blocked"]
+    st2, en2 = kernels.segment_ranges(blk2, k2, scale=block2)
+    b2 = row_bytes(st2, en2, 8192) + blk2.numel() * 4 + k2 * (8192 + 4)
+    record(kernels.B2,
+           lambda: kernels.segmented_reduce_blocked("or", w2, blk2, k2, block2),
+           lambda: kernels.segmented_reduce_blocked_plain("or", w2, blk2, k2,
+                                                          block2),
+           b2, int((en2 - st2).sum()) * 2048,
+           f"rows {w2.shape[0]}, block {block2}, K {k2}")
+    # B3: chunk densify at the compact set's shape
+    cv3, cr3, nrows3 = shapes["densify_chunks"]
+    b3 = cv3.numel() * 4 + cr3.numel() * 4 + nrows3 * 8192
+    record(kernels.B3,
+           lambda: (kernels.densify_chunks(cv3, cr3, nrows3),),
+           lambda: (kernels.densify_chunks_plain(cv3, cr3, nrows3),),
+           b3, cv3.numel() * 4, f"chunks {cv3.shape[0]}, rows {nrows3}")
+    # B4: counts reduce at the counts set's shape
+    c4, g4, k4 = shapes["counts_segmented_reduce"]
+    st4, en4 = kernels.segment_ranges(g4, k4)
+    b4 = row_bytes(st4, en4, 4 * 8192) + g4.numel() * 4 + k4 * (8192 + 4)
+    record(kernels.B4,
+           lambda: kernels.counts_segmented_reduce("xor", c4, g4, k4),
+           lambda: kernels.counts_segmented_reduce_plain("xor", c4, g4, k4),
+           b4, int((en4 - st4).sum()) * 2048 * 40,
+           f"groups {c4.shape[0]}, K {k4}")
+
+    for name, c in smoke.launches.items():
+        require(c > 0, f"kernel {name} was never launched on the main path")
+    log(f"total {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": rows_out}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,21 @@
+"""roaringbitmap_tpu_torch: the PyTorch / CUDA port of roaringbitmap_tpu.
+
+The wide OR/XOR/AND over thousands of bitmaps with exact cardinalities (the
+reference's FastAggregation / ParallelAggregation) runs on an NVIDIA H100
+through hand-written CUDA kernels (``ops.kernels``, sources in
+``ops/csrc``).  The host tier (containers, bitmaps, the portable format) is
+the port's own NumPy copy.  The package imports ``torch`` and ``numpy`` and
+nothing of JAX or of ``roaringbitmap_tpu``.
+
+Entry points run on the card: ``device=None`` means ``"cuda"``, and only an
+explicit ``device="cpu"`` runs the plain PyTorch versions on the CPU.
+"""
+
+from .core.bitmap import RoaringBitmap, and_, andnot, or_, xor
+from .format.spec import InvalidRoaringFormat
+from .parallel import aggregation, fast_aggregation
+from .parallel.aggregation import DeviceBitmapSet
+
+__all__ = ["RoaringBitmap", "InvalidRoaringFormat", "aggregation",
+           "fast_aggregation", "DeviceBitmapSet", "and_", "andnot", "or_",
+           "xor"]

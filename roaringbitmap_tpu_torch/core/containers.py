@@ -1,0 +1,249 @@
+"""Host-side container model (NumPy): the oracle and the point-op data plane.
+
+The 32-bit universe is cut into 2^16 chunks of 2^16 values, and each chunk
+is stored as one of three container kinds (the reference's
+ArrayContainer / BitmapContainer / RunContainer):
+
+- ArrayContainer: sorted u16 values, cardinality <= 4096
+- BitmapContainer: 1024 x u64 words
+- RunContainer: interleaved (start, length-1) u16 pairs
+
+Containers are thin wrappers over NumPy arrays, and the pairwise ops the host
+fold needs are vectorized word algebra (densify -> bitwise -> normalize).
+This is the subset of ``roaringbitmap_tpu.core.containers`` that the wide
+aggregation path uses, kept as the port's own copy so that the port never
+imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+#: Promotion boundary: a non-run container with cardinality <= this is an
+#: array of u16, above it a 1024-word bitmap.
+ARRAY_MAX_SIZE = 4096
+
+#: Words per dense container: 2^16 bits / 64.
+WORDS_PER_CONTAINER = 1024
+
+_BIT_COUNT_TABLE = np.array([bin(i).count("1") for i in range(256)], dtype=np.int64)
+
+
+def popcount_words(words: np.ndarray) -> int:
+    """Total set-bit count of a u64 word array."""
+    return int(_BIT_COUNT_TABLE[words.view(np.uint8)].sum())
+
+
+def values_to_words(values: np.ndarray) -> np.ndarray:
+    """Sorted u16 values -> dense u64[1024] chunk bitmap (LSB-first)."""
+    bits = np.zeros(1 << 16, dtype=np.uint8)
+    bits[values.astype(np.int64)] = 1
+    return np.packbits(bits, bitorder="little").view(np.uint64)
+
+
+def words_to_values(words: np.ndarray) -> np.ndarray:
+    """Dense u64[1024] chunk bitmap -> sorted u16 values."""
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    return np.flatnonzero(bits).astype(np.uint16)
+
+
+def runs_to_values(runs: np.ndarray) -> np.ndarray:
+    """Interleaved (start, length-1) u16 pairs -> sorted u16 values.
+
+    A run (s, l) covers [s, s+l] inclusive.
+    """
+    if runs.size == 0:
+        return np.empty(0, dtype=np.uint16)
+    starts = runs[0::2].astype(np.int64)
+    lens = runs[1::2].astype(np.int64) + 1
+    out = np.empty(int(lens.sum()), dtype=np.int64)
+    # vectorized multi-arange: offsets within each run
+    ends = np.cumsum(lens)
+    out[:] = 1
+    out[0] = starts[0]
+    out[ends[:-1]] = starts[1:] - (starts[:-1] + lens[:-1] - 1)
+    return np.cumsum(out).astype(np.uint16)
+
+
+class Container:
+    """Abstract chunk of up to 2^16 values. Subclasses wrap one NumPy array."""
+
+    __slots__ = ()
+
+    @property
+    def cardinality(self) -> int:
+        raise NotImplementedError
+
+    def values(self) -> np.ndarray:
+        """Sorted u16 member values."""
+        raise NotImplementedError
+
+    def words(self) -> np.ndarray:
+        """Dense u64[1024] word image."""
+        raise NotImplementedError
+
+    def is_run(self) -> bool:
+        return isinstance(self, RunContainer)
+
+    def serialized_size_in_bytes(self) -> int:
+        """Payload byte size in the portable format."""
+        raise NotImplementedError
+
+    def write_payload(self, out: bytearray) -> None:
+        raise NotImplementedError
+
+
+class ArrayContainer(Container):
+    __slots__ = ("_values",)
+
+    def __init__(self, values: np.ndarray):
+        self._values = np.ascontiguousarray(values, dtype=np.uint16)
+
+    @property
+    def cardinality(self) -> int:
+        return int(self._values.size)
+
+    def values(self) -> np.ndarray:
+        return self._values
+
+    def words(self) -> np.ndarray:
+        return values_to_words(self._values)
+
+    def serialized_size_in_bytes(self) -> int:
+        return 2 * self.cardinality
+
+    def write_payload(self, out: bytearray) -> None:
+        out += self._values.astype("<u2").tobytes()
+
+
+class BitmapContainer(Container):
+    __slots__ = ("_words", "_card")
+
+    def __init__(self, words: np.ndarray, cardinality: int | None = None):
+        self._words = np.ascontiguousarray(words, dtype=np.uint64)
+        self._card = popcount_words(self._words) if cardinality is None else int(cardinality)
+
+    @property
+    def cardinality(self) -> int:
+        return self._card
+
+    def values(self) -> np.ndarray:
+        return words_to_values(self._words)
+
+    def words(self) -> np.ndarray:
+        return self._words
+
+    def serialized_size_in_bytes(self) -> int:
+        return 8 * WORDS_PER_CONTAINER
+
+    def write_payload(self, out: bytearray) -> None:
+        out += self._words.astype("<u8").tobytes()
+
+
+class RunContainer(Container):
+    __slots__ = ("_runs",)
+
+    def __init__(self, runs: np.ndarray):
+        self._runs = np.ascontiguousarray(runs, dtype=np.uint16)
+
+    @property
+    def n_runs(self) -> int:
+        return self._runs.size // 2
+
+    @property
+    def runs(self) -> np.ndarray:
+        return self._runs
+
+    @property
+    def cardinality(self) -> int:
+        return int(self._runs[1::2].astype(np.int64).sum()) + self.n_runs
+
+    def values(self) -> np.ndarray:
+        return runs_to_values(self._runs)
+
+    def words(self) -> np.ndarray:
+        return values_to_words(self.values())
+
+    def serialized_size_in_bytes(self) -> int:
+        # u16 run count + (start, len) u16 pairs
+        return 2 + 4 * self.n_runs
+
+    def write_payload(self, out: bytearray) -> None:
+        out += np.uint16(self.n_runs).astype("<u2").tobytes()
+        out += self._runs.astype("<u2").tobytes()
+
+
+def from_values(values: np.ndarray) -> Container:
+    """Build the canonical (array-or-bitmap) container for a sorted value set."""
+    if values.size > ARRAY_MAX_SIZE:
+        return BitmapContainer(values_to_words(values), int(values.size))
+    return ArrayContainer(values)
+
+
+def from_words(words: np.ndarray, cardinality: int | None = None) -> Container:
+    card = popcount_words(words) if cardinality is None else cardinality
+    if card > ARRAY_MAX_SIZE:
+        return BitmapContainer(words, card)
+    return ArrayContainer(words_to_values(words))
+
+
+# ---------------------------------------------------------------------------
+# Pairwise container algebra: the dense word image is the universal path
+# (densify, one 1024-word bitwise op, normalize by cardinality); array x array
+# stays in the sorted-set domain where NumPy's set ops are cheaper.
+# ---------------------------------------------------------------------------
+
+def container_and(a: Container, b: Container) -> Container:
+    if isinstance(a, ArrayContainer) and isinstance(b, ArrayContainer):
+        return ArrayContainer(np.intersect1d(a.values(), b.values(), assume_unique=True))
+    if isinstance(a, ArrayContainer):
+        return ArrayContainer(a.values()[_member_mask(b, a.values())])
+    if isinstance(b, ArrayContainer):
+        return ArrayContainer(b.values()[_member_mask(a, b.values())])
+    return from_words(a.words() & b.words())
+
+
+def container_or(a: Container, b: Container) -> Container:
+    if isinstance(a, ArrayContainer) and isinstance(b, ArrayContainer) and \
+            a.cardinality + b.cardinality <= ARRAY_MAX_SIZE:
+        return ArrayContainer(np.union1d(a.values(), b.values()))
+    return from_words(a.words() | b.words())
+
+
+def container_xor(a: Container, b: Container) -> Container:
+    if isinstance(a, ArrayContainer) and isinstance(b, ArrayContainer):
+        return from_values(np.setxor1d(a.values(), b.values(), assume_unique=True))
+    return from_words(a.words() ^ b.words())
+
+
+def container_andnot(a: Container, b: Container) -> Container:
+    if isinstance(a, ArrayContainer):
+        if isinstance(b, ArrayContainer):
+            return ArrayContainer(np.setdiff1d(a.values(), b.values(), assume_unique=True))
+        return ArrayContainer(a.values()[~_member_mask(b, a.values())])
+    return from_words(a.words() & ~b.words())
+
+
+def _member_mask(c: Container, queries: np.ndarray) -> np.ndarray:
+    """Boolean membership of sorted u16 queries in container c."""
+    if isinstance(c, ArrayContainer):
+        if c.values().size == 0:
+            return np.zeros(queries.size, dtype=bool)
+        idx = np.minimum(np.searchsorted(c.values(), queries), c.values().size - 1)
+        return c.values()[idx] == queries
+    words = c.words()
+    q = queries.astype(np.int64)
+    return ((words[q >> 6] >> (q & np.int64(63)).astype(np.uint64)) & np.uint64(1)).astype(bool)
+
+
+def container_equals(a: Container, b: Container) -> bool:
+    """Set equality: same-kind bitmaps compare words, runs compare their
+    pairs, anything else compares member values."""
+    if a.cardinality != b.cardinality:
+        return False
+    if isinstance(a, BitmapContainer) or isinstance(b, BitmapContainer):
+        return bool(np.array_equal(a.words(), b.words()))
+    if isinstance(a, RunContainer) and isinstance(b, RunContainer) \
+            and np.array_equal(a.runs, b.runs):
+        return True
+    return bool(np.array_equal(a.values(), b.values()))

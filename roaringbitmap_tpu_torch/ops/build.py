@@ -1,0 +1,97 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+Each source under ``csrc/`` compiles into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds).  The libraries go
+into ``_build/`` beside this file, named by a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused.  All
+missing libraries are built together, one ``nvcc`` for each source, started
+at once.  A failed build raises ``KernelBuildError`` with ``nvcc``'s output:
+nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).with_name("csrc")
+BUILD_DIR = Path(__file__).with_name("_build")
+SOURCES = ("segmented_reduce.cu", "densify_chunks.cu", "counts_reduce.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise KernelBuildError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "need the CUDA toolkit")
+    return path
+
+
+def library_path(source: str) -> Path:
+    digest = hashlib.sha256(
+        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+
+
+def build(sources=SOURCES) -> dict[str, str]:
+    """Compile every source whose library is missing, all in parallel.
+    Returns {source: ptxas report} for the sources built by this call."""
+    nvcc = None
+    jobs = []
+    for src in sources:
+        out = library_path(src)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, proc, tmp, out))
+    reports, errors = {}, []
+    for src, proc, tmp, out in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode:
+            errors.append(f"nvcc {src} (exit {proc.returncode}):\n"
+                          f"{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+        reports[src] = stderr
+    if errors:
+        raise KernelBuildError("\n".join(errors))
+    return reports
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, building all sources first if its
+    library is missing."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        path = library_path(source)
+        if not path.exists():
+            build()
+        lib = ctypes.CDLL(str(path))
+        lib.rb_error_string.argtypes = [ctypes.c_int]
+        lib.rb_error_string.restype = ctypes.c_char_p
+        _LIBS[source] = lib
+    return lib

@@ -1,0 +1,206 @@
+"""Dense word algebra in plain PyTorch: popcount, segmented reduce, densify.
+
+Containers live on the device as int32 views of u32[..., 2048] word rows
+(``ops.words``).  These functions are the plain versions of every device op
+on the wide-aggregation path, one twin for each function of
+``roaringbitmap_tpu.ops.dense`` that the path uses, and they give the same
+bits.  ``regular_reduce_and``, ``densify_streams`` and ``build_group_counts``
+stay plain PyTorch on the main path, as the JAX package runs them in XLA; the
+rest are the references the hand-written kernels (``ops.kernels``) are
+held against.
+
+Scatter-adds that build words from distinct bits or nibble counts accumulate
+in int64 and fold to the int32 view explicitly (``words.fold_u32``), so no
+step relies on int32 overflow.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .words import WORDS32, fold_u32, popcount, srl
+
+__all__ = [
+    "OPS", "WORDS32", "NIBBLE_GROUP", "NIBBLE_WORDS", "popcount",
+    "doubling_pass", "segmented_reduce", "regular_reduce_and", "n_steps_for",
+    "densify_streams", "densify_streams_impl", "nibble_counts_impl",
+    "spread_bits_to_nibbles", "counts_tile_to_word", "counts_to_words",
+    "build_group_counts",
+]
+
+#: The bitwise op vocabulary of the wide path.
+OPS = {
+    "or": torch.bitwise_or,
+    "and": torch.bitwise_and,
+    "xor": torch.bitwise_xor,
+    "andnot": lambda a, b: a & ~b,
+}
+
+#: Rows per nibble-count group: divides the blocked layout's block size and
+#: stays below 16, so per-bit occurrence counts fit a nibble carry-free.
+NIBBLE_GROUP = 8
+#: int32 count words per group: 2^16 bit positions x 4 bits, plane-major
+#: (plane j holds bits [8j, 8j+8) of every word).
+NIBBLE_WORDS = 4 * WORDS32
+
+
+def doubling_pass(fn, words: torch.Tensor, seg_ids: torch.Tensor,
+                  n_steps: int) -> torch.Tensor:
+    """Parallel-doubling segmented scan: afterwards row i holds the reduction
+    of rows [i, i + 2^n_steps) of its own segment, so segment heads hold the
+    whole segment once n_steps >= ceil(log2(max segment size)).  seg_ids
+    must be sorted."""
+    m = words.shape[0]
+    d = 1
+    for _ in range(n_steps):
+        if d >= m:
+            break
+        shifted = torch.cat([words[d:], words.new_zeros((d, words.shape[1]))])
+        same = torch.cat([seg_ids[d:] == seg_ids[:-d],
+                          torch.zeros(d, dtype=torch.bool, device=words.device)])
+        words = torch.where(same[:, None], fn(words, shifted), words)
+        d *= 2
+    return words
+
+
+def segmented_reduce(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
+                     head_idx: torch.Tensor, n_steps: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ragged per-key reduction by parallel doubling over sorted segments:
+    (int32[M, 2048], sorted int32[M]) -> (int32[K, 2048] heads, int32[K]
+    cards)."""
+    heads = doubling_pass(OPS[op], words, seg_ids, n_steps)[head_idx.long()]
+    return heads, popcount(heads)
+
+
+def regular_reduce_and(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Wide AND over a regular block int32[K, N, 2048] (after the key
+    intersection), as a halving tree over the N axis."""
+    if words.shape[1] == 0:
+        out = torch.full((words.shape[0], words.shape[2]), -1,
+                         dtype=torch.int32, device=words.device)
+        return out, popcount(out)
+    x = words
+    while x.shape[1] > 1:
+        n = x.shape[1]
+        h = n // 2
+        y = x[:, :h] & x[:, h:2 * h]
+        if n % 2:
+            y[:, 0] &= x[:, n - 1]
+        x = y
+    out = x[:, 0]
+    return out, popcount(out)
+
+
+def n_steps_for(max_group: int) -> int:
+    return max(1, int(max(1, max_group - 1)).bit_length())
+
+
+def _value_rows(val_dest: torch.Tensor, val_counts: torch.Tensor,
+                total_values: int) -> torch.Tensor:
+    """int64 destination row of every value in the sparse stream."""
+    return torch.repeat_interleave(val_dest.long(), val_counts.long(),
+                                   output_size=total_values)
+
+
+def densify_streams_impl(dense_words, dense_dest, values, val_counts, val_dest,
+                         n_rows: int, total_values: int) -> torch.Tensor:
+    """Build the dense int32[n_rows, 2048] container image from compact
+    streams (``ops.packing.CompactStreams``, values as int32) on the device.
+
+    Each sparse value adds its bit at flat position row*2048 + (v>>5).  The
+    add is exact: (row, word, bit) triples are unique, so sums never carry
+    across bits.  Row n_rows is a scratch row for sentinel-padded entries.
+    """
+    dev = values.device
+    flat = torch.zeros((n_rows + 1) * WORDS32, dtype=torch.int64, device=dev)
+    if total_values:
+        rows = _value_rows(val_dest, val_counts, total_values)
+        v = values.long()
+        flat.index_add_(0, rows * WORDS32 + (v >> 5), 1 << (v & 31))
+    out = fold_u32(flat).view(n_rows + 1, WORDS32)
+    if dense_words.shape[0]:
+        out[dense_dest.long()] = dense_words
+    return out[:n_rows]
+
+
+#: PyTorch runs eagerly, so the JAX package's jitted entry and its
+#: traceable body are one function here.
+densify_streams = densify_streams_impl
+
+
+def _nibble_counts64(values, val_counts, val_dest, n_groups: int,
+                     total_values: int) -> torch.Tensor:
+    flat = torch.zeros((n_groups + 1) * NIBBLE_WORDS, dtype=torch.int64,
+                       device=values.device)
+    if total_values:
+        rows = _value_rows(val_dest, val_counts, total_values)
+        v = values.long()
+        g = (rows >> 3) * NIBBLE_WORDS + ((v >> 3) & 3) * WORDS32 + (v >> 5)
+        flat.index_add_(0, g, 1 << (4 * (v & 7)))
+    return flat.view(n_groups + 1, NIBBLE_WORDS)
+
+
+def nibble_counts_impl(values, val_counts, val_dest, n_groups: int,
+                       total_values: int) -> torch.Tensor:
+    """Sparse streams -> int32[n_groups + 1, NIBBLE_WORDS] occurrence counts.
+
+    Value v of destination row r adds count 1 to group r >> 3, plane
+    (v >> 3) & 3, word v >> 5, nibble v & 7.  The trailing group absorbs
+    sentinel-padded entries (val_dest == n_rows).
+    """
+    return fold_u32(_nibble_counts64(values, val_counts, val_dest, n_groups,
+                                     total_values))
+
+
+def spread_bits_to_nibbles(words: torch.Tensor) -> torch.Tensor:
+    """int32[..., 2048] bit image -> int32[..., 4, 2048] plane-major nibble
+    counts (each set bit becomes count 1)."""
+    planes = []
+    for j in range(4):
+        b = srl(words, 8 * j) & 0xFF if j else words & 0xFF
+        s = (b | (b << 12)) & 0x000F000F
+        s = (s | (s << 6)) & 0x03030303
+        s = (s | (s << 3)) & 0x11111111
+        planes.append(s)
+    return torch.stack(planes, dim=-2)
+
+
+def counts_tile_to_word(c: torch.Tensor, op: str) -> torch.Tensor:
+    """Plane-axis-0 nibble counts int32[4, ...] -> bit words int32[...]
+    (OR: bit = count != 0; XOR: bit = count odd, the nibble's LSB)."""
+    if op == "or":
+        t = c | srl(c, 1)
+        t = t | srl(t, 2)
+        m = t & 0x11111111
+    elif op == "xor":
+        m = c & 0x11111111
+    else:
+        raise ValueError(f"counts support or/xor only, got {op!r}")
+    # compress the 8 nibble flags (bits 0, 4, .., 28) into the low byte
+    v = (m | srl(m, 3)) & 0x03030303
+    w = (v | srl(v, 6)) & 0x000F000F
+    r = (w | srl(w, 12)) & 0xFF
+    # int32 << moves bits as u32 would (PyTorch shifts integers unsigned)
+    return r[0] | (r[1] << 8) | (r[2] << 16) | (r[3] << 24)
+
+
+def counts_to_words(counts: torch.Tensor, op: str) -> torch.Tensor:
+    """int32[..., 4, 2048] plane-major nibble counts -> int32[..., 2048]."""
+    return counts_tile_to_word(torch.movedim(counts, -2, 0), op)
+
+
+def build_group_counts(dense_words, dense_dest, values, val_counts, val_dest,
+                       n_groups: int, total_values: int) -> torch.Tensor:
+    """One-time build of a counts-resident layout: sparse values add their
+    nibble counts, dense-wire rows fold in through the bit -> nibble spread.
+    int32[n_groups + 1, NIBBLE_WORDS]; exact, since each row adds at most
+    one occurrence per bit and a group holds at most NIBBLE_GROUP rows."""
+    counts = _nibble_counts64(values, val_counts, val_dest, n_groups,
+                              total_values)
+    if dense_words.shape[0]:
+        spread = spread_bits_to_nibbles(dense_words).to(torch.int64)
+        counts = counts.view(n_groups + 1, 4, WORDS32)
+        counts.index_add_(0, dense_dest.long() >> 3, spread)
+        counts = counts.view(n_groups + 1, NIBBLE_WORDS)
+    return fold_u32(counts)

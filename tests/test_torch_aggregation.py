@@ -1,0 +1,313 @@
+"""The port's wide aggregation against roaringbitmap_tpu.parallel.aggregation.
+
+Same numpy-seeded inputs through both packages, the JAX side on its "xla"
+engine with ``fallback=False``, the port on ``device="cpu"`` with both of
+its engines ("cuda" takes each kernel's plain version for CPU tensors).
+Results are compared bit-exact: device words and cards, ``to_array()`` and
+``serialize()`` bytes.  Also: ``DeviceBitmapSet.from_numpy_state`` fed the
+JAX set's arrays, and the port's import isolation from JAX.
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from roaringbitmap_tpu import RoaringBitmap as JRB
+from roaringbitmap_tpu.parallel import aggregation as jagg
+from roaringbitmap_tpu.parallel import fast_aggregation as jfast
+from roaringbitmap_tpu_torch import RoaringBitmap as TRB
+from roaringbitmap_tpu_torch.parallel import aggregation as tagg
+from roaringbitmap_tpu_torch.parallel import fast_aggregation as tfast
+from roaringbitmap_tpu_torch.ops.words import to_u32
+
+torch.set_num_threads(2)
+
+CPU = "cpu"
+EDGES = [0, 0x80000000, 0xFFFFFFFF]
+
+
+def _values(seed: int, n: int) -> list[np.ndarray]:
+    """n value sets sharing a common part (so the wide AND keeps keys) over
+    sparse, dense and run-heavy shapes, plus the edge values."""
+    rng = np.random.default_rng(seed)
+    common = np.concatenate([rng.integers(0, 1 << 18, 2000),
+                             np.arange(70000, 75000), EDGES])
+    out = []
+    for i in range(n):
+        kind = i % 3
+        if kind == 0:
+            own = rng.integers(0, 1 << 20, 800)
+        elif kind == 1:
+            own = (int(rng.integers(0, 8)) << 16) + rng.integers(0, 1 << 16, 7000)
+        else:
+            s = int(rng.integers(0, 1 << 20))
+            own = np.arange(s, s + int(rng.integers(100, 9000)))
+        out.append(np.concatenate([common, own]).astype(np.uint32))
+    return out
+
+
+def _pair(seed: int = 0, n: int = 7):
+    vals = _values(seed, n)
+    j = [JRB.from_values(v) for v in vals]
+    for b in j[::2]:
+        b.run_optimize()
+    t = [TRB.deserialize(b.serialize()) for b in j]
+    return j, t
+
+
+def _same(tb, jb):
+    assert np.array_equal(tb.to_array(), jb.to_array())
+    assert tb.serialize() == jb.serialize()
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair()
+
+
+@pytest.mark.parametrize("engine", ["cuda", "torch"])
+@pytest.mark.parametrize("op", ["or_", "xor", "and_"])
+def test_adhoc_matches_jax(pair, op, engine):
+    j, t = pair
+    want = getattr(jagg, op)(j, engine="xla", fallback=False)
+    _same(getattr(tagg, op)(t, engine=engine, device=CPU), want)
+
+
+@pytest.mark.parametrize("engine", ["cuda", "torch"])
+@pytest.mark.parametrize("op", ["or", "xor"])
+def test_cardinality_matches_jax(pair, op, engine):
+    j, t = pair
+    want = getattr(jagg, f"{op}_cardinality")(j, engine="xla", fallback=False)
+    got = getattr(tagg, f"{op}_cardinality")(t, engine=engine, device=CPU)
+    assert got == want
+
+
+def test_and_cardinality_matches_jax(pair):
+    j, t = pair
+    assert (tagg.and_cardinality(t, device=CPU)
+            == jagg.and_cardinality(j, fallback=False) > 0)
+
+
+@pytest.mark.parametrize("op", ["or_", "xor", "and_"])
+def test_adhoc_shortcuts(op):
+    a = TRB.bitmap_of(1, 2, 0xFFFFFFFF)
+    disjoint = TRB.bitmap_of(1 << 20)
+    f = getattr(tagg, op)
+    assert f([], device=CPU).is_empty()
+    assert f([TRB(), TRB()], device=CPU).is_empty()
+    assert f([a], device=CPU) == a and f([a], device=CPU) is not a
+    if op == "and_":
+        assert f([a, TRB()], device=CPU).is_empty()
+        assert f([a, disjoint], device=CPU).is_empty()
+        assert tagg.and_cardinality([a, disjoint], device=CPU) == 0
+    else:
+        assert f([a, TRB()], device=CPU) == a
+    assert f(a, a, device=CPU) == f([a, a], device=CPU)
+
+
+def test_edge_values():
+    bms = [TRB.from_values(np.array(EDGES + [i], np.uint32)) for i in (5, 6)]
+    assert tagg.or_(bms, device=CPU).to_array().tolist() == \
+        [0, 5, 6, 0x80000000, 0xFFFFFFFF]
+    assert tagg.xor(bms, device=CPU).to_array().tolist() == [5, 6]
+    assert tagg.and_(bms, device=CPU).to_array().tolist() == EDGES
+    ds = tagg.DeviceBitmapSet(bms, layout="dense", device=CPU)
+    assert ds.aggregate("or").to_array().tolist() == \
+        [0, 5, 6, 0x80000000, 0xFFFFFFFF]
+
+
+# ------------------------------------------------------------ resident sets
+
+_JAX_SETS = {}
+
+
+def _jax_set(j, layout: str, block=None):
+    if (layout, block) not in _JAX_SETS:
+        _JAX_SETS[layout, block] = jagg.DeviceBitmapSet(j, layout=layout,
+                                                        block=block)
+    return _JAX_SETS[layout, block]
+
+
+def _same_device(got, want):
+    gw, gc = got
+    ww, wc = want
+    assert np.array_equal(to_u32(gw), np.asarray(ww))
+    assert np.array_equal(gc.numpy(), np.asarray(wc))
+
+
+@pytest.mark.parametrize("engine", ["cuda", "torch"])
+@pytest.mark.parametrize("layout", ["dense", "counts", "compact", "auto"])
+@pytest.mark.parametrize("op", ["or", "xor", "and"])
+def test_set_layouts_match_jax(pair, op, layout, engine):
+    j, t = pair
+    js = _jax_set(j, layout)
+    ts = tagg.DeviceBitmapSet(t, layout=layout, device=CPU)
+    assert ts.layout == js.layout and ts.block == js.block
+    assert np.array_equal(ts.keys, js.keys)
+    _same_device(ts.aggregate_device(op, engine=engine),
+                 js.aggregate_device(op, engine="xla"))
+    _same(ts.aggregate(op, engine=engine), js.aggregate(op, engine="xla"))
+
+
+def _state(js) -> dict:
+    """The packed arrays a JAX DeviceBitmapSet holds, as NumPy arrays."""
+    p = js._packed
+    st = {"keys": js.keys, "n": js.n, "block": js.block, "blk_seg": p.blk_seg,
+          "n_blocks": p.n_blocks, "seg_sizes": p.seg_sizes,
+          "seg_offsets": p.seg_offsets}
+    if js.words is not None:
+        st["words"] = np.asarray(js.words)
+        return st
+    for name, a in zip(("dense_words", "dense_dest", "values", "val_counts",
+                        "val_dest"), js._streams):
+        st[name] = np.asarray(a)
+    st["chunk_vals"], st["chunk_row"] = (np.asarray(a) for a in js._chunks)
+    st["row_live"] = np.asarray(js._row_live)
+    if js.counts is not None:
+        st["counts"] = np.asarray(js.counts)
+        st["grp_seg"] = np.asarray(js._grp_seg_counts)
+        st["gps"] = js._gps
+    return st
+
+
+@pytest.mark.parametrize("layout", ["dense", "counts", "compact"])
+def test_from_numpy_state(pair, layout):
+    j, t = pair
+    js = _jax_set(j, layout)
+    st = _state(js)
+    if layout == "counts":
+        del st["chunk_vals"], st["chunk_row"]   # counts needs no chunks
+    ts = tagg.DeviceBitmapSet.from_numpy_state(st, device=CPU)
+    assert ts.layout == layout
+    for op in ("or", "xor", "and"):
+        for engine in ("cuda", "torch"):
+            _same_device(ts.aggregate_device(op, engine=engine),
+                         js.aggregate_device(op, engine="xla"))
+        _same(ts.aggregate(op), js.aggregate(op, engine="xla"))
+
+
+@pytest.mark.parametrize("block", [None, 16, 32])
+@pytest.mark.parametrize("layout", ["counts", "compact"])
+def test_port_state_matches_jax_set(pair, layout, block):
+    """The port builds the same resident arrays as the JAX set (block 16
+    and 32 pad the count groups to 2 and 4 per block)."""
+    j, t = pair
+    js = _jax_set(j, layout, block)
+    ts = tagg.DeviceBitmapSet(t, layout=layout, block=block, device=CPU)
+    for op in ("or", "xor"):
+        _same_device(ts.aggregate_device(op), js.aggregate_device(op, "xla"))
+    st = _state(js)
+    assert np.array_equal(ts.blk_seg.numpy(), st["blk_seg"])
+    assert np.array_equal(to_u32(ts._chunks[0]), st["chunk_vals"])
+    assert np.array_equal(ts._chunks[1].numpy(), st["chunk_row"])
+    if layout == "counts":
+        assert np.array_equal(to_u32(ts.counts), st["counts"])
+        assert np.array_equal(ts._grp_seg_counts.numpy(), st["grp_seg"])
+
+
+def test_from_numpy_state_rejects_incomplete(pair):
+    j, _ = pair
+    st = _state(_jax_set(j, "compact"))
+    del st["values"]
+    with pytest.raises(ValueError, match="missing"):
+        tagg.DeviceBitmapSet.from_numpy_state(st, device=CPU)
+    with pytest.raises(ValueError):
+        tagg.DeviceBitmapSet.from_numpy_state({"keys": st["keys"]}, device=CPU)
+
+
+def test_auto_layout_picks_counts_for_census_shape():
+    rng = np.random.default_rng(3)
+    vals = []
+    for _ in range(300):
+        keys = rng.choice(1 << 16, 4, replace=False).astype(np.uint32)
+        lows = rng.integers(0, 1 << 16, (4, 4)).astype(np.uint32)
+        vals.append(((keys[:, None] << np.uint32(16)) | lows).ravel())
+    j = [JRB.from_values(v) for v in vals]
+    t = [TRB.from_values(v) for v in vals]
+    js = jagg.DeviceBitmapSet(j)
+    ts = tagg.DeviceBitmapSet(t, device=CPU)
+    assert ts.layout == js.layout == "counts"
+    for op in ("or", "xor"):
+        for engine in ("cuda", "torch"):
+            _same_device(ts.aggregate_device(op, engine=engine),
+                         js.aggregate_device(op, engine="xla"))
+
+
+def test_byte_backed_set(pair):
+    j, t = pair
+    blobs = [b.serialize() for b in t]
+    a = tagg.DeviceBitmapSet(blobs, layout="compact", device=CPU)
+    b = tagg.DeviceBitmapSet(t, layout="compact", device=CPU)
+    for op in ("or", "xor", "and"):
+        assert a.aggregate(op) == b.aggregate(op)
+    assert a.hbm_bytes() == b.hbm_bytes() > 0
+
+
+def test_set_argument_errors(pair):
+    _, t = pair
+    with pytest.raises(ValueError):
+        tagg.DeviceBitmapSet(t, layout="sparse", device=CPU)
+    with pytest.raises(ValueError):
+        tagg.DeviceBitmapSet(t, layout="counts", block=12, device=CPU)
+    ds = tagg.DeviceBitmapSet(t[:2], layout="dense", device=CPU)
+    with pytest.raises(ValueError):
+        ds.aggregate("andnot")
+    with pytest.raises(ValueError):
+        ds.aggregate("or", engine="pallas")
+
+
+def test_no_cuda_means_no_silent_cpu(pair):
+    """Without a card, an entry point that was not asked for the CPU raises;
+    nothing carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    _, t = pair
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tagg.or_(t)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tagg.DeviceBitmapSet(t[:2])
+
+
+@pytest.mark.parametrize("name", [
+    "naive_or", "naive_xor", "naive_and", "priorityqueue_or",
+    "priorityqueue_xor", "horizontal_or", "horizontal_xor", "work_shy_and",
+    "work_and_memory_shy_and", "workShyAnd", "workAndMemoryShyAnd", "or_",
+    "xor", "and_", "or_cardinality", "and_cardinality", "xor_cardinality"])
+def test_fast_aggregation_strategies(pair, name):
+    j, t = pair
+    want = getattr(jfast, name)(j[:4])
+    kwargs = {} if name.startswith(("naive", "priorityqueue")) else {"device": CPU}
+    got = getattr(tfast, name)(t[:4], **kwargs)
+    if isinstance(want, int):
+        assert got == want
+    else:
+        _same(got, want)
+
+
+def test_naive_andnot(pair):
+    j, t = pair
+    _same(tfast.naive_andnot(t[0], t[1:4], device=CPU),
+          jfast.naive_andnot(j[0], j[1:4]))
+
+
+def test_port_imports_no_jax():
+    """The port's import graph holds neither jax nor any roaringbitmap_tpu
+    module (the port's own name shares that prefix)."""
+    code = (
+        "import sys, numpy as np\n"
+        "import roaringbitmap_tpu_torch as rt\n"
+        "from roaringbitmap_tpu_torch.ops import build, kernels\n"
+        "bms = [rt.RoaringBitmap.from_values(np.arange(i, 70000 + i, 3, "
+        "dtype=np.uint32)) for i in range(3)]\n"
+        "assert rt.aggregation.or_(bms, device='cpu').cardinality > 0\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"

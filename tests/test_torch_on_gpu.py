@@ -1,0 +1,79 @@
+"""CUDA kernels of the port against their plain PyTorch versions, on the card.
+
+Marked ``cuda``; each test skips (with the reason) where no CUDA device is
+present, as on a CPU-only host.  The file imports neither jax nor the JAX
+package, so on a GPU host without JAX it runs outside the JAX test harness:
+
+    python -m pytest --noconftest tests/test_torch_on_gpu.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from roaringbitmap_tpu_torch import DeviceBitmapSet, aggregation
+from roaringbitmap_tpu_torch.ops import kernels, packing
+from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
+from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    kernels.reset_launches()
+    return torch.device("cuda")
+
+
+def _same(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.fixture(scope="module")
+def bitmaps():
+    return synthetic_bitmaps(48, seed=5, universe=1 << 21, density=0.004)
+
+
+@pytest.mark.parametrize("op", ["or", "and", "xor", "andnot"])
+def test_b1_matches_plain(dev, bitmaps, op):
+    pk = packing.pack_for_aggregation(bitmaps)
+    w, s = as_i32(pk.words, dev), as_i32(pk.seg_ids, dev)
+    got = kernels.segmented_reduce(op, w, s, pk.num_keys)
+    torch.cuda.synchronize()
+    assert kernels.B1.launches == 1
+    _same(got, kernels.segmented_reduce_plain(op, w, s, pk.num_keys))
+
+
+@pytest.mark.parametrize("op", ["or", "xor"])
+def test_b2_b4_b3_match_plain(dev, bitmaps, op):
+    ds = DeviceBitmapSet(bitmaps, layout="dense", device=dev)
+    args = (ds.words, ds.blk_seg, ds.keys.size, ds.block)
+    _same(kernels.segmented_reduce_blocked(op, *args),
+          kernels.segmented_reduce_blocked_plain(op, *args))
+    cs = DeviceBitmapSet(bitmaps, layout="counts", device=dev)
+    cargs = (cs.counts, cs._grp_seg_counts, cs.keys.size)
+    _same(kernels.counts_segmented_reduce(op, *cargs),
+          kernels.counts_segmented_reduce_plain(op, *cargs))
+    cv, cr = cs._chunks
+    assert torch.equal(kernels.densify_chunks(cv, cr, cs._n_rows),
+                       kernels.densify_chunks_plain(cv, cr, cs._n_rows))
+    torch.cuda.synchronize()
+    assert kernels.B2.launches == kernels.B3.launches == kernels.B4.launches == 1
+
+
+@pytest.mark.parametrize("layout", ["dense", "counts", "compact"])
+def test_entry_points_on_card_match_cpu(dev, bitmaps, layout):
+    on_card = DeviceBitmapSet(bitmaps, layout=layout)      # device=None
+    on_cpu = DeviceBitmapSet(bitmaps, layout=layout, device="cpu")
+    assert on_card.device.type == "cuda"
+    for op in ("or", "xor", "and"):
+        words, cards = on_card.aggregate_device(op)
+        want_w, want_c = on_cpu.aggregate_device(op)
+        assert np.array_equal(to_u32(words), to_u32(want_w))
+        assert np.array_equal(cards.cpu().numpy(), want_c.numpy())
+    assert aggregation.or_(bitmaps) == aggregation.or_(bitmaps, device="cpu")
+    assert (aggregation.xor_cardinality(bitmaps)
+            == aggregation.xor_cardinality(bitmaps, device="cpu"))
