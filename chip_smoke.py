@@ -15,12 +15,27 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
 4. compact set over the first 1,024 bitmaps of 2; or/xor/and checked as in 2;
 5. ad-hoc calls over 1,024 bitmaps: ``or_``, ``xor``, ``or_cardinality``,
    ``xor_cardinality``, and ``and_`` over bitmaps that share keys;
+7. batch and expression queries (``BatchEngine.execute``), run before 6:
+   a. 64 flat queries (``random_query_pool``, bitmap form) over the set of 2:
+      "auto" is the "cuda" rung (gather + B1); equal to the "torch" rung,
+      and the first 8 to the host fold;
+   b. a search-shard-shaped set, ``synthetic_bitmaps(4096, universe=2^20,
+      density=1/64)``: the largest power-of-two Q <= 64 of depth-2
+      ``random_expr_pool`` queries (plus two fixed depth-2/3 shapes) whose
+      megakernel plan fits; "auto" is the megakernel (one B5 launch), equal
+      to the "cuda" and "torch" rungs and to ``expr.evaluate_host``; then
+      one batch on a compact set of its first 1,024 bitmaps (B3 + B5);
+   c. capacity at K = 256 (the set of 2): an 8-query expression batch must
+      be demoted on "slots" and counted, and the depth-2 query
+      ``(0 | 1) & ~2`` must fit and run on the megakernel;
 6. each kernel against its plain PyTorch version on the card, at the shapes
-   of 2-5: bit-equal words and cards, CUDA-event median times, the bound.
+   of 2-5 and, for B5, of 7b plus a random stream over all 20 opcodes:
+   bit-equal words and cards, CUDA-event median times, the bound.
 
 Kernel launch counts are set to 0 just before each main-path call and read
-just after it; the ``kernels`` line reports their sums.  The last line is
-the device JSON.  Needs one CUDA device; without one it exits non-zero.
+just after it; the ``kernels`` line reports their sums.  Each phase prints
+its time.  The last line is the device JSON.  Needs one CUDA device; without
+one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -33,10 +48,12 @@ import time
 
 import numpy as np
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and the non-tensor
-#: float32 rate, used as the peak of the kernels' integer word operations.
+#: H100 SXM peaks: HBM3 bytes/s (NVIDIA data sheet), and the INT32 rate of
+#: the kernels' word operations: 64 INT32 lanes per SM (Hopper architecture
+#: white paper) x 132 SMs x 1.98 GHz boost = 16.7e12 ops/s.  (67e12 is the
+#: FP32 FMA rate counting two flops per FMA; it does not apply.)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+PEAK_OPS_PER_S = 132 * 64 * 1.98e9
 #: bitmaps whose host fold checks each layout
 HOST_CHECK_N = 512
 
@@ -72,6 +89,27 @@ def host_fold(op: str, bitmaps):
     for b in bitmaps[1:]:
         acc = acc | b if op == "or" else acc ^ b if op == "xor" else acc & b
     return acc
+
+
+def host_query(q, bitmaps):
+    """A flat BatchQuery over the input bitmaps, folded on the host."""
+    if q.op == "andnot":
+        acc = bitmaps[q.operands[0]]
+        for i in sorted(set(q.operands[1:])):
+            acc = acc - bitmaps[i]
+        return acc
+    return host_fold(q.op, [bitmaps[i] for i in sorted(set(q.operands))])
+
+
+def same_results(got, want) -> bool:
+    """Batch results equal: cardinalities, and bitmaps where present."""
+    return len(got) == len(want) and all(
+        g.cardinality == w.cardinality and g.bitmap == w.bitmap
+        for g, w in zip(got, want))
+
+
+def phase_time(name: str, t0: float) -> None:
+    log(f"  {name} took {time.perf_counter() - t0:.1f} s")
 
 
 def require(cond: bool, what: str) -> None:
@@ -140,8 +178,11 @@ def main() -> int:
         return 2
 
     from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation
-    from roaringbitmap_tpu_torch.ops import build, kernels, packing
-    from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
+    from roaringbitmap_tpu_torch.ops import build, kernels, megakernel, packing
+    from roaringbitmap_tpu_torch.ops.words import WORDS32, as_i32, to_u32
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import (
+        BatchEngine, BatchQuery, random_query_pool)
     from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
 
     smi = subprocess.run(
@@ -158,7 +199,7 @@ def main() -> int:
 
     # ------------------------------------------------------------ phase 1
     log("phase 1: build")
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     reports = build.build()
     log(f"  built {len(reports)} kernel libraries in "
         f"{time.perf_counter() - t0:.1f} s (torch {torch.__version__}, "
@@ -169,11 +210,12 @@ def main() -> int:
                 log(f"  {src}: {line.strip()}")
     smoke = Smoke(torch, kernels)
     shapes = {}
+    phase_time("phase 1", t_phase)
 
     # ------------------------------------------------------------ phase 2
     n = args.bitmaps
     log(f"phase 2: dense set, {n} bitmaps")
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     bms = synthetic_bitmaps(n, seed=args.seed, universe=1 << 24,
                             density=0.0025)
     log(f"  generated in {time.perf_counter() - t0:.1f} s")
@@ -195,9 +237,11 @@ def main() -> int:
                               lambda op=op: ds_sub.aggregate(op))
         require(got == host[op], f"dense {op} over {len(sub)} != host fold")
     log(f"    first {len(sub)}: or/xor/and equal the host fold")
+    phase_time("phase 2", t_phase)
 
     # ------------------------------------------------------------ phase 3
     log(f"phase 3: counts set, {2 * n} bitmaps x 4 containers x 4 values")
+    t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed + 1)
     cbms = []
     for _ in range(2 * n):
@@ -222,10 +266,12 @@ def main() -> int:
         require(got == host_fold(op, csub),
                 f"counts {op} over {len(csub)} != host fold")
     log(f"    first {len(csub)}: or/xor equal the host fold")
+    phase_time("phase 3", t_phase)
 
     # ------------------------------------------------------------ phase 4
     m = min(1024, n)
     log(f"phase 4: compact set, first {m} bitmaps")
+    t_phase = time.perf_counter()
     xds = smoke.main_path("compact build",
                           lambda: DeviceBitmapSet(bms[:m], layout="compact"))
     log(f"  chunks {xds._chunks[0].shape[0]}, rows {xds._n_rows}, "
@@ -238,9 +284,11 @@ def main() -> int:
                               lambda op=op: xds_sub.aggregate(op))
         require(got == host[op], f"compact {op} over {len(sub)} != host fold")
     log(f"    first {len(sub)}: or/xor/and equal the host fold")
+    phase_time("phase 4", t_phase)
 
     # ------------------------------------------------------------ phase 5
     log(f"phase 5: ad-hoc calls over {m} bitmaps")
+    t_phase = time.perf_counter()
     adhoc = bms[:m]
     for name, fn in (("or_", aggregation.or_), ("xor", aggregation.xor)):
         got = smoke.main_path(name, lambda fn=fn: fn(adhoc))
@@ -279,16 +327,151 @@ def main() -> int:
             "ad-hoc and_ lost the shared values")
     log(f"    and_: K {got.keys.size}, cardinality {got.cardinality} "
         f"(equals the host fold)")
+    phase_time("phase 5", t_phase)
+
+    # ------------------------------------------------------------ phase 7
+    log("phase 7: batch and expression queries (BatchEngine.execute)")
+    t_phase = time.perf_counter()
+
+    def run_batch(label, eng, pool, engine_want):
+        """Plan (host, timed), then the batch through the user entry point
+        with engine "auto" as a main-path call; returns the results."""
+        cached = tuple(pool) in eng._plans
+        t0 = time.perf_counter()
+        plan = eng.plan(pool)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        got = smoke.main_path(label, lambda: eng.execute(pool))
+        cold = eng.last_timings
+        require(cold["engine"] == engine_want,
+                f"{label}: auto ran {cold['engine']}, not {engine_want}")
+        eng.execute(pool)
+        warm = eng.last_timings
+        log(f"    {label}: engine {cold['engine']}; plan {plan_ms:.1f} ms "
+            f"(host{', cached' if cached else ''}); device "
+            f"{cold['device_ms']:.3f} ms cold, "
+            f"{warm['device_ms']:.3f} ms warm; host unpack "
+            f"{warm['unpack_ms']:.3f} ms")
+        return plan, got
+
+    # 7a: flat batch on the dense set of phase 2
+    eng = BatchEngine(ds)
+    flat = [BatchQuery(q.op, q.operands, form="bitmap")
+            for q in random_query_pool(n, 64, seed=args.seed)]
+    plan, got = run_batch(f"flat x{len(flat)}", eng, flat, "cuda")
+    log(f"    buckets {[b.signature[:4] for b in plan]}")
+    require(same_results(got, eng.execute(flat, engine="torch")),
+            "flat batch: cuda rung != torch rung")
+    for q, r in zip(flat[:8], got):
+        require(r.bitmap == host_query(q, bms), f"flat {q.op}: != host fold")
+    log(f"    equal to the torch rung; first 8 equal the host fold "
+        f"(cards {[r.cardinality for r in got[:8]]})")
+
+    # 7b: expression batches on a search-shard-shaped set
+    t0 = time.perf_counter()
+    sbms = synthetic_bitmaps(n, seed=args.seed, universe=1 << 20,
+                             density=1 / 64)
+    log(f"  search-shard set: {n} bitmaps generated in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sds = smoke.main_path("shard build",
+                          lambda: DeviceBitmapSet(sbms, layout="dense"))
+    log(f"  rows {sds.words.shape[0]}, bytes {sds.hbm_bytes()}, "
+        f"K {sds.keys.size}")
+    fixed = [expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.not_(2)),
+                            form="bitmap"),
+             expr.ExprQuery(expr.xor(expr.and_(expr.or_(0, 1),
+                                               expr.or_(2, 3)),
+                                     expr.andnot(expr.or_(4, 5), 6)),
+                            form="bitmap")]
+
+    def fitting_pool(eng_, n_src):
+        """The largest power-of-two Q <= 64 whose plan fits B5."""
+        for q in (64, 32, 16, 8, 4):
+            pool = expr.random_expr_pool(n_src, q, depth=2, seed=args.seed,
+                                         form="bitmap") + fixed
+            t0 = time.perf_counter()
+            mega = eng_.plan(pool).mega
+            log(f"    Q {q}: plan {(time.perf_counter() - t0) * 1e3:.1f} ms "
+                f"(host), steps {mega.n_steps} (pad {mega.steps_pad}), "
+                f"slots {mega.n_slots} (pad {mega.slots_pad}), out rows "
+                f"{mega.out_pad}, card rows {mega.card_pad}, "
+                f"{'fits' if mega.fits() else 'does not fit: ' + megakernel.capacity_reason(mega)}")
+            if mega.fits():
+                return q, pool
+        raise AssertionError("no expression batch of Q >= 4 fits B5")
+
+    def check_expr(label, eng_, pool, srcs, got):
+        """Results equal to the other rungs, each timed on its first (cold)
+        and second (warm) execute, and to evaluate_host."""
+        rung_ms = {}
+        for rung in ("cuda", "torch"):
+            require(same_results(got, eng_.execute(pool, engine=rung)),
+                    f"{label}: megakernel != {rung} rung")
+            cold = eng_.last_timings["device_ms"]
+            eng_.execute(pool, engine=rung)
+            rung_ms[rung] = (f"{cold:.3f} cold / "
+                             f"{eng_.last_timings['device_ms']:.3f} warm")
+        log(f"    {label}: device ms of the other rungs {rung_ms}")
+        for q, r in zip(pool, got):
+            require(r.bitmap == expr.evaluate_host(q.expr, srcs),
+                    f"{label}: != evaluate_host")
+        log(f"    {label}: equal to the cuda and torch rungs and to "
+            f"evaluate_host (cards {[r.cardinality for r in got[:6]]} ...)")
+
+    seng = BatchEngine(sds)
+    q_fit, epool = fitting_pool(seng, n)
+    eplan, got = run_batch(f"expr x{len(epool)}", seng, epool, "megakernel")
+    check_expr("expr", seng, epool, sbms, got)
+    shapes["megakernel"] = (eplan.mega, sds.words)
+
+    m7 = min(1024, n)
+    xsds = smoke.main_path("shard compact build", lambda: DeviceBitmapSet(
+        sbms[:m7], layout="compact"))
+    xeng = BatchEngine(xsds)
+    _, xpool = fitting_pool(xeng, m7)
+    _, got = run_batch(f"compact expr x{len(xpool)}", xeng, xpool,
+                       "megakernel")
+    check_expr("compact expr", xeng, xpool, sbms[:m7], got)
+
+    # 7c: capacity at K = 256 (the dense set of phase 2)
+    pool8 = expr.random_expr_pool(n, 8, depth=2, seed=args.seed,
+                                  form="bitmap")
+    mega8 = eng.plan(pool8).mega
+    reason = megakernel.capacity_reason(mega8)
+    log(f"  8 expression queries at K {ds.keys.size}: steps "
+        f"{mega8.n_steps}, slots {mega8.n_slots} -> "
+        f"{'fits' if reason is None else 'demoted: ' + reason}")
+    require(reason == "slots", f"8-query plan: capacity {reason!r}, "
+            f"expected 'slots'")
+    key = ("batch_engine", reason)
+    before = megakernel.DEMOTIONS.get(key, 0)
+    got = smoke.main_path("expr x8 @K256", lambda: eng.execute(pool8))
+    require(eng.last_timings["engine"] == "cuda"
+            and megakernel.DEMOTIONS.get(key, 0) == before + 1,
+            "8-query batch: demotion not counted")
+    log(f"    demoted to the cuda rung, counted under {reason!r}")
+    require(same_results(got, eng.execute(pool8, engine="torch")),
+            "8-query batch != torch rung")
+    pool1 = fixed[:1]
+    mega1 = eng.plan(pool1).mega
+    require(mega1.fits(), f"one depth-2 query at K {ds.keys.size}: "
+            f"{megakernel.capacity_reason(mega1)}")
+    got = smoke.main_path("expr x1 @K256", lambda: eng.execute(pool1))
+    require(eng.last_timings["engine"] == "megakernel", "1 query")
+    check_expr("expr x1 @K256", eng, pool1, bms, got)
+    log(f"    one depth-2 query (steps {mega1.n_steps}, slots "
+        f"{mega1.n_slots}) ran on the megakernel")
+    phase_time("phase 7", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "
         "(tolerance: bit-exact, max_abs_err must be 0)")
+    t_phase = time.perf_counter()
     rows_out = []
 
     def row_bytes(starts, ends, per_row):
         return int((ends - starts).sum()) * per_row
 
-    def record(kernel, run, plain, bytes_moved, ops, shape_note):
+    def record(kernel, run, plain, bytes_moved, ops, shape_note, emit=True):
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
@@ -301,15 +484,16 @@ def main() -> int:
         log(f"  {kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bytes_moved} bytes), {bound / ms:.1%} of bound")
-        rows_out.append({
-            "name": kernel.name, "route": "cuda",
-            "source": f"roaringbitmap_tpu_torch/ops/csrc/{kernel.source}",
-            "replaces": kernel.replaces,
-            "launches": smoke.launches[kernel.name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+        if emit:
+            rows_out.append({
+                "name": kernel.name, "route": "cuda",
+                "source": f"roaringbitmap_tpu_torch/ops/csrc/{kernel.source}",
+                "replaces": kernel.replaces,
+                "launches": smoke.launches[kernel.name],
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None})
 
     # B1: ragged reduce at the or_cardinality shape
     pk = shapes["segmented_reduce"]
@@ -346,6 +530,25 @@ def main() -> int:
            lambda: kernels.counts_segmented_reduce_plain("xor", c4, g4, k4),
            b4, int((en4 - st4).sum()) * 2048 * 40,
            f"groups {c4.shape[0]}, K {k4}")
+
+    # B5: the 7b plan, then a random stream over all 20 opcodes
+    mega5, words5 = shapes["megakernel"]
+    banks5 = (words5, mega5.device_arrays(words5.device)["extra"],
+              torch.zeros((1, WORDS32), dtype=torch.int32,
+                          device=words5.device))
+    record(kernels.B5, lambda: megakernel.raw_call(mega5, *banks5),
+           lambda: megakernel.raw_call_plain(mega5, *banks5),
+           megakernel.stream_bytes(mega5), mega5.n_steps * WORDS32,
+           f"7b plan, {mega5.n_steps} steps, {mega5.n_slots} slots")
+    rmega, rbanks = megakernel.random_plan(
+        args.seed, n_steps=4096, slots_pad=1024, out_pad=64, card_pad=256,
+        bank_rows=(1024, 64, 64))
+    rbanks = [as_i32(b, "cuda") for b in rbanks]
+    record(kernels.B5, lambda: megakernel.raw_call(rmega, *rbanks),
+           lambda: megakernel.raw_call_plain(rmega, *rbanks),
+           megakernel.stream_bytes(rmega), rmega.n_steps * WORDS32,
+           f"random all-opcode stream, {rmega.n_steps} steps", emit=False)
+    phase_time("phase 6", t_phase)
 
     for name, c in smoke.launches.items():
         require(c > 0, f"kernel {name} was never launched on the main path")

@@ -1,9 +1,10 @@
 """roaringbitmap_tpu_torch: the PyTorch / CUDA port of roaringbitmap_tpu.
 
 The wide OR/XOR/AND over thousands of bitmaps with exact cardinalities (the
-reference's FastAggregation / ParallelAggregation) runs on an NVIDIA H100
-through hand-written CUDA kernels (``ops.kernels``, sources in
-``ops/csrc``).  The host tier (containers, bitmaps, the portable format) is
+reference's FastAggregation / ParallelAggregation), and batches of flat and
+expression queries over a resident set (``BatchEngine``, ``expr``), run on an
+NVIDIA H100 through hand-written CUDA kernels (``ops.kernels``,
+``ops.megakernel``, sources in ``ops/csrc``).  The host tier (containers, bitmaps, the portable format) is
 the port's own NumPy copy.  The package imports ``torch`` and ``numpy`` and
 nothing of JAX or of ``roaringbitmap_tpu``.
 
@@ -13,9 +14,12 @@ explicit ``device="cpu"`` runs the plain PyTorch versions on the CPU.
 
 from .core.bitmap import RoaringBitmap, and_, andnot, or_, xor
 from .format.spec import InvalidRoaringFormat
-from .parallel import aggregation, fast_aggregation
+from .parallel import aggregation, batch_engine, expr, fast_aggregation
 from .parallel.aggregation import DeviceBitmapSet
+from .parallel.batch_engine import BatchEngine, BatchQuery, BatchResult
+from .parallel.expr import ExprQuery
 
 __all__ = ["RoaringBitmap", "InvalidRoaringFormat", "aggregation",
-           "fast_aggregation", "DeviceBitmapSet", "and_", "andnot", "or_",
-           "xor"]
+           "batch_engine", "expr", "fast_aggregation", "DeviceBitmapSet",
+           "BatchEngine", "BatchQuery", "BatchResult", "ExprQuery", "and_",
+           "andnot", "or_", "xor"]

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-SOURCES = ("segmented_reduce.cu", "densify_chunks.cu", "counts_reduce.cu")
+SOURCES = ("segmented_reduce.cu", "densify_chunks.cu", "counts_reduce.cu",
+           "megakernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -14,6 +14,7 @@ Each wrapper checks its tensors, then
 | B2     | ``segmented_reduce_blocked``| ``segmented_reduce_pallas_blocked``                    |
 | B3     | ``densify_chunks``          | ``densify_chunks_impl`` / ``densify_chunks_pallas``    |
 | B4     | ``counts_segmented_reduce`` | ``counts_segmented_reduce``                            |
+| B5     | ``megakernel.raw_call``     | ``megakernel.py`` ``_kernel`` (via ``_raw_call``)      |
 
 Rows are int32 views of u32[2048] words (``ops.words``).  Segment ids are
 sorted; id K (``num_segments``) marks padding rows, which no segment reads.
@@ -82,7 +83,10 @@ B3 = CudaKernel("densify_chunks", "densify_chunks.cu", "rb_densify_chunks",
 B4 = CudaKernel("counts_segmented_reduce", "counts_reduce.cu",
                 "rb_counts_reduce", _ROW_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:334")
-KERNELS = (B1, B2, B3, B4)
+B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
+                [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                "roaringbitmap_tpu/ops/megakernel.py:140")
+KERNELS = (B1, B2, B3, B4, B5)
 
 
 def reset_launches() -> None:
@@ -150,18 +154,26 @@ def segmented_reduce_plain(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
                            num_segments: int):
     """Plain version of B1: ``dense.segmented_reduce`` over the sorted row
     segment ids.  andnot folds in row order, head & ~(or of the rest), which
-    is what the kernel computes (the doubling pass alone would nest it)."""
-    if num_segments == 0:
-        return (words.new_zeros((0, WORDS32)),
-                torch.zeros(0, dtype=torch.int32, device=words.device))
+    is what the kernel computes (the doubling pass alone would nest it).
+    A segment with no rows reduces to zero, as in the kernel."""
+    if num_segments == 0 or words.shape[0] == 0:
+        return (words.new_zeros((num_segments, WORDS32)),
+                torch.zeros(num_segments, dtype=torch.int32,
+                            device=words.device))
     starts, ends = segment_ranges(seg_ids, num_segments)
+    empty = (starts == ends)[:, None]
+    heads_at = starts.clamp(max=words.shape[0] - 1)
     n_steps = dense.n_steps_for(int((ends - starts).max()))
     if op != "andnot":
-        return dense.segmented_reduce(op, words, seg_ids, starts, n_steps)
-    rest = words.clone()
-    rest[starts.long()] = 0
-    tails, _ = dense.segmented_reduce("or", rest, seg_ids, starts, n_steps)
-    heads = words[starts.long()] & ~tails
+        heads, _ = dense.segmented_reduce(op, words, seg_ids, heads_at,
+                                          n_steps)
+    else:
+        rest = words.clone()
+        rest[starts[~empty[:, 0]].long()] = 0
+        tails, _ = dense.segmented_reduce("or", rest, seg_ids, heads_at,
+                                          n_steps)
+        heads = words[heads_at.long()] & ~tails
+    heads = torch.where(empty, 0, heads)
     return heads, popcount(heads)
 
 

@@ -1,0 +1,722 @@
+"""One-kernel expression pipeline: the instruction-stream megakernel (B5).
+
+Replaces ``roaringbitmap_tpu/ops/megakernel.py`` (``_kernel`` :140, reached
+through ``_raw_call`` :911).  The plan-time **assembler** (:func:`build_full`)
+flattens a bucketed batch plan plus its fused expression sections
+(``parallel.expr.ExprSection``) into an instruction stream of eight int32
+arrays (opcode / dst slot / src slot / row / bank / out row / card row /
+immediate).  The kernel runs the stream over accumulator slots, one 2048-word
+container row each:
+
+- **reduce** = LOAD_ROW for a segment's first row, then OR/AND/XOR_ROW for
+  the rest, over real rows only (padding and masking fold into plan-time
+  ZEROs);
+- **combine** = slot-to-slot bitwise ops; key-unaligned children resolve at
+  plan time into per-key slot/row sources, absent keys fold to the identity;
+- **outputs**: OUT writes a slot to an output row (bitmap-form results only),
+  CARD writes its popcount to a card row.
+
+Three banks feed row ops: bank 0 is the resident row image, bank 1 the
+ad-hoc leaf rows, bank 2 the analytics column planes (not in this port yet:
+one zero row).  Every step reads ``acc[dst]`` and ``acc[src]`` and writes
+``acc[dst]``; OUT/CARD steps point dst at the dead slot ``slots_pad``, and
+steps that write no output point orow/crow at the dead rows ``out_pad`` /
+``card_pad``, which the kernel never stores.
+
+On the card (``csrc/megakernel.cu``) every opcode but TAKE is word-wise, so
+the 2048-word row is cut into :data:`SLICES` slices of :data:`SLICE_WORDS`
+words: block ``c`` of a cooperative launch runs the whole stream over slice
+``c``, its slots in shared memory, and a card row holds one popcount partial
+per slice (``int32[card_pad, SLICES]``; :func:`_slice_outputs` sums them).
+
+Capacity (:meth:`MegaPlan.fits`): a block's slots must fit the H100's 227 KB
+of shared memory, so ``MAX_SLOTS = 232448 // (SLICE_WORDS * 4) = 3632``
+slots, which admits ``slots_pad`` up to 2048 (the TPU's VMEM held 1024).
+The stream lives in device memory and has no size limit on the card;
+``MAX_STEPS = 2**14`` is kept only so that the port picks the same rung as
+the JAX package for the same batch.  Whether a longer stream would still
+beat the multi-op rung is not measured.  A plan past either bound,
+or with no fused section, resolves to the multi-op "cuda" rung, counted in
+:data:`DEMOTIONS` by reason (:func:`note_capacity_demotion`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import kernels, packing
+from .words import WORDS32, as_i32, fold_u32
+
+#: word slices of a row: one block of the cooperative launch per slice
+SLICES = 128
+SLICE_WORDS = WORDS32 // SLICES
+#: bytes of one accumulator slot in a block's shared memory
+SLOT_BYTES = SLICE_WORDS * 4
+#: shared memory a block may use on the H100 (232,448 bytes)
+SMEM_BYTES = 232448
+#: accumulator slots (the dead slot included) one block can hold
+MAX_SLOTS = SMEM_BYTES // SLOT_BYTES
+#: longest instruction stream the megakernel rung takes: the JAX package's
+#: cap, kept for parity of rung choice (see module doc)
+MAX_STEPS = 1 << 14
+
+# --------------------------------------------------------------- opcodes
+
+(NOP, LOAD_ROW, OR_ROW, AND_ROW, XOR_ROW, ANDNOT_ROW_REV, ZERO,
+ COPY_SLOT, OR_SLOT, AND_SLOT, XOR_SLOT, ANDNOT_SLOT, ANDNOT_ROW,
+ OUT, CARD, VSCAN_HI, VSCAN_LO, VAGG_CARD, ACC_POP, TAKE) = range(20)
+N_OPCODES = 20
+
+#: opcodes whose accumulator write is the dead slot (their payload leaves
+#: through the out/card rows instead)
+_DEAD_DST = (OUT, CARD, VAGG_CARD)
+#: opcodes that read a bank row
+ROW_OPS = frozenset((LOAD_ROW, OR_ROW, AND_ROW, XOR_ROW, ANDNOT_ROW_REV,
+                     ANDNOT_ROW, VSCAN_HI, VSCAN_LO, VAGG_CARD))
+
+_OP_ROW = {"or": OR_ROW, "and": AND_ROW, "xor": XOR_ROW}
+_OP_SLOT = {"or": OR_SLOT, "and": AND_SLOT, "xor": XOR_SLOT}
+
+#: the eight stream arrays, in the order the kernel reads them
+STREAM_KEYS = ("opc", "dst", "src", "row", "bank", "orow", "crow", "imm")
+
+#: demotions off the megakernel rung, {(site, reason): count}: the port's
+#: counterpart of rb_mega_capacity_demotions_total{site, reason}
+DEMOTIONS: dict = {}
+
+
+class StreamIndexError(IndexError):
+    """An instruction stream indexes outside its slots, rows or banks."""
+
+
+class _Emitter:
+    """Instruction-stream emitter: one append per micro-op, padded to a
+    power of two at ``finish()``."""
+
+    def __init__(self):
+        self.ops: list = []  # (opc, dst, src, row, bank, orow, crow, imm)
+
+    def emit(self, opc, dst=0, src=0, row=0, bank=0, orow=None,
+             crow=None, imm=0):
+        self.ops.append((opc, dst, src, row, bank, orow, crow, imm))
+
+    def finish(self, n_slots: int, out_pad: int, card_pad: int) -> dict:
+        n = len(self.ops)
+        n_pad = packing.next_pow2(max(1, n))
+        host = {
+            "opc": np.zeros(n_pad, np.int32),
+            "dst": np.full(n_pad, n_slots, np.int32),
+            "src": np.zeros(n_pad, np.int32),
+            "row": np.zeros(n_pad, np.int32),
+            "bank": np.zeros(n_pad, np.int32),
+            "orow": np.full(n_pad, out_pad, np.int32),
+            "crow": np.full(n_pad, card_pad, np.int32),
+            "imm": np.zeros(n_pad, np.int32),
+        }
+        if n:
+            a = np.array([(o, d, s, r, b,
+                           -1 if orow is None else orow,
+                           -1 if crow is None else crow, imm)
+                          for o, d, s, r, b, orow, crow, imm in self.ops],
+                         np.int64)
+            for j, k in enumerate(STREAM_KEYS):
+                host[k][:n] = a[:, j]
+            host["dst"][:n] = np.where(np.isin(a[:, 0], _DEAD_DST),
+                                       n_slots, a[:, 1])
+            host["orow"][:n] = np.where(a[:, 5] < 0, out_pad, a[:, 5])
+            host["crow"][:n] = np.where(a[:, 6] < 0, card_pad, a[:, 6])
+        return host
+
+
+@dataclasses.dataclass
+class MegaPlan:
+    """One assembled megakernel program: the host instruction stream, the
+    kernel's shape, and the output layout :func:`_slice_outputs` reads."""
+
+    mode: str                 # "full"
+    n_steps: int              # real instruction count (pre-pad)
+    steps_pad: int
+    n_slots: int              # real accumulator slots (pre-pad)
+    slots_pad: int
+    out_pad: int              # pow2-padded OUT rows (0 = none)
+    card_pad: int
+    host: dict                # the eight stream arrays + "extra" (bank 1)
+    #: per bucket: (card_base, out_base | None, n_real, k_pad)
+    bucket_out: tuple = ()
+    #: per fused section: (card_base, out_base | None, k_root, None)
+    expr_out: tuple = ()
+    extra_rows: int = 1
+    leaf_rows: int = 0
+    col_rows: int = 0
+    _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
+    _checked: set = dataclasses.field(default_factory=set, repr=False)
+
+    @property
+    def signature(self) -> tuple:
+        return (self.mode, self.steps_pad, self.slots_pad, self.out_pad,
+                self.card_pad, self.extra_rows, self.leaf_rows,
+                self.col_rows, self.bucket_out, self.expr_out)
+
+    def fits(self) -> bool:
+        return capacity_reason(self) is None
+
+    @property
+    def smem_bytes(self) -> int:
+        return (self.slots_pad + 1) * SLOT_BYTES
+
+    def stats_event(self) -> dict:
+        return {"mode": self.mode, "steps": int(self.n_steps),
+                "slots": int(self.n_slots),
+                "smem_bytes": int(self.smem_bytes),
+                "out_rows": int(self.out_pad),
+                "card_rows": int(self.card_pad),
+                "sections": len(self.expr_out)}
+
+    def device_arrays(self, device) -> dict:
+        """{"stream": int32[8, steps_pad], "extra": int32[rows, 2048]} on
+        ``device``, uploaded once per device."""
+        key = str(device)
+        if key not in self._arrays:
+            stream = np.stack([self.host[k] for k in STREAM_KEYS])
+            self._arrays[key] = {"stream": as_i32(stream, device),
+                                 "extra": as_i32(self.host["extra"], device)}
+        return self._arrays[key]
+
+    def check(self, bank_rows: tuple) -> None:
+        """Raise StreamIndexError unless every step indexes inside the
+        slots, the out/card rows and its bank (checked once per bank shape)."""
+        if bank_rows in self._checked:
+            return
+        h = self.host
+        opc, bank, row = h["opc"], h["bank"], h["row"]
+        limit = np.asarray(bank_rows, np.int64)[np.clip(bank, 0, 2)]
+        bad = {
+            "opcode": (opc < 0) | (opc >= N_OPCODES),
+            "slot": ((h["dst"] < 0) | (h["dst"] > self.slots_pad)
+                     | (h["src"] < 0) | (h["src"] > self.slots_pad)),
+            "bank": (bank < 0) | (bank > 2),
+            "row": (row < 0) | (row >= limit),
+            "out row": (h["orow"] < 0) | (h["orow"] > self.out_pad),
+            "card row": (h["crow"] < 0) | (h["crow"] > self.card_pad),
+        }
+        for what, mask in bad.items():
+            if mask.any():
+                i = int(np.flatnonzero(mask)[0])
+                raise StreamIndexError(
+                    f"megakernel step {i}: {what} out of range (opc "
+                    f"{int(opc[i])}, dst {int(h['dst'][i])}, src "
+                    f"{int(h['src'][i])}, bank {int(bank[i])}, row "
+                    f"{int(row[i])}; banks hold {bank_rows} rows, "
+                    f"{self.slots_pad + 1} slots)")
+        self._checked.add(bank_rows)
+
+
+def capacity_reason(mega: MegaPlan) -> str | None:
+    """Which budget a non-fitting plan blew: "slots" (a block's shared
+    memory) or "steps" (the stream cap); None when the plan fits."""
+    if mega.slots_pad + 1 > MAX_SLOTS:
+        return "slots"
+    if mega.steps_pad > MAX_STEPS:
+        return "steps"
+    return None
+
+
+def note_capacity_demotion(site: str, mega: MegaPlan | None) -> str:
+    """Count a demotion off the megakernel rung by reason ("no_fused" for a
+    plan without fused sections) and return the reason."""
+    reason = ("no_fused" if mega is None
+              else capacity_reason(mega) or "unknown")
+    DEMOTIONS[site, reason] = DEMOTIONS.get((site, reason), 0) + 1
+    return reason
+
+
+# ------------------------------------------------------------- assembler
+
+def _emit_bucket(em: _Emitter, b, base: int, card_base: int,
+                 out_base) -> None:
+    """One shape bucket's pipeline: per-(query, key) segmented reduce over
+    real rows only, plan-time masking (heads_ok / workShyAnd key_keep /
+    andnot head pass), per-slot CARD rows, and OUT rows when the bucket's
+    own needs_words asks for them."""
+    host = b.host
+    n_real, k_pad = len(b.qids), b.k_pad
+    red = OR_ROW if b.op in ("or", "andnot") else _OP_ROW[b.op]
+    for qi in range(n_real):
+        valid = host["valid"][qi]
+        rows = host["gather"][qi][valid]
+        segs = host["seg_local"][qi][valid]
+        for k in range(k_pad):
+            slot = base + qi * k_pad + k
+            ok = bool(host["heads_ok"][qi, k])
+            if b.op == "and" and not bool(host["key_keep"][qi, k]):
+                ok = False
+            seg_rows = rows[segs == k] if ok else rows[:0]
+            if b.op == "andnot":
+                if not bool(host["head_ok"][qi, k]):
+                    em.emit(ZERO, dst=slot)
+                elif seg_rows.size == 0:
+                    # no rest rows: head & ~0 == the head row itself
+                    em.emit(LOAD_ROW, dst=slot,
+                            row=int(host["head_gather"][qi, k]))
+                else:
+                    em.emit(LOAD_ROW, dst=slot, row=int(seg_rows[0]))
+                    for r in seg_rows[1:]:
+                        em.emit(OR_ROW, dst=slot, row=int(r))
+                    em.emit(ANDNOT_ROW_REV, dst=slot,
+                            row=int(host["head_gather"][qi, k]))
+            elif not ok or seg_rows.size == 0:
+                em.emit(ZERO, dst=slot)
+            else:
+                em.emit(LOAD_ROW, dst=slot, row=int(seg_rows[0]))
+                for r in seg_rows[1:]:
+                    em.emit(red, dst=slot, row=int(r))
+    for qi in range(n_real):
+        for k in range(k_pad):
+            slot = base + qi * k_pad + k
+            em.emit(CARD, src=slot, crow=card_base + qi * k_pad + k)
+            if out_base is not None:
+                em.emit(OUT, src=slot, orow=out_base + qi * k_pad + k)
+
+
+class _SectionCtx:
+    """Per-section assembly state: maps compiled steps to (slot | row)
+    sources for each of the node's keys."""
+
+    def __init__(self, sec, slot_of_reduce, extra_base, leaf_row):
+        self.sec = sec
+        self.slot_of_reduce = slot_of_reduce
+        self.extra_base = extra_base
+        self.leaf_row = leaf_row
+        self.combine_base: dict = {}
+
+    def source(self, ci: int, j: int):
+        """("slot", s) | ("row", bank, r) for step ``ci``'s key ``j``."""
+        st = self.sec.steps[ci]
+        kind = st[0]
+        if kind == "leaf":
+            bank, row = self.leaf_row(self.sec, ci, j)
+            return ("row", bank, row)
+        if kind == "adhoc":
+            return ("row", 1, self.extra_base[ci] + j)
+        if kind == "reduce":
+            _, bi, slot, _kq = st
+            return self.slot_of_reduce(bi, slot, j)
+        return ("slot", self.combine_base[ci] + j)
+
+
+def _emit_combine(em: _Emitter, ctx: _SectionCtx, si: int) -> None:
+    """One interior combine node: per key, resolve each child through the
+    plan-time alignment arrays into a slot/row source, fold absent keys to
+    the op identity, and chain the bitwise micro-ops."""
+    sec = ctx.sec
+    _, op, children, kq = sec.steps[si]
+    base = ctx.combine_base[si]
+    host = sec.host
+    for j in range(kq):
+        dst = base + j
+        parts = []
+        for k, (ci, aligned) in enumerate(children):
+            if aligned:
+                jj, ok = j, True
+            else:
+                jj = int(host[f"i{si}_{k}"][j])
+                ok = bool(host[f"o{si}_{k}"][j])
+            parts.append((ok, ctx.source(ci, jj) if ok else None))
+        if op == "andnot":
+            # the head is key-aligned by construction; absent rest
+            # children contribute ~0 == all-ones
+            _, head = parts[0]
+            _emit_set(em, dst, head)
+            for ok, srcp in parts[1:]:
+                if ok:
+                    _emit_op(em, dst, srcp, ANDNOT_SLOT, ANDNOT_ROW)
+        elif op == "and":
+            if not all(ok for ok, _ in parts):
+                em.emit(ZERO, dst=dst)
+                continue
+            _emit_set(em, dst, parts[0][1])
+            for _, srcp in parts[1:]:
+                _emit_op(em, dst, srcp, AND_SLOT, AND_ROW)
+        else:
+            live = [srcp for ok, srcp in parts if ok]
+            if not live:
+                em.emit(ZERO, dst=dst)
+                continue
+            _emit_set(em, dst, live[0])
+            for srcp in live[1:]:
+                _emit_op(em, dst, srcp, _OP_SLOT[op], _OP_ROW[op])
+
+
+def _emit_set(em: _Emitter, dst: int, srcp) -> None:
+    if srcp[0] == "slot":
+        em.emit(COPY_SLOT, dst=dst, src=srcp[1])
+    else:
+        em.emit(LOAD_ROW, dst=dst, row=srcp[2], bank=srcp[1])
+
+
+def _emit_op(em: _Emitter, dst: int, srcp, slot_op: int,
+             row_op: int) -> None:
+    if srcp[0] == "slot":
+        em.emit(slot_op, dst=dst, src=srcp[1])
+    else:
+        em.emit(row_op, dst=dst, row=srcp[2], bank=srcp[1])
+
+
+def _pack_extra(sections) -> tuple:
+    """Bank-1 rows: every ad-hoc leaf's container rows, concatenated, and
+    per-(section id, step) base offsets."""
+    rows, bases = [], {}
+    off = 0
+    for sid, sec in enumerate(sections):
+        for ci, st in enumerate(sec.steps):
+            if st[0] == "adhoc":
+                w = sec.host[f"w{ci}"]
+                bases[(sid, ci)] = off
+                rows.append(np.asarray(w, np.uint32))
+                off += int(w.shape[0])
+    if rows:
+        return np.concatenate(rows, axis=0), bases
+    return np.zeros((1, WORDS32), np.uint32), bases
+
+
+def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
+              extra_bases) -> MegaPlan:
+    """Allocate slots and output rows, walk the buckets, then every
+    section's combine steps in topological order, and close with the
+    sections' CARD/OUT outputs."""
+    n_slots = 0
+    bucket_base: list = []
+    for b in buckets:
+        bucket_base.append(n_slots)
+        n_slots += len(b.qids) * b.k_pad
+    n_card = n_out = 0
+    bucket_out: list = []
+    for b in buckets:
+        ob = n_out if b.needs_words else None
+        bucket_out.append((n_card, ob, len(b.qids), b.k_pad))
+        n_card += len(b.qids) * b.k_pad
+        if ob is not None:
+            n_out += len(b.qids) * b.k_pad
+
+    em = _Emitter()
+    for b, base, (cb, ob, _n, _k) in zip(buckets, bucket_base, bucket_out):
+        _emit_bucket(em, b, base, cb, ob)
+
+    ctxs: list = []
+    for sid, sec in enumerate(sections):
+        ctx = _SectionCtx(
+            sec, slot_of_reduce=slot_of_reduce(bucket_base),
+            extra_base={ci: extra_bases.get((sid, ci), 0)
+                        for ci, st in enumerate(sec.steps)
+                        if st[0] == "adhoc"},
+            leaf_row=leaf_row)
+        for si, st in enumerate(sec.steps):
+            if st[0] == "combine":
+                ctx.combine_base[si] = n_slots
+                n_slots += int(st[3])
+        ctxs.append(ctx)
+    for ctx in ctxs:
+        for si, st in enumerate(ctx.sec.steps):
+            if st[0] == "combine":
+                _emit_combine(em, ctx, si)
+
+    expr_out: list = []
+    for ctx in ctxs:
+        sec = ctx.sec
+        k_root = int(sec.root_keys.size)
+        root_srcs = [ctx.source(sec.root, j) for j in range(k_root)]
+        if any(s[0] == "row" for s in root_srcs):
+            # a bare leaf/ad-hoc root: give it its own slots so OUT/CARD
+            # have a slot source
+            base = n_slots
+            n_slots += k_root
+            for j, s in enumerate(root_srcs):
+                _emit_set(em, base + j, s)
+            root_slots = [base + j for j in range(k_root)]
+        else:
+            root_slots = [s[1] for s in root_srcs]
+        ob = n_out if sec.form == "bitmap" else None
+        expr_out.append((n_card, ob, k_root, None))
+        for j in range(k_root):
+            em.emit(CARD, src=root_slots[j], crow=n_card + j)
+            if ob is not None:
+                em.emit(OUT, src=root_slots[j], orow=n_out + j)
+        n_card += k_root
+        if ob is not None:
+            n_out += k_root
+
+    slots_pad = packing.next_pow2(max(1, n_slots))
+    out_pad = packing.next_pow2(n_out) if n_out else 0
+    card_pad = packing.next_pow2(max(1, n_card))
+    host = em.finish(slots_pad, out_pad, card_pad)
+    host["extra"] = extra
+    return MegaPlan(
+        mode="full", n_steps=len(em.ops),
+        steps_pad=int(host["opc"].shape[0]),
+        n_slots=n_slots, slots_pad=slots_pad,
+        out_pad=out_pad, card_pad=card_pad, host=host,
+        bucket_out=tuple(bucket_out), expr_out=tuple(expr_out),
+        extra_rows=int(extra.shape[0]))
+
+
+def build_full(buckets, sections) -> MegaPlan:
+    """Assemble the full-pipeline megakernel for a bucketed plan with fused
+    expression sections: every bucket's segmented reduce and post passes,
+    and every section's combine/output steps, in one stream.  Row indices
+    are the plan's image rows (bank 0)."""
+    fused = [s for s in sections if s.kind == "fused"]
+    extra, extra_bases = _pack_extra(fused)
+
+    def slot_of_reduce(bucket_base):
+        def fn(bi, slot, j):
+            return ("slot", bucket_base[bi] + slot * buckets[bi].k_pad + j)
+        return fn
+
+    def leaf_row(sec, ci, j):
+        # resident leaves stream straight from the row image (bank 0)
+        return 0, int(sec.host[f"g{ci}"][j])
+
+    return _assemble(buckets, fused, slot_of_reduce, leaf_row, extra,
+                     extra_bases)
+
+
+# --------------------------------------------------------------- B5
+
+def _popcount_each(x: torch.Tensor) -> torch.Tensor:
+    """Per-word set-bit count of int32 words, as int64."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (x * 0x01010101 >> 24) & 0xFF
+
+
+def _slice_cards(v: torch.Tensor) -> torch.Tensor:
+    """Popcount of each of a row's SLICES word slices -> int32[SLICES]."""
+    return _popcount_each(v).view(SLICES, SLICE_WORDS).sum(1).to(torch.int32)
+
+
+def _outputs(mega: MegaPlan, device):
+    out = torch.zeros((mega.out_pad, WORDS32), dtype=torch.int32,
+                      device=device)
+    cards = torch.zeros((mega.card_pad, SLICES), dtype=torch.int32,
+                        device=device)
+    return out, cards
+
+
+def raw_call_plain(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
+                   bank_c: torch.Tensor):
+    """Plain version of B5: the stream as a Python loop of tensor ops, in
+    order.  Returns (out int32[out_pad, 2048], card partials
+    int32[card_pad, SLICES]).  TAKE sums its counter slot as int32 with
+    wrap-around (mod 2^32, compared signed), ACC_POP is a u32 add."""
+    mega.check((bank_a.shape[0], bank_b.shape[0], bank_c.shape[0]))
+    dev = bank_a.device
+    acc = torch.zeros((mega.slots_pad + 1, WORDS32), dtype=torch.int32,
+                      device=dev)
+    out, cards = _outputs(mega, dev)
+    banks = (bank_a, bank_b, bank_c)
+    # the steps past n_steps are the power-of-two padding: NOPs on the
+    # dead slot and dead rows
+    cols = [mega.host[k][:mega.n_steps].tolist() for k in STREAM_KEYS]
+    for opc, dst, src, row, bank, orow, crow, imm in zip(*cols):
+        cur = acc[dst]
+        srcv = acc[src]
+        if dst == src and (orow < mega.out_pad or crow < mega.card_pad):
+            srcv = srcv.clone()     # the outputs take the pre-step value
+        w = banks[bank][row] if opc in ROW_OPS else None
+        if opc == LOAD_ROW:
+            res = w
+        elif opc == OR_ROW:
+            res = cur | w
+        elif opc == AND_ROW:
+            res = cur & w
+        elif opc == XOR_ROW:
+            res = cur ^ w
+        elif opc == ANDNOT_ROW_REV:
+            res = w & ~cur
+        elif opc == ZERO:
+            res = torch.zeros_like(cur)
+        elif opc == COPY_SLOT:
+            res = srcv
+        elif opc == OR_SLOT:
+            res = cur | srcv
+        elif opc == AND_SLOT:
+            res = cur & srcv
+        elif opc == XOR_SLOT:
+            res = cur ^ srcv
+        elif opc == ANDNOT_SLOT:
+            res = cur & ~srcv
+        elif opc == ANDNOT_ROW:
+            res = cur & ~w
+        elif opc == VSCAN_HI:
+            res = cur | (srcv & ~w)
+        elif opc == VSCAN_LO:
+            res = cur | (srcv & w)
+        elif opc == ACC_POP:
+            res = fold_u32((cur.to(torch.int64) + _popcount_each(srcv))
+                           & 0xFFFFFFFF)
+        elif opc == TAKE:
+            s = int(srcv.sum(dtype=torch.int64)) & 0xFFFFFFFF
+            s = s - (1 << 32) if s >= (1 << 31) else s
+            res = torch.full_like(cur, -1 if s < imm else 0)
+        else:           # NOP, OUT, CARD, VAGG_CARD: acc[dst] keeps cur
+            res = None
+        if res is not None:
+            acc[dst] = res
+        if orow < mega.out_pad:
+            out[orow] = srcv
+        if crow < mega.card_pad:
+            cards[crow] = _slice_cards(srcv & w if opc == VAGG_CARD
+                                       else srcv)
+    return out, cards
+
+
+def _check_bank(name: str, t: torch.Tensor) -> None:
+    kernels._check(name, t, 2, WORDS32)
+    if t.shape[0] < 1:
+        raise ValueError(f"{name}: a bank needs at least one row")
+
+
+def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
+             bank_c: torch.Tensor):
+    """B5: run the plan's instruction stream over the three row banks
+    (int32[rows, 2048] each) -> (out int32[out_pad, 2048], card partials
+    int32[card_pad, SLICES]).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (one cooperative launch of SLICES blocks) or
+    raise.  The kernel runs the ``n_steps`` real steps of the stream and
+    skips its NOP padding.  Every index of the stream is checked against
+    the banks once per plan and bank shape; the kernel never reads out of
+    range."""
+    for name, t in (("bank_a", bank_a), ("bank_b", bank_b),
+                    ("bank_c", bank_c)):
+        _check_bank(name, t)
+    if not kernels._on_cuda(bank_a, bank_b, bank_c):
+        return raw_call_plain(mega, bank_a, bank_b, bank_c)
+    mega.check((bank_a.shape[0], bank_b.shape[0], bank_c.shape[0]))
+    if mega.slots_pad + 1 > MAX_SLOTS:
+        raise ValueError(
+            f"megakernel plan needs {mega.slots_pad + 1} slots; one block "
+            f"holds {MAX_SLOTS}")
+    dev = bank_a.device
+    stream = mega.device_arrays(dev)["stream"]
+    out, cards = _outputs(mega, dev)
+    take = torch.zeros(2 * SLICES, dtype=torch.int32, device=dev)
+    kernels.B5.launch(
+        stream.data_ptr(), mega.steps_pad, mega.n_steps, bank_a.data_ptr(),
+        bank_b.data_ptr(), bank_c.data_ptr(), out.data_ptr(),
+        cards.data_ptr(), take.data_ptr(), mega.slots_pad, mega.out_pad,
+        mega.card_pad, kernels._stream())
+    return out, cards
+
+
+def _slice_outputs(mega: MegaPlan, out_rows, card_rows):
+    """Kernel outputs -> (per-bucket outs, per-section expr outs): buckets
+    get (heads int32[n, k_pad, 2048] | None, cards int32[n, k_pad]), fused
+    sections get (heads int32[K, 2048] | None, cards int32[K])."""
+    cards = card_rows.sum(1, dtype=torch.int32)
+    outs = []
+    for cb, ob, n, k_pad in mega.bucket_out:
+        c = cards[cb:cb + n * k_pad].view(n, k_pad)
+        h = (out_rows[ob:ob + n * k_pad].view(n, k_pad, WORDS32)
+             if ob is not None else None)
+        outs.append((h, c))
+    expr_outs = []
+    for cb, ob, k_root, _agg in mega.expr_out:
+        h = out_rows[ob:ob + k_root] if ob is not None else None
+        expr_outs.append((h, cards[cb:cb + k_root]))
+    return outs, expr_outs
+
+
+def eval_full(mega: MegaPlan, words: torch.Tensor):
+    """Full-mode evaluation over the resident row image ``words`` (bank 0):
+    one B5 launch, then the outputs sliced per bucket and section."""
+    extra = mega.device_arrays(words.device)["extra"]
+    cols = torch.zeros((1, WORDS32), dtype=torch.int32, device=words.device)
+    out_rows, card_rows = raw_call(mega, words, extra, cols)
+    return _slice_outputs(mega, out_rows, card_rows)
+
+
+# ------------------------------------------------- test and smoke streams
+
+def random_plan(seed: int, n_steps: int = 256, slots_pad: int = 16,
+                out_pad: int = 8, card_pad: int = 16,
+                bank_rows=(8, 4, 4)):
+    """A seeded random stream over all 20 opcodes, for holding B5 against
+    its plain version: every slot (the dead one included) is set first, each
+    real out and card row is written by exactly one step, OUT/CARD/VAGG_CARD
+    target the dead slot, other steps the dead out/card rows, and TAKE
+    sums slots of random words (so the int32 sum wraps).
+    Returns (MegaPlan, [three uint32 banks])."""
+    rng = np.random.default_rng(seed)
+    banks = [rng.integers(0, 1 << 32, (r, WORDS32), dtype=np.uint64)
+             .astype(np.uint32) for r in bank_rows]
+    banks[0][0] = 0xFFFFFFFF          # an all-ones row: TAKE sums of -1s
+    em = _Emitter()
+
+    def row_op(opc, dst, src=0, crow=None):
+        b = int(rng.integers(3))
+        em.emit(opc, dst=dst, src=src, bank=b,
+                row=int(rng.integers(bank_rows[b])), crow=crow)
+
+    for s in range(slots_pad + 1):
+        if s % 3:
+            row_op(LOAD_ROW, s)
+        else:
+            em.emit(ZERO, dst=s)
+    outs = list(rng.permutation(out_pad))
+    cards = list(rng.permutation(card_pad))
+    slot = lambda: int(rng.integers(slots_pad + 1))   # noqa: E731
+    n_body = max(n_steps - len(em.ops), len(outs) + len(cards) + N_OPCODES)
+    body = list(range(N_OPCODES)) + list(rng.integers(0, N_OPCODES,
+                                                      n_body - N_OPCODES))
+    for opc in rng.permutation(body):
+        opc = int(opc)
+        if opc == OUT:
+            if len(outs) > 1:       # the last out row is written below
+                em.emit(OUT, src=slot(), orow=int(outs.pop()))
+        elif opc in (CARD, VAGG_CARD):
+            if len(cards) > 2:      # the last two card rows are below
+                crow = int(cards.pop())
+                if opc == CARD:
+                    em.emit(CARD, src=slot(), crow=crow)
+                else:
+                    row_op(VAGG_CARD, 0, slot(), crow)
+        elif opc == TAKE:
+            imm = int(rng.integers(-(1 << 31), 1 << 31))
+            em.emit(TAKE, dst=slot(), src=slot(), imm=imm)
+        elif opc in ROW_OPS:
+            row_op(opc, slot(), slot())
+        else:
+            em.emit(opc, dst=slot(), src=slot())
+    for r in outs:
+        em.emit(OUT, src=slot(), orow=int(r))
+    row_op(VAGG_CARD, 0, slot(), int(cards.pop()))
+    for r in cards:
+        em.emit(CARD, src=slot(), crow=int(r))
+    host = em.finish(slots_pad, out_pad, card_pad)
+    host["extra"] = banks[1]
+    mega = MegaPlan(mode="full", n_steps=len(em.ops),
+                    steps_pad=int(host["opc"].shape[0]), n_slots=slots_pad,
+                    slots_pad=slots_pad, out_pad=out_pad, card_pad=card_pad,
+                    host=host, extra_rows=bank_rows[1])
+    return mega, banks
+
+
+def stream_bytes(mega: MegaPlan) -> int:
+    """Bytes B5 must move at least: each distinct bank row that a step
+    reads (8 KiB), each real out row written (8 KiB) and each real card row
+    written (its SLICES partials), once; and the 32 B of each real step.
+    The stream's padding and the dead rows move nothing."""
+    h = {k: mega.host[k][:mega.n_steps] for k in STREAM_KEYS}
+    reads = np.isin(h["opc"], list(ROW_OPS))
+    n_rows = np.unique(np.stack([h["bank"][reads], h["row"][reads]]),
+                       axis=1).shape[1]
+    n_out = np.unique(h["orow"][h["orow"] < mega.out_pad]).size
+    n_card = np.unique(h["crow"][h["crow"] < mega.card_pad]).size
+    return ((n_rows + n_out) * WORDS32 * 4 + n_card * SLICES * 4
+            + mega.n_steps * 32)
+

@@ -1,4 +1,9 @@
-from . import aggregation, fast_aggregation
+from . import aggregation, batch_engine, expr, fast_aggregation
 from .aggregation import DeviceBitmapSet
+from .batch_engine import (BatchEngine, BatchQuery, BatchResult,
+                           random_query_pool)
+from .expr import ExprQuery, random_expr_pool
 
-__all__ = ["aggregation", "fast_aggregation", "DeviceBitmapSet"]
+__all__ = ["aggregation", "batch_engine", "expr", "fast_aggregation",
+           "DeviceBitmapSet", "BatchEngine", "BatchQuery", "BatchResult",
+           "ExprQuery", "random_query_pool", "random_expr_pool"]

@@ -246,7 +246,7 @@ class DeviceBitmapSet:
         state = {"keys": packed.keys, "n": len(bitmaps),
                  "block": packed.block, "blk_seg": packed.blk_seg,
                  "n_blocks": packed.n_blocks, "seg_sizes": packed.seg_sizes,
-                 "seg_offsets": packed.seg_offsets}
+                 "seg_offsets": packed.seg_offsets, "row_src": packed.row_src}
         state.update(dense_words=s.dense_words, dense_dest=s.dense_dest,
                      values=s.values, val_counts=s.val_counts,
                      val_dest=s.val_dest)
@@ -266,10 +266,13 @@ class DeviceBitmapSet:
         - counts: ``counts`` and ``grp_seg`` (group axis padded as the JAX
           set pads it), plus the compact streams ``dense_words``,
           ``dense_dest``, ``values``, ``val_counts``, ``val_dest``;
-        - compact: ``chunk_vals`` and ``chunk_row``, plus the streams.
+        - compact: ``chunk_vals`` and ``chunk_row``, plus the streams;
 
-        The layout follows from which arrays are present.  The set then
-        answers the same queries as the set the arrays came from."""
+        and optionally ``row_src`` (the JAX set's ``_packed.row_src``: the
+        source bitmap of each row), which ``host_bitmaps`` and the batch
+        engine need.  The layout follows from which arrays are present.  The
+        set then answers the same queries as the set the arrays came
+        from."""
         dev = resolve_device(device)
         layout = next((name for name, need in _STATE_LAYOUT.items()
                        if need[0] in state), None)
@@ -292,6 +295,12 @@ class DeviceBitmapSet:
         self._seg_sizes = np.asarray(state["seg_sizes"])
         self._seg_offsets = np.asarray(state["seg_offsets"])
         blk_seg = np.asarray(state["blk_seg"], dtype=np.int32)
+        #: host row maps: the source bitmap (-1 padding) and the key segment
+        #: of every row of the blocked layout
+        self.row_src = (None if state.get("row_src") is None
+                        else np.asarray(state["row_src"], dtype=np.int32))
+        self.row_seg = np.repeat(blk_seg, self.block)
+        self._host_cache = None
         k = self.keys.size
         self._n_rows = int(blk_seg.size) * self.block
         self.blk_seg = as_i32(blk_seg, dev)
@@ -417,6 +426,28 @@ class DeviceBitmapSet:
     def aggregate(self, op: str, engine: str = "auto") -> RoaringBitmap:
         words, cards = self.aggregate_device(op, engine)
         return _unpack(self.keys, words, cards)
+
+    def host_bitmaps(self) -> list[RoaringBitmap]:
+        """Host copies of the source bitmaps, rebuilt from the resident rows
+        (whatever the set was built from) and cached: the data the batch
+        engine's host reference runs on."""
+        if self._host_cache is not None:
+            return self._host_cache
+        if self.row_src is None:
+            raise ValueError(
+                "resident set lacks row_src metadata (repack required)")
+        words = to_u32(self._resident_words("torch"))
+        order = np.argsort(self.row_src, kind="stable")
+        bounds = np.searchsorted(self.row_src[order], np.arange(self.n + 1))
+        hosts = []
+        for i in range(self.n):
+            rows = order[bounds[i]:bounds[i + 1]]
+            w = words[rows]
+            cards = np.unpackbits(w.view(np.uint8), axis=1).sum(axis=1)
+            hosts.append(packing.unpack_result(self.keys[self.row_seg[rows]],
+                                               w, cards))
+        self._host_cache = hosts
+        return hosts
 
     def hbm_bytes(self) -> int:
         """Device bytes the set keeps resident."""

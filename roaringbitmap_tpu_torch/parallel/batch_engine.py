@@ -1,0 +1,477 @@
+"""Batched multi-query aggregation: Q wide ops per device dispatch
+(``roaringbitmap_tpu.parallel.batch_engine``).
+
+A batch holds flat ``BatchQuery``s (an op in {or, and, xor, andnot} over a
+subset of one resident ``DeviceBitmapSet``, with a result form) and
+expression queries (``expr.ExprQuery``).  The resident blocked layout keeps
+one container per row, sorted by key segment, with ``row_src`` recording
+each row's source bitmap.  A query over subset S selects its rows on the
+host, and the planner lays every query of a batch out as segments of ONE
+flat segmented reduce:
+
+    flat segment id = q * (K_pad + 1) + local_key_slot
+
+Per-op lowering:
+  or / xor   masked rows (padding) carry the identity 0.
+  and        padding rows carry 0xFFFFFFFF; key slots whose presence count
+             is below |S| are zeroed after the reduce (a missing container
+             annihilates the AND: the workShyAnd rule).
+  andnot     operands[0] minus OR(operands[1:]): the reduce computes the
+             rest-union on the head's key slots, then head & ~rest.
+
+Queries are grouped by (op, pow2(|operands|)), and each bucket pads its
+per-query row count, key count and query count to powers of two.
+
+Rungs (``engine``):
+  "megakernel"  the whole plan as one instruction stream, one B5 launch
+                (``ops.megakernel``); a plan without fused expression
+                sections, or past B5's capacity, resolves to "cuda", counted
+                in ``megakernel.DEMOTIONS`` by reason;
+  "cuda"        per bucket a gather + the ragged reduce B1
+                (``ops.kernels.segmented_reduce``), then the expression
+                combines in plain PyTorch (the JAX "pallas" rung);
+  "torch"       the plain versions: gather + the doubling reduce (the JAX
+                "xla" rung);
+  "auto"        "megakernel" on a CUDA device when the batch holds an
+                ``ExprQuery``, else "cuda" on the card and "torch" on the
+                CPU.
+Compact and counts sets rebuild the row image first: B3 on the "cuda" and
+"megakernel" rungs, the plain scatter on "torch".
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import operator
+import time
+
+import numpy as np
+import torch
+
+from ..core.bitmap import RoaringBitmap
+from ..ops import dense, kernels, megakernel, packing
+from ..ops.words import WORDS32, to_u32
+from ..runtime.cache import LRUCache
+from . import expr as expr_mod
+from .aggregation import DeviceBitmapSet, _engine
+
+_RED_OP = {"or": "or", "xor": "xor", "and": "and", "andnot": "or"}
+
+ENGINES = ("megakernel", "cuda", "torch")
+
+#: cap of the prepared-plan cache: novel query shapes must not grow a
+#: long-lived server without bound
+PLAN_CACHE_MAX = 256
+
+
+def resolve_query_engine(engine: str, queries, device) -> str:
+    """The rung a batch starts at: an explicit "megakernel" always starts
+    there; "auto" starts there only on a CUDA device and only when the batch
+    holds expression queries (flat batches gain nothing from the
+    instruction stream)."""
+    if engine == "megakernel":
+        return engine
+    eng = _engine(engine, torch.device(device))
+    if (engine == "auto" and eng == "cuda"
+            and any(isinstance(q, expr_mod.ExprQuery) for q in queries)):
+        return "megakernel"
+    return eng
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchQuery:
+    """One wide-aggregation request against a resident set.
+
+    operands index the resident set's inputs and are treated as a SET
+    (duplicates dropped).  form "cardinality" returns only the count;
+    "bitmap" also materializes the result bitmap on the host."""
+
+    op: str
+    operands: tuple[int, ...]
+    form: str = "cardinality"
+
+    def __post_init__(self):
+        if self.op not in ("or", "and", "xor", "andnot"):
+            raise ValueError(f"unsupported batch op {self.op!r}")
+        if self.form not in ("cardinality", "bitmap"):
+            raise ValueError(f"unsupported result form {self.form!r}")
+
+
+@dataclasses.dataclass
+class BatchResult:
+    cardinality: int
+    bitmap: RoaringBitmap | None = None
+
+
+@dataclasses.dataclass
+class _Bucket:
+    """One shape-specialized slice of a batch plan."""
+
+    op: str
+    qids: list            # pseudo-query ids, bucket order
+    keys: list            # per-query np key arrays (true K_q, unpadded)
+    q: int                # padded query count (pow2)
+    r_pad: int            # padded rows per query (pow2)
+    k_pad: int            # padded key slots per query (pow2)
+    n_steps: int
+    needs_words: bool
+    host: dict            # NumPy operands
+    _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def signature(self):
+        return (self.op, self.q, self.r_pad, self.k_pad, self.n_steps,
+                self.needs_words)
+
+    def device_arrays(self, device) -> dict:
+        key = str(device)
+        if key not in self._arrays:
+            self._arrays[key] = expr_mod._upload(self.host, device)
+        return self._arrays[key]
+
+
+def plan_bucket(op: str, items) -> _Bucket:
+    """Build one bucket from ``items``: [(qid, query, gather_rows,
+    seg_local, keys_q, key_keep, head_rows)] sharing (op, operand rung)."""
+    qn = packing.next_pow2(len(items))
+    r_pad = packing.next_pow2(max(1, max(it[2].size for it in items)))
+    k_pad = packing.next_pow2(max(1, max(it[4].size for it in items)))
+    gather = np.zeros((qn, r_pad), np.int32)
+    valid = np.zeros((qn, r_pad), bool)
+    seg_local = np.full((qn, r_pad), k_pad, np.int32)
+    heads_ok = np.zeros((qn, k_pad), bool)
+    key_keep = np.ones((qn, k_pad), bool) if op == "and" else None
+    head_gather = (np.zeros((qn, k_pad), np.int32)
+                   if op == "andnot" else None)
+    head_ok = np.zeros((qn, k_pad), bool) if op == "andnot" else None
+    max_group = 1
+    for i, (_qid, _q, rows, segs, _keys_q, keep, hrows) in enumerate(items):
+        gather[i, :rows.size] = rows
+        valid[i, :rows.size] = True
+        seg_local[i, :rows.size] = segs
+        heads_ok[i, np.unique(segs)] = True
+        if segs.size:
+            max_group = max(max_group, int(np.bincount(segs).max()))
+        if op == "and":
+            key_keep[i, :keep.size] = keep
+            key_keep[i, keep.size:] = False
+        if op == "andnot":
+            head_gather[i, :hrows.size] = hrows
+            head_ok[i, :hrows.size] = True
+    flat_seg = (seg_local
+                + (k_pad + 1) * np.arange(qn, dtype=np.int32)[:, None]
+                ).reshape(-1)
+    flat_head = np.searchsorted(
+        flat_seg, np.arange(qn * (k_pad + 1), dtype=np.int64)
+    ).astype(np.int32)
+    host = {"gather": gather, "valid": valid, "seg_local": seg_local,
+            "flat_seg": flat_seg, "flat_head": flat_head,
+            "heads_ok": heads_ok}
+    if key_keep is not None:
+        host["key_keep"] = key_keep
+    if head_gather is not None:
+        host["head_gather"] = head_gather
+        host["head_ok"] = head_ok
+    return _Bucket(
+        op=op, qids=[it[0] for it in items], keys=[it[4] for it in items],
+        q=qn, r_pad=r_pad, k_pad=k_pad, n_steps=dense.n_steps_for(max_group),
+        needs_words=any(it[1].form == "bitmap" for it in items), host=host)
+
+
+class BatchPlan(list):
+    """A bucketed batch plan (a list of buckets) with the expression
+    sections, the owner map (pseudo-query id -> query index, absent for
+    internal reduce nodes) and the assembled megakernel program (None when
+    the plan has no fused section)."""
+
+    def __init__(self, buckets=(), exprs=(), owner=None, mega=None):
+        super().__init__(buckets)
+        self.exprs = list(exprs)
+        self.owner = owner if owner is not None else {}
+        self.mega = mega
+
+    @property
+    def fused(self) -> list:
+        return expr_mod.fused_of(self.exprs)
+
+    @property
+    def expr_signature(self) -> tuple:
+        return expr_mod.signature_of(self.exprs)
+
+
+def bucket_body(words: torch.Tensor, b_sig, arrays: dict, eng: str):
+    """One bucket on the device: gather -> flat segmented reduce (B1 on the
+    "cuda" rung, the doubling pass on "torch") -> per-op post pass.
+    Returns (heads int32[q, k_pad, 2048], cards int32[q, k_pad])."""
+    op, qn, r_pad, k_pad, n_steps, _needs_words = b_sig
+    red = _RED_OP[op]
+    g = words[arrays["gather"].reshape(-1)]
+    g = torch.where(arrays["valid"].reshape(-1, 1), g, -1 if op == "and" else 0)
+    nseg = qn * (k_pad + 1)
+    if eng == "cuda":
+        heads, _ = kernels.segmented_reduce(red, g, arrays["flat_seg"], nseg)
+    else:
+        red_rows = dense.doubling_pass(dense.OPS[red], g,
+                                       arrays["flat_seg"], n_steps)
+        heads = red_rows[arrays["flat_head"].clamp(max=g.shape[0] - 1)]
+    heads = heads.view(qn, k_pad + 1, WORDS32)[:, :k_pad]
+    # zero key slots with no contributing rows (an empty rest-union reads
+    # as 0)
+    heads = torch.where(arrays["heads_ok"][:, :, None], heads, 0)
+    if op == "and":
+        heads = torch.where(arrays["key_keep"][:, :, None], heads, 0)
+    elif op == "andnot":
+        hg = words[arrays["head_gather"].reshape(-1)].view(qn, k_pad, WORDS32)
+        hg = torch.where(arrays["head_ok"][:, :, None], hg, 0)
+        heads = hg & ~heads
+    return heads, dense.popcount(heads)
+
+
+class BatchEngine:
+    """Plan + execute mixed-op query batches over one resident set, on the
+    set's device.  Plans are cached by the query tuple (an LRU of
+    ``PLAN_CACHE_MAX``).  ``last_timings`` holds the plan / device / unpack
+    milliseconds of the latest ``execute``."""
+
+    def __init__(self, ds: DeviceBitmapSet):
+        if ds.row_src is None:
+            raise ValueError(
+                "resident set lacks row_src metadata (repack required)")
+        self._ds = ds
+        self.device = ds.device
+        self.n = ds.n
+        self.keys = ds.keys
+        self._row_src = ds.row_src
+        self._row_seg = ds.row_seg
+        self._plans = LRUCache(PLAN_CACHE_MAX, name="batch_plans")
+        self.last_timings: dict = {}
+
+    @classmethod
+    def from_bitmaps(cls, bitmaps: list, layout: str = "auto",
+                     **kw) -> "BatchEngine":
+        return cls(DeviceBitmapSet(bitmaps, layout=layout, **kw))
+
+    # ------------------------------------------------------------- planning
+
+    def _plan_query(self, q: BatchQuery):
+        """(gather_rows, seg_local, keys_q, key_keep, head_rows), all
+        NumPy, unpadded.  seg_local ascends (rows are key-sorted)."""
+        ops_ = np.unique(np.asarray(q.operands, dtype=np.int64))
+        if ops_.size and (ops_[0] < 0 or ops_[-1] >= self.n):
+            raise IndexError(
+                f"operand index out of range 0..{self.n - 1}: {q.operands}")
+        if q.op == "andnot":
+            if not len(q.operands):
+                return (np.empty(0, np.int64), np.empty(0, np.int32),
+                        self.keys[:0], None, np.empty(0, np.int64))
+            head = int(q.operands[0])
+            rest = np.unique(np.asarray(q.operands[1:], dtype=np.int64))
+            hrows = np.flatnonzero(self._row_src == head)
+            hsegs = self._row_seg[hrows]        # unique & ascending
+            rrows = np.flatnonzero(np.isin(self._row_src, rest)
+                                   & np.isin(self._row_seg, hsegs))
+            seg_local = np.searchsorted(
+                hsegs, self._row_seg[rrows]).astype(np.int32)
+            return (rrows, seg_local, self.keys[hsegs], None, hrows)
+        rows = np.flatnonzero(np.isin(self._row_src, ops_))
+        segs = self._row_seg[rows]
+        uniq, seg_local = np.unique(segs, return_inverse=True)
+        key_keep = None
+        if q.op == "and":
+            key_keep = np.bincount(
+                seg_local, minlength=uniq.size) == ops_.size
+        return (rows, seg_local.astype(np.int32), self.keys[uniq],
+                key_keep, None)
+
+    def _plan_leaf(self, index: int):
+        """(gather_rows, keys) of ONE resident bitmap: the expression
+        compiler's leaf planner."""
+        if index < 0 or index >= self.n:
+            raise IndexError(
+                f"expression ref out of range 0..{self.n - 1}: {index}")
+        rows = np.flatnonzero(self._row_src == index)
+        return rows, self.keys[self._row_seg[rows]]
+
+    def plan(self, queries) -> BatchPlan:
+        """Bucketed plan, cached by the exact query tuple: group by (op,
+        pow2 operand count) and pad shapes.  Expression queries expand here:
+        their all-leaf reduce nodes become pseudo flat queries in the same
+        buckets, their combine steps compile into sections, and a plan with
+        fused sections also assembles its megakernel stream."""
+        key = tuple(queries)
+        cached = self._plans.get(key)
+        if cached is not None:
+            return cached
+        groups: dict = {}
+        owner: dict = {}
+        sections: list = []
+        counter = [0]
+
+        def add_item(pq: BatchQuery, own):
+            pid = counter[0]
+            counter[0] += 1
+            rows, segs, keys_q, keep, hrows = self._plan_query(pq)
+            rung = packing.next_pow2(max(1, len(set(pq.operands))))
+            groups.setdefault((pq.op, rung), []).append(
+                (pid, pq, rows, segs, keys_q, keep, hrows))
+            if own is not None:
+                owner[pid] = own
+            return pid, keys_q
+
+        for qid, q in enumerate(queries):
+            if isinstance(q, expr_mod.ExprQuery):
+                sections.append(expr_mod.compile_query(
+                    q, qid, add_item, self._plan_leaf))
+            else:
+                add_item(q, qid)
+        buckets = [plan_bucket(op, items)
+                   for (op, _), items in sorted(groups.items())]
+        expr_mod.finalize_sections(sections, buckets)
+        mega = (megakernel.build_full(buckets, sections)
+                if expr_mod.fused_of(sections) else None)
+        plan = BatchPlan(buckets, exprs=sections, owner=owner, mega=mega)
+        self._plans.put(key, plan)
+        return plan
+
+    # ------------------------------------------------------------ execution
+
+    def _bucket_engine(self, plan: BatchPlan, eng: str) -> str:
+        """The rung the plan runs on: a megakernel request resolves to the
+        multi-op "cuda" rung when the plan has no fused section or does not
+        fit B5, and the demotion is counted by reason."""
+        if eng == "megakernel" and not (plan.mega is not None
+                                        and plan.mega.fits()):
+            megakernel.note_capacity_demotion("batch_engine", plan.mega)
+            return "cuda"
+        return eng
+
+    def _words(self, eng: str) -> torch.Tensor:
+        """The resident row image: the dense image itself, or rebuilt from
+        the compact streams (B3 on the kernel rungs)."""
+        return self._ds._resident_words("torch" if eng == "torch" else "cuda")
+
+    def _run(self, plan: BatchPlan, eng: str):
+        """The device part of a batch -> (bucket outs, expr outs)."""
+        words = self._words(eng)
+        if eng == "megakernel":
+            return megakernel.eval_full(plan.mega, words)
+        feeding = expr_mod.expr_bucket_ids(plan.exprs)
+        outs, heads_by_bi = [], []
+        for bi, b in enumerate(plan):
+            heads, cards = bucket_body(words, b.signature,
+                                       b.device_arrays(self.device), eng)
+            # keep only the heads a combine step reads or a query returns
+            heads_by_bi.append(heads if bi in feeding else None)
+            outs.append((heads if b.needs_words else None, cards))
+        expr_outs = expr_mod.eval_sections(plan.fused, words, heads_by_bi)
+        return outs, expr_outs
+
+    def execute(self, queries, engine: str = "auto") -> list[BatchResult]:
+        """Run Q queries (flat and expression) as one batch; results in
+        input order, bit-exact with the host reference on every rung."""
+        queries = list(queries)
+        if not queries:
+            return []
+        if engine not in ("auto",) + ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; expected one of "
+                             f"{('auto',) + ENGINES}")
+        t0 = time.perf_counter()
+        plan = self.plan(queries)
+        eng = self._bucket_engine(
+            plan, resolve_query_engine(engine, queries, self.device))
+        t1 = time.perf_counter()
+        results: list = [None] * len(queries)
+        bucket_outs, expr_outs = [], []
+        if plan or plan.fused:
+            bucket_outs, expr_outs = self._run(plan, eng)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        for b, (heads, cards) in zip(plan, bucket_outs):
+            cards = cards.cpu().numpy()
+            heads = None if heads is None else to_u32(heads)
+            for slot, (pid, keys_q) in enumerate(zip(b.qids, b.keys)):
+                qid = plan.owner.get(pid)
+                if qid is None:
+                    continue        # internal expression reduce node
+                kq = keys_q.size
+                bm = None
+                if queries[qid].form == "bitmap":
+                    bm = packing.unpack_result(keys_q, heads[slot, :kq],
+                                               cards[slot, :kq])
+                results[qid] = BatchResult(
+                    cardinality=int(cards[slot, :kq].sum()), bitmap=bm)
+        expr_mod.assemble_section_results(
+            plan.exprs, expr_outs, results, lambda qid: queries[qid].form)
+        t3 = time.perf_counter()
+        self.last_timings = {"engine": eng, "plan_ms": (t1 - t0) * 1e3,
+                             "device_ms": (t2 - t1) * 1e3,
+                             "unpack_ms": (t3 - t2) * 1e3}
+        return results
+
+    def cardinalities(self, queries, engine: str = "auto") -> np.ndarray:
+        """i64[Q] result cardinalities of one batch."""
+        return np.array([r.cardinality
+                         for r in self.execute(queries, engine=engine)],
+                        dtype=np.int64)
+
+    # ------------------------------------------------ host reference rung
+
+    def _sequential_one(self, q):
+        """Host reference for ONE query, mirroring the batch semantics
+        (operands as a set; andnot = head minus the union of the rest);
+        expression queries evaluate their canonical DAG on the host."""
+        srcs = self._ds.host_bitmaps()
+        if isinstance(q, expr_mod.ExprQuery):
+            return expr_mod.evaluate_host(q.expr, srcs)
+        if not q.operands:
+            return RoaringBitmap()
+        if q.op == "andnot":
+            acc = srcs[int(q.operands[0])].clone()
+            for i in sorted({int(i) for i in q.operands[1:]}):
+                acc = acc - srcs[i]
+            return acc
+        fn = {"or": operator.or_, "and": operator.and_,
+              "xor": operator.xor}[q.op]
+        sub = sorted({int(i) for i in q.operands})
+        acc = srcs[sub[0]].clone()
+        for i in sub[1:]:
+            acc = fn(acc, srcs[i])
+        return acc
+
+    def _execute_sequential(self, queries) -> list[BatchResult]:
+        """Per-query host container algebra: the bit-exact reference every
+        rung is held against."""
+        out = []
+        for q in queries:
+            rb = self._sequential_one(q)
+            out.append(BatchResult(cardinality=rb.cardinality,
+                                   bitmap=rb if q.form == "bitmap" else None))
+        return out
+
+    def cache_stats(self) -> dict:
+        return {"plans": self._plans.stats()}
+
+
+def execute_batch(ds: DeviceBitmapSet, queries, engine: str = "auto"
+                  ) -> list[BatchResult]:
+    """One-shot convenience: plan + run a batch against a resident set."""
+    return BatchEngine(ds).execute(queries, engine=engine)
+
+
+def random_query_pool(n_bitmaps: int, q: int, seed: int = 0xBA7C,
+                      max_operands: int = 16) -> list[BatchQuery]:
+    """Deterministic mixed-op query pool over ``n_bitmaps`` residents (the
+    JAX package's generator: the same seed gives the same pool).  Cycles
+    or/xor/and/andnot with random subset sizes in [2, max_operands]."""
+    if n_bitmaps < 2:
+        raise ValueError("query pool needs at least 2 resident bitmaps")
+    rng = np.random.default_rng(seed)
+    hi = max(3, min(max_operands + 1, n_bitmaps))
+    pool = []
+    for i in range(q):
+        op = ("or", "xor", "and", "andnot")[i % 4]
+        k = int(rng.integers(2, hi))
+        pool.append(BatchQuery(op=op, operands=tuple(
+            int(x) for x in rng.choice(n_bitmaps, size=k, replace=False))))
+    return pool

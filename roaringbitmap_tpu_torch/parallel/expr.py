@@ -1,0 +1,868 @@
+"""Expression-DAG query compiler: compositional set algebra in one batch
+(``roaringbitmap_tpu.parallel.expr``, set algebra only).
+
+IR
+--
+Leaves: :func:`ref` (an index into the resident set) and :func:`bitmap` (an
+ad-hoc host RoaringBitmap, shipped with the plan).  Ops: :func:`or_`,
+:func:`and_`, :func:`xor`, :func:`andnot`, :func:`not_`.  An
+:class:`ExprQuery` wraps a root expression with a result ``form``
+("cardinality" or "bitmap") and is accepted by ``BatchEngine.execute``
+anywhere a ``BatchQuery`` is.  :class:`ValuePred` and :class:`Agg` (value
+predicates and aggregate roots over analytics columns) exist as classes so
+that such queries fail as they do in the JAX package: this port has no
+column resolver yet, so compiling one raises ``ValueError``.
+
+Compilation (:func:`compile_query`):
+
+1. **canonicalize + CSE** (:func:`canonicalize`): associative chains
+   flatten, or/and operands dedupe, xor operands cancel pairwise,
+   commutative children sort, double negation drops, and
+   ``and(x..., not(y)...)`` rewrites to ``andnot(and(x...), y...)`` (a
+   ``not_`` surviving canonicalization is an unbounded complement and
+   raises).  Equal canonical subtrees are one DAG node.
+2. **reduce extraction**: every maximal all-leaf op node becomes a pseudo
+   ``BatchQuery`` riding the batch engine's bucketing, so wide chains stay
+   segmented reduces.
+3. **fused combine steps**: interior nodes become elementwise bitwise
+   passes over key-aligned ``int32[K, 2048]`` blocks; alignment gathers are
+   plan-time host arrays, an absent child key contributes the identity.
+4. **short circuits**: a cardinality-only root never materializes its
+   words; an empty key space (disjoint AND, cancelled XOR) is pruned at plan
+   time, and a pruned root never touches the device.
+
+The sections run two ways: the multi-op rungs run ``eval_sections`` (plain
+PyTorch combines, as they were XLA in the JAX package) after the buckets'
+segmented reduces, and the megakernel rung (``ops.megakernel``) assembles the
+same sections into one instruction stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import operator
+
+import numpy as np
+import torch
+
+from ..ops import dense, packing
+from ..ops.words import WORDS32, as_i32
+
+#: ops the IR accepts; "not" only survives until canonicalization
+OPS = ("or", "and", "xor", "andnot")
+
+
+# ------------------------------------------------------------------- IR
+
+class Expr:
+    """Base marker for expression nodes (never instantiated directly)."""
+
+    __slots__ = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Ref(Expr):
+    """Leaf: index of a bitmap in the resident DeviceBitmapSet."""
+
+    index: int
+
+
+class AdHoc(Expr):
+    """Leaf: an ad-hoc host bitmap (not resident) shipped with the plan.
+
+    The input is snapshotted (cloned) at construction, so a cached plan
+    never replays a bitmap the caller mutated later.  Two leaves are equal
+    only when they share one snapshot."""
+
+    __slots__ = ("bm",)
+
+    def __init__(self, bm):
+        object.__setattr__(self, "bm", bm.clone())
+
+    def __setattr__(self, *a):
+        raise AttributeError("AdHoc is immutable")
+
+    def __eq__(self, o):
+        return isinstance(o, AdHoc) and o.bm is self.bm
+
+    def __hash__(self):
+        return id(self.bm)
+
+    def __repr__(self):
+        return f"AdHoc(<bitmap {id(self.bm):#x}>)"
+
+
+class Node(Expr):
+    """Interior op node over child expressions.  Structural equality and
+    hash, cached per node so walks over a shared DAG stay O(dag)."""
+
+    __slots__ = ("op", "children", "_hash", "_skey_c")
+
+    def __init__(self, op: str, children: tuple):
+        self.op = op
+        self.children = tuple(children)
+        self._hash = None
+        self._skey_c = None
+
+    def __eq__(self, o):
+        if self is o:
+            return True
+        return (isinstance(o, Node) and self.op == o.op
+                and self.children == o.children)
+
+    def __hash__(self):
+        h = self._hash
+        if h is None:
+            h = self._hash = hash((self.op, self.children))
+        return h
+
+    def __repr__(self):
+        return f"Node({self.op!r}, {self.children!r})"
+
+
+#: the canonical empty result (e.g. a fully-cancelled xor)
+EMPTY = Node("empty", ())
+
+
+@dataclasses.dataclass(frozen=True)
+class ValuePred(Expr):
+    """Leaf: a value-domain predicate over an attached column.  Compiling it
+    needs a column resolver, which this port does not have yet."""
+
+    col: str
+    op: str
+    lo: int
+    hi: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Agg(Expr):
+    """Aggregate root over a column (``sum`` / ``topk``); compiling it needs
+    a column resolver, which this port does not have yet."""
+
+    kind: str
+    col: str
+    k: int
+    found: object = None
+
+
+def _as_expr(x) -> Expr:
+    if isinstance(x, Expr):
+        return x
+    if isinstance(x, (int, np.integer)):
+        return Ref(int(x))
+    raise TypeError(
+        f"expression operand must be an Expr or a resident index, got "
+        f"{type(x).__name__}")
+
+
+def ref(i: int) -> Ref:
+    return Ref(int(i))
+
+
+def bitmap(bm) -> AdHoc:
+    """Ad-hoc leaf over a host bitmap not resident in the set."""
+    return AdHoc(bm)
+
+
+def or_(*xs) -> Expr:
+    return Node("or", tuple(_as_expr(x) for x in xs))
+
+
+def and_(*xs) -> Expr:
+    return Node("and", tuple(_as_expr(x) for x in xs))
+
+
+def xor(*xs) -> Expr:
+    return Node("xor", tuple(_as_expr(x) for x in xs))
+
+
+def andnot(head, *rest) -> Expr:
+    """head minus the union of ``rest`` (the BatchQuery andnot shape)."""
+    return Node("andnot", (_as_expr(head),)
+                + tuple(_as_expr(x) for x in rest))
+
+
+def not_(x) -> Expr:
+    """Complement: bounded only inside an ``and_`` (where it rewrites to
+    ``andnot``); anywhere else canonicalization raises."""
+    return Node("not", (_as_expr(x),))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExprQuery:
+    """One compositional request against a resident set: the DAG
+    generalization of ``batch_engine.BatchQuery``."""
+
+    expr: Expr
+    form: str = "cardinality"
+
+    def __post_init__(self):
+        if not isinstance(self.expr, Expr):
+            object.__setattr__(self, "expr", _as_expr(self.expr))
+        if self.form not in ("cardinality", "bitmap"):
+            raise ValueError(f"unsupported result form {self.form!r}")
+        if isinstance(self.expr, Agg) and self.expr.kind == "sum" \
+                and self.form == "bitmap":
+            raise ValueError(
+                "sum_ roots have no bitmap form (the result is a "
+                "scalar total + count)")
+
+
+# --------------------------------------------------- canonicalize + CSE
+
+_ASSOC = ("or", "and", "xor")
+
+
+def _skey(e: Expr):
+    """Deterministic structural sort key for commutative child ordering
+    (AdHoc keys by object identity, stable within a process)."""
+    if isinstance(e, Ref):
+        return (0, e.index)
+    if isinstance(e, AdHoc):
+        return (1, id(e.bm))
+    if isinstance(e, ValuePred):
+        return (3, e.col, e.op, e.lo, e.hi)
+    k = e._skey_c
+    if k is None:
+        k = e._skey_c = (2, e.op, tuple(_skey(c) for c in e.children))
+    return k
+
+
+def canonicalize(e) -> Expr:
+    """Canonical DAG form: flattened associative chains, deduped/sorted
+    commutative operands, pairwise-cancelled xor, ``not`` absorbed into
+    ``andnot`` (or rejected as unbounded), structural sharing for CSE.
+    Raises ValueError on an unbounded complement or an empty ``and``."""
+    e = _as_expr(e)
+    if isinstance(e, Agg):
+        f = e.found
+        if f is None:
+            return e
+        f_c = _canon(_as_expr(f), {}, {})
+        if isinstance(f_c, Node) and f_c.op == "not":
+            raise ValueError(
+                "unbounded complement: an aggregate's found set is a "
+                "bare not_ (complements are bounded only inside and_)")
+        return Agg(e.kind, e.col, e.k, f_c)
+    out = _canon(e, {}, {})
+    if isinstance(out, Node) and out.op == "not":
+        raise ValueError(
+            "unbounded complement: a bare not_ root spans the whole "
+            "2^32 universe (complements are bounded only inside and_)")
+    return out
+
+
+def _canon(e: Expr, memo: dict, intern: dict) -> Expr:
+    got = memo.get(e)
+    if got is not None:
+        return got
+    out = _canon_uncached(e, memo, intern)
+    # equal canonical results from different branches unify to one object
+    out = intern.setdefault(out, out)
+    memo[e] = out
+    return out
+
+
+def _canon_uncached(e: Expr, memo: dict, intern: dict) -> Expr:
+    if isinstance(e, (Ref, AdHoc, ValuePred)):
+        return e
+    if isinstance(e, Agg):
+        raise ValueError(
+            "aggregate roots (sum_/top_k) cannot nest inside an "
+            "expression — they consume a bitmap-valued found set and "
+            "produce a scalar/top-k result, not a combinable bitmap")
+    if e.op == "empty":
+        return EMPTY
+    if e.op == "not":
+        c = _canon(e.children[0], memo, intern)
+        if isinstance(c, Node) and c.op == "not":
+            return c.children[0]            # double negation
+        return Node("not", (c,))
+    if e.op == "andnot":
+        if not e.children:
+            return EMPTY
+        head = _canon(e.children[0], memo, intern)
+        rest: list = []
+        for r in e.children[1:]:
+            r = _canon(r, memo, intern)
+            if isinstance(r, Node) and r.op == "empty":
+                continue                    # x & ~0 == x
+            if isinstance(r, Node) and r.op == "or":
+                rest.extend(r.children)     # ~(a|b|c): rests ARE a union
+            else:
+                rest.append(r)
+        if isinstance(head, Node):
+            if head.op == "empty":
+                return EMPTY
+            if head.op == "not":
+                raise ValueError(
+                    "unbounded complement: andnot head is a not_ node "
+                    "(complements are bounded only inside and_)")
+            if head.op == "andnot":
+                # andnot(andnot(h, s...), r...) == andnot(h, s..., r...)
+                rest = list(head.children[1:]) + rest
+                head = head.children[0]
+        if any(isinstance(r, Node) and r.op == "not" for r in rest):
+            raise ValueError(
+                "unbounded complement: not_ inside an andnot rest")
+        seen, uniq = set(), []
+        for r in sorted(rest, key=_skey):
+            if r not in seen:
+                seen.add(r)
+                uniq.append(r)
+        if head in seen:
+            return EMPTY                    # h & ~(h | ...) == 0
+        if not uniq:
+            return head
+        return Node("andnot", (head, *uniq))
+    if e.op in _ASSOC:
+        flat: list = []
+        for c in e.children:
+            c = _canon(c, memo, intern)
+            if isinstance(c, Node) and c.op == e.op:
+                flat.extend(c.children)     # associative flatten
+            else:
+                flat.append(c)
+        if e.op == "and":
+            if any(isinstance(c, Node) and c.op == "empty" for c in flat):
+                return EMPTY
+            neg = [c for c in flat
+                   if isinstance(c, Node) and c.op == "not"]
+            pos = [c for c in flat if c not in neg]
+            if neg:
+                if not pos:
+                    raise ValueError(
+                        "unbounded complement: and_ of only not_ nodes")
+                base = _canon(Node("and", tuple(pos)), memo, intern)
+                return _canon(
+                    Node("andnot",
+                         (base, *(n.children[0] for n in neg))), memo,
+                    intern)
+        else:
+            flat = [c for c in flat
+                    if not (isinstance(c, Node) and c.op == "empty")]
+        if any(isinstance(c, Node) and c.op == "not" for c in flat):
+            raise ValueError(
+                f"unbounded complement: not_ under {e.op}_ (complements "
+                "are bounded only inside and_)")
+        flat.sort(key=_skey)
+        if e.op == "xor":
+            uniq: list = []                 # pairwise cancellation
+            for c in flat:
+                if uniq and uniq[-1] == c:
+                    uniq.pop()
+                else:
+                    uniq.append(c)
+        else:
+            uniq = []
+            for c in flat:                  # idempotent dedupe
+                if not uniq or uniq[-1] != c:
+                    uniq.append(c)
+        if not uniq:
+            if e.op == "and":
+                raise ValueError("and_ needs at least one operand")
+            return EMPTY
+        if len(uniq) == 1:
+            return uniq[0]
+        return Node(e.op, tuple(uniq))
+    raise ValueError(f"unknown expression op {e.op!r}")
+
+
+def dag_stats(e: Expr) -> dict:
+    """Canonical-DAG shape report: unique op-node count, depth, and the
+    CSE saving (tree op nodes minus DAG op nodes)."""
+    return _dag_stats_canonical(canonicalize(e))
+
+
+def _dag_stats_canonical(e: Expr) -> dict:
+    """`dag_stats` over an already-canonical node, memoized per node (the
+    tree size of a shared DAG is exponential in its depth)."""
+    uniq: set = set()
+    info: dict = {}          # node -> (tree_nodes, depth)
+
+    def walk(n):
+        if not isinstance(n, Node) or n.op == "empty":
+            return 0, 0
+        got = info.get(n)
+        if got is not None:
+            return got
+        uniq.add(n)
+        t, d = 1, 1
+        for c in n.children:
+            ct, cd = walk(c)
+            t += ct
+            d = max(d, cd + 1)
+        info[n] = (t, d)
+        return t, d
+
+    tree_nodes, depth = walk(e)
+    return {"nodes": len(uniq), "tree_nodes": tree_nodes,
+            "cse_saved": tree_nodes - len(uniq), "depth": depth}
+
+
+# ------------------------------------------------- host reference rung
+
+def evaluate_host(e, sources, columns=None) -> object:
+    """Bit-exact host evaluation of an expression over ``sources`` (host
+    RoaringBitmaps): the reference every device rung is held against."""
+    from ..core.bitmap import RoaringBitmap
+
+    e = canonicalize(e)
+    if isinstance(e, Agg):
+        raise ValueError(
+            "aggregate roots evaluate through evaluate_host_agg (the "
+            "result is (cardinality, value, bitmap), not a bitmap)")
+    memo: dict = {}
+
+    def ev(n):
+        got = memo.get(n)
+        if got is not None:
+            return got
+        if isinstance(n, Ref):
+            if n.index < 0 or n.index >= len(sources):
+                raise IndexError(
+                    f"expression ref out of range 0..{len(sources) - 1}: "
+                    f"{n.index}")
+            v = sources[n.index]
+        elif isinstance(n, AdHoc):
+            v = n.bm
+        elif isinstance(n, ValuePred):
+            col = (columns or {}).get(n.col)
+            if col is None:
+                raise KeyError(
+                    f"no column {n.col!r} attached to the resident set "
+                    f"(DeviceBitmapSet.attach_column)")
+            v = col.host_filter(n.op, n.lo, n.hi)
+        elif n.op == "empty":
+            v = RoaringBitmap()
+        elif n.op == "andnot":
+            v = ev(n.children[0]).clone()
+            for r in n.children[1:]:
+                v = v - ev(r)
+        else:
+            fn = {"or": operator.or_, "and": operator.and_,
+                  "xor": operator.xor}[n.op]
+            parts = [ev(c) for c in n.children]
+            v = parts[0]
+            for p in parts[1:]:
+                v = fn(v, p)
+        memo[n] = v
+        return v
+
+    out = ev(e)
+    if isinstance(e, (Ref, AdHoc)):
+        # a bare-leaf root must not alias the caller's source
+        return out.clone()
+    return out
+
+
+# ----------------------------------------------------- compiled section
+
+def _upload(host: dict, device) -> dict:
+    """Host plan arrays -> device tensors: masks as bool, index arrays and
+    words as int32 (u32 words by their bits)."""
+    return {k: (torch.from_numpy(np.array(v)).to(device) if v.dtype == bool
+                else as_i32(v, device))
+            for k, v in host.items()}
+
+
+@dataclasses.dataclass
+class ExprSection:
+    """One compiled expression of a batch plan.
+
+    ``kind``: "fused" (combine steps run on the device), "flat" (the root
+    lowered to a bare pseudo-query), "empty" (root pruned at plan time) or
+    "adhoc" (the root is an ad-hoc bitmap; resolved on the host).
+
+    Steps (fused sections), each a tuple:
+      ("leaf", K)                  value = image[host[g{i}]]
+      ("adhoc", K)                 value = host[w{i}]
+      ("reduce", bi, slot, kq)     value = bucket_heads[bi][slot, :kq]
+      ("combine", op, children, K) children = ((step, aligned), ...);
+                                   non-aligned children gather through
+                                   host[i{i}_{k}] masked by host[o{i}_{k}]
+    """
+
+    qid: int
+    form: str
+    kind: str
+    steps: list = dataclasses.field(default_factory=list)
+    root: int = -1
+    root_keys: np.ndarray = None
+    host: dict | None = None
+    adhoc_bm: object = None
+    n_nodes: int = 0
+    n_reduce: int = 0
+    n_combine: int = 0
+    depth: int = 0
+    cse_saved: int = 0
+    _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def signature(self):
+        return (self.kind, self.form == "bitmap",
+                tuple(tuple(s) for s in self.steps), self.root,
+                0 if self.root_keys is None else int(self.root_keys.size))
+
+    def device_arrays(self, device) -> dict:
+        """The host arrays as device tensors, uploaded once per device."""
+        key = str(device)
+        if key not in self._arrays:
+            self._arrays[key] = _upload(self.host, device)
+        return self._arrays[key]
+
+
+def _pack_adhoc(bm) -> tuple:
+    """Host bitmap -> (u16 keys, u32[K, 2048] dense rows) for plan-time
+    shipping of an ad-hoc leaf."""
+    keys = packing._keys_of(bm)
+    if keys.size == 0:
+        return keys, np.zeros((0, WORDS32), np.uint32)
+    words = np.stack([packing.container_words_u32(c)
+                      for c in bm.containers])
+    return keys, words.astype(np.uint32)
+
+
+def _is_reduce(n: Expr) -> bool:
+    return (isinstance(n, Node) and n.op in OPS
+            and all(isinstance(c, Ref) for c in n.children))
+
+
+def compile_query(q: ExprQuery, qid: int, plan_reduce,
+                  plan_leaf) -> ExprSection:
+    """Compile one :class:`ExprQuery` against an engine's planner.
+
+    ``plan_reduce(batch_query, owner)`` registers a pseudo flat query in the
+    engine's bucketing and returns ``(pid, keys)``; ``owner`` is the query id
+    when the pseudo IS the root (read back from its bucket) and None for
+    internal reduce nodes.  ``plan_leaf(index)`` returns ``(gather_rows,
+    keys)`` of a resident leaf.  Value predicates and aggregate roots raise
+    ``ValueError``: this port has no column resolver yet.
+    """
+    from .batch_engine import BatchQuery
+
+    e = canonicalize(q.expr)
+    if isinstance(e, Agg):
+        _no_columns(e.col)
+    stats = _dag_stats_canonical(e)
+    sec = ExprSection(qid=qid, form=q.form, kind="fused",
+                      n_nodes=max(1, stats["nodes"]), depth=stats["depth"],
+                      cse_saved=stats["cse_saved"])
+    if isinstance(e, Node) and e.op == "empty":
+        sec.kind = "empty"
+        return sec
+    if isinstance(e, AdHoc):
+        sec.kind, sec.adhoc_bm = "adhoc", e.bm
+        return sec
+    if isinstance(e, Ref):
+        plan_reduce(BatchQuery("or", (e.index,), form=q.form), qid)
+        sec.kind, sec.n_reduce = "flat", 1
+        return sec
+    if _is_reduce(e):
+        # flat root, but prune an empty key space first (disjoint AND,
+        # all-empty operands): such a query never touches the device
+        leaf_keys = [plan_leaf(c.index)[1] for c in e.children]
+        if e.op == "and":
+            inter = leaf_keys[0]
+            for k in leaf_keys[1:]:
+                inter = np.intersect1d(inter, k, assume_unique=True)
+            dead = inter.size == 0
+        elif e.op == "andnot":
+            dead = leaf_keys[0].size == 0
+        else:
+            dead = all(k.size == 0 for k in leaf_keys)
+        if dead:
+            sec.kind = "empty"
+            return sec
+        # child order already matches BatchQuery semantics (andnot keeps
+        # its head first through canonicalization)
+        ops = tuple(c.index for c in e.children)
+        plan_reduce(BatchQuery(e.op, ops, form=q.form), qid)
+        sec.kind, sec.n_reduce = "flat", 1
+        return sec
+
+    steps: list = []
+    host: dict = {}
+    keyof: dict = {}          # step idx -> np u16 key array
+    memo: dict = {}           # canonical node -> step idx | None
+
+    def add_reduce(bq) -> int | None:
+        # internal pseudos stay cardinality-form: their heads are consumed
+        # on the device and never read back
+        pid, keys = plan_reduce(bq, None)
+        if keys.size == 0:
+            return None
+        sec.n_reduce += 1
+        si = len(steps)
+        steps.append(("reduce", pid, 0, int(keys.size)))
+        keyof[si] = keys
+        return si
+
+    def emit(n) -> int | None:
+        if n not in memo:
+            memo[n] = _emit(n)
+        return memo[n]
+
+    def _emit(n) -> int | None:
+        if isinstance(n, ValuePred):
+            _no_columns(n.col)
+        if isinstance(n, Ref):
+            rows, keys = plan_leaf(n.index)
+            if keys.size == 0:
+                return None
+            si = len(steps)
+            steps.append(("leaf", int(keys.size)))
+            host[f"g{si}"] = np.asarray(rows, np.int32)
+            keyof[si] = keys
+            return si
+        if isinstance(n, AdHoc):
+            keys, words = _pack_adhoc(n.bm)
+            if keys.size == 0:
+                return None
+            si = len(steps)
+            steps.append(("adhoc", int(keys.size)))
+            host[f"w{si}"] = words
+            keyof[si] = keys
+            return si
+        if n.op == "empty":
+            return None
+        if _is_reduce(n):
+            return add_reduce(BatchQuery(
+                n.op, tuple(c.index for c in n.children),
+                form="cardinality"))
+        # interior combine node: sibling leaf runs of or/and/xor become
+        # synthetic reduces (>= 2 refs)
+        children = list(n.children)
+        if n.op in _ASSOC:
+            refs = [c for c in children if isinstance(c, Ref)]
+            if len(refs) >= 2 and len(refs) < len(children):
+                rest = [c for c in children if not isinstance(c, Ref)]
+                if n.op == "or":
+                    run = add_reduce(BatchQuery(
+                        "or", tuple(r.index for r in refs),
+                        form="cardinality"))
+                    return _combine("or", [run] + [emit(c) for c in rest])
+                # and/xor leaf runs stay reduce nodes of their own op
+                sub = Node(n.op, tuple(refs))
+                return _combine(n.op, [emit(sub)] + [emit(c) for c in rest])
+        if n.op == "andnot":
+            head_ci = emit(children[0])
+            rest_cis = [emit(c) for c in children[1:]]
+            return _combine("andnot", [head_ci] + rest_cis)
+        return _combine(n.op, [emit(c) for c in children])
+
+    def _combine(op: str, cis: list) -> int | None:
+        if op == "andnot":
+            head = cis[0]
+            if head is None:
+                return None             # 0 & ~x == 0
+            rest = [c for c in cis[1:] if c is not None]
+            if not rest:
+                return head             # x & ~0 == x
+            cis = [head] + rest
+            node_keys = keyof[head]
+        elif op == "and":
+            if any(c is None for c in cis):
+                return None             # empty annihilates
+            node_keys = keyof[cis[0]]
+            for c in cis[1:]:
+                node_keys = np.intersect1d(node_keys, keyof[c],
+                                           assume_unique=True)
+            if node_keys.size == 0:
+                return None             # disjoint key spaces
+        else:                           # or / xor
+            cis = [c for c in cis if c is not None]
+            if not cis:
+                return None
+            if len(cis) == 1:
+                return cis[0]
+            node_keys = keyof[cis[0]]
+            for c in cis[1:]:
+                node_keys = np.union1d(node_keys, keyof[c])
+        node_keys = node_keys.astype(np.uint16)
+        sec.n_combine += 1
+        si = len(steps)
+        spec = []
+        for k, ci in enumerate(cis):
+            ck = keyof[ci]
+            aligned = (ck.size == node_keys.size
+                       and bool(np.array_equal(ck, node_keys)))
+            if not aligned:
+                idx = np.searchsorted(ck, node_keys).clip(
+                    0, max(0, ck.size - 1)).astype(np.int32)
+                host[f"i{si}_{k}"] = idx
+                host[f"o{si}_{k}"] = ck[idx] == node_keys
+            spec.append((ci, aligned))
+        steps.append(("combine", op, tuple(spec), int(node_keys.size)))
+        keyof[si] = node_keys
+        return si
+
+    root = emit(e)
+    if root is None:
+        sec.kind = "empty"
+        return sec
+    sec.steps, sec.root = steps, root
+    sec.root_keys = keyof[root]
+    sec.host = host
+    return sec
+
+
+def _no_columns(name: str):
+    raise ValueError(
+        f"value predicate over column {name!r} but this engine path has no "
+        f"column resolver (attach columns via DeviceBitmapSet.attach_column)")
+
+
+def fused_of(sections) -> list:
+    """The sections whose combine steps run on the device."""
+    return [s for s in sections if s.kind == "fused"]
+
+
+def signature_of(sections) -> tuple:
+    """The expression half of a plan signature."""
+    return tuple(s.signature for s in sections)
+
+
+def finalize_sections(sections, buckets) -> None:
+    """Resolve reduce steps' pseudo-query ids to their bucket slots, after
+    ``plan_bucket`` assigned them (bucket ``qids`` carry the pids)."""
+    loc = {pid: (bi, slot, b.keys[slot].size)
+           for bi, b in enumerate(buckets)
+           for slot, pid in enumerate(b.qids)}
+    for sec in fused_of(sections):
+        for si, st in enumerate(sec.steps):
+            if st[0] == "reduce":
+                bi, slot, kq = loc[st[1]]
+                sec.steps[si] = ("reduce", bi, slot, kq)
+
+
+def expr_bucket_ids(sections) -> frozenset:
+    """Bucket indices whose heads fused combine steps consume."""
+    return frozenset(
+        st[1] for sec in fused_of(sections)
+        for st in sec.steps if st[0] == "reduce")
+
+
+# ------------------------------------------------------ device combines
+
+def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads):
+    """Fused evaluation of one section on the device: walk the compiled
+    steps bottom-up with plain PyTorch combines.  Returns ``(heads | None,
+    cards)``, heads int32[K_root, 2048] only for bitmap-form roots."""
+    vals: list = [None] * len(sec.steps)
+    for si, st in enumerate(sec.steps):
+        kind = st[0]
+        if kind == "leaf":
+            v = words[arrs[f"g{si}"]]
+        elif kind == "adhoc":
+            v = arrs[f"w{si}"]
+        elif kind == "reduce":
+            _, bi, slot, kq = st
+            v = bucket_heads[bi][slot, :kq]
+        else:
+            _, op, children, _k = st
+            parts = []
+            for k, (ci, aligned) in enumerate(children):
+                cv = vals[ci]
+                if not aligned:
+                    cv = torch.where(arrs[f"o{si}_{k}"][:, None],
+                                     cv[arrs[f"i{si}_{k}"]], 0)
+                parts.append(cv)
+            if op == "andnot":
+                rest = parts[1]
+                for p in parts[2:]:
+                    rest = rest | p
+                v = parts[0] & ~rest
+            else:
+                fn = dense.OPS[op]
+                v = parts[0]
+                for p in parts[1:]:
+                    v = fn(v, p)
+        vals[si] = v
+    rootv = vals[sec.root]
+    return (rootv if sec.form == "bitmap" else None), dense.popcount(rootv)
+
+
+def eval_sections(sections, words, bucket_heads) -> list:
+    return [eval_section(sec, sec.device_arrays(words.device), words,
+                         bucket_heads) for sec in sections]
+
+
+def assemble_section_result(sec: ExprSection, out, form: str):
+    """Host readback of one section -> (cardinality, bitmap | None).
+    ``out`` is the (heads, cards) pair of a fused section, ignored for
+    empty/adhoc ones."""
+    from ..core.bitmap import RoaringBitmap
+
+    if sec.kind == "empty":
+        return 0, (RoaringBitmap() if form == "bitmap" else None)
+    if sec.kind == "adhoc":
+        bm = sec.adhoc_bm
+        return bm.cardinality, (bm.clone() if form == "bitmap" else None)
+    heads, cards = out
+    cards = cards.cpu().numpy()
+    bm = None
+    if form == "bitmap":
+        bm = packing.unpack_result(sec.root_keys,
+                                   heads.cpu().numpy().view(np.uint32),
+                                   cards)
+    return int(cards.sum()), bm
+
+
+def assemble_section_results(sections, expr_outs, results,
+                             form_of) -> list:
+    """Fill ``results`` in place for every non-flat section (flat roots were
+    read back from their buckets).  ``expr_outs`` aligns with the fused
+    subset, in order."""
+    from .batch_engine import BatchResult
+
+    fi = 0
+    for sec in sections:
+        if sec.kind == "flat":
+            continue
+        out = None
+        if sec.kind == "fused":
+            out = expr_outs[fi]
+            fi += 1
+        card, bm = assemble_section_result(sec, out, form_of(sec.qid))
+        results[sec.qid] = BatchResult(cardinality=card, bitmap=bm)
+    return results
+
+
+# ------------------------------------------------- workload generator
+
+def random_expr_pool(n_bitmaps: int, q: int, depth: int = 2,
+                     seed: int = 0xDA6, form: str = "cardinality",
+                     max_fan: int = 3) -> list:
+    """Deterministic depth-``depth`` expression pool over ``n_bitmaps``
+    residents (the JAX package's generator: the same seed gives the same
+    pool).  Mixes or/and/xor/andnot interior nodes with leaf-level reduce
+    chains; one query in four carries a ``not_`` term."""
+    if n_bitmaps < 2:
+        raise ValueError("expression pool needs at least 2 residents")
+    rng = np.random.default_rng(seed)
+
+    def leaf_chain():
+        k = int(rng.integers(2, min(5, n_bitmaps + 1)))
+        refs = [int(x) for x in rng.choice(n_bitmaps, size=k,
+                                           replace=False)]
+        op = ("or", "xor", "and")[int(rng.integers(3))]
+        return Node(op, tuple(Ref(r) for r in refs))
+
+    def build(d):
+        if d <= 1:
+            return leaf_chain()
+        fan = int(rng.integers(2, max_fan + 1))
+        kids = tuple(build(d - 1) for _ in range(fan))
+        op = ("or", "and", "xor", "andnot")[int(rng.integers(4))]
+        return Node(op, kids)
+
+    pool = []
+    for i in range(q):
+        e = build(depth)
+        if i % 4 == 3:
+            e = Node("and", (e, Node("not", (Ref(int(
+                rng.integers(n_bitmaps))),))))
+        pool.append(ExprQuery(e, form=form))
+    return pool

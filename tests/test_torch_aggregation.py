@@ -299,10 +299,15 @@ def test_port_imports_no_jax():
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
-        "from roaringbitmap_tpu_torch.ops import build, kernels\n"
+        "from roaringbitmap_tpu_torch.ops import build, kernels, megakernel\n"
+        "from roaringbitmap_tpu_torch.parallel import batch_engine, expr\n"
+        "from roaringbitmap_tpu_torch.runtime import cache\n"
         "bms = [rt.RoaringBitmap.from_values(np.arange(i, 70000 + i, 3, "
         "dtype=np.uint32)) for i in range(3)]\n"
         "assert rt.aggregation.or_(bms, device='cpu').cardinality > 0\n"
+        "eng = rt.BatchEngine(rt.DeviceBitmapSet(bms, device='cpu'))\n"
+        "q = expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.not_(2)))\n"
+        "assert eng.execute([q], engine='megakernel')[0].cardinality > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

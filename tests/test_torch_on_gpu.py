@@ -12,8 +12,11 @@ import pytest
 import torch
 
 from roaringbitmap_tpu_torch import DeviceBitmapSet, aggregation
-from roaringbitmap_tpu_torch.ops import kernels, packing
+from roaringbitmap_tpu_torch.ops import kernels, megakernel, packing
 from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
+from roaringbitmap_tpu_torch.parallel.batch_engine import (BatchEngine,
+                                                           random_query_pool)
+from roaringbitmap_tpu_torch.parallel.expr import random_expr_pool
 from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
 
 pytestmark = pytest.mark.cuda
@@ -77,3 +80,47 @@ def test_entry_points_on_card_match_cpu(dev, bitmaps, layout):
     assert aggregation.or_(bitmaps) == aggregation.or_(bitmaps, device="cpu")
     assert (aggregation.xor_cardinality(bitmaps)
             == aggregation.xor_cardinality(bitmaps, device="cpu"))
+
+
+def _same_results(got, want):
+    for g, w in zip(got, want):
+        assert g.cardinality == w.cardinality
+        assert g.bitmap == w.bitmap
+
+
+def test_b5_matches_plain_on_random_stream(dev):
+    mega, banks = megakernel.random_plan(
+        11, n_steps=2048, slots_pad=256, out_pad=32, card_pad=64,
+        bank_rows=(64, 8, 8))
+    tb = [as_i32(b, dev) for b in banks]
+    got = megakernel.raw_call(mega, *tb)
+    torch.cuda.synchronize()
+    assert kernels.B5.launches == 1
+    _same(got, megakernel.raw_call_plain(mega, *tb))
+
+
+def test_b5_matches_plain_on_pool_plan(dev, bitmaps):
+    ds = DeviceBitmapSet(bitmaps, layout="dense", device=dev)
+    eng = BatchEngine(ds)
+    pool = random_expr_pool(len(bitmaps), 4, depth=2, form="bitmap")
+    plan = eng.plan(pool)
+    assert plan.mega.fits()
+    banks = (ds.words, plan.mega.device_arrays(dev)["extra"],
+             torch.zeros((1, 2048), dtype=torch.int32, device=dev))
+    _same(megakernel.raw_call(plan.mega, *banks),
+          megakernel.raw_call_plain(plan.mega, *banks))
+    kernels.reset_launches()
+    got = eng.execute(pool)
+    assert eng.last_timings["engine"] == "megakernel"
+    assert kernels.B5.launches == 1
+    _same_results(got, eng.execute(pool, engine="torch"))
+
+
+def test_flat_batch_launches_b1(dev, bitmaps):
+    eng = BatchEngine(DeviceBitmapSet(bitmaps, layout="dense"))
+    pool = random_query_pool(len(bitmaps), 16)
+    kernels.reset_launches()
+    got = eng.execute(pool)
+    assert eng.last_timings["engine"] == "cuda"
+    assert kernels.B1.launches > 0 and kernels.B5.launches == 0
+    _same_results(got, eng.execute(pool, engine="torch"))
