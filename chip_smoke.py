@@ -28,9 +28,32 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
    c. capacity at K = 256 (the set of 2): an 8-query expression batch must
       be demoted on "slots" and counted, and the depth-2 query
       ``(0 | 1) & ~2`` must fit and run on the megakernel;
+8. the compact nibble engine, the probes, DeviceBitmap and pairwise, run
+   after 7 and before 6, on the sets of 2-4:
+   a. the bitmaps of 2, every 16th ORed with a 1/8-density block over its
+      first 8 keys (bitmap containers, so the dense-wire stream is not
+      empty), as a compact set: or/xor on "cuda-nibble" (one B6 launch
+      each) bit-equal to "cuda" (B3 + B2) and "torch"; on the first 512,
+      equal to the host fold; device time, unpack and peak memory;
+   b. ``chained_wide_or(8)`` and ``chained_aggregate(op, 8)`` on the dense
+      set of 2 (or/xor/and), the counts set of 3 (or/xor) and the set of 8a
+      ("cuda" and "cuda-nibble"; or/xor/and): each total equals
+      (8 * cardinality) % 2^32; per-iteration device time beside the single
+      query's;
+   c. ``aggregate_range_cardinality`` on the dense set over a range across
+      key boundaries, [0, 2^32) and an empty range, against the host's
+      ``range_cardinality``; ``DeviceBitmap.aggregate(dense, "or") -
+      DeviceBitmap.aggregate(compact of 4, "xor")`` against the host
+      difference of the torch engine's aggregates; ``contains_batch`` over
+      2^20 probes (half members) against the host;
+   d. a ``DevicePairSet`` of the 2,048 consecutive pairs of 2's bitmaps in
+      the dense and compact layouts: or/and/xor/andnot cardinalities equal
+      to the host's, ``pairwise`` on the first 64 pairs equal to the host,
+      ``chained_cardinality(op, 4)`` and ``chained_pairwise_cardinality``
+      equal to (4 * sum) % 2^32;
 6. each kernel against its plain PyTorch version on the card, at the shapes
-   of 2-5 and, for B5, of 7b plus a random stream over all 20 opcodes:
-   bit-equal words and cards, CUDA-event median times, the bound.
+   of 2-5 and 8a and, for B5, of 7b plus a random stream over all 20
+   opcodes: bit-equal words and cards, CUDA-event median times, the bound.
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -177,8 +200,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
 
-    from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation
-    from roaringbitmap_tpu_torch.ops import build, kernels, megakernel, packing
+    from roaringbitmap_tpu_torch import (DeviceBitmap, DeviceBitmapSet,
+                                         DevicePairSet, RoaringBitmap,
+                                         aggregation)
+    from roaringbitmap_tpu_torch.ops import (build, dense, kernels, megakernel,
+                                             packing)
     from roaringbitmap_tpu_torch.ops.words import WORDS32, as_i32, to_u32
     from roaringbitmap_tpu_torch.parallel import expr
     from roaringbitmap_tpu_torch.parallel.batch_engine import (
@@ -189,8 +215,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    log(card)
+    card_line = smi.stdout.strip().splitlines()[0]
+    log(card_line)
 
     t_all = time.perf_counter()
 
@@ -462,6 +488,202 @@ def main() -> int:
         f"{mega1.n_slots}) ran on the megakernel")
     phase_time("phase 7", t_phase)
 
+    # ------------------------------------------------------------ phase 8
+    log("phase 8: compact nibble engine, probes, DeviceBitmap, pairwise")
+    t_phase = time.perf_counter()
+
+    def device_ms(fn):
+        """Host clock around ``fn`` to a synchronize, in ms."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def same_device(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    # 8a: compact set with bitmap containers, on the nibble engine
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 3)
+    nbms = list(bms)
+    for i in range(0, n, 16):
+        keys = nbms[i].keys[:8].astype(np.uint32)
+        hit = np.flatnonzero(rng.random((keys.size, 1 << 16)) < 1 / 8)
+        nbms[i] = nbms[i] | RoaringBitmap.from_values(
+            (keys[hit >> 16] << np.uint32(16)) | (hit & 0xFFFF).astype(np.uint32))
+    log(f"  8a: every 16th of {n} bitmaps ORed with a 1/8-density block in "
+        f"{time.perf_counter() - t0:.1f} s")
+    nds = smoke.main_path("nibble compact build",
+                          lambda: DeviceBitmapSet(nbms, layout="compact"))
+    n_dense = nds._streams[0].shape[0]
+    log(f"  dense-wire rows {n_dense}, rows {nds._n_rows}, groups "
+        f"{nds._n_groups + 1}, values {nds._total_values}, bytes "
+        f"{nds.hbm_bytes()}, block {nds.block}, K {nds.keys.size}")
+    require(n_dense > 0, "8a: the dense-wire stream is empty")
+    for op in ("or", "xor"):
+        got = smoke.main_path(f"nibble {op}", lambda op=op: nds.aggregate(
+            op, engine="cuda-nibble"))
+        require(kernels.B6.launches == 1 and kernels.B4.launches == 0,
+                f"8a {op}: B6 did not launch once")
+        nib = nds.aggregate_device(op, engine="cuda-nibble")
+        require(same_device(nib, nds.aggregate_device(op, engine="cuda")),
+                f"8a {op}: cuda-nibble != cuda")
+        require(same_device(nib, nds.aggregate_device(op, engine="torch")),
+                f"8a {op}: cuda-nibble != torch")
+        require(got == unpack(nds.keys, *nib), f"8a {op}: unpack differs")
+        del nib
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (words, cards), dev_ms = device_ms(
+            lambda op=op: nds.aggregate_device(op, engine="cuda-nibble"))
+        peak = torch.cuda.max_memory_allocated() - base
+        t1 = time.perf_counter()
+        unpack(nds.keys, words, cards)
+        unpack_ms = (time.perf_counter() - t1) * 1e3
+        log(f"    {op}: cardinality {got.cardinality} (cuda-nibble == cuda "
+            f"== torch); device {dev_ms:.3f} ms, host unpack "
+            f"{unpack_ms:.3f} ms, transient peak {peak / 2**30:.2f} GiB "
+            f"(int64 counts scratch alone "
+            f"{(nds._n_groups + 1) * dense.NIBBLE_WORDS * 8 / 2**30:.2f} GiB)")
+    nsub = nbms[:HOST_CHECK_N]
+    t0 = time.perf_counter()
+    nhost = {op: host_fold(op, nsub) for op in ("or", "xor")}
+    log(f"  host folds of {len(nsub)} bitmaps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    nds_sub = DeviceBitmapSet(nsub, layout="compact")
+    for op in ("or", "xor"):
+        got = smoke.main_path(f"nibble[{len(nsub)}] {op}",
+                              lambda op=op: nds_sub.aggregate(
+                                  op, engine="cuda-nibble"))
+        require(got == nhost[op], f"8a {op} over {len(nsub)} != host fold")
+    log(f"    first {len(nsub)}: or/xor on cuda-nibble equal the host fold")
+    shapes["fused_nibble_reduce"] = nds
+    del nds_sub, nsub, nhost
+
+    # 8b: steady-state probes
+    reps = 8
+    probe_sets = (("dense", ds, ("or", "xor", "and"), ("cuda",)),
+                  ("counts", cds, ("or", "xor"), ("cuda",)),
+                  ("nibble compact", nds, ("or", "xor", "and"),
+                   ("cuda", "cuda-nibble")))
+    for label, pset, ops, engines in probe_sets:
+        for engine in engines:
+            for op in ops:
+                (words, cards), q_ms = device_ms(
+                    lambda: pset.aggregate_device(op, engine=engine))
+                card = int(cards.sum())
+                del words, cards
+                probes = [("chained_aggregate",
+                           pset.chained_aggregate(op, reps, engine=engine))]
+                if op == "or":
+                    probes.append(("chained_wide_or",
+                                   pset.chained_wide_or(reps, engine=engine)))
+                for name, fn in probes:
+                    total = int(smoke.main_path(
+                        f"{label} {engine} {name} {op} x{reps}", fn))
+                    require(total == (reps * card) % 2**32,
+                            f"{label} {engine} {name} {op}: total {total} "
+                            f"!= {reps} x {card} mod 2^32")
+                    _, p_ms = device_ms(fn)
+                    log(f"    {label} {engine} {name} {op}: total == "
+                        f"{reps} x {card} mod 2^32; {p_ms / reps:.3f} ms per "
+                        f"iteration, single query {q_ms:.3f} ms")
+
+    # 8c: range cardinality and DeviceBitmap on the dense set of phase 2
+    t0 = time.perf_counter()
+    u_host = ds.aggregate("or", engine="torch")
+    k1 = int(ds.keys[ds.keys.size // 3])
+    ranges = (((k1 << 16) + 12345, ((k1 + 3) << 16) + 54321),
+              (0, 1 << 32), (1 << 20, 1 << 20))
+    for a, b in ranges:
+        got = smoke.main_path(f"range [{a}, {b})", lambda a=a, b=b:
+                              ds.aggregate_range_cardinality("or", a, b))
+        want = u_host.range_cardinality(a, b)
+        require(got == want, f"range [{a}, {b}): {got} != host {want}")
+        log(f"    aggregate_range_cardinality('or', {a}, {b}) = {got} "
+            f"(host)")
+    comp = smoke.main_path("DeviceBitmap or - xor", lambda: (
+        DeviceBitmap.aggregate(ds, "or")
+        - DeviceBitmap.aggregate(xds, "xor")))
+    comp_host = comp.materialize()
+    want = u_host - xds.aggregate("xor", engine="torch")
+    require(comp_host == want, "DeviceBitmap or - xor != host difference")
+    require(comp.cardinality() == want.cardinality, "DeviceBitmap card")
+    members = comp_host.to_array()
+    half = 1 << 19
+    probes = np.concatenate([
+        rng.choice(members, half),
+        rng.integers(0, 1 << 32, half, dtype=np.uint64).astype(np.uint32)])
+    got = smoke.main_path("contains_batch x2^20",
+                          lambda: comp.contains_batch(probes))
+    want_in = np.isin(probes, members)
+    require(np.array_equal(got, want_in), "contains_batch != host")
+    spot = probes[::1024]
+    require(np.array_equal(want_in[::1024],
+                           [comp_host.contains(int(v)) for v in spot]),
+            "host contains != isin")
+    log(f"    DeviceBitmap or - xor: K {comp.keys.size}, cardinality "
+        f"{comp.cardinality()} (host difference); contains_batch of "
+        f"{probes.size} probes: {int(got.sum())} members (host); 8c took "
+        f"{time.perf_counter() - t0:.1f} s")
+    del comp, u_host
+
+    # 8d: pairwise over consecutive pairs of phase 2's bitmaps
+    pairs = list(zip(bms[0::2], bms[1::2]))
+    t0 = time.perf_counter()
+    and_host = np.array([(a & b).cardinality for a, b in pairs], np.int64)
+    card_a = np.array([a.cardinality for a, _ in pairs], np.int64)
+    card_b = np.array([b.cardinality for _, b in pairs], np.int64)
+    host_cards = {"and": and_host, "or": card_a + card_b - and_host,
+                  "xor": card_a + card_b - 2 * and_host,
+                  "andnot": card_a - and_host}
+    host_ops = {"or": lambda a, b: a | b, "and": lambda a, b: a & b,
+                "xor": lambda a, b: a ^ b, "andnot": lambda a, b: a - b}
+    head_pairs = pairs[:64]
+    host64 = {op: [f(a, b) for a, b in head_pairs]
+              for op, f in host_ops.items()}
+    log(f"  8d: host cards of {len(pairs)} pairs and results of the first "
+        f"{len(head_pairs)} in {time.perf_counter() - t0:.1f} s")
+    for layout in ("dense", "compact"):
+        ps = smoke.main_path(f"pair {layout} build",
+                             lambda layout=layout: DevicePairSet(
+                                 pairs, layout=layout))
+        log(f"    {layout}: aligned rows {ps._n_rows}, bytes "
+            f"{ps.hbm_bytes()}")
+        for op in host_ops:
+            got = smoke.main_path(f"pair {layout} {op} cards",
+                                  lambda op=op: ps.cardinalities(op))
+            require(np.array_equal(got, host_cards[op]),
+                    f"pair {layout} {op}: cardinalities != host")
+            _, q_ms = device_ms(lambda op=op: ps.pairwise_device(op))
+            fn = ps.chained_cardinality(op, 4)
+            total = int(smoke.main_path(f"pair {layout} chained {op} x4", fn))
+            require(total == (4 * int(got.sum())) % 2**32,
+                    f"pair {layout} chained {op}: {total}")
+            _, p_ms = device_ms(fn)
+            log(f"    {layout} {op}: cards == host, sum {int(got.sum())}; "
+                f"device {q_ms:.3f} ms per query, chained "
+                f"{p_ms / 4:.3f} ms per iteration")
+        sub = DevicePairSet(head_pairs, layout=layout)
+        for op in host_ops:
+            require(sub.pairwise(op) == host64[op],
+                    f"pair {layout} {op}: pairwise != host")
+        log(f"    {layout}: pairwise of the first {len(head_pairs)} pairs "
+            f"equals the host for or/and/xor/andnot")
+        del ps, sub
+    fn, _ = smoke.main_path("chained_pairwise_cardinality build", lambda:
+                            aggregation.chained_pairwise_cardinality(
+                                "xor", pairs, 4))
+    total = int(smoke.main_path("chained_pairwise_cardinality xor x4", fn))
+    require(total == (4 * int(host_cards["xor"].sum())) % 2**32,
+            f"chained_pairwise_cardinality xor: {total}")
+    log(f"    chained_pairwise_cardinality('xor', pairs, 4) = {total} "
+        f"== 4 x host sum mod 2^32")
+    del fn
+    phase_time("phase 8", t_phase)
+
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "
         "(tolerance: bit-exact, max_abs_err must be 0)")
@@ -530,6 +752,23 @@ def main() -> int:
            lambda: kernels.counts_segmented_reduce_plain("xor", c4, g4, k4),
            b4, int((en4 - st4).sum()) * 2048 * 40,
            f"groups {c4.shape[0]}, K {k4}")
+    # B6: fused nibble reduce at the 8a set's shape (or)
+    nds = shapes.pop("fused_nibble_reduce")
+    c6 = dense.nibble_counts_impl(*nds._streams[2:], nds._n_groups,
+                                  nds._total_values)
+    dp6 = dense.dense_partial_impl("or", nds._streams[0], nds._dseg,
+                                   *nds._dmeta, nds.keys.size)
+    g6, k6 = nds._grp_seg, nds.keys.size
+    del nds
+    st6, en6 = kernels.segment_ranges(g6, k6)
+    b6 = (row_bytes(st6, en6, 4 * 8192) + g6.numel() * 4
+          + k6 * 8192 + k6 * (8192 + 4))
+    record(kernels.B6,
+           lambda: kernels.fused_nibble_reduce("or", c6, dp6, g6, k6),
+           lambda: kernels.fused_nibble_reduce_plain("or", c6, dp6, g6, k6),
+           b6, int((en6 - st6).sum()) * 2048 * 40,
+           f"groups {c6.shape[0]}, K {k6}")
+    del c6, dp6
 
     # B5: the 7b plan, then a random stream over all 20 opcodes
     mega5, words5 = shapes["megakernel"]
@@ -554,7 +793,7 @@ def main() -> int:
         require(c > 0, f"kernel {name} was never launched on the main path")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows_out}))
-    print(card)
+    print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,11 +15,12 @@ explicit ``device="cpu"`` runs the plain PyTorch versions on the CPU.
 from .core.bitmap import RoaringBitmap, and_, andnot, or_, xor
 from .format.spec import InvalidRoaringFormat
 from .parallel import aggregation, batch_engine, expr, fast_aggregation
-from .parallel.aggregation import DeviceBitmapSet
+from .parallel.aggregation import DeviceBitmap, DeviceBitmapSet, DevicePairSet
 from .parallel.batch_engine import BatchEngine, BatchQuery, BatchResult
 from .parallel.expr import ExprQuery
 
 __all__ = ["RoaringBitmap", "InvalidRoaringFormat", "aggregation",
-           "batch_engine", "expr", "fast_aggregation", "DeviceBitmapSet",
+           "batch_engine", "expr", "fast_aggregation", "DeviceBitmap",
+           "DeviceBitmapSet", "DevicePairSet",
            "BatchEngine", "BatchQuery", "BatchResult", "ExprQuery", "and_",
            "andnot", "or_", "xor"]

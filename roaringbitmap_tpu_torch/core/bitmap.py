@@ -70,6 +70,19 @@ class RoaringBitmap:
             np.uint32(int(k) << 16) | c.values().astype(np.uint32)
             for k, c in zip(self.keys, self.containers)])
 
+    def contains(self, x: int) -> bool:
+        if not 0 <= x < (1 << 32):
+            return False
+        i = int(np.searchsorted(self.keys, x >> 16))
+        return (i < self.keys.size and int(self.keys[i]) == x >> 16
+                and bool(np.isin(x & 0xFFFF, self.containers[i].values())))
+
+    def range_cardinality(self, start: int, stop: int) -> int:
+        """Members in [start, stop) (RoaringBitmap.rangeCardinality)."""
+        a = self.to_array().astype(np.int64)
+        lo, hi = (min(max(v, 0), 1 << 32) for v in (start, stop))
+        return max(0, int(np.searchsorted(a, hi) - np.searchsorted(a, lo)))
+
     def __and__(self, o: "RoaringBitmap") -> "RoaringBitmap":
         return and_(self, o)
 

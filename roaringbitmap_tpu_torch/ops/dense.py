@@ -4,10 +4,11 @@ Containers live on the device as int32 views of u32[..., 2048] word rows
 (``ops.words``).  These functions are the plain versions of every device op
 on the wide-aggregation path, one twin for each function of
 ``roaringbitmap_tpu.ops.dense`` that the path uses, and they give the same
-bits.  ``regular_reduce_and``, ``densify_streams`` and ``build_group_counts``
-stay plain PyTorch on the main path, as the JAX package runs them in XLA; the
-rest are the references the hand-written kernels (``ops.kernels``) are
-held against.
+bits.  ``pairwise``, ``regular_reduce_and``, ``range_cardinality``,
+``densify_streams``, ``build_group_counts``, ``nibble_counts_impl`` and
+``dense_partial_impl`` stay plain PyTorch on the main path, as the JAX
+package runs them in XLA; the rest are the references the hand-written
+kernels (``ops.kernels``) are held against.
 
 Scatter-adds that build words from distinct bits or nibble counts accumulate
 in int64 and fold to the int32 view explicitly (``words.fold_u32``), so no
@@ -21,11 +22,12 @@ import torch
 from .words import WORDS32, fold_u32, popcount, srl
 
 __all__ = [
-    "OPS", "WORDS32", "NIBBLE_GROUP", "NIBBLE_WORDS", "popcount",
-    "doubling_pass", "segmented_reduce", "regular_reduce_and", "n_steps_for",
-    "densify_streams", "densify_streams_impl", "nibble_counts_impl",
-    "spread_bits_to_nibbles", "counts_tile_to_word", "counts_to_words",
-    "build_group_counts",
+    "OPS", "WORDS32", "NIBBLE_GROUP", "NIBBLE_WORDS", "popcount", "pairwise",
+    "doubling_pass", "segmented_reduce", "regular_reduce_and",
+    "range_cardinality", "n_steps_for", "densify_streams",
+    "densify_streams_impl", "nibble_counts_impl", "spread_bits_to_nibbles",
+    "counts_tile_to_word", "counts_to_words", "build_group_counts",
+    "dense_partial_impl",
 ]
 
 #: The bitwise op vocabulary of the wide path.
@@ -42,6 +44,14 @@ NIBBLE_GROUP = 8
 #: int32 count words per group: 2^16 bit positions x 4 bits, plane-major
 #: (plane j holds bits [8j, 8j+8) of every word).
 NIBBLE_WORDS = 4 * WORDS32
+
+
+def pairwise(op: str, a: torch.Tensor, b: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched pairwise container op with fused cardinality: aligned
+    int32[K, 2048] payloads -> (int32[K, 2048], int32[K])."""
+    out = OPS[op](a, b)
+    return out, popcount(out)
 
 
 def doubling_pass(fn, words: torch.Tensor, seg_ids: torch.Tensor,
@@ -90,6 +100,25 @@ def regular_reduce_and(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]
         x = y
     out = x[:, 0]
     return out, popcount(out)
+
+
+def range_cardinality(words: torch.Tensor, start: torch.Tensor,
+                      stop: torch.Tensor) -> torch.Tensor:
+    """Popcount of bits [start, stop) of each int32[..., 2048] container
+    image (start/stop broadcast against the leading axes, in [0, 2^16]).
+
+    Each word's mask is the ``n = hi - lo`` bits above bit ``lo``, built in
+    int64 so that n = 32 gives the all-ones word and nothing wraps, then
+    folded to the int32 view.  A reversed range (stop < start) is empty:
+    n is clamped at 0, where the JAX function's u32 cast of a negative n
+    counts the whole word."""
+    word_lo = torch.arange(WORDS32, dtype=torch.int64,
+                           device=words.device) * 32
+    lo = (start.long() - word_lo).clamp(0, 32)
+    hi = (stop.long() - word_lo).clamp(0, 32)
+    n = (hi - lo).clamp(min=0)
+    mask = ((1 << n) - 1) << lo                # n + lo <= 32: below 2^32
+    return popcount(words & fold_u32(mask), dim=-1)
 
 
 def n_steps_for(max_group: int) -> int:
@@ -204,3 +233,17 @@ def build_group_counts(dense_words, dense_dest, values, val_counts, val_dest,
         counts.index_add_(0, dense_dest.long() >> 3, spread)
         counts = counts.view(n_groups + 1, NIBBLE_WORDS)
     return fold_u32(counts)
+
+
+def dense_partial_impl(op: str, dense_words, dseg, head_idx, head_valid,
+                       n_steps: int, num_segments: int) -> torch.Tensor:
+    """Per-segment reduction of the dense-wire rows alone: int32[Md, 2048]
+    with sorted int32[Md] segment ids -> int32[K + 1, 2048].  A segment
+    with no dense rows (``head_valid`` False) gets a zero row; row K is the
+    scratch segment's."""
+    if dense_words.shape[0] == 0:
+        return torch.zeros((num_segments + 1, WORDS32), dtype=torch.int32,
+                           device=dense_words.device)
+    red = doubling_pass(OPS[op], dense_words, dseg, n_steps)
+    safe = head_idx.long().clamp(max=dense_words.shape[0] - 1)
+    return torch.where(head_valid[:, None], red[safe], 0)

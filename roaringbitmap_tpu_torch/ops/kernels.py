@@ -15,6 +15,7 @@ Each wrapper checks its tensors, then
 | B3     | ``densify_chunks``          | ``densify_chunks_impl`` / ``densify_chunks_pallas``    |
 | B4     | ``counts_segmented_reduce`` | ``counts_segmented_reduce``                            |
 | B5     | ``megakernel.raw_call``     | ``megakernel.py`` ``_kernel`` (via ``_raw_call``)      |
+| B6     | ``fused_nibble_reduce``     | ``fused_nibble_reduce``                                |
 
 Rows are int32 views of u32[2048] words (``ops.words``).  Segment ids are
 sorted; id K (``num_segments``) marks padding rows, which no segment reads.
@@ -86,7 +87,10 @@ B4 = CudaKernel("counts_segmented_reduce", "counts_reduce.cu",
 B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
                 [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                 "roaringbitmap_tpu/ops/megakernel.py:140")
-KERNELS = (B1, B2, B3, B4, B5)
+B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
+                [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+                "roaringbitmap_tpu/ops/kernels.py:170")
+KERNELS = (B1, B2, B3, B4, B5, B6)
 
 
 def reset_launches() -> None:
@@ -283,3 +287,49 @@ def counts_segmented_reduce(op: str, counts: torch.Tensor,
         return counts_segmented_reduce_plain(op, counts, grp_seg, num_segments)
     starts, ends = segment_ranges(grp_seg, num_segments)
     return _launch_rows(B4, op, counts, starts, ends, num_segments)
+
+
+# ------------------------------------------------ B6: fused nibble reduce
+
+def fused_nibble_reduce_plain(op: str, counts: torch.Tensor,
+                              dense_partial: torch.Tensor,
+                              grp_seg: torch.Tensor, num_segments: int):
+    """Plain version of B6: B4's plain version over the count groups, then
+    each segment's dense-row partial folded in with ``op``."""
+    heads, _ = counts_segmented_reduce_plain(op, counts, grp_seg,
+                                             num_segments)
+    heads = dense.OPS[op](heads, dense_partial[:num_segments])
+    return heads, popcount(heads)
+
+
+def fused_nibble_reduce(op: str, counts: torch.Tensor,
+                        dense_partial: torch.Tensor, grp_seg: torch.Tensor,
+                        num_segments: int):
+    """B6, the compact layout's fused wide OR/XOR: int32[G + 1, 4*2048]
+    plane-major nibble counts with sorted group segment ids int32[G + 1]
+    (the scratch group carries id K), and the per-segment dense-row
+    partials int32[K + 1, 2048] -> (int32[K, 2048], int32[K]).  Each
+    segment's words are its groups' count bits folded with ``op``, then
+    with its partial.  OR/XOR only, as in JAX."""
+    if op not in ("or", "xor"):
+        raise ValueError(f"fused nibble reduce supports or/xor only, "
+                         f"got {op!r}")
+    _check("counts", counts, 2, dense.NIBBLE_WORDS)
+    _check("dense_partial", dense_partial, 2, WORDS32)
+    _check("grp_seg", grp_seg, 1)
+    if grp_seg.shape[0] != counts.shape[0]:
+        raise ValueError("grp_seg must hold one id per count group")
+    if dense_partial.shape[0] != num_segments + 1:
+        raise ValueError("dense_partial must hold K + 1 rows")
+    if not _on_cuda(counts, dense_partial, grp_seg):
+        return fused_nibble_reduce_plain(op, counts, dense_partial, grp_seg,
+                                         num_segments)
+    starts, ends = segment_ranges(grp_seg, num_segments)
+    heads = torch.empty((num_segments, WORDS32), dtype=torch.int32,
+                        device=counts.device)
+    cards = torch.zeros(num_segments, dtype=torch.int32, device=counts.device)
+    if num_segments:
+        B6.launch(counts.data_ptr(), dense_partial.data_ptr(),
+                  starts.data_ptr(), ends.data_ptr(), heads.data_ptr(),
+                  cards.data_ptr(), num_segments, _OPCODE[op], _stream())
+    return heads, cards

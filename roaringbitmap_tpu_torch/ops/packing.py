@@ -484,6 +484,55 @@ def key_presence_masks(bitmaps: list[RoaringBitmap]) -> np.ndarray:
     return masks
 
 
+@dataclass
+class PackedPairwiseCompact:
+    """P bitmap pairs aligned on per-pair key unions, as one compact stream
+    per operand side (the device densifies each into an aligned image).
+    Zero rows are the identity of or/xor/andnot and annihilate for and, so
+    one alignment serves all four ops."""
+
+    keys: np.ndarray          # u16[M] per-pair union keys, concatenated
+    heads: np.ndarray         # i64[P+1] row bounds of each pair's segment
+    m: int                    # true row count
+    n_rows: int               # padded row count (>= m; padding rows zero)
+    a_streams: CompactStreams
+    b_streams: CompactStreams
+
+
+def pack_pairwise(pairs, pad_rows: bool = True) -> PackedPairwiseCompact:
+    """Align each pair's containers on its key union and emit one compact
+    stream per side.  Operands may mix RoaringBitmaps, SerializedViews and
+    raw serialized bytes; byte-backed ones stream off the wire layout.
+    This is the JAX package's NumPy path; its native C++ fast path for
+    pure-bytes pairs is not ported."""
+    a_srcs = [v if (v := _as_view(a)) is not None else a for a, _ in pairs]
+    b_srcs = [v if (v := _as_view(b)) is not None else b for _, b in pairs]
+    a_keys = [_keys_of(s) for s in a_srcs]
+    b_keys = [_keys_of(s) for s in b_srcs]
+    key_sets = [np.union1d(ka, kb) for ka, kb in zip(a_keys, b_keys)]
+    heads = np.concatenate(
+        ([0], np.cumsum([k.size for k in key_sets]))).astype(np.int64)
+    m = int(heads[-1])
+    n_rows = next_pow2(m) if pad_rows else m
+
+    def side(srcs, src_keys):
+        if srcs:
+            dest = np.concatenate(
+                [heads[p] + np.searchsorted(key_sets[p], k)
+                 for p, k in enumerate(src_keys)])
+        else:
+            dest = np.empty(0, np.int64)
+        # each source's containers already come in destination order
+        return _emit_container_streams(srcs, np.arange(dest.size), dest,
+                                       n_rows)
+
+    keys = (np.concatenate(key_sets) if key_sets
+            else np.empty(0, np.uint16))
+    return PackedPairwiseCompact(
+        keys=keys, heads=heads, m=m, n_rows=n_rows,
+        a_streams=side(a_srcs, a_keys), b_streams=side(b_srcs, b_keys))
+
+
 def unpack_result(keys: np.ndarray, words: np.ndarray,
                   cards: np.ndarray) -> RoaringBitmap:
     """Dense result (u32[K, 2048] words, [K] cards) -> host bitmap,

@@ -1,9 +1,10 @@
 from . import aggregation, batch_engine, expr, fast_aggregation
-from .aggregation import DeviceBitmapSet
+from .aggregation import DeviceBitmap, DeviceBitmapSet, DevicePairSet
 from .batch_engine import (BatchEngine, BatchQuery, BatchResult,
                            random_query_pool)
 from .expr import ExprQuery, random_expr_pool
 
 __all__ = ["aggregation", "batch_engine", "expr", "fast_aggregation",
-           "DeviceBitmapSet", "BatchEngine", "BatchQuery", "BatchResult",
+           "DeviceBitmap", "DeviceBitmapSet", "DevicePairSet",
+           "BatchEngine", "BatchQuery", "BatchResult",
            "ExprQuery", "random_query_pool", "random_expr_pool"]

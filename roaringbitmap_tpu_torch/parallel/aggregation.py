@@ -13,13 +13,26 @@ cardinalities.  The plan is the JAX package's:
 
 Engines: ``"cuda"`` runs the hand-written kernels, ``"torch"`` their plain
 PyTorch versions; ``"auto"`` means ``"cuda"`` for a CUDA device and
-``"torch"`` for the CPU.  ``device=None`` means ``"cuda"``: only a caller who
-passes ``device="cpu"`` gets the CPU, and without a card the call raises.
-The wide AND (key intersection, then one regular [K, N, 2048] AND-reduce)
-is plain PyTorch on both engines, as it was XLA in the JAX package.
+``"torch"`` for the CPU.  Resident sets also take ``"cuda-nibble"`` (the JAX
+package's ``"pallas-nibble"``): on the compact layout it runs the fused
+nibble reduce (B6), on the counts layout the counts reduce (B4), and on the
+dense layout it means ``"cuda"``.  ``device=None`` means ``"cuda"``: only a
+caller who passes ``device="cpu"`` gets the CPU, and without a card the call
+raises.  The wide AND (key intersection, then one regular [K, N, 2048]
+AND-reduce) is plain PyTorch on every engine, as it was XLA in the JAX
+package, and so are the batched pairwise ops and ``DeviceBitmap``'s
+composition (one fused XLA op + popcount there, with no Pallas kernel).
+
+The steady-state probes (``chained_wide_or``, ``chained_aggregate``,
+``DevicePairSet.chained_cardinality``) return a callable that runs ``reps``
+dependent queries and returns a 0-d device tensor: the summed cardinality
+modulo 2^32, accumulated in int64 on the device with no host
+synchronization inside the loop.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -30,18 +43,20 @@ from ..ops import dense, kernels, packing
 from ..ops.words import WORDS32, as_i32, resolve_device, to_u32
 
 ENGINES = ("cuda", "torch")
+#: resident sets also take the nibble engine
+SET_ENGINES = ENGINES + ("cuda-nibble",)
 
 #: Blocked-layout rows per block for ad-hoc (non-resident) calls; resident
 #: sets pick theirs with packing.choose_block.
 BLOCK = 8
 
 
-def _engine(engine: str, device: torch.device) -> str:
+def _engine(engine: str, device: torch.device, allowed=ENGINES) -> str:
     if engine == "auto":
         return "cuda" if device.type == "cuda" else "torch"
-    if engine not in ENGINES:
+    if engine not in allowed:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
-                         f"{('auto',) + ENGINES}")
+                         f"{('auto',) + allowed}")
     return engine
 
 
@@ -187,6 +202,162 @@ def and_cardinality(*bitmaps: RoaringBitmap, device=None) -> int:
     return 0 if res is None else int(res[2].sum())
 
 
+# ---------------------------------------------------------- batched pairwise
+#
+# P pairs aligned on their per-pair key unions, both sides densified on the
+# device, then one elementwise op + popcount (``dense.pairwise``).  The JAX
+# package runs this as one XLA fusion and has no Pallas kernel for it, so it
+# stays plain PyTorch here.  ``engine`` is checked and both engines run the
+# same ops.
+
+def _check_pair_op(op: str) -> None:
+    if op not in dense.OPS:
+        raise ValueError(f"unsupported pairwise op {op!r}")
+
+
+def _densify_side(s: packing.CompactStreams, n_rows: int, device):
+    """One operand side's compact streams -> int32[n_rows, 2048] on the
+    device.  Eager PyTorch does not recompile per shape, so the streams are
+    not padded to powers of two as in JAX."""
+    return dense.densify_streams(*_device_streams(s, device), n_rows,
+                                 s.total_values)
+
+
+def _unpack_pairs(keys: np.ndarray, heads: np.ndarray, words: torch.Tensor,
+                  cards: torch.Tensor) -> list[RoaringBitmap]:
+    """Device pairwise result -> one host bitmap per pair (heads bounds)."""
+    words, cards = to_u32(words), cards.cpu().numpy()
+    return [packing.unpack_result(keys[lo:hi], words[lo:hi], cards[lo:hi])
+            for lo, hi in zip(heads[:-1], heads[1:])]
+
+
+def _per_pair_cards(cards: torch.Tensor, heads: np.ndarray) -> np.ndarray:
+    """Per-row device cards -> int64[P] per-pair sums over the heads
+    bounds."""
+    csum = np.concatenate(([0], np.cumsum(cards.cpu().numpy(),
+                                          dtype=np.int64)))
+    return csum[heads[1:]] - csum[heads[:-1]]
+
+
+def pairwise_device(op: str, pairs, engine: str = "auto", device=None):
+    """Batched pairwise op on P bitmap pairs -> (int32[M, 2048] words,
+    int32[M] cards, the pack) on the device, M the aligned rows."""
+    _check_pair_op(op)
+    dev = resolve_device(device)
+    _engine(engine, dev)
+    packed = packing.pack_pairwise(list(pairs), pad_rows=False)
+    a = _densify_side(packed.a_streams, packed.n_rows, dev)
+    b = _densify_side(packed.b_streams, packed.n_rows, dev)
+    words, cards = dense.pairwise(op, a, b)
+    return words, cards, packed
+
+
+def pairwise(op: str, pairs, engine: str = "auto",
+             device=None) -> list[RoaringBitmap]:
+    """[a_i op b_i for each pair], op one of or/and/xor/andnot."""
+    words, cards, packed = pairwise_device(op, pairs, engine, device)
+    return _unpack_pairs(packed.keys, packed.heads, words, cards)
+
+
+def pairwise_cardinality(op: str, pairs, engine: str = "auto",
+                         device=None) -> np.ndarray:
+    """int64[P] result cardinalities only: P scalars leave the device."""
+    _, cards, packed = pairwise_device(op, pairs, engine, device)
+    return _per_pair_cards(cards, packed.heads)
+
+
+def chained_pairwise_cardinality(op: str, pairs, reps: int,
+                                 engine: str = "auto", device=None):
+    """Steady-state probe of the batched pairwise op over a resident dense
+    pair set: (callable -> summed cardinality over reps mod 2^32 as a 0-d
+    device tensor, the pack)."""
+    ps = DevicePairSet(list(pairs), layout="dense", device=device)
+    return ps.chained_cardinality(op, reps, engine), ps._packed
+
+
+class DevicePairSet:
+    """P bitmap pairs aligned once and kept resident for repeated pairwise
+    queries.
+
+    layout:
+      - "dense" (default): both aligned int32[rows, 2048] images resident;
+      - "compact": only the compact streams resident; every query
+        densifies both sides on the device.
+    """
+
+    def __init__(self, pairs: list, layout: str = "dense", device=None):
+        if layout not in ("dense", "compact"):
+            raise ValueError(f"unknown layout {layout!r}")
+        dev = resolve_device(device)
+        self.device, self.layout = dev, layout
+        p = packing.pack_pairwise(list(pairs), pad_rows=False)
+        self._packed = p
+        self.keys, self.heads = p.keys, p.heads
+        self.n_pairs = int(p.heads.size) - 1
+        self._n_rows = p.n_rows
+        self._a = (_device_streams(p.a_streams, dev), p.a_streams.total_values)
+        self._b = (_device_streams(p.b_streams, dev), p.b_streams.total_values)
+        self.a_words = self.b_words = None
+        if layout == "dense":
+            self.a_words, self.b_words = self._densify()
+            # the images are the resident form: drop the device streams and
+            # the pack's host streams
+            self._a = self._b = None
+            p.a_streams = p.b_streams = None
+
+    def _densify(self):
+        return tuple(dense.densify_streams(*s, self._n_rows, nv)
+                     for s, nv in (self._a, self._b))
+
+    def _sides(self):
+        if self.a_words is not None:
+            return self.a_words, self.b_words
+        return self._densify()
+
+    def pairwise_device(self, op: str, engine: str = "auto"):
+        """(int32[M, 2048] result words, int32[M] cards) on the device."""
+        _check_pair_op(op)
+        _engine(engine, self.device)
+        return dense.pairwise(op, *self._sides())
+
+    def cardinalities(self, op: str, engine: str = "auto") -> np.ndarray:
+        """int64[P] per-pair result cardinalities."""
+        return _per_pair_cards(self.pairwise_device(op, engine)[1],
+                               self.heads)
+
+    def pairwise(self, op: str, engine: str = "auto") -> list[RoaringBitmap]:
+        """[a_i op b_i], materialized to host bitmaps."""
+        words, cards = self.pairwise_device(op, engine)
+        return _unpack_pairs(self.keys, self.heads, words, cards)
+
+    def chained_cardinality(self, op: str, reps: int, engine: str = "auto"):
+        """A callable running ``reps`` pairwise queries in turn, each summing
+        its cards into an int64 device total; returns the total mod 2^32 as
+        a 0-d device tensor.  The compact layout densifies both sides every
+        iteration: that is its per-query cost.  Eager PyTorch does not hoist
+        or elide a repeated call, so JAX's optimization_barrier has no
+        counterpart here."""
+        _check_pair_op(op)
+        _engine(engine, self.device)
+
+        def run():
+            total = torch.zeros((), dtype=torch.int64, device=self.device)
+            for _ in range(reps):
+                cards = dense.pairwise(op, *self._sides())[1]
+                total += cards.sum(dtype=torch.int64)
+            return total % (1 << 32)
+
+        return run
+
+    def hbm_bytes(self) -> int:
+        """Device bytes the pair set keeps resident."""
+        if self.a_words is not None:
+            parts = (self.a_words, self.b_words)
+        else:
+            parts = self._a[0] + self._b[0]
+        return sum(t.numel() * t.element_size() for t in parts)
+
+
 # ---------------------------------------------------------- resident sets
 
 #: state arrays each layout needs (DeviceBitmapSet.from_numpy_state)
@@ -212,7 +383,10 @@ class DeviceBitmapSet:
       - "counts": per-group 4-bit occurrence counts (half the dense image)
         plus the compact streams; or/xor run one pass off the counts (B4).
       - "compact": only the compact streams and the chunked value stream;
-        every query rebuilds the image (B3) and then reduces it (B2).
+        every query rebuilds the image (B3) and then reduces it (B2), or,
+        under ``"cuda-nibble"``, builds the value stream's nibble counts
+        and the dense-wire rows' per-segment partials and folds both in
+        one pass (B6), with no row image.
       - "auto" (default): ``insights.choose_layout`` picks counts for the
         inflation-heavy mostly-singleton shape, dense otherwise.
     """
@@ -246,7 +420,8 @@ class DeviceBitmapSet:
         state = {"keys": packed.keys, "n": len(bitmaps),
                  "block": packed.block, "blk_seg": packed.blk_seg,
                  "n_blocks": packed.n_blocks, "seg_sizes": packed.seg_sizes,
-                 "seg_offsets": packed.seg_offsets, "row_src": packed.row_src}
+                 "seg_offsets": packed.seg_offsets, "row_src": packed.row_src,
+                 "carry_row": packed.carry_row}
         state.update(dense_words=s.dense_words, dense_dest=s.dense_dest,
                      values=s.values, val_counts=s.val_counts,
                      val_dest=s.val_dest)
@@ -270,9 +445,13 @@ class DeviceBitmapSet:
 
         and optionally ``row_src`` (the JAX set's ``_packed.row_src``: the
         source bitmap of each row), which ``host_bitmaps`` and the batch
-        engine need.  The layout follows from which arrays are present.  The
-        set then answers the same queries as the set the arrays came
-        from."""
+        engine need, and ``carry_row`` (``_packed.carry_row``, the spare
+        segment-0 row the compact probe writes its carry to; by default
+        ``seg_sizes[0]``, where the packer puts it).  The dense-wire rows
+        may come in any order (the JAX native ingest does not sort them);
+        the compact and counts layouts sort them by destination row.  The
+        layout follows from which arrays are present.  The set then answers
+        the same queries as the set the arrays came from."""
         dev = resolve_device(device)
         layout = next((name for name, need in _STATE_LAYOUT.items()
                        if need[0] in state), None)
@@ -308,6 +487,9 @@ class DeviceBitmapSet:
             blk_seg, self.block, int(state["n_blocks"]), k)
         self.seg_ids = as_i32(seg_rows, dev)
         self.head_idx = as_i32(head_idx, dev)
+        #: a spare zero row of segment 0: the compact probe's carry slot
+        self.carry_row = int(state.get(
+            "carry_row", self._seg_sizes[0] if k else -1))
         self.words = self.counts = self._chunks = self._streams = None
         if "values" in state:
             s = packing.CompactStreams(
@@ -317,6 +499,9 @@ class DeviceBitmapSet:
                 values=np.asarray(state["values"]),
                 val_counts=np.asarray(state["val_counts"], np.int32),
                 val_dest=np.asarray(state["val_dest"], np.int32))
+            if layout != "dense":
+                s = _sort_dense_stream(s)
+                self._compact_meta(s, blk_seg, dev)
             self._streams = _device_streams(s, dev)
             self._total_values = s.total_values
         if layout == "dense":
@@ -331,6 +516,39 @@ class DeviceBitmapSet:
                             as_i32(np.asarray(state["chunk_row"]), dev))
         if layout == "counts":
             self._load_counts(state, k, dev)
+
+    def _compact_meta(self, s: packing.CompactStreams, blk_seg: np.ndarray,
+                      dev: torch.device) -> None:
+        """Metadata of the fused compact reduce (B6): the count groups'
+        segment ids (the scratch group last, under id K), and the dense-wire
+        rows' segment ids with their head maps, plain and with the compact
+        probe's carry row prepended as a segment-0 row."""
+        k = self.keys.size
+        n_groups = s.n_rows // dense.NIBBLE_GROUP
+        grp_seg = np.full(n_groups + 1, k, dtype=np.int32)
+        grp_seg[:n_groups] = np.repeat(blk_seg,
+                                       self.block // dense.NIBBLE_GROUP)
+        self._n_groups = n_groups
+        self._grp_seg = as_i32(grp_seg, dev)
+        dseg = blk_seg[s.dense_dest // self.block].astype(np.int32)
+
+        def head_maps(seg_ids: np.ndarray):
+            """(head_idx int32[K+1], valid bool[K+1], n_steps) over sorted
+            per-dense-row segment ids; row K is the scratch segment."""
+            head = np.searchsorted(seg_ids, np.arange(k + 1)).astype(np.int32)
+            safe = np.minimum(head, max(seg_ids.size - 1, 0))
+            valid = ((head < seg_ids.size) & (seg_ids[safe] == np.arange(k + 1))
+                     if seg_ids.size else np.zeros(k + 1, bool))
+            sizes = np.diff(np.append(head, seg_ids.size))
+            n_steps = dense.n_steps_for(int(sizes.max()) if k else 0)
+            return (as_i32(head, dev), torch.from_numpy(valid).to(dev),
+                    n_steps)
+
+        self._dseg = as_i32(dseg, dev)
+        self._dmeta = head_maps(dseg)
+        dseg_c = np.concatenate(([np.int32(0)], dseg))
+        self._dseg_carry = as_i32(dseg_c, dev)
+        self._dmeta_carry = head_maps(dseg_c)
 
     def _load_counts(self, state: dict, k: int, dev: torch.device) -> None:
         """Counts layout: the resident counts (built once from the streams
@@ -360,13 +578,23 @@ class DeviceBitmapSet:
         self._counts_head = as_i32(head_g, dev)
         self._counts_steps = dense.n_steps_for(int(sizes_g.max()) if k else 0)
 
+    def _select_engine(self, engine: str) -> str:
+        """Resolve ``engine`` for this set.  ``"cuda-nibble"`` exists only
+        for the stream layouts: on the dense layout it means ``"cuda"``.
+        The JAX package's shared-memory guards (demotions to "xla" past
+        SMEM_PREFETCH_MAX) have no counterpart on the card."""
+        eng = _engine(engine, self.device, SET_ENGINES)
+        if eng == "cuda-nibble" and self.words is not None:
+            eng = "cuda"
+        return eng
+
     def _resident_words(self, eng: str) -> torch.Tensor:
         """The dense image: resident (dense layout) or rebuilt on the device,
-        by the chunk kernel (B3) under "cuda" or the plain scatter under
-        "torch"."""
+        by the chunk kernel (B3) on the kernel engines or the plain scatter
+        under "torch".  A rebuilt image is the caller's to write."""
         if self.words is not None:
             return self.words
-        if eng == "cuda" and self._chunks is not None:
+        if eng != "torch" and self._chunks is not None:
             words = kernels.densify_chunks(*self._chunks, self._n_rows)
             dense_words, dense_dest = self._streams[0], self._streams[1]
             if dense_words.shape[0]:
@@ -375,6 +603,47 @@ class DeviceBitmapSet:
         return dense.densify_streams(*self._streams, self._n_rows,
                                      self._total_values)
 
+    def _reduce_words(self, op: str, words: torch.Tensor, eng: str):
+        """Wide or/xor over a blocked row image: B2, or the doubling pass
+        under "torch"."""
+        if eng == "torch":
+            return dense.segmented_reduce(op, words, self.seg_ids,
+                                          self.head_idx, self.n_steps)
+        return kernels.segmented_reduce_blocked(op, words, self.blk_seg,
+                                                self.keys.size, self.block)
+
+    def _counts_reduce(self, op: str, eng: str):
+        """Wide or/xor off the resident counts: B4, or per-group words and
+        the group-level doubling pass under "torch"."""
+        k = self.keys.size
+        if eng != "torch":
+            return kernels.counts_segmented_reduce(
+                op, self.counts, self._grp_seg_counts, k)
+        g = self.counts.shape[0]
+        words_g = dense.counts_to_words(self.counts.view(g, 4, WORDS32), op)
+        return dense.segmented_reduce(op, words_g, self._grp_seg_counts,
+                                      self._counts_head, self._counts_steps)
+
+    def _fused_compact(self, op: str, carry: torch.Tensor | None = None):
+        """One fused compact-layout wide or/xor (B6).  ``carry`` is the
+        write-back probe's loop-carried row, prepended as a segment-0 dense
+        row."""
+        dense_words = self._streams[0]
+        dseg, meta = self._dseg, self._dmeta
+        if carry is not None:
+            dense_words = torch.cat([carry[None], dense_words])
+            dseg, meta = self._dseg_carry, self._dmeta_carry
+        return _fused_compact_run(
+            op, dense_words, *self._streams[2:], self._grp_seg, dseg, *meta,
+            self._n_groups, self._total_values, self.keys.size)
+
+    def _aggregate_or_xor(self, op: str, eng: str):
+        if self.counts is not None:
+            return self._counts_reduce(op, eng)
+        if self.words is None and eng == "cuda-nibble":
+            return self._fused_compact(op)
+        return self._reduce_words(op, self._resident_words(eng), eng)
+
     def aggregate_device(self, op: str, engine: str = "auto"):
         """Run the wide op; returns device (words int32[K, 2048], cards
         int32[K]).
@@ -382,31 +651,18 @@ class DeviceBitmapSet:
         or/xor: segmented reduce over the resident layout.  and: only keys
         present in every bitmap can survive (segments with exactly n rows),
         so their rows are gathered from the image and AND-reduced as a
-        regular block; the other keys get zero rows."""
-        eng = _engine(engine, self.device)
+        regular block; the other keys get zero rows.  The AND is plain
+        PyTorch on every engine; ``"cuda-nibble"`` rebuilds a stream
+        layout's image as ``"cuda"`` does."""
+        eng = self._select_engine(engine)
         if op == "and":
-            return self._and_device(eng)
+            return self._and_words(self._resident_words(eng))
         if op not in ("or", "xor"):
             raise ValueError(f"unsupported wide op {op!r}")
-        k = self.keys.size
-        if self.counts is not None:
-            if eng == "cuda":
-                return kernels.counts_segmented_reduce(
-                    op, self.counts, self._grp_seg_counts, k)
-            g = self.counts.shape[0]
-            words_g = dense.counts_to_words(
-                self.counts.view(g, 4, WORDS32), op)
-            return dense.segmented_reduce(
-                op, words_g, self._grp_seg_counts, self._counts_head,
-                self._counts_steps)
-        words = self._resident_words(eng)
-        if eng == "cuda":
-            return kernels.segmented_reduce_blocked(
-                op, words, self.blk_seg, k, self.block)
-        return dense.segmented_reduce(op, words, self.seg_ids, self.head_idx,
-                                      self.n_steps)
+        return self._aggregate_or_xor(op, eng)
 
-    def _and_device(self, eng: str):
+    def _and_words(self, image: torch.Tensor):
+        """The wide AND over a blocked row image."""
         k = self.keys.size
         words = torch.zeros((k, WORDS32), dtype=torch.int32, device=self.device)
         cards = torch.zeros(k, dtype=torch.int32, device=self.device)
@@ -414,8 +670,7 @@ class DeviceBitmapSet:
         if full.size == 0:
             return words, cards
         rows = (self._seg_offsets[full][:, None] + np.arange(self.n)).ravel()
-        block = self._resident_words(eng)[
-            torch.from_numpy(rows.astype(np.int64)).to(self.device)]
+        block = image[torch.from_numpy(rows.astype(np.int64)).to(self.device)]
         sub_words, sub_cards = dense.regular_reduce_and(
             block.view(full.size, self.n, WORDS32))
         idx = torch.from_numpy(full).to(self.device)
@@ -426,6 +681,104 @@ class DeviceBitmapSet:
     def aggregate(self, op: str, engine: str = "auto") -> RoaringBitmap:
         words, cards = self.aggregate_device(op, engine)
         return _unpack(self.keys, words, cards)
+
+    def aggregate_range_cardinality(self, op: str, start: int, stop: int,
+                                    engine: str = "auto") -> int:
+        """Cardinality of the wide aggregate within values [start, stop)
+        (RoaringBitmap.rangeCardinality applied to the aggregate): masked
+        popcount on the device, one scalar to the host."""
+        heads, _ = self.aggregate_device(op, engine)
+        return _device_range_cardinality(self.keys, heads, start, stop)
+
+    # ----------------------------------------------------- steady-state probes
+    #
+    # Each probe returns a callable that runs ``reps`` dependent queries and
+    # returns the summed cardinality mod 2^32 as a 0-d device tensor (int64
+    # accumulation on the device, no host synchronization in the loop);
+    # callers check it against (reps * cardinality) % 2^32.  PyTorch runs
+    # eagerly and never hoists, caches or elides a repeated call, so the JAX
+    # package's optimization_barrier has no counterpart: every iteration
+    # runs the whole query.  The callable takes an optional ``words``
+    # argument (the dense image to run over; counts and compact ignore it).
+
+    def chained_wide_or(self, reps: int, engine: str = "auto"):
+        """``reps`` dependent wide ORs.  Each iteration writes the union's
+        first per-key row back into a segment-0 input row: idempotent for
+        OR, but a true data dependence between iterations.  On the dense
+        layout that row is row 0, written in place and restored after the
+        loop (no copy of the image); on the compact layout it is the
+        reserved zero row of segment 0 in each rebuilt image, or, under
+        ``"cuda-nibble"``, a dense row prepended to segment 0.  The counts
+        layout delegates to ``chained_aggregate`` (counts are not
+        idempotent under a write-back)."""
+        eng = self._select_engine(engine)
+        if self.layout == "dense":
+            def run(words=None):
+                words = self.words if words is None else words
+                saved = words[0].clone()
+                total = self._zero_total()
+                try:
+                    for _ in range(reps):
+                        heads, cards = self._reduce_words("or", words, eng)
+                        words[0] = heads[0]
+                        total += cards.sum(dtype=torch.int64)
+                finally:
+                    words[0] = saved
+                return total % (1 << 32)
+
+            return run
+        if self.counts is not None:
+            return self.chained_aggregate("or", reps, engine)
+        return self._chained_compact(reps, eng)
+
+    def chained_aggregate(self, op: str, reps: int, engine: str = "auto"):
+        """``reps`` wide ops (or/xor/and) in turn, each over the resident
+        layout: the dense image, the counts, or, on the compact layout, an
+        image rebuilt every iteration (or, under ``"cuda-nibble"``, the
+        fused B6 query), since that rebuild is the query's cost."""
+        if op not in ("or", "xor", "and"):
+            raise ValueError(f"unsupported chained op {op!r}")
+        eng = self._select_engine(engine)
+
+        def query(words):
+            if op == "and":
+                return self._and_words(self._resident_words(eng)
+                                       if words is None else words)[1]
+            if words is None:
+                return self._aggregate_or_xor(op, eng)[1]
+            return self._reduce_words(op, words, eng)[1]
+
+        def run(words=None):
+            if self.layout != "dense":
+                words = None
+            total = self._zero_total()
+            for _ in range(reps):
+                total += query(words).sum(dtype=torch.int64)
+            return total % (1 << 32)
+
+        return run
+
+    def _chained_compact(self, reps: int, eng: str):
+        """chained_wide_or on the compact layout: every iteration rebuilds
+        from the streams with the carry row threaded through."""
+        def run(_words_unused=None):
+            carry = torch.zeros(WORDS32, dtype=torch.int32, device=self.device)
+            total = self._zero_total()
+            for _ in range(reps):
+                if eng == "cuda-nibble":
+                    heads, cards = self._fused_compact("or", carry=carry)
+                else:
+                    words = self._resident_words(eng)
+                    words[self.carry_row] = carry
+                    heads, cards = self._reduce_words("or", words, eng)
+                carry = heads[0]
+                total += cards.sum(dtype=torch.int64)
+            return total % (1 << 32)
+
+        return run
+
+    def _zero_total(self) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.int64, device=self.device)
 
     def host_bitmaps(self) -> list[RoaringBitmap]:
         """Host copies of the source bitmaps, rebuilt from the resident rows
@@ -453,5 +806,185 @@ class DeviceBitmapSet:
         """Device bytes the set keeps resident."""
         parts = [self.blk_seg, self.seg_ids, self.head_idx, self.words,
                  self.counts, *(self._streams or ()), *(self._chunks or ())]
+        if self.words is None:   # the fused compact reduce's metadata
+            parts += [self._grp_seg, self._dseg, self._dseg_carry,
+                      *self._dmeta[:2], *self._dmeta_carry[:2]]
         return sum(t.numel() * t.element_size() for t in parts
                    if t is not None)
+
+
+def _sort_dense_stream(s: packing.CompactStreams) -> packing.CompactStreams:
+    """The dense-wire rows reordered by destination row, so that their
+    segment ids ascend (the partial's doubling pass needs sorted segments;
+    the NumPy packer emits them sorted, the JAX native ingest may not).
+    Returns a copy when it reorders."""
+    if s.dense_dest.size and np.any(np.diff(s.dense_dest) < 0):
+        order = np.argsort(s.dense_dest, kind="stable")
+        s = dataclasses.replace(s, dense_words=s.dense_words[order],
+                                dense_dest=s.dense_dest[order])
+    return s
+
+
+def _fused_compact_run(op: str, dense_words, values, val_counts, val_dest,
+                       grp_seg, dseg, head, valid, steps: int, n_groups: int,
+                       total_values: int, k: int):
+    """The compact layout's fused query: the value stream's nibble counts
+    (int64 scatter-add, plain PyTorch as XLA in JAX), the dense-wire rows'
+    per-segment partial, then B6."""
+    counts = dense.nibble_counts_impl(values, val_counts, val_dest, n_groups,
+                                      total_values)
+    dp = dense.dense_partial_impl(op, dense_words, dseg, head, valid, steps,
+                                  k)
+    return kernels.fused_nibble_reduce(op, counts, dp, grp_seg, k)
+
+
+def _device_range_cardinality(keys: np.ndarray, words: torch.Tensor,
+                              start: int, stop: int) -> int:
+    """Bits of a device int32[K, 2048] image within values [start, stop):
+    per-key bounds clamped on the host in Python ints (a u64-tier key base
+    passes int64), masked popcount on the device, one scalar back."""
+    bases = [int(k) << 16 for k in keys]
+    lo = np.array([min(max(start - kb, 0), 1 << 16) for kb in bases],
+                  np.int32).reshape(-1, 1)
+    hi = np.array([min(max(stop - kb, 0), 1 << 16) for kb in bases],
+                  np.int32).reshape(-1, 1)
+    dev = words.device
+    return int(dense.range_cardinality(words, as_i32(lo, dev),
+                                       as_i32(hi, dev)).sum())
+
+
+# ----------------------------------------------------- device query plans
+
+class DeviceBitmap:
+    """A bitmap on the device: host key index + int32[K, 2048] image.
+
+    Results of wide aggregates stay on the device and compose (and / or /
+    xor / andnot) without a host round trip; only ``materialize`` and the
+    cardinality calls move data to the host (the latter one scalar).  Key
+    alignment of two operands runs on the host (keys are a few hundred
+    u16s), the word algebra on the device: both operands are scattered into
+    the union key space (zero rows are the identity of or/xor/andnot and
+    annihilate for and), then one elementwise op + popcount.
+    """
+
+    def __init__(self, keys: np.ndarray, words: torch.Tensor,
+                 cards: torch.Tensor | None = None):
+        self.keys = np.asarray(keys)
+        self.words = words              # int32[K, 2048] on the device
+        self._cards = cards             # int32[K] on the device, or None
+
+    @staticmethod
+    def aggregate(ds: DeviceBitmapSet, op: str,
+                  engine: str = "auto") -> "DeviceBitmap":
+        """Wide op over a resident set -> a result on the device."""
+        words, cards = ds.aggregate_device(op, engine=engine)
+        return DeviceBitmap(ds.keys, words, cards)
+
+    @staticmethod
+    def from_host(rb: RoaringBitmap, device=None) -> "DeviceBitmap":
+        packed = packing.pack_for_aggregation([rb], pad_rows=False)
+        return DeviceBitmap(packed.keys,
+                            as_i32(packed.words, resolve_device(device)))
+
+    def _require_u16(self, what: str) -> None:
+        if self.keys.dtype != np.uint16:
+            raise NotImplementedError(
+                f"{what} over {self.keys.dtype} keys needs the 64-bit tier "
+                f"(core/bitmap64), which is not ported")
+
+    def _aligned(self, other: "DeviceBitmap"):
+        """Both operands scattered into the union key space."""
+        if self.keys.dtype != other.keys.dtype:
+            # u16 keys (32-bit tier) and u64 high-48 keys (64-bit tier) live
+            # in different key domains: a union would merge them wrongly
+            raise TypeError(
+                f"cannot combine bitmaps of different tiers: "
+                f"{self.keys.dtype} vs {other.keys.dtype} keys")
+        union = np.union1d(self.keys, other.keys)
+        dev = self.words.device
+
+        def expand(db):
+            out = torch.zeros((union.size, WORDS32), dtype=torch.int32,
+                              device=dev)
+            if db.keys.size:
+                idx = np.searchsorted(union, db.keys).astype(np.int64)
+                out[torch.from_numpy(idx).to(dev)] = db.words
+            return out
+
+        return union, expand(self), expand(other)
+
+    def _binary(self, other: "DeviceBitmap", op: str) -> "DeviceBitmap":
+        union, a, b = self._aligned(other)
+        words, cards = dense.pairwise(op, a, b)
+        return DeviceBitmap(union, words, cards)
+
+    def __and__(self, o):
+        return self._binary(o, "and")
+
+    def __or__(self, o):
+        return self._binary(o, "or")
+
+    def __xor__(self, o):
+        return self._binary(o, "xor")
+
+    def __sub__(self, o):
+        return self._binary(o, "andnot")
+
+    def and_not(self, o):
+        return self._binary(o, "andnot")
+
+    def cards(self) -> torch.Tensor:
+        if self._cards is None:
+            self._cards = dense.popcount(self.words)
+        return self._cards
+
+    def cardinality(self) -> int:
+        """One scalar to the host."""
+        return int(self.cards().sum())
+
+    def range_cardinality(self, start: int, stop: int) -> int:
+        """Members in [start, stop): masked popcount on the device."""
+        return _device_range_cardinality(self.keys, self.words, start, stop)
+
+    def contains_batch(self, values) -> np.ndarray:
+        """bool membership of each value, probed on the device: key binary
+        search, then the word's bit.  Probes outside [0, 2^32) are absent;
+        float, bool and object probes raise ``TypeError`` (a cast would
+        truncate them into plausible answers)."""
+        raw = np.asarray(values)
+        if raw.size == 0:
+            # np.asarray([]) is float64: an empty batch must not trip the
+            # dtype check
+            return np.zeros(raw.shape, bool)
+        if raw.dtype.kind not in "iu":
+            raise TypeError(
+                f"contains_batch expects integer probes, got {raw.dtype}")
+        self._require_u16("contains_batch")
+        in_range = np.ones(raw.shape, bool)
+        if raw.dtype.kind == "i":
+            in_range &= raw >= 0
+        if raw.itemsize > 4:
+            in_range &= raw.astype(np.uint64) < (1 << 32)
+        if self.keys.size == 0:
+            return np.zeros(raw.shape, bool)
+        dev = self.words.device
+        v = torch.from_numpy(raw.astype(np.uint32).astype(np.int64)).to(dev)
+        keys = torch.from_numpy(self.keys.astype(np.int64)).to(dev)
+        hb = v >> 16
+        idx = torch.searchsorted(keys, hb)
+        safe = idx.clamp(max=self.keys.size - 1)
+        found = (idx < self.keys.size) & (keys[safe] == hb)
+        lo = v & 0xFFFF
+        bit = (self.words[safe, lo >> 5] >> (lo & 31)) & 1
+        return (found & (bit == 1)).cpu().numpy() & in_range
+
+    def materialize(self) -> RoaringBitmap:
+        """Move to the host as a normalized RoaringBitmap."""
+        self._require_u16("materialize")
+        return _unpack(self.keys, self.words, self.cards())
+
+    def hbm_bytes(self) -> int:
+        return self.words.numel() * self.words.element_size()
+
+    def __repr__(self) -> str:
+        return f"DeviceBitmap(keys={self.keys.size}, hbm={self.hbm_bytes()}B)"

@@ -308,6 +308,11 @@ def test_port_imports_no_jax():
         "eng = rt.BatchEngine(rt.DeviceBitmapSet(bms, device='cpu'))\n"
         "q = expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.not_(2)))\n"
         "assert eng.execute([q], engine='megakernel')[0].cardinality > 0\n"
+        "xs = rt.DeviceBitmapSet(bms, layout='compact', device='cpu')\n"
+        "assert int(xs.chained_wide_or(2, engine='cuda-nibble')()) > 0\n"
+        "assert rt.DeviceBitmap.aggregate(xs, 'or').cardinality() > 0\n"
+        "ps = rt.DevicePairSet([(bms[0], bms[1])], device='cpu')\n"
+        "assert ps.cardinalities('or')[0] > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

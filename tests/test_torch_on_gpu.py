@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from roaringbitmap_tpu_torch import DeviceBitmapSet, aggregation
-from roaringbitmap_tpu_torch.ops import kernels, megakernel, packing
+from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation
+from roaringbitmap_tpu_torch.ops import dense, kernels, megakernel, packing
 from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
 from roaringbitmap_tpu_torch.parallel.batch_engine import (BatchEngine,
                                                            random_query_pool)
@@ -80,6 +80,33 @@ def test_entry_points_on_card_match_cpu(dev, bitmaps, layout):
     assert aggregation.or_(bitmaps) == aggregation.or_(bitmaps, device="cpu")
     assert (aggregation.xor_cardinality(bitmaps)
             == aggregation.xor_cardinality(bitmaps, device="cpu"))
+
+
+@pytest.mark.parametrize("op", ["or", "xor"])
+def test_b6_matches_plain(dev, bitmaps, op):
+    """B6 at a compact set's shape, with dense-wire rows folded in."""
+    bms = list(bitmaps)
+    bms[0] = bms[0] | RoaringBitmap.from_values(
+        np.arange(1 << 17, (1 << 17) + 30000, dtype=np.uint32))
+    ds = DeviceBitmapSet(bms, layout="compact", device=dev)
+    assert ds._streams[0].shape[0] > 0
+    counts = dense.nibble_counts_impl(*ds._streams[2:], ds._n_groups,
+                                      ds._total_values)
+    dp = dense.dense_partial_impl(op, ds._streams[0], ds._dseg, *ds._dmeta,
+                                  ds.keys.size)
+    args = (counts, dp, ds._grp_seg, ds.keys.size)
+    _same(kernels.fused_nibble_reduce(op, *args),
+          kernels.fused_nibble_reduce_plain(op, *args))
+    torch.cuda.synchronize()
+    assert kernels.B6.launches == 1
+    kernels.reset_launches()
+    got = ds.aggregate(op, engine="cuda-nibble")
+    assert kernels.B6.launches == 1 and kernels.B4.launches == 0
+    assert got == ds.aggregate(op, engine="torch")
+    reps = 3
+    total = ds.chained_wide_or(reps, engine="cuda-nibble")()
+    assert int(total) == (reps * ds.aggregate("or").cardinality) % 2**32
+    assert kernels.B6.launches == 1 + reps
 
 
 def _same_results(got, want):
