@@ -13,6 +13,8 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
    4 values on uniform keys): ``layout="auto"`` must choose counts; or/xor
    checked as in 2;
 4. compact set over the first 1,024 bitmaps of 2; or/xor/and checked as in 2;
+   one ``or`` traced with ``torch.profiler``: its host time beside its
+   kernels' device time;
 5. ad-hoc calls over 1,024 bitmaps: ``or_``, ``xor``, ``or_cardinality``,
    ``xor_cardinality``, and ``and_`` over bitmaps that share keys;
 7. batch and expression queries (``BatchEngine.execute``), run before 6:
@@ -53,7 +55,8 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
       equal to (4 * sum) % 2^32;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b plus a random stream over all 20
-   opcodes: bit-equal words and cards, CUDA-event median times, the bound.
+   opcodes: bit-equal words and cards, CUDA-event median times, the bound;
+   B5's time per step.
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -186,6 +189,37 @@ def max_abs_err(torch, a, b) -> int:
     return err
 
 
+def traced(torch, fn) -> str:
+    """One warm call of ``fn`` under ``torch.profiler``: its host time to a
+    synchronize, the device time of the kernels and copies it ran, and the
+    three longest of them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    dev = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            dev.append((us / 1e3, e.count, e.key))
+    if not dev:
+        return (f"host {host_ms:.3f} ms; device time not measured (the "
+                f"profiler saw no device activity)")
+    busy = sum(ms for ms, _, _ in dev)
+    top = "; ".join(f"{key[:48]} x{n} {ms:.3f} ms"
+                    for ms, n, key in sorted(dev, reverse=True)[:3])
+    return (f"host {host_ms:.3f} ms, device busy {busy:.3f} ms in "
+            f"{sum(n for _, n, _ in dev)} kernels and copies (idle "
+            f"{1 - busy / host_ms:.1%}): {top}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -303,7 +337,8 @@ def main() -> int:
     log(f"  chunks {xds._chunks[0].shape[0]}, rows {xds._n_rows}, "
         f"bytes {xds.hbm_bytes()}, K {xds.keys.size}")
     check_set(smoke, "compact", xds, ("or", "xor", "and"), unpack)
-    shapes["densify_chunks"] = (*xds._chunks, xds._n_rows)
+    log(f"    traced or: {traced(torch, lambda: xds.aggregate_device('or'))}")
+    shapes["densify_chunks"] = (*xds._chunks, xds._n_rows, xds._chunk_bounds)
     xds_sub = DeviceBitmapSet(sub, layout="compact")
     for op in ("or", "xor", "and"):
         got = smoke.main_path(f"compact[{len(sub)}] {op}",
@@ -693,7 +728,10 @@ def main() -> int:
     def row_bytes(starts, ends, per_row):
         return int((ends - starts).sum()) * per_row
 
-    def record(kernel, run, plain, bytes_moved, ops, shape_note, emit=True):
+    def record(kernel, run, plain, bytes_moved, ops, shape_note, emit=True,
+               steps=None):
+        """Hold ``run`` bit-equal to ``plain``, time them, and add the
+        kernel's row to the kernels line."""
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
@@ -703,9 +741,10 @@ def main() -> int:
         t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        per_step = f", {ms * 1e3 / steps:.4f} us a step" if steps else ""
         log(f"  {kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
-            f"({bytes_moved} bytes), {bound / ms:.1%} of bound")
+            f"({bytes_moved} bytes), {bound / ms:.1%} of bound{per_step}")
         if emit:
             rows_out.append({
                 "name": kernel.name, "route": "cuda",
@@ -737,12 +776,15 @@ def main() -> int:
            b2, int((en2 - st2).sum()) * 2048,
            f"rows {w2.shape[0]}, block {block2}, K {k2}")
     # B3: chunk densify at the compact set's shape
-    cv3, cr3, nrows3 = shapes["densify_chunks"]
+    cv3, cr3, nrows3, bounds3 = shapes["densify_chunks"]
     b3 = cv3.numel() * 4 + cr3.numel() * 4 + nrows3 * 8192
     record(kernels.B3,
-           lambda: (kernels.densify_chunks(cv3, cr3, nrows3),),
+           lambda: (kernels.densify_chunks(cv3, cr3, nrows3, bounds3),),
            lambda: (kernels.densify_chunks_plain(cv3, cr3, nrows3),),
-           b3, cv3.numel() * 4, f"chunks {cv3.shape[0]}, rows {nrows3}")
+           b3, cv3.numel() * 4,
+           f"chunks {cv3.shape[0]}, rows {nrows3}; wrapper with the set's "
+           f"bounds, as the main path calls it: the kernel alone, no zero "
+           f"fill")
     # B4: counts reduce at the counts set's shape
     c4, g4, k4 = shapes["counts_segmented_reduce"]
     st4, en4 = kernels.segment_ranges(g4, k4)
@@ -778,7 +820,8 @@ def main() -> int:
     record(kernels.B5, lambda: megakernel.raw_call(mega5, *banks5),
            lambda: megakernel.raw_call_plain(mega5, *banks5),
            megakernel.stream_bytes(mega5), mega5.n_steps * WORDS32,
-           f"7b plan, {mega5.n_steps} steps, {mega5.n_slots} slots")
+           f"7b plan, {mega5.n_steps} steps, {mega5.n_slots} slots",
+           steps=mega5.n_steps)
     rmega, rbanks = megakernel.random_plan(
         args.seed, n_steps=4096, slots_pad=1024, out_pad=64, card_pad=256,
         bank_rows=(1024, 64, 64))
@@ -786,7 +829,8 @@ def main() -> int:
     record(kernels.B5, lambda: megakernel.raw_call(rmega, *rbanks),
            lambda: megakernel.raw_call_plain(rmega, *rbanks),
            megakernel.stream_bytes(rmega), rmega.n_steps * WORDS32,
-           f"random all-opcode stream, {rmega.n_steps} steps", emit=False)
+           f"random all-opcode stream, {rmega.n_steps} steps", emit=False,
+           steps=rmega.n_steps)
     phase_time("phase 6", t_phase)
 
     for name, c in smoke.launches.items():

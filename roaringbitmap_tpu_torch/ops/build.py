@@ -3,7 +3,9 @@
 Each source under ``csrc/`` compiles into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  The libraries go
 into ``_build/`` beside this file, named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  All
+flags, so an edited source is rebuilt and an unchanged one is reused.  A
+source's compile-time sizes are passed as ``-D`` defines from
+:data:`DEFINES`, the one place they are written.  All
 missing libraries are built together, one ``nvcc`` for each source, started
 at once.  A failed build raises ``KernelBuildError`` with ``nvcc``'s output:
 nothing falls back.
@@ -24,6 +26,10 @@ SOURCES = ("segmented_reduce.cu", "densify_chunks.cu", "counts_reduce.cu",
            "megakernel.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+#: compile-time sizes by source, passed to nvcc as -D defines: the
+#: megakernel's ring of staged step records and its row-prefetch depth
+#: (``ops.megakernel`` sizes its shared memory from the same entries)
+DEFINES = {"megakernel.cu": {"RB_RECORD_RING": 128, "RB_PREFETCH_DEPTH": 32}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -46,9 +52,14 @@ def nvcc_path() -> str:
     return path
 
 
+def nvcc_flags(source: str) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{name}={value}" for name, value
+                              in DEFINES.get(source, {}).items())
+
+
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / source).read_bytes() + " ".join(nvcc_flags(source)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -66,7 +77,7 @@ def build(sources=SOURCES) -> dict[str, str]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)],
+            [nvcc, *nvcc_flags(src), "-o", str(tmp), str(CSRC / src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         jobs.append((src, proc, tmp, out))
     reports, errors = {}, []

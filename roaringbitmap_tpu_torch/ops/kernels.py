@@ -79,13 +79,13 @@ B2 = CudaKernel("segmented_reduce_blocked", "segmented_reduce.cu",
                 "rb_segmented_reduce", _ROW_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:116")
 B3 = CudaKernel("densify_chunks", "densify_chunks.cu", "rb_densify_chunks",
-                [_P, _P, _P, ctypes.c_longlong, _I, _I, _P],
+                [_P, _P, _P, _I, _I, _P],
                 "roaringbitmap_tpu/ops/kernels.py:286")
 B4 = CudaKernel("counts_segmented_reduce", "counts_reduce.cu",
                 "rb_counts_reduce", _ROW_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:334")
 B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
-                [_P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                 "roaringbitmap_tpu/ops/megakernel.py:140")
 B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -241,23 +241,50 @@ def densify_chunks_plain(chunk_vals: torch.Tensor, chunk_row: torch.Tensor,
     return fold_u32(flat).view(n_rows, WORDS32)
 
 
+def densify_chunk_bounds(chunk_row: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """B3's launch plan: int32[n_rows + 1] bounds over a chunk stream sorted
+    by row, row r owning chunks [bounds[r], bounds[r + 1]).  Chunks of the
+    scratch row n_rows, or of any row outside [0, n_rows), lie outside
+    [bounds[0], bounds[n_rows])."""
+    rows = torch.arange(n_rows + 1, dtype=torch.int32, device=chunk_row.device)
+    return torch.searchsorted(chunk_row, rows, out_int32=True)
+
+
 def densify_chunks(chunk_vals: torch.Tensor, chunk_row: torch.Tensor,
-                   n_rows: int) -> torch.Tensor:
+                   n_rows: int, bounds: torch.Tensor | None = None
+                   ) -> torch.Tensor:
     """B3: chunked value stream (int32[NC, 128] values, CHUNK_PAD slots;
-    int32[NC] destination rows, n_rows = scratch) -> int32[n_rows, 2048]
-    dense image.  Rows that own no chunk are zero."""
+    int32[NC] destination rows sorted ascending, n_rows = scratch) ->
+    int32[n_rows, 2048] dense image.  Rows that own no chunk are zero.  The
+    kernel writes every row once, so the image is not zero-filled first.
+    It takes each row's chunks between two ``bounds``
+    (:func:`densify_chunk_bounds`, computed here unless the caller keeps
+    them, as a resident set does), so ``chunk_row`` must ascend: the packer
+    emits it so, and ``DeviceBitmapSet`` sorts a state's stream when it
+    loads it.  The kernel does not check the order; on the CPU the wrapper
+    raises ``ValueError`` for a ``chunk_row`` that does not ascend or
+    ``bounds`` that are not its plan, so that the CPU tests catch such a
+    caller."""
     _check("chunk_vals", chunk_vals, 2, CHUNK_VALUES)
     _check("chunk_row", chunk_row, 1)
     if chunk_row.shape[0] != chunk_vals.shape[0]:
         raise ValueError("chunk_row must hold one row per chunk")
-    if not _on_cuda(chunk_vals, chunk_row):
+    if bounds is None:
+        bounds = densify_chunk_bounds(chunk_row, n_rows)
+    _check("bounds", bounds, 1)
+    if bounds.shape[0] != n_rows + 1:
+        raise ValueError("bounds must hold n_rows + 1 entries")
+    if not _on_cuda(chunk_vals, chunk_row, bounds):
+        if bool((chunk_row[1:] < chunk_row[:-1]).any()):
+            raise ValueError("chunk_row must ascend")
+        if not torch.equal(bounds, densify_chunk_bounds(chunk_row, n_rows)):
+            raise ValueError("bounds are not chunk_row's launch plan")
         return densify_chunks_plain(chunk_vals, chunk_row, n_rows)
-    out = torch.zeros((n_rows, WORDS32), dtype=torch.int32,
+    out = torch.empty((n_rows, WORDS32), dtype=torch.int32,
                       device=chunk_vals.device)
-    n_slots = chunk_vals.numel()
-    if n_slots and n_rows:
-        B3.launch(chunk_vals.data_ptr(), chunk_row.data_ptr(), out.data_ptr(),
-                  n_slots, CHUNK_VALUES, n_rows, _stream())
+    if n_rows:
+        B3.launch(chunk_vals.data_ptr(), bounds.data_ptr(), out.data_ptr(),
+                  CHUNK_VALUES, n_rows, _stream())
     return out
 
 

@@ -28,11 +28,15 @@ the 2048-word row is cut into :data:`SLICES` slices of :data:`SLICE_WORDS`
 words: block ``c`` of a cooperative launch runs the whole stream over slice
 ``c``, its slots in shared memory, and a card row holds one popcount partial
 per slice (``int32[card_pad, SLICES]``; :func:`_slice_outputs` sums them).
+The kernel stages the step-major device stream of
+:meth:`MegaPlan.device_arrays` in shared memory and brings each step's row
+:data:`PREFETCH_DEPTH` steps ahead, both by ``cp.async``.
 
-Capacity (:meth:`MegaPlan.fits`): a block's slots must fit the H100's 227 KB
-of shared memory, so ``MAX_SLOTS = 232448 // (SLICE_WORDS * 4) = 3632``
-slots, which admits ``slots_pad`` up to 2048 (the TPU's VMEM held 1024).
-The stream lives in device memory and has no size limit on the card;
+Capacity (:meth:`MegaPlan.fits`): a block's slots and the prefetch rings
+(:data:`RING_BYTES`, 6 KiB) must fit the H100's 227 KB of shared memory,
+so ``MAX_SLOTS = (232448 - 6144) // (SLICE_WORDS * 4) = 3536`` slots,
+which admits ``slots_pad`` up to 2048 (the TPU's VMEM held 1024).  The
+stream lives in device memory and has no size limit on the card;
 ``MAX_STEPS = 2**14`` is kept only so that the port picks the same rung as
 the JAX package for the same batch.  Whether a longer stream would still
 beat the multi-op rung is not measured.  A plan past either bound,
@@ -47,18 +51,30 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import kernels, packing
+from . import build, kernels, packing
 from .words import WORDS32, as_i32, fold_u32
 
 #: word slices of a row: one block of the cooperative launch per slice
 SLICES = 128
 SLICE_WORDS = WORDS32 // SLICES
-#: bytes of one accumulator slot in a block's shared memory
+#: bytes of one accumulator slot (and of one row-ring stage) in a block's
+#: shared memory
 SLOT_BYTES = SLICE_WORDS * 4
+#: bytes of one step record of the step-major device stream
+RECORD_BYTES = 32
+#: the records the kernel stages in shared memory (kRecs), and the steps
+#: ahead of the running one whose rows it prefetches (kDepth): the sizes
+#: the kernel is compiled with
+RECORD_RING = build.DEFINES["megakernel.cu"]["RB_RECORD_RING"]
+PREFETCH_DEPTH = build.DEFINES["megakernel.cu"]["RB_PREFETCH_DEPTH"]
+#: shared memory of the kernel's prefetch rings: PREFETCH_DEPTH row stages
+#: and RECORD_RING step records (6 KiB)
+RING_BYTES = PREFETCH_DEPTH * SLOT_BYTES + RECORD_RING * RECORD_BYTES
 #: shared memory a block may use on the H100 (232,448 bytes)
 SMEM_BYTES = 232448
-#: accumulator slots (the dead slot included) one block can hold
-MAX_SLOTS = SMEM_BYTES // SLOT_BYTES
+#: accumulator slots (the dead slot included) one block can hold beside the
+#: rings
+MAX_SLOTS = (SMEM_BYTES - RING_BYTES) // SLOT_BYTES
 #: longest instruction stream the megakernel rung takes: the JAX package's
 #: cap, kept for parity of rung choice (see module doc)
 MAX_STEPS = 1 << 14
@@ -165,7 +181,8 @@ class MegaPlan:
 
     @property
     def smem_bytes(self) -> int:
-        return (self.slots_pad + 1) * SLOT_BYTES
+        """Shared memory of one block: the slots and the prefetch rings."""
+        return (self.slots_pad + 1) * SLOT_BYTES + RING_BYTES
 
     def stats_event(self) -> dict:
         return {"mode": self.mode, "steps": int(self.n_steps),
@@ -176,11 +193,13 @@ class MegaPlan:
                 "sections": len(self.expr_out)}
 
     def device_arrays(self, device) -> dict:
-        """{"stream": int32[8, steps_pad], "extra": int32[rows, 2048]} on
-        ``device``, uploaded once per device."""
+        """{"stream": int32[steps_pad, 8], "extra": int32[rows, 2048]} on
+        ``device``, uploaded once per device.  The stream is step-major, one
+        32-byte record per step with the fields in STREAM_KEYS order, so the
+        kernel fetches a step with two 16-byte copies."""
         key = str(device)
         if key not in self._arrays:
-            stream = np.stack([self.host[k] for k in STREAM_KEYS])
+            stream = np.stack([self.host[k] for k in STREAM_KEYS], axis=1)
             self._arrays[key] = {"stream": as_i32(stream, device),
                                  "extra": as_i32(self.host["extra"], device)}
         return self._arrays[key]
@@ -606,7 +625,7 @@ def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
     out, cards = _outputs(mega, dev)
     take = torch.zeros(2 * SLICES, dtype=torch.int32, device=dev)
     kernels.B5.launch(
-        stream.data_ptr(), mega.steps_pad, mega.n_steps, bank_a.data_ptr(),
+        stream.data_ptr(), mega.n_steps, bank_a.data_ptr(),
         bank_b.data_ptr(), bank_c.data_ptr(), out.data_ptr(),
         cards.data_ptr(), take.data_ptr(), mega.slots_pad, mega.out_pad,
         mega.card_pad, kernels._stream())

@@ -449,9 +449,10 @@ class DeviceBitmapSet:
         segment-0 row the compact probe writes its carry to; by default
         ``seg_sizes[0]``, where the packer puts it).  The dense-wire rows
         may come in any order (the JAX native ingest does not sort them);
-        the compact and counts layouts sort them by destination row.  The
-        layout follows from which arrays are present.  The set then answers
-        the same queries as the set the arrays came from."""
+        the compact and counts layouts sort them, and the chunk stream, by
+        destination row.  The layout follows from which arrays are present.
+        The set then answers the same queries as the set the arrays came
+        from."""
         dev = resolve_device(device)
         layout = next((name for name, need in _STATE_LAYOUT.items()
                        if need[0] in state), None)
@@ -491,6 +492,7 @@ class DeviceBitmapSet:
         self.carry_row = int(state.get(
             "carry_row", self._seg_sizes[0] if k else -1))
         self.words = self.counts = self._chunks = self._streams = None
+        self._chunk_bounds = None
         if "values" in state:
             s = packing.CompactStreams(
                 n_rows=self._n_rows,
@@ -512,8 +514,13 @@ class DeviceBitmapSet:
             self._streams = None   # the image is the resident form
             return
         if "chunk_vals" in state:
-            self._chunks = (as_i32(np.asarray(state["chunk_vals"]), dev),
-                            as_i32(np.asarray(state["chunk_row"]), dev))
+            # B3 takes each row's chunks between two bounds of the stream
+            # sorted by row: sort it, and plan the bounds once
+            rows, vals = _sorted_by(np.asarray(state["chunk_row"]),
+                                    np.asarray(state["chunk_vals"]))
+            self._chunks = (as_i32(vals, dev), as_i32(rows, dev))
+            self._chunk_bounds = kernels.densify_chunk_bounds(
+                self._chunks[1], self._n_rows)
         if layout == "counts":
             self._load_counts(state, k, dev)
 
@@ -595,7 +602,8 @@ class DeviceBitmapSet:
         if self.words is not None:
             return self.words
         if eng != "torch" and self._chunks is not None:
-            words = kernels.densify_chunks(*self._chunks, self._n_rows)
+            words = kernels.densify_chunks(*self._chunks, self._n_rows,
+                                           self._chunk_bounds)
             dense_words, dense_dest = self._streams[0], self._streams[1]
             if dense_words.shape[0]:
                 words[dense_dest.long()] = dense_words
@@ -805,7 +813,8 @@ class DeviceBitmapSet:
     def hbm_bytes(self) -> int:
         """Device bytes the set keeps resident."""
         parts = [self.blk_seg, self.seg_ids, self.head_idx, self.words,
-                 self.counts, *(self._streams or ()), *(self._chunks or ())]
+                 self.counts, *(self._streams or ()), *(self._chunks or ()),
+                 self._chunk_bounds]
         if self.words is None:   # the fused compact reduce's metadata
             parts += [self._grp_seg, self._dseg, self._dseg_carry,
                       *self._dmeta[:2], *self._dmeta_carry[:2]]
@@ -813,16 +822,21 @@ class DeviceBitmapSet:
                    if t is not None)
 
 
+def _sorted_by(key: np.ndarray, *arrays) -> tuple:
+    """(key, *arrays) reordered stably by ``key`` when it does not ascend,
+    else as they are."""
+    if key.size and np.any(np.diff(key) < 0):
+        order = np.argsort(key, kind="stable")
+        return (key[order], *(a[order] for a in arrays))
+    return (key, *arrays)
+
+
 def _sort_dense_stream(s: packing.CompactStreams) -> packing.CompactStreams:
     """The dense-wire rows reordered by destination row, so that their
     segment ids ascend (the partial's doubling pass needs sorted segments;
-    the NumPy packer emits them sorted, the JAX native ingest may not).
-    Returns a copy when it reorders."""
-    if s.dense_dest.size and np.any(np.diff(s.dense_dest) < 0):
-        order = np.argsort(s.dense_dest, kind="stable")
-        s = dataclasses.replace(s, dense_words=s.dense_words[order],
-                                dense_dest=s.dense_dest[order])
-    return s
+    the NumPy packer emits them sorted, the JAX native ingest may not)."""
+    dest, words = _sorted_by(s.dense_dest, s.dense_words)
+    return dataclasses.replace(s, dense_words=words, dense_dest=dest)
 
 
 def _fused_compact_run(op: str, dense_words, values, val_counts, val_dest,

@@ -21,6 +21,7 @@ from roaringbitmap_tpu.parallel import fast_aggregation as jfast
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
 from roaringbitmap_tpu_torch.parallel import aggregation as tagg
 from roaringbitmap_tpu_torch.parallel import fast_aggregation as tfast
+from roaringbitmap_tpu_torch.ops import kernels
 from roaringbitmap_tpu_torch.ops.words import to_u32
 
 torch.set_num_threads(2)
@@ -206,6 +207,49 @@ def test_port_state_matches_jax_set(pair, layout, block):
     if layout == "counts":
         assert np.array_equal(to_u32(ts.counts), st["counts"])
         assert np.array_equal(ts._grp_seg_counts.numpy(), st["grp_seg"])
+
+
+@pytest.mark.parametrize("layout", ["counts", "compact"])
+def test_from_numpy_state_sorts_chunk_stream(pair, layout):
+    """A state whose chunk stream comes in another order loads sorted by
+    row (B3 bisects it), each chunk with its values, and answers as the
+    JAX set does."""
+    j, _ = pair
+    js = _jax_set(j, layout)
+    st = _state(js)
+    order = np.random.default_rng(7).permutation(st["chunk_row"].size)
+    cv, cr = st["chunk_vals"], st["chunk_row"]
+    st["chunk_vals"], st["chunk_row"] = cv[order], cr[order]
+    assert np.any(np.diff(st["chunk_row"]) < 0)
+    ts = tagg.DeviceBitmapSet.from_numpy_state(st, device=CPU)
+    rows = ts._chunks[1].numpy()
+    assert np.all(np.diff(rows) >= 0)
+    assert np.array_equal(rows, np.sort(cr))
+    want = np.searchsorted(rows, np.arange(ts._n_rows + 1))
+    assert np.array_equal(ts._chunk_bounds.numpy(), want)
+    got = {tuple(v) for v in to_u32(ts._chunks[0])[rows < ts._n_rows]}
+    assert got == {tuple(v) for v in cv[cr < ts._n_rows]}
+    for op in ("or", "xor", "and"):
+        for engine in ("cuda", "torch"):
+            _same_device(ts.aggregate_device(op, engine=engine),
+                         js.aggregate_device(op, engine="xla"))
+
+
+def test_compact_set_plans_densify_once(pair, monkeypatch):
+    """A compact set plans B3's bounds when it loads its chunk stream, and
+    its queries reuse them."""
+    _, t = pair
+    ts = tagg.DeviceBitmapSet(t, layout="compact", device=CPU)
+    assert ts._chunk_bounds.shape == (ts._n_rows + 1,)
+    passed = []
+    densify = kernels.densify_chunks
+    monkeypatch.setattr(kernels, "densify_chunks", lambda *a: passed.append(
+        a[-1]) or densify(*a))
+    for op in ("or", "xor", "and"):
+        got = ts.aggregate_device(op, engine="cuda")
+        want = ts.aggregate_device(op, engine="torch")
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), op
+    assert len(passed) == 3 and all(b is ts._chunk_bounds for b in passed)
 
 
 def test_from_numpy_state_rejects_incomplete(pair):

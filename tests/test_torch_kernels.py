@@ -114,6 +114,84 @@ def test_b3_densify_chunks(seed):
     _eq([kernels.densify_chunks(_t(cv), _t(cr), n_rows)], [want])
 
 
+def _densify_by_bounds(cv: np.ndarray, bounds: np.ndarray, n_rows: int):
+    """B3's kernel, row by row in NumPy: each row ORs the bits of the slots
+    of its chunks [bounds[r], bounds[r + 1]) into a zero tile."""
+    out = np.zeros((n_rows, 2048), np.uint32)
+    for r in range(n_rows):
+        v = cv[bounds[r]:bounds[r + 1]].ravel()
+        v = v[v <= 0xFFFF]
+        np.bitwise_or.at(out[r], v >> 5, np.uint32(1) << (v & 31))
+    return out
+
+
+def _chunk_case(case: str):
+    """(chunk_vals u32[NC, 128], chunk_row i32[NC], n_rows) of one B3
+    launch-plan case, from the packer."""
+    rng = np.random.default_rng(len(case))
+    if case == "all padding":
+        return jpacking.chunk_value_stream(np.zeros(0, np.uint16),
+                                           np.zeros(0, np.int32),
+                                           np.zeros(0, np.int32), 6) + (6,)
+    n_rows, rows, sizes = {
+        "empty rows": (12, [1, 4, 5, 11], [130, 10, 260, 5]),
+        "scratch padding": (7, [0, 2, 3, 6], [100, 200, 50, 300]),
+        "one row": (1, [0], [1000])}[case]
+    pieces = [np.sort(rng.choice(1 << 16, n, replace=False)) for n in sizes]
+    values = np.concatenate(pieces).astype(np.uint16)
+    counts = np.array([p.size for p in pieces], np.int32)
+    cv, cr = jpacking.chunk_value_stream(values, counts,
+                                         np.asarray(rows, np.int32), n_rows)
+    return cv, cr, n_rows
+
+
+@pytest.mark.parametrize("case", ["empty rows", "scratch padding",
+                                  "all padding", "one row"])
+def test_b3_launch_plan(case):
+    """densify_chunk_bounds against a count of the chunks below each row;
+    the kernel's row-by-row walk over those bounds equals the plain
+    version, which ignores order."""
+    cv, cr, n_rows = _chunk_case(case)
+    if case == "scratch padding":
+        assert (cr == n_rows).sum() > 0      # pow2 padding chunks
+    if case == "all padding":
+        assert (cr == n_rows).all() and (cv == jpacking.CHUNK_PAD).all()
+    bounds = kernels.densify_chunk_bounds(_t(cr), n_rows).numpy()
+    want = (cr[None, :] < np.arange(n_rows + 1)[:, None]).sum(1)
+    assert bounds.dtype == np.int32 and np.array_equal(bounds, want)
+    for r in range(n_rows):
+        assert (cr[bounds[r]:bounds[r + 1]] == r).all()
+    assert (cr[bounds[n_rows]:] >= n_rows).all()
+    image = _densify_by_bounds(cv, bounds, n_rows)
+    _eq([kernels.densify_chunks_plain(_t(cv), _t(cr), n_rows)], [image])
+    _eq([kernels.densify_chunks(_t(cv), _t(cr), n_rows)], [image])
+    _eq([kernels.densify_chunks(_t(cv), _t(cr), n_rows, _t(bounds))], [image])
+    if case == "empty rows":
+        assert not image[[0, 2, 3, 6, 7, 8, 9, 10]].any()
+        assert image[[1, 4, 5, 11]].any(axis=1).all()
+
+
+@pytest.mark.parametrize("fault", ["unsorted rows", "foreign bounds",
+                                   "short bounds"])
+def test_densify_refuses_what_the_kernel_would_misread(fault):
+    """The kernel trusts chunk_row to ascend and its bounds to be that
+    order's plan; on the CPU the wrapper holds its caller to the same
+    contract and raises."""
+    cv, cr, n_rows = _chunk_case("empty rows")
+    bounds = kernels.densify_chunk_bounds(_t(cr), n_rows)
+    if fault == "unsorted rows":
+        cr, bounds = cr[::-1].copy(), None
+    elif fault == "foreign bounds":
+        bounds = torch.roll(bounds, 1)
+    else:
+        bounds = bounds[:-1].contiguous()
+    with pytest.raises(ValueError):
+        kernels.densify_chunks(_t(cv), _t(cr), n_rows, bounds)
+    _eq([kernels.densify_chunks_plain(_t(cv), _t(cr), n_rows)],
+        [kernels.densify_chunks_plain(_t(cv[::-1].copy()),
+                                      _t(cr[::-1].copy()), n_rows)])
+
+
 def _counts(seed: int, g: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     nib = rng.integers(0, 9, (g, 4, 2048, 8)).astype(np.uint64)

@@ -21,6 +21,7 @@ from roaringbitmap_tpu.parallel import BatchEngine as JEngine
 from roaringbitmap_tpu.parallel import BatchQuery as JQuery
 from roaringbitmap_tpu.parallel import expr as jexpr
 from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap as TRB
+from roaringbitmap_tpu_torch.ops import build
 from roaringbitmap_tpu_torch.ops import megakernel as mk
 from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
 from roaringbitmap_tpu_torch.parallel import expr as texpr
@@ -211,3 +212,48 @@ def test_stream_index_checked():
     mega._checked.clear()
     with pytest.raises(mk.StreamIndexError, match="slot"):
         mk.raw_call(mega, *tb)
+
+
+def test_device_stream_is_step_major():
+    """The device copy of the stream: one record of the eight fields per
+    step, equal field for field to the host arrays."""
+    mega, _ = mk.random_plan(5)
+    stream = mega.device_arrays("cpu")["stream"]
+    assert tuple(stream.shape) == (mega.steps_pad, len(mk.STREAM_KEYS))
+    assert stream.is_contiguous()
+    for j, k in enumerate(mk.STREAM_KEYS):
+        assert np.array_equal(stream[:, j].numpy(), mega.host[k]), k
+
+
+@pytest.mark.parametrize("slots_pad,reason", [(2048, None), (4096, "slots")])
+def test_capacity_beside_the_prefetch_ring(slots_pad, reason):
+    """The ring takes shared memory from the slots, and slots_pad 2048
+    still fits beside the deepest ring built."""
+    assert mk.MAX_SLOTS >= 2049
+    assert mk.MAX_SLOTS * mk.SLOT_BYTES + mk.RING_BYTES <= mk.SMEM_BYTES
+    em = mk._Emitter()
+    em.emit(mk.ZERO, dst=0)
+    host = em.finish(slots_pad, 0, 1)
+    mega = mk.MegaPlan("full", 1, host["opc"].size, slots_pad, slots_pad, 0,
+                       1, host)
+    assert mk.capacity_reason(mega) == reason
+    ring = mk.PREFETCH_DEPTH * mk.SLOT_BYTES + 128 * mk.RECORD_BYTES
+    assert mk.RING_BYTES == ring == 6144
+    assert mega.smem_bytes == (slots_pad + 1) * mk.SLOT_BYTES + ring
+
+
+def test_ring_sizes_are_compiled_in_from_one_place(monkeypatch):
+    """The kernel's ring sizes are the -D defines the build passes, the
+    same entries the capacity rests on; the source writes no number of its
+    own, and another size builds another library."""
+    flags = build.nvcc_flags("megakernel.cu")
+    assert f"-DRB_RECORD_RING={mk.RECORD_RING}" in flags
+    assert f"-DRB_PREFETCH_DEPTH={mk.PREFETCH_DEPTH}" in flags
+    src = (build.CSRC / "megakernel.cu").read_text()
+    assert "constexpr int kRecs = RB_RECORD_RING;" in src
+    assert "constexpr int kDepth = RB_PREFETCH_DEPTH;" in src
+    assert build.nvcc_flags("densify_chunks.cu") == build.NVCC_FLAGS
+    path = build.library_path("megakernel.cu")
+    monkeypatch.setitem(build.DEFINES, "megakernel.cu",
+                        {"RB_RECORD_RING": 128, "RB_PREFETCH_DEPTH": 16})
+    assert build.library_path("megakernel.cu") != path

@@ -151,3 +151,119 @@ def test_flat_batch_launches_b1(dev, bitmaps):
     assert eng.last_timings["engine"] == "cuda"
     assert kernels.B1.launches > 0 and kernels.B5.launches == 0
     _same_results(got, eng.execute(pool, engine="torch"))
+
+
+def _densify_case(case: str):
+    """(chunk_vals, chunk_row, n_rows) from the packer for B3's edge cases."""
+    rng = np.random.default_rng(3)
+    if case == "all padding":
+        cv, cr = packing.chunk_value_stream(np.zeros(0, np.uint16),
+                                            np.zeros(0, np.int32),
+                                            np.zeros(0, np.int32), 9)
+        return cv, cr, 9
+    n_rows, rows, sizes = {
+        "empty rows": (40, [3, 17, 18, 39], [130, 10, 260, 5]),
+        "32 chunks a row": (6, [0, 2, 5], [4096, 4096, 4000]),
+        "one row": (1, [0], [4096])}[case]
+    pieces = [np.sort(rng.choice(1 << 16, n, replace=False)) for n in sizes]
+    cv, cr = packing.chunk_value_stream(
+        np.concatenate(pieces).astype(np.uint16), np.array(sizes, np.int32),
+        np.array(rows, np.int32), n_rows)
+    return cv, cr, n_rows
+
+
+@pytest.mark.parametrize("case", ["empty rows", "all padding",
+                                  "32 chunks a row", "one row"])
+def test_b3_edge_cases_match_plain(dev, case):
+    """B3 writes every row itself (the image is not zero-filled first): rows
+    without chunks, padding chunks and full rows equal the plain version,
+    also over an output buffer that held garbage before."""
+    cv, cr, n_rows = _densify_case(case)
+    if case == "32 chunks a row":
+        assert np.bincount(cr)[0] == 32
+    tv, tr = as_i32(cv, dev), as_i32(cr, dev)
+    junk = torch.full((n_rows, 2048), -1, dtype=torch.int32, device=dev)
+    del junk                      # the allocator hands this memory back
+    got = kernels.densify_chunks(tv, tr, n_rows)
+    torch.cuda.synchronize()
+    assert kernels.B3.launches == 1
+    assert torch.equal(got, kernels.densify_chunks_plain(tv, tr, n_rows))
+
+
+def _short_plan(n_steps: int, seed: int):
+    """A stream of exactly ``n_steps`` steps over the three banks: a TAKE
+    first and, from 4 steps on, one just before the last step; row and slot
+    ops between; the last step an OUT of the slot written last (one step: a
+    VAGG_CARD; two: a LOAD_ROW and its OUT)."""
+    rng = np.random.default_rng(seed)
+    bank_rows = (8, 4, 4)
+    banks = [rng.integers(0, 1 << 32, (r, 2048), dtype=np.uint64)
+             .astype(np.uint32) for r in bank_rows]
+    em = megakernel._Emitter()
+    body = (megakernel.LOAD_ROW, megakernel.OR_ROW, megakernel.XOR_ROW,
+            megakernel.AND_ROW, megakernel.ANDNOT_ROW, megakernel.VSCAN_HI,
+            megakernel.OR_SLOT, megakernel.ACC_POP, megakernel.CARD,
+            megakernel.VAGG_CARD)
+    last = [1]
+
+    def emit(opc):
+        b = int(rng.integers(3))
+        card = opc in (megakernel.CARD, megakernel.VAGG_CARD)
+        dst = int(rng.integers(3, 8))
+        em.emit(opc, dst=dst, src=int(rng.integers(8)),
+                row=int(rng.integers(bank_rows[b])), bank=b,
+                crow=int(rng.integers(4)) if card else None)
+        if not card:
+            last[0] = dst
+
+    if n_steps == 1:
+        emit(megakernel.VAGG_CARD)
+    elif n_steps == 2:
+        emit(megakernel.LOAD_ROW)
+        em.emit(megakernel.OUT, src=last[0], orow=0)
+    else:
+        em.emit(megakernel.TAKE, dst=1, src=0, imm=1)
+        for _ in range(n_steps - 2 - (n_steps >= 4)):
+            emit(body[int(rng.integers(len(body)))])
+        if n_steps >= 4:
+            em.emit(megakernel.TAKE, dst=2, src=int(rng.integers(3, 8)),
+                    imm=int(rng.integers(-(1 << 31), 1 << 31)))
+        em.emit(megakernel.OUT, src=last[0], orow=0)
+    host = em.finish(8, 4, 4)
+    host["extra"] = banks[1]
+    mega = megakernel.MegaPlan("full", len(em.ops), host["opc"].size, 8, 8,
+                               4, 4, host, extra_rows=bank_rows[1])
+    assert mega.n_steps == n_steps
+    return mega, banks
+
+
+D = megakernel.PREFETCH_DEPTH
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, D - 1, D, D + 1])
+def test_b5_short_streams_match_plain(dev, n_steps):
+    """Streams shorter than, as long as and just past the prefetch depth
+    D, with TAKEs in the first and the last D steps."""
+    mega, banks = _short_plan(n_steps, seed=n_steps)
+    tb = [as_i32(b, dev) for b in banks]
+    got = megakernel.raw_call(mega, *tb)
+    torch.cuda.synchronize()
+    assert kernels.B5.launches == 1
+    _same(got, megakernel.raw_call_plain(mega, *tb))
+
+
+def test_b5_long_stream_with_edge_takes(dev):
+    """A 4,096-step random stream over all opcodes, with TAKEs put at its
+    first step and just before its last."""
+    mega, banks = megakernel.random_plan(
+        13, n_steps=4096, slots_pad=256, out_pad=32, card_pad=64,
+        bank_rows=(64, 8, 8))
+    h = mega.host
+    for i in (0, mega.n_steps - 2):
+        h["opc"][i], h["dst"][i], h["src"][i] = megakernel.TAKE, 3, 5
+        h["imm"][i], h["row"][i], h["bank"][i] = 1 << 20, 0, 0
+        h["orow"][i], h["crow"][i] = mega.out_pad, mega.card_pad
+    tb = [as_i32(b, dev) for b in banks]
+    got = megakernel.raw_call(mega, *tb)
+    torch.cuda.synchronize()
+    _same(got, megakernel.raw_call_plain(mega, *tb))
