@@ -53,10 +53,28 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
       to the host's, ``pairwise`` on the first 64 pairs equal to the host,
       ``chained_cardinality(op, 4)`` and ``chained_pairwise_cardinality``
       equal to (4 * sum) % 2^32;
+9. value columns, run after 8 and before 6:
+   a. the search-shard set of 7b with two columns over its 2^20 row ids: a
+      ``BsiColumn("price")`` (one value per row, uniform in [0, 2^31 - 1),
+      depth 31 padded to 32) and a ``RangeColumn("ts")`` (40-bit values,
+      padded depth 64); every predicate op on both kinds, composed with
+      set algebra, and ``sum_`` / ``top_k(k=100)`` roots over both, cut
+      into the fewest batches that fit B5: each batch on "auto" is ONE B5
+      launch, equal to the "cuda" and "torch" rungs and to the host
+      oracles; then four ``top_k`` roots over "ts", a plan past
+      ``MAX_STEPS``, demoted to "cuda" (counted under "steps") and still
+      exact;
+   b. ``two_phase_execute`` on the aggregate roots of 9a equals the fused
+      answers; both times;
+   c. ``DeviceBSI`` over phase 2's 2^24-row universe (K = 256, depth 31)
+      and ``DeviceRangeBitmap`` over "ts": every op's compare and
+      cardinality, the sum and ``top_k(1000)`` against the host
+      ``RoaringBitmapSliceIndex`` / ``RangeBitmap``; the chained probes
+      for 8 reps with their time per iteration;
 6. each kernel against its plain PyTorch version on the card, at the shapes
-   of 2-5 and 8a and, for B5, of 7b plus a random stream over all 20
-   opcodes: bit-equal words and cards, CUDA-event median times, the bound;
-   B5's time per step.
+   of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
+   random stream over all 20 opcodes: bit-equal words and cards,
+   CUDA-event median times, the bound; B5's time per step.
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -82,6 +100,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 132 * 64 * 1.98e9
 #: bitmaps whose host fold checks each layout
 HOST_CHECK_N = 512
+#: values of the BSI columns of phase 9: uniform in [0, PRICE_MAX)
+PRICE_MAX = 2**31 - 1
 
 
 def log(msg: str) -> None:
@@ -93,6 +113,8 @@ class Smoke:
         self.torch = torch_mod
         self.kernels = kernels_mod
         self.launches = {k.name: 0 for k in kernels_mod.KERNELS}
+        #: the launch counts of the latest main-path call
+        self.last = dict(self.launches)
 
     def main_path(self, label: str, fn):
         """Run one main-path call with the launch counts set to 0 just
@@ -103,6 +125,7 @@ class Smoke:
         self.torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = {k.name: k.launches for k in self.kernels.KERNELS}
+        self.last = counts
         for name, c in counts.items():
             self.launches[name] += c
         used = ", ".join(f"{n}={c}" for n, c in counts.items() if c) or "none"
@@ -128,10 +151,103 @@ def host_query(q, bitmaps):
 
 
 def same_results(got, want) -> bool:
-    """Batch results equal: cardinalities, and bitmaps where present."""
+    """Batch results equal: cardinalities, sums, and bitmaps where
+    present."""
     return len(got) == len(want) and all(
-        g.cardinality == w.cardinality and g.bitmap == w.bitmap
-        for g, w in zip(got, want))
+        (g.cardinality, g.value) == (w.cardinality, w.value)
+        and g.bitmap == w.bitmap for g, w in zip(got, want))
+
+
+def value_pool(expr, price, ts, srcs) -> list:
+    """Every predicate op on both column kinds, each composed with set
+    algebra, then sum_ and top_k(k=100) roots over both columns (top_k in
+    both result forms).  eq/neq compare with the stored value of a row of
+    source 0, and those queries keep source 0 in their found set."""
+    row = int(srcs[0].to_array()[len(srcs[0]) // 2])
+    p_at, t_at = int(price.host.get_value(row)[0]), int(ts.values[row])
+    pm, tm = PRICE_MAX, ts.max_value
+    preds = ([("price", op, v) for op, v in (
+                 ("eq", p_at), ("neq", p_at), ("lt", pm // 3),
+                 ("le", pm // 3), ("gt", pm // 2), ("ge", 2 * pm // 3),
+                 ("range", (pm // 4, pm // 2)))]
+             + [("ts", op, v) for op, v in (
+                 ("eq", t_at), ("neq", t_at), ("lt", tm // 3),
+                 ("le", tm // 3), ("gt", tm // 2), ("ge", 2 * tm // 3),
+                 ("range", (tm // 4, tm // 2)))])
+    pool = []
+    for i, (col, op, v) in enumerate(preds):
+        pred = (expr.range_(col, *v) if op == "range"
+                else expr.cmp(col, op, v))
+        a, b = (0, 5) if op in ("eq", "neq") else (2 * i + 1, 2 * i + 2)
+        e = (expr.and_(expr.or_(a, b), pred) if i % 2 == 0
+             else expr.andnot(pred, expr.ref(b)))
+        pool.append(expr.ExprQuery(e, form="bitmap" if i % 3 == 0
+                                   else "cardinality"))
+    in_band = expr.and_(expr.or_(0, 1), expr.range_("price", pm // 4,
+                                                    3 * pm // 4))
+    pool += [
+        expr.ExprQuery(expr.sum_("price", found=in_band)),
+        expr.ExprQuery(expr.sum_("ts", found=expr.or_(2, 3))),
+        expr.ExprQuery(expr.sum_("price")),
+        expr.ExprQuery(expr.top_k("price", 100, found=expr.or_(4, 5)),
+                       form="bitmap"),
+        expr.ExprQuery(expr.top_k("price", 100, found=in_band)),
+        expr.ExprQuery(expr.top_k("ts", 100, found=expr.andnot(
+            expr.cmp("ts", "ge", tm // 2), expr.ref(6))), form="bitmap"),
+        expr.ExprQuery(expr.top_k("ts", 100, found=expr.or_(7, 8)))]
+    return pool
+
+
+def fitting_batches(eng, pool) -> list:
+    """``pool`` cut, in order, into batches that each fit B5 (``MAX_STEPS``
+    and ``MAX_SLOTS``): each takes queries while its plan fits.  Returns
+    [(batch, host ms of its plan)]."""
+    batches, cur, cur_ms = [], [], 0.0
+    for q in pool:
+        t0 = time.perf_counter()
+        mega = eng.plan(cur + [q]).mega
+        ms = (time.perf_counter() - t0) * 1e3
+        if mega is not None and mega.fits():
+            cur, cur_ms = cur + [q], ms
+            continue
+        require(bool(cur), f"one query does not fit B5: {q}")
+        batches.append((cur, cur_ms))
+        cur = []
+        mega = eng.plan([q]).mega
+        require(mega is not None and mega.fits(),
+                f"one query does not fit B5: {q}")
+        cur = [q]
+    return batches + [(cur, cur_ms)] if cur else batches
+
+
+def check_value(expr, label, eng, pool, srcs, cols, got,
+                rungs=("cuda", "torch")) -> None:
+    """Results equal to the other rungs, each timed on its first (cold)
+    and second (warm) execute, and to the host oracles:
+    ``evaluate_host`` and ``evaluate_host_agg`` over the columns."""
+    rung_ms = {}
+    for rung in rungs:
+        require(same_results(got, eng.execute(pool, engine=rung)),
+                f"{label}: != {rung} rung")
+        cold = eng.last_timings["device_ms"]
+        eng.execute(pool, engine=rung)
+        rung_ms[rung] = (f"{cold:.3f} cold / "
+                         f"{eng.last_timings['device_ms']:.3f} warm")
+    log(f"    {label}: device ms of the other rungs {rung_ms}")
+    t0 = time.perf_counter()
+    for i, (q, r) in enumerate(zip(pool, got)):
+        if expr.is_agg(q.expr):
+            card, value, bm = expr.evaluate_host_agg(q.expr, srcs, cols)
+            ok = ((r.cardinality, r.value) == (card, value)
+                  and (q.form != "bitmap" or r.bitmap == bm))
+        else:
+            want = expr.evaluate_host(q.expr, srcs, cols)
+            ok = (r.cardinality == want.cardinality
+                  and (q.form != "bitmap" or r.bitmap == want))
+        require(ok, f"{label}: query {i} != the host oracle")
+    log(f"    {label}: equal to the {'/'.join(rungs)} rungs and the host "
+        f"oracles (checked in {time.perf_counter() - t0:.1f} s); cards "
+        f"{[r.cardinality for r in got[:6]]} ...")
 
 
 def phase_time(name: str, t0: float) -> None:
@@ -237,6 +353,11 @@ def main() -> int:
     from roaringbitmap_tpu_torch import (DeviceBitmap, DeviceBitmapSet,
                                          DevicePairSet, RoaringBitmap,
                                          aggregation)
+    from roaringbitmap_tpu_torch.analytics import (BsiColumn, RangeColumn,
+                                                   two_phase_execute)
+    from roaringbitmap_tpu_torch.bsi import (DeviceBSI, DeviceRangeBitmap,
+                                             Operation,
+                                             RoaringBitmapSliceIndex)
     from roaringbitmap_tpu_torch.ops import (build, dense, kernels, megakernel,
                                              packing)
     from roaringbitmap_tpu_torch.ops.words import WORDS32, as_i32, to_u32
@@ -397,7 +518,7 @@ def main() -> int:
     def run_batch(label, eng, pool, engine_want):
         """Plan (host, timed), then the batch through the user entry point
         with engine "auto" as a main-path call; returns the results."""
-        cached = tuple(pool) in eng._plans
+        cached = (tuple(pool), eng._columns_token()) in eng._plans
         t0 = time.perf_counter()
         plan = eng.plan(pool)
         plan_ms = (time.perf_counter() - t0) * 1e3
@@ -719,6 +840,162 @@ def main() -> int:
     del fn
     phase_time("phase 8", t_phase)
 
+    # ------------------------------------------------------------ phase 9
+    log("phase 9: value columns (BsiColumn, RangeColumn, DeviceBSI)")
+    t_phase = time.perf_counter()
+    rows = 1 << 20
+    rng = np.random.default_rng(args.seed + 9)
+    t0 = time.perf_counter()
+    price = smoke.main_path("price column build", lambda: BsiColumn(
+        "price", np.arange(rows, dtype=np.uint32),
+        rng.integers(0, PRICE_MAX, rows)))
+    ts = smoke.main_path("ts column build", lambda: RangeColumn(
+        "ts", rng.integers(0, 1 << 40, rows)))
+    for c in (price, ts):
+        sds.attach_column(c)
+        log(f"  {c.name}: {c.kind}, depth {c.depth} (padded {c.depth_pad}), "
+            f"K {c.keys.size}, {c.hbm_bytes()} bytes")
+    log(f"  columns built in {time.perf_counter() - t0:.1f} s")
+    cols = {"price": price, "ts": ts}
+    vpool = value_pool(expr, price, ts, sbms)
+    batches = fitting_batches(seng, vpool)
+    log(f"  9a: {len(vpool)} queries in {len(batches)} batches that fit B5")
+    n_vscan = n_vagg = 0
+    fused_aggs = {}
+    big = None
+    for bi, (batch, plan_ms) in enumerate(batches):
+        label = f"value batch {bi} x{len(batch)}"
+        log(f"    {label}: plan {plan_ms:.1f} ms (host, first plan)")
+        plan, got = run_batch(label, seng, batch, "megakernel")
+        b5 = smoke.last[kernels.B5.name]
+        require(b5 == 1, f"{label}: B5 launched {b5} times, not once")
+        mega = plan.mega
+        n_vscan += mega.n_vscan
+        n_vagg += mega.n_vagg
+        log(f"    {label}: steps {mega.n_steps}, slots {mega.n_slots}, "
+            f"bank-2 rows {mega.col_rows}, vscan {mega.n_vscan}, vagg "
+            f"{mega.n_vagg}; B5 launched once")
+        check_value(expr, label, seng, batch, sbms, cols, got)
+        for q, r in zip(batch, got):
+            if expr.is_agg(q.expr):
+                fused_aggs[q] = r
+        # phase 6 times the longest plan that holds an aggregate root
+        if big is None or (mega.n_vagg > 0, mega.n_steps) > (
+                big.n_vagg > 0, big.n_steps):
+            big = mega
+    require(n_vscan > 0 and n_vagg > 0,
+            f"9a: vscan {n_vscan}, vagg {n_vagg} steps; both must run")
+    shapes["megakernel_value"] = (big, sds.words)
+
+    # a plan past MAX_STEPS: four top-k roots over the 64-plane column
+    over = [expr.ExprQuery(expr.top_k("ts", 100, found=expr.or_(i, i + 1)))
+            for i in range(4)]
+    mover = seng.plan(over).mega
+    reason = megakernel.capacity_reason(mover)
+    log(f"  4 top_k(ts) roots: steps {mover.n_steps} (pad "
+        f"{mover.steps_pad}), slots {mover.n_slots} -> "
+        f"{'fits' if reason is None else 'demoted: ' + reason}")
+    require(reason == "steps", f"4 top_k roots: capacity {reason!r}, "
+            f"expected 'steps'")
+    key = ("batch_engine", reason)
+    before = megakernel.DEMOTIONS.get(key, 0)
+    got = smoke.main_path("top_k(ts) x4", lambda: seng.execute(over))
+    require(seng.last_timings["engine"] == "cuda"
+            and megakernel.DEMOTIONS.get(key, 0) == before + 1,
+            "4 top_k roots: demotion not counted")
+    log(f"    demoted to the cuda rung, counted under {reason!r}")
+    check_value(expr, "top_k(ts) x4", seng, over, sbms, cols, got,
+                rungs=("torch",))
+
+    # 9b: the two-phase baseline on the aggregate roots of 9a, each root
+    # alone (warm), against the same root fused in one B5 launch
+    tp = two_phase_execute(seng, list(fused_aggs))
+    for (q, f), r in zip(fused_aggs.items(), tp):
+        require((r.cardinality, r.value, r.bitmap) == (
+            f.cardinality, f.value, f.bitmap), "9b: two-phase != fused")
+    totals = [0.0, 0.0]
+    for q in fused_aggs:
+        one = [q]
+        seng.execute(one)
+        two_phase_execute(seng, one)
+        f_ms = device_ms(lambda: seng.execute(one))[1]
+        t_ms = device_ms(lambda: two_phase_execute(seng, one))[1]
+        totals[0] += f_ms
+        totals[1] += t_ms
+        log(f"    9b {q.expr.kind}({q.expr.col}): fused {f_ms:.3f} ms, "
+            f"two-phase {t_ms:.3f} ms (host clock to a synchronize, "
+            f"plan and readbacks included, warm)")
+    log(f"  9b: two-phase equals the fused answers for {len(fused_aggs)} "
+        f"aggregate roots; fused {totals[0]:.3f} ms, two-phase "
+        f"{totals[1]:.3f} ms in all")
+
+    # 9c: the device BSI tier over phase 2's 2^24-row universe
+    t0 = time.perf_counter()
+    big_rows = 1 << 24
+    hbsi = RoaringBitmapSliceIndex.from_pairs(
+        np.arange(big_rows, dtype=np.uint32),
+        rng.integers(0, PRICE_MAX, big_rows))
+    log(f"  9c: host BSI over {big_rows} rows built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dbsi = smoke.main_path("DeviceBSI build", lambda: DeviceBSI(hbsi))
+    log(f"    DeviceBSI: depth {dbsi.depth}, K {dbsi.keys.size}, "
+        f"{dbsi.hbm_bytes()} bytes resident")
+    stored = int(hbsi.get_value(12345)[0])
+    for op, a, b in (("EQ", stored, 0), ("NEQ", stored, 0),
+                     ("LT", PRICE_MAX // 3, 0), ("LE", PRICE_MAX // 3, 0),
+                     ("GT", PRICE_MAX // 2, 0), ("GE", PRICE_MAX // 2, 0),
+                     ("RANGE", PRICE_MAX // 4, PRICE_MAX // 2)):
+        bop = Operation[op]
+        (got, dev_ms) = device_ms(lambda: dbsi.compare(bop, a, b))
+        want = hbsi.compare(bop, a, b)
+        require(got == want, f"DeviceBSI {op}: != host")
+        card = dbsi.compare_cardinality(bop, a, b)
+        require(card == want.cardinality, f"DeviceBSI {op} cardinality")
+        log(f"    compare {op}: {card} rows (host); {dev_ms:.3f} ms with "
+            f"the unpack")
+    (got, dev_ms) = device_ms(dbsi.sum)
+    require(got == hbsi.sum(), "DeviceBSI sum != host")
+    log(f"    sum: {got[0]} over {got[1]} rows (host); {dev_ms:.3f} ms")
+    (got, dev_ms) = device_ms(lambda: dbsi.top_k(1000))
+    require(got == hbsi.top_k(1000), "DeviceBSI top_k != host")
+    log(f"    top_k(1000): equals the host; {dev_ms:.3f} ms")
+    reps = 8
+    probes = (
+        ("chained_compare GE", dbsi.chained_compare_cardinality(
+            Operation.GE, PRICE_MAX // 2, reps),
+         dbsi.compare_cardinality(Operation.GE, PRICE_MAX // 2)),
+        ("chained_sum", dbsi.chained_sum_cardinality(reps),
+         hbsi.sum()[0] % 2**32),
+        ("chained_topk 1000", dbsi.chained_topk_cardinality(1000, reps),
+         int(dbsi.chained_topk_cardinality(1000, 1)())))
+    drb = smoke.main_path("DeviceRangeBitmap build",
+                          lambda: DeviceRangeBitmap(ts.host))
+    tmax = ts.max_value
+    for op, a in (("lte", tmax // 3), ("lt", tmax // 3), ("gte", tmax // 2),
+                  ("gt", tmax // 2), ("eq", int(ts.values[77])),
+                  ("neq", int(ts.values[77])), ("between", tmax // 4)):
+        extra = (tmax // 2,) if op == "between" else ()
+        got, dev_ms = device_ms(lambda: getattr(drb, op)(a, *extra))
+        want = getattr(ts.host, op)(a, *extra)
+        require(got == want, f"DeviceRangeBitmap {op}: != host")
+        require(getattr(drb, f"{op}_cardinality")(a, *extra)
+                == want.cardinality, f"DeviceRangeBitmap {op} cardinality")
+        log(f"    DeviceRangeBitmap {op}: {want.cardinality} rows (host); "
+            f"{dev_ms:.3f} ms with the unpack")
+    probes += (("range chained between",
+                drb.chained_cardinality("between", tmax // 4, tmax // 2,
+                                        reps),
+                drb.between_cardinality(tmax // 4, tmax // 2)),)
+    for name, fn, single in probes:
+        total = int(smoke.main_path(f"{name} x{reps}", fn))
+        require(total == (reps * single) % 2**32,
+                f"{name}: {total} != {reps} x {single} mod 2^32")
+        _, p_ms = device_ms(fn)
+        log(f"    {name}: total == {reps} x {single} mod 2^32; "
+            f"{p_ms / reps:.3f} ms per iteration")
+    del dbsi, drb, hbsi
+    phase_time("phase 9", t_phase)
+
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "
         "(tolerance: bit-exact, max_abs_err must be 0)")
@@ -822,6 +1099,15 @@ def main() -> int:
            megakernel.stream_bytes(mega5), mega5.n_steps * WORDS32,
            f"7b plan, {mega5.n_steps} steps, {mega5.n_slots} slots",
            steps=mega5.n_steps)
+    mega9, words9 = shapes.pop("megakernel_value")
+    arrs9 = mega9.device_arrays(words9.device)
+    banks9 = (words9, arrs9["extra"], arrs9["cols"])
+    record(kernels.B5, lambda: megakernel.raw_call(mega9, *banks9),
+           lambda: megakernel.raw_call_plain(mega9, *banks9),
+           megakernel.stream_bytes(mega9), mega9.n_steps * WORDS32,
+           f"9a plan, {mega9.n_steps} steps, {mega9.n_slots} slots, "
+           f"{mega9.col_rows} bank-2 rows, {mega9.n_vscan} vscan, "
+           f"{mega9.n_vagg} vagg", emit=False, steps=mega9.n_steps)
     rmega, rbanks = megakernel.random_plan(
         args.seed, n_steps=4096, slots_pad=1024, out_pad=64, card_pad=256,
         bank_rows=(1024, 64, 64))

@@ -1,0 +1,264 @@
+"""Value columns a resident set can attach (``roaringbitmap_tpu.analytics.
+column``): the resident artifacts of the analytics lane.
+
+A column binds a value domain to a set's row-id universe twice:
+
+- a **host oracle**: ``bsi.slice_index.RoaringBitmapSliceIndex`` for a
+  sparse column (:class:`BsiColumn`), ``core.rangebitmap.RangeBitmap`` for a
+  dense row-indexed one (:class:`RangeColumn`), the reference every engine
+  rung is held against;
+- a **device artifact**: the slice planes densified once over the column's
+  container keys and padded to a power-of-two depth (``int32[S_pad, K,
+  2048]``) with the existence plane (``int32[K, 2048]``), uploaded once to
+  the column's device (:meth:`_ColumnBase.device_operands`).
+
+Padding is exact: a padded zero plane under a zero predicate bit leaves
+every O'Neil and Kaser state update at the identity.  A column's ``uid``
+comes from the resident sets' counter, so the two never collide; engines
+key their plans on each attached column's ``(uid, version,
+structure_version)``.  Deltas (``apply_delta``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..bsi.device import _densify, _slice_cards_res, _unpack, \
+    _weighted_total
+from ..bsi.slice_index import (Operation, RoaringBitmapSliceIndex,
+                               clamp_range_bounds, kaser_top_k,
+                               minmax_decision, trim_smallest)
+from ..core.bitmap import RoaringBitmap, and_ as rb_and
+from ..core.rangebitmap import RangeBitmap
+from ..ops import packing
+from ..ops.words import WORDS32, as_i32, resolve_device
+from . import plane
+
+_BSI_OP = {"eq": Operation.EQ, "neq": Operation.NEQ, "lt": Operation.LT,
+           "le": Operation.LE, "gt": Operation.GT, "ge": Operation.GE,
+           "range": Operation.RANGE}
+
+
+def _exact_sum(values: np.ndarray) -> int:
+    """Exact sum of int64 values >= 0 (fewer than 2^31 of them): the high
+    and low 32-bit halves summed apart, each well inside int64."""
+    v = values.astype(np.uint64)
+    lo = int((v & np.uint64(0xFFFFFFFF)).sum(dtype=np.uint64))
+    return lo + (int((v >> np.uint64(32)).sum(dtype=np.uint64)) << 32)
+
+
+def _next_uid() -> int:
+    from ..parallel.aggregation import _SET_UIDS
+
+    return next(_SET_UIDS)
+
+
+class _ColumnBase:
+    """Packing, identity and the two-phase aggregate of both kinds."""
+
+    kind = "column"
+
+    def _init_identity(self, name: str, device) -> None:
+        self.name = str(name)
+        self.device = resolve_device(device)
+        self.uid = _next_uid()
+        self.version = 0
+        self.structure_version = 0
+        self._dev = None
+
+    def _pack(self, ebm_bitmap: RoaringBitmap, slice_bitmaps) -> None:
+        """Densify the existence plane and the slices over the ebm's keys,
+        pad the slice axis to a power of two."""
+        keys = np.asarray(ebm_bitmap.keys, np.uint16).copy()
+        depth = len(slice_bitmaps)
+        depth_pad = packing.next_pow2(max(1, depth))
+        ebm_np = (_densify(ebm_bitmap, keys) if keys.size
+                  else np.zeros((0, WORDS32), np.uint32))
+        slices_np = np.zeros((depth_pad,) + ebm_np.shape, np.uint32)
+        if keys.size:
+            for i, s in enumerate(slice_bitmaps):
+                slices_np[i] = _densify(s, keys)
+        self.keys = keys
+        self.depth = depth
+        self.depth_pad = depth_pad
+        self.ebm_np = ebm_np
+        self.slices_np = slices_np
+        self._dev = None
+
+    def hbm_bytes(self) -> int:
+        return int(self.slices_np.nbytes + self.ebm_np.nbytes)
+
+    def device_operands(self):
+        """(slices int32[S_pad, K, 2048], ebm int32[K, 2048]) on the
+        column's device, uploaded once."""
+        if self._dev is None:
+            self._dev = (as_i32(self.slices_np, self.device),
+                         as_i32(self.ebm_np, self.device))
+        return self._dev
+
+    def _bits(self, value: int) -> np.ndarray:
+        return plane.predicate_bits(value, self.depth_pad)
+
+    def apply_delta(self, *args, **kwargs):
+        raise NotImplementedError(
+            "column deltas come with the mutable tenants (queue A item 8): "
+            "they must notify the result cache, which is not ported yet")
+
+    # ----------------------------------------------------- two-phase lane
+    def device_agg(self, kind: str, found: RoaringBitmap, k: int = 0):
+        """The two-phase baseline's second dispatch: a read-back found
+        bitmap is densified again over the column's keys and the aggregate
+        runs on its own."""
+        slices, ebm = self.device_operands()
+        fw = (as_i32(_densify(found, self.keys), self.device)
+              if self.keys.size else ebm)
+        if kind == "sum":
+            cards = _slice_cards_res(slices[:self.depth], fw).cpu().numpy()
+            return _weighted_total(cards), found.cardinality
+        res = plane.topk_words(slices, fw & ebm, k)
+        return trim_smallest(_unpack(self.keys, res), k)
+
+
+class BsiColumn(_ColumnBase):
+    """Sparse value column over arbitrary 32-bit row ids, values in
+    [0, 2^31 - 1], backed by the host RoaringBitmapSliceIndex."""
+
+    kind = "bsi_column"
+
+    def __init__(self, name: str, column_ids, values, device=None):
+        self._init_identity(name, device)
+        self.host = RoaringBitmapSliceIndex.from_pairs(
+            np.asarray(column_ids, np.uint32), np.asarray(values, np.int64))
+        self._repack()
+
+    @classmethod
+    def from_bsi(cls, name: str, bsi: RoaringBitmapSliceIndex,
+                 device=None) -> "BsiColumn":
+        out = cls.__new__(cls)
+        out._init_identity(name, device)
+        out.host = bsi.clone()
+        out._repack()
+        return out
+
+    def _repack(self) -> None:
+        self.min_value = self.host.min_value
+        self.max_value = self.host.max_value
+        self._pack(self.host.ebm, self.host.slices)
+
+    def scan_plan(self, op: str, lo: int, hi: int = 0):
+        """Plan-time lowering of one predicate: ``("empty",)`` / ``("all",)``
+        (min/max pruning, shared with the host comparator) or ``("scan",
+        tag, bits, bits2)`` with the clamped bounds as padded-depth bits."""
+        bop = _BSI_OP[op]
+        if self.host.ebm.is_empty() or self.keys.size == 0:
+            # predicates evaluate over the existence plane, so an empty
+            # column answers empty for every op, NEQ included
+            return ("empty",)
+        decision = minmax_decision(bop, lo, hi, self.min_value,
+                                   self.max_value)
+        if decision is not None:
+            return (decision,)
+        lo, hi = clamp_range_bounds(bop, lo, hi, self.min_value,
+                                    self.max_value)
+        return ("scan", f"bsi:{bop.value}", self._bits(lo), self._bits(hi))
+
+    def host_filter(self, op: str, lo: int, hi: int = 0) -> RoaringBitmap:
+        return self.host.compare(_BSI_OP[op], lo, hi)
+
+    def host_sum(self, found: RoaringBitmap | None):
+        return self.host.sum(found)
+
+    def host_top_k(self, k: int, found: RoaringBitmap | None
+                   ) -> RoaringBitmap:
+        fs = self.host.ebm if found is None else rb_and(self.host.ebm, found)
+        return self.host.top_k(min(int(k), fs.cardinality), fs)
+
+
+class RangeColumn(_ColumnBase):
+    """Dense row-indexed value column (rows 0..N-1, int64 values >= 0),
+    backed by the host RangeBitmap (the threshold oracle) and the
+    stored values (the aggregate oracle)."""
+
+    kind = "range_column"
+
+    def __init__(self, name: str, values, device=None):
+        self._init_identity(name, device)
+        self.values = np.asarray(values, np.int64).copy()
+        if self.values.size and int(self.values.min()) < 0:
+            raise ValueError("range column values must be >= 0")
+        self.host = RangeBitmap.from_values(self.values)
+        self.rows = int(self.values.size)
+        self.min_value = int(self.values.min()) if self.rows else 0
+        self.max_value = self.host.max_value
+        self._pack(RoaringBitmap.from_range(0, self.rows), self.host.slices)
+
+    def scan_plan(self, op: str, lo: int, hi: int = 0):
+        """RangeBitmap guard semantics: thresholds outside the stored domain
+        short-circuit as on the host, the rest lowers to the
+        lte/gte/eq/neq/between scans."""
+        if self.rows == 0 or self.keys.size == 0:
+            return ("empty",)
+        mx = self.max_value
+        if op == "lt":
+            if lo <= 0:
+                return ("empty",)
+            op, lo = "le", lo - 1
+        elif op == "gt":
+            op, lo = "ge", lo + 1
+        if op == "le":
+            if lo < 0:
+                return ("empty",)
+            if lo >= mx:
+                return ("all",)
+            return ("scan", "range:lte", self._bits(lo), self._bits(0))
+        if op == "ge":
+            if lo <= 0:
+                return ("all",)
+            if lo > mx:
+                return ("empty",)
+            return ("scan", "range:gte", self._bits(lo), self._bits(0))
+        if op == "eq":
+            if lo < 0 or lo > mx:
+                return ("empty",)
+            return ("scan", "range:eq", self._bits(lo), self._bits(0))
+        if op == "neq":
+            if lo < 0 or lo > mx:
+                return ("all",)
+            return ("scan", "range:neq", self._bits(lo), self._bits(0))
+        if op == "range":
+            a, b = max(lo, 0), min(hi, mx)
+            if a > mx or hi < 0 or a > b:
+                return ("empty",)
+            if a <= 0 and b >= mx:
+                return ("all",)
+            return ("scan", "range:between", self._bits(a), self._bits(b))
+        raise ValueError(f"unknown predicate op {op!r}")
+
+    def host_filter(self, op: str, lo: int, hi: int = 0) -> RoaringBitmap:
+        rb = self.host
+        fns = {"le": rb.lte, "lt": rb.lt, "ge": rb.gte, "gt": rb.gt,
+               "eq": rb.eq, "neq": rb.neq}
+        if op == "range":
+            return rb.between(lo, hi)
+        if op not in fns:
+            raise ValueError(f"unknown predicate op {op!r}")
+        return fns[op](lo)
+
+    def host_sum(self, found: RoaringBitmap | None):
+        """(exact total, found count): the values are summed as 32-bit
+        halves, so the total is exact past 2^63."""
+        if found is None:
+            return _exact_sum(self.values), self.rows
+        rows = found.to_array()
+        return (_exact_sum(self.values[rows[rows < self.rows]]),
+                found.cardinality)
+
+    def host_top_k(self, k: int, found: RoaringBitmap | None
+                   ) -> RoaringBitmap:
+        universe = RoaringBitmap.from_range(0, self.rows)
+        fs = universe if found is None else rb_and(universe, found)
+        return kaser_top_k(self.host.slices, fs,
+                           min(int(k), fs.cardinality))
+
+
+__all__ = ["BsiColumn", "RangeColumn"]

@@ -1,4 +1,5 @@
-"""32-bit RoaringBitmap: the host API subset the wide aggregation path uses.
+"""32-bit RoaringBitmap: the host API subset the wide aggregation path and
+the value-column oracles (``core.rangebitmap``, ``bsi.slice_index``) use.
 
 Structure of arrays: ``keys`` is a sorted u16 NumPy array, ``containers`` the
 matching list.  Bulk construction is vectorized (sort + unique on the high-16
@@ -36,7 +37,13 @@ class RoaringBitmap:
         v = np.asarray(values, dtype=np.uint32)
         if v.size == 0:
             return RoaringBitmap()
-        v = np.unique(v)  # sorts and dedups
+        return RoaringBitmap.from_sorted(np.unique(v))
+
+    @staticmethod
+    def from_sorted(v: np.ndarray) -> "RoaringBitmap":
+        """Bulk construction from ascending, duplicate-free u32 values."""
+        if v.size == 0:
+            return RoaringBitmap()
         hi = (v >> np.uint32(16)).astype(np.uint16)
         keys, starts = np.unique(hi, return_index=True)
         bounds = np.append(starts, v.size)
@@ -46,8 +53,45 @@ class RoaringBitmap:
         ]
         return RoaringBitmap(keys.astype(np.uint16), conts)
 
+    @staticmethod
+    def from_range(start: int, stop: int) -> "RoaringBitmap":
+        """Every value in [start, stop), one full or run container a key."""
+        start, stop = max(int(start), 0), min(int(stop), 1 << 32)
+        if stop <= start:
+            return RoaringBitmap()
+        keys, conts = [], []
+        for k in range(start >> 16, ((stop - 1) >> 16) + 1):
+            lo = max(start - (k << 16), 0)
+            hi = min(stop - (k << 16), 1 << 16) - 1
+            keys.append(k)
+            conts.append(C.RunContainer(np.array([lo, hi - lo], np.uint16)))
+        return RoaringBitmap(np.array(keys, dtype=np.uint16), conts)
+
     def clone(self) -> "RoaringBitmap":
         return RoaringBitmap(self.keys.copy(), list(self.containers))
+
+    def _set_member(self, x: int, present: bool) -> None:
+        """Add (``present``) or remove one value, rebuilding its container."""
+        key, low = x >> 16, np.uint16(x & 0xFFFF)
+        i = int(np.searchsorted(self.keys, key))
+        hit = i < self.keys.size and int(self.keys[i]) == key
+        vals = self.containers[i].values() if hit else np.empty(0, np.uint16)
+        vals = (np.union1d(vals, [low]) if present
+                else vals[vals != low]).astype(np.uint16)
+        if hit and vals.size:
+            self.containers[i] = C.from_values(vals)
+        elif hit:
+            self.keys = np.delete(self.keys, i)
+            del self.containers[i]
+        elif vals.size:
+            self.keys = np.insert(self.keys, i, np.uint16(key))
+            self.containers.insert(i, C.from_values(vals))
+
+    def add(self, x: int) -> None:
+        self._set_member(int(x), True)
+
+    def remove(self, x: int) -> None:
+        self._set_member(int(x), False)
 
     @property
     def cardinality(self) -> int:
@@ -136,6 +180,10 @@ def and_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
             keys.append(k)
             conts.append(c)
     return RoaringBitmap(np.array(keys, dtype=np.uint16), conts)
+
+
+def and_cardinality(a: RoaringBitmap, b: RoaringBitmap) -> int:
+    return and_(a, b).cardinality
 
 
 def or_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:

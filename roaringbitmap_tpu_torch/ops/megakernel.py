@@ -17,11 +17,21 @@ container row each:
   CARD writes its popcount to a card row.
 
 Three banks feed row ops: bank 0 is the resident row image, bank 1 the
-ad-hoc leaf rows, bank 2 the analytics column planes (not in this port yet:
-one zero row).  Every step reads ``acc[dst]`` and ``acc[src]`` and writes
-``acc[dst]``; OUT/CARD steps point dst at the dead slot ``slots_pad``, and
-steps that write no output point orow/crow at the dead rows ``out_pad`` /
-``card_pad``, which the kernel never stores.
+ad-hoc leaf rows, bank 2 the attached columns' slice planes and existence
+rows, per (section, column slot), built once per plan
+(:meth:`MegaPlan.device_arrays`).  Every step reads ``acc[dst]`` and
+``acc[src]`` and writes ``acc[dst]``; OUT/CARD steps point dst at the dead
+slot ``slots_pad``, and steps that write no output point orow/crow at the
+dead rows ``out_pad`` / ``card_pad``, which the kernel never stores.
+
+Value steps (the analytics opcodes): a predicate's O'Neil scan is one
+(VSCAN_HI | VSCAN_LO, AND_ROW | ANDNOT_ROW) pair per (slice, key) and
+bound, the predicate's bits choosing the opcodes but never the step count;
+a sum is one VAGG_CARD per (slice, key), whose card row takes
+``popcount(found & plane)``, the 2^i weighting done on the host; a top-k
+is the branch-free Kaser scan, per slice an ACC_POP contraction of the
+candidates into a counter slot and one TAKE broadcasting ``sum < k`` (k in
+``imm``) as a mask.
 
 On the card (``csrc/megakernel.cu``) every opcode but TAKE is word-wise, so
 the 2048-word row is cut into :data:`SLICES` slices of :data:`SLICE_WORDS`
@@ -166,7 +176,13 @@ class MegaPlan:
     expr_out: tuple = ()
     extra_rows: int = 1
     leaf_rows: int = 0
+    #: bank-2 rows: the columns' slice planes and existence rows
     col_rows: int = 0
+    #: value steps assembled: predicate scans and aggregate roots
+    n_vscan: int = 0
+    n_vagg: int = 0
+    #: the columns bank 2 is built from, in its (section, slot) order
+    cols: tuple = ()
     _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
     _checked: set = dataclasses.field(default_factory=set, repr=False)
 
@@ -190,18 +206,32 @@ class MegaPlan:
                 "smem_bytes": int(self.smem_bytes),
                 "out_rows": int(self.out_pad),
                 "card_rows": int(self.card_pad),
-                "sections": len(self.expr_out)}
+                "sections": len(self.expr_out),
+                "vscan_steps": int(self.n_vscan),
+                "vagg_steps": int(self.n_vagg),
+                "col_rows": int(self.col_rows)}
 
     def device_arrays(self, device) -> dict:
-        """{"stream": int32[steps_pad, 8], "extra": int32[rows, 2048]} on
-        ``device``, uploaded once per device.  The stream is step-major, one
-        32-byte record per step with the fields in STREAM_KEYS order, so the
-        kernel fetches a step with two 16-byte copies."""
+        """{"stream": int32[steps_pad, 8], "extra": int32[rows, 2048],
+        "cols": int32[col_rows, 2048]} on ``device``, built once per device.
+        The stream is step-major, one 32-byte record per step with the
+        fields in STREAM_KEYS order, so the kernel fetches a step with two
+        16-byte copies.  "cols" is bank 2: each column's slice planes
+        (slice-major) and then its existence rows, in :func:`_col_layout`'s
+        order (one zero row when the plan reads no column)."""
         key = str(device)
         if key not in self._arrays:
             stream = np.stack([self.host[k] for k in STREAM_KEYS], axis=1)
+            parts = []
+            for col in self.cols:
+                slices, ebm = col.device_operands()
+                parts += [slices.reshape(-1, WORDS32), ebm]
+            cols = (torch.cat(parts).to(device) if parts else
+                    torch.zeros((1, WORDS32), dtype=torch.int32,
+                                device=device))
             self._arrays[key] = {"stream": as_i32(stream, device),
-                                 "extra": as_i32(self.host["extra"], device)}
+                                 "extra": as_i32(self.host["extra"], device),
+                                 "cols": cols}
         return self._arrays[key]
 
     def check(self, bank_rows: tuple) -> None:
@@ -304,12 +334,26 @@ class _SectionCtx:
     """Per-section assembly state: maps compiled steps to (slot | row)
     sources for each of the node's keys."""
 
-    def __init__(self, sec, slot_of_reduce, extra_base, leaf_row):
+    def __init__(self, sec, slot_of_reduce, extra_base, leaf_row,
+                 col_base=None):
         self.sec = sec
         self.slot_of_reduce = slot_of_reduce
         self.extra_base = extra_base
         self.leaf_row = leaf_row
         self.combine_base: dict = {}
+        #: column slot -> (bank-2 row base, depth_pad, K)
+        self.col_base: dict = col_base or {}
+        #: vscan step -> per-key sources (result slots, or existence rows
+        #: for "col:all")
+        self.vscan_src: dict = {}
+
+    def ebm_row(self, col_slot: int, j: int) -> int:
+        base, s, k = self.col_base[col_slot]
+        return base + s * k + j
+
+    def slice_row(self, col_slot: int, s_i: int, j: int) -> int:
+        base, _s, k = self.col_base[col_slot]
+        return base + s_i * k + j
 
     def source(self, ci: int, j: int):
         """("slot", s) | ("row", bank, r) for step ``ci``'s key ``j``."""
@@ -323,6 +367,8 @@ class _SectionCtx:
         if kind == "reduce":
             _, bi, slot, _kq = st
             return self.slot_of_reduce(bi, slot, j)
+        if kind == "vscan":
+            return self.vscan_src[ci][j]
         return ("slot", self.combine_base[ci] + j)
 
 
@@ -384,6 +430,193 @@ def _emit_op(em: _Emitter, dst: int, srcp, slot_op: int,
         em.emit(row_op, dst=dst, row=srcp[2], bank=srcp[1])
 
 
+def _col_layout(sections) -> tuple:
+    """Bank-2 row layout: per (section, column slot), sorted, the column's
+    padded slice planes (``S * K`` rows, slice-major) and then its ``K``
+    existence rows.  Returns ({(sid, slot): (base, S, K)}, total rows)."""
+    shapes: dict = {}
+    for sid, sec in enumerate(sections):
+        for st in sec.steps:
+            if st[0] == "vscan":
+                shapes[(sid, st[1])] = (int(st[3]), int(st[4]))
+            elif st[0] == "vagg":
+                shapes[(sid, st[4])] = (int(st[5]), int(st[6]))
+    bases, off = {}, 0
+    for key in sorted(shapes):
+        s, k = shapes[key]
+        bases[key] = (off, s, k)
+        off += s * k + k
+    return bases, off
+
+
+def _emit_vscan(em: _Emitter, ctx: _SectionCtx, si: int,
+                n_slots: int) -> int:
+    """One value-predicate step: the descending O'Neil pass as one
+    (VSCAN_HI | VSCAN_LO, AND_ROW | ANDNOT_ROW) pair per (slice, key) and
+    bound, a NOP where a bound's bit needs no accumulation, so every
+    predicate value at one (tag, depth, K) gives the same step count.
+    Returns the slots in use after it."""
+    sec = ctx.sec
+    _, ci, tag, depth, kq = sec.steps[si]
+    _kind, _, op = tag.partition(":")
+    if op == "all":
+        ctx.vscan_src[si] = [("row", 2, ctx.ebm_row(ci, j))
+                             for j in range(kq)]
+        return n_slots
+    bits = np.asarray(sec.host[f"b{si}"])
+    bits2 = np.asarray(sec.host[f"b2{si}"])
+    srcs: list = []
+    for j in range(kq):
+        erow = ctx.ebm_row(ci, j)
+        if op in ("RANGE", "between"):
+            g1, e1, l2, e2 = range(n_slots, n_slots + 4)
+            n_slots += 4
+            em.emit(ZERO, dst=g1)
+            em.emit(LOAD_ROW, dst=e1, row=erow, bank=2)
+            em.emit(ZERO, dst=l2)
+            em.emit(LOAD_ROW, dst=e2, row=erow, bank=2)
+            for t in range(depth):
+                w = ctx.slice_row(ci, depth - 1 - t, j)
+                if int(bits[t]):
+                    em.emit(NOP)
+                    em.emit(AND_ROW, dst=e1, row=w, bank=2)
+                else:
+                    em.emit(VSCAN_LO, dst=g1, src=e1, row=w, bank=2)
+                    em.emit(ANDNOT_ROW, dst=e1, row=w, bank=2)
+                if int(bits2[t]):
+                    em.emit(VSCAN_HI, dst=l2, src=e2, row=w, bank=2)
+                    em.emit(AND_ROW, dst=e2, row=w, bank=2)
+                else:
+                    em.emit(NOP)
+                    em.emit(ANDNOT_ROW, dst=e2, row=w, bank=2)
+            # (gt1 | eq1) & (lt2 | eq2): every state already lies inside
+            # the existence plane
+            em.emit(OR_SLOT, dst=g1, src=e1)
+            em.emit(OR_SLOT, dst=l2, src=e2)
+            em.emit(AND_SLOT, dst=g1, src=l2)
+            srcs.append(("slot", g1))
+            continue
+        gt, lt, eq = range(n_slots, n_slots + 3)
+        n_slots += 3
+        em.emit(ZERO, dst=gt)
+        em.emit(ZERO, dst=lt)
+        em.emit(LOAD_ROW, dst=eq, row=erow, bank=2)
+        for t in range(depth):
+            w = ctx.slice_row(ci, depth - 1 - t, j)
+            if int(bits[t]):
+                em.emit(VSCAN_HI, dst=lt, src=eq, row=w, bank=2)
+                em.emit(AND_ROW, dst=eq, row=w, bank=2)
+            else:
+                em.emit(VSCAN_LO, dst=gt, src=eq, row=w, bank=2)
+                em.emit(ANDNOT_ROW, dst=eq, row=w, bank=2)
+        if op in ("EQ", "eq"):
+            res = eq
+        elif op in ("NEQ", "neq"):
+            # ebm & ~eq, in gt's slot
+            em.emit(LOAD_ROW, dst=gt, row=erow, bank=2)
+            em.emit(ANDNOT_SLOT, dst=gt, src=eq)
+            res = gt
+        elif op == "GT":
+            res = gt
+        elif op == "LT":
+            res = lt
+        elif op in ("LE", "lte"):
+            em.emit(OR_SLOT, dst=lt, src=eq)
+            res = lt
+        elif op in ("GE", "gte"):
+            em.emit(OR_SLOT, dst=gt, src=eq)
+            res = gt
+        else:
+            raise ValueError(f"unknown scan tag {tag!r}")
+        srcs.append(("slot", res))
+    ctx.vscan_src[si] = srcs
+    return n_slots
+
+
+def _emit_vagg(em: _Emitter, ctx: _SectionCtx, si: int, n_slots: int,
+               n_card: int, n_out: int) -> tuple:
+    """One aggregate root.  The found step is aligned onto the column's
+    keys (plan-time masks, as a combine).  ``sum``: one VAGG_CARD per
+    (slice, key) into the card rows, then the found step's own per-key
+    cards.  ``top_k``: the Kaser scan; per slice, candidates
+    ``x = g | (e & w)``, an ACC_POP contraction into a counter slot, one
+    TAKE broadcasting ``sum < k`` as a mask F, then ``g |= x & F`` and
+    ``e &= w ^ F``.  Returns (n_slots, n_card, n_out, expr_out entry)."""
+    sec = ctx.sec
+    _, akind, fi, aligned, ci, _depth, kq = sec.steps[si]
+    host = sec.host
+    _base, s_depth, _k = ctx.col_base[ci]
+    k_found = int(sec.steps[fi][-1])
+    idx = host.get(f"i{si}")
+    okm = host.get(f"o{si}")
+    fc = list(range(n_slots, n_slots + kq))
+    n_slots += kq
+    for k in range(kq):
+        ok, jj = (True, k) if aligned else (bool(okm[k]), int(idx[k]))
+        if ok:
+            _emit_set(em, fc[k], ctx.source(fi, jj))
+        else:
+            em.emit(ZERO, dst=fc[k])
+    if akind == "sum":
+        cb = n_card
+        for s_i in range(s_depth):
+            for k in range(kq):
+                em.emit(VAGG_CARD, src=fc[k],
+                        row=ctx.slice_row(ci, s_i, k), bank=2,
+                        crow=cb + s_i * kq + k)
+        # the found set's own cards, from its value before the alignment
+        tmp = n_slots
+        n_slots += 1
+        for j in range(k_found):
+            srcp = ctx.source(fi, j)
+            if srcp[0] == "slot":
+                em.emit(CARD, src=srcp[1], crow=cb + s_depth * kq + j)
+            else:
+                _emit_set(em, tmp, srcp)
+                em.emit(CARD, src=tmp, crow=cb + s_depth * kq + j)
+        n_card += s_depth * kq + k_found
+        return (n_slots, n_card, n_out,
+                (cb, None, kq, ("sum", s_depth, kq, k_found)))
+    kk = int(host[f"k{si}"])
+    e = fc                      # found ∩ existence
+    for k in range(kq):
+        em.emit(AND_ROW, dst=e[k], row=ctx.ebm_row(ci, k), bank=2)
+    g = list(range(n_slots, n_slots + kq))
+    x = list(range(n_slots + kq, n_slots + 2 * kq))
+    counter, flag, t2 = range(n_slots + 2 * kq, n_slots + 2 * kq + 3)
+    n_slots += 2 * kq + 3
+    for k in range(kq):
+        em.emit(ZERO, dst=g[k])
+    for s_i in range(s_depth - 1, -1, -1):
+        for k in range(kq):
+            em.emit(COPY_SLOT, dst=x[k], src=e[k])
+            em.emit(AND_ROW, dst=x[k], row=ctx.slice_row(ci, s_i, k),
+                    bank=2)
+            em.emit(OR_SLOT, dst=x[k], src=g[k])
+        em.emit(ZERO, dst=counter)
+        for k in range(kq):
+            em.emit(ACC_POP, dst=counter, src=x[k])
+        em.emit(TAKE, dst=flag, src=counter, imm=kk)
+        for k in range(kq):
+            # where(take, x, g) == g | (x & F), since g ⊆ x
+            em.emit(AND_SLOT, dst=x[k], src=flag)
+            em.emit(OR_SLOT, dst=g[k], src=x[k])
+        for k in range(kq):
+            # where(take, e & ~w, e & w) == e & (w ^ F)
+            em.emit(COPY_SLOT, dst=t2, src=flag)
+            em.emit(XOR_ROW, dst=t2, row=ctx.slice_row(ci, s_i, k),
+                    bank=2)
+            em.emit(AND_SLOT, dst=e[k], src=t2)
+    cb, ob = n_card, n_out
+    for k in range(kq):
+        em.emit(OR_SLOT, dst=g[k], src=e[k])
+        em.emit(CARD, src=g[k], crow=cb + k)
+        em.emit(OUT, src=g[k], orow=ob + k)
+    n_card += kq
+    n_out += kq
+    return n_slots, n_card, n_out, (cb, ob, kq, ("topk",))
+
+
 def _pack_extra(sections) -> tuple:
     """Bank-1 rows: every ad-hoc leaf's container rows, concatenated, and
     per-(section id, step) base offsets."""
@@ -424,6 +657,8 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
     for b, base, (cb, ob, _n, _k) in zip(buckets, bucket_base, bucket_out):
         _emit_bucket(em, b, base, cb, ob)
 
+    col_bases, col_rows = _col_layout(sections)
+    n_vscan = n_vagg = 0
     ctxs: list = []
     for sid, sec in enumerate(sections):
         ctx = _SectionCtx(
@@ -431,7 +666,9 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
             extra_base={ci: extra_bases.get((sid, ci), 0)
                         for ci, st in enumerate(sec.steps)
                         if st[0] == "adhoc"},
-            leaf_row=leaf_row)
+            leaf_row=leaf_row,
+            col_base={ci: v for (s, ci), v in col_bases.items()
+                      if s == sid})
         for si, st in enumerate(sec.steps):
             if st[0] == "combine":
                 ctx.combine_base[si] = n_slots
@@ -439,12 +676,21 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
         ctxs.append(ctx)
     for ctx in ctxs:
         for si, st in enumerate(ctx.sec.steps):
-            if st[0] == "combine":
+            if st[0] == "vscan":
+                n_vscan += 1
+                n_slots = _emit_vscan(em, ctx, si, n_slots)
+            elif st[0] == "combine":
                 _emit_combine(em, ctx, si)
 
     expr_out: list = []
     for ctx in ctxs:
         sec = ctx.sec
+        if sec.steps[sec.root][0] == "vagg":
+            n_vagg += 1
+            n_slots, n_card, n_out, entry = _emit_vagg(
+                em, ctx, sec.root, n_slots, n_card, n_out)
+            expr_out.append(entry)
+            continue
         k_root = int(sec.root_keys.size)
         root_srcs = [ctx.source(sec.root, j) for j in range(k_root)]
         if any(s[0] == "row" for s in root_srcs):
@@ -478,7 +724,9 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
         n_slots=n_slots, slots_pad=slots_pad,
         out_pad=out_pad, card_pad=card_pad, host=host,
         bucket_out=tuple(bucket_out), expr_out=tuple(expr_out),
-        extra_rows=int(extra.shape[0]))
+        extra_rows=int(extra.shape[0]), col_rows=int(col_rows),
+        n_vscan=n_vscan, n_vagg=n_vagg,
+        cols=tuple(c for sec in sections for c in sec.cols))
 
 
 def build_full(buckets, sections) -> MegaPlan:
@@ -635,7 +883,9 @@ def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
 def _slice_outputs(mega: MegaPlan, out_rows, card_rows):
     """Kernel outputs -> (per-bucket outs, per-section expr outs): buckets
     get (heads int32[n, k_pad, 2048] | None, cards int32[n, k_pad]), fused
-    sections get (heads int32[K, 2048] | None, cards int32[K])."""
+    sections get (heads int32[K, 2048] | None, cards int32[K]); a sum root
+    gets (int32[S, K] per-(slice, key) cards, int32[K_found] found cards),
+    read from its ("sum", S, K, K_found) card block."""
     cards = card_rows.sum(1, dtype=torch.int32)
     outs = []
     for cb, ob, n, k_pad in mega.bucket_out:
@@ -644,18 +894,24 @@ def _slice_outputs(mega: MegaPlan, out_rows, card_rows):
              if ob is not None else None)
         outs.append((h, c))
     expr_outs = []
-    for cb, ob, k_root, _agg in mega.expr_out:
+    for cb, ob, k_root, agg in mega.expr_out:
+        if agg is not None and agg[0] == "sum":
+            _, s_depth, kq, k_found = agg
+            n = s_depth * kq
+            expr_outs.append((cards[cb:cb + n].view(s_depth, kq),
+                              cards[cb + n:cb + n + k_found]))
+            continue
         h = out_rows[ob:ob + k_root] if ob is not None else None
         expr_outs.append((h, cards[cb:cb + k_root]))
     return outs, expr_outs
 
 
 def eval_full(mega: MegaPlan, words: torch.Tensor):
-    """Full-mode evaluation over the resident row image ``words`` (bank 0):
-    one B5 launch, then the outputs sliced per bucket and section."""
-    extra = mega.device_arrays(words.device)["extra"]
-    cols = torch.zeros((1, WORDS32), dtype=torch.int32, device=words.device)
-    out_rows, card_rows = raw_call(mega, words, extra, cols)
+    """Full-mode evaluation over the resident row image ``words`` (bank 0),
+    the ad-hoc rows (bank 1) and the column planes (bank 2): one B5
+    launch, then the outputs sliced per bucket and section."""
+    arrs = mega.device_arrays(words.device)
+    out_rows, card_rows = raw_call(mega, words, arrs["extra"], arrs["cols"])
     return _slice_outputs(mega, out_rows, card_rows)
 
 

@@ -33,6 +33,7 @@ synchronization inside the loop.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import numpy as np
 import torch
@@ -50,6 +51,10 @@ SET_ENGINES = ENGINES + ("cuda-nibble",)
 #: sets pick theirs with packing.choose_block.
 BLOCK = 8
 
+#: process-unique ids of resident sets and of the value columns attached to
+#: them (one counter, so the two never collide)
+_SET_UIDS = itertools.count(1)
+
 
 def _engine(engine: str, device: torch.device, allowed=ENGINES) -> str:
     if engine == "auto":
@@ -58,6 +63,14 @@ def _engine(engine: str, device: torch.device, allowed=ENGINES) -> str:
         raise ValueError(f"unknown engine {engine!r}; expected one of "
                          f"{('auto',) + allowed}")
     return engine
+
+
+def _device_key(device) -> torch.device:
+    """``device`` with a bare "cuda" resolved to the current card."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def _flatten(bitmaps) -> list[RoaringBitmap]:
@@ -469,6 +482,9 @@ class DeviceBitmapSet:
     def _load(self, state: dict, layout: str, dev: torch.device) -> None:
         self.device = dev
         self.layout = layout
+        self.uid = next(_SET_UIDS)
+        #: attached value columns by name (attach_column)
+        self.columns: dict = {}
         self.keys = np.asarray(state["keys"], dtype=np.uint16)
         self.n = int(state["n"])
         self.block = int(state["block"])
@@ -787,6 +803,24 @@ class DeviceBitmapSet:
 
     def _zero_total(self) -> torch.Tensor:
         return torch.zeros((), dtype=torch.int64, device=self.device)
+
+    # ----------------------------------------------------------- analytics
+
+    def attach_column(self, column) -> None:
+        """Attach a value column (``analytics.BsiColumn`` / ``RangeColumn``)
+        on this set's device: expression queries may then carry value
+        predicates (``expr.range_`` / ``expr.cmp``) and aggregate roots
+        (``expr.sum_`` / ``expr.top_k``) over it.  Re-attaching a name
+        replaces the column; plans key on each column's uid, so a replaced
+        column never serves a stale plan."""
+        if _device_key(column.device) != _device_key(self.device):
+            raise ValueError(
+                f"column {column.name!r} lives on {column.device}, the "
+                f"resident set on {self.device}")
+        self.columns[column.name] = column
+
+    def detach_column(self, name: str) -> None:
+        self.columns.pop(name, None)
 
     def host_bitmaps(self) -> list[RoaringBitmap]:
         """Host copies of the source bitmaps, rebuilt from the resident rows

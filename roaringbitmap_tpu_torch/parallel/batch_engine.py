@@ -29,7 +29,8 @@ Rungs (``engine``):
                 in ``megakernel.DEMOTIONS`` by reason;
   "cuda"        per bucket a gather + the ragged reduce B1
                 (``ops.kernels.segmented_reduce``), then the expression
-                combines in plain PyTorch (the JAX "pallas" rung);
+                combines and the value columns' plane scans in plain
+                PyTorch (the JAX "pallas" rung);
   "torch"       the plain versions: gather + the doubling reduce (the JAX
                 "xla" rung);
   "auto"        "megakernel" on a CUDA device when the batch holds an
@@ -101,6 +102,9 @@ class BatchQuery:
 class BatchResult:
     cardinality: int
     bitmap: RoaringBitmap | None = None
+    #: the total of a sum_ root (cardinality is then the found count);
+    #: None otherwise
+    value: int | None = None
 
 
 @dataclasses.dataclass
@@ -229,7 +233,8 @@ def bucket_body(words: torch.Tensor, b_sig, arrays: dict, eng: str):
 
 class BatchEngine:
     """Plan + execute mixed-op query batches over one resident set, on the
-    set's device.  Plans are cached by the query tuple (an LRU of
+    set's device.  Plans are cached by the query tuple and the attached
+    columns (an LRU of
     ``PLAN_CACHE_MAX``).  ``last_timings`` holds the plan / device / unpack
     milliseconds of the latest ``execute``."""
 
@@ -292,13 +297,30 @@ class BatchEngine:
         rows = np.flatnonzero(self._row_src == index)
         return rows, self.keys[self._row_seg[rows]]
 
+    def _column(self, name: str):
+        """An attached column by name: the expression compiler's column
+        resolver."""
+        col = self._ds.columns.get(name)
+        if col is None:
+            raise KeyError(
+                f"no column {name!r} attached to this resident set "
+                f"(DeviceBitmapSet.attach_column)")
+        return col
+
+    def _columns_token(self) -> tuple:
+        """The attached columns in a plan key: a re-attached name is a new
+        column (a new uid) and must never serve a plan of the old one."""
+        return tuple((n, c.uid, c.version, c.structure_version)
+                     for n, c in sorted(self._ds.columns.items()))
+
     def plan(self, queries) -> BatchPlan:
-        """Bucketed plan, cached by the exact query tuple: group by (op,
-        pow2 operand count) and pad shapes.  Expression queries expand here:
-        their all-leaf reduce nodes become pseudo flat queries in the same
-        buckets, their combine steps compile into sections, and a plan with
-        fused sections also assembles its megakernel stream."""
-        key = tuple(queries)
+        """Bucketed plan, cached by the query tuple and the attached
+        columns: group by (op, pow2 operand count) and pad shapes.
+        Expression queries expand here: their all-leaf reduce nodes become
+        pseudo flat queries in the same buckets, their combine and value
+        steps compile into sections, and a plan with fused sections also
+        assembles its megakernel stream."""
+        key = (tuple(queries), self._columns_token())
         cached = self._plans.get(key)
         if cached is not None:
             return cached
@@ -321,7 +343,8 @@ class BatchEngine:
         for qid, q in enumerate(queries):
             if isinstance(q, expr_mod.ExprQuery):
                 sections.append(expr_mod.compile_query(
-                    q, qid, add_item, self._plan_leaf))
+                    q, qid, add_item, self._plan_leaf,
+                    col_resolve=self._column))
             else:
                 add_item(q, qid)
         buckets = [plan_bucket(op, items)
@@ -420,10 +443,12 @@ class BatchEngine:
     def _sequential_one(self, q):
         """Host reference for ONE query, mirroring the batch semantics
         (operands as a set; andnot = head minus the union of the rest);
-        expression queries evaluate their canonical DAG on the host."""
+        expression queries evaluate their canonical DAG on the host, value
+        predicates through the columns' host oracles."""
         srcs = self._ds.host_bitmaps()
         if isinstance(q, expr_mod.ExprQuery):
-            return expr_mod.evaluate_host(q.expr, srcs)
+            return expr_mod.evaluate_host(q.expr, srcs,
+                                          columns=self._ds.columns)
         if not q.operands:
             return RoaringBitmap()
         if q.op == "andnot":
@@ -439,15 +464,23 @@ class BatchEngine:
             acc = fn(acc, srcs[i])
         return acc
 
+    def _sequential_result(self, q) -> BatchResult:
+        """One query through the host reference as a BatchResult; aggregate
+        roots go through the columns' host oracles
+        (``expr.evaluate_host_agg``)."""
+        if isinstance(q, expr_mod.ExprQuery) and expr_mod.is_agg(q.expr):
+            card, value, bm = expr_mod.evaluate_host_agg(
+                q.expr, self._ds.host_bitmaps(), columns=self._ds.columns)
+            return BatchResult(cardinality=card, value=value,
+                               bitmap=bm if q.form == "bitmap" else None)
+        rb = self._sequential_one(q)
+        return BatchResult(cardinality=rb.cardinality,
+                           bitmap=rb if q.form == "bitmap" else None)
+
     def _execute_sequential(self, queries) -> list[BatchResult]:
         """Per-query host container algebra: the bit-exact reference every
         rung is held against."""
-        out = []
-        for q in queries:
-            rb = self._sequential_one(q)
-            out.append(BatchResult(cardinality=rb.cardinality,
-                                   bitmap=rb if q.form == "bitmap" else None))
-        return out
+        return [self._sequential_result(q) for q in queries]
 
     def cache_stats(self) -> dict:
         return {"plans": self._plans.stats()}

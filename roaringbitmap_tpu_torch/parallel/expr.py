@@ -1,17 +1,16 @@
-"""Expression-DAG query compiler: compositional set algebra in one batch
-(``roaringbitmap_tpu.parallel.expr``, set algebra only).
+"""Expression-DAG query compiler: compositional set algebra and value
+queries in one batch (``roaringbitmap_tpu.parallel.expr``).
 
 IR
 --
-Leaves: :func:`ref` (an index into the resident set) and :func:`bitmap` (an
-ad-hoc host RoaringBitmap, shipped with the plan).  Ops: :func:`or_`,
-:func:`and_`, :func:`xor`, :func:`andnot`, :func:`not_`.  An
-:class:`ExprQuery` wraps a root expression with a result ``form``
-("cardinality" or "bitmap") and is accepted by ``BatchEngine.execute``
-anywhere a ``BatchQuery`` is.  :class:`ValuePred` and :class:`Agg` (value
-predicates and aggregate roots over analytics columns) exist as classes so
-that such queries fail as they do in the JAX package: this port has no
-column resolver yet, so compiling one raises ``ValueError``.
+Leaves: :func:`ref` (an index into the resident set), :func:`bitmap` (an
+ad-hoc host RoaringBitmap, shipped with the plan) and the value predicates
+:func:`range_` / :func:`cmp` over a column attached to the set
+(``DeviceBitmapSet.attach_column``).  Ops: :func:`or_`, :func:`and_`,
+:func:`xor`, :func:`andnot`, :func:`not_`.  Aggregate roots :func:`sum_` and
+:func:`top_k` consume a bitmap-valued found set.  An :class:`ExprQuery`
+wraps a root expression with a result ``form`` ("cardinality" or "bitmap")
+and is accepted by ``BatchEngine.execute`` anywhere a ``BatchQuery`` is.
 
 Compilation (:func:`compile_query`):
 
@@ -20,21 +19,26 @@ Compilation (:func:`compile_query`):
    commutative children sort, double negation drops, and
    ``and(x..., not(y)...)`` rewrites to ``andnot(and(x...), y...)`` (a
    ``not_`` surviving canonicalization is an unbounded complement and
-   raises).  Equal canonical subtrees are one DAG node.
+   raises).  Equal canonical subtrees are one DAG node.  An aggregate
+   stays at the root; nested anywhere else it raises.
 2. **reduce extraction**: every maximal all-leaf op node becomes a pseudo
    ``BatchQuery`` riding the batch engine's bucketing, so wide chains stay
    segmented reduces.
-3. **fused combine steps**: interior nodes become elementwise bitwise
-   passes over key-aligned ``int32[K, 2048]`` blocks; alignment gathers are
-   plan-time host arrays, an absent child key contributes the identity.
+3. **fused steps**: interior nodes become elementwise bitwise passes over
+   key-aligned ``int32[K, 2048]`` blocks; alignment gathers are plan-time
+   host arrays, an absent child key contributes the identity.  A value
+   predicate becomes one ``vscan`` step over its column's slice planes
+   (min/max pruning at plan time, shared with the host oracle), an
+   aggregate root one ``vagg`` step over its found step.
 4. **short circuits**: a cardinality-only root never materializes its
-   words; an empty key space (disjoint AND, cancelled XOR) is pruned at plan
-   time, and a pruned root never touches the device.
+   words; an empty key space (disjoint AND, cancelled XOR, a pruned
+   predicate) is pruned at plan time, and a pruned root never touches the
+   device.
 
 The sections run two ways: the multi-op rungs run ``eval_sections`` (plain
-PyTorch combines, as they were XLA in the JAX package) after the buckets'
-segmented reduces, and the megakernel rung (``ops.megakernel``) assembles the
-same sections into one instruction stream.
+PyTorch combines and plane scans, as they were XLA in the JAX package) after
+the buckets' segmented reduces, and the megakernel rung (``ops.megakernel``)
+assembles the same sections into one instruction stream.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ import numpy as np
 import torch
 
 from ..ops import dense, packing
-from ..ops.words import WORDS32, as_i32
+from ..ops.words import WORDS32, as_i32, to_u32
 
 #: ops the IR accepts; "not" only survives until canonicalization
 OPS = ("or", "and", "xor", "andnot")
@@ -126,8 +130,10 @@ EMPTY = Node("empty", ())
 
 @dataclasses.dataclass(frozen=True)
 class ValuePred(Expr):
-    """Leaf: a value-domain predicate over an attached column.  Compiling it
-    needs a column resolver, which this port does not have yet."""
+    """Leaf: the rows of an attached column whose value satisfies ``op``
+    against ``lo`` (and ``hi`` for ``range``).  It evaluates over the
+    column's existence plane and composes with or/and/xor/andnot like any
+    bitmap leaf."""
 
     col: str
     op: str
@@ -137,13 +143,46 @@ class ValuePred(Expr):
 
 @dataclasses.dataclass(frozen=True)
 class Agg(Expr):
-    """Aggregate root over a column (``sum`` / ``topk``); compiling it needs
-    a column resolver, which this port does not have yet."""
+    """Aggregate root over a column: ``sum`` (the total and member count of
+    the found set's stored values) or ``topk`` (the rows holding the k
+    largest values).  ``found`` is any bitmap-valued expression (None = the
+    column's whole stored domain)."""
 
     kind: str
     col: str
     k: int
     found: object = None
+
+
+def range_(col, lo: int, hi: int) -> ValuePred:
+    """Rows with ``lo <= value(col) <= hi``."""
+    return ValuePred(str(col), "range", int(lo), int(hi))
+
+
+def cmp(col, op: str, value: int) -> ValuePred:
+    """Rows with ``value(col) <op> value``; op in eq/neq/lt/le/gt/ge."""
+    op = str(op).lower()
+    if op not in ("eq", "neq", "lt", "le", "gt", "ge"):
+        raise ValueError(f"unsupported value predicate op {op!r} "
+                         f"(range predicates spell range_(col, lo, hi))")
+    return ValuePred(str(col), op, int(value))
+
+
+def sum_(col, found=None) -> Agg:
+    """Aggregate root: (sum of column values over the found set, member
+    count)."""
+    return Agg("sum", str(col), 0,
+               None if found is None else _as_expr(found))
+
+
+def top_k(col, k: int, found=None) -> Agg:
+    """Aggregate root: the rows holding the k largest column values within
+    the found set (k clamped to the found set's stored rows; ties trimmed
+    by dropping the smallest row ids)."""
+    if int(k) < 0:
+        raise ValueError(f"top_k needs k >= 0, got {k}")
+    return Agg("topk", str(col), int(k),
+               None if found is None else _as_expr(found))
 
 
 def _as_expr(x) -> Expr:
@@ -251,6 +290,11 @@ def canonicalize(e) -> Expr:
             "unbounded complement: a bare not_ root spans the whole "
             "2^32 universe (complements are bounded only inside and_)")
     return out
+
+
+def is_agg(e) -> bool:
+    """True when ``e`` is an aggregate-rooted expression."""
+    return isinstance(e, Agg)
 
 
 def _canon(e: Expr, memo: dict, intern: dict) -> Expr:
@@ -403,9 +447,21 @@ def _dag_stats_canonical(e: Expr) -> dict:
 
 # ------------------------------------------------- host reference rung
 
+def _host_column(columns, name: str):
+    """A column by name, for the host evaluator and the oracle rung."""
+    col = (columns or {}).get(name)
+    if col is None:
+        raise KeyError(
+            f"no column {name!r} attached to the resident set "
+            f"(DeviceBitmapSet.attach_column)")
+    return col
+
+
 def evaluate_host(e, sources, columns=None) -> object:
     """Bit-exact host evaluation of an expression over ``sources`` (host
-    RoaringBitmaps): the reference every device rung is held against."""
+    RoaringBitmaps): the reference every device rung is held against.
+    ``columns`` maps names to attached columns, whose host oracles answer
+    the value predicates."""
     from ..core.bitmap import RoaringBitmap
 
     e = canonicalize(e)
@@ -428,12 +484,7 @@ def evaluate_host(e, sources, columns=None) -> object:
         elif isinstance(n, AdHoc):
             v = n.bm
         elif isinstance(n, ValuePred):
-            col = (columns or {}).get(n.col)
-            if col is None:
-                raise KeyError(
-                    f"no column {n.col!r} attached to the resident set "
-                    f"(DeviceBitmapSet.attach_column)")
-            v = col.host_filter(n.op, n.lo, n.hi)
+            v = _host_column(columns, n.col).host_filter(n.op, n.lo, n.hi)
         elif n.op == "empty":
             v = RoaringBitmap()
         elif n.op == "andnot":
@@ -455,6 +506,24 @@ def evaluate_host(e, sources, columns=None) -> object:
         # a bare-leaf root must not alias the caller's source
         return out.clone()
     return out
+
+
+def evaluate_host_agg(e, sources, columns=None):
+    """Host-oracle evaluation of an aggregate-rooted expression ->
+    ``(cardinality, value, bitmap | None)``: ``sum`` gives (found count,
+    total, None), ``topk`` (k_eff, None, rows) by the Kaser scan over the
+    found set's stored rows (k clamped, smallest-id tie trim)."""
+    e = canonicalize(e)
+    if not isinstance(e, Agg):
+        raise ValueError("evaluate_host_agg needs an aggregate root")
+    col = _host_column(columns, e.col)
+    found = (None if e.found is None
+             else evaluate_host(e.found, sources, columns))
+    if e.kind == "sum":
+        total, count = col.host_sum(found)
+        return int(count), int(total), None
+    bm = col.host_top_k(e.k, found)
+    return bm.cardinality, None, bm
 
 
 # ----------------------------------------------------- compiled section
@@ -482,6 +551,12 @@ class ExprSection:
       ("combine", op, children, K) children = ((step, aligned), ...);
                                    non-aligned children gather through
                                    host[i{i}_{k}] masked by host[o{i}_{k}]
+      ("vscan", ci, tag, S, K)     value predicate over column slot ci:
+                                   predicate bits host[b{i}], host[b2{i}]
+      ("vagg", kind, found, aligned, ci, S, K)
+                                   aggregate root over column slot ci; the
+                                   found step aligns through host[i{i}] /
+                                   host[o{i}]; top-k's k is host[k{i}]
     """
 
     qid: int
@@ -497,6 +572,10 @@ class ExprSection:
     n_combine: int = 0
     depth: int = 0
     cse_saved: int = 0
+    #: columns the section's vscan/vagg steps read, in column-slot order
+    cols: list = dataclasses.field(default_factory=list)
+    #: (kind, k) of an aggregate-rooted section (sum_/top_k), else None
+    agg: tuple | None = None
     _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -529,37 +608,57 @@ def _is_reduce(n: Expr) -> bool:
             and all(isinstance(c, Ref) for c in n.children))
 
 
+def _align(host: dict, name: str, ck: np.ndarray, node_keys: np.ndarray
+           ) -> bool:
+    """Plan-time alignment of a child over keys ``ck`` onto ``node_keys``:
+    True when they are equal, else host[i{name}] (gather index) and
+    host[o{name}] (key present) are set."""
+    if ck.size == node_keys.size and bool(np.array_equal(ck, node_keys)):
+        return True
+    idx = np.searchsorted(ck, node_keys).clip(
+        0, max(0, ck.size - 1)).astype(np.int32)
+    host[f"i{name}"] = idx
+    host[f"o{name}"] = (ck[idx] == node_keys) if ck.size else \
+        np.zeros(node_keys.size, bool)
+    return False
+
+
 def compile_query(q: ExprQuery, qid: int, plan_reduce,
-                  plan_leaf) -> ExprSection:
+                  plan_leaf, col_resolve=None) -> ExprSection:
     """Compile one :class:`ExprQuery` against an engine's planner.
 
     ``plan_reduce(batch_query, owner)`` registers a pseudo flat query in the
     engine's bucketing and returns ``(pid, keys)``; ``owner`` is the query id
     when the pseudo IS the root (read back from its bucket) and None for
     internal reduce nodes.  ``plan_leaf(index)`` returns ``(gather_rows,
-    keys)`` of a resident leaf.  Value predicates and aggregate roots raise
-    ``ValueError``: this port has no column resolver yet.
+    keys)`` of a resident leaf.  ``col_resolve(name)`` resolves an attached
+    column: value predicates lower to ``vscan`` steps over it and an
+    aggregate root appends one ``vagg`` step over its found set; without a
+    resolver either raises ``ValueError``.
     """
     from .batch_engine import BatchQuery
 
     e = canonicalize(q.expr)
-    if isinstance(e, Agg):
-        _no_columns(e.col)
-    stats = _dag_stats_canonical(e)
+    agg = e if isinstance(e, Agg) else None
+    core = e.found if agg is not None else e
+    stats = (_dag_stats_canonical(core) if core is not None
+             else {"nodes": 0, "cse_saved": 0, "depth": 0})
     sec = ExprSection(qid=qid, form=q.form, kind="fused",
-                      n_nodes=max(1, stats["nodes"]), depth=stats["depth"],
-                      cse_saved=stats["cse_saved"])
-    if isinstance(e, Node) and e.op == "empty":
+                      n_nodes=max(1, stats["nodes"] + (agg is not None)),
+                      depth=stats["depth"], cse_saved=stats["cse_saved"])
+    if agg is not None:
+        sec.agg = (agg.kind, agg.k)
+    elif isinstance(e, Node) and e.op == "empty":
         sec.kind = "empty"
         return sec
-    if isinstance(e, AdHoc):
+    elif isinstance(e, AdHoc):
         sec.kind, sec.adhoc_bm = "adhoc", e.bm
         return sec
-    if isinstance(e, Ref):
+    elif isinstance(e, Ref):
         plan_reduce(BatchQuery("or", (e.index,), form=q.form), qid)
         sec.kind, sec.n_reduce = "flat", 1
         return sec
-    if _is_reduce(e):
+    elif _is_reduce(e):
         # flat root, but prune an empty key space first (disjoint AND,
         # all-empty operands): such a query never touches the device
         leaf_keys = [plan_leaf(c.index)[1] for c in e.children]
@@ -599,6 +698,56 @@ def compile_query(q: ExprQuery, qid: int, plan_reduce,
         keyof[si] = keys
         return si
 
+    def resolve_col(name: str):
+        if col_resolve is None:
+            raise ValueError(
+                f"value predicate over column {name!r} but this "
+                f"engine path has no column resolver (attach "
+                f"columns via DeviceBitmapSet.attach_column)")
+        return col_resolve(name)
+
+    def col_slot(col) -> int:
+        for i, c in enumerate(sec.cols):
+            if c is col:
+                return i
+        sec.cols.append(col)
+        return len(sec.cols) - 1
+
+    def emit_scan(col, scan) -> int | None:
+        """One value-predicate step: nothing ("empty"), the existence plane
+        ("all"), or a slice-plane scan whose predicate bits ride as host
+        arrays."""
+        if scan[0] == "empty":
+            return None
+        si = len(steps)
+        ci = col_slot(col)
+        if scan[0] == "all":
+            steps.append(("vscan", ci, "col:all", col.depth_pad,
+                          int(col.keys.size)))
+        else:
+            _, tag, bits, bits2 = scan
+            steps.append(("vscan", ci, tag, col.depth_pad,
+                          int(col.keys.size)))
+            host[f"b{si}"] = np.asarray(bits, np.int32)
+            host[f"b2{si}"] = np.asarray(bits2, np.int32)
+        keyof[si] = col.keys
+        return si
+
+    def emit_agg(col, found_si: int) -> int:
+        """The aggregate head over the found step, aligned onto the
+        column's keys: one ``vagg`` step (sum's per-slice popcounts or
+        top-k's Kaser scan)."""
+        si = len(steps)
+        ci = col_slot(col)
+        ck = col.keys
+        aligned = _align(host, str(si), keyof[found_si], ck)
+        if agg.kind == "topk":
+            host[f"k{si}"] = np.asarray(agg.k, np.int32)
+        steps.append(("vagg", agg.kind, found_si, aligned, ci,
+                      col.depth_pad, int(ck.size)))
+        keyof[si] = ck
+        return si
+
     def emit(n) -> int | None:
         if n not in memo:
             memo[n] = _emit(n)
@@ -606,7 +755,8 @@ def compile_query(q: ExprQuery, qid: int, plan_reduce,
 
     def _emit(n) -> int | None:
         if isinstance(n, ValuePred):
-            _no_columns(n.col)
+            col = resolve_col(n.col)
+            return emit_scan(col, col.scan_plan(n.op, n.lo, n.hi))
         if isinstance(n, Ref):
             rows, keys = plan_leaf(n.index)
             if keys.size == 0:
@@ -683,22 +833,24 @@ def compile_query(q: ExprQuery, qid: int, plan_reduce,
         node_keys = node_keys.astype(np.uint16)
         sec.n_combine += 1
         si = len(steps)
-        spec = []
-        for k, ci in enumerate(cis):
-            ck = keyof[ci]
-            aligned = (ck.size == node_keys.size
-                       and bool(np.array_equal(ck, node_keys)))
-            if not aligned:
-                idx = np.searchsorted(ck, node_keys).clip(
-                    0, max(0, ck.size - 1)).astype(np.int32)
-                host[f"i{si}_{k}"] = idx
-                host[f"o{si}_{k}"] = ck[idx] == node_keys
-            spec.append((ci, aligned))
+        spec = [(ci, _align(host, f"{si}_{k}", keyof[ci], node_keys))
+                for k, ci in enumerate(cis)]
         steps.append(("combine", op, tuple(spec), int(node_keys.size)))
         keyof[si] = node_keys
         return si
 
-    root = emit(e)
+    if agg is not None:
+        agg_col = resolve_col(agg.col)
+        if core is None:
+            # found=None: the column's whole stored domain, the existence
+            # plane as the found step
+            found_si = emit_scan(agg_col, ("all",) if agg_col.keys.size
+                                 else ("empty",))
+        else:
+            found_si = emit(core)
+        root = None if found_si is None else emit_agg(agg_col, found_si)
+    else:
+        root = emit(e)
     if root is None:
         sec.kind = "empty"
         return sec
@@ -706,12 +858,6 @@ def compile_query(q: ExprQuery, qid: int, plan_reduce,
     sec.root_keys = keyof[root]
     sec.host = host
     return sec
-
-
-def _no_columns(name: str):
-    raise ValueError(
-        f"value predicate over column {name!r} but this engine path has no "
-        f"column resolver (attach columns via DeviceBitmapSet.attach_column)")
 
 
 def fused_of(sections) -> list:
@@ -746,10 +892,24 @@ def expr_bucket_ids(sections) -> frozenset:
 
 # ------------------------------------------------------ device combines
 
-def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads):
+def _gather(v, arrs: dict, name: str, n: int):
+    """``v`` aligned through host[i{name}] and masked by host[o{name}]."""
+    if not v.shape[0]:
+        return v.new_zeros((n, WORDS32))
+    return torch.where(arrs[f"o{name}"][:, None], v[arrs[f"i{name}"]], 0)
+
+
+def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads,
+                 cols=()):
     """Fused evaluation of one section on the device: walk the compiled
-    steps bottom-up with plain PyTorch combines.  Returns ``(heads | None,
-    cards)``, heads int32[K_root, 2048] only for bitmap-form roots."""
+    steps bottom-up with plain PyTorch combines and plane scans.  ``cols``
+    holds the section's column ``(slices, ebm)`` operands in slot order.
+    Returns ``(heads | None, cards)``, heads int32[K_root, 2048] only for
+    bitmap-form roots; an aggregate root returns its own pair: sum
+    ``(int32[S, K] per-(slice, key) cards, int32[K_found] found cards)``,
+    top-k ``(int32[K, 2048] words, int32[K] cards)``."""
+    from ..analytics import plane
+
     vals: list = [None] * len(sec.steps)
     for si, st in enumerate(sec.steps):
         kind = st[0]
@@ -760,15 +920,27 @@ def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads):
         elif kind == "reduce":
             _, bi, slot, kq = st
             v = bucket_heads[bi][slot, :kq]
+        elif kind == "vscan":
+            _, ci, tag, _depth, _kc = st
+            slices, ebm = cols[ci]
+            v = plane.scan_words(tag, slices, ebm, sec.host.get(f"b{si}"),
+                                 sec.host.get(f"b2{si}"))
+        elif kind == "vagg":
+            _, akind, fi, aligned, ci, _depth, kc = st
+            slices, ebm = cols[ci]
+            f = vals[fi]
+            fc = f if aligned else _gather(f, arrs, str(si), kc)
+            if akind == "sum":
+                v = (plane.sum_cards(slices, fc), dense.popcount(f))
+            else:
+                res = plane.topk_words(slices, fc & ebm,
+                                       int(sec.host[f"k{si}"]))
+                v = (res, dense.popcount(res))
         else:
-            _, op, children, _k = st
-            parts = []
-            for k, (ci, aligned) in enumerate(children):
-                cv = vals[ci]
-                if not aligned:
-                    cv = torch.where(arrs[f"o{si}_{k}"][:, None],
-                                     cv[arrs[f"i{si}_{k}"]], 0)
-                parts.append(cv)
+            _, op, children, kn = st
+            parts = [vals[ci] if aligned else
+                     _gather(vals[ci], arrs, f"{si}_{k}", kn)
+                     for k, (ci, aligned) in enumerate(children)]
             if op == "andnot":
                 rest = parts[1]
                 for p in parts[2:]:
@@ -781,33 +953,62 @@ def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads):
                     v = fn(v, p)
         vals[si] = v
     rootv = vals[sec.root]
+    if sec.agg is not None:
+        return rootv
     return (rootv if sec.form == "bitmap" else None), dense.popcount(rootv)
 
 
 def eval_sections(sections, words, bucket_heads) -> list:
     return [eval_section(sec, sec.device_arrays(words.device), words,
-                         bucket_heads) for sec in sections]
+                         bucket_heads,
+                         [c.device_operands() for c in sec.cols])
+            for sec in sections]
 
 
 def assemble_section_result(sec: ExprSection, out, form: str):
-    """Host readback of one section -> (cardinality, bitmap | None).
-    ``out`` is the (heads, cards) pair of a fused section, ignored for
-    empty/adhoc ones."""
+    """Host readback of one section -> (cardinality, bitmap | None,
+    value | None).  ``out`` is the device pair of a fused section (the
+    aggregate pair for an aggregate root), ignored for empty/adhoc
+    ones."""
     from ..core.bitmap import RoaringBitmap
 
+    if sec.agg is not None:
+        return _assemble_agg(sec, out, form)
     if sec.kind == "empty":
-        return 0, (RoaringBitmap() if form == "bitmap" else None)
+        return 0, (RoaringBitmap() if form == "bitmap" else None), None
     if sec.kind == "adhoc":
         bm = sec.adhoc_bm
-        return bm.cardinality, (bm.clone() if form == "bitmap" else None)
+        return (bm.cardinality, bm.clone() if form == "bitmap" else None,
+                None)
     heads, cards = out
     cards = cards.cpu().numpy()
     bm = None
     if form == "bitmap":
-        bm = packing.unpack_result(sec.root_keys,
-                                   heads.cpu().numpy().view(np.uint32),
-                                   cards)
-    return int(cards.sum()), bm
+        bm = packing.unpack_result(sec.root_keys, to_u32(heads), cards)
+    return int(cards.sum()), bm, None
+
+
+def _assemble_agg(sec: ExprSection, out, form: str):
+    """Aggregate readback: sum weights the per-slice popcounts by 2^i in
+    Python ints (exact past 64 bits); top-k unpacks its rows and applies
+    the smallest-id tie trim."""
+    from ..bsi.slice_index import trim_smallest
+    from ..core.bitmap import RoaringBitmap
+
+    akind, k = sec.agg
+    if sec.kind == "empty":
+        if akind == "sum":
+            return 0, None, 0
+        return 0, (RoaringBitmap() if form == "bitmap" else None), None
+    if akind == "sum":
+        slice_cards, found_cards = out
+        per_slice = slice_cards.sum(dim=1, dtype=torch.int64).cpu().numpy()
+        total = sum((1 << i) * int(c) for i, c in enumerate(per_slice))
+        return int(found_cards.sum(dtype=torch.int64)), None, total
+    words, cards = out
+    bm = trim_smallest(packing.unpack_result(
+        sec.root_keys, to_u32(words), cards.cpu().numpy()), k)
+    return bm.cardinality, (bm if form == "bitmap" else None), None
 
 
 def assemble_section_results(sections, expr_outs, results,
@@ -825,8 +1026,10 @@ def assemble_section_results(sections, expr_outs, results,
         if sec.kind == "fused":
             out = expr_outs[fi]
             fi += 1
-        card, bm = assemble_section_result(sec, out, form_of(sec.qid))
-        results[sec.qid] = BatchResult(cardinality=card, bitmap=bm)
+        card, bm, value = assemble_section_result(sec, out,
+                                                  form_of(sec.qid))
+        results[sec.qid] = BatchResult(cardinality=card, bitmap=bm,
+                                       value=value)
     return results
 
 

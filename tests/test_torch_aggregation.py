@@ -357,6 +357,22 @@ def test_port_imports_no_jax():
         "assert rt.DeviceBitmap.aggregate(xs, 'or').cardinality() > 0\n"
         "ps = rt.DevicePairSet([(bms[0], bms[1])], device='cpu')\n"
         "assert ps.cardinalities('or')[0] > 0\n"
+        "from roaringbitmap_tpu_torch import analytics, bsi\n"
+        "from roaringbitmap_tpu_torch.core import rangebitmap\n"
+        "ids = np.arange(0, 70000, 7, dtype=np.uint32)\n"
+        "eng._ds.attach_column(analytics.BsiColumn('p', ids, ids % 1000, "
+        "device='cpu'))\n"
+        "eng._ds.attach_column(analytics.RangeColumn('t', ids, "
+        "device='cpu'))\n"
+        "aq = [expr.ExprQuery(expr.sum_('p', found=expr.and_(0, "
+        "expr.range_('p', 5, 500)))), expr.ExprQuery(expr.top_k('t', 3))]\n"
+        "assert eng.execute(aq, engine='megakernel')[0].value > 0\n"
+        "hb = bsi.RoaringBitmapSliceIndex.from_pairs(ids, ids % 1000)\n"
+        "assert bsi.DeviceBSI(hb, device='cpu').sum()[1] == ids.size\n"
+        "rb = rangebitmap.RangeBitmap.from_values(ids)\n"
+        "assert bsi.DeviceRangeBitmap(rb, device='cpu').lte_cardinality(70)"
+        " == 11\n"
+        "assert analytics.two_phase_execute(eng, aq)[1].cardinality == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -134,8 +134,12 @@ def test_value_predicate_raises_alike(engines):
     with pytest.raises(ValueError) as terr:
         texpr.compile_query(tq, 0, plan_reduce, teng._plan_leaf)
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(ValueError):
+    # with the engine's resolver, a column the set lacks is a KeyError
+    with pytest.raises(KeyError) as jerr:
+        jeng.plan([jexpr.ExprQuery(jexpr.sum_("price"))])
+    with pytest.raises(KeyError) as terr:
         teng.plan([texpr.ExprQuery(texpr.Agg("sum", "price", 0))])
+    assert str(terr.value) == str(jerr.value)
 
 
 def _sections(jeng, teng, jp, tp):

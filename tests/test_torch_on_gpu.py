@@ -267,3 +267,61 @@ def test_b5_long_stream_with_edge_takes(dev):
     got = megakernel.raw_call(mega, *tb)
     torch.cuda.synchronize()
     _same(got, megakernel.raw_call_plain(mega, *tb))
+
+
+def _value_set(dev):
+    """A 2^20-row search-shard set with a BSI and a 40-bit range column."""
+    from roaringbitmap_tpu_torch.analytics import BsiColumn, RangeColumn
+
+    bms = synthetic_bitmaps(16, seed=9, universe=1 << 20, density=1 / 64)
+    ds = DeviceBitmapSet(bms, layout="dense", device=dev)
+    rng = np.random.default_rng(9)
+    rows = 1 << 20
+    ds.attach_column(BsiColumn("price", np.arange(rows, dtype=np.uint32),
+                               rng.integers(0, 2**31 - 1, rows), device=dev))
+    ds.attach_column(RangeColumn("ts", rng.integers(0, 1 << 40, rows),
+                                 device=dev))
+    return bms, ds
+
+
+def test_value_batch_runs_in_one_b5_launch(dev):
+    from roaringbitmap_tpu_torch.parallel import expr
+
+    bms, ds = _value_set(dev)
+    eng = BatchEngine(ds)
+    pool = [expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.range_(
+                "price", 1 << 28, 1 << 30)), form="bitmap"),
+            expr.ExprQuery(expr.andnot(expr.cmp("ts", "ge", 1 << 39),
+                                       expr.ref(2))),
+            expr.ExprQuery(expr.sum_("price", found=expr.or_(3, 4))),
+            expr.ExprQuery(expr.top_k("price", 100, found=expr.or_(5, 6)),
+                           form="bitmap")]
+    plan = eng.plan(pool)
+    assert plan.mega.fits() and plan.mega.n_vscan and plan.mega.n_vagg
+    kernels.reset_launches()
+    got = eng.execute(pool)
+    assert eng.last_timings["engine"] == "megakernel"
+    assert kernels.B5.launches == 1
+    want = eng.execute(pool, engine="torch")
+    for g, w in zip(got, want):
+        assert (g.cardinality, g.value, g.bitmap) == (w.cardinality, w.value,
+                                                      w.bitmap)
+    cols = ds.columns
+    card, value, _ = expr.evaluate_host_agg(pool[2].expr, bms, cols)
+    assert (got[2].cardinality, got[2].value) == (card, value)
+    assert got[0].bitmap == expr.evaluate_host(pool[0].expr, bms, cols)
+
+
+def test_device_bsi_matches_host_oracle(dev):
+    from roaringbitmap_tpu_torch.bsi import (DeviceBSI, Operation,
+                                             RoaringBitmapSliceIndex)
+
+    rng = np.random.default_rng(4)
+    ids = np.unique(rng.integers(0, 1 << 22, 300000)).astype(np.uint32)
+    host = RoaringBitmapSliceIndex.from_pairs(
+        ids, rng.integers(0, 2**31 - 1, ids.size))
+    dbsi = DeviceBSI(host, device=dev)
+    assert dbsi.compare(Operation.RANGE, 1 << 29, 1 << 30) == host.compare(
+        Operation.RANGE, 1 << 29, 1 << 30)
+    assert dbsi.sum() == host.sum()
+    assert dbsi.top_k(500) == host.top_k(500)
