@@ -71,6 +71,31 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
       cardinality, the sum and ``top_k(1000)`` against the host
       ``RoaringBitmapSliceIndex`` / ``RangeBitmap``; the chained probes
       for 8 reps with their time per iteration;
+10. the 64-bit tier, the guard and native ingest, run after 9 and before 6;
+    every set holds Roaring64Bitmaps, bitmap i in the high-32 bucket
+    [0, 1, 2^31, 2^32 - 1][i % 4], so the u48 keys cross 2^32 and 2^63:
+    a. phase 2's bitmaps lifted (their containers reused): a dense set of
+       K = 4 x phase 2's keys over the same rows; or/xor/and on "cuda"
+       (B2) bit-equal to "torch", and on the first 512 to the host fold of
+       Roaring64Bitmaps; device and unpack ms beside phase 2's; the compact
+       set of the first 1,024 (B3 + B2);
+    b. ``or64`` / ``xor64`` over the first 1,024 (cuda == torch, and on the
+       first 512 the host fold), ``and64`` over phase 5's AND inputs at
+       2^63; a flat ``random_query_pool(N, 64)`` batch on the 64-bit set
+       (gather + B1) and an expression batch on the lifted search-shard set
+       of 7b (one B5 launch); ``contains_batch`` of 2^20 u64 probes (half
+       members, about half >= 2^63) and the same bits as int64 probes;
+    c. the guard: no demotion and no sequential landing in phases 2-10b;
+       then faults through ``faults.inject``: a transient on "aggregation"
+       is retried once, equal; ``lowering@cuda`` on one ``or_`` raises
+       ``EngineLoweringError`` (on the card no call demotes to the plain
+       version or the host, and nothing launches); ``oom@megakernel``
+       halves a 2-query batch and lands each half on the "cuda" kernels,
+       counted and equal; shadow rate 1.0 passes on a clean
+       batch and raises ``ShadowMismatch`` under ``silent@batch_engine``;
+    d. phase 5's bitmaps as serialized bytes: ``pack_blocked_compact`` on
+       the native engine equal to the NumPy path array for array, both
+       timed on the host; the set of the native pack's ``or`` on the card;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -86,6 +111,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -100,8 +126,14 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 132 * 64 * 1.98e9
 #: bitmaps whose host fold checks each layout
 HOST_CHECK_N = 512
+#: repetitions of a resident query split into device time and host unpack
+#: (fewer once they have taken 2 s)
+SPLIT_REPS = 5
 #: values of the BSI columns of phase 9: uniform in [0, PRICE_MAX)
 PRICE_MAX = 2**31 - 1
+#: high-32 buckets of phase 10's 64-bit bitmaps (bitmap i in i % 4): the
+#: u48 keys cross 2^32 and 2^63
+BUCKETS = (0, 1, 2**31, 2**32 - 1)
 
 
 def log(msg: str) -> None:
@@ -259,25 +291,33 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def check_set(smoke: Smoke, label: str, ds, ops, unpack) -> None:
+def check_set(smoke: Smoke, label: str, ds, ops, unpack) -> dict:
     """Each op through the user entry point on the cuda engine, bit-equal to
     the torch engine's device words and cards.  Then the same query split
-    into its device part (to synchronize) and its host unpack."""
+    into its device part (to synchronize) and its host unpack; returns
+    {op: (device ms, unpack ms)}."""
     torch = smoke.torch
+    times = {}
     for op in ops:
         got = smoke.main_path(f"{label} {op}", lambda op=op: ds.aggregate(op))
         words, cards = ds.aggregate_device(op, engine="torch")
         want = unpack(ds.keys, words, cards)
         require(got == want, f"{label} {op}: cuda engine != torch engine")
-        t0 = time.perf_counter()
-        words, cards = ds.aggregate_device(op)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        unpack(ds.keys, words, cards)
-        t2 = time.perf_counter()
+        split = []
+        for _ in range(SPLIT_REPS):
+            t0 = time.perf_counter()
+            words, cards = ds.aggregate_device(op)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            unpack(ds.keys, words, cards)
+            split.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            if sum(map(sum, split)) > 2000:
+                break       # a seconds-long unpack is timed once
+        times[op] = tuple(float(np.median(x)) for x in zip(*split))
         log(f"    {op}: cardinality {got.cardinality} (cuda == torch); "
-            f"device {(t1 - t0) * 1e3:.3f} ms, host unpack "
-            f"{(t2 - t1) * 1e3:.3f} ms")
+            f"device {times[op][0]:.3f} ms, host unpack "
+            f"{times[op][1]:.3f} ms (medians of {len(split)})")
+    return times
 
 
 def timed_ms(torch, fn, reps: int) -> float:
@@ -352,9 +392,11 @@ def main() -> int:
 
     from roaringbitmap_tpu_torch import (DeviceBitmap, DeviceBitmapSet,
                                          DevicePairSet, RoaringBitmap,
-                                         aggregation)
+                                         aggregation, native)
     from roaringbitmap_tpu_torch.analytics import (BsiColumn, RangeColumn,
                                                    two_phase_execute)
+    from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap
+    from roaringbitmap_tpu_torch.runtime import errors, faults, guard
     from roaringbitmap_tpu_torch.bsi import (DeviceBSI, DeviceRangeBitmap,
                                              Operation,
                                              RoaringBitmapSliceIndex)
@@ -390,6 +432,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
     smoke = Smoke(torch, kernels)
+    guard.reset_dispatch_stats()
     shapes = {}
     phase_time("phase 1", t_phase)
 
@@ -404,7 +447,7 @@ def main() -> int:
                          lambda: DeviceBitmapSet(bms, layout="dense"))
     log(f"  rows {ds.words.shape[0]}, bytes {ds.hbm_bytes()}, "
         f"block {ds.block}, K {ds.keys.size}")
-    check_set(smoke, "dense", ds, ("or", "xor", "and"), unpack)
+    dense_times = check_set(smoke, "dense", ds, ("or", "xor", "and"), unpack)
     shapes["segmented_reduce_blocked"] = (ds.words, ds.blk_seg,
                                           ds.keys.size, ds.block)
     sub = bms[:HOST_CHECK_N]
@@ -995,6 +1038,253 @@ def main() -> int:
             f"{p_ms / reps:.3f} ms per iteration")
     del dbsi, drb, hbsi
     phase_time("phase 9", t_phase)
+
+    # ------------------------------------------------------------ phase 10
+    log("phase 10: the 64-bit tier, the guard and native ingest")
+    t_phase = time.perf_counter()
+
+    def lift(src, bucket=None):
+        """32-bit bitmaps as Roaring64Bitmaps with values (b << 32) | v,
+        b = BUCKETS[i % 4] (or ``bucket``), reusing their containers."""
+        return [Roaring64Bitmap(
+            (np.uint64(BUCKETS[i % 4] if bucket is None else bucket)
+             << np.uint64(16)) | b.keys.astype(np.uint64), list(b.containers))
+            for i, b in enumerate(src)]
+
+    # 10a: the resident 64-bit set: phase 2's bitmaps in four buckets
+    l64 = lift(bms)
+    ds64 = smoke.main_path("64-bit dense build",
+                           lambda: DeviceBitmapSet(l64, layout="dense"))
+    require(ds64.keys.dtype == np.uint64 and int(ds64.keys[-1]) >> 16
+            == BUCKETS[-1], "64-bit set: keys are not u48 keys past 2^63")
+    log(f"  rows {ds64.words.shape[0]}, bytes {ds64.hbm_bytes()}, block "
+        f"{ds64.block}, K {ds64.keys.size} (u48 keys {int(ds64.keys[0])} "
+        f"... {int(ds64.keys[-1])})")
+    t64 = check_set(smoke, "64-bit dense", ds64, ("or", "xor", "and"),
+                    unpack)
+    for op in ("or", "xor", "and"):
+        log(f"    {op}: device {t64[op][0]:.3f} ms, unpack "
+            f"{t64[op][1]:.3f} ms at K {ds64.keys.size}, against phase "
+            f"2's {dense_times[op][0]:.3f} / {dense_times[op][1]:.3f} ms at "
+            f"K {ds.keys.size} (the same rows)")
+    sub64 = l64[:HOST_CHECK_N]
+    t0 = time.perf_counter()
+    host64 = {op: host_fold(op, sub64) for op in ("or", "xor", "and")}
+    log(f"  host folds of {len(sub64)} Roaring64Bitmaps in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ds64_sub = DeviceBitmapSet(sub64, layout="dense")
+    for op in ("or", "xor", "and"):
+        got = smoke.main_path(f"64-bit dense[{len(sub64)}] {op}",
+                              lambda op=op: ds64_sub.aggregate(op))
+        require(type(got) is Roaring64Bitmap and got == host64[op],
+                f"64-bit dense {op} over {len(sub64)} != host fold")
+    log(f"    first {len(sub64)}: or/xor/and equal the host fold of "
+        f"Roaring64Bitmaps")
+    xds64 = smoke.main_path("64-bit compact build", lambda: DeviceBitmapSet(
+        l64[:m], layout="compact"))
+    log(f"  compact set of the first {m}: chunks "
+        f"{xds64._chunks[0].shape[0]}, rows {xds64._n_rows}, "
+        f"K {xds64.keys.size}")
+    check_set(smoke, "64-bit compact", xds64, ("or",), unpack)
+    got = smoke.main_path(f"64-bit compact[{len(sub64)}] or", lambda: (
+        DeviceBitmapSet(sub64, layout="compact").aggregate("or")))
+    require(got == host64["or"], "64-bit compact or != host fold")
+    del ds64_sub
+
+    # 10b: ad-hoc 64-bit calls, a flat batch, an expression batch, probes
+    ad64 = l64[:m]
+    for name, fn in (("or64", aggregation.or64),
+                     ("xor64", aggregation.xor64)):
+        got = smoke.main_path(name, lambda fn=fn: fn(ad64))
+        require(got == fn(ad64, engine="torch"), f"{name}: cuda != torch")
+        log(f"    {name}: cardinality {got.cardinality} (cuda == torch)")
+    require(smoke.main_path("or64 host", lambda: aggregation.or64(sub64))
+            == host64["or"], "or64 != host fold")
+    a64 = lift(abms, bucket=2**31)
+    got = smoke.main_path("and64", lambda: aggregation.and64(a64))
+    want = lift([aggregation.and_(abms)], bucket=2**31)[0]
+    require(got == want and int(got.first()) >= 2**63,
+            "and64 != the lifted 32-bit and_")
+    log(f"    and64 over {len(a64)} bitmaps at 2^63: cardinality "
+        f"{got.cardinality} (the lifted and_)")
+
+    eng64 = BatchEngine(ds64)
+    flat64 = [BatchQuery(q.op, q.operands, form="bitmap")
+              for q in random_query_pool(n, 64, seed=args.seed)]
+    _, got = run_batch(f"64-bit flat x{len(flat64)}", eng64, flat64, "cuda")
+    require(same_results(got, eng64.execute(flat64, engine="torch")),
+            "64-bit flat batch: cuda rung != torch rung")
+    for q, r in zip(flat64[:8], got):
+        require(type(r.bitmap) is Roaring64Bitmap
+                and r.bitmap == host_query(q, l64),
+                f"64-bit flat {q.op}: != host fold")
+    log(f"    equal to the torch rung; first 8 equal the host fold (cards "
+        f"{[r.cardinality for r in got[:8]]})")
+    s64 = lift(sbms)
+    sds64 = smoke.main_path("64-bit shard build", lambda: DeviceBitmapSet(
+        s64, layout="dense"))
+    log(f"  64-bit search-shard set: rows {sds64.words.shape[0]}, K "
+        f"{sds64.keys.size}")
+    seng64 = BatchEngine(sds64)
+    _, epool64 = fitting_pool(seng64, n)
+    _, got = run_batch(f"64-bit expr x{len(epool64)}", seng64, epool64,
+                       "megakernel")
+    require(smoke.last[kernels.B5.name] == 1, "64-bit expr: not one B5")
+    check_expr("64-bit expr", seng64, epool64, s64, got)
+
+    union64 = ds64.aggregate("or", engine="torch")
+    comp64 = DeviceBitmap.aggregate(ds64, "or")
+    members = union64.to_array()
+    half = 1 << 19
+    probes = np.concatenate([rng.choice(members, half), rng.integers(
+        0, 2**64 - 1, half, dtype=np.uint64)])
+    got = smoke.main_path("64-bit contains_batch x2^20",
+                          lambda: comp64.contains_batch(probes))
+    want_in = np.isin(probes, members)
+    require(np.array_equal(got, want_in), "64-bit contains_batch != host")
+    spot = probes[::1024]
+    require(np.array_equal(want_in[::1024],
+                           [union64.contains(int(v)) for v in spot]),
+            "64-bit host contains != isin")
+    sprobes = probes.view(np.int64)     # every probe >= 2^63 is negative
+    got_s = comp64.contains_batch(sprobes)
+    require(np.array_equal(got_s, want_in & (sprobes >= 0)),
+            "64-bit contains_batch of int64 probes != host")
+    log(f"    contains_batch of {probes.size} u64 probes: {int(got.sum())} "
+        f"members, {int((probes >= np.uint64(2**63)).sum())} probes >= "
+        f"2^63 (host); as int64, {int((sprobes < 0).sum())} negative "
+        f"probes all absent")
+    del comp64, union64, sds64, seng64
+
+    # 10c: the guard: nothing demoted so far, then injected faults
+    stats = guard.dispatch_stats()
+    require(all(r["demotions"] == 0 and r["sequential"] == 0
+                for r in stats.values()),
+            f"a guarded call demoted or landed on the host: {stats}")
+    log(f"  10c: after phases 2-10b the guard counted no demotion and no "
+        f"sequential landing ({stats or 'no events at any site'})")
+    guard.reset_dispatch_stats()
+
+    def fires_once(spec_of):
+        """The seed whose first draw fires and whose second does not."""
+        for seed in range(1000):
+            plan = faults.FaultPlan.from_spec(spec_of(seed))
+            key = "aggregation/pallas"      # how the "cuda" rung is drawn
+            if plan._draw(0, key) < 0.5 <= plan._draw(0, key):
+                return spec_of(seed)
+        raise AssertionError("no seed fires once")
+
+    spec = fires_once(lambda sd: f"transient@aggregation=0.5:{sd}")
+    with faults.inject(spec):
+        got = smoke.main_path(f"or_ under {spec}", lambda: aggregation.or_(
+            adhoc, engine="cuda"))
+    require(got == union and guard.dispatch_stats("aggregation") == {
+        "retries": 1, "demotions": 0, "sequential": 0},
+        f"transient: {guard.dispatch_stats('aggregation')}")
+    log(f"    {spec}: retried once on cuda, equal result")
+    guard.reset_dispatch_stats()
+
+    def lowered():
+        try:
+            aggregation.or_(adhoc, engine="cuda")
+        except errors.EngineLoweringError as exc:
+            return exc
+        return None
+
+    with faults.inject("lowering@cuda:1"):
+        raised = smoke.main_path("or_ under lowering@cuda", lowered)
+    require(raised is not None and not any(smoke.last.values())
+            and guard.dispatch_events() == {},
+            f"lowering@cuda: raised {raised!r}, launches {smoke.last}, "
+            f"events {guard.dispatch_events()}")
+    log(f"    lowering@cuda: or_ raised {type(raised).__name__} on the card "
+        f"(no demotion to torch or the host, no launch)")
+    guard.reset_dispatch_stats()
+    pair = epool[:2]
+    clean = seng.execute(pair)
+    with faults.inject("oom@megakernel:1"):
+        got = smoke.main_path("expr x2 under oom@megakernel",
+                              lambda: seng.execute(pair))
+    ev = guard.dispatch_events()
+    require(same_results(got, clean) and seng.last_timings["engine"] == "cuda"
+            and ev.get(("batch_engine", "megakernel", "demotions"), 0) >= 1
+            and not any(k[2] == "sequential" for k in ev),
+            f"oom@megakernel: {ev}, {seng.last_timings['engine']}")
+    log(f"    oom@megakernel: the batch was halved ({seng.split_count} "
+        f"splits so far) and each half demoted to cuda (counted: {ev}); "
+        f"equal result")
+    guard.reset_dispatch_stats()
+    # the shadow check re-runs every query on the host rung, which first
+    # rebuilds the sources from the resident rows: a set of 256, not 4,096
+    shadow = guard.GuardPolicy(shadow_rate=1.0)
+    n_sh = min(256, n)
+    eng_sh = BatchEngine(DeviceBitmapSet(l64[:n_sh], layout="dense"))
+    pool_sh = [BatchQuery(q.op, q.operands, form="bitmap")
+               for q in random_query_pool(n_sh, 8, seed=args.seed)]
+    got = smoke.main_path("flat x8 under shadow 1.0", lambda: eng_sh.execute(
+        pool_sh, policy=shadow))
+    require(same_results(got, eng_sh.execute(pool_sh, engine="torch")),
+            "shadow 1.0 on a clean batch changed a result")
+    try:
+        with faults.inject("silent@batch_engine:3"):
+            eng_sh.execute(pool_sh, policy=shadow)
+        caught = False
+    except errors.ShadowMismatch as exc:
+        caught = True
+        log(f"    silent@batch_engine under shadow 1.0: ShadowMismatch "
+            f"({exc})")
+    require(caught, "silent corruption under shadow 1.0 was not caught")
+    log("    shadow 1.0 passed on the clean batch")
+
+    # 10d: native ingest of phase 5's bitmaps as serialized bytes
+    blobs = [b.serialize() for b in adhoc]
+    native.reset_calls()
+
+    def pack_bytes():
+        return packing.pack_blocked_compact(
+            blobs, block=aggregation.BLOCK, round_blocks=64,
+            carry_slot=False)
+
+    def best_ms(fn, reps=3):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        return out, best
+
+    t0 = time.perf_counter()
+    pack_bytes()                       # the first call builds the library
+    build_s = time.perf_counter() - t0
+    p_nat, nat_ms = best_ms(pack_bytes)
+    os.environ["RB_NATIVE"] = "0"
+    try:
+        p_np, np_ms = best_ms(pack_bytes)
+    finally:
+        del os.environ["RB_NATIVE"]
+    for f in ("keys", "blk_seg", "block", "n_blocks", "seg_sizes",
+              "seg_offsets", "carry_row", "row_src"):
+        require(np.array_equal(getattr(p_nat, f), getattr(p_np, f)),
+                f"native pack: {f} != NumPy")
+    for f in ("n_rows", "dense_words", "dense_dest", "values", "val_counts",
+              "val_dest"):
+        require(np.array_equal(getattr(p_nat.streams, f),
+                               getattr(p_np.streams, f)),
+                f"native pack: streams.{f} != NumPy")
+    require(native.CALLS["native"] > 0 and native.CALLS["numpy"] == 3,
+            f"native counts {native.CALLS}")
+    log(f"    pack_blocked_compact of {len(blobs)} serialized bitmaps "
+        f"({sum(map(len, blobs))} bytes): native {nat_ms:.1f} ms, NumPy "
+        f"{np_ms:.1f} ms (host, best of 3; the first native call built "
+        f"the library and packed in {build_s:.1f} s); array for array "
+        f"equal; counts {native.CALLS}")
+    got = smoke.main_path("native compact set or", lambda: DeviceBitmapSet(
+        blobs, layout="compact").aggregate("or"))
+    require(got == union, "the set of native-packed bytes: or != or_")
+    log(f"    or over the native-packed set: cardinality {got.cardinality} "
+        f"(equals phase 5's or_)")
+    del ds64, xds64, eng64, eng_sh, l64, s64
+    phase_time("phase 10", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "

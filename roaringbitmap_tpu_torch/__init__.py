@@ -8,18 +8,24 @@ NVIDIA H100 through hand-written CUDA kernels (``ops.kernels``,
 the port's own NumPy copy.  The package imports ``torch`` and ``numpy`` and
 nothing of JAX or of ``roaringbitmap_tpu``.
 
+The 64-bit tier (``Roaring64Bitmap``, ``aggregation.or64`` etc.) rides the
+same engines.  Wide calls and batches run under the guarded dispatch ladder
+(``runtime.guard``), and inputs that are all serialized bytes pack through
+the native C++ ingest engine (``native``).
+
 Entry points run on the card: ``device=None`` means ``"cuda"``, and only an
 explicit ``device="cpu"`` runs the plain PyTorch versions on the CPU.
 """
 
 from .core.bitmap import RoaringBitmap, and_, andnot, or_, xor
+from .core.bitmap64 import Roaring64Bitmap
 from .format.spec import InvalidRoaringFormat
 from .parallel import aggregation, batch_engine, expr, fast_aggregation
 from .parallel.aggregation import DeviceBitmap, DeviceBitmapSet, DevicePairSet
 from .parallel.batch_engine import BatchEngine, BatchQuery, BatchResult
 from .parallel.expr import ExprQuery
 
-__all__ = ["RoaringBitmap", "InvalidRoaringFormat", "aggregation",
+__all__ = ["RoaringBitmap", "Roaring64Bitmap", "InvalidRoaringFormat", "aggregation",
            "batch_engine", "expr", "fast_aggregation", "DeviceBitmap",
            "DeviceBitmapSet", "DevicePairSet",
            "BatchEngine", "BatchQuery", "BatchResult", "ExprQuery", "and_",

@@ -55,16 +55,13 @@ class RoaringBitmap:
 
     @staticmethod
     def from_range(start: int, stop: int) -> "RoaringBitmap":
-        """Every value in [start, stop), one full or run container a key."""
-        start, stop = max(int(start), 0), min(int(stop), 1 << 32)
-        if stop <= start:
-            return RoaringBitmap()
+        """Every value in [start, stop): one range container a key.  Bounds
+        outside [0, 2^32) raise ``ValueError``, as in the JAX package; an
+        empty or reversed range is an empty bitmap."""
         keys, conts = [], []
-        for k in range(start >> 16, ((stop - 1) >> 16) + 1):
-            lo = max(start - (k << 16), 0)
-            hi = min(stop - (k << 16), 1 << 16) - 1
-            keys.append(k)
-            conts.append(C.RunContainer(np.array([lo, hi - lo], np.uint16)))
+        for lo, hi_excl, hb in _chunk_ranges(start, stop):
+            keys.append(hb)
+            conts.append(C.range_container(lo, hi_excl))
         return RoaringBitmap(np.array(keys, dtype=np.uint16), conts)
 
     def clone(self) -> "RoaringBitmap":
@@ -105,6 +102,17 @@ class RoaringBitmap:
 
     def container_count(self) -> int:
         return len(self.containers)
+
+    def run_optimize(self) -> bool:
+        """Re-encode each container in its smallest kind; True when a run
+        container was chosen anywhere."""
+        changed = False
+        for i, c in enumerate(self.containers):
+            o = c.run_optimize()
+            if o is not c:
+                self.containers[i] = o
+                changed = changed or o.is_run()
+        return changed
 
     def to_array(self) -> np.ndarray:
         """All members, ascending, as u32."""
@@ -168,7 +176,22 @@ class RoaringBitmap:
 
 # ---------------------------------------------------------------------------
 # Pairwise static algebra: key merge vectorized with intersect1d/union1d.
+# The result has type(a) and a's key dtype, so the same functions serve the
+# 64-bit tier (core.bitmap64: u64 high-48 keys).
 # ---------------------------------------------------------------------------
+
+def _chunk_ranges(start: int, stop: int):
+    """Split [start, stop) into per-chunk (lo, hi_excl, highbits) pieces."""
+    if start >= stop:
+        return
+    if start < 0 or stop > (1 << 32):
+        raise ValueError("range outside the 32-bit universe")
+    hb_first, hb_last = start >> 16, (stop - 1) >> 16
+    for hb in range(hb_first, hb_last + 1):
+        lo = start & 0xFFFF if hb == hb_first else 0
+        hi_excl = ((stop - 1) & 0xFFFF) + 1 if hb == hb_last else 0x10000
+        yield lo, hi_excl, hb
+
 
 def and_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
     common, ia, ib = np.intersect1d(a.keys, b.keys, assume_unique=True,
@@ -179,7 +202,7 @@ def and_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
         if c.cardinality:
             keys.append(k)
             conts.append(c)
-    return RoaringBitmap(np.array(keys, dtype=np.uint16), conts)
+    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)
 
 
 def and_cardinality(a: RoaringBitmap, b: RoaringBitmap) -> int:
@@ -203,7 +226,7 @@ def andnot(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
         if c.cardinality:
             keys.append(k)
             conts.append(c)
-    return RoaringBitmap(np.array(keys, dtype=np.uint16), conts)
+    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)
 
 
 def _merge_union(a: RoaringBitmap, b: RoaringBitmap, op, drop_empty: bool = False):
@@ -223,4 +246,4 @@ def _merge_union(a: RoaringBitmap, b: RoaringBitmap, op, drop_empty: bool = Fals
             continue
         keys.append(k)
         conts.append(c)
-    return RoaringBitmap(np.array(keys, dtype=np.uint16), conts)
+    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)

@@ -11,7 +11,8 @@ ArrayContainer / BitmapContainer / RunContainer):
 Containers are thin wrappers over NumPy arrays, and the pairwise ops the host
 fold needs are vectorized word algebra (densify -> bitwise -> normalize).
 This is the subset of ``roaringbitmap_tpu.core.containers`` that the wide
-aggregation path uses, kept as the port's own copy so that the port never
+aggregation path and ``core.bitmap64`` use (point ops, rank/select, run
+optimization, range containers), kept as the port's own copy so that the port never
 imports the JAX package.
 """
 
@@ -65,6 +66,27 @@ def runs_to_values(runs: np.ndarray) -> np.ndarray:
     return np.cumsum(out).astype(np.uint16)
 
 
+def values_to_runs(values: np.ndarray) -> np.ndarray:
+    """Sorted u16 values -> interleaved (start, length-1) u16 run pairs."""
+    if values.size == 0:
+        return np.empty(0, dtype=np.uint16)
+    v = values.astype(np.int64)
+    breaks = np.flatnonzero(np.diff(v) != 1)
+    starts = np.concatenate(([0], breaks + 1))
+    stops = np.concatenate((breaks, [v.size - 1]))
+    runs = np.empty(2 * starts.size, dtype=np.uint16)
+    runs[0::2] = v[starts].astype(np.uint16)
+    runs[1::2] = (v[stops] - v[starts]).astype(np.uint16)
+    return runs
+
+
+def number_of_runs(values: np.ndarray) -> int:
+    """Run count of a sorted value list (RunContainer sizing heuristic input)."""
+    if values.size == 0:
+        return 0
+    return int(np.count_nonzero(np.diff(values.astype(np.int64)) != 1)) + 1
+
+
 class Container:
     """Abstract chunk of up to 2^16 values. Subclasses wrap one NumPy array."""
 
@@ -92,6 +114,57 @@ class Container:
     def write_payload(self, out: bytearray) -> None:
         raise NotImplementedError
 
+    def contains(self, x: int) -> bool:
+        raise NotImplementedError
+
+    def add(self, x: int) -> "Container":
+        v = self.values()
+        i = int(np.searchsorted(v, np.uint16(x)))
+        if i < v.size and v[i] == x:
+            return self
+        return from_values(np.insert(v, i, np.uint16(x)))
+
+    def remove(self, x: int) -> "Container":
+        v = self.values()
+        i = int(np.searchsorted(v, np.uint16(x)))
+        if i >= v.size or v[i] != x:
+            return self
+        return from_values(np.delete(v, i))
+
+    def rank(self, x: int) -> int:
+        """Number of members <= x (Container.rank)."""
+        return int(np.searchsorted(self.values(), np.uint16(x), side="right"))
+
+    def select(self, j: int) -> int:
+        """j-th smallest member (0-based)."""
+        return int(self.values()[j])
+
+    def first(self) -> int:
+        return int(self.values()[0])
+
+    def last(self) -> int:
+        return int(self.values()[-1])
+
+    def run_optimize(self) -> "Container":
+        """Pick the smallest of run/array/bitmap encodings.
+
+        Reference: Container.runOptimize via RunContainer sizing
+        (RunContainer.java toEfficientContainer / serializedSizeInBytes).
+        """
+        vals = self.values()
+        card = vals.size
+        n_runs = number_of_runs(vals)
+        size_as_run = 2 + 4 * n_runs  # RunContainer payload (:78-80): u16 count + u16 pairs
+        if card <= ARRAY_MAX_SIZE:
+            size_now = 2 * card
+        else:
+            size_now = 8 * WORDS_PER_CONTAINER
+        if size_as_run < size_now:
+            return RunContainer(values_to_runs(vals))
+        if isinstance(self, RunContainer):
+            return from_values(vals)
+        return self
+
 
 class ArrayContainer(Container):
     __slots__ = ("_values",)
@@ -114,6 +187,10 @@ class ArrayContainer(Container):
 
     def write_payload(self, out: bytearray) -> None:
         out += self._values.astype("<u2").tobytes()
+
+    def contains(self, x: int) -> bool:
+        i = np.searchsorted(self._values, np.uint16(x))
+        return i < self._values.size and self._values[i] == x
 
 
 class BitmapContainer(Container):
@@ -138,6 +215,29 @@ class BitmapContainer(Container):
 
     def write_payload(self, out: bytearray) -> None:
         out += self._words.astype("<u8").tobytes()
+
+    def contains(self, x: int) -> bool:
+        return bool((int(self._words[x >> 6]) >> (x & 63)) & 1)
+
+    def add(self, x: int) -> "Container":
+        w = int(self._words[x >> 6])
+        bit = 1 << (x & 63)
+        if w & bit:
+            return self
+        words = self._words.copy()
+        words[x >> 6] = np.uint64(w | bit)
+        return BitmapContainer(words, self._card + 1)
+
+    def remove(self, x: int) -> "Container":
+        w = int(self._words[x >> 6])
+        bit = 1 << (x & 63)
+        if not (w & bit):
+            return self
+        words = self._words.copy()
+        words[x >> 6] = np.uint64(w & ~bit)
+        if self._card - 1 <= ARRAY_MAX_SIZE:  # demote (BitmapContainer.remove)
+            return ArrayContainer(words_to_values(words))
+        return BitmapContainer(words, self._card - 1)
 
 
 class RunContainer(Container):
@@ -172,6 +272,13 @@ class RunContainer(Container):
         out += np.uint16(self.n_runs).astype("<u2").tobytes()
         out += self._runs.astype("<u2").tobytes()
 
+    def contains(self, x: int) -> bool:
+        starts = self._runs[0::2]
+        i = int(np.searchsorted(starts, np.uint16(x), side="right")) - 1
+        if i < 0:
+            return False
+        return x <= int(starts[i]) + int(self._runs[2 * i + 1])
+
 
 def from_values(values: np.ndarray) -> Container:
     """Build the canonical (array-or-bitmap) container for a sorted value set."""
@@ -185,6 +292,18 @@ def from_words(words: np.ndarray, cardinality: int | None = None) -> Container:
     if card > ARRAY_MAX_SIZE:
         return BitmapContainer(words, card)
     return ArrayContainer(words_to_values(words))
+
+
+def full_container() -> Container:
+    """Container holding all of [0, 65536) — RunContainer.full analog."""
+    return RunContainer(np.array([0, 0xFFFF], dtype=np.uint16))
+
+
+def range_container(start: int, stop: int) -> Container:
+    """Container holding [start, stop) within one chunk (Container.rangeOfOnes:29)."""
+    if stop - start > 2:  # run encoding is 10 bytes; array beats it below 5 values
+        return RunContainer(np.array([start, stop - 1 - start], dtype=np.uint16))
+    return ArrayContainer(np.arange(start, stop, dtype=np.uint16))
 
 
 # ---------------------------------------------------------------------------

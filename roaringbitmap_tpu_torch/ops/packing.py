@@ -6,7 +6,8 @@ ParallelAggregation.groupByKey, and emitted as flat fixed-shape arrays:
   words    u32[M, 2048]   every container densified to its 2^16-bit image
   seg_ids  i32[M]         index into the distinct-key axis, sorted ascending
   head_idx i32[K]         first row of each segment
-  keys     u16[K]         distinct container keys, sorted
+  keys     [K]            distinct container keys, sorted: u16 on the
+                          32-bit tier, u64 (u48 keys) on the 64-bit tier
 
 or, for the blocked layouts, as compact transfer streams that the device
 densifies (``pack_blocked_compact``).  This is the NumPy path of
@@ -109,7 +110,7 @@ def densify_containers(conts: list, dest, n_rows: int) -> np.ndarray:
 class PackedAggregation:
     """One wide-aggregation problem, rotated and densified."""
 
-    keys: np.ndarray          # u16[K] distinct keys, sorted
+    keys: np.ndarray          # [K] distinct keys, sorted (u16 or u64)
     words: np.ndarray         # u32[M_pad, 2048]; rows >= M are zero
     seg_ids: np.ndarray       # i32[M_pad]; padding rows get segment K
     head_idx: np.ndarray      # i32[K] first row of each segment
@@ -349,7 +350,7 @@ def chunk_value_stream(values: np.ndarray, val_counts: np.ndarray,
 class PackedBlockedCompact:
     """Blocked-layout metadata + compact transfer streams (no host densify)."""
 
-    keys: np.ndarray         # u16[K] distinct keys, sorted
+    keys: np.ndarray         # [K] distinct keys, sorted (u16 or u64)
     blk_seg: np.ndarray      # i32[n_rows/block]; padding blocks get segment K
     block: int
     n_blocks: int            # true block count
@@ -400,6 +401,18 @@ def pack_blocked_compact(sources: list, block: int | None = None,
             np.concatenate([_keys_of(s) for s in sources]),
             return_counts=True)
         block = choose_block(counts, min_block=min_block)
+    # inputs that are all serialized bytes take the C++ ingest engine first
+    # (after the block-4 rung above, which the engine's ladder lacks)
+    if sources and all(isinstance(s, (bytes, bytearray)) for s in sources):
+        from .. import native
+
+        if native.enabled():
+            native.CALLS["native"] += 1
+            packed = native.pack_blocked_compact(
+                [bytes(s) for s in sources], block, round_blocks, carry_slot)
+            packed.row_src = _row_sources(packed, sources)
+            return packed
+        native.CALLS["numpy"] += 1
     # parse byte-backed sources once; _as_view is idempotent on views
     sources = [v if (v := _as_view(s)) is not None else s for s in sources]
     all_keys = [_keys_of(s) for s in sources]
@@ -436,6 +449,24 @@ def pack_blocked_compact(sources: list, block: int | None = None,
         row_src=row_src)
 
 
+def _row_sources(packed: PackedBlockedCompact, sources: list) -> np.ndarray:
+    """i32[n_rows] source index of each row of a packed blocked layout (-1
+    padding), rebuilt from the key arrays alone: rows are sorted by segment
+    and, within a segment, by source, so the per-source key sets fix every
+    row's place."""
+    all_keys = [_keys_of(_as_view(s)) for s in sources]
+    flat_keys = np.concatenate(all_keys)
+    order = np.argsort(flat_keys, kind="stable")
+    seg_sorted = np.searchsorted(packed.keys, flat_keys[order])
+    head = np.searchsorted(seg_sorted, np.arange(packed.keys.size))
+    within = np.arange(flat_keys.size) - head[seg_sorted]
+    dest = packed.seg_offsets[seg_sorted] + within
+    row_src = np.full(packed.n_rows, -1, dtype=np.int32)
+    row_src[dest] = np.repeat(np.arange(len(sources), dtype=np.int32),
+                              [k.size for k in all_keys])[order]
+    return row_src
+
+
 def blocked_ragged_meta(blk_seg: np.ndarray, block: int, n_blocks: int,
                         num_keys: int):
     """Row-level ragged metadata of a blocked layout, for the doubling
@@ -455,7 +486,7 @@ class PackedIntersection:
     """Wide-AND problem: only keys present in every bitmap survive (the
     reference's workShyAnd), so the payload is a regular [K, N, 2048] block."""
 
-    keys: np.ndarray    # u16[K] surviving keys
+    keys: np.ndarray    # [K] surviving keys (u16 or u64)
     words: np.ndarray   # u32[K, N, 2048]
 
 
@@ -503,8 +534,18 @@ def pack_pairwise(pairs, pad_rows: bool = True) -> PackedPairwiseCompact:
     """Align each pair's containers on its key union and emit one compact
     stream per side.  Operands may mix RoaringBitmaps, SerializedViews and
     raw serialized bytes; byte-backed ones stream off the wire layout.
-    This is the JAX package's NumPy path; its native C++ fast path for
-    pure-bytes pairs is not ported."""
+    Pairs that are all serialized bytes take the C++ ingest engine
+    (``native``) unless ``RB_NATIVE=0``."""
+    if pairs and all(isinstance(a, (bytes, bytearray))
+                     and isinstance(b, (bytes, bytearray)) for a, b in pairs):
+        from .. import native
+
+        if native.enabled():
+            native.CALLS["native"] += 1
+            return native.pack_pairwise(
+                [bytes(a) for a, _ in pairs], [bytes(b) for _, b in pairs],
+                pad_rows)
+        native.CALLS["numpy"] += 1
     a_srcs = [v if (v := _as_view(a)) is not None else a for a, _ in pairs]
     b_srcs = [v if (v := _as_view(b)) is not None else b for _, b in pairs]
     a_keys = [_keys_of(s) for s in a_srcs]
@@ -533,10 +574,19 @@ def pack_pairwise(pairs, pad_rows: bool = True) -> PackedPairwiseCompact:
         a_streams=side(a_srcs, a_keys), b_streams=side(b_srcs, b_keys))
 
 
-def unpack_result(keys: np.ndarray, words: np.ndarray,
-                  cards: np.ndarray) -> RoaringBitmap:
+def unpack_result(keys: np.ndarray, words: np.ndarray, cards: np.ndarray,
+                  out_cls=None):
     """Dense result (u32[K, 2048] words, [K] cards) -> host bitmap,
-    normalized by cardinality."""
+    normalized by cardinality.  ``out_cls`` defaults by the key dtype: a
+    ``RoaringBitmap`` for u16 keys, a ``Roaring64Bitmap`` for the 64-bit
+    tier's u64 keys (both take (keys, containers))."""
+    if out_cls is None:
+        if keys.dtype != np.uint16:
+            from ..core.bitmap64 import Roaring64Bitmap
+
+            out_cls = Roaring64Bitmap
+        else:
+            out_cls = RoaringBitmap
     words = np.asarray(words, dtype=np.uint32)
     cards = np.asarray(cards)
     out_keys, out_conts = [], []
@@ -550,4 +600,4 @@ def unpack_result(keys: np.ndarray, words: np.ndarray,
             out_conts.append(C.BitmapContainer(w64.copy(), card))
         else:
             out_conts.append(C.ArrayContainer(C.words_to_values(w64)))
-    return RoaringBitmap(np.array(out_keys, dtype=np.uint16), out_conts)
+    return out_cls(np.array(out_keys, dtype=keys.dtype), out_conts)

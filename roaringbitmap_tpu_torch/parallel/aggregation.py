@@ -23,6 +23,15 @@ AND-reduce) is plain PyTorch on every engine, as it was XLA in the JAX
 package, and so are the batched pairwise ops and ``DeviceBitmap``'s
 composition (one fused XLA op + popcount there, with no Pallas kernel).
 
+The wide calls run under ``runtime.guard`` (``fallback=True``, the default):
+transient faults retry, and all of it is counted.  On the CPU lowering
+faults and OOM demote "cuda" -> "torch" and the host fold is the last rung;
+on the card the requested engine is the only rung, so such a fault
+re-raises typed.  A failed kernel build or launch re-raises as it is.  The 64-bit tier (``or64`` / ``xor64``
+/ ``and64``, and resident sets, batches and ``DeviceBitmap`` over
+``Roaring64Bitmap``s) runs the same engines with the u48 key as the segment
+axis; the keys stay ``np.uint64`` on the host.
+
 The steady-state probes (``chained_wide_or``, ``chained_aggregate``,
 ``DevicePairSet.chained_cardinality``) return a callable that runs ``reps``
 dependent queries and returns a 0-d device tensor: the summed cardinality
@@ -34,14 +43,17 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import operator
 
 import numpy as np
 import torch
 
 from ..core.bitmap import RoaringBitmap
+from ..core.bitmap64 import Roaring64Bitmap
 from ..insights import analysis as insights
 from ..ops import dense, kernels, packing
 from ..ops.words import WORDS32, as_i32, resolve_device, to_u32
+from ..runtime import errors, faults, guard
 
 ENGINES = ("cuda", "torch")
 #: resident sets also take the nibble engine
@@ -87,22 +99,95 @@ def _device_streams(s: packing.CompactStreams, device) -> tuple:
             as_i32(s.val_counts, device), as_i32(s.val_dest, device))
 
 
-def _unpack(keys: np.ndarray, words: torch.Tensor,
-            cards: torch.Tensor) -> RoaringBitmap:
-    return packing.unpack_result(keys, to_u32(words), cards.cpu().numpy())
+def _unpack(keys: np.ndarray, words: torch.Tensor, cards: torch.Tensor,
+            out_cls=None):
+    """Device words and cards -> a host bitmap (a ``Roaring64Bitmap`` for
+    u64 keys unless ``out_cls`` says otherwise)."""
+    return packing.unpack_result(keys, to_u32(words), cards.cpu().numpy(),
+                                 out_cls=out_cls)
+
+
+# ------------------------------------------------------------ the guard
+#
+# Every wide entry point runs its device body under ``runtime.guard``:
+# transient faults retry on the same engine.  On the CPU lowering faults and
+# OOM demote down ``ENGINES`` ("cuda" -> "torch") and the host fold below is
+# the terminal rung; on the card the requested engine is the only rung
+# (``guard.chain_from``), so they re-raise typed.  Every retry, demotion and
+# landing is counted (``guard.dispatch_stats``).  A failed kernel build or
+# launch is not a fault the guard handles: it re-raises as it is.
+# ``fallback=False`` runs the requested engine raw (no guard, no injection),
+# so a test pinned to one engine sees that engine.
+
+_SEQ_OP = {"or": operator.or_, "and": operator.and_, "xor": operator.xor}
+
+
+def _sequential_reduce(op: str, bitmaps: list):
+    """The host rung: a container-algebra fold with no device, the terminal
+    rung of every wide chain and the oracle of the shadow check."""
+    acc = bitmaps[0].clone()
+    fn = _SEQ_OP[op]
+    for b in bitmaps[1:]:
+        acc = fn(acc, b)
+    return acc
+
+
+def _guarded_wide(op: str, bitmaps: list, engine: str, dev, raw,
+                  fallback: bool, sequential=None, ladder=ENGINES):
+    """``raw(eng)`` on ``engine`` alone when ``fallback`` is off; else under
+    the guard from ``engine``'s rung of ``ladder`` (``guard.chain_from``
+    for ``dev``) with the fault seam before each attempt and the host fold
+    as the terminal rung off the card (``sequential`` overrides it for
+    cardinality-only calls), then a sampled result shadow-checked against
+    that fold."""
+    if not fallback:
+        return raw(engine)
+    site = "aggregation"
+
+    def attempt(rung):
+        faults.maybe_fail(site, rung)
+        return raw(rung)
+
+    policy = guard.GuardPolicy.from_env()
+    res, rung = guard.run_with_fallback(
+        site, guard.chain_from(engine, ladder, dev), attempt, policy=policy,
+        sequential=sequential or (lambda: _sequential_reduce(op, bitmaps)))
+    if (rung != guard.SEQUENTIAL and policy.shadow_rate > 0.0
+            and guard.shadow_sample(1, policy.shadow_rate,
+                                    policy.shadow_seed, site)):
+        ref = _sequential_reduce(op, bitmaps)
+        if hasattr(res, "cardinality"):   # a materialized result
+            bad, got, want = res != ref, res.cardinality, ref.cardinality
+        else:                             # a cardinality
+            bad, got, want = res != ref.cardinality, res, ref.cardinality
+        if bad:
+            detail = (f"cardinality {got} != {want}" if got != want else
+                      f"equal cardinality {got} but differing members")
+            raise errors.ShadowMismatch(
+                f"wide {op} over {len(bitmaps)} bitmaps diverged from the "
+                f"sequential reference: {detail}")
+    return res
 
 
 # ----------------------------------------------------------- ad-hoc calls
 
-def _aggregate_ragged(op: str, bitmaps: list[RoaringBitmap], engine: str,
-                      device) -> RoaringBitmap:
+def _aggregate_ragged(op: str, bitmaps: list, engine: str, device,
+                      out_cls=None, fallback: bool = True):
     dev = resolve_device(device)
     eng = _engine(engine, dev)
     bitmaps = [b for b in bitmaps if not b.is_empty()]
     if not bitmaps:
-        return RoaringBitmap()
+        return (out_cls or RoaringBitmap)()
     if len(bitmaps) == 1:
         return bitmaps[0].clone()
+    return _guarded_wide(
+        op, bitmaps, eng, dev,
+        lambda rung: _aggregate_ragged_device(op, bitmaps, rung, dev,
+                                              out_cls), fallback)
+
+
+def _aggregate_ragged_device(op: str, bitmaps: list, eng: str, dev,
+                             out_cls=None):
     # compact stream ingest + device densify, then the blocked reduce (B2);
     # 64-block rounding and pow2 streams coarsen the shapes of ad-hoc calls
     blocked = packing.pack_blocked_compact(
@@ -119,31 +204,42 @@ def _aggregate_ragged(op: str, bitmaps: list[RoaringBitmap], engine: str,
             blocked.blk_seg, BLOCK, blocked.n_blocks, k)
         heads, cards = dense.segmented_reduce(
             op, words, as_i32(seg_rows, dev), as_i32(head_idx, dev), n_steps)
-    return _unpack(blocked.keys, heads, cards)
+    return _unpack(blocked.keys, heads, cards, out_cls)
 
 
-def or_(*bitmaps: RoaringBitmap, engine: str = "auto",
-        device=None) -> RoaringBitmap:
+def or_(*bitmaps: RoaringBitmap, engine: str = "auto", device=None,
+        fallback: bool = True) -> RoaringBitmap:
     """Wide union on the device (FastAggregation.or / ParallelAggregation.or)."""
-    return _aggregate_ragged("or", _flatten(bitmaps), engine, device)
+    return _aggregate_ragged("or", _flatten(bitmaps), engine, device,
+                             fallback=fallback)
 
 
-def xor(*bitmaps: RoaringBitmap, engine: str = "auto",
-        device=None) -> RoaringBitmap:
+def xor(*bitmaps: RoaringBitmap, engine: str = "auto", device=None,
+        fallback: bool = True) -> RoaringBitmap:
     """Wide symmetric difference (FastAggregation.xor)."""
-    return _aggregate_ragged("xor", _flatten(bitmaps), engine, device)
+    return _aggregate_ragged("xor", _flatten(bitmaps), engine, device,
+                             fallback=fallback)
 
 
-def _intersect_keys(bitmaps: list[RoaringBitmap]) -> np.ndarray:
+def _intersect_keys(bitmaps: list) -> np.ndarray:
     """Surviving key set of a wide AND: AND-reduce the [N, 2048] key presence
-    masks on the host (8 KiB each), then extract the set bits."""
+    masks on the host (8 KiB each), then extract the set bits.  The 64-bit
+    tier's u48 keys have no fixed-size mask: an intersect1d chain in
+    ``np.uint64`` on the host."""
+    if bitmaps[0].keys.dtype != np.uint16:
+        keys = bitmaps[0].keys
+        for b in bitmaps[1:]:
+            keys = np.intersect1d(keys, b.keys, assume_unique=True)
+            if keys.size == 0:
+                break
+        return keys
     masks = packing.key_presence_masks(bitmaps)
     inter = np.bitwise_and.reduce(masks, axis=0)
     bits = np.unpackbits(inter.view(np.uint8), bitorder="little")
     return np.flatnonzero(bits).astype(np.uint16)
 
 
-def _and_device_words(bitmaps: list[RoaringBitmap], device):
+def _and_device_words(bitmaps: list, device):
     """Key intersection -> regular [K, N, 2048] pack -> device AND-reduce.
     Returns (keys, words, cards), or None when the intersection is empty."""
     keys = _intersect_keys(bitmaps)
@@ -154,25 +250,36 @@ def _and_device_words(bitmaps: list[RoaringBitmap], device):
     return packed.keys, words, cards
 
 
-def and_(*bitmaps: RoaringBitmap, engine: str = "auto",
-         device=None) -> RoaringBitmap:
+#: the wide AND's one rung: its device engine is plain PyTorch on every
+#: engine (the JAX package's "xla"), so off the card the only demotion is
+#: to the host fold, and on the card there is none
+_AND_RUNG = "torch"
+
+
+def and_(*bitmaps: RoaringBitmap, engine: str = "auto", device=None,
+         out_cls=None, fallback: bool = True) -> RoaringBitmap:
     """Wide intersection (FastAggregation.and, workShyAnd): key-mask
     intersection, then one regular AND-reduce.  ``engine`` is checked but
     both engines run the same plain reduce."""
     dev = resolve_device(device)
     _engine(engine, dev)
+    cls = out_cls or RoaringBitmap
     bitmaps = _flatten(bitmaps)
     if not bitmaps or any(b.is_empty() for b in bitmaps):
-        return RoaringBitmap()
+        return cls()
     if len(bitmaps) == 1:
         return bitmaps[0].clone()
-    res = _and_device_words(bitmaps, dev)
-    if res is None:
-        return RoaringBitmap()
-    return _unpack(*res)
+
+    def raw(_rung):
+        res = _and_device_words(bitmaps, dev)
+        return cls() if res is None else _unpack(*res, cls)
+
+    return _guarded_wide("and", bitmaps, _AND_RUNG, dev, raw, fallback,
+                         ladder=(_AND_RUNG,))
 
 
-def _wide_cardinality(op: str, bitmaps: list, engine: str, device) -> int:
+def _wide_cardinality(op: str, bitmaps: list, engine: str, device,
+                      fallback: bool = True) -> int:
     """Cardinality-only wide op: one dense pack, then the ragged reduce
     (B1) whose cards are summed on the device."""
     dev = resolve_device(device)
@@ -181,38 +288,75 @@ def _wide_cardinality(op: str, bitmaps: list, engine: str, device) -> int:
     if not bitmaps:
         return 0
     packed = packing.pack_for_aggregation(bitmaps)
-    words = as_i32(packed.words, dev)
-    seg_ids = as_i32(packed.seg_ids, dev)
-    if eng == "cuda":
-        _, cards = kernels.segmented_reduce(op, words, seg_ids,
-                                            packed.num_keys)
-    else:
-        _, cards = dense.segmented_reduce(
-            op, words, seg_ids, as_i32(packed.head_idx, dev),
-            dense.n_steps_for(packed.max_group))
-    return int(cards.sum())
+
+    def raw(rung):
+        words = as_i32(packed.words, dev)
+        seg_ids = as_i32(packed.seg_ids, dev)
+        if rung == "cuda":
+            _, cards = kernels.segmented_reduce(op, words, seg_ids,
+                                                packed.num_keys)
+        else:
+            _, cards = dense.segmented_reduce(
+                op, words, seg_ids, as_i32(packed.head_idx, dev),
+                dense.n_steps_for(packed.max_group))
+        return int(cards.sum())
+
+    return _guarded_wide(
+        op, bitmaps, eng, dev, raw, fallback,
+        sequential=lambda: _sequential_reduce(op, bitmaps).cardinality)
 
 
 def or_cardinality(*bitmaps: RoaringBitmap, engine: str = "auto",
-                   device=None) -> int:
+                   device=None, fallback: bool = True) -> int:
     """Cardinality of the wide union without materializing it on the host."""
-    return _wide_cardinality("or", bitmaps, engine, device)
+    return _wide_cardinality("or", bitmaps, engine, device, fallback)
 
 
 def xor_cardinality(*bitmaps: RoaringBitmap, engine: str = "auto",
-                    device=None) -> int:
-    return _wide_cardinality("xor", bitmaps, engine, device)
+                    device=None, fallback: bool = True) -> int:
+    return _wide_cardinality("xor", bitmaps, engine, device, fallback)
 
 
-def and_cardinality(*bitmaps: RoaringBitmap, device=None) -> int:
+def and_cardinality(*bitmaps: RoaringBitmap, device=None,
+                    fallback: bool = True) -> int:
     dev = resolve_device(device)
     bitmaps = _flatten(bitmaps)
     if not bitmaps or any(b.is_empty() for b in bitmaps):
         return 0
     if len(bitmaps) == 1:
         return bitmaps[0].cardinality
-    res = _and_device_words(bitmaps, dev)
-    return 0 if res is None else int(res[2].sum())
+
+    def raw(_rung):
+        res = _and_device_words(bitmaps, dev)
+        return 0 if res is None else int(res[2].sum())
+
+    return _guarded_wide(
+        "and", bitmaps, _AND_RUNG, dev, raw, fallback, ladder=(_AND_RUNG,),
+        sequential=lambda: _sequential_reduce("and", bitmaps).cardinality)
+
+
+# ------------------------------------------------------------- 64-bit tier
+# Wide aggregation over Roaring64Bitmaps: the same engines and kernels, with
+# the u48 key of the 64-bit tier as the segment axis in place of the u16
+# key.  Keys stay u64 NumPy arrays on the host; the kernels see only
+# segment ids.
+
+def or64(*bitmaps, engine: str = "auto", device=None,
+         fallback: bool = True) -> Roaring64Bitmap:
+    return _aggregate_ragged("or", _flatten(bitmaps), engine, device,
+                             out_cls=Roaring64Bitmap, fallback=fallback)
+
+
+def xor64(*bitmaps, engine: str = "auto", device=None,
+          fallback: bool = True) -> Roaring64Bitmap:
+    return _aggregate_ragged("xor", _flatten(bitmaps), engine, device,
+                             out_cls=Roaring64Bitmap, fallback=fallback)
+
+
+def and64(*bitmaps, engine: str = "auto", device=None,
+          fallback: bool = True) -> Roaring64Bitmap:
+    return and_(*bitmaps, engine=engine, device=device,
+                out_cls=Roaring64Bitmap, fallback=fallback)
 
 
 # ---------------------------------------------------------- batched pairwise
@@ -223,9 +367,15 @@ def and_cardinality(*bitmaps: RoaringBitmap, device=None) -> int:
 # stays plain PyTorch here.  ``engine`` is checked and both engines run the
 # same ops.
 
+class UnsupportedPairOp(KeyError, ValueError):
+    """An op outside or/and/xor/andnot: a ``KeyError`` as the JAX package
+    raises it (its op table lookup), and a ``ValueError`` as a bad argument
+    value, so callers of either package keep working."""
+
+
 def _check_pair_op(op: str) -> None:
     if op not in dense.OPS:
-        raise ValueError(f"unsupported pairwise op {op!r}")
+        raise UnsupportedPairOp(f"unsupported pairwise op {op!r}")
 
 
 def _densify_side(s: packing.CompactStreams, n_rows: int, device):
@@ -416,7 +566,8 @@ class DeviceBitmapSet:
                      for b in bitmaps])
                 layout = rep["layout"]
                 if layout == "dense":
-                    block = rep["dense_block"]
+                    # empty or unsizeable input carries no block advice
+                    block = rep.get("dense_block")
         if layout not in _STATE_LAYOUT:
             raise ValueError(f"unknown layout {layout!r}")
         g = dense.NIBBLE_GROUP
@@ -485,7 +636,9 @@ class DeviceBitmapSet:
         self.uid = next(_SET_UIDS)
         #: attached value columns by name (attach_column)
         self.columns: dict = {}
-        self.keys = np.asarray(state["keys"], dtype=np.uint16)
+        # u16 keys (32-bit tier) or u64 u48 keys (64-bit tier): the keys
+        # stay on the host, the kernels see only segment ids
+        self.keys = np.asarray(state["keys"])
         self.n = int(state["n"])
         self.block = int(state["block"])
         self._seg_sizes = np.asarray(state["seg_sizes"])
@@ -934,12 +1087,6 @@ class DeviceBitmap:
         return DeviceBitmap(packed.keys,
                             as_i32(packed.words, resolve_device(device)))
 
-    def _require_u16(self, what: str) -> None:
-        if self.keys.dtype != np.uint16:
-            raise NotImplementedError(
-                f"{what} over {self.keys.dtype} keys needs the 64-bit tier "
-                f"(core/bitmap64), which is not ported")
-
     def _aligned(self, other: "DeviceBitmap"):
         """Both operands scattered into the union key space."""
         if self.keys.dtype != other.keys.dtype:
@@ -995,10 +1142,14 @@ class DeviceBitmap:
         return _device_range_cardinality(self.keys, self.words, start, stop)
 
     def contains_batch(self, values) -> np.ndarray:
-        """bool membership of each value, probed on the device: key binary
-        search, then the word's bit.  Probes outside [0, 2^32) are absent;
-        float, bool and object probes raise ``TypeError`` (a cast would
-        truncate them into plausible answers)."""
+        """bool membership of each value: key binary search, then the
+        word's bit on the device.  Float, bool and object probes raise
+        ``TypeError`` (a cast would truncate them into plausible answers).
+        On the 32-bit tier, probes outside [0, 2^32) are absent and the
+        search runs on the device.  On the 64-bit tier, negative ``int64``
+        probes are absent and the key search runs on the host in
+        ``np.uint64``: a u64 key or probe moved to torch as ``int64`` wraps
+        negative from 2^63 on, which would break order and equality."""
         raw = np.asarray(values)
         if raw.size == 0:
             # np.asarray([]) is float64: an empty batch must not trip the
@@ -1007,29 +1158,37 @@ class DeviceBitmap:
         if raw.dtype.kind not in "iu":
             raise TypeError(
                 f"contains_batch expects integer probes, got {raw.dtype}")
-        self._require_u16("contains_batch")
-        in_range = np.ones(raw.shape, bool)
-        if raw.dtype.kind == "i":
-            in_range &= raw >= 0
-        if raw.itemsize > 4:
-            in_range &= raw.astype(np.uint64) < (1 << 32)
+        in_range = (raw >= 0 if raw.dtype.kind == "i"
+                    else np.ones(raw.shape, bool))
         if self.keys.size == 0:
             return np.zeros(raw.shape, bool)
         dev = self.words.device
-        v = torch.from_numpy(raw.astype(np.uint32).astype(np.int64)).to(dev)
-        keys = torch.from_numpy(self.keys.astype(np.int64)).to(dev)
-        hb = v >> 16
-        idx = torch.searchsorted(keys, hb)
-        safe = idx.clamp(max=self.keys.size - 1)
-        found = (idx < self.keys.size) & (keys[safe] == hb)
-        lo = v & 0xFFFF
-        bit = (self.words[safe, lo >> 5] >> (lo & 31)) & 1
-        return (found & (bit == 1)).cpu().numpy() & in_range
+        if self.keys.dtype == np.uint16:
+            if raw.itemsize > 4:
+                in_range &= raw.astype(np.uint64) < (1 << 32)
+            v = torch.from_numpy(raw.astype(np.uint32).astype(np.int64)).to(dev)
+            keys = torch.from_numpy(self.keys.astype(np.int64)).to(dev)
+            hb = v >> 16
+            idx = torch.searchsorted(keys, hb)
+            safe = idx.clamp(max=self.keys.size - 1)
+            found = (idx < self.keys.size) & (keys[safe] == hb)
+            lo = v & 0xFFFF
+            bit = (self.words[safe, lo >> 5] >> (lo & 31)) & 1
+            return (found & (bit == 1)).cpu().numpy() & in_range
+        v = raw.astype(np.uint64)
+        hb = v >> np.uint64(16)
+        idx = np.searchsorted(self.keys, hb)
+        safe = np.minimum(idx, self.keys.size - 1)
+        found = (idx < self.keys.size) & (self.keys[safe] == hb)
+        lo = torch.from_numpy((v & np.uint64(0xFFFF)).astype(np.int64)).to(dev)
+        row = torch.from_numpy(safe.astype(np.int64)).to(dev)
+        bit = (self.words[row, lo >> 5] >> (lo & 31)) & 1
+        return found & (bit == 1).cpu().numpy() & in_range
 
-    def materialize(self) -> RoaringBitmap:
-        """Move to the host as a normalized RoaringBitmap."""
-        self._require_u16("materialize")
-        return _unpack(self.keys, self.words, self.cards())
+    def materialize(self, out_cls=None):
+        """Move to the host as a normalized bitmap: a ``RoaringBitmap``, or
+        a ``Roaring64Bitmap`` for u64 keys."""
+        return _unpack(self.keys, self.words, self.cards(), out_cls)
 
     def hbm_bytes(self) -> int:
         return self.words.numel() * self.words.element_size()

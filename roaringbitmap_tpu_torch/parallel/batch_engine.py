@@ -38,6 +38,11 @@ Rungs (``engine``):
                 CPU.
 Compact and counts sets rebuild the row image first: B3 on the "cuda" and
 "megakernel" rungs, the plain scatter on "torch".
+
+``execute`` runs a batch under ``runtime.guard`` down ``ENGINES`` from the
+rung above: on the CPU with the per-query host fold as the last rung, on
+the card over the kernel rungs alone (see ``BatchEngine.execute``).  A set of ``Roaring64Bitmap``s (u64 keys) gives
+``Roaring64Bitmap`` results.
 """
 
 from __future__ import annotations
@@ -50,14 +55,17 @@ import numpy as np
 import torch
 
 from ..core.bitmap import RoaringBitmap
+from ..core.bitmap64 import Roaring64Bitmap
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, to_u32
+from ..runtime import errors, faults, guard
 from ..runtime.cache import LRUCache
 from . import expr as expr_mod
 from .aggregation import DeviceBitmapSet, _engine
 
 _RED_OP = {"or": "or", "xor": "xor", "and": "and", "andnot": "or"}
 
+#: also the guard's ladder for a batch, in order
 ENGINES = ("megakernel", "cuda", "torch")
 
 #: cap of the prepared-plan cache: novel query shapes must not grow a
@@ -250,6 +258,11 @@ class BatchEngine:
         self._row_seg = ds.row_seg
         self._plans = LRUCache(PLAN_CACHE_MAX, name="batch_plans")
         self.last_timings: dict = {}
+        #: batches halved on ResourceExhausted (reactive splits)
+        self.split_count = 0
+        #: the class of an empty result: the set's tier
+        self._empty_cls = (RoaringBitmap if ds.keys.dtype == np.uint16
+                           else Roaring64Bitmap)
 
     @classmethod
     def from_bitmaps(cls, bitmaps: list, layout: str = "auto",
@@ -389,19 +402,85 @@ class BatchEngine:
         expr_outs = expr_mod.eval_sections(plan.fused, words, heads_by_bi)
         return outs, expr_outs
 
-    def execute(self, queries, engine: str = "auto") -> list[BatchResult]:
+    def execute(self, queries, engine: str = "auto", fallback: bool = True,
+                policy: guard.GuardPolicy | None = None
+                ) -> list[BatchResult]:
         """Run Q queries (flat and expression) as one batch; results in
-        input order, bit-exact with the host reference on every rung."""
+        input order, bit-exact with the host reference on every rung.
+
+        The batch runs under ``runtime.guard`` down ``ENGINES`` from the
+        rung ``resolve_query_engine`` picks: transient faults retry,
+        lowering faults demote, and ``ResourceExhausted`` first halves the
+        batch (each half restarts at the failing rung) and demotes once one
+        query is left.  On the CPU the sequential host rung comes last.  On
+        the card the chain stops at the kernel rungs ("megakernel" ->
+        "cuda"), so a fault that "cuda" cannot retry or split away
+        re-raises typed instead of reaching the plain version or the host.  Every retry,
+        split, demotion and landing is counted (``guard.dispatch_stats``,
+        ``split_count``).  With a shadow rate (``policy.shadow_rate`` or
+        ``ROARING_TPU_SHADOW``) a sample of the queries is re-run on the
+        host rung and a divergence raises ``ShadowMismatch``.  A failed
+        kernel build or launch is not demoted: it re-raises as it is.
+        ``fallback=False`` runs the requested rung raw (no guard, no fault
+        injection)."""
         queries = list(queries)
         if not queries:
             return []
         if engine not in ("auto",) + ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of "
                              f"{('auto',) + ENGINES}")
+        start = resolve_query_engine(engine, queries, self.device)
+        if not fallback:
+            return self._execute_once(queries, start, inject=False)
+        policy = policy or guard.GuardPolicy.from_env()
+        chain = guard.chain_from(start, ENGINES, self.device)
+        return self._dispatch(queries, chain, policy,
+                              guard.Deadline(policy.deadline))
+
+    def _dispatch(self, queries, chain, policy, deadline):
+        """One guarded run of ``queries`` down ``chain``; recurses on OOM
+        splits, each half restarting at the failing rung and sharing the
+        deadline."""
+        split = False
+
+        def attempt(eng):
+            return self._execute_once(queries, eng)
+
+        def on_oom(eng, fault, dl):
+            nonlocal split
+            if len(queries) < 2:
+                return guard.NO_SPLIT     # nothing to halve: demote instead
+            sub = chain[chain.index(eng):] if eng in chain else chain
+            mid = (len(queries) + 1) // 2
+            self.split_count += 1
+            split = True
+            return (self._dispatch(queries[:mid], sub, policy, dl)
+                    + self._dispatch(queries[mid:], sub, policy, dl))
+
+        t0 = time.perf_counter()
+        results, rung = guard.run_with_fallback(
+            "batch_engine", chain, attempt, policy=policy,
+            sequential=lambda: self._execute_sequential(queries),
+            on_resource_exhausted=on_oom, deadline=deadline)
+        if rung == guard.SEQUENTIAL:
+            self.last_timings = {"engine": guard.SEQUENTIAL, "plan_ms": 0.0,
+                                 "device_ms": 0.0,
+                                 "unpack_ms": (time.perf_counter() - t0) * 1e3}
+        # split halves were shadow-checked inside their own dispatches
+        elif not split and policy.shadow_rate > 0.0:
+            self._shadow_check(queries, results, policy)
+        return results
+
+    def _execute_once(self, queries, engine: str,
+                      inject: bool = True) -> list[BatchResult]:
+        """One batch on one rung: plan, the device part, host assembly.
+        The fault hooks sit at the engine boundary, where a real failure
+        would surface; ``inject=False`` skips them."""
         t0 = time.perf_counter()
         plan = self.plan(queries)
-        eng = self._bucket_engine(
-            plan, resolve_query_engine(engine, queries, self.device))
+        eng = self._bucket_engine(plan, engine)
+        if inject:
+            faults.maybe_fail("batch_engine", eng)
         t1 = time.perf_counter()
         results: list = [None] * len(queries)
         bucket_outs, expr_outs = [], []
@@ -425,12 +504,44 @@ class BatchEngine:
                 results[qid] = BatchResult(
                     cardinality=int(cards[slot, :kq].sum()), bitmap=bm)
         expr_mod.assemble_section_results(
-            plan.exprs, expr_outs, results, lambda qid: queries[qid].form)
+            plan.exprs, expr_outs, results, lambda qid: queries[qid].form,
+            self._empty_cls)
         t3 = time.perf_counter()
         self.last_timings = {"engine": eng, "plan_ms": (t1 - t0) * 1e3,
                              "device_ms": (t2 - t1) * 1e3,
                              "unpack_ms": (t3 - t2) * 1e3}
+        if inject and faults.should_corrupt("batch_engine", eng):
+            # deterministic silent corruption (fault kind "silent"): what
+            # only the shadow check can catch
+            results[0] = dataclasses.replace(
+                results[0], cardinality=results[0].cardinality + 1)
         return results
+
+    def _shadow_check(self, queries, results, policy) -> None:
+        """Re-run a sampled share of the batch on the host rung; raise
+        ``ShadowMismatch`` on a divergence (the silent-corruption
+        detector)."""
+        idx = guard.shadow_sample(len(queries), policy.shadow_rate,
+                                  policy.shadow_seed, "batch_engine")
+        for i in idx:
+            ref = self._sequential_result(queries[i])
+            got = results[i]
+            bad = (got.cardinality != ref.cardinality
+                   or got.value != ref.value)
+            if not bad and queries[i].form == "bitmap":
+                bad = got.bitmap != ref.bitmap
+            if bad:
+                detail = (f"cardinality {got.cardinality} != "
+                          f"{ref.cardinality}"
+                          if got.cardinality != ref.cardinality else
+                          f"value {got.value} != {ref.value}"
+                          if got.value != ref.value else
+                          f"equal cardinality {ref.cardinality} but "
+                          f"differing members")
+                kind = getattr(queries[i], "op", "expression")
+                raise errors.ShadowMismatch(
+                    f"batch_engine query {i} ({kind}) diverged from the "
+                    f"sequential reference: {detail}")
 
     def cardinalities(self, queries, engine: str = "auto") -> np.ndarray:
         """i64[Q] result cardinalities of one batch."""
@@ -450,7 +561,7 @@ class BatchEngine:
             return expr_mod.evaluate_host(q.expr, srcs,
                                           columns=self._ds.columns)
         if not q.operands:
-            return RoaringBitmap()
+            return self._empty_cls()
         if q.op == "andnot":
             acc = srcs[int(q.operands[0])].clone()
             for i in sorted({int(i) for i in q.operands[1:]}):

@@ -486,7 +486,8 @@ def evaluate_host(e, sources, columns=None) -> object:
         elif isinstance(n, ValuePred):
             v = _host_column(columns, n.col).host_filter(n.op, n.lo, n.hi)
         elif n.op == "empty":
-            v = RoaringBitmap()
+            # an empty set of the sources' tier (32- or 64-bit)
+            v = type(sources[0])() if sources else RoaringBitmap()
         elif n.op == "andnot":
             v = ev(n.children[0]).clone()
             for r in n.children[1:]:
@@ -830,7 +831,8 @@ def compile_query(q: ExprQuery, qid: int, plan_reduce,
             node_keys = keyof[cis[0]]
             for c in cis[1:]:
                 node_keys = np.union1d(node_keys, keyof[c])
-        node_keys = node_keys.astype(np.uint16)
+        # node keys keep the set's key dtype: a u16 cast would fold the
+        # 64-bit tier's u48 keys onto each other
         sec.n_combine += 1
         si = len(steps)
         spec = [(ci, _align(host, f"{si}_{k}", keyof[ci], node_keys))
@@ -965,17 +967,20 @@ def eval_sections(sections, words, bucket_heads) -> list:
             for sec in sections]
 
 
-def assemble_section_result(sec: ExprSection, out, form: str):
+def assemble_section_result(sec: ExprSection, out, form: str,
+                            empty_cls=None):
     """Host readback of one section -> (cardinality, bitmap | None,
     value | None).  ``out`` is the device pair of a fused section (the
     aggregate pair for an aggregate root), ignored for empty/adhoc
-    ones."""
+    ones.  ``empty_cls`` is the class of an empty result: the resident
+    set's tier (``RoaringBitmap`` by default)."""
     from ..core.bitmap import RoaringBitmap
 
+    empty_cls = empty_cls or RoaringBitmap
     if sec.agg is not None:
         return _assemble_agg(sec, out, form)
     if sec.kind == "empty":
-        return 0, (RoaringBitmap() if form == "bitmap" else None), None
+        return 0, (empty_cls() if form == "bitmap" else None), None
     if sec.kind == "adhoc":
         bm = sec.adhoc_bm
         return (bm.cardinality, bm.clone() if form == "bitmap" else None,
@@ -1011,11 +1016,11 @@ def _assemble_agg(sec: ExprSection, out, form: str):
     return bm.cardinality, (bm if form == "bitmap" else None), None
 
 
-def assemble_section_results(sections, expr_outs, results,
-                             form_of) -> list:
+def assemble_section_results(sections, expr_outs, results, form_of,
+                             empty_cls=None) -> list:
     """Fill ``results`` in place for every non-flat section (flat roots were
     read back from their buckets).  ``expr_outs`` aligns with the fused
-    subset, in order."""
+    subset, in order; ``empty_cls`` as in ``assemble_section_result``."""
     from .batch_engine import BatchResult
 
     fi = 0
@@ -1027,7 +1032,7 @@ def assemble_section_results(sections, expr_outs, results,
             out = expr_outs[fi]
             fi += 1
         card, bm, value = assemble_section_result(sec, out,
-                                                  form_of(sec.qid))
+                                                  form_of(sec.qid), empty_cls)
         results[sec.qid] = BatchResult(cardinality=card, bitmap=bm,
                                        value=value)
     return results

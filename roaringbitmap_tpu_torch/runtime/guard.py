@@ -1,0 +1,286 @@
+"""Guarded dispatch: bounded retry, the engine ladder, deadline, shadow (the
+port's own copy of ``roaringbitmap_tpu.runtime.guard``).
+
+Every guarded entry point (``parallel.aggregation``'s wide calls and
+``BatchEngine.execute``) runs its engine through ``run_with_fallback``:
+
+- **Transient faults** (``errors.retryable``) get bounded retries with
+  exponential backoff on the same rung; exhausted retries demote.
+- **Lowering faults** demote at once: the same shape on the same rung
+  fails the same way.
+- **ResourceExhausted** first offers the call site a split (the batch
+  engine halves the batch), then demotes.
+- **CorruptInput** is the input's fault: fatal at once.
+- On the CPU every chain ends at the call site's **sequential host
+  rung**, the container-algebra fold every engine is held bit-exact
+  against, so a demotion changes throughput, never results.
+- On a CUDA device a chain holds the requested rung and the hand-written
+  kernel rungs below it, never the plain version ("torch") or the host: a
+  fault the last rung cannot retry or split away re-raises, typed.
+- An expired **deadline** stops the ladder and re-raises the last fault,
+  typed.
+- What ``errors.classify`` cannot type (a programming error, a failed
+  kernel build or launch) propagates untouched.
+
+The opt-in **shadow check** (``ROARING_TPU_SHADOW=<rate>[:<seed>]`` or
+``GuardPolicy.shadow_rate``) re-runs a sampled share of queries on the
+sequential rung after a successful dispatch and raises ``ShadowMismatch``
+on any divergence.
+
+Nothing here is silent: every retry, demotion and sequential landing is
+counted by site (``dispatch_stats``, the JAX package's per-site shape) and
+by (site, rung, event) (``dispatch_events``), and logged.  These module
+counters stand in for the JAX package's trace, SLO, flight and metrics
+hooks until those are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+import zlib
+from typing import Callable
+
+import numpy as np
+import torch
+
+from . import errors, faults
+
+_log = logging.getLogger("roaringbitmap_tpu_torch.runtime")
+
+#: the terminal rung of every chain off the card: the sequential host fold
+SEQUENTIAL = "sequential"
+#: the rung that runs the kernels' plain PyTorch versions
+PLAIN = "torch"
+
+#: sentinel a ResourceExhausted splitter returns to decline (fall through
+#: to demotion)
+NO_SPLIT = object()
+
+ENV_MAX_ATTEMPTS = "ROARING_TPU_MAX_ATTEMPTS"
+ENV_BACKOFF = "ROARING_TPU_BACKOFF_S"
+ENV_DEADLINE = "ROARING_TPU_DEADLINE_S"
+ENV_SHADOW = "ROARING_TPU_SHADOW"
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardPolicy:
+    """Knobs for one guarded dispatch; ``from_env`` is the default.  The
+    fields and environment names are the JAX package's.  The JAX policy's
+    pipeline depth and SLO deadline wait for the layers that read them
+    (the pooled engine, SLO accounting)."""
+
+    max_attempts: int = 3          # per rung, transient faults only
+    backoff_base: float = 0.02     # seconds; doubles per retry
+    backoff_factor: float = 2.0
+    backoff_max: float = 1.0
+    deadline: float | None = None  # whole-dispatch wall budget, seconds
+    shadow_rate: float = 0.0       # share of queries cross-checked
+    shadow_seed: int = 0x5AD0
+    sleep: Callable[[float], None] = time.sleep
+
+    @classmethod
+    def from_env(cls, **overrides) -> "GuardPolicy":
+        env: dict = {}
+        if ENV_MAX_ATTEMPTS in os.environ:
+            env["max_attempts"] = max(1, int(os.environ[ENV_MAX_ATTEMPTS]))
+        if ENV_BACKOFF in os.environ:
+            env["backoff_base"] = float(os.environ[ENV_BACKOFF])
+        if ENV_DEADLINE in os.environ:
+            env["deadline"] = float(os.environ[ENV_DEADLINE])
+        if ENV_SHADOW in os.environ:
+            rate, _, seed = os.environ[ENV_SHADOW].partition(":")
+            env["shadow_rate"] = float(rate)
+            if seed:
+                env["shadow_seed"] = int(seed, 0)
+        env.update(overrides)
+        return cls(**env)
+
+
+class Deadline:
+    """Monotonic wall budget shared across retries, rungs and batch splits
+    (a split must not reset the clock), read on the fault clock so that
+    injected ``slow`` latency expires it."""
+
+    def __init__(self, seconds: float | None, clock=faults.clock):
+        self.seconds = seconds
+        self._clock = clock
+        self._t0 = clock()
+
+    def expired(self) -> bool:
+        return (self.seconds is not None
+                and self._clock() - self._t0 >= self.seconds)
+
+    def remaining(self) -> float:
+        if self.seconds is None:
+            return float("inf")
+        return max(0.0, self.seconds - (self._clock() - self._t0))
+
+
+def chain_from(engine: str, ladder: tuple, device=None) -> tuple:
+    """The fallback chain starting at ``engine``'s rung of ``ladder`` (an
+    engine outside the ladder gets itself alone).  Off the card it ends at
+    the sequential rung.  On a CUDA ``device`` it keeps the requested rung
+    and the kernel rungs below it, without the plain rung or the host."""
+    chain = (tuple(ladder[ladder.index(engine):]) if engine in ladder
+             else (engine,))
+    if device is not None and torch.device(device).type == "cuda":
+        return chain[:1] + tuple(r for r in chain[1:] if r != PLAIN)
+    return chain + (SEQUENTIAL,)
+
+
+# --------------------------------------------------------- dispatch stats
+
+_EVENTS = ("retries", "demotions", "sequential")
+_dispatch_stats: dict = {}
+_dispatch_events: dict = {}
+
+
+def _bump(site: str, key: str, rung: str) -> None:
+    row = _dispatch_stats.setdefault(site, dict.fromkeys(_EVENTS, 0))
+    row[key] += 1
+    ev = (site, rung, key)
+    _dispatch_events[ev] = _dispatch_events.get(ev, 0) + 1
+
+
+def dispatch_stats(site: str | None = None) -> dict:
+    """Per-site retry / demotion / sequential-landing counts (copies)."""
+    if site is not None:
+        return dict(_dispatch_stats.get(site, dict.fromkeys(_EVENTS, 0)))
+    return {s: dict(row) for s, row in _dispatch_stats.items()}
+
+
+def dispatch_events() -> dict:
+    """The same counts by (site, rung, event): the rung retried, the rung
+    demoted from, or "sequential" for a landing."""
+    return dict(_dispatch_events)
+
+
+def reset_dispatch_stats() -> None:
+    _dispatch_stats.clear()
+    _dispatch_events.clear()
+
+
+def _deadline_error(site: str, dl: Deadline, last):
+    msg = f"{site}: dispatch deadline of {dl.seconds}s exhausted"
+    if last is None:
+        return errors.TransientDeviceError(msg)
+    err = type(last)(f"{msg}; last fault: {last}")
+    err.__cause__ = last
+    return err
+
+
+def _log_transition(level: int, site: str, event: str, engine_from: str,
+                    engine_to: str | None, fault) -> None:
+    error_class = type(fault).__name__ if fault is not None else None
+    _log.log(level, "%s: %s %s -> %s: %s", site, event, engine_from,
+             engine_to or "-", fault,
+             extra={"rb_site": site, "rb_event": event,
+                    "rb_engine_from": engine_from,
+                    "rb_engine_to": engine_to,
+                    "rb_error_class": error_class})
+
+
+def run_with_fallback(site: str, chain, attempt, *, policy=None,
+                      sequential=None, on_resource_exhausted=None,
+                      deadline: Deadline | None = None):
+    """Run ``attempt(rung)`` down the fallback chain; returns
+    ``(result, rung_used)``.
+
+    ``sequential()`` (no arguments) runs the chain's sequential rung; a
+    chain without one (``chain_from`` on a card) has no host rung, and a
+    fault its last rung cannot retry away re-raises, typed and not counted
+    as a demotion.  ``on_resource_exhausted(rung, fault, deadline)`` may
+    return a recovered result (a split batch) or NO_SPLIT to decline.
+    """
+    policy = policy or GuardPolicy.from_env()
+    dl = deadline or Deadline(policy.deadline)
+    rungs = list(chain)
+    if not rungs:
+        raise ValueError(f"{site}: empty fallback chain")
+    if SEQUENTIAL in rungs[:-1] or (SEQUENTIAL in rungs
+                                    and sequential is None):
+        raise ValueError(f"{site}: the sequential rung must come last and "
+                         f"needs sequential=")
+    last = None
+
+    def demote(rung, next_rung, fault):
+        if next_rung is None:      # the chain's last rung: re-raise
+            _log_transition(logging.ERROR, site, "exhausted", rung, None,
+                            fault)
+            return
+        _bump(site, "demotions", rung)
+        _log_transition(logging.WARNING, site, "demote", rung, next_rung,
+                        fault)
+
+    for ri, rung in enumerate(rungs):
+        next_rung = rungs[ri + 1] if ri + 1 < len(rungs) else None
+        backoff = policy.backoff_base
+        for att in range(policy.max_attempts):
+            # injected latency lands before the expiry check, so a slowed
+            # attempt can exhaust the deadline deterministically
+            faults.maybe_delay(site, rung)
+            if dl.expired():
+                raise _deadline_error(site, dl, last)
+            try:
+                if rung == SEQUENTIAL:
+                    _bump(site, "sequential", SEQUENTIAL)
+                    _log_transition(logging.WARNING, site, "sequential",
+                                    rungs[ri - 1] if ri else SEQUENTIAL,
+                                    SEQUENTIAL, last)
+                    return sequential(), SEQUENTIAL
+                return attempt(rung), rung
+            except Exception as exc:
+                fault = errors.classify(exc)
+                if fault is None or isinstance(fault, errors.ShadowMismatch):
+                    raise      # programming error / proven corruption
+                last = fault
+                if isinstance(fault, errors.CorruptInput):
+                    _log_transition(logging.ERROR, site, "fatal", rung,
+                                    None, fault)
+                    if fault is exc:
+                        raise
+                    raise fault from exc
+                if isinstance(fault, errors.ResourceExhausted):
+                    if on_resource_exhausted is not None:
+                        res = on_resource_exhausted(rung, fault, dl)
+                        if res is not NO_SPLIT:
+                            return res, rung
+                    demote(rung, next_rung, fault)   # same shape OOMs again
+                    break
+                if isinstance(fault, errors.EngineLoweringError):
+                    demote(rung, next_rung, fault)
+                    break
+                # retryable (transient / coordinator): bounded backoff
+                if att + 1 >= policy.max_attempts:
+                    demote(rung, next_rung, fault)
+                    break
+                _bump(site, "retries", rung)
+                _log_transition(logging.DEBUG, site, "retry", rung, rung,
+                                fault)
+                policy.sleep(min(backoff, dl.remaining()))
+                backoff = min(backoff * policy.backoff_factor,
+                              policy.backoff_max)
+    assert last is not None  # a rung leaves its loop only through a fault
+    raise last
+
+
+# ------------------------------------------------------------ shadow checks
+
+_shadow_counters: dict = {}
+
+
+def shadow_sample(n: int, rate: float, seed: int, site: str) -> list[int]:
+    """Deterministic sample of query indices to cross-check: a rate-sized
+    Bernoulli draw per index, keyed by a per-site call counter so repeated
+    batches sample different (but reproducible) subsets."""
+    if rate <= 0.0 or n == 0:
+        return []
+    if rate >= 1.0:
+        return list(range(n))
+    call = _shadow_counters.get(site, 0)
+    _shadow_counters[site] = call + 1
+    rng = np.random.default_rng((seed, zlib.crc32(site.encode()), call))
+    return [i for i in range(n) if rng.random() < rate]

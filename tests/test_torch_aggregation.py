@@ -373,6 +373,22 @@ def test_port_imports_no_jax():
         "assert bsi.DeviceRangeBitmap(rb, device='cpu').lte_cardinality(70)"
         " == 11\n"
         "assert analytics.two_phase_execute(eng, aq)[1].cardinality == 3\n"
+        "from roaringbitmap_tpu_torch import native\n"
+        "from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap\n"
+        "from roaringbitmap_tpu_torch.runtime import errors, faults, guard\n"
+        "from roaringbitmap_tpu_torch.utils import fuzz\n"
+        "b64 = [Roaring64Bitmap.from_values(np.array([i, 1 << 63], "
+        "np.uint64)) for i in range(3)]\n"
+        "assert rt.aggregation.or64(b64, device='cpu').cardinality == 4\n"
+        "with faults.inject('lowering@cuda:1'):\n"
+        "    assert rt.aggregation.or_(bms, engine='cuda', device='cpu')"
+        ".cardinality > 0\n"
+        "assert guard.dispatch_stats('aggregation')['demotions'] == 1\n"
+        "blobs = [b.serialize() for b in bms]\n"
+        "assert rt.DeviceBitmapSet(blobs, device='cpu').aggregate('or')"
+        " == rt.aggregation.or_(bms, device='cpu')\n"
+        "assert native.CALLS['native'] + native.CALLS['numpy'] == 1\n"
+        "assert fuzz.verify_decoder_hardening(8) >= 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"
@@ -381,3 +397,22 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_empty_set_auto_layout():
+    """Regression (ROADMAP C1): an empty input with the default
+    ``layout="auto"`` builds a set whose or/xor/and are empty, as in JAX
+    (the layout report of an empty input has no block advice)."""
+    ts = tagg.DeviceBitmapSet([], device=CPU)
+    js = jagg.DeviceBitmapSet([])
+    assert ts.layout == js.layout == "dense"
+    for op in ("or", "xor", "and"):
+        got, want = ts.aggregate(op), js.aggregate(op)
+        assert got.is_empty() and want.is_empty()
+        assert got.serialize() == want.serialize()
+    from roaringbitmap_tpu.parallel.batch_engine import BatchEngine as JEng
+    from roaringbitmap_tpu_torch.parallel.batch_engine import (
+        BatchEngine as TEng)
+    te, je = TEng.from_bitmaps([], device=CPU), JEng.from_bitmaps([])
+    assert te.n == je.n == 0
+    assert te.execute([]) == je.execute([]) == []

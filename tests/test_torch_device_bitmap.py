@@ -201,14 +201,30 @@ def test_contains_batch_empty_and_non_integer():
 
 def test_mixed_tiers_rejected():
     """u16 keys (the 32-bit tier) never combine with u64 keys; the u64
-    tier's own probes wait for core/bitmap64."""
+    tier probes and materializes on its own (core/bitmap64)."""
     db = tagg.DeviceBitmap.from_host(TRB.bitmap_of(5), device=CPU)
     wide = tagg.DeviceBitmap(np.array([0], np.uint64), db.words.clone())
     for op in ("__and__", "__or__", "__xor__", "__sub__"):
         with pytest.raises(TypeError, match="different tiers"):
             getattr(db, op)(wide)
-    with pytest.raises(NotImplementedError, match="bitmap64"):
-        wide.contains_batch(np.array([5], np.uint64))
-    with pytest.raises(NotImplementedError, match="bitmap64"):
-        wide.materialize()
+    assert wide.contains_batch(np.array([5, 6], np.uint64)).tolist() == [
+        True, False]
+    assert wide.materialize().to_array().tolist() == [5]
+    assert type(wide.materialize()).__name__ == "Roaring64Bitmap"
     assert wide.range_cardinality(0, 1 << 64) == 1
+
+
+@pytest.mark.parametrize("layout", ["dense", "counts", "compact"])
+def test_empty_key_set_range_count(layout):
+    """Pinned reference fault (ROADMAP C4): over an empty key set the JAX
+    range count builds its bounds as shape (0,) instead of (0, 1) and
+    raises TypeError; the port counts 0."""
+    assert tagg.DeviceBitmap.from_host(TRB(), device=CPU).range_cardinality(
+        0, 10) == 0
+    ts = tagg.DeviceBitmapSet([TRB()], layout=layout, device=CPU)
+    assert ts.aggregate_range_cardinality("or", 0, 10) == 0
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jagg.DeviceBitmap.from_host(JRB()).range_cardinality(0, 10)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        jagg.DeviceBitmapSet([JRB()], layout=layout
+                             ).aggregate_range_cardinality("or", 0, 10)

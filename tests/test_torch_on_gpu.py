@@ -325,3 +325,60 @@ def test_device_bsi_matches_host_oracle(dev):
         Operation.RANGE, 1 << 29, 1 << 30)
     assert dbsi.sum() == host.sum()
     assert dbsi.top_k(500) == host.top_k(500)
+
+
+def _lifted(bms):
+    """32-bit bitmaps lifted into the high-32 buckets 0, 1, 2^31 and
+    2^32 - 1 (bitmap i in bucket i % 4), reusing their containers."""
+    from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap
+
+    buckets = (0, 1, 2**31, 2**32 - 1)
+    return [Roaring64Bitmap(
+        (np.uint64(buckets[i % 4]) << np.uint64(16))
+        | b.keys.astype(np.uint64), list(b.containers))
+        for i, b in enumerate(bms)]
+
+
+@pytest.mark.parametrize("op", ["or", "xor"])
+def test_b2_on_u48_keys_matches_plain(dev, bitmaps, op):
+    """The 64-bit dense set: B2 over u48 segments, bit-equal to its plain
+    version and to the host fold, with the keys u64 on the host."""
+    lifted = _lifted(bitmaps)
+    ds = DeviceBitmapSet(lifted, layout="dense", device=dev)
+    assert ds.keys.dtype == np.uint64 and int(ds.keys[-1]) >> 16 == 2**32 - 1
+    args = (ds.words, ds.blk_seg, ds.keys.size, ds.block)
+    got = kernels.segmented_reduce_blocked(op, *args)
+    torch.cuda.synchronize()
+    assert kernels.B2.launches == 1
+    _same(got, kernels.segmented_reduce_blocked_plain(op, *args))
+    want = aggregation._sequential_reduce(op, lifted)
+    assert ds.aggregate(op) == want
+    assert aggregation.or64(lifted) == aggregation._sequential_reduce(
+        "or", lifted)
+
+
+def test_classify_real_cuda_oom(dev):
+    """A real allocation past the card's memory: torch raises its
+    OutOfMemoryError, which the guard's taxonomy types as
+    ResourceExhausted."""
+    from roaringbitmap_tpu_torch.runtime import errors
+
+    free, total = torch.cuda.mem_get_info(dev)
+    with pytest.raises(torch.OutOfMemoryError) as info:
+        torch.empty(2 * total, dtype=torch.uint8, device=dev)
+    assert isinstance(errors.classify(info.value), errors.ResourceExhausted)
+    torch.cuda.empty_cache()
+
+
+def test_guard_never_demotes_on_the_card(dev, bitmaps):
+    """On the card a lowering fault on the "cuda" rung re-raises typed: no
+    demotion to the plain version, no landing on the host, no launch."""
+    from roaringbitmap_tpu_torch.runtime import errors, faults, guard
+
+    guard.reset_dispatch_stats()
+    kernels.reset_launches()
+    with faults.inject("lowering@cuda:1"):
+        with pytest.raises(errors.EngineLoweringError):
+            aggregation.or_(bitmaps, engine="cuda", device=dev)
+    assert guard.dispatch_events() == {}
+    assert kernels.B2.launches == 0

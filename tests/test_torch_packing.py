@@ -289,3 +289,49 @@ def test_synthetic_bitmaps_match():
     t = tdatasets.synthetic_bitmaps(6, seed=4, universe=1 << 21, density=0.004)
     for jb, tb in zip(j, t):
         assert tb.serialize() == jb.serialize()
+
+
+@pytest.mark.parametrize("start,stop", [
+    (-5, 10), (2**32 - 3, 2**32 + 4), (-1, 2**33)])
+def test_from_range_outside_universe_raises(start, stop):
+    """Regression (ROADMAP C2): bounds outside [0, 2^32) raise the JAX
+    package's ValueError; they are not clamped."""
+    for cls in (TRB, JRB):
+        with pytest.raises(ValueError, match="32-bit universe"):
+            cls.from_range(start, stop)
+
+
+@pytest.mark.parametrize("start,stop", [
+    (0, 0), (9, 3), (5, 6), (5, 7), (5, 8), (0, 1 << 16), (7, 200000),
+    (2**32 - 3, 2**32), (0, 2**32)])
+def test_from_range_matches_jax(start, stop):
+    """Inside the universe (and for empty or reversed ranges) the port's
+    range bitmap is the JAX package's, container kinds and bytes too."""
+    got, want = TRB.from_range(start, stop), JRB.from_range(start, stop)
+    assert got.serialize() == want.serialize()
+    assert got.cardinality == want.cardinality == max(0, stop - start)
+
+
+def test_out_of_universe_probes():
+    """Pinned reference fault (ROADMAP C4): the JAX host bitmap's key lookup
+    casts with np.uint16 and raises OverflowError for a probe outside
+    [0, 2^32), as does the JAX BSI's get_value; the port answers as the
+    reference Java library does: absent, no change, the members in range,
+    no value."""
+    from roaringbitmap_tpu.bsi import RoaringBitmapSliceIndex as JBsi
+    from roaringbitmap_tpu_torch.bsi import RoaringBitmapSliceIndex as TBsi
+
+    vals = [0, 1, 2**32 - 1]
+    t, j = TRB.bitmap_of(*vals), JRB.bitmap_of(*vals)
+    assert t.contains(-1) is False and not t.contains(2**32)
+    t.remove(2**32 + 1)
+    assert t.to_array().tolist() == vals
+    assert t.range_cardinality(-5, 2**33) == 3
+    for call in (lambda: j.contains(-1), lambda: j.remove(2**32 + 1),
+                 lambda: j.range_cardinality(-5, 2**33)):
+        with pytest.raises(OverflowError):
+            call()
+    ids, values = np.array([1, 2], np.uint32), np.array([5, 6])
+    assert TBsi.from_pairs(ids, values).get_value(-1) == (0, False)
+    with pytest.raises(OverflowError):
+        JBsi.from_pairs(ids, values).get_value(-1)

@@ -150,7 +150,17 @@ def test_chained_pairwise_cardinality(pairs):
 
 
 def test_pairwise_checks_op_and_engine(pairs):
-    _, tp = pairs
+    jp, tp = pairs
+    # an unknown op: the JAX package raises KeyError (its op table lookup);
+    # the port's error is a KeyError and a ValueError at once
+    for call in (lambda: jagg.pairwise("nand", jp),
+                 lambda: jagg.pairwise_cardinality("nand", jp),
+                 lambda: tagg.pairwise("nand", tp, device=CPU),
+                 lambda: tagg.pairwise_cardinality("nand", tp, device=CPU),
+                 lambda: tagg.DevicePairSet(tp[:2], device=CPU)
+                 .cardinalities("nand")):
+        with pytest.raises(KeyError, match="nand"):
+            call()
     with pytest.raises(ValueError, match="pairwise op"):
         tagg.pairwise("nand", tp, device=CPU)
     with pytest.raises(ValueError, match="unknown engine"):
