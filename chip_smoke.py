@@ -96,6 +96,32 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
     d. phase 5's bitmaps as serialized bytes: ``pack_blocked_compact`` on
        the native engine equal to the NumPy path array for array, both
        timed on the host; the set of the native pack's ``or`` on the card;
+11. the pooled multi-tenant engine, run after 10 and before 6:
+    a. phase 2's first 4,096 bitmaps dealt into 16 tenants of 256
+       (tenants 0-11 dense, 12-15 compact, rebuilt by B3 inside each pooled
+       launch); ``random_multiset_pool([256] * 16, Q, seed=0xACE)``: the
+       Q 64 pool in bitmap form on pooled "cuda" equals the per-set loop
+       (16 ``BatchEngine.execute`` calls), pooled "torch" and the host fold
+       of every query, with one B1 launch per op group; at Q 64 and Q 256
+       (cardinality form) the pooled wall time against the per-set loop's,
+       with Q/s, the B1/B3 launches of each, and one traced run of each
+       (host time, device busy time, idle share);
+    b. 7b's search-shard bitmaps dealt into 16 tenants of 256, each with
+       depth-2 ``random_expr_pool`` queries, tenants 0-3 carrying phase 9's
+       ``price`` column with a ``range_`` and a ``sum_`` query: the pool
+       whose plan fits B5 runs in ONE B5 launch, equal to pooled "cuda",
+       the per-set loop and the host oracles; plan, device, unpack ms;
+    c. eight Q 64 pools through ``execute_pipelined`` at depth 1, 2, 4
+       (equal to ``execute``; host and overlap ms); the Q 256 pool under
+       a budget of a quarter of its prediction: proactive splits, every
+       launch's prediction within the budget and its measured peak
+       (``max_memory_allocated``) within its prediction, equal results;
+       then no demotion or host landing at site multiset, a drain-time
+       transient re-run, an OOM halving with each half on "cuda", and
+       ``lowering@cuda`` raising ``EngineLoweringError`` with no launch;
+    d. the first 1,024 bitmaps of 2 lifted as in 10a, 4 dense tenants: the
+       Q 64 bitmap pool on pooled "cuda" equals the per-set loop, with
+       ``Roaring64Bitmap`` results;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -349,6 +375,7 @@ def traced(torch, fn) -> str:
     """One warm call of ``fn`` under ``torch.profiler``: its host time to a
     synchronize, the device time of the kernels and copies it ran, and the
     three longest of them."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -360,6 +387,10 @@ def traced(torch, fn) -> str:
         host_ms = (time.perf_counter() - t0) * 1e3
     dev = []
     for e in prof.key_averages():
+        # device rows only: a CPU op's row repeats the time of the kernels
+        # it launched, which have rows of their own
+        if getattr(e, "device_type", DeviceType.CPU) == DeviceType.CPU:
+            continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = e.self_cuda_time_total
@@ -374,6 +405,318 @@ def traced(torch, fn) -> str:
     return (f"host {host_ms:.3f} ms, device busy {busy:.3f} ms in "
             f"{sum(n for _, n, _ in dev)} kernels and copies (idle "
             f"{1 - busy / host_ms:.1%}): {top}")
+
+
+def median_ms(torch, fn, reps: int = 5) -> float:
+    """Median host-clock time of ``fn`` (which returns host results, so it
+    synchronizes) over ``reps`` warm runs, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def fires_first(faults, spec_of, key: str, rate: float, later: int) -> str:
+    """A fault spec whose first draw at ``key`` fires and whose next
+    ``later`` draws do not."""
+    for seed in range(1000):
+        plan = faults.FaultPlan.from_spec(spec_of(seed))
+        draws = [plan._draw(0, key) for _ in range(later + 1)]
+        if draws[0] < rate and all(d >= rate for d in draws[1:]):
+            return spec_of(seed)
+    raise AssertionError("no seed fires only first")
+
+
+def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
+    """The pooled multi-tenant engine (``MultiSetBatchEngine``): 11a flat
+    pools over 16 tenants of phase 2's bitmaps (12 dense, 4 compact),
+    11b one pooled expression and value pool in one B5 launch, 11c the
+    pipeline, the budget split and the guard, 11d 64-bit tenants."""
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet
+    from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap
+    from roaringbitmap_tpu_torch.ops import kernels
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
+    from roaringbitmap_tpu_torch.parallel.multiset import (
+        BatchGroup, MultiSetBatchEngine, random_multiset_pool)
+    from roaringbitmap_tpu_torch.runtime import errors, faults, guard
+
+    b1, b3, b5 = (kernels.B1.name, kernels.B3.name, kernels.B5.name)
+    n_t, per = 16, min(256, len(bms) // 16)
+
+    def as_form(pool, form):
+        return [BatchGroup(g.set_id, [BatchQuery(q.op, q.operands, form=form)
+                                      for q in g.queries]) for g in pool]
+
+    def same_pool(got, want) -> bool:
+        return len(got) == len(want) and all(
+            same_results(g, w) for g, w in zip(got, want))
+
+    # 11a: flat pools over 16 tenants
+    tenants = [bms[t * per:(t + 1) * per] for t in range(n_t)]
+    sets = smoke.main_path("11a tenant builds", lambda: [
+        DeviceBitmapSet(b, layout="dense" if t < 12 else "compact")
+        for t, b in enumerate(tenants)])
+    ms = MultiSetBatchEngine(sets)
+    for t in (0, 12):
+        ds = sets[t]
+        log(f"  11a: tenant {t} ({ds.layout}): {per} bitmaps, rows "
+            f"{ds._n_rows}, K {ds.keys.size}, {ds.hbm_bytes()} bytes "
+            f"resident")
+    log(f"  11a: tenants 0-11 dense ({sum(s.hbm_bytes() for s in sets[:12])}"
+        f" bytes), 12-15 compact ({sum(s.hbm_bytes() for s in sets[12:])} "
+        f"bytes), rows {[s._n_rows for s in sets]}")
+    pools = {q: random_multiset_pool([per] * n_t, q, seed=0xACE,
+                                     max_operands=8) for q in (64, 256)}
+    bm64 = as_form(pools[64], "bitmap")
+
+    def per_set(pool, engine="cuda"):
+        return [ms._engines[g.set_id].execute(list(g.queries), engine=engine)
+                for g in pool]
+
+    got = smoke.main_path("11a pooled bitmap Q64", lambda: ms.execute(bm64))
+    plan = ms._plan_pool(ms._flatten(bm64)[0])
+    require(smoke.last[b1] == len(plan.op_groups) and smoke.last[b3] == 4,
+            f"11a pooled: B1 {smoke.last[b1]}, B3 {smoke.last[b3]}; want "
+            f"{len(plan.op_groups)} and 4")
+    loop = smoke.main_path("11a per-set loop bitmap Q64",
+                           lambda: per_set(bm64))
+    require(same_pool(got, loop), "11a: pooled cuda != the per-set loop")
+    require(same_pool(got, ms.execute(bm64, engine="torch")),
+            "11a: pooled cuda != pooled torch")
+    t0 = time.perf_counter()
+    for g, rows in zip(bm64, got):
+        for q, r in zip(g.queries, rows):
+            require(r.bitmap == host_query(q, tenants[g.set_id]),
+                    f"11a: tenant {g.set_id} {q.op} != the host fold")
+    log(f"    bitmap Q64: pooled cuda equals the per-set loop, pooled torch "
+        f"and the host fold of every query (host {time.perf_counter() - t0:.1f}"
+        f" s); {len(plan.buckets)} buckets in {len(plan.op_groups)} op "
+        f"groups, pooled image {plan.n_pool_rows} rows")
+    want_card = {}
+    for q, pool in pools.items():
+        pooled = smoke.main_path(f"11a pooled Q{q}", lambda: ms.execute(pool))
+        pl = dict(smoke.last)
+        loop = smoke.main_path(f"11a per-set loop Q{q}",
+                               lambda: per_set(pool))
+        ll = dict(smoke.last)
+        require(same_pool(pooled, loop), f"11a Q{q}: pooled != per-set loop")
+        want_card[q] = pooled
+        t_pool = median_ms(torch, lambda: ms.execute(pool))
+        t_loop = median_ms(torch, lambda: per_set(pool))
+        log(f"    Q{q} cardinality: pooled {t_pool:.3f} ms ({q / t_pool * 1e3:.0f}"
+            f" Q/s; B1 {pl[b1]}, B3 {pl[b3]} launches) against the per-set "
+            f"loop {t_loop:.3f} ms ({q / t_loop * 1e3:.0f} Q/s; B1 {ll[b1]}, "
+            f"B3 {ll[b3]}); medians of 5, warm")
+        log(f"    Q{q} traced: pooled "
+            f"{traced(torch, lambda: ms.execute(pool))}; per-set loop "
+            f"{traced(torch, lambda: per_set(pool))}")
+
+    # 11b: pooled expressions and value queries, one B5 launch
+    sets_e = smoke.main_path("11b shard tenant builds", lambda: [
+        DeviceBitmapSet(sbms[t * per:(t + 1) * per], layout="dense")
+        for t in range(n_t)])
+    for t in range(4):
+        sets_e[t].attach_column(price)
+    ems = MultiSetBatchEngine(sets_e)
+
+    def value_queries(t):
+        lo, hi = PRICE_MAX // 4, PRICE_MAX // 2
+        return [expr.ExprQuery(expr.and_(expr.or_(2 * t, 2 * t + 1),
+                                         expr.range_("price", lo, hi)),
+                               form="bitmap"),
+                expr.ExprQuery(expr.sum_("price", found=expr.or_(0, 1)))]
+
+    def expr_pool(q_t):
+        return [BatchGroup(t, expr.random_expr_pool(per, q_t, depth=2,
+                                                    seed=300 + t)
+                           + (value_queries(t) if t < 4 else []))
+                for t in range(n_t)]
+
+    epool = None
+    for q_t in (4, 2, 1):
+        cand = expr_pool(q_t)
+        t0 = time.perf_counter()
+        eplan = ems._plan_pool(ems._flatten(cand)[0])
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        mega = eplan.mega
+        log(f"  11b: {q_t} expression queries a tenant + 2 value queries "
+            f"on tenants 0-3: plan {plan_ms:.1f} ms (host, cold), steps "
+            f"{mega.n_steps}, slots {mega.n_slots}, bank-2 rows "
+            f"{mega.col_rows}: {'fits' if mega.fits() else 'does not fit'}")
+        if mega.fits():
+            epool = cand
+            break
+    require(epool is not None, "11b: no pooled expression plan fits B5")
+    got = smoke.main_path("11b pooled expr", lambda: ems.execute(epool))
+    require(smoke.last[b5] == 1 and smoke.last[b1] == 0,
+            f"11b: B5 {smoke.last[b5]}, B1 {smoke.last[b1]}; want one B5")
+    require(same_pool(got, ems.execute(epool, engine="cuda")),
+            "11b: megakernel != pooled cuda")
+    require(same_pool(got, [ems._engines[g.set_id].execute(list(g.queries))
+                            for g in epool]),
+            "11b: pooled != the per-set loop")
+    cols = {"price": price}
+    t0 = time.perf_counter()
+    for g, rows in zip(epool, got):
+        srcs = sbms[g.set_id * per:(g.set_id + 1) * per]
+        for q, r in zip(g.queries, rows):
+            if expr.is_agg(q.expr):
+                card, value, _ = expr.evaluate_host_agg(q.expr, srcs, cols)
+                ok = (r.cardinality, r.value) == (card, value)
+            else:
+                want = expr.evaluate_host(q.expr, srcs, cols)
+                ok = (r.cardinality == want.cardinality
+                      and (q.form != "bitmap" or r.bitmap == want))
+            require(ok, f"11b: tenant {g.set_id} != the host oracle")
+    pooled_e = ems._flatten(epool)[0]
+    dev_ms = median_ms(torch, lambda: ems._to_host(ems._run(eplan,
+                                                            "megakernel")))
+    outs = ems._to_host(ems._run(eplan, "megakernel"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ems._readback(eplan, outs, pooled_e, "megakernel", False)
+    unpack_ms = (time.perf_counter() - t0) * 1e3
+    log(f"    {len(pooled_e)} queries over {n_t} tenants in one B5 launch, "
+        f"equal to pooled cuda, the per-set loop and the host oracles; "
+        f"plan {plan_ms:.1f} ms (host, cold), device {dev_ms:.3f} ms "
+        f"(pooled image, B5 and the copies to the host, to a synchronize; "
+        f"median of 5, warm), unpack {unpack_ms:.3f} ms")
+
+    # 11c: the pipeline, the budget and the guard
+    pools8 = [random_multiset_pool([per] * n_t, 64, seed=s, max_operands=8)
+              for s in range(200, 208)]
+    want8 = [ms.execute(p) for p in pools8]
+    for d in (1, 2, 4):
+        pol = guard.GuardPolicy(pipeline_depth=d)
+        ms.execute_pipelined(pools8, policy=pol)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got8 = ms.execute_pipelined(pools8, policy=pol)
+        wall = (time.perf_counter() - t0) * 1e3
+        require(all(same_pool(g, w) for g, w in zip(got8, want8)),
+                f"11c depth {d}: != execute")
+        st = ms.last_pipeline
+        require(st["launches"] == len(pools8) and st["depth"] == d,
+                f"11c depth {d}: {st}")
+        log(f"  11c depth {d}: 8 Q64 pools in {wall:.3f} ms (host clock, "
+            f"warm), host_ms {st['host_ms']}, host_overlapped_ms "
+            f"{st['host_overlapped_ms']}, overlap_ratio "
+            f"{st['overlap_ratio']}, drain_ms {st['drain_ms']}; equal to "
+            f"execute")
+    pooled256 = ms._flatten(pools[256])[0]
+    full = ms.predict_dispatch_bytes(pooled256)
+    budget = full // 4
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms._launch_once(pooled256, "cuda")
+    peak = torch.cuda.max_memory_allocated() - base
+    require(peak <= full, f"11c: Q256 measured {peak} > predicted {full}")
+    log(f"  11c: Q256 pool in one launch: predicted {full} bytes, measured "
+        f"peak {peak} (predicted / measured {full / max(peak, 1):.3f})")
+    n_split, n_launch = ms.proactive_split_count, ms.launch_count
+    got = smoke.main_path("11c Q256 under a budget", lambda: ms.execute(
+        pools[256], policy=guard.GuardPolicy(hbm_budget=budget)))
+    launched = ms.launch_count - n_launch
+    preds = [m["predicted_bytes"] for m in list(ms.dispatch_memory)[-launched:]]
+    require(ms.proactive_split_count > n_split and launched > 1
+            and all(p <= budget for p in preds),
+            f"11c budget {budget}: splits "
+            f"{ms.proactive_split_count - n_split}, predictions {preds}")
+    require(same_pool(got, want_card[256]), "11c: budgeted pool != unsplit")
+    log(f"    budget {budget} (a quarter of the prediction): "
+        f"{ms.proactive_split_count - n_split} proactive splits, {launched} "
+        f"launches, every prediction within the budget; equal results")
+    for sub in ms._launch_iter(pooled256, "cuda", budget):
+        pred = ms.predict_dispatch_bytes(sub, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms._launch_once(sub, "cuda")
+        peak = torch.cuda.max_memory_allocated() - base
+        require(peak <= pred <= budget,
+                f"11c: launch of {len(sub)}: measured {peak}, predicted "
+                f"{pred}, budget {budget}")
+        log(f"    launch of {len(sub)} queries: predicted {pred}, measured "
+            f"peak {peak} (predicted / measured {pred / max(peak, 1):.3f})")
+    stats = guard.dispatch_stats("multiset")
+    require(stats["demotions"] == 0 and stats["sequential"] == 0,
+            f"11c: the guard demoted or landed at multiset: {stats}")
+    log(f"  11c: no demotion and no host landing at multiset before the "
+        f"injected faults ({stats})")
+    guard.reset_dispatch_stats()
+    spec = "transient@multiset.drain=0.5:0xD4"
+    plan_f = faults.FaultPlan.from_spec(spec)
+    fires = sum(plan_f._draw(0, "multiset.drain/pallas") < 0.5
+                for _ in pools8)
+    r0 = ms.drain_retries
+    with faults.inject(spec):
+        got8 = ms.execute_pipelined(pools8,
+                                    policy=guard.GuardPolicy(pipeline_depth=2))
+    require(fires > 0 and ms.drain_retries - r0 == fires
+            and all(same_pool(g, w) for g, w in zip(got8, want8)),
+            f"11c drain: retries {ms.drain_retries - r0}, fires {fires}")
+    log(f"    {spec} at depth 2: {fires} launches re-run at drain, equal")
+    two = [g for g in pools[64] if g.set_id in (0, 12)]
+    clean = ms.execute(two)
+    spec = fires_first(faults, lambda sd: f"oom@multiset=0.5:{sd}",
+                       "multiset/pallas", 0.5, 2)
+    s0, n_launch = ms.split_count, ms.launch_count
+    with faults.inject(spec):
+        got = smoke.main_path(f"11c two tenants under {spec}",
+                              lambda: ms.execute(two))
+    halves = list(ms.dispatch_memory)[-(ms.launch_count - n_launch):]
+    require(same_pool(got, clean) and ms.split_count - s0 == 1
+            and len(halves) == 2
+            and all(m["engine"] == "cuda" for m in halves)
+            and guard.dispatch_stats("multiset")["demotions"] == 0,
+            f"11c oom: splits {ms.split_count - s0}, launches {halves}")
+    log(f"    {spec}: the two-tenant pool was halved once, each half on "
+        f"cuda; equal")
+    guard.reset_dispatch_stats()
+
+    def lowered():
+        try:
+            ms.execute(pools[64])
+        except errors.EngineLoweringError as exc:
+            return exc
+        return None
+
+    with faults.inject("lowering@cuda:1"):
+        raised = smoke.main_path("11c pooled under lowering@cuda", lowered)
+    require(raised is not None and smoke.last[b1] == 0
+            and guard.dispatch_stats("multiset")["demotions"] == 0
+            and guard.dispatch_stats("multiset")["sequential"] == 0,
+            f"11c lowering@cuda: raised {raised!r}, launches {smoke.last}")
+    log(f"    lowering@cuda: the pooled launch raised "
+        f"{type(raised).__name__} on the card (no B1 launch, no demotion)")
+    guard.reset_dispatch_stats()
+
+    # 11d: 64-bit tenants
+    l64 = lift(bms[:4 * per])
+    sets64 = [DeviceBitmapSet(l64[t * per:(t + 1) * per], layout="dense")
+              for t in range(4)]
+    ms64 = MultiSetBatchEngine(sets64)
+    pool64 = as_form(random_multiset_pool([per] * 4, 64, seed=0xACE),
+                     "bitmap")
+    got = smoke.main_path("11d pooled 64-bit Q64", lambda: ms64.execute(pool64))
+    loop = [ms64._engines[g.set_id].execute(list(g.queries), engine="cuda")
+            for g in pool64]
+    require(same_pool(got, loop)
+            and all(type(r.bitmap) is Roaring64Bitmap
+                    for rows in got for r in rows),
+            "11d: pooled 64-bit != the per-set loop")
+    log(f"  11d: 4 dense tenants of Roaring64Bitmaps (K "
+        f"{[s.keys.size for s in sets64]}): the bitmap Q64 pool on pooled "
+        f"cuda equals the per-set loop, Roaring64Bitmap results")
 
 
 def main() -> int:
@@ -1165,16 +1508,9 @@ def main() -> int:
         f"sequential landing ({stats or 'no events at any site'})")
     guard.reset_dispatch_stats()
 
-    def fires_once(spec_of):
-        """The seed whose first draw fires and whose second does not."""
-        for seed in range(1000):
-            plan = faults.FaultPlan.from_spec(spec_of(seed))
-            key = "aggregation/pallas"      # how the "cuda" rung is drawn
-            if plan._draw(0, key) < 0.5 <= plan._draw(0, key):
-                return spec_of(seed)
-        raise AssertionError("no seed fires once")
-
-    spec = fires_once(lambda sd: f"transient@aggregation=0.5:{sd}")
+    # "aggregation/pallas": how the "cuda" rung is drawn
+    spec = fires_first(faults, lambda sd: f"transient@aggregation=0.5:{sd}",
+                       "aggregation/pallas", 0.5, 1)
     with faults.inject(spec):
         got = smoke.main_path(f"or_ under {spec}", lambda: aggregation.or_(
             adhoc, engine="cuda"))
@@ -1285,6 +1621,12 @@ def main() -> int:
         f"(equals phase 5's or_)")
     del ds64, xds64, eng64, eng_sh, l64, s64
     phase_time("phase 10", t_phase)
+
+    # ------------------------------------------------------------ phase 11
+    log("phase 11: the pooled multi-tenant engine (MultiSetBatchEngine)")
+    t_phase = time.perf_counter()
+    phase11(smoke, bms, sbms, price, lift, args.seed)
+    phase_time("phase 11", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "

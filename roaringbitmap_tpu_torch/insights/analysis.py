@@ -1,4 +1,5 @@
-"""Layout choice for resident sets, from host metadata alone.
+"""Layout choice for resident sets and the dispatch footprint model, from
+host metadata alone.
 
 The uscensus2000 shape (thousands of mostly-singleton containers) inflates a
 few dozen KB of serialized bytes into a dense image tens of MB large, which
@@ -6,6 +7,17 @@ every query would stream.  ``choose_layout`` sends that shape to the counts
 layout and everything else to the dense one, deciding exactly as
 ``roaringbitmap_tpu.insights.analysis.choose_layout`` does, so that
 ``DeviceBitmapSet(layout="auto")`` builds the same layout in both packages.
+
+The ``predict_*_dispatch_bytes`` functions keep the JAX package's names,
+signatures and ``peak_bytes`` key, but count what the port allocates on the
+card during one dispatch, not what an XLA program or a TPU kernel would:
+the gathered row block, B1's heads, the andnot head gather, popcount's
+int64 working copies, the plain rung's doubling scratch, B3's rebuilt image,
+the pooled image and B5's outputs.  Each term is the sum of the tensors the
+code allocates, so the total bounds the allocator's peak above what was
+allocated before the dispatch (``torch.cuda.max_memory_allocated``), which
+the pooled engine's proactive split relies on; ``chip_smoke.py`` phase 11c
+holds a pooled launch's measured peak under it on the card.
 """
 
 from __future__ import annotations
@@ -27,6 +39,210 @@ AUTO_COUNTS_INFLATION_X = 100.0
 def dense_rows_bytes(n_rows: int) -> int:
     """Device bytes of ``n_rows`` densified container rows."""
     return int(n_rows) * ROW_BYTES
+
+
+# ------------------------------------------------------- footprint model
+
+#: bytes of one B5 card row: 128 int32 popcount partials, one per slice
+MEGA_CARD_ROW_BYTES = 128 * 4
+#: operand bytes per gathered row or head slot: its int32 index, the int64
+#: copy an index may take on the card, and its bool masks
+INDEX_BYTES = 16
+#: popcount's working memory in rows of its int32 input (an int64 copy and
+#: an int64 scratch, ``ops.words.popcount``)
+POPCOUNT_ROWS = 4
+#: the plain rung's doubling pass: the blocks it holds beside the gathered
+#: one (the previous step, the shifted copy, the op's result, the
+#: ``torch.where`` result, the zero tail)
+DOUBLING_BLOCKS = 5
+#: the plain densify (``dense.densify_streams``) in rows per image row: an
+#: int64 accumulator and the int64 temporaries of its fold back to int32
+PLAIN_DENSIFY_ROWS = 7
+#: what no term names, once per dispatch: segment ranges, the instruction
+#: stream, reduction outputs and the allocator's 512-byte rounding
+DISPATCH_SLACK_BYTES = 2 << 20
+
+
+def densify_bytes(n_rows: int, engine: str) -> int:
+    """Device bytes of rebuilding an ``n_rows`` image from a stream set: B3
+    writes the image once on the kernel rungs; the plain scatter needs
+    ``PLAIN_DENSIFY_ROWS`` rows per image row."""
+    rows = dense_rows_bytes(int(n_rows) + 1)
+    return rows * PLAIN_DENSIFY_ROWS if engine == "torch" else rows
+
+
+def _bucket_bytes(bucket_sigs: list, engine: str) -> dict:
+    """Per-term bytes of the buckets of one dispatch (a bucket of the batch
+    engine, or a member of a pooled op group: both gather ``q * r_pad``
+    rows and reduce into ``q * (k_pad + 1)`` head slots)."""
+    gather = scratch = heads = outputs = 0
+    for op, q, r_pad, k_pad, _n_steps, needs_words in bucket_sigs:
+        if engine == "megakernel":
+            # rows stream from the image into shared memory: only B5's
+            # card partials and the bitmap-form result rows reach memory,
+            # twice over for the power-of-two padding of B5's output rows
+            outputs += 2 * q * k_pad * MEGA_CARD_ROW_BYTES
+            if needs_words:
+                outputs += 2 * q * k_pad * ROW_BYTES
+            continue
+        block, slots = q * r_pad, q * (k_pad + 1)
+        gather += block * (ROW_BYTES + INDEX_BYTES)
+        if engine == "torch":
+            scratch += DOUBLING_BLOCKS * block * ROW_BYTES
+        heads += slots * (ROW_BYTES + INDEX_BYTES)
+        if op == "andnot":
+            heads += slots * ROW_BYTES          # the head gather
+        if op == "andnot" or engine == "torch":
+            # B1 returns the cards of or/xor/and; andnot and the plain
+            # rung count their heads again
+            scratch += POPCOUNT_ROWS * slots * ROW_BYTES
+        outputs += slots * 4
+    return {"gather_bytes": gather, "scratch_bytes": scratch,
+            "heads_bytes": heads, "output_bytes": outputs}
+
+
+def predict_batch_dispatch_bytes(bucket_sigs: list, kind: str,
+                                 n_rows: int, engine: str) -> dict:
+    """Device bytes of ONE ``BatchEngine`` dispatch (the quantity the batch
+    engine's proactive split compares with the budget).
+
+    ``bucket_sigs`` are ``_Bucket.signature`` tuples (op, q, r_pad, k_pad,
+    n_steps, needs_words); ``kind`` is "dense" (the resident image) or
+    "streams" (a compact or counts set, whose image is rebuilt first);
+    ``engine`` is the rung that runs ("megakernel", "cuda", "torch").  Per
+    bucket: the gathered block and its operands; the plain rung's doubling
+    scratch; the head slots (B1's output or the plain head gather), the
+    andnot head gather, popcount's copies where cards are counted again; the
+    int32 cards.  Plus the rebuilt image of a stream set and
+    ``DISPATCH_SLACK_BYTES``."""
+    out = _bucket_bytes(bucket_sigs, engine)
+    out["densify_bytes"] = (densify_bytes(n_rows, engine)
+                            if kind == "streams" else 0)
+    out["peak_bytes"] = sum(out.values()) + DISPATCH_SLACK_BYTES
+    return out
+
+
+def _expr_step_rows(step) -> tuple:
+    """(kind, op or None, K rows, unaligned children, children) of one
+    compiled expression step signature (``expr.ExprSection.signature``)."""
+    kind = step[0]
+    if kind == "combine":
+        _, op, children, k = step
+        return (kind, op, int(k),
+                sum(1 for _, aligned in children if not aligned),
+                len(children))
+    if kind == "reduce":
+        return kind, None, int(step[3]), 0, 0
+    if kind == "vscan":
+        return kind, step[2], int(step[4]), 0, 0
+    if kind == "vagg":
+        return kind, step[1], int(step[6]), 0 if step[3] else 1, 1
+    return kind, None, int(step[1]), 0, 0
+
+
+def _value_step_depth(step) -> int:
+    """Padded slice depth of one value step (0 for other steps)."""
+    if step[0] == "vscan":
+        return int(step[3])
+    if step[0] == "vagg":
+        return int(step[5])
+    return 0
+
+
+def predict_expr_dispatch_bytes(expr_sigs, engine: str) -> dict:
+    """Device bytes the fused expression sections of a plan add to ONE
+    dispatch (the reduce nodes are buckets, costed by
+    :func:`predict_batch_dispatch_bytes`).
+
+    On "megakernel" the combines are B5 slots in shared memory: what reaches
+    memory is bank 1 (the ad-hoc rows), bank 2 (per value step, the
+    column's ``depth x K`` planes and ``K`` existence rows) and the outputs
+    (a root's card partials and bitmap-form rows; a sum's per-(slice, key)
+    cards; a top-k's rows), twice over for the power-of-two padding of B5's
+    output rows.  On "cuda" and "torch" the steps run in plain
+    PyTorch: a leaf gather or ad-hoc upload holds K rows; a combine of n
+    children one K-row result per pairwise op and two per unaligned child
+    (the gather and its mask); a value scan the planes' temporaries
+    (``depth + 3`` K-row blocks); a sum the masked planes and popcount's
+    copies (``(1 + POPCOUNT_ROWS) x depth`` blocks); a top-k ``depth + 4``
+    blocks; and the root's cards and bitmap-form rows."""
+    leaf = combine = outputs = scan = 0
+    for sig in expr_sigs:
+        kind, bitmap_form, steps, _root, root_k = sig
+        if kind != "fused":
+            continue
+        agg_root = False
+        for step in steps:
+            skind, op, k, copies, n_children = _expr_step_rows(step)
+            depth = _value_step_depth(step)
+            if engine == "megakernel":
+                if skind == "adhoc":
+                    leaf += k * ROW_BYTES
+                elif skind in ("vscan", "vagg"):
+                    scan += (depth + 1) * k * ROW_BYTES
+                if skind == "vagg":
+                    # outputs twice over: B5 pads its output rows to a
+                    # power of two
+                    agg_root = True
+                    outputs += 2 * ((depth + 1) * k * MEGA_CARD_ROW_BYTES
+                                    if op == "sum" else
+                                    k * (ROW_BYTES + MEGA_CARD_ROW_BYTES))
+                continue
+            if skind in ("leaf", "adhoc"):
+                leaf += k * ROW_BYTES
+            elif skind == "combine":
+                combine += (n_children + 2 * copies) * k * ROW_BYTES
+            elif skind == "vscan":
+                scan += (depth + 3) * k * ROW_BYTES
+            elif skind == "vagg":
+                agg_root = True
+                copies_b = 2 * copies * k * ROW_BYTES
+                if op == "sum":
+                    scan += ((1 + POPCOUNT_ROWS) * depth * k * ROW_BYTES
+                             + copies_b)
+                    outputs += depth * k * 4 + k * 4
+                else:
+                    scan += (depth + 4) * k * ROW_BYTES + copies_b
+                    outputs += k * (ROW_BYTES + 4)
+        if not agg_root:
+            # the root's cards (popcount's copies on the plain combines,
+            # partials on B5) and its rows for a bitmap-form root
+            if engine == "megakernel":
+                outputs += 2 * root_k * MEGA_CARD_ROW_BYTES
+                if bitmap_form:
+                    outputs += 2 * root_k * ROW_BYTES
+            else:
+                outputs += root_k * (4 + POPCOUNT_ROWS * ROW_BYTES)
+                if bitmap_form:
+                    outputs += root_k * ROW_BYTES
+    total = leaf + combine + outputs + scan
+    return {"leaf_bytes": leaf, "combine_bytes": combine,
+            "scan_bytes": scan, "output_bytes": outputs,
+            "peak_bytes": total}
+
+
+def predict_multiset_dispatch_bytes(bucket_sigs: list, sets: list,
+                                    engine: str,
+                                    pool_rows: int | None = None) -> dict:
+    """Device bytes of ONE pooled ``MultiSetBatchEngine`` launch (the
+    quantity its proactive split compares with the budget).
+
+    ``bucket_sigs`` are the pooled plan's bucket signatures (the op groups
+    gather and reduce exactly their members' rows and slots); ``sets`` is
+    ``[(kind, n_rows)]`` for each set the launch touches.  On top of the
+    buckets' terms: the pooled image (``pool_rows`` selected rows, or every
+    set's rows when not given), which the launch fills set by set, and the
+    largest stream set's rebuilt image, which lives only while its rows are
+    selected (``concat_bytes`` and ``densify_bytes``)."""
+    out = _bucket_bytes(bucket_sigs, engine)
+    out["densify_bytes"] = max(
+        (densify_bytes(n, engine) for kind, n in sets if kind == "streams"),
+        default=0)
+    rows = (sum(int(n) for _, n in sets) if pool_rows is None
+            else int(pool_rows))
+    out["concat_bytes"] = dense_rows_bytes(rows)
+    out["peak_bytes"] = sum(out.values()) + DISPATCH_SLACK_BYTES
+    return out
 
 
 def _serialized_size_of(b) -> int | None:

@@ -62,7 +62,7 @@ import numpy as np
 import torch
 
 from . import build, kernels, packing
-from .words import WORDS32, as_i32, fold_u32
+from .words import WORDS32, fold_u32, upload
 
 #: word slices of a row: one block of the cooperative launch per slice
 SLICES = 128
@@ -229,8 +229,8 @@ class MegaPlan:
             cols = (torch.cat(parts).to(device) if parts else
                     torch.zeros((1, WORDS32), dtype=torch.int32,
                                 device=device))
-            self._arrays[key] = {"stream": as_i32(stream, device),
-                                 "extra": as_i32(self.host["extra"], device),
+            self._arrays[key] = {"stream": upload(stream, device),
+                                 "extra": upload(self.host["extra"], device),
                                  "cols": cols}
         return self._arrays[key]
 

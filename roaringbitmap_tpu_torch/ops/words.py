@@ -63,11 +63,48 @@ def fold_u32(x: torch.Tensor) -> torch.Tensor:
 
 
 def popcount(words: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Set-bit count along ``dim`` of int32 words -> int32 cardinalities."""
-    x = words.to(torch.int64) & _U32
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    x = x + (x >> 8)
-    x = (x + (x >> 16)) & 0x3F
+    """Set-bit count along ``dim`` of int32 words -> int32 cardinalities.
+
+    The SWAR steps run in place on one int64 copy and one int64 scratch,
+    so the working memory is four times the input's bytes
+    (``insights.analysis.POPCOUNT_ROWS``)."""
+    x = words.to(torch.int64, copy=True)
+    x &= _U32
+    t = x >> 1
+    t &= 0x55555555
+    x -= t
+    torch.bitwise_right_shift(x, 2, out=t)
+    t &= 0x33333333
+    x &= 0x33333333
+    x += t
+    torch.bitwise_right_shift(x, 4, out=t)
+    x += t
+    x &= 0x0F0F0F0F
+    torch.bitwise_right_shift(x, 8, out=t)
+    x += t
+    torch.bitwise_right_shift(x, 16, out=t)
+    x += t
+    x &= 0x3F
+    del t
     return x.sum(dim=dim, dtype=torch.int64).to(torch.int32)
+
+
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """A plan operand (int32 bits or bool) -> tensor on ``device`` without a
+    host sync: on a CUDA device the array is copied into pinned memory and
+    the upload is queued on the current stream (a copy from pageable
+    memory would wait for the stream first); on the CPU it is shared.
+    Resident images go up through ``as_i32``: the pinned allocator would
+    keep a copy of their size cached on the host."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype not in (np.int32, np.bool_):
+        a = a.astype(np.int32)
+    if not a.flags.writeable:
+        a = a.copy()
+    t = torch.from_numpy(a)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

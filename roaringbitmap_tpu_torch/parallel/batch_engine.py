@@ -36,6 +36,9 @@ Rungs (``engine``):
   "auto"        "megakernel" on a CUDA device when the batch holds an
                 ``ExprQuery``, else "cuda" on the card and "torch" on the
                 CPU.
+``predict_dispatch_bytes`` is the port's footprint model of one dispatch
+(``insights.analysis``); a batch predicted past the budget
+(``runtime.guard.resolve_hbm_budget``) is halved before dispatch.
 Compact and counts sets rebuild the row image first: B3 on the "cuda" and
 "megakernel" rungs, the plain scatter on "torch".
 
@@ -56,6 +59,7 @@ import torch
 
 from ..core.bitmap import RoaringBitmap
 from ..core.bitmap64 import Roaring64Bitmap
+from ..insights import analysis as insights
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, to_u32
 from ..runtime import errors, faults, guard
@@ -71,6 +75,14 @@ ENGINES = ("megakernel", "cuda", "torch")
 #: cap of the prepared-plan cache: novel query shapes must not grow a
 #: long-lived server without bound
 PLAN_CACHE_MAX = 256
+
+
+def query_desc(q) -> str:
+    """Human-readable query tag for error messages (flat or expression)."""
+    if isinstance(q, expr_mod.ExprQuery):
+        return (f"expr depth={expr_mod.dag_stats(q.expr)['depth']} "
+                f"form={q.form}")
+    return f"{q.op} over {q.operands}"
 
 
 def resolve_query_engine(engine: str, queries, device) -> str:
@@ -214,29 +226,41 @@ class BatchPlan(list):
 def bucket_body(words: torch.Tensor, b_sig, arrays: dict, eng: str):
     """One bucket on the device: gather -> flat segmented reduce (B1 on the
     "cuda" rung, the doubling pass on "torch") -> per-op post pass.
-    Returns (heads int32[q, k_pad, 2048], cards int32[q, k_pad])."""
+    Returns (heads int32[q, k_pad, 2048], cards int32[q, k_pad]).  The masks
+    apply in place on tensors the body made; B1's cards serve or/xor/and,
+    and andnot and the plain rung count their heads again."""
     op, qn, r_pad, k_pad, n_steps, _needs_words = b_sig
     red = _RED_OP[op]
     g = words[arrays["gather"].reshape(-1)]
-    g = torch.where(arrays["valid"].reshape(-1, 1), g, -1 if op == "and" else 0)
+    g.masked_fill_(~arrays["valid"].reshape(-1, 1), -1 if op == "and" else 0)
     nseg = qn * (k_pad + 1)
+    cards = None
     if eng == "cuda":
-        heads, _ = kernels.segmented_reduce(red, g, arrays["flat_seg"], nseg)
+        heads, cards = kernels.segmented_reduce(red, g, arrays["flat_seg"],
+                                                nseg)
+        cards = cards.view(qn, k_pad + 1)[:, :k_pad]
     else:
         red_rows = dense.doubling_pass(dense.OPS[red], g,
                                        arrays["flat_seg"], n_steps)
         heads = red_rows[arrays["flat_head"].clamp(max=g.shape[0] - 1)]
+        del red_rows
+    del g
     heads = heads.view(qn, k_pad + 1, WORDS32)[:, :k_pad]
     # zero key slots with no contributing rows (an empty rest-union reads
-    # as 0)
-    heads = torch.where(arrays["heads_ok"][:, :, None], heads, 0)
+    # as 0) and, for and, slots some operand lacks (workShyAnd)
+    keep = arrays["heads_ok"]
     if op == "and":
-        heads = torch.where(arrays["key_keep"][:, :, None], heads, 0)
-    elif op == "andnot":
+        keep = keep & arrays["key_keep"]
+    heads.masked_fill_(~keep[:, :, None], 0)
+    if op == "andnot":
         hg = words[arrays["head_gather"].reshape(-1)].view(qn, k_pad, WORDS32)
-        hg = torch.where(arrays["head_ok"][:, :, None], hg, 0)
-        heads = hg & ~heads
-    return heads, dense.popcount(heads)
+        hg.masked_fill_(~arrays["head_ok"][:, :, None], 0)
+        heads.bitwise_not_().bitwise_and_(hg)      # head & ~rest
+        del hg
+        cards = None
+    if cards is None:
+        return heads, dense.popcount(heads)
+    return heads, cards.masked_fill(~keep, 0)
 
 
 class BatchEngine:
@@ -260,6 +284,8 @@ class BatchEngine:
         self.last_timings: dict = {}
         #: batches halved on ResourceExhausted (reactive splits)
         self.split_count = 0
+        #: batches halved before dispatch, predicted past the budget
+        self.proactive_split_count = 0
         #: the class of an empty result: the set's tier
         self._empty_cls = (RoaringBitmap if ds.keys.dtype == np.uint16
                            else Roaring64Bitmap)
@@ -371,13 +397,16 @@ class BatchEngine:
 
     # ------------------------------------------------------------ execution
 
-    def _bucket_engine(self, plan: BatchPlan, eng: str) -> str:
+    def _bucket_engine(self, plan: BatchPlan, eng: str,
+                       note: bool = True) -> str:
         """The rung the plan runs on: a megakernel request resolves to the
         multi-op "cuda" rung when the plan has no fused section or does not
-        fit B5, and the demotion is counted by reason."""
+        fit B5, and the demotion is counted by reason (``note=False`` for a
+        prediction, which dispatches nothing)."""
         if eng == "megakernel" and not (plan.mega is not None
                                         and plan.mega.fits()):
-            megakernel.note_capacity_demotion("batch_engine", plan.mega)
+            if note:
+                megakernel.note_capacity_demotion("batch_engine", plan.mega)
             return "cuda"
         return eng
 
@@ -434,13 +463,27 @@ class BatchEngine:
             return self._execute_once(queries, start, inject=False)
         policy = policy or guard.GuardPolicy.from_env()
         chain = guard.chain_from(start, ENGINES, self.device)
+        # one budget resolution per execute, not per split: the card's free
+        # memory costs an allocator query
         return self._dispatch(queries, chain, policy,
-                              guard.Deadline(policy.deadline))
+                              guard.Deadline(policy.deadline),
+                              guard.resolve_hbm_budget(policy, self.device))
 
-    def _dispatch(self, queries, chain, policy, deadline):
+    def _dispatch(self, queries, chain, policy, deadline,
+                  budget: int | None = None):
         """One guarded run of ``queries`` down ``chain``; recurses on OOM
         splits, each half restarting at the failing rung and sharing the
-        deadline."""
+        deadline.  Before the device is touched, a batch whose predicted
+        footprint (``predict_dispatch_bytes``) passes ``budget`` is halved
+        (the proactive split, counted in ``proactive_split_count``)."""
+        if budget is not None and len(queries) >= 2 \
+                and self.predict_dispatch_bytes(queries, chain[0]) > budget:
+            mid = (len(queries) + 1) // 2
+            self.proactive_split_count += 1
+            return (self._dispatch(queries[:mid], chain, policy, deadline,
+                                   budget)
+                    + self._dispatch(queries[mid:], chain, policy, deadline,
+                                     budget))
         split = False
 
         def attempt(eng):
@@ -454,8 +497,8 @@ class BatchEngine:
             mid = (len(queries) + 1) // 2
             self.split_count += 1
             split = True
-            return (self._dispatch(queries[:mid], sub, policy, dl)
-                    + self._dispatch(queries[mid:], sub, policy, dl))
+            return (self._dispatch(queries[:mid], sub, policy, dl, budget)
+                    + self._dispatch(queries[mid:], sub, policy, dl, budget))
 
         t0 = time.perf_counter()
         results, rung = guard.run_with_fallback(
@@ -538,10 +581,9 @@ class BatchEngine:
                           if got.value != ref.value else
                           f"equal cardinality {ref.cardinality} but "
                           f"differing members")
-                kind = getattr(queries[i], "op", "expression")
                 raise errors.ShadowMismatch(
-                    f"batch_engine query {i} ({kind}) diverged from the "
-                    f"sequential reference: {detail}")
+                    f"batch_engine query {i} ({query_desc(queries[i])}) "
+                    f"diverged from the sequential reference: {detail}")
 
     def cardinalities(self, queries, engine: str = "auto") -> np.ndarray:
         """i64[Q] result cardinalities of one batch."""
@@ -595,6 +637,41 @@ class BatchEngine:
 
     def cache_stats(self) -> dict:
         return {"plans": self._plans.stats()}
+
+    # ------------------------------------------------------- footprint
+
+    def _resident_kind(self) -> str:
+        """The footprint model's tag of the set: "dense" (the resident image)
+        or "streams" (a compact or counts set, rebuilt per dispatch)."""
+        return "dense" if self._ds.words is not None else "streams"
+
+    def predict_dispatch_bytes(self, queries, engine: str = "auto") -> int:
+        """Predicted device bytes of dispatching ``queries`` as one batch on
+        the rung ``execute`` would start at (``insights.analysis``): what
+        the proactive split compares with the budget."""
+        queries = list(queries)
+        plan = self.plan(queries)
+        eng = self._bucket_engine(
+            plan, resolve_query_engine(engine, queries, self.device),
+            note=False)
+        total = insights.predict_batch_dispatch_bytes(
+            [b.signature for b in plan], self._resident_kind(),
+            self._ds._n_rows, eng)["peak_bytes"]
+        if plan.exprs:
+            total += insights.predict_expr_dispatch_bytes(
+                plan.expr_signature, eng)["peak_bytes"]
+        return total
+
+    def _split_layout(self, queries, eng: str, budget: int | None) -> list:
+        """Sub-batch sizes the proactive split would dispatch: the halving
+        rule of ``_dispatch``, run on the plans alone."""
+        queries = list(queries)
+        if (budget is None or len(queries) < 2
+                or self.predict_dispatch_bytes(queries, eng) <= budget):
+            return [len(queries)]
+        mid = (len(queries) + 1) // 2
+        return (self._split_layout(queries[:mid], eng, budget)
+                + self._split_layout(queries[mid:], eng, budget))
 
 
 def execute_batch(ds: DeviceBitmapSet, queries, engine: str = "auto"

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from ..ops import dense, packing
-from ..ops.words import WORDS32, as_i32, to_u32
+from ..ops.words import WORDS32, to_u32, upload
 
 #: ops the IR accepts; "not" only survives until canonicalization
 OPS = ("or", "and", "xor", "andnot")
@@ -531,10 +531,10 @@ def evaluate_host_agg(e, sources, columns=None):
 
 def _upload(host: dict, device) -> dict:
     """Host plan arrays -> device tensors: masks as bool, index arrays and
-    words as int32 (u32 words by their bits)."""
-    return {k: (torch.from_numpy(np.array(v)).to(device) if v.dtype == bool
-                else as_i32(v, device))
-            for k, v in host.items()}
+    words as int32 (u32 words by their bits), queued through pinned memory
+    on a card (``ops.words.upload``), so an upload never waits for the
+    stream."""
+    return {k: upload(v, device) for k, v in host.items()}
 
 
 @dataclasses.dataclass
@@ -899,6 +899,31 @@ def _gather(v, arrs: dict, name: str, n: int):
     if not v.shape[0]:
         return v.new_zeros((n, WORDS32))
     return torch.where(arrs[f"o{name}"][:, None], v[arrs[f"i{name}"]], 0)
+
+
+def traced_bucket_heads(buckets, op_groups, group_outs,
+                        live_ok: bool) -> list:
+    """Per-op group flat heads (``parallel.multiset``) sliced back into
+    per-bucket ``[q, k_pad, 2048]`` blocks on the device, so that fused
+    combine steps read reduce nodes without a readback.  ``live_ok`` follows
+    the pooled engine's layout rule: a regular group's outputs hold one live
+    slot per query on the plain rung ("torch"), the padded ``k_pad + 1``
+    slots on the kernel rungs."""
+    out: list = [None] * len(buckets)
+    for grp, (heads_f, _cards) in zip(op_groups, group_outs):
+        if heads_f is None:
+            continue
+        live = live_ok and grp.regular
+        for bi, s0 in zip(grp.bucket_idx, grp.seg_offs):
+            b = buckets[bi]
+            if live:
+                s0l = s0 // 2
+                out[bi] = heads_f[s0l:s0l + b.q].view(b.q, 1, WORDS32)
+            else:
+                n = b.q * (b.k_pad + 1)
+                out[bi] = heads_f[s0:s0 + n].view(
+                    b.q, b.k_pad + 1, WORDS32)[:, :b.k_pad]
+    return out
 
 
 def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads,

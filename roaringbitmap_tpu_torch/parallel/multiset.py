@@ -1,0 +1,1033 @@
+"""Cross-tenant pooled batching: Q queries over S resident sets in few
+device launches, with a depth-N pipeline
+(``roaringbitmap_tpu.parallel.multiset``).
+
+A ``BatchEngine`` packs the queries of ONE resident ``DeviceBitmapSet`` into
+one launch.  A server holding many tenants' sets would still pay one launch
+per tenant per tick, however few queries each tenant sends.  This module
+repeats Roaring's packing move one level up: as the container layout packs
+heterogeneous containers behind one algebra, the pool planner packs
+heterogeneous tenants behind one launch.
+
+Execution model
+---------------
+A pool is a list of :class:`BatchGroup`, each group a list of
+:class:`~.batch_engine.BatchQuery` / ``ExprQuery`` requests addressed to one
+resident set.  The planner:
+
+1. plans every query against its own set (the per-set ``BatchEngine`` row
+   selection, unchanged);
+2. remaps row indices by per-set offsets into ONE compacted pooled row
+   space: the rows the pool references, once each, sorted; the launch
+   selects them from each tenant's image (B3 rebuilds a compact or counts
+   tenant's image first) into one pooled image;
+3. buckets the pooled queries by (op, pow2 operand rung), as the batch
+   engine does, so two tenants' lone OR queries share one padded bucket;
+4. merges the buckets of each op into one flat segmented reduce
+   (:class:`_OpGroup`): on "cuda" ONE B1 launch per op present, its segment
+   ids globally offset per member bucket and therefore still ascending; on
+   "torch" the doubling pass, or a halving fold over the row axis when
+   every member has one key slot per query.  A plan with fused expression
+   sections runs on "megakernel" as ONE B5 launch over the pooled image.
+
+Pipelined (depth-N) dispatch
+----------------------------
+When a pool needs several launches (the proactive budget split below, or
+``execute_pipelined`` streaming several ticks), launches flow through a
+window of ``GuardPolicy.pipeline_depth``: launch k+1 is planned on the host
+while up to depth - 1 earlier launches run on the card, and the oldest is
+drained as the window slides (depth 1 is strictly serial).  The JAX package
+overlaps through async dispatch and buffer donation; here the CUDA stream's
+own asynchrony does it.  ``_launch_once(sync=False)`` queues the pooled
+image, the kernel launches and the per-group outputs on the current stream,
+then their copies into pinned host tensors, and records a
+``torch.cuda.Event``; ``_Inflight`` carries the event and the pinned
+tensors, and ``drain`` waits on the event and assembles from the host
+copies.  Plan operands go up through pinned memory too
+(``ops.words.upload``), so nothing on the launch path waits for the stream.
+The caching allocator recycles a launch's device blocks in stream order as
+soon as the launch path drops them, so JAX's ``_donation_supported`` and its
+donating programs have no counterpart.  ``last_pipeline`` reports
+``launches``, ``depth``, ``host_ms`` (host time spent pulling and
+dispatching launches), ``host_overlapped_ms`` (the part spent while a launch
+was in flight), ``overlap_ratio`` and ``drain_ms``, as the JAX package
+defines them.
+
+Guard
+-----
+Every launch runs under ``runtime.guard.run_with_fallback`` down ``ENGINES``
+from the rung ``resolve_query_engine`` picks: on the CPU down to the
+per-query host fold, on the card over the kernel rungs alone
+("megakernel" -> "cuda"), so a fault the kernels cannot retry or split away
+raises typed.  ``ResourceExhausted`` halves the launch's queries
+(``split_count``); a pool whose predicted footprint
+(``insights.predict_multiset_dispatch_bytes``) passes the budget
+(``guard.resolve_hbm_budget``: ``ROARING_TPU_HBM_BUDGET``, else the card's
+free memory) is halved before dispatch (``proactive_split_count``); a fault
+that surfaces only at drain time (the ``multiset.drain`` fault seam) re-runs
+that launch synchronously down the chain (``drain_retries``).  Every rung is
+bit-exact, so degradation and splitting change throughput only.  The JAX
+package's trace spans and metrics are plain counters on the engine until
+the observability layer is ported.
+
+A pool over one set goes through that set's ``BatchEngine.execute``
+verbatim: no pooled plan and no pooled image.  ``execute_pipelined`` always
+builds pooled launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..insights import analysis as insights
+from ..ops import dense, kernels, megakernel, packing
+from ..ops.words import WORDS32, popcount, upload
+from ..runtime import errors, faults, guard
+from ..runtime.cache import LRUCache
+from . import expr as expr_mod
+from .aggregation import DeviceBitmapSet, _device_key
+from .batch_engine import (ENGINES, PLAN_CACHE_MAX, _RED_OP, BatchEngine,
+                           BatchQuery, BatchResult, plan_bucket, query_desc,
+                           resolve_query_engine)
+
+#: the guard site of every pooled dispatch
+SITE = "multiset"
+
+#: pooled launches whose predicted footprint ``dispatch_memory`` keeps
+DISPATCH_MEMORY_MAX = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchGroup:
+    """Queries addressed to ONE resident set (tenant) of the pool:
+    ``set_id`` indexes the engine's sets, ``queries`` are ordinary batch
+    queries against that set's operands."""
+
+    set_id: int
+    queries: tuple
+
+    def __init__(self, set_id: int, queries):
+        object.__setattr__(self, "set_id", int(set_id))
+        object.__setattr__(self, "queries", tuple(queries))
+
+
+@dataclasses.dataclass
+class _OpGroup:
+    """Same-op buckets merged for execution into one flat segmented reduce.
+    Segment ids are offset per member bucket, so the reduce never mixes two
+    buckets' segments and the merged ``flat_seg`` ascends; the per-key post
+    passes (presence mask, workShyAnd keep, the andnot head pass, the
+    cards) act on the flat head axis with plan-time masks.  When every
+    member has ``k_pad == 1`` the group is REGULAR: each query's one segment
+    is exactly its ``r_pad`` rows, and the plain rung folds them by halving
+    and keeps one live slot per query."""
+
+    op: str
+    bucket_idx: list      # indices into _PoolPlan.buckets, merge order
+    seg_offs: list        # per member bucket: its head-slot base in nseg
+    nseg: int             # total head slots (sum of q * (k_pad + 1))
+    n_rows: int           # total flat gather rows (sum of q * r_pad)
+    n_steps: int          # max doubling depth over members
+    needs_words: bool
+    host: dict            # merged NumPy operands
+    #: per member bucket (merge order): (q, r_pad)
+    member_shapes: tuple = ()
+    regular: bool = False
+    _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def sig(self):
+        return (self.op, self.nseg, self.n_rows, self.n_steps,
+                self.needs_words,
+                self.member_shapes if self.regular else None)
+
+    def device_arrays(self, device, keys) -> dict:
+        """The operands ``keys`` on ``device``, uploaded once per key set
+        (the set depends on the rung, ``_op_group_keys``)."""
+        sel = (str(device), tuple(keys))
+        got = self._arrays.get(sel)
+        if got is None:
+            got = self._arrays[sel] = {k: upload(self.host[k], device)
+                                       for k in keys}
+        return got
+
+
+@dataclasses.dataclass
+class _PoolPlan:
+    """One pooled plan: shape buckets over a COMPACTED pooled row space.
+    ``row_sel[sid]`` holds the set-local rows the pool references (sorted),
+    their concatenation over ``sids`` is the pooled image of
+    ``n_pool_rows`` rows, and every bucket gather and expression leaf
+    gather indexes it."""
+
+    buckets: list
+    op_groups: list
+    sids: tuple
+    row_sel: dict         # sid -> int32 host array of set-local rows
+    n_pool_rows: int
+    #: expression sections and the pseudo-query -> query owner map
+    exprs: list = dataclasses.field(default_factory=list)
+    owner: dict = dataclasses.field(default_factory=dict)
+    #: per-bucket readback constants, computed once per plan
+    rb_meta: dict = dataclasses.field(default_factory=dict)
+    #: the B5 program when the plan has fused sections
+    mega: object = None
+    #: the footprint model per rung, computed once per plan
+    predicted: dict = dataclasses.field(default_factory=dict)
+    _row_sel_dev: dict = dataclasses.field(default_factory=dict)
+
+    def row_sel_dev(self, sid: int, device):
+        dev = self._row_sel_dev.get(sid)
+        if dev is None:
+            dev = self._row_sel_dev[sid] = upload(self.row_sel[sid], device)
+        return dev
+
+    @property
+    def fused(self) -> list:
+        return expr_mod.fused_of(self.exprs)
+
+    @property
+    def expr_signature(self) -> tuple:
+        return expr_mod.signature_of(self.exprs)
+
+
+def _merge_op_groups(buckets) -> list:
+    """The per-op execution groups of remapped plan buckets (see
+    :class:`_OpGroup`), in op order."""
+    by_op: dict = {}
+    for bi, b in enumerate(buckets):
+        by_op.setdefault(b.op, []).append((bi, b))
+    groups = []
+    for op in sorted(by_op):
+        members = by_op[op]
+        row_off = seg_off = 0
+        seg_offs: list = []
+        parts: dict = {k: [] for k in ("gather", "valid", "flat_seg",
+                                       "flat_head", "mask_ok")}
+        if op == "andnot":
+            parts["head_gather"] = []
+            parts["head_ok"] = []
+        n_steps = 1
+        regular = all(b.k_pad == 1 for _, b in members)
+        live: dict = {k: [] for k in (("mask_live", "head_gather_live",
+                                       "head_ok_live") if regular else ())}
+        for _bi, b in members:
+            qn, k_pad = b.q, b.k_pad
+            seg_offs.append(seg_off)
+            parts["gather"].append(b.host["gather"].reshape(-1))
+            parts["valid"].append(b.host["valid"].reshape(-1))
+            parts["flat_seg"].append(b.host["flat_seg"] + seg_off)
+            parts["flat_head"].append(b.host["flat_head"] + row_off)
+            # per-key masks over the (k_pad + 1) slots of the flat head
+            # axis (slot k_pad is always dead)
+            mask = np.zeros((qn, k_pad + 1), bool)
+            mask[:, :k_pad] = (b.host["heads_ok"] & b.host["key_keep"]
+                               if op == "and" else b.host["heads_ok"])
+            parts["mask_ok"].append(mask.reshape(-1))
+            if op == "andnot":
+                hg = np.zeros((qn, k_pad + 1), np.int32)
+                hg[:, :k_pad] = b.host["head_gather"]
+                ho = np.zeros((qn, k_pad + 1), bool)
+                ho[:, :k_pad] = b.host["head_ok"]
+                parts["head_gather"].append(hg.reshape(-1))
+                parts["head_ok"].append(ho.reshape(-1))
+            if regular:
+                # the live layout: one slot per query, no dead slots
+                live["mask_live"].append(mask[:, 0])
+                if op == "andnot":
+                    live["head_gather_live"].append(
+                        b.host["head_gather"][:, 0])
+                    live["head_ok_live"].append(b.host["head_ok"][:, 0])
+            row_off += qn * b.r_pad
+            seg_off += qn * (k_pad + 1)
+            n_steps = max(n_steps, b.n_steps)
+        host = {k: np.concatenate(v) for k, v in parts.items()}
+        host.update({k: np.concatenate(v) for k, v in live.items() if v})
+        groups.append(_OpGroup(
+            op=op, bucket_idx=[bi for bi, _ in members], seg_offs=seg_offs,
+            nseg=seg_off, n_rows=row_off, n_steps=n_steps,
+            needs_words=any(b.needs_words for _, b in members), host=host,
+            member_shapes=tuple((b.q, b.r_pad) for _, b in members),
+            regular=regular))
+    return groups
+
+
+def _op_group_keys(g: _OpGroup, eng: str) -> tuple:
+    """The operands ``_op_body`` reads for ``(eng, g)``: the padded flat
+    layout on the kernel rung and for irregular groups, the live layout for
+    a regular group on the plain rung."""
+    if eng == "cuda" or not g.regular:
+        keys = ("gather", "valid", "flat_seg", "mask_ok")
+        if eng != "cuda":
+            keys += ("flat_head",)
+        if g.op == "andnot":
+            keys += ("head_gather", "head_ok")
+        return keys
+    keys = ("gather", "valid", "mask_live")
+    if g.op == "andnot":
+        keys += ("head_gather_live", "head_ok_live")
+    return keys
+
+
+def _fold_rows(fn, blk: torch.Tensor) -> torch.Tensor:
+    """Tree-reduce int32[q, r_pad, 2048] over axis 1 by halving (r_pad is a
+    power of two)."""
+    while blk.shape[1] > 1:
+        half = blk.shape[1] // 2
+        blk = fn(blk[:, :half], blk[:, half:])
+    return blk[:, 0]
+
+
+def _op_body(words: torch.Tensor, g_sig, arrays: dict, eng: str,
+             force_heads: bool = False):
+    """One op group on the device: ONE gather and ONE flat segmented
+    reduce for every same-op bucket of the pool (B1 on "cuda"; on "torch"
+    the doubling pass, or the halving fold of a regular group), then the
+    post passes on the flat head axis, in place.  Returns (heads int32[nseg
+    or live slots, 2048] or None, cards).  B1's cards serve or/xor/and;
+    andnot and the plain rung count their heads.  ``force_heads`` returns
+    the heads for fused combine steps that read them."""
+    op, nseg, _n_rows, n_steps, needs_words, reg_shapes = g_sig
+    needs_words = needs_words or force_heads
+    red = _RED_OP[op]
+    g = words[arrays["gather"]]
+    g.masked_fill_(~arrays["valid"][:, None], -1 if op == "and" else 0)
+    cards = None
+    live = eng != "cuda" and reg_shapes is not None
+    if eng == "cuda":
+        heads, cards = kernels.segmented_reduce(red, g, arrays["flat_seg"],
+                                                nseg)
+    elif live:
+        # every member query's one key segment is its r_pad rows: a halving
+        # fold per member rung, with outputs in the live layout
+        parts, row0 = [], 0
+        for qn, r_pad in reg_shapes:
+            blk = g[row0:row0 + qn * r_pad].view(qn, r_pad, WORDS32)
+            parts.append(_fold_rows(dense.OPS[red], blk))
+            row0 += qn * r_pad
+        heads = parts[0] if len(parts) == 1 else torch.cat(parts)
+        del parts
+    else:
+        red_rows = dense.doubling_pass(dense.OPS[red], g,
+                                       arrays["flat_seg"], n_steps)
+        heads = red_rows[arrays["flat_head"].clamp(max=g.shape[0] - 1)]
+        del red_rows
+    del g
+    mask = arrays["mask_live" if live else "mask_ok"]
+    heads.masked_fill_(~mask[:, None], 0)
+    if op == "andnot":
+        hg_key, ok_key = (("head_gather_live", "head_ok_live") if live
+                          else ("head_gather", "head_ok"))
+        hg = words[arrays[hg_key]]
+        hg.masked_fill_(~arrays[ok_key][:, None], 0)
+        heads.bitwise_not_().bitwise_and_(hg)      # head & ~rest
+        del hg
+        cards = None
+    if cards is None:
+        cards = popcount(heads)
+    else:
+        cards.masked_fill_(~mask, 0)
+    return (heads if needs_words else None), cards
+
+
+def assemble_pooled_results(bucket_outputs, pooled, rb_meta: dict,
+                            owner: dict | None = None) -> list:
+    """Per-bucket host outputs ``(bucket, heads u32[q, k_pad, 2048] | None,
+    cards [q, k_pad])`` -> per-query ``BatchResult``s in pooled order.  One
+    masked sum per bucket; the masks are plan constants cached in
+    ``rb_meta`` by bucket identity.  ``owner`` maps pseudo-query ids to
+    pooled query indices (expression plans; None = identity; internal
+    reduce nodes are skipped)."""
+    pooled = list(pooled)
+    results: list = [None] * len(pooled)
+    for b, heads, cards in bucket_outputs:
+        meta = rb_meta.get(id(b))
+        if meta is None:
+            kqs = np.fromiter((k.size for k in b.keys), np.int64,
+                              len(b.keys))
+            meta = kqs, (np.arange(b.k_pad)[None, :] < kqs[:, None])
+            rb_meta[id(b)] = meta
+        kqs, live = meta
+        sums = np.where(live[:, :cards.shape[1]],
+                        cards[:len(b.keys)], 0).sum(axis=1)
+        for slot, (pid, keys_q) in enumerate(zip(b.qids, b.keys)):
+            qid = pid if owner is None else owner.get(pid)
+            if qid is None:
+                continue        # internal expression reduce node
+            kq = keys_q.size
+            bm = None
+            if pooled[qid][1].form == "bitmap":
+                bm = packing.unpack_result(
+                    keys_q,
+                    heads[slot, :kq] if kq else
+                    np.zeros((0, WORDS32), np.uint32),
+                    cards[slot, :kq])
+            results[qid] = BatchResult(cardinality=int(sums[slot]),
+                                       bitmap=bm)
+    return results
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """A dispatched, not yet drained launch: the host copies of its outputs
+    (pinned on a card) and the event recorded after the copies were
+    queued (None on the CPU, where the outputs are already final)."""
+
+    plan: _PoolPlan
+    outs: object
+    event: object
+    queries: tuple
+    eng: str
+    inject: bool
+
+
+class MultiSetBatchEngine:
+    """Plan and execute mixed-op query pools over S resident sets.
+
+    ``sets`` may mix ``DeviceBitmapSet``s and already-built ``BatchEngine``s
+    (adopted, so a server upgrades to pooled execution without repacking).
+    All sets must live on one device."""
+
+    def __init__(self, sets: list):
+        if not sets:
+            raise ValueError("multi-set engine needs at least one set")
+        self._engines = [s if isinstance(s, BatchEngine) else BatchEngine(s)
+                         for s in sets]
+        devs = {_device_key(e.device) for e in self._engines}
+        if len(devs) != 1:
+            raise ValueError(f"resident sets on different devices: "
+                             f"{sorted(map(str, devs))}")
+        self.device = self._engines[0].device
+        self.n_sets = len(self._engines)
+        #: rows of each set's resident image (its pooled-row extent)
+        self._rows = [int(e._row_src.size) for e in self._engines]
+        self._plans = LRUCache(PLAN_CACHE_MAX, name="multiset_plans")
+        #: reactive (ResourceExhausted) and proactive (budget) halvings
+        self.split_count = 0
+        self.proactive_split_count = 0
+        #: pooled launches that reached the device, and the launches the
+        #: per-set loop would have paid beyond them (one per referenced set
+        #: per pool)
+        self.launch_count = 0
+        self.launches_saved = 0
+        #: launches re-run synchronously after a fault at drain time
+        self.drain_retries = 0
+        self.queries_total = 0
+        #: the footprint of the latest pooled launches: {"engine", "q",
+        #: "sets", "predicted_bytes"}, newest last
+        self.dispatch_memory: deque = deque(maxlen=DISPATCH_MEMORY_MAX)
+        #: stats of the latest pipelined run of more than one launch
+        self.last_pipeline: dict | None = None
+
+    @classmethod
+    def from_bitmap_sets(cls, bitmap_sets: list, layout: str = "auto",
+                         **kw) -> "MultiSetBatchEngine":
+        return cls([DeviceBitmapSet(b, layout=layout, **kw)
+                    for b in bitmap_sets])
+
+    @property
+    def sets(self) -> list:
+        return [e._ds for e in self._engines]
+
+    @property
+    def last_dispatch_memory(self) -> dict | None:
+        return self.dispatch_memory[-1] if self.dispatch_memory else None
+
+    # ------------------------------------------------------------- planning
+
+    def _flatten(self, groups):
+        """[(set_id, query)] in group order, and the per-group lengths."""
+        pooled, lengths = [], []
+        for g in groups:
+            if not isinstance(g, BatchGroup):
+                g = BatchGroup(*g)
+            if g.set_id < 0 or g.set_id >= self.n_sets:
+                raise IndexError(
+                    f"set_id out of range 0..{self.n_sets - 1}: {g.set_id}")
+            pooled.extend((g.set_id, q) for q in g.queries)
+            lengths.append(len(g.queries))
+        return tuple(pooled), lengths
+
+    @staticmethod
+    def _regroup(flat, lengths):
+        out, i = [], 0
+        for n in lengths:
+            out.append(flat[i:i + n])
+            i += n
+        return out
+
+    def _plan_pool(self, pooled) -> _PoolPlan:
+        """The pooled plan: per-set row selection, the offset remap into
+        the compacted pooled row space, the shared shape bucketing and the
+        op groups.  Cached by the exact (set_id, query) tuple and the
+        referenced sets' identities and columns."""
+        sids = tuple(sorted({sid for sid, _ in pooled}))
+        key = (tuple(pooled),
+               tuple(self._engines[s]._ds.uid for s in sids),
+               tuple(self._engines[s]._columns_token() for s in sids))
+        cached = self._plans.get(key)
+        if cached is not None:
+            return cached
+        offsets, base = {}, 0
+        for sid in sids:
+            offsets[sid] = base
+            base += self._rows[sid]
+        groups: dict = {}
+        owner: dict = {}
+        sections: list = []
+        counter = [0]
+
+        def add_item(sid, pq, own):
+            pid = counter[0]
+            counter[0] += 1
+            rows, segs, keys_q, keep, hrows = \
+                self._engines[sid]._plan_query(pq)
+            off = offsets[sid]
+            rows = rows + off
+            if hrows is not None:
+                hrows = hrows + off
+            rung = packing.next_pow2(max(1, len(set(pq.operands))))
+            groups.setdefault((pq.op, rung), []).append(
+                (pid, pq, rows, segs, keys_q, keep, hrows))
+            if own is not None:
+                owner[pid] = own
+            return pid, keys_q
+
+        def plan_leaf(sid, i):
+            rows, keys = self._engines[sid]._plan_leaf(i)
+            return rows + offsets[sid], keys
+
+        for qid, (sid, q) in enumerate(pooled):
+            if isinstance(q, expr_mod.ExprQuery):
+                sections.append(expr_mod.compile_query(
+                    q, qid,
+                    lambda pq, own, sid=sid: add_item(sid, pq, own),
+                    lambda i, sid=sid: plan_leaf(sid, i),
+                    col_resolve=self._engines[sid]._column))
+            else:
+                add_item(sid, q, qid)
+        buckets = [plan_bucket(op, items)
+                   for (op, _), items in sorted(groups.items())]
+        # the compacted pooled row space: every row the pool references
+        # (bucket gathers, andnot heads, expression leaves), once, sorted;
+        # padded cells gather global row 0, which therefore always joins
+        refs = [b.host["gather"].ravel() for b in buckets]
+        refs += [b.host["head_gather"].ravel() for b in buckets
+                 if "head_gather" in b.host]
+        refs += [v.ravel() for sec in sections
+                 if sec.kind == "fused" and sec.host
+                 for k, v in sec.host.items() if k.startswith("g")]
+        pool_rows = (np.unique(np.concatenate(refs)) if refs
+                     else np.zeros(1, np.int64))
+        if pool_rows.size == 0:
+            pool_rows = np.zeros(1, np.int64)
+        row_sel = {}
+        for sid in sids:
+            off = offsets[sid]
+            in_set = pool_rows[(pool_rows >= off)
+                               & (pool_rows < off + self._rows[sid])]
+            row_sel[sid] = (in_set - off).astype(np.int32)
+        # remap the host gathers into pooled positions (uploaded later,
+        # only for the rung that reads them)
+        for b in buckets:
+            for k in ("gather", "head_gather"):
+                if k in b.host:
+                    b.host[k] = np.searchsorted(
+                        pool_rows, b.host[k]).astype(np.int32)
+        for sec in sections:
+            if sec.kind != "fused" or not sec.host:
+                continue
+            for k in list(sec.host):
+                if k.startswith("g"):
+                    sec.host[k] = np.searchsorted(
+                        pool_rows, sec.host[k]).astype(np.int32)
+        expr_mod.finalize_sections(sections, buckets)
+        # B5's stream assembles from the remapped gathers
+        mega = (megakernel.build_full(buckets, sections)
+                if expr_mod.fused_of(sections) else None)
+        plan = _PoolPlan(buckets=buckets, op_groups=_merge_op_groups(buckets),
+                         sids=sids, row_sel=row_sel,
+                         n_pool_rows=int(pool_rows.size), exprs=sections,
+                         owner=owner, mega=mega)
+        self._plans.put(key, plan)
+        return plan
+
+    def _pool_engine(self, plan: _PoolPlan, engine: str,
+                     note: bool = True) -> str:
+        """The rung a pooled plan runs on: "megakernel" resolves to "cuda"
+        when the plan has no fused section or does not fit B5, counted by
+        reason in ``megakernel.DEMOTIONS`` (``note=False`` for a
+        prediction).  The JAX package's demotion past its scalar-memory
+        prefetch bound has no counterpart: B1 and B3 take any length."""
+        if engine == "megakernel" and not (plan.mega is not None
+                                           and plan.mega.fits()):
+            if note:
+                megakernel.note_capacity_demotion(SITE, plan.mega)
+            return "cuda"
+        return engine
+
+    def predict_dispatch_bytes(self, pooled_or_groups,
+                               engine: str = "auto") -> int:
+        """Predicted device bytes of ONE pooled launch on the rung it would
+        run on (``insights.predict_multiset_dispatch_bytes``): what the
+        proactive split compares with the budget."""
+        pooled = self._as_pooled(pooled_or_groups)
+        plan = self._plan_pool(pooled)
+        eng = self._pool_engine(plan, resolve_query_engine(
+            engine, [q for _, q in pooled], self.device), note=False)
+        return self._predict(plan, eng)["peak_bytes"]
+
+    def _as_pooled(self, pooled_or_groups):
+        seq = list(pooled_or_groups)
+        if seq and isinstance(seq[0], (BatchGroup, tuple)) \
+                and not (isinstance(seq[0], tuple) and len(seq[0]) == 2
+                         and isinstance(seq[0][1],
+                                        (BatchQuery, expr_mod.ExprQuery))):
+            return self._flatten(seq)[0]
+        return tuple(seq)
+
+    def _plan_sets(self, plan: _PoolPlan) -> list:
+        """``[(resident kind, n_rows)]`` of every set a plan touches."""
+        return [(self._engines[s]._resident_kind(),
+                 self._engines[s]._ds._n_rows) for s in plan.sids]
+
+    def _predict(self, plan: _PoolPlan, eng: str) -> dict:
+        out = plan.predicted.get(eng)
+        if out is None:
+            out = insights.predict_multiset_dispatch_bytes(
+                [b.signature for b in plan.buckets], self._plan_sets(plan),
+                eng, pool_rows=plan.n_pool_rows)
+            if plan.exprs:
+                e = insights.predict_expr_dispatch_bytes(
+                    plan.expr_signature, eng)
+                out["expr_bytes"] = e["peak_bytes"]
+                out["peak_bytes"] += e["peak_bytes"]
+            plan.predicted[eng] = out
+        return out
+
+    # ------------------------------------------------------------ execution
+
+    def execute(self, groups, engine: str = "auto", fallback: bool = True,
+                policy: guard.GuardPolicy | None = None) -> list:
+        """Run a pool of per-set query groups; returns per-group result
+        lists aligned with ``groups``.
+
+        One pooled launch per budget-respecting sub-pool (usually one);
+        several launches flow through the pipelined dispatcher.  Guarded
+        like ``BatchEngine.execute``: per-launch retries and demotion down
+        the chain, reactive OOM halving, proactive budget halving, the
+        optional shadow check.  A pool over a single set goes through that
+        set's ``BatchEngine.execute``.  ``fallback=False`` runs the
+        requested rung raw (no guard, no fault injection)."""
+        groups = list(groups)
+        pooled, lengths = self._flatten(groups)
+        if not pooled:
+            return [[] for _ in groups]
+        if engine not in ("auto",) + ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; expected one of "
+                             f"{('auto',) + ENGINES}")
+        self.queries_total += len(pooled)
+        sids = sorted({sid for sid, _ in pooled})
+        if len(sids) == 1:
+            flat = self._engines[sids[0]].execute(
+                [q for _, q in pooled], engine=engine, fallback=fallback,
+                policy=policy)
+            return self._regroup(flat, lengths)
+        start = resolve_query_engine(engine, [q for _, q in pooled],
+                                     self.device)
+        if not fallback:
+            return self._regroup(self._launch_once(pooled, start,
+                                                   inject=False), lengths)
+        policy = policy or guard.GuardPolicy.from_env()
+        budget = guard.resolve_hbm_budget(policy, self.device)
+        deadline = guard.Deadline(policy.deadline)
+        chain = guard.chain_from(start, ENGINES, self.device)
+        # an in-budget pool is one launch, dispatched synchronously; a pool
+        # the budget splits stays a generator, so that the halving and
+        # planning of launch k+1 run while launch k is on the card
+        if (budget is None or len(pooled) < 2
+                or self.predict_dispatch_bytes(pooled, chain[0]) <= budget):
+            launches = [(0, pooled)]
+        else:
+            launches = ((0, sub) for sub in
+                        self._launch_iter(pooled, chain[0], budget))
+        flat = self._pipeline(launches, chain, policy, deadline,
+                              budget).get(0, [])
+        if policy.shadow_rate > 0.0:
+            self._shadow_check(pooled, flat, policy)
+        return self._regroup(flat, lengths)
+
+    def execute_pipelined(self, pools, engine: str = "auto",
+                          policy: guard.GuardPolicy | None = None) -> list:
+        """Stream several pools (serving ticks) through ONE pipeline window:
+        pool p+1's planning overlaps pool p's device work even when each
+        pool is one launch.  Returns per-pool lists of per-group result
+        lists (``execute``'s shape, one per pool)."""
+        pools = [list(p) for p in pools]
+        metas = [self._flatten(p) for p in pools]
+        if engine not in ("auto",) + ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; expected one of "
+                             f"{('auto',) + ENGINES}")
+        policy = policy or guard.GuardPolicy.from_env()
+        start = resolve_query_engine(
+            engine, [q for pooled, _ in metas for _, q in pooled],
+            self.device)
+        chain = guard.chain_from(start, ENGINES, self.device)
+        budget = guard.resolve_hbm_budget(policy, self.device)
+        deadline = guard.Deadline(policy.deadline)
+        for pooled, _ in metas:
+            self.queries_total += len(pooled)
+
+        def launches():
+            for pi, (pooled, _) in enumerate(metas):
+                if not pooled:
+                    continue
+                for qs in self._launch_iter(pooled, chain[0], budget):
+                    yield pi, qs
+
+        by_pool = self._pipeline(launches(), chain, policy, deadline, budget)
+        out = []
+        for pi, (pooled, lengths) in enumerate(metas):
+            flat = by_pool.get(pi, [])
+            if policy.shadow_rate > 0.0 and flat:
+                self._shadow_check(pooled, flat, policy)
+            out.append(self._regroup(flat, lengths))
+        return out
+
+    def _launch_iter(self, pooled, engine: str, budget: int | None):
+        """Left-to-right launch partition of ``pooled``, computed lazily: a
+        sub-pool predicted past the budget is halved here (the proactive
+        split), and launch k+1 is halved and planned only when the pipeline
+        pulls it, while launch k is on the card."""
+        stack = [list(pooled)]
+        while stack:
+            qs = stack.pop()
+            while budget is not None and len(qs) >= 2:
+                if self.predict_dispatch_bytes(qs, engine) <= budget:
+                    break
+                mid = (len(qs) + 1) // 2
+                self.proactive_split_count += 1
+                stack.append(qs[mid:])
+                qs = qs[:mid]
+            yield tuple(qs)
+
+    def _pipeline(self, launches, chain, policy, deadline, budget) -> dict:
+        """Depth-``policy.pipeline_depth`` window over ``launches`` (an
+        iterable of ``(tag, queries)``): dispatch launch k+1 while up to
+        depth - 1 earlier launches are in flight, then drain the oldest.
+        Returns ``{tag: [BatchResult, ...]}`` in pooled order (drains are
+        FIFO).  Host time spent pulling and dispatching while a launch was
+        in flight is the hidden share the overlap ratio reports."""
+        depth = max(1, policy.pipeline_depth)
+        # a known single launch has nothing to overlap: dispatch it sync
+        single = isinstance(launches, (list, tuple)) and len(launches) == 1
+        inflight: deque = deque()
+        out: dict = {}
+        host_ms = overlapped_ms = drain_ms = 0.0
+        n_launches = 0          # window slots; device launches come from
+        launches0 = self.launch_count      # the counter (splits add)
+        #: referenced sets per tag: the per-set loop's launches
+        tag_sids: dict = {}
+
+        def drain():
+            nonlocal drain_ms
+            tag, qs, payload = inflight.popleft()
+            t0 = time.perf_counter()
+            if isinstance(payload, list):   # a landing or a split recovery
+                res = payload
+            else:
+                try:
+                    # the drain-time fault seam: a deferred device fault
+                    # surfaces after the dispatching slot returned
+                    if payload.inject:
+                        faults.maybe_fail(f"{SITE}.drain", payload.eng)
+                    res = self._finish(payload)
+                except Exception as exc:
+                    fault = errors.classify(exc)
+                    if fault is None or isinstance(fault,
+                                                   errors.ShadowMismatch):
+                        raise
+                    # re-run this launch synchronously down the chain
+                    self.drain_retries += 1
+                    res, _ = self._launch_guarded(qs, chain, policy,
+                                                  deadline, budget, sync=True)
+            drain_ms += (time.perf_counter() - t0) * 1e3
+            out.setdefault(tag, []).extend(res)
+
+        it = iter(launches)
+        while True:
+            t0 = time.perf_counter()
+            # pulling the iterator runs the next launch's budget halving
+            nxt = next(it, None)
+            if nxt is None:
+                break
+            tag, qs = nxt
+            tag_sids.setdefault(tag, set()).update(sid for sid, _ in qs)
+            payload, _rung = self._launch_guarded(qs, chain, policy, deadline,
+                                                  budget, sync=single)
+            h = (time.perf_counter() - t0) * 1e3
+            host_ms += h
+            # overlapped only when a device launch was in flight: finished
+            # lists (landings, split recoveries) hide nothing
+            if any(isinstance(p, _Inflight) for _, _, p in inflight):
+                overlapped_ms += h
+            n_launches += 1
+            inflight.append((tag, qs, payload))
+            # keep at most depth - 1 undrained: depth 1 drains at once
+            while len(inflight) >= depth:
+                drain()
+        while inflight:
+            drain()
+        stats = {"launches": n_launches, "depth": depth,
+                 "host_ms": round(host_ms, 3),
+                 "host_overlapped_ms": round(overlapped_ms, 3),
+                 "overlap_ratio": round(overlapped_ms / host_ms
+                                        if host_ms else 0.0, 4),
+                 "drain_ms": round(drain_ms, 3)}
+        if n_launches > 1:
+            # a single launch has no overlap to measure
+            self.last_pipeline = stats
+        device_launches = self.launch_count - launches0
+        if device_launches:
+            self.launches_saved += max(
+                0, sum(len(s) for s in tag_sids.values()) - device_launches)
+        return out
+
+    def _launch_guarded(self, qs, chain, policy, deadline, budget,
+                        sync: bool):
+        """One guarded launch of pooled queries ``qs`` down ``chain``.
+        ``sync=False`` returns an :class:`_Inflight` (drained later); host
+        landings and OOM-split recoveries return finished result lists."""
+
+        def attempt(eng):
+            return self._launch_once(qs, eng, sync=sync)
+
+        def on_oom(eng, fault, dl):
+            if len(qs) < 2:
+                return guard.NO_SPLIT
+            sub = chain[chain.index(eng):] if eng in chain else chain
+            mid = (len(qs) + 1) // 2
+            self.split_count += 1
+            return (self._launch_guarded(qs[:mid], sub, policy, dl, budget,
+                                         sync=True)[0]
+                    + self._launch_guarded(qs[mid:], sub, policy, dl, budget,
+                                           sync=True)[0])
+
+        return guard.run_with_fallback(
+            SITE, chain, attempt, policy=policy,
+            sequential=lambda: self._sequential(qs),
+            on_resource_exhausted=on_oom, deadline=deadline)
+
+    def _launch_once(self, pooled, engine: str, inject: bool = True,
+                     sync: bool = True):
+        """One pooled launch on one rung: plan, the device part, the copies
+        of its outputs to the host; then the host assembly (``sync``) or an
+        :class:`_Inflight`.  The fault hooks sit at the engine boundary."""
+        pooled = tuple(pooled)
+        plan = self._plan_pool(pooled)
+        eng = self._pool_engine(plan, engine)
+        if inject:
+            faults.maybe_fail(SITE, eng)
+        outs = self._to_host(self._run(plan, eng))
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self.launch_count += 1
+        self.dispatch_memory.append({
+            "engine": eng, "q": len(pooled), "sets": len(plan.sids),
+            "predicted_bytes": self._predict(plan, eng)["peak_bytes"]})
+        flight = _Inflight(plan=plan, outs=outs, event=event,
+                           queries=pooled, eng=eng, inject=inject)
+        return flight if not sync else self._finish(flight)
+
+    def _pooled_words(self, plan: _PoolPlan, eng: str) -> torch.Tensor:
+        """The pooled image: each referenced set's selected rows, in
+        ``sids`` order, written into one int32[n_pool_rows, 2048] tensor
+        (a stream set's image is rebuilt, B3 on the kernel rungs, and
+        dropped once its rows are selected)."""
+        words = torch.empty((plan.n_pool_rows, WORDS32), dtype=torch.int32,
+                            device=self.device)
+        off = 0
+        for sid in plan.sids:
+            n = int(plan.row_sel[sid].size)
+            if n:
+                torch.index_select(self._engines[sid]._words(eng), 0,
+                                   plan.row_sel_dev(sid, self.device),
+                                   out=words[off:off + n])
+            off += n
+        if off < plan.n_pool_rows:      # only when every set is empty
+            words[off:].zero_()
+        return words
+
+    def _run(self, plan: _PoolPlan, eng: str):
+        """The device part of one launch: on "megakernel" B5's raw output
+        rows and card partials; otherwise (per-group outputs, fused section
+        outputs)."""
+        words = self._pooled_words(plan, eng)
+        if eng == "megakernel":
+            arrs = plan.mega.device_arrays(self.device)
+            return megakernel.raw_call(plan.mega, words, arrs["extra"],
+                                       arrs["cols"])
+        feeding = expr_mod.expr_bucket_ids(plan.exprs)
+        outs, group_heads = [], []
+        for g in plan.op_groups:
+            force = any(bi in feeding for bi in g.bucket_idx)
+            heads, cards = _op_body(
+                words, g.sig,
+                g.device_arrays(self.device, _op_group_keys(g, eng)), eng,
+                force_heads=force)
+            group_heads.append((heads if force else None, cards))
+            outs.append((heads if g.needs_words else None, cards))
+        if not plan.fused:
+            return outs, []
+        bucket_heads = expr_mod.traced_bucket_heads(
+            plan.buckets, plan.op_groups, group_heads, live_ok=eng != "cuda")
+        return outs, expr_mod.eval_sections(plan.fused, words, bucket_heads)
+
+    def _to_host(self, outs):
+        """Queue the copies of a launch's output tensors into pinned host
+        tensors on the current stream (nothing waits); CPU outputs are
+        already on the host."""
+        if self.device.type != "cuda":
+            return outs
+
+        def move(t):
+            if t is None:
+                return None
+            if isinstance(t, (list, tuple)):
+                return type(t)(move(x) for x in t)
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            return h
+
+        return move(outs)
+
+    def _finish(self, flight: _Inflight) -> list:
+        if flight.event is not None:
+            flight.event.synchronize()
+        return self._readback(flight.plan, flight.outs, flight.queries,
+                              flight.eng, flight.inject)
+
+    def _bucket_outputs(self, plan: _PoolPlan, outs, eng: str):
+        """Per-group host outputs -> per-bucket (bucket, heads u32 | None,
+        cards) NumPy arrays, each bucket's slots sliced out of the flat head
+        axis (one live slot per query for a regular group on "torch")."""
+        for grp, (heads_f, cards_f) in zip(plan.op_groups, outs):
+            heads_f = (None if heads_f is None
+                       else heads_f.numpy().view(np.uint32))
+            cards_f = cards_f.numpy()
+            live = grp.regular and eng != "cuda"
+            for bi, s0 in zip(grp.bucket_idx, grp.seg_offs):
+                b = plan.buckets[bi]
+                if live:
+                    s0, n = s0 // 2, b.q
+                    cards = cards_f[s0:s0 + n].reshape(b.q, 1)
+                    heads = (None if heads_f is None else
+                             heads_f[s0:s0 + n].reshape(b.q, 1, WORDS32))
+                else:
+                    n = b.q * (b.k_pad + 1)
+                    cards = cards_f[s0:s0 + n].reshape(
+                        b.q, b.k_pad + 1)[:, :b.k_pad]
+                    heads = (None if heads_f is None else
+                             heads_f[s0:s0 + n].reshape(
+                                 b.q, b.k_pad + 1, WORDS32)[:, :b.k_pad])
+                yield b, heads, cards
+
+    def _readback(self, plan: _PoolPlan, outs, pooled, eng: str,
+                  inject: bool) -> list:
+        """Host outputs -> per-query ``BatchResult``s in pooled order."""
+        if eng == "megakernel":
+            b_outs, expr_outs = megakernel._slice_outputs(plan.mega, *outs)
+            bucket_outs = (
+                (b, None if h is None else h.numpy().view(np.uint32),
+                 c.numpy()) for b, (h, c) in zip(plan.buckets, b_outs))
+        else:
+            outs, expr_outs = outs
+            bucket_outs = self._bucket_outputs(plan, outs, eng)
+        results = assemble_pooled_results(
+            bucket_outs, pooled, plan.rb_meta,
+            owner=plan.owner if plan.exprs else None)
+        fi = 0
+        for sec in plan.exprs:
+            if sec.kind == "flat":
+                continue        # read back from its bucket above
+            out = None
+            if sec.kind == "fused":
+                out = expr_outs[fi]
+                fi += 1
+            sid, q = pooled[sec.qid]
+            card, bm, value = expr_mod.assemble_section_result(
+                sec, out, q.form, self._engines[sid]._empty_cls)
+            results[sec.qid] = BatchResult(cardinality=card, bitmap=bm,
+                                           value=value)
+        if inject and faults.should_corrupt(SITE, eng):
+            results[0] = dataclasses.replace(
+                results[0], cardinality=results[0].cardinality + 1)
+        return results
+
+    # ------------------------------------------------ host reference rung
+
+    def _sequential(self, pooled) -> list:
+        """The host rung: each query on its own set's host container
+        algebra, the reference every pooled rung is held against."""
+        return [self._engines[sid]._sequential_result(q)
+                for sid, q in pooled]
+
+    def _shadow_check(self, pooled, results, policy) -> None:
+        idx = guard.shadow_sample(len(pooled), policy.shadow_rate,
+                                  policy.shadow_seed, SITE)
+        for i in idx:
+            sid, q = pooled[i]
+            ref = self._engines[sid]._sequential_result(q)
+            got = results[i]
+            bad = (got.cardinality != ref.cardinality
+                   or got.value != ref.value)
+            if not bad and q.form == "bitmap":
+                bad = got.bitmap != ref.bitmap
+            if bad:
+                raise errors.ShadowMismatch(
+                    f"multiset query {i} ({query_desc(q)} on set {sid}) "
+                    f"diverged from the sequential reference: got "
+                    f"cardinality {got.cardinality}/value {got.value}, "
+                    f"want {ref.cardinality}/{ref.value}")
+
+    # --------------------------------------------------------- conveniences
+
+    def cardinalities(self, groups, engine: str = "auto") -> list:
+        """Per-group int64 arrays of result cardinalities."""
+        return [np.array([r.cardinality for r in rows], dtype=np.int64)
+                for rows in self.execute(groups, engine=engine)]
+
+    def cache_stats(self) -> dict:
+        """The pooled plan cache and the engine's counters."""
+        return {"plans": self._plans.stats(), "splits": self.split_count,
+                "proactive_splits": self.proactive_split_count,
+                "launches": self.launch_count,
+                "launches_saved": self.launches_saved,
+                "drain_retries": self.drain_retries,
+                "queries": self.queries_total}
+
+
+def random_multiset_pool(set_sizes: list, q: int, seed: int = 0x5E75,
+                         max_operands: int = 8) -> list:
+    """Deterministic pooled workload (the JAX package's generator: the same
+    seed gives the same pool): ``q`` mixed-op queries dealt round-robin over
+    ``len(set_sizes)`` tenants, set ``i`` holding ``set_sizes[i]`` resident
+    bitmaps.  The op is drawn independently of the tenant."""
+    rng = np.random.default_rng(seed)
+    per_set: list = [[] for _ in set_sizes]
+    for i in range(q):
+        sid = i % len(set_sizes)
+        n = set_sizes[sid]
+        op = ("or", "xor", "and", "andnot")[int(rng.integers(4))]
+        hi = max(3, min(max_operands + 1, n))
+        k = int(rng.integers(2, hi)) if n >= 3 else 2
+        per_set[sid].append(BatchQuery(op=op, operands=tuple(
+            int(x) for x in rng.choice(n, size=min(k, n), replace=False))))
+    return [BatchGroup(sid, qs) for sid, qs in enumerate(per_set) if qs]

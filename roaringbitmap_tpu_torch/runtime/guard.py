@@ -22,6 +22,12 @@ Every guarded entry point (``parallel.aggregation``'s wide calls and
 - What ``errors.classify`` cannot type (a programming error, a failed
   kernel build or launch) propagates untouched.
 
+Two knobs belong to the pooled engine (``parallel.multiset``): the
+pipeline depth (``ROARING_TPU_PIPELINE_DEPTH``) and the per-dispatch
+device-memory budget (``ROARING_TPU_HBM_BUDGET``, ``resolve_hbm_budget``),
+against which the batch and pooled engines halve a batch whose predicted
+footprint passes it before it touches the device.
+
 The opt-in **shadow check** (``ROARING_TPU_SHADOW=<rate>[:<seed>]`` or
 ``GuardPolicy.shadow_rate``) re-runs a sampled share of queries on the
 sequential rung after a successful dispatch and raises ``ShadowMismatch``
@@ -63,14 +69,30 @@ ENV_MAX_ATTEMPTS = "ROARING_TPU_MAX_ATTEMPTS"
 ENV_BACKOFF = "ROARING_TPU_BACKOFF_S"
 ENV_DEADLINE = "ROARING_TPU_DEADLINE_S"
 ENV_SHADOW = "ROARING_TPU_SHADOW"
+ENV_HBM_BUDGET = "ROARING_TPU_HBM_BUDGET"
+ENV_PIPELINE_DEPTH = "ROARING_TPU_PIPELINE_DEPTH"
+
+
+def parse_bytes(spec: str) -> int:
+    """``ROARING_TPU_HBM_BUDGET`` value: plain bytes or K/M/G-suffixed
+    (binary units: "64M" = 64 MiB).  0 or negative = unlimited."""
+    s = spec.strip()
+    mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}.get(s[-1:].lower())
+    if mult is not None:
+        s = s[:-1]
+    try:
+        return int(float(s) * (mult or 1))
+    except ValueError:
+        raise ValueError(
+            f"{ENV_HBM_BUDGET} must be bytes with an optional K/M/G "
+            f"suffix, got {spec!r}") from None
 
 
 @dataclasses.dataclass(frozen=True)
 class GuardPolicy:
     """Knobs for one guarded dispatch; ``from_env`` is the default.  The
     fields and environment names are the JAX package's.  The JAX policy's
-    pipeline depth and SLO deadline wait for the layers that read them
-    (the pooled engine, SLO accounting)."""
+    SLO deadline waits for the layer that reads it (SLO accounting)."""
 
     max_attempts: int = 3          # per rung, transient faults only
     backoff_base: float = 0.02     # seconds; doubles per retry
@@ -79,6 +101,15 @@ class GuardPolicy:
     deadline: float | None = None  # whole-dispatch wall budget, seconds
     shadow_rate: float = 0.0       # share of queries cross-checked
     shadow_seed: int = 0x5AD0
+    #: predicted-peak device-memory ceiling per dispatch, bytes: a batch
+    #: predicted past it is halved before dispatch (the proactive split).
+    #: None = the card's free memory (``resolve_hbm_budget``); <= 0 =
+    #: explicitly unlimited
+    hbm_budget: int | None = None
+    #: in-flight launch window of the pooled engine's pipelined dispatcher
+    #: (``parallel.multiset``): launch k+1 is planned on the host while up
+    #: to depth - 1 earlier launches run on the card; 1 is strictly serial
+    pipeline_depth: int = 2
     sleep: Callable[[float], None] = time.sleep
 
     @classmethod
@@ -95,6 +126,11 @@ class GuardPolicy:
             env["shadow_rate"] = float(rate)
             if seed:
                 env["shadow_seed"] = int(seed, 0)
+        if ENV_HBM_BUDGET in os.environ:
+            env["hbm_budget"] = parse_bytes(os.environ[ENV_HBM_BUDGET])
+        if ENV_PIPELINE_DEPTH in os.environ:
+            env["pipeline_depth"] = max(
+                1, int(os.environ[ENV_PIPELINE_DEPTH]))
         env.update(overrides)
         return cls(**env)
 
@@ -117,6 +153,36 @@ class Deadline:
         if self.seconds is None:
             return float("inf")
         return max(0.0, self.seconds - (self._clock() - self._t0))
+
+
+#: free-memory budget cache: (monotonic deadline, device, value).  The
+#: default budget costs an allocator query, which must not ride every
+#: dispatch; free memory moves slowly next to the query rate
+_FREE_BUDGET_TTL_S = 1.0
+_free_budget_cache: tuple | None = None
+
+
+def resolve_hbm_budget(policy: GuardPolicy | None = None,
+                       device=None) -> int | None:
+    """Effective per-dispatch device-memory budget in bytes, or None for
+    unlimited.  An explicit policy or environment value wins (<= 0 means
+    unlimited); otherwise, on a CUDA ``device``, the card's free memory
+    (``torch.cuda.mem_get_info``, cached for ``_FREE_BUDGET_TTL_S``); on the
+    CPU None, as the JAX package's CPU backend reports no free memory."""
+    global _free_budget_cache
+    policy = policy or GuardPolicy.from_env()
+    if policy.hbm_budget is not None:
+        return policy.hbm_budget if policy.hbm_budget > 0 else None
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    dev = torch.device(device)
+    now = time.monotonic()
+    cached = _free_budget_cache
+    if cached is not None and now < cached[0] and cached[1] == dev:
+        return cached[2]
+    free = int(torch.cuda.mem_get_info(dev)[0])
+    _free_budget_cache = (now + _FREE_BUDGET_TTL_S, dev, free)
+    return free
 
 
 def chain_from(engine: str, ladder: tuple, device=None) -> tuple:

@@ -339,7 +339,8 @@ def test_naive_andnot(pair):
 
 def test_port_imports_no_jax():
     """The port's import graph holds neither jax nor any roaringbitmap_tpu
-    module (the port's own name shares that prefix)."""
+    module (the port's own name shares that prefix), also after one pooled
+    ``MultiSetBatchEngine.execute`` on the CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -389,6 +390,12 @@ def test_port_imports_no_jax():
         " == rt.aggregation.or_(bms, device='cpu')\n"
         "assert native.CALLS['native'] + native.CALLS['numpy'] == 1\n"
         "assert fuzz.verify_decoder_hardening(8) >= 0\n"
+        "from roaringbitmap_tpu_torch.parallel import multiset\n"
+        "ms = multiset.MultiSetBatchEngine.from_bitmap_sets([bms, bms[:2]], "
+        "layout='dense', device='cpu')\n"
+        "got = ms.execute([multiset.BatchGroup(0, [rt.BatchQuery('or', (0, "
+        "2))]), multiset.BatchGroup(1, [rt.BatchQuery('xor', (0, 1))])])\n"
+        "assert ms.launch_count == 1 and got[0][0].cardinality > 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -382,3 +382,108 @@ def test_guard_never_demotes_on_the_card(dev, bitmaps):
             aggregation.or_(bitmaps, engine="cuda", device=dev)
     assert guard.dispatch_events() == {}
     assert kernels.B2.launches == 0
+
+
+# ------------------------------------------------ the pooled engine
+
+def _tenants(bitmaps, dev, n_t=4):
+    """``bitmaps`` dealt into n_t tenants, the last one compact (B3 rebuilds
+    it inside each pooled launch)."""
+    per = len(bitmaps) // n_t
+    return [DeviceBitmapSet(bitmaps[t * per:(t + 1) * per],
+                            layout="compact" if t == n_t - 1 else "dense",
+                            device=dev) for t in range(n_t)], per
+
+
+def _pool_same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same_results(g, w)
+
+
+def _bitmap_pool(per, n_t, q, seed):
+    from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
+    from roaringbitmap_tpu_torch.parallel.multiset import (
+        BatchGroup, random_multiset_pool)
+
+    return [BatchGroup(g.set_id, [BatchQuery(x.op, x.operands, form="bitmap")
+                                  for x in g.queries])
+            for g in random_multiset_pool([per] * n_t, q, seed=seed)]
+
+
+def test_pooled_launch_matches_plain(dev, bitmaps):
+    """One pooled launch over four tenants: one B1 launch per op group and
+    one B3 launch for the compact tenant; equal to the plain rung on the
+    card, the per-set loop and the same pool on the CPU."""
+    from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
+
+    sets, per = _tenants(bitmaps, dev)
+    ms = MultiSetBatchEngine(sets)
+    pool = _bitmap_pool(per, len(sets), 32, 3)
+    kernels.reset_launches()
+    got = ms.execute(pool)
+    plan = ms._plan_pool(ms._flatten(pool)[0])
+    assert kernels.B1.launches == len(plan.op_groups)
+    assert kernels.B3.launches == 1
+    _pool_same(got, ms.execute(pool, engine="torch"))
+    _pool_same(got, [ms._engines[g.set_id].execute(list(g.queries))
+                     for g in pool])
+    cpu_sets, _ = _tenants(bitmaps, "cpu")
+    _pool_same(got, MultiSetBatchEngine(cpu_sets).execute(pool))
+
+
+def test_pooled_expression_pool_is_one_b5_launch(dev, bitmaps):
+    from roaringbitmap_tpu_torch.parallel.multiset import (BatchGroup,
+                                                           MultiSetBatchEngine)
+
+    sets, per = _tenants(bitmaps, dev)
+    ms = MultiSetBatchEngine(sets)
+    pool = [BatchGroup(t, random_expr_pool(per, 1, depth=2, seed=t,
+                                           form="bitmap"))
+            for t in range(len(sets))]
+    kernels.reset_launches()
+    got = ms.execute(pool)
+    assert kernels.B5.launches == 1 and kernels.B1.launches == 0
+    _pool_same(got, ms.execute(pool, engine="cuda"))
+
+
+def test_pooled_pipeline_at_depth_2(dev, bitmaps):
+    from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
+    from roaringbitmap_tpu_torch.runtime import guard
+
+    sets, per = _tenants(bitmaps, dev)
+    ms = MultiSetBatchEngine(sets)
+    pools = [_bitmap_pool(per, len(sets), 16, s) for s in range(10, 14)]
+    want = [ms.execute(p) for p in pools]
+    got = ms.execute_pipelined(pools,
+                               policy=guard.GuardPolicy(pipeline_depth=2))
+    for g, w in zip(got, want):
+        _pool_same(g, w)
+    st = ms.last_pipeline
+    assert st["launches"] == len(pools) and st["depth"] == 2
+    assert 0.0 < st["overlap_ratio"] <= 1.0
+
+
+def test_pooled_proactive_split_within_the_model(dev, bitmaps):
+    """Under a third of the pool's prediction the pool is halved before
+    dispatch; every launch's prediction fits the budget and its measured
+    peak fits its prediction."""
+    from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
+    from roaringbitmap_tpu_torch.runtime import guard
+
+    sets, per = _tenants(bitmaps, dev)
+    ms = MultiSetBatchEngine(sets)
+    pool = _bitmap_pool(per, len(sets), 32, 5)
+    want = ms.execute(pool)
+    pooled = ms._flatten(pool)[0]
+    budget = ms.predict_dispatch_bytes(pooled) // 3
+    got = ms.execute(pool, policy=guard.GuardPolicy(hbm_budget=budget))
+    _pool_same(got, want)
+    assert ms.proactive_split_count > 0
+    for sub in ms._launch_iter(pooled, "cuda", budget):
+        pred = ms.predict_dispatch_bytes(sub, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms._launch_once(sub, "cuda")
+        assert torch.cuda.max_memory_allocated() - base <= pred <= budget
