@@ -122,6 +122,28 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
     d. the first 1,024 bitmaps of 2 lifted as in 10a, 4 dense tenants: the
        Q 64 bitmap pool on pooled "cuda" equals the per-set loop, with
        ``Roaring64Bitmap`` results;
+12. mutable tenants, run after 11 and before 6:
+    a. 64 seeded deltas of ~100 adds and ~100 removes over 1-64 existing
+       rows each (16 keys of the set of 2), patched in place: every 8th,
+       or/xor (B2) and a flat batch (B1) equal to the "torch" engine; at
+       the end the touched keys' or/xor and the batch equal the host fold
+       of the smoke's own rows, the row and source versions stamp exactly
+       the touched ones; the patch's median ms;
+    b. a set of 2's first 256 bitmaps: a structural, a drift and a
+       maintenance-worker repack (the queued one serving the pre-delta
+       image at the old version until ``drain``), ``repack="never"``
+       raising with nothing mutated; the compact set of 4 takes the layout
+       repack; each repack's wall time;
+    c. 7b's shard with a ``ResultCache``: its expression pool replayed in
+       bitmap and cardinality form (hit rate; all-hit against all-miss
+       ms), a query over a cached subtree (``n_cached`` >= 1) in one B5
+       launch with the entry's rows unchanged, a source delta dropping
+       exactly the entries that read it, a ``BsiColumn`` delta and 9a's
+       first value batch on B5 against the host oracles;
+    d. phase 11's 16 tenants sharing one cache: the Q 64 pool filled, then
+       served without a launch (``count_cache_hits`` = the hits); a delta
+       to tenant 3 dropping only its entries; a structural repack of
+       tenant 5, after which the pool equals the per-set loop;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -717,6 +739,465 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
     log(f"  11d: 4 dense tenants of Roaring64Bitmaps (K "
         f"{[s.keys.size for s in sets64]}): the bitmap Q64 pool on pooled "
         f"cuda equals the per-set loop, Roaring64Bitmap results")
+    return sets, tenants, pools[64], want_card[64]
+
+
+def refs_of(e, expr) -> set:
+    """Resident source indices an expression reads."""
+    if isinstance(e, expr.Ref):
+        return {e.index}
+    out = set()
+    for c in getattr(e, "children", ()) or ():
+        out |= refs_of(c, expr)
+    found = getattr(e, "found", None)
+    if found is not None:
+        out |= refs_of(found, expr)
+    return out
+
+
+def reads_col(e, name: str) -> bool:
+    """Whether an expression reads value column ``name``."""
+    if getattr(e, "col", None) == name:
+        return True
+    found = getattr(e, "found", None)
+    return ((found is not None and reads_col(found, name))
+            or any(reads_col(c, name)
+                   for c in getattr(e, "children", ()) or ()))
+
+
+class HostRows:
+    """The smoke's own host copy of a resident set's sources under deltas:
+    the containers a delta touched, as sorted u16 values per (source, key),
+    beside the untouched source bitmaps."""
+
+    def __init__(self, bitmaps):
+        self.base = bitmaps
+        self.rows: dict = {}            # (src, key) -> u16 values
+
+    def values(self, src: int, key: int) -> np.ndarray:
+        got = self.rows.get((src, key))
+        if got is not None:
+            return got
+        b = self.base[src]
+        i = int(np.searchsorted(b.keys, key))
+        if i < b.keys.size and int(b.keys[i]) == key:
+            return b.containers[i].values().astype(np.uint16)
+        return np.zeros(0, np.uint16)
+
+    def apply(self, adds: dict, removes: dict) -> None:
+        """One delta, adds first and removes winning."""
+        for spec, add in ((adds, True), (removes, False)):
+            for src, vals in spec.items():
+                vals = np.asarray(vals, np.uint32)
+                for key in np.unique(vals >> np.uint32(16)):
+                    lo = (vals[(vals >> np.uint32(16)) == key]
+                          & np.uint32(0xFFFF)).astype(np.uint16)
+                    cur = self.values(src, int(key))
+                    self.rows[(src, int(key))] = (
+                        np.union1d(cur, lo) if add else np.setdiff1d(cur, lo))
+
+    def words(self, src: int, key: int) -> np.ndarray:
+        from roaringbitmap_tpu_torch.core.containers import values_to_words
+        return values_to_words(self.values(src, key)).view(np.uint32)
+
+    def bitmap(self, src: int):
+        """The current source as a host bitmap."""
+        from roaringbitmap_tpu_torch import RoaringBitmap
+        b = self.base[src]
+        touched = sorted(k for s, k in self.rows if s == src)
+        if not touched:
+            return b
+        v = b.to_array()
+        v = v[~np.isin(v >> np.uint32(16), np.array(touched, np.uint32))]
+        parts = [v] + [(np.uint32(k) << np.uint32(16))
+                       | self.rows[(src, k)].astype(np.uint32)
+                       for k in touched]
+        return RoaringBitmap.from_values(np.concatenate(parts))
+
+
+def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
+            cols, batches, tenants11) -> None:
+    """Mutable tenants: 12a 64 in-place patches of phase 2's dense set,
+    12b the escalations (structural, drift, layout, never, the maintenance
+    worker), 12c the result cache on 7b's shard (replays, subtree injection
+    into B5, exact invalidation, a column delta), 12d the cache shared by
+    phase 11's 16 tenants."""
+    import threading
+
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap
+    from roaringbitmap_tpu_torch.mutation import MaintenanceWorker, ResultCache
+    from roaringbitmap_tpu_torch.mutation import delta as mut_delta
+    from roaringbitmap_tpu_torch.ops import kernels
+    from roaringbitmap_tpu_torch.ops.words import to_u32
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import (
+        BatchEngine, BatchQuery, random_query_pool)
+    from roaringbitmap_tpu_torch.parallel.multiset import (
+        BatchGroup, MultiSetBatchEngine)
+
+    b1, b2, b3, b5 = (kernels.B1.name, kernels.B2.name, kernels.B3.name,
+                      kernels.B5.name)
+    rng = np.random.default_rng(seed + 12)
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def same_pool(got, want) -> bool:
+        return len(got) == len(want) and all(
+            same_results(g, w) for g, w in zip(got, want))
+
+    # 12a: in-place patches of phase 2's dense set
+    keys_12a = np.sort(rng.choice(ds.keys.size, 16, replace=False))
+    seg_rows = {}
+    for k in keys_12a:
+        off, size = int(ds._seg_offsets[k]), int(ds._seg_sizes[k])
+        rows = np.arange(off, off + size)
+        seg_rows[int(k)] = rows[ds.row_src[rows] >= 0]
+    live = np.concatenate(list(seg_rows.values()))
+    host = HostRows(bms)
+    v0 = ds.version
+    want_rows = np.full(ds._n_rows, v0, np.int64)
+    want_srcs = ds.source_versions.copy()
+    pre = [t.clone() for t in ds.aggregate_device("or")]
+    patch_ms, plan_ms, patched = [], [], 0
+    touched: list = []
+
+    def check_12a(label):
+        for op in ("or", "xor"):
+            got = smoke.main_path(f"12a {label} {op}",
+                                  lambda op=op: ds.aggregate_device(op))
+            want = ds.aggregate_device(op, engine="torch")
+            require(smoke.last[b2] == 1
+                    and all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"12a {label} {op}: B2 != the torch engine")
+        srcs = sorted(set(touched))[-64:] or list(range(16))
+        pool = [BatchQuery(("or", "xor", "and", "andnot")[i % 4], tuple(
+            int(x) for x in rng.choice(srcs, min(len(srcs), 2 + i % 7),
+                                       replace=False)))
+            for i in range(16)]
+        got = smoke.main_path(f"12a {label} flat x16",
+                              lambda: eng.execute(pool, engine="cuda"))
+        require(smoke.last[b1] > 0
+                and same_results(got, eng.execute(pool, engine="torch")),
+                f"12a {label}: B1 batch != the torch rung")
+        return pool, got
+
+    for i in range(64):
+        p = int(rng.integers(1, 65))
+        rows = rng.choice(live, p, replace=False)
+        n_add = 1 + rng.multinomial(99, np.full(p, 1 / p))
+        n_rem = rng.multinomial(100, np.full(p, 1 / p))
+        adds, removes = {}, {}
+        for r, na, nr in zip(rows, n_add, n_rem):
+            src = int(ds.row_src[r])
+            key = int(ds.keys[ds.row_seg[r]])
+            base = np.uint32(key) << np.uint32(16)
+            a = base | rng.integers(0, 1 << 16, na).astype(np.uint32)
+            cur = host.values(src, key)
+            rem = base | rng.choice(cur, min(int(nr), cur.size),
+                                    replace=False).astype(np.uint32)
+            adds.setdefault(src, []).extend(a.tolist())
+            removes.setdefault(src, []).extend(rem.tolist())
+        # the host's share: the same delta planned alone (no state moves)
+        t0 = time.perf_counter()
+        mut_delta.plan_patch(ds, mut_delta._normalize_delta(ds.n, adds),
+                             mut_delta._normalize_delta(ds.n, removes))
+        plan_ms.append((time.perf_counter() - t0) * 1e3)
+        rep, ms = sync_ms(lambda: ds.apply_delta(adds=adds, removes=removes))
+        require(rep["mode"] == "patch" and rep["rows_patched"] == p,
+                f"12a delta {i}: {rep}")
+        host.apply(adds, removes)
+        want_rows[rows] = ds.version
+        want_srcs[list(adds)] = ds.version
+        touched += list(adds)
+        patch_ms.append(ms)
+        patched += p
+        if i % 8 == 7:
+            check_12a(f"after delta {i + 1}")
+    require(ds.version == v0 + 64
+            and np.array_equal(ds.row_versions, want_rows)
+            and np.array_equal(ds.source_versions, want_srcs),
+            "12a: the version stamps are not exactly the touched rows and "
+            "sources")
+    # the host fold of the smoke's own rows at the touched keys; the other
+    # keys are as phase 2 checked them
+    t0 = time.perf_counter()
+    dev = ds.words.device
+    kidx = torch.from_numpy(keys_12a.astype(np.int64)).to(dev)
+    rest = np.setdiff1d(np.arange(ds.keys.size), keys_12a)
+    ridx = torch.from_numpy(rest.astype(np.int64)).to(dev)
+    heads, cards = ds.aggregate_device("or")
+    require(torch.equal(heads[ridx], pre[0][ridx]),
+            "12a: an untouched key's or changed")
+    for op, fn in (("or", np.bitwise_or), ("xor", np.bitwise_xor)):
+        heads, cards = ds.aggregate_device(op)
+        got_w, got_c = to_u32(heads[kidx]), cards[kidx].cpu().numpy()
+        for j, k in enumerate(keys_12a):
+            k = int(k)
+            rows = np.stack([host.words(int(s), k)
+                             for s in ds.row_src[seg_rows[k]]])
+            w = fn.reduce(rows, axis=0)
+            require(np.array_equal(got_w[j], w)
+                    and int(got_c[j]) == int(np.unpackbits(
+                        w.view(np.uint8)).sum()),
+                    f"12a: {op} at key {k} != the host fold")
+    pool, got = check_12a("final")
+    for q, r in zip(pool, got):
+        want = host_query(q, {s: host.bitmap(s) for s in set(q.operands)})
+        require(r.cardinality == want.cardinality,
+                f"12a: final {q.op} != the host fold")
+    log(f"  12a: 64 deltas over {keys_12a.size} keys ({patched} rows, "
+        f"{len(set(touched))} sources, ~100 adds and ~100 removes each) "
+        f"patched in place: median {np.median(patch_ms):.3f} ms a patch "
+        f"(host clock to a synchronize; min {min(patch_ms):.3f}, max "
+        f"{max(patch_ms):.3f}), of which planning the rows and masks on "
+        f"the host alone takes a median {np.median(plan_ms):.3f} ms; "
+        f"version {ds.version}; B2 and B1 equal the "
+        f"torch engine every 8th delta, the touched keys' or/xor and the "
+        f"final batch equal the host fold ({time.perf_counter() - t0:.1f} s "
+        f"host); row and source versions stamp exactly the touched ones")
+
+    # 12b: escalations
+    ds256 = DeviceBitmapSet(bms[:256], layout="dense")
+    e256 = BatchEngine(ds256)
+    h256 = list(bms[:256])
+    pool256 = [BatchQuery(q.op, q.operands, form="bitmap")
+               for q in random_query_pool(256, 16, seed=seed + 12)]
+
+    def host_apply(hosts, adds, removes=None):
+        out = list(hosts)
+        for src, vals in adds.items():
+            out[src] = out[src] | RoaringBitmap.from_values(
+                np.asarray(vals, np.uint32))
+        for src, vals in (removes or {}).items():
+            out[src] = out[src] - RoaringBitmap.from_values(
+                np.asarray(vals, np.uint32))
+        return out
+
+    def check_256(label):
+        got = e256.execute(pool256)
+        for q, r in zip(pool256, got):
+            require(r.bitmap == host_query(q, h256),
+                    f"12b {label}: {q.op} != the host fold")
+        return got
+
+    walls = {}
+    adds = {1: [(0xBEE << 16) + 7]}
+    rep, walls["structural"] = sync_ms(lambda: ds256.apply_delta(adds=adds))
+    require(rep["mode"] == "repack" and rep["repack_reason"] == "structural"
+            and ds256.structure_version == 1, f"12b structural: {rep}")
+    h256 = host_apply(h256, adds)
+    check_256("structural")
+    adds = {2: [int(v) + 1 for v in h256[2].to_array()[:50]]}
+    rep, walls["drift"] = sync_ms(lambda: ds256.apply_delta(
+        adds=adds, drift_limit=10))
+    require(rep["mode"] == "repack" and rep["repack_reason"] == "drift"
+            and rep["drift"]["fired"], f"12b drift: {rep}")
+    h256 = host_apply(h256, adds)
+    words0, v_b = ds256.words.clone(), ds256.version
+    try:
+        ds256.apply_delta(adds={3: [(0xBEF << 16) + 1]}, repack="never")
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and ds256.version == v_b
+            and torch.equal(ds256.words, words0),
+            "12b never: did not raise, or mutated the set")
+    del words0
+    adds = {0: [5]}
+    pre_or = xds.aggregate("or")
+    rep = smoke.main_path("12b compact delta", lambda: xds.apply_delta(
+        adds=adds))
+    require(rep["mode"] == "repack" and rep["repack_reason"] == "layout"
+            and smoke.last[b3] >= 1, f"12b compact: {rep}, {smoke.last}")
+    got = smoke.main_path("12b repacked or", lambda: xds.aggregate("or"))
+    require(got == pre_or | RoaringBitmap.from_values(
+        np.array(adds[0], np.uint32)), "12b compact: or != the host fold")
+    log(f"  12b: compact set of {xds.n} -> layout repack to {xds.layout} "
+        f"(B3 rebuilt the image it was read from), or equals the pre-delta "
+        f"or with the add")
+    # the maintenance worker: the commit waits on the serving lock
+    lock = threading.RLock()
+    worker = MaintenanceWorker(lock=lock)
+    adds = {4: [(0xBF0 << 16) + 3]}
+    with lock:
+        pre_res = e256.execute(pool256)
+        v_b = ds256.version
+        rep = ds256.apply_delta(adds=adds, worker=worker)
+        require(rep["mode"] == "repack_queued" and ds256.version == v_b
+                and worker.pending() == 1, f"12b worker: {rep}")
+        require(same_results(e256.execute(pool256), pre_res),
+                "12b worker: the pre-delta image changed before the commit")
+    t0 = time.perf_counter()
+    worker.drain()
+    walls["worker commit"] = (time.perf_counter() - t0) * 1e3
+    worker.stop()
+    h256 = host_apply(h256, adds)
+    require(worker.jobs_done == 1 and worker.jobs_failed == 0
+            and ds256.version == v_b + 1, "12b worker: the commit failed")
+    check_256("after the worker's commit")
+    for op in ("or", "xor"):
+        got = smoke.main_path(f"12b 256 {op}", lambda op=op: ds256.aggregate(
+            op))
+        require(got == host_fold(op, h256), f"12b {op} != the host fold")
+    log(f"  12b: 256 bitmaps: structural, drift (limit 10) and worker "
+        f"repacks; repack='never' raised with nothing mutated; the queued "
+        f"repack served the pre-delta image bit-exact at version {v_b}, then "
+        f"version {ds256.version} after drain; batches and or/xor equal the "
+        f"host fold.  Repack wall ms (host clock to a synchronize): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; against the median patch {np.median(patch_ms):.3f} ms")
+    del ds256, e256
+
+    # 12c: the result cache on 7b's shard
+    rc = ResultCache(256 << 20)
+    ceng = BatchEngine(sds, result_cache=rc)
+    shost = list(sbms)
+    card_pool = [expr.ExprQuery(q.expr) for q in epool]
+    got = smoke.main_path("12c replay 1 (misses)", lambda: ceng.execute(epool))
+    require(smoke.last[b5] == 1 and same_results(got, seng.execute(epool)),
+            "12c: the filling batch != the cacheless engine")
+    for r in range(8):
+        for pool in (epool, card_pool):
+            res = ceng.execute(pool)
+            require(same_results(res, got if pool is epool else [
+                type(g)(g.cardinality, None, g.value) for g in got]),
+                f"12c replay {r}: != the first")
+    st = rc.stats()
+    hit_ms = median_ms(torch, lambda: ceng.execute(epool))
+    miss_ms = median_ms(torch, lambda: seng.execute(epool))
+    log(f"  12c: {len(epool)} queries x 8 replays in bitmap and cardinality "
+        f"form: hit rate {st['hits'] / (st['hits'] + st['misses']):.4f} "
+        f"({st}); warm batch {hit_ms:.3f} ms all-hit against {miss_ms:.3f} "
+        f"ms all-miss (the cacheless engine; medians of 5)")
+    inner = epool[-2].expr          # 7b's fixed (0 | 1) & ~2, cached
+    q_inj = [expr.ExprQuery(expr.xor(inner, expr.or_(7, 9)), form="bitmap")]
+    entry = rc._data[ceng._cache_key_of(epool[-2])[0]]
+    saved = entry.words.clone()
+    n_cached = ceng.plan(q_inj).exprs[0].n_cached
+    got_inj = smoke.main_path("12c injected plan", lambda: ceng.execute(
+        q_inj))
+    require(n_cached >= 1 and smoke.last[b5] == 1
+            and got_inj[0].bitmap == expr.evaluate_host(q_inj[0].expr, shost)
+            and same_results(got_inj, seng.execute(q_inj, engine="torch"))
+            and torch.equal(entry.words, saved),
+            f"12c injection: n_cached {n_cached}, launches {smoke.last}")
+    log(f"    a query over the cached (0 | 1) & ~2: n_cached {n_cached}, one "
+        f"B5 launch, equal to the torch rung and evaluate_host; the entry's "
+        f"rows unchanged")
+    # a delta to one source drops exactly the entries that read it
+    src = 0
+    keyed = {}
+    for q in list(epool) + q_inj:
+        keyed[ceng._cache_key_of(q)[0]] = refs_of(expr.canonicalize(q.expr),
+                                                  expr)
+    predicted = sum(src in refs for refs in keyed.values())
+    st0 = rc.stats()
+    v_src = sbms[src].to_array()
+    adds = {src: [int(v_src[0]) ^ 1, int(v_src[-1]) ^ 2]}
+    rep = sds.apply_delta(adds=adds)
+    shost = host_apply(shost, adds)
+    st1 = rc.stats()
+    dropped = st1["invalidations"] - st0["invalidations"]
+    require(rep["mode"] == "patch" and dropped == predicted
+            and st1["entries"] == st0["entries"] - predicted,
+            f"12c invalidation: dropped {dropped}, predicted {predicted}")
+    got2 = ceng.execute(epool)
+    require(same_results(got2, seng.execute(epool, engine="cuda")),
+            "12c: after the delta != the cacheless engine")
+    for q, r in zip(epool, got2):
+        require(r.bitmap == expr.evaluate_host(q.expr, shost),
+                "12c: after the delta != evaluate_host")
+    log(f"    delta to source {src}: {dropped} entries dropped (a host "
+        f"recount of the leaves predicts {predicted}), "
+        f"{st1['entries']} kept; the replay equals evaluate_host")
+    # a column delta drops the entries that read the column
+    batch = batches[0][0]
+    ceng.execute(batch)
+    n_price = len({ceng._cache_key_of(q)[0] for q in batch
+                   if reads_col(q.expr, "price")})
+    st0 = rc.stats()
+    rows_p = rng.choice(1 << 20, 128, replace=False)
+    crep, c_ms = sync_ms(lambda: price.apply_delta(dict(zip(
+        rows_p.tolist(), rng.integers(0, PRICE_MAX, 128).tolist()))))
+    dropped = rc.stats()["invalidations"] - st0["invalidations"]
+    require(dropped == n_price > 0, f"12c column: dropped {dropped} of "
+            f"{n_price}")
+    got = smoke.main_path("12c value batch after the column delta",
+                          lambda: seng.execute(batch))
+    require(smoke.last[b5] == 1, "12c value batch: not one B5 launch")
+    check_value(expr, "12c value batch", seng, batch, shost, cols, got)
+    log(f"    BsiColumn delta of 128 rows ({crep}) in {c_ms:.1f} ms (host "
+        f"oracle and planes rebuilt); {dropped} entries reading price "
+        f"dropped; 9a's first value batch equals the host oracles")
+
+    # 12d: phase 11's 16 tenants sharing one cache
+    sets, tenants, pool64, want64 = tenants11
+    rcd = ResultCache(256 << 20)
+    msc = MultiSetBatchEngine(sets, result_cache=rcd)
+    got = smoke.main_path("12d pooled Q64 (misses)", lambda: msc.execute(
+        pool64))
+    require(same_pool(got, want64) and smoke.last[b1] > 0
+            and smoke.last[b3] == 4, f"12d: first replay {smoke.last}")
+    served0 = rcd.hits
+    predicted = msc.count_cache_hits(pool64)
+    got = smoke.main_path("12d pooled Q64 (hits)", lambda: msc.execute(
+        pool64))
+    require(same_pool(got, want64) and not any(smoke.last.values())
+            and rcd.hits - served0 == predicted == len(
+                [q for g in pool64 for q in g.queries]),
+            f"12d: hits {rcd.hits - served0}, predicted {predicted}")
+    thost = {t: list(tenants[t]) for t in (3, 5)}
+    e3 = msc._engines[3]
+    src3 = next(q.operands[0] for g in pool64 if g.set_id == 3
+                for q in g.queries)
+    keys3 = {e3._cache_key_of(q)[0]: set(q.operands)
+             for g in pool64 if g.set_id == 3 for q in g.queries}
+    st_full = rcd.stats()
+    predicted = sum(src3 in ops for ops in keys3.values())
+    others = {k for k, e in rcd._data.items()
+              if all(lf[0] != sets[3].uid for lf in e.leaves)}
+    st0 = rcd.stats()
+    v3 = tenants[3][src3].to_array()
+    adds = {src3: [int(v3[0]) ^ 1]}
+    rep = sets[3].apply_delta(adds=adds)
+    thost[3] = host_apply(thost[3], adds)
+    dropped = rcd.stats()["invalidations"] - st0["invalidations"]
+    require(rep["mode"] == "patch" and dropped == predicted
+            and others <= set(rcd._data),
+            f"12d tenant 3: dropped {dropped}, predicted {predicted}")
+    rows5 = msc._rows[5]
+    adds = {0: [(0xBF0 + k) << 16 for k in range(16)]}
+    rep5 = sets[5].apply_delta(adds=adds)
+    thost[5] = host_apply(thost[5], adds)
+    require(rep5["mode"] == "repack", f"12d tenant 5: {rep5}")
+    got = smoke.main_path("12d pooled Q64 after the deltas",
+                          lambda: msc.execute(pool64))
+    loop = [msc._engines[g.set_id].execute(list(g.queries), engine="cuda",
+                                           fallback=False) for g in pool64]
+    require(same_pool(got, loop) and msc._rows[5] == sets[5]._n_rows
+            != rows5, "12d: the pool after the repack != the per-set loop")
+    for g, rows in zip(pool64, got):
+        if g.set_id in thost:
+            for q, r in zip(g.queries, rows):
+                require(r.cardinality == host_query(
+                    q, thost[g.set_id]).cardinality,
+                    f"12d: tenant {g.set_id} {q.op} != the host fold")
+    log(f"  12d: 16 tenants, one cache: the Q64 pool filled it (pooled "
+        f"B1 + B3), then was served whole ({st_full}); "
+        f"count_cache_hits matched the hits served; a delta to tenant 3 "
+        f"dropped {dropped} entries (host recount {predicted}), none of "
+        f"another tenant's; tenant 5's structural repack ({rows5} -> "
+        f"{sets[5]._n_rows} rows) retired its pooled plans, and the pool "
+        f"equals the per-set loop and the host fold")
+    st = mut_delta.stats()
+    log(f"  12: mutation counters {st}")
 
 
 def main() -> int:
@@ -904,7 +1385,7 @@ def main() -> int:
     def run_batch(label, eng, pool, engine_want):
         """Plan (host, timed), then the batch through the user entry point
         with engine "auto" as a main-path call; returns the results."""
-        cached = (tuple(pool), eng._columns_token()) in eng._plans
+        cached = eng.plan_key(pool) in eng._plans
         t0 = time.perf_counter()
         plan = eng.plan(pool)
         plan_ms = (time.perf_counter() - t0) * 1e3
@@ -1625,8 +2106,15 @@ def main() -> int:
     # ------------------------------------------------------------ phase 11
     log("phase 11: the pooled multi-tenant engine (MultiSetBatchEngine)")
     t_phase = time.perf_counter()
-    phase11(smoke, bms, sbms, price, lift, args.seed)
+    tenants11 = phase11(smoke, bms, sbms, price, lift, args.seed)
     phase_time("phase 11", t_phase)
+
+    # ------------------------------------------------------------ phase 12
+    log("phase 12: mutable tenants (deltas, repacks, the result cache)")
+    t_phase = time.perf_counter()
+    phase12(smoke, args.seed, ds, bms, eng, xds, sds, sbms, seng, epool,
+            price, cols, batches, tenants11)
+    phase_time("phase 12", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "

@@ -10,7 +10,8 @@ the port's own NumPy copy.  The package imports ``torch`` and ``numpy`` and
 nothing of JAX or of ``roaringbitmap_tpu``.
 
 The 64-bit tier (``Roaring64Bitmap``, ``aggregation.or64`` etc.) rides the
-same engines.  Wide calls and batches run under the guarded dispatch ladder
+same engines.  Resident sets are mutable (``mutation``: in-place deltas,
+repacks, the materialized result cache the engines serve from).  Wide calls and batches run under the guarded dispatch ladder
 (``runtime.guard``), and inputs that are all serialized bytes pack through
 the native C++ ingest engine (``native``).
 

@@ -16,7 +16,10 @@ Padding is exact: a padded zero plane under a zero predicate bit leaves
 every O'Neil and Kaser state update at the identity.  A column's ``uid``
 comes from the resident sets' counter, so the two never collide; engines
 key their plans on each attached column's ``(uid, version,
-structure_version)``.  Deltas (``apply_delta``) are not ported yet.
+structure_version)``.  A column delta (``BsiColumn.apply_delta`` /
+``RangeColumn.apply_delta``) updates the host oracle, re-packs the device
+planes, bumps ``version`` (and ``structure_version`` when the planes' shape
+moves) and drops the result-cache entries that read the column.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from ..bsi.device import _densify, _slice_cards_res, _unpack, \
 from ..bsi.slice_index import (Operation, RoaringBitmapSliceIndex,
                                clamp_range_bounds, kaser_top_k,
                                minmax_decision, trim_smallest)
-from ..core.bitmap import RoaringBitmap, and_ as rb_and
+from ..core.bitmap import RoaringBitmap, and_ as rb_and, andnot as rb_andnot
 from ..core.rangebitmap import RangeBitmap
 from ..ops import packing
 from ..ops.words import WORDS32, as_i32, resolve_device
@@ -78,6 +81,10 @@ class _ColumnBase:
         if keys.size:
             for i, s in enumerate(slice_bitmaps):
                 slices_np[i] = _densify(s, keys)
+        old_shape = (getattr(self, "depth_pad", None),
+                     getattr(self, "keys", np.zeros(0)).size)
+        if old_shape != (None, 0) and old_shape != (depth_pad, keys.size):
+            self.structure_version += 1
         self.keys = keys
         self.depth = depth
         self.depth_pad = depth_pad
@@ -99,10 +106,13 @@ class _ColumnBase:
     def _bits(self, value: int) -> np.ndarray:
         return plane.predicate_bits(value, self.depth_pad)
 
-    def apply_delta(self, *args, **kwargs):
-        raise NotImplementedError(
-            "column deltas come with the mutable tenants (queue A item 8): "
-            "they must notify the result cache, which is not ported yet")
+    def _note_delta(self) -> None:
+        """After a delta: bump the version and drop every result-cache
+        entry that reads this column."""
+        from ..mutation import result_cache
+
+        self.version += 1
+        result_cache.notify_version_bump(self.uid)
 
     # ----------------------------------------------------- two-phase lane
     def device_agg(self, kind: str, found: RoaringBitmap, k: int = 0):
@@ -173,6 +183,36 @@ class BsiColumn(_ColumnBase):
         fs = self.host.ebm if found is None else rb_and(self.host.ebm, found)
         return self.host.top_k(min(int(k), fs.cardinality), fs)
 
+    def apply_delta(self, set_values=None, removes=()) -> dict:
+        """Mutate the column: ``removes`` drop rows from every plane, then
+        ``set_values`` ({row_id: value} or (ids, values)) upsert.  The
+        device planes re-pack, the version bumps, and the dependent
+        result-cache entries drop."""
+        removes = list(removes)
+        if removes:
+            rm = RoaringBitmap.from_values(np.asarray(removes, np.uint32))
+            self.host.ebm = rb_andnot(self.host.ebm, rm)
+            self.host.slices = [rb_andnot(s, rm) for s in self.host.slices]
+            if self.host.ebm.is_empty():
+                self.host.min_value = self.host.max_value = 0
+            else:
+                self.host._recompute_min_max()
+        n_set = 0
+        if set_values:
+            if isinstance(set_values, dict):
+                pairs = sorted(set_values.items())
+            else:
+                ids, vals = set_values
+                pairs = list(zip(np.asarray(ids).tolist(),
+                                 np.asarray(vals).tolist()))
+            self.host.set_values(pairs)
+            n_set = len(pairs)
+        self._repack()
+        self._note_delta()
+        return {"set": n_set, "removed": len(removes),
+                "version": self.version,
+                "structure_version": self.structure_version}
+
 
 class RangeColumn(_ColumnBase):
     """Dense row-indexed value column (rows 0..N-1, int64 values >= 0),
@@ -186,11 +226,30 @@ class RangeColumn(_ColumnBase):
         self.values = np.asarray(values, np.int64).copy()
         if self.values.size and int(self.values.min()) < 0:
             raise ValueError("range column values must be >= 0")
+        self._rebuild()
+
+    def _rebuild(self) -> None:
         self.host = RangeBitmap.from_values(self.values)
         self.rows = int(self.values.size)
         self.min_value = int(self.values.min()) if self.rows else 0
         self.max_value = self.host.max_value
         self._pack(RoaringBitmap.from_range(0, self.rows), self.host.slices)
+
+    def apply_delta(self, updates: dict) -> dict:
+        """Set row values ({row: value}); the host oracle and the device
+        planes rebuild, the version bumps, and the dependent result-cache
+        entries drop."""
+        for row, value in updates.items():
+            row = int(row)
+            if row < 0 or row >= self.rows:
+                raise IndexError(f"row {row} out of range 0..{self.rows - 1}")
+            if int(value) < 0:
+                raise ValueError("range column values must be >= 0")
+            self.values[row] = int(value)
+        self._rebuild()
+        self._note_delta()
+        return {"set": len(updates), "version": self.version,
+                "structure_version": self.structure_version}
 
     def scan_plan(self, op: str, lo: int, hi: int = 0):
         """RangeBitmap guard semantics: thresholds outside the stored domain

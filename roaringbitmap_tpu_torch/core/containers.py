@@ -43,9 +43,14 @@ def values_to_words(values: np.ndarray) -> np.ndarray:
 
 
 def words_to_values(words: np.ndarray) -> np.ndarray:
-    """Dense u64[1024] chunk bitmap -> sorted u16 values."""
-    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
-    return np.flatnonzero(bits).astype(np.uint16)
+    """Dense u64[1024] chunk bitmap -> sorted u16 values.  Only the nonzero
+    words are unpacked: an array container's at most 4,096 values touch at
+    most that many of the 1,024 words."""
+    nz = np.flatnonzero(words)
+    bits = np.unpackbits(words[nz].view(np.uint8),
+                         bitorder="little").reshape(-1, 64)
+    word, bit = np.nonzero(bits)
+    return (nz[word] * 64 + bit).astype(np.uint16)
 
 
 def runs_to_values(runs: np.ndarray) -> np.ndarray:

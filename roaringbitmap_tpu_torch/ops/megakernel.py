@@ -169,7 +169,9 @@ class MegaPlan:
     slots_pad: int
     out_pad: int              # pow2-padded OUT rows (0 = none)
     card_pad: int
-    host: dict                # the eight stream arrays + "extra" (bank 1)
+    host: dict                # the eight stream arrays + "extra" (bank 1:
+    #                           an array, or a list of parts when cached
+    #                           device rows are among them)
     #: per bucket: (card_base, out_base | None, n_real, k_pad)
     bucket_out: tuple = ()
     #: per fused section: (card_base, out_base | None, k_root, None)
@@ -229,9 +231,11 @@ class MegaPlan:
             cols = (torch.cat(parts).to(device) if parts else
                     torch.zeros((1, WORDS32), dtype=torch.int32,
                                 device=device))
+            extra = self.host["extra"]
+            extra = (torch.cat([upload(p, device) for p in extra])
+                     if isinstance(extra, list) else upload(extra, device))
             self._arrays[key] = {"stream": upload(stream, device),
-                                 "extra": upload(self.host["extra"], device),
-                                 "cols": cols}
+                                 "extra": extra, "cols": cols}
         return self._arrays[key]
 
     def check(self, bank_rows: tuple) -> None:
@@ -618,8 +622,12 @@ def _emit_vagg(em: _Emitter, ctx: _SectionCtx, si: int, n_slots: int,
 
 
 def _pack_extra(sections) -> tuple:
-    """Bank-1 rows: every ad-hoc leaf's container rows, concatenated, and
-    per-(section id, step) base offsets."""
+    """Bank-1 rows: every ad-hoc operand's container rows, concatenated,
+    and per-(section id, step) base offsets.  An operand injected from the
+    result cache is a device tensor: then the bank stays a list of parts,
+    joined on the device by :meth:`MegaPlan.device_arrays` (a copy, so the
+    cached rows are never an operand the kernel could write, and nothing
+    goes through the host)."""
     rows, bases = [], {}
     off = 0
     for sid, sec in enumerate(sections):
@@ -627,11 +635,14 @@ def _pack_extra(sections) -> tuple:
             if st[0] == "adhoc":
                 w = sec.host[f"w{ci}"]
                 bases[(sid, ci)] = off
-                rows.append(np.asarray(w, np.uint32))
+                rows.append(w if isinstance(w, torch.Tensor)
+                            else np.asarray(w, np.uint32))
                 off += int(w.shape[0])
-    if rows:
-        return np.concatenate(rows, axis=0), bases
-    return np.zeros((1, WORDS32), np.uint32), bases
+    if not rows:
+        return np.zeros((1, WORDS32), np.uint32), bases
+    if any(isinstance(w, torch.Tensor) for w in rows):
+        return rows, bases
+    return np.concatenate(rows, axis=0), bases
 
 
 def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
@@ -724,7 +735,9 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
         n_slots=n_slots, slots_pad=slots_pad,
         out_pad=out_pad, card_pad=card_pad, host=host,
         bucket_out=tuple(bucket_out), expr_out=tuple(expr_out),
-        extra_rows=int(extra.shape[0]), col_rows=int(col_rows),
+        extra_rows=(sum(int(p.shape[0]) for p in extra)
+                    if isinstance(extra, list) else int(extra.shape[0])),
+        col_rows=int(col_rows),
         n_vscan=n_vscan, n_vagg=n_vagg,
         cols=tuple(c for sec in sections for c in sec.cols))
 

@@ -95,7 +95,11 @@ def upload(a: np.ndarray, device) -> torch.Tensor:
     the upload is queued on the current stream (a copy from pageable
     memory would wait for the stream first); on the CPU it is shared.
     Resident images go up through ``as_i32``: the pinned allocator would
-    keep a copy of their size cached on the host."""
+    keep a copy of their size cached on the host.  A tensor (a cached
+    result's rows, already on the card) is returned as it is, or copied
+    if it lies on another device; the caller only reads it."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.ascontiguousarray(a)
     if a.dtype == np.uint32:
         a = a.view(np.int32)

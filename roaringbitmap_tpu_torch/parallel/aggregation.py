@@ -633,13 +633,23 @@ class DeviceBitmapSet:
     def _load(self, state: dict, layout: str, dev: torch.device) -> None:
         self.device = dev
         self.layout = layout
-        self.uid = next(_SET_UIDS)
-        #: attached value columns by name (attach_column)
-        self.columns: dict = {}
         # u16 keys (32-bit tier) or u64 u48 keys (64-bit tier): the keys
         # stay on the host, the kernels see only segment ids
         self.keys = np.asarray(state["keys"])
         self.n = int(state["n"])
+        # identity and version lineage (``mutation``): a set that already
+        # carries them keeps them when its layout is loaded again (the
+        # repack path re-runs __init__), so result-cache and plan keys stay
+        # honest over the set's whole mutable life; so do the attached
+        # columns, which index the row-id universe, not the packed rows
+        if not hasattr(self, "uid") or len(self.source_versions) != self.n:
+            self.uid = next(_SET_UIDS)
+            self.version = 0
+            self.structure_version = 0
+            self.source_versions = np.zeros(self.n, np.int64)
+        if not hasattr(self, "columns"):
+            #: attached value columns by name (attach_column)
+            self.columns: dict = {}
         self.block = int(state["block"])
         self._seg_sizes = np.asarray(state["seg_sizes"])
         self._seg_offsets = np.asarray(state["seg_offsets"])
@@ -649,7 +659,6 @@ class DeviceBitmapSet:
         self.row_src = (None if state.get("row_src") is None
                         else np.asarray(state["row_src"], dtype=np.int32))
         self.row_seg = np.repeat(blk_seg, self.block)
-        self._host_cache = None
         k = self.keys.size
         self._n_rows = int(blk_seg.size) * self.block
         self.blk_seg = as_i32(blk_seg, dev)
@@ -680,6 +689,8 @@ class DeviceBitmapSet:
                           if "words" in state else
                           dense.densify_streams(*self._streams, self._n_rows,
                                                 self._total_values))
+        self._init_mutation(state)
+        if layout == "dense":
             self._streams = None   # the image is the resident form
             return
         if "chunk_vals" in state:
@@ -692,6 +703,25 @@ class DeviceBitmapSet:
                 self._chunks[1], self._n_rows)
         if layout == "counts":
             self._load_counts(state, k, dev)
+
+    def _init_mutation(self, state: dict) -> None:
+        """Per-pack mutation state (``mutation.delta``): every row stamped
+        at the current version, an empty delta journal, no host twin, and
+        the pack-time value floor of the drift heuristic: the sparse stream
+        values plus 4,096 per dense-wire row, as the JAX package counts it
+        (for a state without streams, the image's set bits)."""
+        self.row_versions = np.full(self._n_rows, self.version, np.int64)
+        self._delta_journal: list = []
+        self._journal_dropped_version = getattr(
+            self, "_journal_dropped_version", 0)
+        self._host_cache = None
+        if "values" in state:
+            base = (int(np.asarray(state["values"]).size)
+                    + 4096 * int(np.asarray(state["dense_words"]).shape[0]))
+        else:
+            base = int(dense.popcount(self.words).sum(dtype=torch.int64))
+        self._mutation_base_values = base
+        self._mutated_values = 0
 
     def _compact_meta(self, s: packing.CompactStreams, blk_seg: np.ndarray,
                       dev: torch.device) -> None:
@@ -975,27 +1005,39 @@ class DeviceBitmapSet:
     def detach_column(self, name: str) -> None:
         self.columns.pop(name, None)
 
+    # ------------------------------------------------------------ mutation
+
+    def apply_delta(self, adds=None, removes=None, repack: str = "auto",
+                    drift_limit: int | None = None, worker=None,
+                    journal=None) -> dict:
+        """Mutate this resident set at container granularity
+        (``mutation.delta.apply_delta``): ``adds`` / ``removes`` map source
+        index -> u32 values, removes win.  A dense-layout delta over
+        existing containers patches the touched rows of the resident image
+        in place; structural deltas, the other layouts and the drift
+        heuristic escalate to a repack (``worker`` defers it to a
+        ``MaintenanceWorker``).  Returns the mutation report."""
+        from ..mutation import delta as mut_delta
+
+        return mut_delta.apply_delta(self, adds, removes, repack=repack,
+                                     drift_limit=drift_limit, worker=worker,
+                                     journal=journal)
+
+    def warmup_delta(self, n: int) -> dict:
+        """The "delta:N" warmup rungs of an ``n``-row delta.  The port
+        patches eagerly, so nothing compiles (``compiled`` is False)."""
+        from ..mutation import delta as mut_delta
+
+        return mut_delta.warmup_delta(self, n)
+
     def host_bitmaps(self) -> list[RoaringBitmap]:
         """Host copies of the source bitmaps, rebuilt from the resident rows
-        (whatever the set was built from) and cached: the data the batch
-        engine's host reference runs on."""
-        if self._host_cache is not None:
-            return self._host_cache
-        if self.row_src is None:
-            raise ValueError(
-                "resident set lacks row_src metadata (repack required)")
-        words = to_u32(self._resident_words("torch"))
-        order = np.argsort(self.row_src, kind="stable")
-        bounds = np.searchsorted(self.row_src[order], np.arange(self.n + 1))
-        hosts = []
-        for i in range(self.n):
-            rows = order[bounds[i]:bounds[i + 1]]
-            w = words[rows]
-            cards = np.unpackbits(w.view(np.uint8), axis=1).sum(axis=1)
-            hosts.append(packing.unpack_result(self.keys[self.row_seg[rows]],
-                                               w, cards))
-        self._host_cache = hosts
-        return hosts
+        (whatever the set was built from) and cached per ``version``: the
+        data the batch engine's host reference runs on.  A patch keeps an
+        existing copy fresh incrementally (``mutation.delta``)."""
+        from ..mutation import delta as mut_delta
+
+        return mut_delta.host_bitmaps(self)
 
     def hbm_bytes(self) -> int:
         """Device bytes the set keeps resident."""

@@ -60,6 +60,7 @@ import torch
 from ..core.bitmap import RoaringBitmap
 from ..core.bitmap64 import Roaring64Bitmap
 from ..insights import analysis as insights
+from ..mutation import result_cache as mut_cache
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, to_u32
 from ..runtime import errors, faults, guard
@@ -265,12 +266,18 @@ def bucket_body(words: torch.Tensor, b_sig, arrays: dict, eng: str):
 
 class BatchEngine:
     """Plan + execute mixed-op query batches over one resident set, on the
-    set's device.  Plans are cached by the query tuple and the attached
-    columns (an LRU of
+    set's device.  Plans are cached by the query tuple, the set's version
+    and structure version and the attached columns (an LRU of
     ``PLAN_CACHE_MAX``).  ``last_timings`` holds the plan / device / unpack
-    milliseconds of the latest ``execute``."""
+    milliseconds of the latest ``execute``.
 
-    def __init__(self, ds: DeviceBitmapSet):
+    ``result_cache``: ``"env"`` (the default) resolves
+    ``ROARING_TPU_RESULT_CACHE`` (None when unset), a ``ResultCache`` may be
+    shared by many engines, None disables it.  With a cache, ``execute``
+    serves repeated queries from it and ``plan`` injects cached interior
+    nodes into expression plans (``mutation.result_cache``)."""
+
+    def __init__(self, ds: DeviceBitmapSet, result_cache="env"):
         if ds.row_src is None:
             raise ValueError(
                 "resident set lacks row_src metadata (repack required)")
@@ -280,6 +287,11 @@ class BatchEngine:
         self.keys = ds.keys
         self._row_src = ds.row_src
         self._row_seg = ds.row_seg
+        self._ds_structure = ds.structure_version
+        self.result_cache = (mut_cache.from_env()
+                             if result_cache == "env" else result_cache)
+        #: (query, set version, columns) -> result-cache key
+        self._qkeys = LRUCache(1024, name="batch_cache_keys")
         self._plans = LRUCache(PLAN_CACHE_MAX, name="batch_plans")
         self.last_timings: dict = {}
         #: batches halved on ResourceExhausted (reactive splits)
@@ -294,6 +306,44 @@ class BatchEngine:
     def from_bitmaps(cls, bitmaps: list, layout: str = "auto",
                      **kw) -> "BatchEngine":
         return cls(DeviceBitmapSet(bitmaps, layout=layout, **kw))
+
+    # ------------------------------------------------------------- mutation
+
+    def _sync_with_ds(self) -> None:
+        """Pick up the set's mutations: after a repack (a new structure
+        version) the row maps are read again.  Patches change nothing here:
+        the plan key's version retires the plans they outdate."""
+        ds = self._ds
+        if ds.structure_version != self._ds_structure:
+            self._ds_structure = ds.structure_version
+            self.keys = ds.keys
+            self._row_src = ds.row_src
+            self._row_seg = ds.row_seg
+
+    def _leaf_token(self, i: int):
+        """Result-cache token of source ``i``: (set uid, source, source
+        version); None out of range (the planner raises its own error)."""
+        ds = self._ds
+        if i < 0 or i >= ds.n:
+            return None
+        return (ds.uid, int(i), int(ds.source_versions[i]))
+
+    def _col_token(self, name: str):
+        """Result-cache token of an attached column: (uid, version); None
+        when unattached."""
+        col = self._ds.columns.get(name)
+        return None if col is None else (col.uid, col.version)
+
+    def _cache_key_of(self, q):
+        """Result-cache key of one query, memoized per (query, set version,
+        columns): a replayed query's key is a dictionary hit, not a
+        canonicalization walk."""
+        memo_key = (q, self._ds.version, self._columns_token())
+        got = self._qkeys.get(memo_key)
+        if got is None:
+            got = mut_cache.query_key(q, self._leaf_token, self._col_token)
+            self._qkeys.put(memo_key, got)
+        return got
 
     # ------------------------------------------------------------- planning
 
@@ -353,16 +403,23 @@ class BatchEngine:
                      for n, c in sorted(self._ds.columns.items()))
 
     def plan(self, queries) -> BatchPlan:
-        """Bucketed plan, cached by the query tuple and the attached
-        columns: group by (op, pow2 operand count) and pad shapes.
+        """Bucketed plan, cached by the query tuple, the set's version and
+        structure version (a patched or repacked set never replays a stale
+        plan, nor an injected subtree whose leaves moved on) and the
+        attached columns: group by (op, pow2 operand count) and pad shapes.
         Expression queries expand here: their all-leaf reduce nodes become
         pseudo flat queries in the same buckets, their combine and value
         steps compile into sections, and a plan with fused sections also
         assembles its megakernel stream."""
-        key = (tuple(queries), self._columns_token())
+        self._sync_with_ds()
+        key = self.plan_key(queries)
         cached = self._plans.get(key)
         if cached is not None:
             return cached
+        cache_probe = (None if self.result_cache is None else
+                       mut_cache.subtree_probe(self.result_cache,
+                                               self._leaf_token,
+                                               self._col_token))
         groups: dict = {}
         owner: dict = {}
         sections: list = []
@@ -383,7 +440,7 @@ class BatchEngine:
             if isinstance(q, expr_mod.ExprQuery):
                 sections.append(expr_mod.compile_query(
                     q, qid, add_item, self._plan_leaf,
-                    col_resolve=self._column))
+                    cache_probe=cache_probe, col_resolve=self._column))
             else:
                 add_item(q, qid)
         buckets = [plan_bucket(op, items)
@@ -394,6 +451,12 @@ class BatchEngine:
         plan = BatchPlan(buckets, exprs=sections, owner=owner, mega=mega)
         self._plans.put(key, plan)
         return plan
+
+    def plan_key(self, queries) -> tuple:
+        """The plan cache's key of ``queries`` at the set's current state."""
+        ds = self._ds
+        return (tuple(queries), ds.version, ds.structure_version,
+                self._columns_token())
 
     # ------------------------------------------------------------ execution
 
@@ -451,23 +514,37 @@ class BatchEngine:
         host rung and a divergence raises ``ShadowMismatch``.  A failed
         kernel build or launch is not demoted: it re-raises as it is.
         ``fallback=False`` runs the requested rung raw (no guard, no fault
-        injection)."""
+        injection).  With a result cache, the guarded path serves each
+        query the cache holds and dispatches only the misses, which fill it
+        (``mutation.result_cache.serve_and_fill``)."""
         queries = list(queries)
         if not queries:
             return []
         if engine not in ("auto",) + ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of "
                              f"{('auto',) + ENGINES}")
-        start = resolve_query_engine(engine, queries, self.device)
         if not fallback:
-            return self._execute_once(queries, start, inject=False)
+            return self._execute_once(
+                queries, resolve_query_engine(engine, queries, self.device),
+                inject=False)
         policy = policy or guard.GuardPolicy.from_env()
-        chain = guard.chain_from(start, ENGINES, self.device)
         # one budget resolution per execute, not per split: the card's free
         # memory costs an allocator query
-        return self._dispatch(queries, chain, policy,
-                              guard.Deadline(policy.deadline),
-                              guard.resolve_hbm_budget(policy, self.device))
+        deadline = guard.Deadline(policy.deadline)
+        budget = guard.resolve_hbm_budget(policy, self.device)
+
+        def run_misses(qs):
+            chain = guard.chain_from(
+                resolve_query_engine(engine, qs, self.device), ENGINES,
+                self.device)
+            return self._dispatch(qs, chain, policy, deadline, budget)
+
+        if self.result_cache is None:
+            return run_misses(queries)
+        self._sync_with_ds()
+        return mut_cache.serve_and_fill(
+            self.result_cache, queries, self._cache_key_of, run_misses,
+            "batch_engine", device=self.device)[0]
 
     def _dispatch(self, queries, chain, policy, deadline,
                   budget: int | None = None):

@@ -547,7 +547,8 @@ class ExprSection:
 
     Steps (fused sections), each a tuple:
       ("leaf", K)                  value = image[host[g{i}]]
-      ("adhoc", K)                 value = host[w{i}]
+      ("adhoc", K)                 value = host[w{i}] (an ad-hoc leaf's
+                                   rows, or a cached subtree's device rows)
       ("reduce", bi, slot, kq)     value = bucket_heads[bi][slot, :kq]
       ("combine", op, children, K) children = ((step, aligned), ...);
                                    non-aligned children gather through
@@ -571,6 +572,8 @@ class ExprSection:
     n_nodes: int = 0
     n_reduce: int = 0
     n_combine: int = 0
+    #: interior nodes served from the result cache (pre-computed operands)
+    n_cached: int = 0
     depth: int = 0
     cse_saved: int = 0
     #: columns the section's vscan/vagg steps read, in column-slot order
@@ -625,14 +628,20 @@ def _align(host: dict, name: str, ck: np.ndarray, node_keys: np.ndarray
 
 
 def compile_query(q: ExprQuery, qid: int, plan_reduce,
-                  plan_leaf, col_resolve=None) -> ExprSection:
+                  plan_leaf, cache_probe=None,
+                  col_resolve=None) -> ExprSection:
     """Compile one :class:`ExprQuery` against an engine's planner.
 
     ``plan_reduce(batch_query, owner)`` registers a pseudo flat query in the
     engine's bucketing and returns ``(pid, keys)``; ``owner`` is the query id
     when the pseudo IS the root (read back from its bucket) and None for
     internal reduce nodes.  ``plan_leaf(index)`` returns ``(gather_rows,
-    keys)`` of a resident leaf.  ``col_resolve(name)`` resolves an attached
+    keys)`` of a resident leaf.  ``cache_probe(node)``, when given, returns
+    ``(keys, words)`` of a materialized cached result for a canonical
+    interior node (``mutation.result_cache``): the node then lowers as a
+    pre-computed ``adhoc`` operand whose ``words`` (a device tensor) the
+    plan only reads, its reduce is pruned, and ``n_cached`` counts it.
+    ``col_resolve(name)`` resolves an attached
     column: value predicates lower to ``vscan`` steps over it and an
     aggregate root appends one ``vagg`` step over its found set; without a
     resolver either raises ``ValueError``.
@@ -751,8 +760,31 @@ def compile_query(q: ExprQuery, qid: int, plan_reduce,
 
     def emit(n) -> int | None:
         if n not in memo:
-            memo[n] = _emit(n)
+            si = emit_cached(n)
+            memo[n] = _emit(n) if si is _MISS else si
         return memo[n]
+
+    _MISS = object()
+
+    def emit_cached(n):
+        """Cached-subtree injection: an interior node with materialized
+        cached rows lowers as a pre-computed operand step, served instead
+        of planned; ``_MISS`` when the cache has nothing."""
+        if cache_probe is None or not isinstance(n, Node) or n.op == "empty":
+            return _MISS
+        hit = cache_probe(n)
+        if hit is None:
+            return _MISS
+        keys_c, words_c = hit
+        sec.n_cached += 1
+        if keys_c.size == 0:
+            # a cached empty result prunes like any empty operand
+            return None
+        si = len(steps)
+        steps.append(("adhoc", int(keys_c.size)))
+        host[f"w{si}"] = words_c
+        keyof[si] = keys_c
+        return si
 
     def _emit(n) -> int | None:
         if isinstance(n, ValuePred):

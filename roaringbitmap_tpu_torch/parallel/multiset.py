@@ -73,6 +73,17 @@ the observability layer is ported.
 A pool over one set goes through that set's ``BatchEngine.execute``
 verbatim: no pooled plan and no pooled image.  ``execute_pipelined`` always
 builds pooled launches.
+
+Result cache
+------------
+``result_cache=`` (``"env"`` by default) is shared with the member engines
+the pooled engine builds.  ``execute`` and ``execute_pipelined`` serve each
+(set, query) the cache holds and pool only the misses; the planner injects
+cached interior nodes of a tenant's expressions as pre-computed operands,
+their device rows passed into the plan as they are (the pipelined window
+never reads the card at plan time).  Pooled plans key on each referenced
+tenant's ``(uid, version)``, and a tenant's repack is picked up before the
+next plan (``_sync_with_sets``).
 """
 
 from __future__ import annotations
@@ -85,6 +96,7 @@ import numpy as np
 import torch
 
 from ..insights import analysis as insights
+from ..mutation import result_cache as mut_cache
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, popcount, upload
 from ..runtime import errors, faults, guard
@@ -393,11 +405,17 @@ class MultiSetBatchEngine:
     (adopted, so a server upgrades to pooled execution without repacking).
     All sets must live on one device."""
 
-    def __init__(self, sets: list):
+    def __init__(self, sets: list, result_cache="env"):
         if not sets:
             raise ValueError("multi-set engine needs at least one set")
-        self._engines = [s if isinstance(s, BatchEngine) else BatchEngine(s)
-                         for s in sets]
+        #: the materialized-result cache, shared with the member engines
+        #: built here (adopted BatchEngines keep their own)
+        self.result_cache = (mut_cache.from_env()
+                             if result_cache == "env" else result_cache)
+        self._engines = [
+            s if isinstance(s, BatchEngine)
+            else BatchEngine(s, result_cache=self.result_cache)
+            for s in sets]
         devs = {_device_key(e.device) for e in self._engines}
         if len(devs) != 1:
             raise ValueError(f"resident sets on different devices: "
@@ -461,14 +479,34 @@ class MultiSetBatchEngine:
             i += n
         return out
 
+    def _sync_with_sets(self) -> None:
+        """Pick up member-set mutations: a repack changes a tenant's row
+        count, so the pooled row extents are read again (the version in the
+        plan key retires the stale plans)."""
+        for i, e in enumerate(self._engines):
+            e._sync_with_ds()
+            self._rows[i] = int(e._row_src.size)
+
+    def _cache_probe_for(self, sid: int):
+        """The plan-time subtree probe of tenant ``sid``, or None without a
+        cache.  A hit's device rows go into the plan as they are: the plan
+        only reads them, and nothing waits for the card."""
+        if self.result_cache is None:
+            return None
+        e = self._engines[sid]
+        return mut_cache.subtree_probe(self.result_cache, e._leaf_token,
+                                       e._col_token)
+
     def _plan_pool(self, pooled) -> _PoolPlan:
         """The pooled plan: per-set row selection, the offset remap into
         the compacted pooled row space, the shared shape bucketing and the
         op groups.  Cached by the exact (set_id, query) tuple and the
-        referenced sets' identities and columns."""
+        referenced sets' identities, versions and columns."""
+        self._sync_with_sets()
         sids = tuple(sorted({sid for sid, _ in pooled}))
         key = (tuple(pooled),
-               tuple(self._engines[s]._ds.uid for s in sids),
+               tuple((self._engines[s]._ds.uid, self._engines[s]._ds.version)
+                     for s in sids),
                tuple(self._engines[s]._columns_token() for s in sids))
         cached = self._plans.get(key)
         if cached is not None:
@@ -508,6 +546,7 @@ class MultiSetBatchEngine:
                     q, qid,
                     lambda pq, own, sid=sid: add_item(sid, pq, own),
                     lambda i, sid=sid: plan_leaf(sid, i),
+                    cache_probe=self._cache_probe_for(sid),
                     col_resolve=self._engines[sid]._column))
             else:
                 add_item(sid, q, qid)
@@ -622,8 +661,10 @@ class MultiSetBatchEngine:
         like ``BatchEngine.execute``: per-launch retries and demotion down
         the chain, reactive OOM halving, proactive budget halving, the
         optional shadow check.  A pool over a single set goes through that
-        set's ``BatchEngine.execute``.  ``fallback=False`` runs the
-        requested rung raw (no guard, no fault injection)."""
+        set's ``BatchEngine.execute``.  With a result cache the guarded path
+        pools only the queries the cache does not hold, and fills it.
+        ``fallback=False`` runs the requested rung raw (no guard, no fault
+        injection, no cache)."""
         groups = list(groups)
         pooled, lengths = self._flatten(groups)
         if not pooled:
@@ -638,26 +679,33 @@ class MultiSetBatchEngine:
                 [q for _, q in pooled], engine=engine, fallback=fallback,
                 policy=policy)
             return self._regroup(flat, lengths)
-        start = resolve_query_engine(engine, [q for _, q in pooled],
-                                     self.device)
         if not fallback:
+            start = resolve_query_engine(engine, [q for _, q in pooled],
+                                         self.device)
             return self._regroup(self._launch_once(pooled, start,
                                                    inject=False), lengths)
         policy = policy or guard.GuardPolicy.from_env()
         budget = guard.resolve_hbm_budget(policy, self.device)
         deadline = guard.Deadline(policy.deadline)
-        chain = guard.chain_from(start, ENGINES, self.device)
-        # an in-budget pool is one launch, dispatched synchronously; a pool
-        # the budget splits stays a generator, so that the halving and
-        # planning of launch k+1 run while launch k is on the card
-        if (budget is None or len(pooled) < 2
-                or self.predict_dispatch_bytes(pooled, chain[0]) <= budget):
-            launches = [(0, pooled)]
-        else:
-            launches = ((0, sub) for sub in
-                        self._launch_iter(pooled, chain[0], budget))
-        flat = self._pipeline(launches, chain, policy, deadline,
-                              budget).get(0, [])
+
+        def run_misses(qs):
+            qs = tuple(qs)
+            chain = guard.chain_from(
+                resolve_query_engine(engine, [q for _, q in qs],
+                                     self.device), ENGINES, self.device)
+            # an in-budget pool is one launch, dispatched synchronously; a
+            # pool the budget splits stays a generator, so that the halving
+            # and planning of launch k+1 run while launch k is on the card
+            if (budget is None or len(qs) < 2
+                    or self.predict_dispatch_bytes(qs, chain[0]) <= budget):
+                launches = [(0, qs)]
+            else:
+                launches = ((0, sub) for sub in
+                            self._launch_iter(qs, chain[0], budget))
+            return self._pipeline(launches, chain, policy, deadline,
+                                  budget).get(0, [])
+
+        flat = self._serve(pooled, run_misses)
         if policy.shadow_rate > 0.0:
             self._shadow_check(pooled, flat, policy)
         return self._regroup(flat, lengths)
@@ -667,37 +715,72 @@ class MultiSetBatchEngine:
         """Stream several pools (serving ticks) through ONE pipeline window:
         pool p+1's planning overlaps pool p's device work even when each
         pool is one launch.  Returns per-pool lists of per-group result
-        lists (``execute``'s shape, one per pool)."""
+        lists (``execute``'s shape, one per pool).  With a result cache, the
+        queries it holds are served first and only the misses of each pool
+        stream through the window."""
         pools = [list(p) for p in pools]
         metas = [self._flatten(p) for p in pools]
         if engine not in ("auto",) + ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of "
                              f"{('auto',) + ENGINES}")
         policy = policy or guard.GuardPolicy.from_env()
-        start = resolve_query_engine(
-            engine, [q for pooled, _ in metas for _, q in pooled],
-            self.device)
-        chain = guard.chain_from(start, ENGINES, self.device)
         budget = guard.resolve_hbm_budget(policy, self.device)
         deadline = guard.Deadline(policy.deadline)
         for pooled, _ in metas:
             self.queries_total += len(pooled)
 
-        def launches():
-            for pi, (pooled, _) in enumerate(metas):
-                if not pooled:
-                    continue
-                for qs in self._launch_iter(pooled, chain[0], budget):
-                    yield pi, qs
+        def run_misses(items):
+            # items: (pool index, set id, query), in pool order
+            by_pi: dict = {}
+            for pi, sid, q in items:
+                by_pi.setdefault(pi, []).append((sid, q))
+            chain = guard.chain_from(
+                resolve_query_engine(engine, [q for _, _, q in items],
+                                     self.device), ENGINES, self.device)
 
-        by_pool = self._pipeline(launches(), chain, policy, deadline, budget)
-        out = []
-        for pi, (pooled, lengths) in enumerate(metas):
-            flat = by_pool.get(pi, [])
+            def launches():
+                for pi, pooled in by_pi.items():
+                    for qs in self._launch_iter(pooled, chain[0], budget):
+                        yield pi, qs
+
+            got = self._pipeline(launches(), chain, policy, deadline, budget)
+            return [r for pi in by_pi for r in got.get(pi, [])]
+
+        items = [(pi, sid, q) for pi, (pooled, _) in enumerate(metas)
+                 for sid, q in pooled]
+        flat_all = self._serve(items, run_misses) if items else []
+        out, i = [], 0
+        for pooled, lengths in metas:
+            flat = flat_all[i:i + len(pooled)]
+            i += len(pooled)
             if policy.shadow_rate > 0.0 and flat:
                 self._shadow_check(pooled, flat, policy)
             out.append(self._regroup(flat, lengths))
         return out
+
+    def _serve(self, items, run_misses) -> list:
+        """``run_misses(items)`` alone without a result cache; with one, the
+        items the cache holds are served and only the misses run and fill
+        it.  An item ends in ``(set id, query)``."""
+        if self.result_cache is None:
+            return run_misses(items)
+        self._sync_with_sets()
+        return mut_cache.serve_and_fill(
+            self.result_cache, items,
+            lambda it: self._engines[it[-2]]._cache_key_of(it[-1]),
+            run_misses, SITE, device=self.device)[0]
+
+    def count_cache_hits(self, pooled_or_groups) -> int:
+        """How many of a pool's queries the result cache would serve now:
+        count-free (``would_hit``), so a predictor may ask without skewing
+        the hit and miss counts."""
+        if self.result_cache is None:
+            return 0
+        n = 0
+        for sid, q in self._as_pooled(pooled_or_groups):
+            key, _leaves, form = self._engines[sid]._cache_key_of(q)
+            n += self.result_cache.would_hit(key, form)
+        return n
 
     def _launch_iter(self, pooled, engine: str, budget: int | None):
         """Left-to-right launch partition of ``pooled``, computed lazily: a

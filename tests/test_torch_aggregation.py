@@ -340,7 +340,7 @@ def test_naive_andnot(pair):
 def test_port_imports_no_jax():
     """The port's import graph holds neither jax nor any roaringbitmap_tpu
     module (the port's own name shares that prefix), also after one pooled
-    ``MultiSetBatchEngine.execute`` on the CPU."""
+    ``MultiSetBatchEngine.execute`` and one ``apply_delta`` on the CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -396,6 +396,11 @@ def test_port_imports_no_jax():
         "got = ms.execute([multiset.BatchGroup(0, [rt.BatchQuery('or', (0, "
         "2))]), multiset.BatchGroup(1, [rt.BatchQuery('xor', (0, 1))])])\n"
         "assert ms.launch_count == 1 and got[0][0].cardinality > 0\n"
+        "from roaringbitmap_tpu_torch import mutation\n"
+        "ds = rt.DeviceBitmapSet(bms, layout='dense', device='cpu')\n"
+        "rep = ds.apply_delta(adds={0: [1]}, removes={1: [1]})\n"
+        "assert rep['mode'] == 'patch' and ds.version == 1\n"
+        "assert mutation.ResultCache(1 << 20).stats()['entries'] == 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -12,6 +12,8 @@ the JAX package too.  Set algebra and integer sums have no tolerance:
 everything is compared exactly.
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,17 @@ def _data(seed: int = 0xA7A):
 
 
 _CACHE: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _drop_jax_objects():
+    """The JAX sets built here register with the JAX package's
+    process-global HBM ledger: drop them and collect when the module ends,
+    so a later file in the same worker does not count them."""
+    yield
+    _CACHE.clear()
+    _JAX_RESULTS.clear()
+    gc.collect()
 
 
 def _world(layout: str = "dense"):
@@ -372,10 +385,126 @@ def test_column_device_and_deltas():
     with pytest.raises(ValueError, match="lives on"):
         ds.attach_column(meta)
     col = BsiColumn("price", ids, prices, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        col.apply_delta({1: 2})
     assert col.uid != ds.uid and col.hbm_bytes() == (
         col.depth_pad + 1) * col.keys.size * 8192
+    # a delta applies (no longer NotImplementedError): the row's new value
+    # reads back and the version moves
+    rep = col.apply_delta({int(ids[1]): 2})
+    assert rep == {"set": 1, "removed": 0, "version": 1,
+                   "structure_version": 0}
+    assert col.host.get_value(int(ids[1])) == (2, True)
+
+
+def _delta_world(layout="dense"):
+    """Fresh sets with both column kinds attached, in both packages (the
+    deltas below mutate them)."""
+    bms, ids, prices, ts = _data()
+    jcols = {"price": JBsi("price", ids, prices), "ts": JRange("ts", ts)}
+    tcols = {"price": BsiColumn("price", ids, prices, device="cpu"),
+             "ts": RangeColumn("ts", ts, device="cpu")}
+    jds = JSet([JRB.from_values(v) for v in bms], layout=layout)
+    tds = DeviceBitmapSet([TRB.from_values(v) for v in bms], layout=layout,
+                          device="cpu")
+    for c in jcols.values():
+        jds.attach_column(c)
+    for c in tcols.values():
+        tds.attach_column(c)
+    return jds, jcols, tds, tcols, ids
+
+
+def _same_planes(jc, tc):
+    assert (jc.version, jc.structure_version, jc.depth, jc.depth_pad) == (
+        tc.version, tc.structure_version, tc.depth, tc.depth_pad)
+    assert (jc.min_value, jc.max_value) == (tc.min_value, tc.max_value)
+    assert np.array_equal(jc.keys, tc.keys)
+    assert np.array_equal(jc.ebm_np, tc.ebm_np)
+    assert np.array_equal(jc.slices_np, tc.slices_np)
+
+
+def _value_queries(m, col, vmax):
+    return [m.ExprQuery(m.and_(m.or_(0, 1), m.range_(col, vmax // 5,
+                                                      vmax // 2)),
+                        form="bitmap"),
+            m.ExprQuery(m.sum_(col, found=m.or_(1, 2))),
+            m.ExprQuery(m.top_k(col, 7, found=m.ref(3)), form="bitmap"),
+            m.ExprQuery(m.sum_(col))]
+
+
+@pytest.mark.parametrize("rung", RUNGS)
+def test_bsi_column_delta_matches_jax(rung):
+    """Upserts (one past the old depth) and removals through both packages:
+    the same planes, versions and answers; plans over the old planes
+    retire."""
+    jds, jcols, tds, tcols, ids = _delta_world()
+    jeng = JEngine(jds, result_cache=None)
+    teng = BatchEngine(tds, result_cache=None)
+    jq, tq = _value_queries(jexpr, "price", 9000), _value_queries(
+        texpr, "price", 9000)
+    _check(teng.execute(tq, engine=rung),
+           jeng.execute(jq, engine="xla", fallback=False), tq)
+    upserts = {int(ids[0]): 5, int(ids[7]): 123456, 99991: 40}
+    removes = [int(ids[3]), int(ids[4]), 131000]
+    a = jcols["price"].apply_delta(upserts, removes)
+    b = tcols["price"].apply_delta(upserts, removes)
+    assert a == b and b["structure_version"] == 1
+    _same_planes(jcols["price"], tcols["price"])
+    want = jeng.execute(jq, engine="xla", fallback=False)
+    _check(teng.execute(tq, engine=rung), want, tq)
+    _check(teng._execute_sequential(tq), want, tq)
+    a = jcols["price"].apply_delta((ids[10:14], [1, 2, 3, 4]))
+    b = tcols["price"].apply_delta((ids[10:14], [1, 2, 3, 4]))
+    assert a == b and b["version"] == 2
+    _check(teng.execute(tq, engine=rung),
+           jeng.execute(jq, engine="xla", fallback=False), tq)
+
+
+@pytest.mark.parametrize("rung", RUNGS)
+def test_range_column_delta_matches_jax(rung):
+    jds, jcols, tds, tcols, _ = _delta_world()
+    jeng = JEngine(jds, result_cache=None)
+    teng = BatchEngine(tds, result_cache=None)
+    jq, tq = _value_queries(jexpr, "ts", VMAX_RANGE), _value_queries(
+        texpr, "ts", VMAX_RANGE)
+    for updates in ({0: 7, 5: 0, 2999: VMAX_RANGE - 1}, {1: 3, 2: 3}):
+        a = jcols["ts"].apply_delta(updates)
+        b = tcols["ts"].apply_delta(updates)
+        assert a == b
+        _same_planes(jcols["ts"], tcols["ts"])
+        _check(teng.execute(tq, engine=rung),
+               jeng.execute(jq, engine="xla", fallback=False), tq)
+    for col in (jcols["ts"], tcols["ts"]):
+        with pytest.raises(IndexError):
+            col.apply_delta({3000: 1})
+        with pytest.raises(ValueError):
+            col.apply_delta({0: -1})
+
+
+def test_column_delta_drops_only_its_cache_entries():
+    from roaringbitmap_tpu.mutation import ResultCache as JCache
+    from roaringbitmap_tpu_torch.mutation import ResultCache
+
+    jds, jcols, tds, tcols, ids = _delta_world()
+    jc, tc = JCache(8 << 20), ResultCache(8 << 20)
+    jeng, teng = JEngine(jds, result_cache=jc), BatchEngine(tds,
+                                                            result_cache=tc)
+    tq = (_value_queries(texpr, "price", 9000)
+          + [texpr.ExprQuery(texpr.or_(0, 1), form="bitmap"),
+             texpr.ExprQuery(texpr.sum_("ts", found=texpr.ref(2)))])
+    jq = (_value_queries(jexpr, "price", 9000)
+          + [jexpr.ExprQuery(jexpr.or_(0, 1), form="bitmap"),
+             jexpr.ExprQuery(jexpr.sum_("ts", found=jexpr.ref(2)))])
+    _check(teng.execute(tq), jeng.execute(jq), tq)
+    assert tc.stats() == jc.stats() and tc.stats()["entries"] == 6
+    jcols["price"].apply_delta({int(ids[0]): 1})
+    tcols["price"].apply_delta({int(ids[0]): 1})
+    # the four entries that read "price" dropped; or_(0, 1) and the "ts"
+    # sum survive and hit, and or_(0, 1) also serves the first query's
+    # subtree
+    assert tc.stats() == jc.stats()
+    assert tc.stats()["entries"] == 2 and tc.stats()["invalidations"] == 4
+    _check(teng.execute(tq), jeng.execute(jq), tq)
+    assert tc.stats() == jc.stats() and tc.stats()["hits"] == 3
+    assert teng.plan(tq).exprs[0].n_cached == 1
 
 
 def test_value_entry_points_need_a_card(monkeypatch):

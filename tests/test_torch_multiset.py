@@ -327,7 +327,7 @@ def test_single_set_pool_routes_through_batch_engine(tenants):
     be = te._engines[1]
     got = te.execute([tms.BatchGroup(1, queries)])
     assert len(te._plans) == 0 and te.launch_count == 0
-    assert (tuple(queries), be._columns_token()) in be._plans
+    assert be.plan_key(queries) in be._plans
     assert [r.cardinality for r in got[0]] == \
         [r.cardinality for r in be.execute(queries)]
 

@@ -487,3 +487,81 @@ def test_pooled_proactive_split_within_the_model(dev, bitmaps):
         torch.cuda.reset_peak_memory_stats()
         ms._launch_once(sub, "cuda")
         assert torch.cuda.max_memory_allocated() - base <= pred <= budget
+
+
+# ------------------------------------------------------- mutable tenants
+
+def test_patch_writes_only_its_rows_in_place(dev, bitmaps):
+    """A delta patches the resident tensor in place: the same storage, the
+    touched rows changed as the host masks say, every other row as it was;
+    the result equals the host fold of the mutated sources."""
+    ds = DeviceBitmapSet(bitmaps[:16], layout="dense", device=dev)
+    words, ptr = ds.words, ds.words.data_ptr()
+    before = ds.words.clone()
+    srcs = [b.clone() for b in ds.host_bitmaps()]
+    adds = {0: srcs[0].to_array()[:5] ^ np.uint32(1), 3: [7, 11]}
+    removes = {5: srcs[5].to_array()[:40]}
+    rep = ds.apply_delta(adds=adds, removes=removes)
+    assert rep["mode"] == "patch"
+    assert ds.words is words and ds.words.data_ptr() == ptr
+    rows = ds._delta_journal[-1][1].astype(np.int64)
+    assert rows.size == rep["rows_patched"]
+    other = np.setdiff1d(np.arange(ds._n_rows), rows)
+    idx = torch.from_numpy(other).to(dev)
+    assert torch.equal(ds.words[idx], before[idx])
+    _, _, add, rem = ds._delta_journal[-1]
+    want = (to_u32(before[torch.from_numpy(rows).to(dev)]) | add) & ~rem
+    assert np.array_equal(to_u32(ds.words[torch.from_numpy(rows).to(dev)]),
+                          want)
+    for src, vals in adds.items():
+        srcs[src] = srcs[src] | RoaringBitmap.from_values(
+            np.asarray(vals, np.uint32))
+    for src, vals in removes.items():
+        srcs[src] = srcs[src] - RoaringBitmap.from_values(vals)
+    acc = srcs[0]
+    for b in srcs[1:]:
+        acc = acc | b
+    assert ds.aggregate("or") == acc
+
+
+def test_cache_entry_rows_live_on_the_card(dev, bitmaps):
+    from roaringbitmap_tpu_torch.mutation import ResultCache
+    from roaringbitmap_tpu_torch.parallel import expr
+
+    tc = ResultCache(64 << 20)
+    eng = BatchEngine(DeviceBitmapSet(bitmaps[:16], layout="dense",
+                                      device=dev), result_cache=tc)
+    eng.execute([expr.ExprQuery(expr.or_(0, 4), form="bitmap")])
+    (entry,) = tc._data.values()
+    assert entry.words.is_cuda and entry.words.dtype == torch.int32
+    assert entry.words.shape == (entry.keys.size, 2048)
+
+
+def test_injected_b5_plan_matches_torch(dev, bitmaps):
+    """A plan with a cached subtree injected runs as one B5 launch on the
+    card, equal to the same plan on the "torch" rung and to the host; the
+    entry's rows are unchanged after it."""
+    from roaringbitmap_tpu_torch.mutation import ResultCache
+    from roaringbitmap_tpu_torch.parallel import expr
+
+    tc = ResultCache(64 << 20)
+    ds = DeviceBitmapSet(bitmaps[:16], layout="dense", device=dev)
+    eng = BatchEngine(ds, result_cache=tc)
+    eng.execute([expr.ExprQuery(expr.or_(0, 4), form="bitmap")])
+    (entry,) = tc._data.values()
+    saved = entry.words.clone()
+    q = [expr.ExprQuery(expr.and_(expr.or_(0, 4), expr.not_(5)),
+                        form="bitmap"),
+         expr.ExprQuery(expr.xor(expr.or_(0, 4), expr.or_(6, 7)),
+                        form="bitmap")]
+    plan = eng.plan(q)
+    assert all(s.n_cached >= 1 for s in plan.exprs)
+    kernels.reset_launches()
+    got = eng.execute(q, engine="megakernel", fallback=False)
+    assert kernels.B5.launches == 1
+    want = eng.execute(q, engine="torch", fallback=False)
+    _same_results(got, want)
+    hosts = ds.host_bitmaps()
+    for qq, r in zip(q, got):
+        assert r.bitmap == expr.evaluate_host(qq.expr, hosts)
+    assert torch.equal(entry.words, saved)
