@@ -122,7 +122,29 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
     d. the first 1,024 bitmaps of 2 lifted as in 10a, 4 dense tenants: the
        Q 64 bitmap pool on pooled "cuda" equals the per-set loop, with
        ``Roaring64Bitmap`` results;
-12. mutable tenants, run after 11 and before 6:
+13. the compile vocabulary (``runtime.lattice``), run after 11 and before
+    12, on data the earlier phases built: each engine's traffic needs read
+    off its exact plans, a one-rung profile covering them printed, then
+    ``warmup(profile=...)`` (points, programs, captured graphs, wall, the
+    graph pool's bytes against the budget) and the sealed traffic as one
+    main-path call: no escape, no capture, every batch the replay of a
+    warmed graph, equal to the eager rung with no lattice, on samples to
+    the "torch" rung and the host; per engine one batch timed, graph
+    against eager (wall, host dispatch, device; medians of 5, warm; the
+    traced kernels; the padding); one batch past the vocabulary counted
+    as one escape and exact:
+    a. the set of 2: ``random_query_pool(4096, 64)`` at seeds 1-8 in both
+       forms (gather + B1 in graphs); then a set of its first 256 bitmaps
+       patched in place and replayed (equal to "torch"), and repacked (its
+       graphs retired, the pool's bytes released);
+    b. 7b's shard with 9's columns: two expression pools (prepared with
+       ``warmup(queries=...)`` before the seal: a novel DAG is a new
+       program) and 9a's value batches at new predicate values (warmed at
+       9a's), B5 in graphs; 7b's compact set: two pools, B3 + B5 in graphs;
+    c. 11a's 16 tenants: eight Q 64 pools at seeds 200-207 through
+       ``execute`` and ``execute_pipelined`` at depth 2 (pooled B1 and
+       the compact tenants' B3 in graphs);
+12. mutable tenants, run after 13 and before 6:
     a. 64 seeded deltas of ~100 adds and ~100 removes over 1-64 existing
        rows each (16 keys of the set of 2), patched in place: every 8th,
        or/xor (B2) and a flat batch (B1) equal to the "torch" engine; at
@@ -238,14 +260,18 @@ def same_results(got, want) -> bool:
         and g.bitmap == w.bitmap for g, w in zip(got, want))
 
 
-def value_pool(expr, price, ts, srcs) -> list:
+def value_pool(expr, price, ts, srcs, alt: int = 0) -> list:
     """Every predicate op on both column kinds, each composed with set
     algebra, then sum_ and top_k(k=100) roots over both columns (top_k in
     both result forms).  eq/neq compare with the stored value of a row of
-    source 0, and those queries keep source 0 in their found set."""
-    row = int(srcs[0].to_array()[len(srcs[0]) // 2])
+    source 0, and those queries keep source 0 in their found set.  ``alt``
+    > 0 gives the same queries at other predicate values: thresholds
+    scaled by (10 - alt) / 10, another row's stored value, k 100 - 7 alt."""
+    row = int(srcs[0].to_array()[len(srcs[0]) // (2 + alt)])
     p_at, t_at = int(price.host.get_value(row)[0]), int(ts.values[row])
-    pm, tm = PRICE_MAX, ts.max_value
+    pm = PRICE_MAX * (10 - alt) // 10
+    tm = ts.max_value * (10 - alt) // 10
+    k = 100 - 7 * alt
     preds = ([("price", op, v) for op, v in (
                  ("eq", p_at), ("neq", p_at), ("lt", pm // 3),
                  ("le", pm // 3), ("gt", pm // 2), ("ge", 2 * pm // 3),
@@ -269,12 +295,12 @@ def value_pool(expr, price, ts, srcs) -> list:
         expr.ExprQuery(expr.sum_("price", found=in_band)),
         expr.ExprQuery(expr.sum_("ts", found=expr.or_(2, 3))),
         expr.ExprQuery(expr.sum_("price")),
-        expr.ExprQuery(expr.top_k("price", 100, found=expr.or_(4, 5)),
+        expr.ExprQuery(expr.top_k("price", k, found=expr.or_(4, 5)),
                        form="bitmap"),
-        expr.ExprQuery(expr.top_k("price", 100, found=in_band)),
-        expr.ExprQuery(expr.top_k("ts", 100, found=expr.andnot(
+        expr.ExprQuery(expr.top_k("price", k, found=in_band)),
+        expr.ExprQuery(expr.top_k("ts", k, found=expr.andnot(
             expr.cmp("ts", "ge", tm // 2), expr.ref(6))), form="bitmap"),
-        expr.ExprQuery(expr.top_k("ts", 100, found=expr.or_(7, 8)))]
+        expr.ExprQuery(expr.top_k("ts", k, found=expr.or_(7, 8)))]
     return pool
 
 
@@ -599,9 +625,8 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
                       and (q.form != "bitmap" or r.bitmap == want))
             require(ok, f"11b: tenant {g.set_id} != the host oracle")
     pooled_e = ems._flatten(epool)[0]
-    dev_ms = median_ms(torch, lambda: ems._to_host(ems._run(eplan,
-                                                            "megakernel")))
-    outs = ems._to_host(ems._run(eplan, "megakernel"))
+    dev_ms = median_ms(torch, lambda: ems._program(eplan, "megakernel"))
+    outs = ems._program(eplan, "megakernel")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ems._readback(eplan, outs, pooled_e, "megakernel", False)
@@ -1198,6 +1223,387 @@ def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
         f"equals the per-set loop and the host fold")
     st = mut_delta.stats()
     log(f"  12: mutation counters {st}")
+
+
+def pow2(v: int) -> int:
+    return 1 << max(0, int(v) - 1).bit_length()
+
+
+def lattice_needs(buckets) -> tuple:
+    """(queries of the largest op, real rows of the largest query, keys of
+    the widest query) of an unsnapped plan's buckets: what a lattice point
+    must cover for the plan to snap."""
+    if not len(buckets):
+        return 1, 1, 1
+    per_op: dict = {}
+    for b in buckets:
+        per_op[b.op] = per_op.get(b.op, 0) + len(b.qids)
+    rows = max(int(b.host["valid"].sum(1).max()) for b in buckets)
+    keys = max(max((k.size for k in b.keys), default=1) for b in buckets)
+    return max(per_op.values()), rows, keys
+
+
+def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
+            tenants11) -> None:
+    """The compile vocabulary on the card: each engine warmed with
+    ``warmup(profile=...)`` (its lattice sealed, every program of the
+    vocabulary a captured CUDA graph), then post-seal traffic replayed
+    through the graphs with no escape, bit-equal to the eager rungs with no
+    lattice, on samples to the "torch" rung and the host; timings of one
+    batch an engine, graph against eager; one out-of-vocabulary batch (one
+    counted escape); a patch then a replay, and a repack retiring graphs.
+    13a phase 2's dense set, 13b 7b's shard with 9's columns and its
+    compact set, 13c 11a's 16 tenants."""
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet
+    from roaringbitmap_tpu_torch.ops import kernels
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import (
+        BatchEngine, BatchQuery, BatchResult, random_query_pool,
+        resolve_query_engine)
+    from roaringbitmap_tpu_torch.parallel.multiset import (
+        BatchGroup, MultiSetBatchEngine, random_multiset_pool)
+    from roaringbitmap_tpu_torch.runtime import guard
+    from roaringbitmap_tpu_torch.runtime import lattice as rt_lattice
+
+    b1, b3, b5 = kernels.B1.name, kernels.B3.name, kernels.B5.name
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    rt_lattice.deactivate()
+    rt_lattice.reset_stats()
+
+    def same_pool(got, want) -> bool:
+        return len(got) == len(want) and all(
+            same_results(g, w) for g, w in zip(got, want))
+
+    def off(fn):
+        """``fn()`` with no lattice active (the eager path); the sealed
+        lattice object, with its escape count, is put back after."""
+        lat = rt_lattice.active()
+        rt_lattice.deactivate()
+        try:
+            return fn()
+        finally:
+            if lat is not None:
+                rt_lattice.activate(lat)
+
+    def warm(label, engines, profile):
+        """warmup(profile=...) of each engine (the last seals the lattice
+        that all share); prints points, programs, graphs, wall and pools."""
+        for e in engines:
+            rep = e.warmup(profile=profile)
+            budget = rep["hbm_budget_bytes"]
+            require(rep["lattice"]["sealed"] and (
+                budget is None or rep["pool_bytes"] <= budget),
+                f"{label}: warmup not sealed within the budget: {rep}")
+            log(f"    {label} warmup: {rep['lattice']['points']} points, "
+                f"{rep['lattice']['compiled']} compiled, {rep['graphs']} "
+                f"graphs captured, {rep['wall_ms'] / 1e3:.2f} s, pool "
+                f"{rep['pool_bytes']} bytes (predicted peak "
+                f"{rep['predicted_pool_bytes']}), budget {budget} bytes "
+                f"[{card}]")
+        require(rt_lattice.sealed_active(), f"{label}: lattice not sealed")
+
+    def replay_check(label, progs, run, want, kernels_want,
+                     same=same_pool):
+        """Post-seal traffic as one main-path call: no escape, no capture,
+        no eager run; results equal ``want``; each kernel in
+        ``kernels_want`` launched, by replays alone."""
+        before = [(p.captures, p.replays, p.eager) for p in progs]
+        e0 = rt_lattice.escape_total()
+        got = smoke.main_path(label, run)
+        after = [(p.captures, p.replays, p.eager) for p in progs]
+        replays = sum(a[1] - b[1] for a, b in zip(after, before))
+        require(rt_lattice.escape_total() == e0 == 0,
+                f"{label}: {rt_lattice.escape_total()} escapes "
+                f"{rt_lattice.escape_events()[-3:]}")
+        require(all(a[0] == b[0] and a[2] == b[2]
+                    for a, b in zip(after, before)) and replays > 0,
+                f"{label}: not every batch replayed a warmed graph")
+        if not same(got, want):
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if not same([g], [w])]
+            raise AssertionError(f"{label}: != the eager rung (batches "
+                                 f"{bad})")
+        for k in kernels_want:
+            require(smoke.last[k] > 0, f"{label}: {k} not launched by the "
+                    f"replays")
+        log(f"    {label}: {replays} graph replays, no escape, equal to the "
+            f"eager rung; launches "
+            f"{ {k: c for k, c in smoke.last.items() if c} }")
+        return got
+
+    def timing(label, execute, dispatch, plan):
+        """One batch, graph against eager: ``execute()`` (to host results)
+        and ``dispatch()`` (plan + copy-in + the replay call; eager: plan +
+        launches) timed as wall, host dispatch and device time (CUDA events
+        around ``dispatch``), medians of 5 warm; the traced kernel counts
+        and ``plan``'s padding fraction."""
+        def host_dev():
+            host, dev_ = [], []
+            dispatch()
+            for _ in range(5):
+                torch.cuda.synchronize()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                t0 = time.perf_counter()
+                dispatch()
+                host.append((time.perf_counter() - t0) * 1e3)
+                b.record()
+                b.synchronize()
+                dev_.append(a.elapsed_time(b))
+            return float(np.median(host)), float(np.median(dev_))
+
+        g_wall = median_ms(torch, execute)
+        g_host, g_dev = host_dev()
+        g_tr = traced(torch, execute)
+        e_wall = off(lambda: median_ms(torch, execute))
+        e_host, e_dev = off(host_dev)
+        e_tr = off(lambda: traced(torch, execute))
+        log(f"    {label} timing [{card}], medians of 5 warm: graph wall "
+            f"{g_wall:.3f} ms, host dispatch {g_host:.3f} ms, device "
+            f"{g_dev:.3f} ms; eager wall {e_wall:.3f} ms, host dispatch "
+            f"{e_host:.3f} ms, device {e_dev:.3f} ms; padding "
+            f"{plan.padding[1]:.4f} of the gathered rows ({plan.padding[0]} "
+            f"bytes)")
+        log(f"      graph (one replay a batch): traced {g_tr}")
+        log(f"      eager: traced {e_tr}")
+
+    def batch_timing(label, e, batch):
+        plan = e.plan(batch)
+        rung = e._bucket_engine(plan, resolve_query_engine(
+            "auto", batch, e.device), note=False)
+        timing(f"{label} ({len(batch)} queries on {rung})",
+               lambda: e.execute(batch),
+               lambda: e._program(e.plan(batch), rung), plan)
+
+    def oov(label, eng, batch, site, want):
+        """One batch past the vocabulary: exactly one escape at ``site``,
+        not in the vocabulary, exact."""
+        e0 = rt_lattice.escapes_by_site().get(site, 0)
+        got = eng.execute(batch)
+        if got and isinstance(got[0], list):     # a pool's groups
+            got = [r for rows in got for r in rows]
+        ev = rt_lattice.escape_events()[-1]
+        require(rt_lattice.escapes_by_site().get(site, 0) == e0 + 1
+                and ev["site"] == site and ev["in_vocabulary"] is False,
+                f"{label}: escape not counted once at {site}: {ev}")
+        require(same_results(got, want), f"{label}: != the host")
+        log(f"    {label}: one escape at {site} ({ev}), exact")
+
+    # ----------------------------------------------------------------- 13a
+    n = ds.n
+    eng = BatchEngine(ds, result_cache=None)
+    small = DeviceBitmapSet(bms[:256], layout="dense")
+    seng_ = BatchEngine(small, result_cache=None)
+    traffic = [[BatchQuery(q.op, q.operands, form=form)
+                for q in random_query_pool(n, 64, seed=s)]
+               for s in range(1, 9) for form in ("cardinality", "bitmap")]
+    need = np.max([lattice_needs(off(lambda b=b: eng.plan(b)))
+                   for b in traffic], axis=0)
+    prof_a = (f"q={pow2(need[0])},;rows={pow2(need[1])},;"
+              f"keys={pow2(need[2])},;heads=both")
+    log(f"  13a: phase 2's set ({n} bitmaps, K {ds.keys.size}); traffic "
+        f"needs q {need[0]}, rows {need[1]}, keys {need[2]}; profile "
+        f"{prof_a!r}")
+    want = [off(lambda b=b: eng.execute(b, engine="cuda")) for b in traffic]
+    warm("13a", [eng, seng_], prof_a)
+    got = replay_check("13a flat x16 batches", [eng._programs],
+                       lambda: [eng.execute(b) for b in traffic], want, [b1])
+    sample = traffic[1][:8]
+    require(same_results(got[1][:8], off(lambda: eng.execute(
+        sample, engine="torch")))
+            and all(r.bitmap == host_query(q, bms)
+                    for q, r in zip(sample, got[1][:8])),
+            "13a sample: != the torch rung or the host")
+    log("    13a: the first 8 of a bitmap batch equal the torch rung and the "
+        "host fold")
+    batch_timing("13a", eng, traffic[0])
+    big = [BatchQuery("or", (0, 1)) for _ in range(pow2(need[0]) + 1)]
+    card01 = host_query(big[0], bms).cardinality
+    oov("13a out of vocabulary", eng, big, "batch_engine",
+        [BatchResult(card01)] * len(big))
+    # 13 mutation: a patch then a replay; a repack retiring the graphs
+    pool_s = [BatchQuery(q.op, q.operands, form="bitmap")
+              for q in random_query_pool(256, 16, seed=seed + 13)]
+    seng_.execute(pool_s)
+    rng = np.random.default_rng(seed + 13)
+    hosts = bms[:256]
+    adds = {int(s): (hosts[s].to_array()[:40] ^ np.uint32(1)).tolist()
+            for s in rng.choice(256, 8, replace=False)}
+    removes = {int(s): hosts[s].to_array()[::7].tolist()
+               for s in rng.choice(256, 8, replace=False)}
+    rep = small.apply_delta(adds=adds, removes=removes)
+    require(rep["mode"] == "patch", f"13 patch: {rep}")
+    caps = seng_._programs.captures
+    got = seng_.execute(pool_s)
+    require(seng_._programs.captures == caps
+            and same_results(got, off(lambda: seng_.execute(
+                pool_s, engine="torch"))),
+            "13 patch then replay != the torch rung")
+    log(f"  13 patch: {rep['rows_patched']} rows patched in place, then the "
+        f"warmed graph replayed (no capture), equal to the torch rung")
+    g0, p0 = seng_._programs.graphs, seng_._programs.pool_bytes()
+    small.apply_delta(adds={0: [7, 8, 9]}, repack="always")
+    seng_._sync_with_ds()
+    g1, p1 = seng_._programs.graphs, seng_._programs.pool_bytes()
+    require(g0 > 0 and g1 == 0 and p1 < p0,
+            f"13 repack: graphs {g0} -> {g1}, pool {p0} -> {p1}")
+    got = seng_.execute(pool_s)
+    require(same_results(got, off(lambda: seng_.execute(
+        pool_s, engine="torch"))), "13 repack: != the torch rung")
+    log(f"  13 repack: graphs {g0} -> {g1}, pool {p0} -> {p1} bytes "
+        f"[{card}]; the next batch re-captured (an escape, counted) and "
+        f"equals the torch rung")
+    del eng, seng_, small, want, got
+    rt_lattice.deactivate()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 13b
+    e_b = BatchEngine(sds, result_cache=None)
+    x_b = BatchEngine(xsds, result_cache=None)
+    srcs = sbms
+    price, ts = sds.columns["price"], sds.columns["ts"]
+    cols = dict(sds.columns)
+
+    def host_results(batch):
+        out = []
+        for q in batch:
+            if expr.is_agg(q.expr):
+                card, value, bm = expr.evaluate_host_agg(q.expr, srcs, cols)
+            else:
+                bm = expr.evaluate_host(q.expr, srcs, cols)
+                card, value = bm.cardinality, None
+            out.append(BatchResult(card, bm if q.form == "bitmap" else None,
+                                   value))
+        return out
+
+    vb_old = fitting_batches(e_b, value_pool(expr, price, ts, srcs))
+    sizes = [len(b) for b, _ in vb_old]
+    vpool_new = value_pool(expr, price, ts, srcs, alt=1)
+    vb_new, i = [], 0
+    for k in sizes:
+        vb_new.append(vpool_new[i:i + k])
+        i += k
+    vb_old = [b for b, _ in vb_old]
+
+    def expr_pools(e, n_src):
+        out = []
+        for s in (seed + 131, seed + 132):
+            for q in (q_fit, q_fit // 2, q_fit // 4):
+                pool = expr.random_expr_pool(n_src, q, depth=2, seed=s,
+                                             form="bitmap") + fixed
+                if e.plan(pool).mega.fits():
+                    out.append(pool)
+                    break
+        return out
+
+    rt_lattice.activate("q=1024;rows=1024;keys=64;expr=4;bsi=64,;"
+                        "heads=both")
+    ep_s, ep_x = expr_pools(e_b, sds.n), expr_pools(x_b, xsds.n)
+    rt_lattice.deactivate()
+    needs = [lattice_needs(e.plan(b)) for e, bs in (
+        (e_b, ep_s + vb_old + vb_new), (x_b, ep_x)) for b in bs]
+    need = np.max(needs, axis=0)
+    prof_b = (f"q={pow2(need[0])},;rows={pow2(need[1])},;"
+              f"keys={pow2(need[2])},;heads=both;expr=4;bsi=64,")
+    log(f"  13b: 7b's shard (K {sds.keys.size}, columns price/ts) and its "
+        f"compact set of {xsds.n}; expression pools of "
+        f"{[len(p) for p in ep_s]} / {[len(p) for p in ep_x]} queries, "
+        f"{len(vb_new)} value batches at new predicate values; needs "
+        f"q {need[0]}, rows {need[1]}, keys {need[2]}; profile {prof_b!r}")
+    want_s = [off(lambda b=b: e_b.execute(b)) for b in ep_s + vb_new]
+    want_x = [off(lambda b=b: x_b.execute(b)) for b in ep_x]
+    # a novel DAG is a new program in both packages (an escape after the
+    # seal): the expression pools are warmed as prepared batches, and the
+    # value batches at phase 9's predicate values, before the seal
+    rt_lattice.activate(prof_b)
+    for b in ep_s + vb_old:
+        e_b.warmup(queries=b)
+    for b in ep_x:
+        x_b.warmup(queries=b)
+    warm("13b", [e_b, x_b], prof_b)
+    got = replay_check("13b shard expr + value batches", [e_b._programs],
+                       lambda: [e_b.execute(b) for b in ep_s + vb_new],
+                       want_s, [b5])
+    replay_check("13b compact expr", [x_b._programs],
+                 lambda: [x_b.execute(b) for b in ep_x], want_x, [b3, b5])
+    for b, g in ((ep_s[0][:8], got[0][:8]), (vb_new[0], got[len(ep_s)])):
+        require(same_results(g, off(lambda b=b: e_b.execute(
+            b, engine="torch"))) and same_results(g, host_results(b)),
+            "13b sample: != the torch rung or the host oracles")
+    log("    13b: the first 8 of an expression pool and the first value "
+        "batch equal the torch rung and the host oracles")
+    batch_timing("13b expr", e_b, ep_s[0])
+    batch_timing("13b value", e_b, vb_new[0])
+    over = [expr.ExprQuery(expr.or_(2 * i, 2 * i + 1))
+            for i in range(pow2(need[0]) + 1)]
+    oov("13b out of vocabulary", e_b, over, "batch_engine",
+        host_results(over))
+    del e_b, x_b
+    rt_lattice.deactivate()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 13c
+    sets, tbms = tenants11[0], tenants11[1]
+    ms = MultiSetBatchEngine(sets, result_cache=None)
+
+    def host_pool(pool):
+        return [[BatchResult(host_query(q, tbms[g.set_id]).cardinality)
+                 for q in g.queries] for g in pool]
+
+    per = [s.n for s in sets]
+    pools = [random_multiset_pool(per, 64, seed=s, max_operands=8)
+             for s in range(200, 208)]
+    plans = [ms._plan_pool(ms._flatten(p)[0]) for p in pools]
+    need = np.max([lattice_needs(p.buckets) for p in plans], axis=0)
+    pool_need = max(max(r.size for r in p.row_sel.values())
+                    for p in plans) + 1
+    prof_c = (f"q={pow2(need[0])},;rows={pow2(need[1])},;"
+              f"keys={pow2(need[2])},;heads=cardinality;"
+              f"pool={pow2(pool_need)},")
+    log(f"  13c: 11a's {len(sets)} tenants; Q64 pools at seeds 200-207 need "
+        f"q {need[0]}, rows {need[1]}, keys {need[2]}, pool {pool_need}; "
+        f"profile {prof_c!r}")
+    want = [off(lambda p=p: ms.execute(p)) for p in pools]
+    warm("13c", [ms], prof_c)
+    progs = [ms._programs] + [e._programs for e in ms._engines]
+    def same_pools(got, want) -> bool:
+        return len(got) == len(want) and all(
+            same_pool(g, w) for g, w in zip(got, want))
+
+    replay_check("13c execute x8", progs,
+                 lambda: [ms.execute(p) for p in pools], want, [b1, b3],
+                 same_pools)
+    pol = guard.GuardPolicy(pipeline_depth=2)
+    got = replay_check("13c execute_pipelined depth 2", progs,
+                       lambda: ms.execute_pipelined(pools, policy=pol), want,
+                       [b1, b3], same_pools)
+    log(f"    13c pipeline: {ms.last_pipeline}")
+    require(same_pool(got[0], off(lambda: ms.execute(pools[0],
+                                                      engine="torch")))
+            and same_pool(got[0], host_pool(pools[0])),
+            "13c sample: != the torch rung or the host")
+    log("    13c: the first pool equals the torch rung and the host fold")
+    pooled0 = ms._flatten(pools[0])[0]
+    timing("13c (one Q64 pooled launch on cuda)",
+           lambda: ms.execute(pools[0]),
+           lambda: ms._program(ms._plan_pool(pooled0), "cuda"),
+           ms._plan_pool(pooled0))
+    big = [BatchGroup(t, [BatchQuery("or", (0, 1))] * (pow2(need[0]) + 1))
+           for t in (0, 1)]
+    oov("13c out of vocabulary", ms, big, "multiset",
+        [r for rows in host_pool(big) for r in rows])
+    log(f"  13: escapes by site {rt_lattice.escapes_by_site()}; padding "
+        f"bytes by site {rt_lattice.padding_bytes_by_site()}, latest "
+        f"padded fraction {rt_lattice.padding_fraction_by_site()}")
+    del ms
+    rt_lattice.deactivate()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -2108,6 +2514,13 @@ def main() -> int:
     t_phase = time.perf_counter()
     tenants11 = phase11(smoke, bms, sbms, price, lift, args.seed)
     phase_time("phase 11", t_phase)
+
+    # ------------------------------------------------------------ phase 13
+    log("phase 13: the compile vocabulary (lattice warmup, sealed graphs)")
+    t_phase = time.perf_counter()
+    phase13(smoke, args.seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
+            tenants11)
+    phase_time("phase 13", t_phase)
 
     # ------------------------------------------------------------ phase 12
     log("phase 12: mutable tenants (deltas, repacks, the result cache)")

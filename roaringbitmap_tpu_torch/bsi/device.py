@@ -58,9 +58,27 @@ def _descending(slices):
     return (slices[i] for i in range(slices.shape[0] - 1, -1, -1))
 
 
+def _masks(bits) -> torch.Tensor:
+    """Device predicate bits int32[depth] -> per-slice word masks (0 or -1)."""
+    return -bits
+
+
 def oneil_scan(slices, ebm, bits):
     """One descending pass over base-2 slices -> (gt, lt, eq) words.
-    ``bits`` is the predicate's top-bit-first bit array."""
+    ``bits`` is the predicate's top-bit-first bit array: a host array
+    (the scan branches on each bit), or an int32 tensor on the slices'
+    device, for which the scan is branch-free (each bit becomes a word
+    mask), so that the predicate stays data in a captured program."""
+    if isinstance(bits, torch.Tensor):
+        m = _masks(bits)
+        gt = torch.zeros_like(ebm)
+        lt = torch.zeros_like(ebm)
+        eq = ebm
+        for i, w in enumerate(_descending(slices)):
+            lt = lt | (eq & ~w & m[i])
+            gt = gt | (eq & w & ~m[i])
+            eq = eq & ~(w ^ m[i])
+        return gt, lt, eq
     gt = torch.zeros_like(ebm)
     lt = torch.zeros_like(ebm)
     eq = ebm
@@ -81,6 +99,15 @@ def oneil_scan2(slices, ebm, bits_lo, bits_hi):
     gt1 = torch.zeros_like(ebm)
     lt2 = torch.zeros_like(ebm)
     eq1 = eq2 = ebm
+    if isinstance(bits_lo, torch.Tensor):
+        # branch-free over device bits, as in ``oneil_scan``
+        m1, m2 = _masks(bits_lo), _masks(bits_hi)
+        for i, w in enumerate(_descending(slices)):
+            gt1 = gt1 | (eq1 & w & ~m1[i])
+            eq1 = eq1 & ~(w ^ m1[i])
+            lt2 = lt2 | (eq2 & ~w & m2[i])
+            eq2 = eq2 & ~(w ^ m2[i])
+        return gt1, eq1, lt2, eq2
     for w, b1, b2 in zip(_descending(slices), bits_lo, bits_hi):
         if int(b1):
             eq1 = eq1 & w

@@ -4,7 +4,8 @@ in one C++ pass over the wire bytes, loaded with ctypes.
 ``stream_ingest.cpp`` is host code, the same source as the JAX package's
 native engine.  It is built with ``g++ -O3 -march=native -std=c++17
 -shared -fPIC`` at first use into ``_build/`` beside this file (listed in
-``.gitignore``), named by a hash of the source and a tag of the host CPU
+``.gitignore``; ``ROARING_TPU_COMPILE_CACHE`` names another directory,
+``runtime.warmup``), named by a hash of the source and a tag of the host CPU
 (a ``-march=native`` library must not be loaded on another CPU).
 ``ops.packing.pack_blocked_compact`` and ``pack_pairwise`` take it first for
 inputs that are all serialized bytes; their NumPy paths are its oracle.
@@ -68,9 +69,19 @@ def _cpu_tag() -> str:
     return f"{zlib.crc32(platform.machine().encode()):08x}"
 
 
+def build_dir() -> Path:
+    """Where the library is built and found: ``ROARING_TPU_COMPILE_CACHE``
+    when set (``runtime.warmup``), else ``BUILD_DIR``."""
+    from ..runtime import warmup
+
+    cache = warmup.compile_cache_dir()
+    return Path(cache) if cache else BUILD_DIR
+
+
 def library_path() -> Path:
     digest = hashlib.sha256(SRC.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"stream_ingest_{digest.hexdigest()[:12]}_{_cpu_tag()}.so"
+    return build_dir() / (f"stream_ingest_{digest.hexdigest()[:12]}_"
+                          f"{_cpu_tag()}.so")
 
 
 def build() -> Path:
@@ -78,7 +89,7 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     # compile to a process-unique name and rename: a process racing on the
     # same checkout never loads a half-written library
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")

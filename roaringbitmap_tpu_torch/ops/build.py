@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` compiles into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds).  The libraries go
-into ``_build/`` beside this file, named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.  A
+into ``_build/`` beside this file (or into ``ROARING_TPU_COMPILE_CACHE``,
+``runtime.warmup``), named by a hash of the source and the flags, so an
+edited source is rebuilt and an unchanged one is reused.  A
 source's compile-time sizes are passed as ``-D`` defines from
 :data:`DEFINES`, the one place they are written.  All
 missing libraries are built together, one ``nvcc`` for each source, started
@@ -57,11 +58,20 @@ def nvcc_flags(source: str) -> tuple:
                               in DEFINES.get(source, {}).items())
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and found: ``ROARING_TPU_COMPILE_CACHE``
+    when set (``runtime.warmup``), else ``BUILD_DIR``."""
+    from ..runtime import warmup
+
+    cache = warmup.compile_cache_dir()
+    return Path(cache) if cache else BUILD_DIR
+
+
 def library_path(source: str) -> Path:
     digest = hashlib.sha256(
         (CSRC / source).read_bytes() + " ".join(nvcc_flags(source)).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    return build_dir() / f"{Path(source).stem}-{digest}.so"
 
 
 def build(sources=SOURCES) -> dict[str, str]:
@@ -74,7 +84,7 @@ def build(sources=SOURCES) -> dict[str, str]:
         if out.exists():
             continue
         nvcc = nvcc or nvcc_path()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
             [nvcc, *nvcc_flags(src), "-o", str(tmp), str(CSRC / src)],

@@ -146,9 +146,14 @@ static_assert(0 < kDepth && kDepth <= kChunk,
 struct Banks { const uint32_t* p[3]; };
 
 __global__ void __launch_bounds__(kSliceWords)
-megakernel(const int4* __restrict__ stream, int steps, const Banks banks,
+megakernel(const int4* __restrict__ stream, int steps_cap,
+           const int* __restrict__ steps_dev, const Banks banks,
            uint32_t* __restrict__ out, int32_t* __restrict__ cards,
            uint32_t* take_part, int n_slots, int out_pad, int card_pad) {
+  // a captured launch reads its step count from the device, so that a
+  // graph replays any plan of its stream shape (the NOP padding past the
+  // count is never run)
+  const int steps = steps_dev ? min(steps_cap, __ldg(steps_dev)) : steps_cap;
   extern __shared__ __align__(16) int4 smem[];
   int4* recs = smem;
   // [kRecs][2] records, [kDepth][16] row words, [n_slots][16] slots
@@ -260,14 +265,16 @@ megakernel(const int4* __restrict__ stream, int steps, const Banks banks,
 
 // stream i32[steps_pad, 8] step-major (opc, dst, src, row, bank, orow, crow,
 // imm), of which the first steps records run (the rest is the stream's
-// power-of-two padding of NOPs); banks u32[rows, 2048]; out u32[out_pad,
-// 2048] and cards i32[card_pad, 128] zeroed by the caller; take_part
-// u32[2 * 128] scratch.  Launches 128 blocks of 16 threads cooperatively
-// with 32 kRecs + 64 D + (slots_pad + 1) * 64 bytes of dynamic shared
-// memory.
+// power-of-two padding of NOPs), or the first *steps_dev when steps_dev is
+// not null (a device int32, read by every block at its start); banks
+// u32[rows, 2048]; out u32[out_pad, 2048] and cards i32[card_pad, 128]
+// zeroed by the caller; take_part u32[2 * 128] scratch.  Launches 128
+// blocks of 16 threads cooperatively with 32 kRecs + 64 D + (slots_pad +
+// 1) * 64 bytes of dynamic shared memory.
 // Returns the CUDA error of the attribute call or the launch (0 on
 // success).
 extern "C" int rb_megakernel(const void* stream, int steps,
+                             const void* steps_dev,
                              const void* bank_a, const void* bank_b,
                              const void* bank_c, void* out, void* cards,
                              void* take_part, int slots_pad, int out_pad,
@@ -286,7 +293,8 @@ extern "C" int rb_megakernel(const void* stream, int steps,
       megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&s, &steps, &banks, &o, &cd, &tp,
+  const int* sd = static_cast<const int*>(steps_dev);
+  void* args[] = {&s, &steps, &sd, &banks, &o, &cd, &tp,
                   &n_slots, &out_pad, &card_pad};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(megakernel), dim3(kSlices),

@@ -85,7 +85,7 @@ B4 = CudaKernel("counts_segmented_reduce", "counts_reduce.cu",
                 "rb_counts_reduce", _ROW_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:334")
 B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
-                [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+                [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
                 "roaringbitmap_tpu/ops/megakernel.py:140")
 B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _P],

@@ -61,6 +61,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..runtime import lattice as rt_lattice
 from . import build, kernels, packing
 from .words import WORDS32, fold_u32, upload
 
@@ -223,20 +224,38 @@ class MegaPlan:
         order (one zero row when the plan reads no column)."""
         key = str(device)
         if key not in self._arrays:
-            stream = np.stack([self.host[k] for k in STREAM_KEYS], axis=1)
-            parts = []
-            for col in self.cols:
-                slices, ebm = col.device_operands()
-                parts += [slices.reshape(-1, WORDS32), ebm]
-            cols = (torch.cat(parts).to(device) if parts else
-                    torch.zeros((1, WORDS32), dtype=torch.int32,
-                                device=device))
             extra = self.host["extra"]
             extra = (torch.cat([upload(p, device) for p in extra])
                      if isinstance(extra, list) else upload(extra, device))
-            self._arrays[key] = {"stream": upload(stream, device),
-                                 "extra": extra, "cols": cols}
+            self._arrays[key] = {"stream": upload(self.stream_host(), device),
+                                 "extra": extra,
+                                 "cols": self.col_bank(device)}
         return self._arrays[key]
+
+    def stream_host(self) -> np.ndarray:
+        """The step-major stream int32[steps_pad, 8] on the host."""
+        return np.stack([self.host[k] for k in STREAM_KEYS], axis=1)
+
+    def col_bank(self, device) -> torch.Tensor:
+        """Bank 2 on ``device``: each column's slice planes and existence
+        rows in (section, slot) order, or one zero row."""
+        parts = []
+        for col in self.cols:
+            slices, ebm = col.device_operands()
+            parts += [slices.reshape(-1, WORDS32), ebm]
+        return (torch.cat(parts).to(device) if parts else
+                torch.zeros((1, WORDS32), dtype=torch.int32, device=device))
+
+    def operands(self, device) -> dict:
+        """The operand tree of a captured launch (``runtime.programs``):
+        the stream and bank 1 as host arrays where they are, bank 2 and
+        cached bank-1 rows as device tensors, and the step count."""
+        extra = self.host["extra"]
+        if isinstance(extra, list):
+            extra = torch.cat([upload(p, device) for p in extra])
+        return {"stream": self.stream_host(), "extra": extra,
+                "cols": self.col_bank(device),
+                "steps": np.array([self.n_steps], np.int32)}
 
     def check(self, bank_rows: tuple) -> None:
         """Raise StreamIndexError unless every step indexes inside the
@@ -727,10 +746,22 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
     slots_pad = packing.next_pow2(max(1, n_slots))
     out_pad = packing.next_pow2(n_out) if n_out else 0
     card_pad = packing.next_pow2(max(1, n_card))
+    n_real = len(em.ops)
+    if rt_lattice.active() is not None:
+        # the lattice snap at the stream level (the JAX package's
+        # megakernel.py:795-806): floor-quantizing the small end makes
+        # near-identical DAG variants share one stream shape; padded steps
+        # are NOPs on the dead slot, padded slots are unread shared memory
+        slots_pad = max(slots_pad, 4)
+        card_pad = max(card_pad, 8)
+        if out_pad:
+            out_pad = max(out_pad, 8)
+        while len(em.ops) < 16:
+            em.emit(NOP)
     host = em.finish(slots_pad, out_pad, card_pad)
     host["extra"] = extra
     return MegaPlan(
-        mode="full", n_steps=len(em.ops),
+        mode="full", n_steps=n_real,
         steps_pad=int(host["opc"].shape[0]),
         n_slots=n_slots, slots_pad=slots_pad,
         out_pad=out_pad, card_pad=card_pad, host=host,
@@ -788,9 +819,11 @@ def _outputs(mega: MegaPlan, device):
 
 
 def raw_call_plain(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
-                   bank_c: torch.Tensor):
-    """Plain version of B5: the stream as a Python loop of tensor ops, in
-    order.  Returns (out int32[out_pad, 2048], card partials
+                   bank_c: torch.Tensor, stream: torch.Tensor | None = None,
+                   steps_dev: torch.Tensor | None = None):
+    """Plain version of B5: the plan's stream (or ``stream``, its first
+    ``steps_dev`` records, as ``raw_call`` takes them) as a Python loop of
+    tensor ops, in order.  Returns (out int32[out_pad, 2048], card partials
     int32[card_pad, SLICES]).  TAKE sums its counter slot as int32 with
     wrap-around (mod 2^32, compared signed), ACC_POP is a u32 add."""
     mega.check((bank_a.shape[0], bank_b.shape[0], bank_c.shape[0]))
@@ -801,7 +834,11 @@ def raw_call_plain(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
     banks = (bank_a, bank_b, bank_c)
     # the steps past n_steps are the power-of-two padding: NOPs on the
     # dead slot and dead rows
-    cols = [mega.host[k][:mega.n_steps].tolist() for k in STREAM_KEYS]
+    if stream is None:
+        cols = [mega.host[k][:mega.n_steps].tolist() for k in STREAM_KEYS]
+    else:
+        n = mega.n_steps if steps_dev is None else int(steps_dev[0])
+        cols = stream[:n].T.tolist()
     for opc, dst, src, row, bank, orow, crow, imm in zip(*cols):
         cur = acc[dst]
         srcv = acc[src]
@@ -862,7 +899,8 @@ def _check_bank(name: str, t: torch.Tensor) -> None:
 
 
 def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
-             bank_c: torch.Tensor):
+             bank_c: torch.Tensor, stream: torch.Tensor | None = None,
+             steps_dev: torch.Tensor | None = None):
     """B5: run the plan's instruction stream over the three row banks
     (int32[rows, 2048] each) -> (out int32[out_pad, 2048], card partials
     int32[card_pad, SLICES]).  CPU tensors take the plain version; CUDA
@@ -870,24 +908,35 @@ def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
     raise.  The kernel runs the ``n_steps`` real steps of the stream and
     skips its NOP padding.  Every index of the stream is checked against
     the banks once per plan and bank shape; the kernel never reads out of
-    range."""
+    range.
+
+    A captured launch (``runtime.programs``) replays other plans of the
+    same stream shape: it passes its static ``stream`` (int32[steps_pad,
+    8]) and ``steps_dev`` (a device int32[1] holding the step count, read
+    by the kernel), which the replay refills, so no plan's scalar is baked
+    into the graph."""
     for name, t in (("bank_a", bank_a), ("bank_b", bank_b),
                     ("bank_c", bank_c)):
         _check_bank(name, t)
     if not kernels._on_cuda(bank_a, bank_b, bank_c):
-        return raw_call_plain(mega, bank_a, bank_b, bank_c)
+        return raw_call_plain(mega, bank_a, bank_b, bank_c, stream,
+                              steps_dev)
     mega.check((bank_a.shape[0], bank_b.shape[0], bank_c.shape[0]))
     if mega.slots_pad + 1 > MAX_SLOTS:
         raise ValueError(
             f"megakernel plan needs {mega.slots_pad + 1} slots; one block "
             f"holds {MAX_SLOTS}")
     dev = bank_a.device
-    stream = mega.device_arrays(dev)["stream"]
+    if stream is None:
+        stream = mega.device_arrays(dev)["stream"]
     out, cards = _outputs(mega, dev)
     take = torch.zeros(2 * SLICES, dtype=torch.int32, device=dev)
     kernels.B5.launch(
-        stream.data_ptr(), mega.n_steps, bank_a.data_ptr(),
-        bank_b.data_ptr(), bank_c.data_ptr(), out.data_ptr(),
+        stream.data_ptr(),
+        mega.n_steps if steps_dev is None else mega.steps_pad,
+        None if steps_dev is None else steps_dev.data_ptr(),
+        bank_a.data_ptr(), bank_b.data_ptr(), bank_c.data_ptr(),
+        out.data_ptr(),
         cards.data_ptr(), take.data_ptr(), mega.slots_pad, mega.out_pad,
         mega.card_pad, kernels._stream())
     return out, cards
@@ -919,12 +968,17 @@ def _slice_outputs(mega: MegaPlan, out_rows, card_rows):
     return outs, expr_outs
 
 
-def eval_full(mega: MegaPlan, words: torch.Tensor):
+def eval_full(mega: MegaPlan, words: torch.Tensor, arrs: dict | None = None):
     """Full-mode evaluation over the resident row image ``words`` (bank 0),
     the ad-hoc rows (bank 1) and the column planes (bank 2): one B5
-    launch, then the outputs sliced per bucket and section."""
-    arrs = mega.device_arrays(words.device)
-    out_rows, card_rows = raw_call(mega, words, arrs["extra"], arrs["cols"])
+    launch, then the outputs sliced per bucket and section.  ``arrs``
+    defaults to the plan's own device arrays; a captured program passes
+    its static ones (with ``"steps"``, the device step count)."""
+    if arrs is None:
+        arrs = mega.device_arrays(words.device)
+    out_rows, card_rows = raw_call(mega, words, arrs["extra"], arrs["cols"],
+                                   stream=arrs["stream"],
+                                   steps_dev=arrs.get("steps"))
     return _slice_outputs(mega, out_rows, card_rows)
 
 

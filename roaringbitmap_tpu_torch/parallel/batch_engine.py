@@ -42,6 +42,13 @@ Rungs (``engine``):
 Compact and counts sets rebuild the row image first: B3 on the "cuda" and
 "megakernel" rungs, the plain scatter on "torch".
 
+Programs and the lattice (``runtime.lattice``, ``runtime.programs``): the
+device part of a plan runs through the engine's program cache.  Under an
+active lattice a plan snaps to its covering point and replays its
+signature's program, on the card a captured CUDA graph; an unsnapped plan
+runs eagerly.  ``warmup(profile=...)`` prepares the whole vocabulary and
+seals it: a new program after the seal is a counted escape.
+
 ``execute`` runs a batch under ``runtime.guard`` down ``ENGINES`` from the
 rung above: on the CPU with the per-query host fold as the last rung, on
 the card over the kernel rungs alone (see ``BatchEngine.execute``).  A set of ``Roaring64Bitmap``s (u64 keys) gives
@@ -64,6 +71,9 @@ from ..mutation import result_cache as mut_cache
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, to_u32
 from ..runtime import errors, faults, guard
+from ..runtime import lattice as rt_lattice
+from ..runtime import programs as rt_programs
+from ..runtime import warmup as rt_warmup
 from ..runtime.cache import LRUCache
 from . import expr as expr_mod
 from .aggregation import DeviceBitmapSet, _engine
@@ -76,6 +86,9 @@ ENGINES = ("megakernel", "cuda", "torch")
 #: cap of the prepared-plan cache: novel query shapes must not grow a
 #: long-lived server without bound
 PLAN_CACHE_MAX = 256
+
+#: the guard and lattice site of single-set batches
+SITE = "batch_engine"
 
 
 def query_desc(q) -> str:
@@ -155,12 +168,22 @@ class _Bucket:
         return self._arrays[key]
 
 
-def plan_bucket(op: str, items) -> _Bucket:
+def plan_bucket(op: str, items, pad_to=None) -> _Bucket:
     """Build one bucket from ``items``: [(qid, query, gather_rows,
-    seg_local, keys_q, key_keep, head_rows)] sharing (op, operand rung)."""
+    seg_local, keys_q, key_keep, head_rows)] sharing (op, operand rung).
+
+    ``pad_to`` is the lattice snap (``runtime.lattice``): a ``(q, rows,
+    keys, heads)`` covering point every bucket of the plan pads up to, with
+    the same dead queries, rows and slots the pow2 padding makes, so the
+    bucket's shape comes from the closed vocabulary.  ``n_steps`` then
+    follows the padded row rung (extra doubling passes are exact)."""
     qn = packing.next_pow2(len(items))
     r_pad = packing.next_pow2(max(1, max(it[2].size for it in items)))
     k_pad = packing.next_pow2(max(1, max(it[4].size for it in items)))
+    force_heads = False
+    if pad_to is not None:
+        q_l, r_l, k_l, force_heads = pad_to
+        qn, r_pad, k_pad = max(qn, q_l), max(r_pad, r_l), max(k_pad, k_l)
     gather = np.zeros((qn, r_pad), np.int32)
     valid = np.zeros((qn, r_pad), bool)
     seg_local = np.full((qn, r_pad), k_pad, np.int32)
@@ -199,21 +222,83 @@ def plan_bucket(op: str, items) -> _Bucket:
         host["head_ok"] = head_ok
     return _Bucket(
         op=op, qids=[it[0] for it in items], keys=[it[4] for it in items],
-        q=qn, r_pad=r_pad, k_pad=k_pad, n_steps=dense.n_steps_for(max_group),
-        needs_words=any(it[1].form == "bitmap" for it in items), host=host)
+        q=qn, r_pad=r_pad, k_pad=k_pad,
+        n_steps=dense.n_steps_for(r_pad if pad_to is not None
+                                  else max_group),
+        needs_words=(force_heads
+                     or any(it[1].form == "bitmap" for it in items)),
+        host=host)
+
+
+def snap_plan_groups(lat, groups, sections, has_bitmap: bool, counter,
+                     empty_keys, placement: str = "auto", pool: int = 0):
+    """Lattice snap of a grouped plan (shared by the engines): the covering
+    ``ProgramSignature`` of the concrete needs, and one DEAD bucket per op
+    of the covering op set that traffic did not request (an owner-less
+    all-padding pseudo query, which readback skips), so that the plan's
+    buckets follow from the point alone.  Returns ``(pad_to, point)``, or
+    ``(None, None)`` when no lattice is active or a dimension is beyond the
+    vocabulary.  ``pool`` is the pooled engine's per-set row-selection need
+    (< 0: not coverable).  Every dimension is judged before any dead
+    bucket is planted, so a refused snap leaves the plan as it was."""
+    if lat is None or not groups or pool < 0:
+        return None, None
+    q_need = max(len(items) for items in groups.values())
+    rows_need = max((it[2].size for items in groups.values()
+                     for it in items), default=1)
+    keys_need = max((it[4].size for items in groups.values()
+                     for it in items), default=1)
+    expr_depth = max((sec.depth for sec in sections
+                      if sec.kind == "fused"), default=0)
+    point = lat.snap(ops=[op for op, _ in groups], q=q_need,
+                     rows=rows_need, keys=keys_need, heads=has_bitmap,
+                     expr=expr_depth, placement=placement, pool=pool,
+                     bsi=expr_mod.value_depth_of(sections))
+    if point is None:
+        return None, None
+    for op in point.ops:
+        if (op, 0) in groups:
+            continue
+        pid = counter[0]
+        counter[0] += 1
+        groups[(op, 0)] = [(
+            pid, BatchQuery(op, ()), np.empty(0, np.int64),
+            np.empty(0, np.int32), empty_keys,
+            np.empty(0, bool) if op == "and" else None,
+            np.empty(0, np.int64) if op == "andnot" else None)]
+    return (point.q, point.rows, point.keys, point.heads), point
+
+
+def plan_padding(buckets, groups) -> tuple:
+    """(padding_bytes, padded_fraction) of a snapped plan: the gather rows
+    the padded bucket shapes stream beyond the rows traffic referenced,
+    the measured price of the bounded vocabulary."""
+    real = sum(it[2].size for items in groups.values() for it in items)
+    padded = sum(b.q * b.r_pad for b in buckets)
+    pad_rows = max(0, padded - real)
+    return pad_rows * insights.ROW_BYTES, pad_rows / max(1, padded)
 
 
 class BatchPlan(list):
     """A bucketed batch plan (a list of buckets) with the expression
     sections, the owner map (pseudo-query id -> query index, absent for
-    internal reduce nodes) and the assembled megakernel program (None when
-    the plan has no fused section)."""
+    internal reduce nodes and dead lattice buckets), the assembled
+    megakernel program (None when the plan has no fused section), the
+    covering lattice point (None: exact shapes) with its padding
+    ``(bytes, fraction)``, and the operand packs by rung."""
 
-    def __init__(self, buckets=(), exprs=(), owner=None, mega=None):
+    def __init__(self, buckets=(), exprs=(), owner=None, mega=None,
+                 point=None, padding=(0, 0.0)):
         super().__init__(buckets)
         self.exprs = list(exprs)
         self.owner = owner if owner is not None else {}
         self.mega = mega
+        self.point = point
+        self.padding = padding
+        #: by rung: operand packs, static program-key parts, predicted bytes
+        self.packs: dict = {}
+        self.keys: dict = {}
+        self.predicted: dict = {}
 
     @property
     def fused(self) -> list:
@@ -293,7 +378,11 @@ class BatchEngine:
         #: (query, set version, columns) -> result-cache key
         self._qkeys = LRUCache(1024, name="batch_cache_keys")
         self._plans = LRUCache(PLAN_CACHE_MAX, name="batch_plans")
+        #: the programs (captured graphs on the card) by program key
+        self._programs = rt_programs.ProgramCache(self.device, SITE)
         self.last_timings: dict = {}
+        #: predicted bytes and lattice padding of the latest dispatch
+        self.last_dispatch_memory: dict | None = None
         #: batches halved on ResourceExhausted (reactive splits)
         self.split_count = 0
         #: batches halved before dispatch, predicted past the budget
@@ -311,14 +400,18 @@ class BatchEngine:
 
     def _sync_with_ds(self) -> None:
         """Pick up the set's mutations: after a repack (a new structure
-        version) the row maps are read again.  Patches change nothing here:
-        the plan key's version retires the plans they outdate."""
+        version) the row maps are read again and every program is retired
+        (its graph read the old image).  Patches change nothing here: the
+        plan key's version retires the plans they outdate, and a graph
+        reads the patched image in place."""
         ds = self._ds
         if ds.structure_version != self._ds_structure:
             self._ds_structure = ds.structure_version
             self.keys = ds.keys
             self._row_src = ds.row_src
             self._row_seg = ds.row_seg
+            # the graphs read the old image or streams by address
+            self._programs.retire()
 
     def _leaf_token(self, i: int):
         """Result-cache token of source ``i``: (set uid, source, source
@@ -410,8 +503,15 @@ class BatchEngine:
         Expression queries expand here: their all-leaf reduce nodes become
         pseudo flat queries in the same buckets, their combine and value
         steps compile into sections, and a plan with fused sections also
-        assembles its megakernel stream."""
+        assembles its megakernel stream.
+
+        Under an active lattice (``runtime.lattice``) same-op queries share
+        one bucket whatever their operand rung, and the plan snaps to its
+        covering point: every bucket pads to the point's shape and absent
+        ops of its op set get dead buckets (``plan.point``,
+        ``plan.padding``)."""
         self._sync_with_ds()
+        lat = rt_lattice.active()
         key = self.plan_key(queries)
         cached = self._plans.get(key)
         if cached is not None:
@@ -429,7 +529,11 @@ class BatchEngine:
             pid = counter[0]
             counter[0] += 1
             rows, segs, keys_q, keep, hrows = self._plan_query(pq)
-            rung = packing.next_pow2(max(1, len(set(pq.operands))))
+            # under a lattice same-op queries share ONE bucket: the rung
+            # split limits padding, which the lattice trades for a closed
+            # signature space
+            rung = (0 if lat is not None
+                    else packing.next_pow2(max(1, len(set(pq.operands)))))
             groups.setdefault((pq.op, rung), []).append(
                 (pid, pq, rows, segs, keys_q, keep, hrows))
             if own is not None:
@@ -443,20 +547,29 @@ class BatchEngine:
                     cache_probe=cache_probe, col_resolve=self._column))
             else:
                 add_item(q, qid)
-        buckets = [plan_bucket(op, items)
+        pad_to, point = snap_plan_groups(
+            lat, groups, sections,
+            any(getattr(q, "form", None) == "bitmap" for q in queries),
+            counter, self.keys[:0], placement="single")
+        buckets = [plan_bucket(op, items, pad_to=pad_to)
                    for (op, _), items in sorted(groups.items())]
+        padding = (plan_padding(buckets, groups) if point is not None
+                   else (0, 0.0))
         expr_mod.finalize_sections(sections, buckets)
         mega = (megakernel.build_full(buckets, sections)
                 if expr_mod.fused_of(sections) else None)
-        plan = BatchPlan(buckets, exprs=sections, owner=owner, mega=mega)
+        plan = BatchPlan(buckets, exprs=sections, owner=owner, mega=mega,
+                         point=point, padding=padding)
         self._plans.put(key, plan)
         return plan
 
     def plan_key(self, queries) -> tuple:
-        """The plan cache's key of ``queries`` at the set's current state."""
+        """The plan cache's key of ``queries`` at the set's current state
+        and lattice (``rt_lattice.plan_token``: a snapped and an exact plan
+        of the same queries never alias)."""
         ds = self._ds
         return (tuple(queries), ds.version, ds.structure_version,
-                self._columns_token())
+                self._columns_token(), rt_lattice.plan_token())
 
     # ------------------------------------------------------------ execution
 
@@ -478,21 +591,110 @@ class BatchEngine:
         the compact streams (B3 on the kernel rungs)."""
         return self._ds._resident_words("torch" if eng == "torch" else "cuda")
 
-    def _run(self, plan: BatchPlan, eng: str):
-        """The device part of a batch -> (bucket outs, expr outs)."""
+    def _operands(self, plan: BatchPlan, eng: str, packed: bool) -> dict:
+        """The device part's operand tree: the plan's cached device arrays
+        (``packed=False``, the eager path), or its host arrays for an
+        operand pack (``runtime.programs``)."""
+        dev = self.device
+        if eng == "megakernel":
+            return {"m": (plan.mega.operands(dev) if packed
+                          else plan.mega.device_arrays(dev))}
+        fused = plan.fused
+        return {
+            "b": [b.host if packed else b.device_arrays(dev) for b in plan],
+            "s": [sec.host if packed else sec.device_arrays(dev)
+                  for sec in fused],
+            "c": [[c.device_operands() for c in sec.cols] for sec in fused]}
+
+    def _run(self, plan: BatchPlan, eng: str, ops: dict,
+             static: bool = False):
+        """The device part of a batch over the operand tree ``ops`` ->
+        (bucket outs, expr outs).  ``static``: the operands are a program's
+        (value scans then read their predicates from them)."""
         words = self._words(eng)
         if eng == "megakernel":
-            return megakernel.eval_full(plan.mega, words)
+            # B5's two output blocks; ``_program`` slices them per bucket
+            # and section once they are copied out
+            m = ops["m"]
+            return megakernel.raw_call(plan.mega, words, m["extra"],
+                                       m["cols"], stream=m["stream"],
+                                       steps_dev=m.get("steps"))
         feeding = expr_mod.expr_bucket_ids(plan.exprs)
         outs, heads_by_bi = [], []
         for bi, b in enumerate(plan):
-            heads, cards = bucket_body(words, b.signature,
-                                       b.device_arrays(self.device), eng)
+            heads, cards = bucket_body(words, b.signature, ops["b"][bi], eng)
             # keep only the heads a combine step reads or a query returns
             heads_by_bi.append(heads if bi in feeding else None)
             outs.append((heads if b.needs_words else None, cards))
-        expr_outs = expr_mod.eval_sections(plan.fused, words, heads_by_bi)
+        expr_outs = expr_mod.eval_sections(
+            plan.fused, words, heads_by_bi,
+            ops["s"] if static else None, ops["c"] if static else None)
         return outs, expr_outs
+
+    def _program_key(self, plan: BatchPlan, eng: str, layout) -> tuple:
+        """The program of a plan on a rung: the JAX package's key (rung,
+        resident kind, set uid and structure version, bucket and expression
+        signatures, the stream's shape on "megakernel"; built once per plan
+        and rung), then the program cache's generation and the operand
+        pack's layout."""
+        key = plan.keys.get(eng)
+        if key is None:
+            ds = self._ds
+            key = (eng, self._resident_kind(), ds.uid, ds.structure_version,
+                   tuple(b.signature for b in plan), plan.expr_signature)
+            if eng == "megakernel":
+                key += (plan.mega.signature,)
+            plan.keys[eng] = key
+        return key + (self._programs.generation, layout)
+
+    def _pack(self, plan: BatchPlan, eng: str) -> rt_programs.OperandPack:
+        pack = plan.packs.get(eng)
+        if pack is None:
+            pack = plan.packs[eng] = rt_programs.pack_operands(
+                self._operands(plan, eng, packed=True), self.device)
+        return pack
+
+    def _program(self, plan: BatchPlan, eng: str, run: bool = True):
+        """The device part of a plan through its program.  A snapped plan
+        runs as the replay of its signature's program (captured on first
+        use); an unsnapped one runs eagerly, its first run reported as a
+        new program.  ``run=False`` only prepares the program (warmup).
+        Returns the device part's outputs (copied out of a graph, so they
+        are read after a synchronize; ``_slice`` makes B5's per bucket and
+        section), or None."""
+        if plan.point is None:
+            key = self._program_key(plan, eng, None)
+            if not run:
+                self._programs.note_eager(key, eng, None, 0.0)
+                return None
+            t0 = time.perf_counter()
+            outs = self._run(plan, eng, self._operands(plan, eng, False))
+            self._programs.note_eager(key, eng, None,
+                                      time.perf_counter() - t0)
+            return outs
+        pack = self._pack(plan, eng)
+        if eng == "megakernel":
+            # the replayed stream is this plan's: check it against the banks
+            m = plan.mega
+            m.check((self._ds._n_rows, m.extra_rows, max(1, m.col_rows)))
+        key = self._program_key(plan, eng, pack.layout)
+
+        def device_part(ops, plan=plan):
+            return self._run(plan, eng, ops, static=True)
+
+        if not run:
+            self._programs.prepare(key, eng, plan.point, device_part, pack)
+            return None
+        return self._programs.dispatch(key, eng, plan.point, device_part,
+                                       pack)
+
+    @staticmethod
+    def _slice(plan: BatchPlan, eng: str, outs):
+        """(bucket outs, expr outs): B5's output blocks sliced per bucket
+        and section (other rungs' outputs are already so)."""
+        if eng == "megakernel":
+            return megakernel._slice_outputs(plan.mega, *outs)
+        return outs
 
     def execute(self, queries, engine: str = "auto", fallback: bool = True,
                 policy: guard.GuardPolicy | None = None
@@ -605,9 +807,11 @@ class BatchEngine:
         results: list = [None] * len(queries)
         bucket_outs, expr_outs = [], []
         if plan or plan.fused:
-            bucket_outs, expr_outs = self._run(plan, eng)
+            outs = self._program(plan, eng)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
+            bucket_outs, expr_outs = self._slice(plan, eng, outs)
+            self._record_dispatch(plan, eng, len(queries))
         t2 = time.perf_counter()
         for b, (heads, cards) in zip(plan, bucket_outs):
             cards = cards.cpu().numpy()
@@ -637,6 +841,19 @@ class BatchEngine:
                 results[0], cardinality=results[0].cardinality + 1)
         return results
 
+    def _record_dispatch(self, plan: BatchPlan, eng: str, q: int) -> None:
+        """``last_dispatch_memory`` of a dispatch: the rung, the queries, the
+        predicted bytes and, for a snapped plan, the lattice padding (also
+        counted by site in ``runtime.lattice``)."""
+        mem = {"engine": eng, "q": q,
+               "predicted_bytes": self._predict_plan(plan, eng)}
+        if plan.point is not None:
+            pb, pf = plan.padding
+            mem["lattice_padding_bytes"] = int(pb)
+            mem["lattice_padding_fraction"] = round(pf, 6)
+            rt_lattice.record_padding(SITE, int(pb), pf)
+        self.last_dispatch_memory = mem
+
     def _shadow_check(self, queries, results, policy) -> None:
         """Re-run a sampled share of the batch on the host rung; raise
         ``ShadowMismatch`` on a divergence (the silent-corruption
@@ -661,6 +878,171 @@ class BatchEngine:
                 raise errors.ShadowMismatch(
                     f"batch_engine query {i} ({query_desc(queries[i])}) "
                     f"diverged from the sequential reference: {detail}")
+
+    # ---------------------------------------------------------- warmup
+
+    def _rung_queries(self, rung: int, ops) -> list:
+        """Representative queries of one pow2 operand rung: each op over the
+        first ``rung`` residents."""
+        k = max(1, min(int(rung), self.n))
+        return [BatchQuery(op, tuple(range(k))) for op in ops]
+
+    def _prepare_batch(self, batch, engine: str) -> list:
+        """Plan ``batch`` and prepare its program on the rung ``engine``
+        resolves to, and on "megakernel" too where its plan fits there (the
+        JAX package warms the top rung as well).  Returns the rungs."""
+        plan = self.plan(batch)
+        eng = self._bucket_engine(
+            plan, resolve_query_engine(engine, batch, self.device),
+            note=False)
+        engs = [eng]
+        if eng != "megakernel" and self._bucket_engine(
+                plan, "megakernel", note=False) == "megakernel":
+            engs.append("megakernel")
+        if plan or plan.fused:
+            for e in engs:
+                self._program(plan, e, run=False)
+        return engs
+
+    def _lattice_batches(self, lat, point) -> list:
+        """The representative batches of one lattice point (the JAX
+        package's): analytics shape-classes per attached column, expression
+        depths by ``rung_expressions``, flat points one query per op."""
+        if point.bsi:
+            return analytics_rung_queries(self._ds.columns, point.bsi,
+                                          self.n)
+        if point.expr:
+            return [expr_mod.rung_expressions(point.expr, self.n)]
+        return [[BatchQuery(op, (0,)) for op in point.ops]]
+
+    def _compile_lattice_points(self, lat, engine: str) -> int:
+        """Prepare every program of the single-set vocabulary: flat points
+        pin a representative batch to the TARGET shape (``Lattice.pin``),
+        expression and analytics shape-classes their representative DAGs
+        (signatures noted as warmed), delta rungs warm the patch path.
+        Returns the prepared-point count."""
+        points = lat.enumerate_points(pooled=False)
+        # the warmed vocabulary must fit the cache, or steady state would
+        # re-capture evicted programs as escapes
+        self._programs.maxsize = max(self._programs.maxsize,
+                                     2 * len(points) + 8)
+        compiled = 0
+        for point in points:
+            if point.delta:
+                self._ds.warmup_delta(point.delta)
+                compiled += 1
+                continue
+            with lat.pin(point):
+                for batch in self._lattice_batches(lat, point):
+                    plan = self.plan(batch)
+                    for sec in plan.exprs:
+                        lat.note_expr(sec.signature)
+                    self._prepare_batch(batch, engine)
+            compiled += 1
+        return compiled
+
+    def _check_pool_budget(self, lat, engine: str, budget) -> int:
+        """The predicted graph pool of the vocabulary: all graphs share one
+        pool and replay one at a time, so the largest predicted dispatch of
+        its representative plans (``insights``).  Past ``budget`` this
+        raises ``GraphPoolBudgetError``; returns the prediction."""
+        peak = 0
+        for point in lat.enumerate_points(pooled=False):
+            if point.delta:
+                continue
+            with lat.pin(point):
+                for batch in self._lattice_batches(lat, point):
+                    plan = self.plan(batch)
+                    eng = self._bucket_engine(plan, resolve_query_engine(
+                        engine, batch, self.device), note=False)
+                    peak = max(peak, self._predict_plan(plan, eng))
+        if budget is not None and peak > budget:
+            raise errors.GraphPoolBudgetError(
+                f"{SITE}: the lattice's predicted graph pool is {peak} "
+                f"bytes, past the budget of {budget}; narrow the profile")
+        return peak
+
+    def _lattice_report(self, site: str, lat, compiled: int, t0: float,
+                        predicted: int, budget, pooled: bool) -> dict:
+        progs = self._programs
+        return {"site": site,
+                "compile_cache_dir": str(rt_warmup.build_dir()),
+                "lattice": {"profile": lat.to_profile(),
+                            "points": lat.n_points(pooled=pooled),
+                            "compiled": compiled, "sealed": True},
+                "programs": [],
+                "graphs": progs.graphs,
+                "pool_bytes": progs.pool_bytes(),
+                "predicted_pool_bytes": int(predicted),
+                "hbm_budget_bytes": budget,
+                "wall_ms": round((time.perf_counter() - t0) * 1e3, 2)}
+
+    def _warmup_lattice(self, profile, engine: str) -> dict:
+        """``warmup(profile=...)``: activate the lattice, check its
+        predicted graph pool against the device-memory budget, prepare the
+        whole vocabulary (one graph per program on the card), then seal: a
+        new program after this is an escape."""
+        t0 = time.perf_counter()
+        lat = rt_lattice.activate(profile)
+        budget = guard.resolve_hbm_budget(None, self.device)
+        try:
+            predicted = self._check_pool_budget(lat, engine, budget)
+        except errors.GraphPoolBudgetError:
+            rt_lattice.deactivate()     # a refused vocabulary snaps nothing
+            raise
+        compiled = self._compile_lattice_points(lat, engine)
+        lat.seal()
+        return self._lattice_report(SITE, lat, compiled, t0, predicted,
+                                    budget, pooled=False)
+
+    def warmup(self, rungs=(1, 2, 4, 8),
+               ops=("or", "and", "xor", "andnot"),
+               engine: str = "auto", queries=None, profile=None) -> dict:
+        """Prepare the programs a known workload will use, so that a process
+        boots hot.  ``rungs`` plans one batch per pow2 operand rung over
+        every op (``"expr:N"`` an expression depth, ``"delta:N"`` a patch
+        rung); ``queries=`` prepares that exact batch instead.  Nothing is
+        dispatched for an unsnapped plan (it runs eagerly; its key is
+        registered); a snapped plan's graph is captured.  Returns a report
+        with the JAX package's keys; ``compile_cache_dir`` is the kernels'
+        build directory (``runtime.warmup``).
+
+        ``profile=`` is the closed-lattice boot (``runtime.lattice``):
+        activate the lattice the profile describes, prepare its whole
+        vocabulary, and seal it; the report adds the ``lattice`` dict,
+        ``graphs``, ``pool_bytes`` and the predicted pool, which must stay
+        within ``guard.resolve_hbm_budget`` (``ROARING_TPU_HBM_BUDGET``,
+        else the card's free memory) or ``GraphPoolBudgetError`` is
+        raised before anything is captured."""
+        rt_warmup.enable_compile_cache()
+        if profile is not None:
+            return self._warmup_lattice(profile, engine)
+        t0 = time.perf_counter()
+        programs = []
+        if queries is not None:
+            batches = [list(queries)]
+        else:
+            batches = []
+            for r in rungs:
+                kind, n = expr_mod.parse_warmup_rung(r)
+                if kind == "delta":
+                    rep = self._ds.warmup_delta(n)
+                    programs.append({"delta_rung": n, "engine": "mutation",
+                                     "compiled": rep["compiled"]})
+                    continue
+                batches.append(
+                    expr_mod.rung_expressions(n, self.n) if kind == "expr"
+                    else self._rung_queries(n, ops))
+        for batch in batches:
+            if not batch:
+                continue
+            plan = self.plan(batch)
+            for e in self._prepare_batch(batch, engine):
+                programs.append({"q": len(batch), "buckets": len(plan),
+                                 "engine": e})
+        return {"site": SITE, "compile_cache_dir": str(rt_warmup.build_dir()),
+                "programs": programs,
+                "wall_ms": round((time.perf_counter() - t0) * 1e3, 2)}
 
     def cardinalities(self, queries, engine: str = "auto") -> np.ndarray:
         """i64[Q] result cardinalities of one batch."""
@@ -713,7 +1095,9 @@ class BatchEngine:
         return [self._sequential_result(q) for q in queries]
 
     def cache_stats(self) -> dict:
-        return {"plans": self._plans.stats()}
+        return {"plans": self._plans.stats(),
+                "programs": self._programs.stats(),
+                "splits": self.split_count}
 
     # ------------------------------------------------------- footprint
 
@@ -731,12 +1115,19 @@ class BatchEngine:
         eng = self._bucket_engine(
             plan, resolve_query_engine(engine, queries, self.device),
             note=False)
-        total = insights.predict_batch_dispatch_bytes(
-            [b.signature for b in plan], self._resident_kind(),
-            self._ds._n_rows, eng)["peak_bytes"]
-        if plan.exprs:
-            total += insights.predict_expr_dispatch_bytes(
-                plan.expr_signature, eng)["peak_bytes"]
+        return self._predict_plan(plan, eng)
+
+    def _predict_plan(self, plan: BatchPlan, eng: str) -> int:
+        """The footprint model of a plan on a rung, once per plan."""
+        total = plan.predicted.get(eng)
+        if total is None:
+            total = insights.predict_batch_dispatch_bytes(
+                [b.signature for b in plan], self._resident_kind(),
+                self._ds._n_rows, eng)["peak_bytes"]
+            if plan.exprs:
+                total += insights.predict_expr_dispatch_bytes(
+                    plan.expr_signature, eng)["peak_bytes"]
+            plan.predicted[eng] = total
         return total
 
     def _split_layout(self, queries, eng: str, budget: int | None) -> list:
@@ -749,6 +1140,55 @@ class BatchEngine:
         mid = (len(queries) + 1) // 2
         return (self._split_layout(queries[:mid], eng, budget)
                 + self._split_layout(queries[mid:], eng, budget))
+
+
+def analytics_rung_queries(columns: dict, depth: int,
+                           n_residents: int) -> list:
+    """Representative one-query batches of one lattice ``bsi`` shape-class
+    (the JAX package's): per attached column whose padded depth the rung
+    covers, one batch per predicate class (cmp / range / filter fused with
+    set algebra) and the aggregate roots over them.  Predicate values sit
+    mid-domain, so that min/max pruning cannot collapse the scan away."""
+    out = []
+    for name, col in sorted(columns.items()):
+        if col.depth_pad > depth or not col.keys.size:
+            continue
+        mn, mx = col.min_value, col.max_value
+        if mx > mn:
+            mid = mn + (mx - mn) // 2
+            out.append([expr_mod.ExprQuery(expr_mod.cmp(name, "le", mid))])
+            out.append([expr_mod.ExprQuery(
+                expr_mod.range_(name, mn + 1, mx))])
+            if n_residents:
+                # a ref leaf lowers as a "leaf" gather step, a set reduce as
+                # a "reduce" step: both found-set spellings are warmed
+                founds = [expr_mod.and_(
+                    expr_mod.ref(0), expr_mod.range_(name, mn + 1, mx))]
+                if n_residents >= 2:
+                    founds.append(expr_mod.and_(
+                        expr_mod.or_(0, 1),
+                        expr_mod.range_(name, mn + 1, mx)))
+                for found in founds:
+                    out.append([expr_mod.ExprQuery(found)])
+                    out.append([expr_mod.ExprQuery(
+                        expr_mod.sum_(name, found=found))])
+                    out.append([expr_mod.ExprQuery(
+                        expr_mod.top_k(name, 1, found=found),
+                        form="bitmap")])
+        # the min/max-pruned "all" path is its own leaner program shape
+        out.append([expr_mod.ExprQuery(expr_mod.cmp(name, "ge", 0))])
+        if n_residents:
+            out.append([expr_mod.ExprQuery(expr_mod.and_(
+                expr_mod.ref(0), expr_mod.cmp(name, "ge", 0)))])
+            out.append([expr_mod.ExprQuery(
+                expr_mod.sum_(name, found=expr_mod.ref(0)))])
+            out.append([expr_mod.ExprQuery(
+                expr_mod.top_k(name, 1, found=expr_mod.ref(0)),
+                form="bitmap")])
+        out.append([expr_mod.ExprQuery(expr_mod.sum_(name))])
+        out.append([expr_mod.ExprQuery(expr_mod.top_k(name, 1),
+                                       form="bitmap")])
+    return out
 
 
 def execute_batch(ds: DeviceBitmapSet, queries, engine: str = "auto"

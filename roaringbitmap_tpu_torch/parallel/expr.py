@@ -959,10 +959,14 @@ def traced_bucket_heads(buckets, op_groups, group_outs,
 
 
 def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads,
-                 cols=()):
+                 cols=(), device_scalars: bool = False):
     """Fused evaluation of one section on the device: walk the compiled
     steps bottom-up with plain PyTorch combines and plane scans.  ``cols``
     holds the section's column ``(slices, ebm)`` operands in slot order.
+    ``device_scalars`` reads the predicate bits and top-k's k from ``arrs``
+    (device tensors; the scans are then branch-free) instead of the plan's
+    host arrays: a captured program replays other plans of its signature,
+    whose predicate values differ.
     Returns ``(heads | None, cards)``, heads int32[K_root, 2048] only for
     bitmap-form roots; an aggregate root returns its own pair: sum
     ``(int32[S, K] per-(slice, key) cards, int32[K_found] found cards)``,
@@ -982,8 +986,9 @@ def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads,
         elif kind == "vscan":
             _, ci, tag, _depth, _kc = st
             slices, ebm = cols[ci]
-            v = plane.scan_words(tag, slices, ebm, sec.host.get(f"b{si}"),
-                                 sec.host.get(f"b2{si}"))
+            src = arrs if device_scalars else sec.host
+            v = plane.scan_words(tag, slices, ebm, src.get(f"b{si}"),
+                                 src.get(f"b2{si}"))
         elif kind == "vagg":
             _, akind, fi, aligned, ci, _depth, kc = st
             slices, ebm = cols[ci]
@@ -992,8 +997,9 @@ def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads,
             if akind == "sum":
                 v = (plane.sum_cards(slices, fc), dense.popcount(f))
             else:
-                res = plane.topk_words(slices, fc & ebm,
-                                       int(sec.host[f"k{si}"]))
+                k = (arrs[f"k{si}"] if device_scalars
+                     else int(sec.host[f"k{si}"]))
+                res = plane.topk_words(slices, fc & ebm, k)
                 v = (res, dense.popcount(res))
         else:
             _, op, children, kn = st
@@ -1017,11 +1023,32 @@ def eval_section(sec: ExprSection, arrs: dict, words, bucket_heads,
     return (rootv if sec.form == "bitmap" else None), dense.popcount(rootv)
 
 
-def eval_sections(sections, words, bucket_heads) -> list:
-    return [eval_section(sec, sec.device_arrays(words.device), words,
-                         bucket_heads,
-                         [c.device_operands() for c in sec.cols])
-            for sec in sections]
+def eval_sections(sections, words, bucket_heads, arrays=None,
+                  cols=None) -> list:
+    """Every fused section on the device.  ``arrays`` / ``cols`` (per
+    section: its operand dict / its columns' ``(slices, ebm)``) default to
+    the plan's own; a captured program passes its static ones, and the
+    scans then read their predicates from them (``device_scalars``)."""
+    static = arrays is not None
+    if arrays is None:
+        arrays = [sec.device_arrays(words.device) for sec in sections]
+        cols = [[c.device_operands() for c in sec.cols] for sec in sections]
+    return [eval_section(sec, arrs, words, bucket_heads, cs,
+                         device_scalars=static)
+            for sec, arrs, cs in zip(sections, arrays, cols)]
+
+
+def value_depth_of(sections) -> int:
+    """Max padded slice depth across the sections' value steps: the ``bsi``
+    dimension of the lattice snap (0 = no value steps)."""
+    depth = 0
+    for s in fused_of(sections):
+        for st in s.steps:
+            if st[0] == "vscan":
+                depth = max(depth, int(st[3]))
+            elif st[0] == "vagg":
+                depth = max(depth, int(st[5]))
+    return depth
 
 
 def assemble_section_result(sec: ExprSection, out, form: str,
@@ -1131,3 +1158,39 @@ def random_expr_pool(n_bitmaps: int, q: int, depth: int = 2,
                 rng.integers(n_bitmaps))),))))
         pool.append(ExprQuery(e, form=form))
     return pool
+
+
+def rung_expressions(depth: int, n_residents: int,
+                     form: str = "cardinality") -> list:
+    """Representative depth-``depth`` op-mix shapes for warmup (the JAX
+    package's DAGs): deterministic, so a warmed engine's first matching
+    execute hits its plan and program caches."""
+    r = [Ref(i % n_residents) for i in range(4)]
+    base = [Node("or", (r[0], r[1])), Node("xor", (r[2], r[3])),
+            Node("and", (r[0], r[2]))]
+    exprs = [Node("and", (base[0], base[1])),
+             Node("or", (base[1], base[2])),
+             Node("andnot", (base[0], r[2])),
+             Node("and", (base[0], Node("not", (r[3],))))]
+    for _ in range(max(0, depth - 2)):
+        exprs = [Node("or", (exprs[0], exprs[1])),
+                 Node("and", (exprs[1], exprs[2])),
+                 Node("andnot", (exprs[2], exprs[3].children[0])),
+                 Node("xor", (exprs[3], exprs[0]))]
+    return [ExprQuery(e, form=form) for e in exprs]
+
+
+def parse_warmup_rung(r):
+    """The warmup rung vocabulary of the engines: an int is a pow2 operand
+    rung (flat shapes); ``"expr"``, ``"expr:3"`` or ``("expr", 3)`` an
+    expression rung at that depth; ``"delta:8"`` / ``("delta", 8)`` a
+    mutation patch rung of that many rows."""
+    if isinstance(r, str) and r.startswith("expr"):
+        _, _, d = r.partition(":")
+        return "expr", int(d) if d else 2
+    if isinstance(r, str) and r.startswith("delta"):
+        _, _, d = r.partition(":")
+        return "delta", int(d) if d else 8
+    if isinstance(r, tuple) and len(r) == 2 and r[0] in ("expr", "delta"):
+        return r[0], int(r[1])
+    return "flat", int(r)

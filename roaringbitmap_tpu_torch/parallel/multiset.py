@@ -74,6 +74,15 @@ A pool over one set goes through that set's ``BatchEngine.execute``
 verbatim: no pooled plan and no pooled image.  ``execute_pipelined`` always
 builds pooled launches.
 
+Lattice
+-------
+Under an active lattice (``runtime.lattice``) every pool references every
+set, each set's row selection pads to one covering ``pool`` rung, and a
+snapped plan replays its signature's program (``runtime.programs``: a
+captured CUDA graph on the card, in one pool with the member engines'
+graphs).  ``warmup(profile=...)`` prepares the member engines' and the
+pooled vocabularies, then seals the lattice.
+
 Result cache
 ------------
 ``result_cache=`` (``"env"`` by default) is shared with the member engines
@@ -100,12 +109,16 @@ from ..mutation import result_cache as mut_cache
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, popcount, upload
 from ..runtime import errors, faults, guard
+from ..runtime import lattice as rt_lattice
+from ..runtime import programs as rt_programs
+from ..runtime import warmup as rt_warmup
 from ..runtime.cache import LRUCache
 from . import expr as expr_mod
 from .aggregation import DeviceBitmapSet, _device_key
 from .batch_engine import (ENGINES, PLAN_CACHE_MAX, _RED_OP, BatchEngine,
-                           BatchQuery, BatchResult, plan_bucket, query_desc,
-                           resolve_query_engine)
+                           BatchQuery, BatchResult, analytics_rung_queries,
+                           plan_bucket, plan_padding, query_desc,
+                           resolve_query_engine, snap_plan_groups)
 
 #: the guard site of every pooled dispatch
 SITE = "multiset"
@@ -191,6 +204,15 @@ class _PoolPlan:
     mega: object = None
     #: the footprint model per rung, computed once per plan
     predicted: dict = dataclasses.field(default_factory=dict)
+    #: the covering lattice point when an active lattice snapped this pool
+    #: (every set referenced, one padded row selection each); None = exact
+    point: object = None
+    #: (padding_bytes, padded_fraction) of the snap
+    padding: tuple = (0, 0.0)
+    #: operand packs and static program-key parts by rung
+    #: (``runtime.programs``)
+    packs: dict = dataclasses.field(default_factory=dict)
+    keys: dict = dataclasses.field(default_factory=dict)
     _row_sel_dev: dict = dataclasses.field(default_factory=dict)
 
     def row_sel_dev(self, sid: int, device):
@@ -206,6 +228,13 @@ class _PoolPlan:
     @property
     def expr_signature(self) -> tuple:
         return expr_mod.signature_of(self.exprs)
+
+    @property
+    def signature(self):
+        return (self.sids,
+                tuple(int(self.row_sel[s].shape[0]) for s in self.sids),
+                tuple(b.signature for b in self.buckets),
+                self.expr_signature)
 
 
 def _merge_op_groups(buckets) -> list:
@@ -425,6 +454,13 @@ class MultiSetBatchEngine:
         #: rows of each set's resident image (its pooled-row extent)
         self._rows = [int(e._row_src.size) for e in self._engines]
         self._plans = LRUCache(PLAN_CACHE_MAX, name="multiset_plans")
+        #: the pooled programs (captured graphs on the card) by key; the
+        #: member engines capture into its pool (all replay on one stream)
+        self._programs = rt_programs.ProgramCache(self.device, SITE)
+        for e in self._engines:
+            e._programs.share_pool(self._programs)
+        #: each set's structure version the pooled programs were built on
+        self._structures = [e._ds.structure_version for e in self._engines]
         #: reactive (ResourceExhausted) and proactive (budget) halvings
         self.split_count = 0
         self.proactive_split_count = 0
@@ -482,10 +518,17 @@ class MultiSetBatchEngine:
     def _sync_with_sets(self) -> None:
         """Pick up member-set mutations: a repack changes a tenant's row
         count, so the pooled row extents are read again (the version in the
-        plan key retires the stale plans)."""
+        plan key retires the stale plans) and the pooled programs are
+        retired."""
         for i, e in enumerate(self._engines):
             e._sync_with_ds()
             self._rows[i] = int(e._row_src.size)
+        structures = [e._ds.structure_version for e in self._engines]
+        if structures != self._structures:
+            # a repacked tenant's image or streams moved: its pooled graphs
+            # (every pooled graph, under a lattice) read the old ones
+            self._structures = structures
+            self._programs.retire()
 
     def _cache_probe_for(self, sid: int):
         """The plan-time subtree probe of tenant ``sid``, or None without a
@@ -500,14 +543,23 @@ class MultiSetBatchEngine:
     def _plan_pool(self, pooled) -> _PoolPlan:
         """The pooled plan: per-set row selection, the offset remap into
         the compacted pooled row space, the shared shape bucketing and the
-        op groups.  Cached by the exact (set_id, query) tuple and the
-        referenced sets' identities, versions and columns."""
+        op groups.  Cached by the exact (set_id, query) tuple, the
+        referenced sets' identities, versions and columns, and the lattice.
+
+        Under an active lattice every pool references EVERY set (the tenant
+        mix stops being a signature dimension), same-op queries share one
+        bucket, the plan snaps to its covering point, and each set's row
+        selection pads to one covering ``pool`` rung (dead slots re-gather
+        the set's row 0, which no bucket reads)."""
         self._sync_with_sets()
-        sids = tuple(sorted({sid for sid, _ in pooled}))
+        lat = rt_lattice.active()
+        sids = (tuple(range(self.n_sets)) if lat is not None
+                else tuple(sorted({sid for sid, _ in pooled})))
         key = (tuple(pooled),
                tuple((self._engines[s]._ds.uid, self._engines[s]._ds.version)
                      for s in sids),
-               tuple(self._engines[s]._columns_token() for s in sids))
+               tuple(self._engines[s]._columns_token() for s in sids),
+               rt_lattice.plan_token())
         cached = self._plans.get(key)
         if cached is not None:
             return cached
@@ -529,7 +581,8 @@ class MultiSetBatchEngine:
             rows = rows + off
             if hrows is not None:
                 hrows = hrows + off
-            rung = packing.next_pow2(max(1, len(set(pq.operands))))
+            rung = (0 if lat is not None
+                    else packing.next_pow2(max(1, len(set(pq.operands)))))
             groups.setdefault((pq.op, rung), []).append(
                 (pid, pq, rows, segs, keys_q, keep, hrows))
             if own is not None:
@@ -550,7 +603,11 @@ class MultiSetBatchEngine:
                     col_resolve=self._engines[sid]._column))
             else:
                 add_item(sid, q, qid)
-        buckets = [plan_bucket(op, items)
+        pad_to, point = snap_plan_groups(
+            lat, groups, sections, any(q.form == "bitmap" for _, q in pooled),
+            counter, self._engines[0].keys[:0], placement="single",
+            pool=self._pool_need(lat, groups, sections, sids, offsets))
+        buckets = [plan_bucket(op, items, pad_to=pad_to)
                    for (op, _), items in sorted(groups.items())]
         # the compacted pooled row space: every row the pool references
         # (bucket gathers, andnot heads, expression leaves), once, sorted;
@@ -571,30 +628,76 @@ class MultiSetBatchEngine:
             in_set = pool_rows[(pool_rows >= off)
                                & (pool_rows < off + self._rows[sid])]
             row_sel[sid] = (in_set - off).astype(np.int32)
+        n_pool = int(pool_rows.size)
+        pos = np.arange(n_pool, dtype=np.int64)
+        if point is not None:
+            # one covering selection rung B for every set; ``pos`` maps
+            # compact pooled positions to their padded homes (the rung was
+            # judged with the shape snap: never under-pad)
+            width = max(point.pool, max(r.size for r in row_sel.values()))
+            parts = []
+            for i, sid in enumerate(sids):
+                sel = row_sel[sid]
+                padded = np.zeros(width, np.int32)
+                padded[:sel.size] = sel
+                row_sel[sid] = padded
+                parts.append(i * width + np.arange(sel.size, dtype=np.int64))
+            pos = np.concatenate(parts)
+            n_pool = width * len(sids)
+            point = dataclasses.replace(point, pool=width)
         # remap the host gathers into pooled positions (uploaded later,
         # only for the rung that reads them)
         for b in buckets:
             for k in ("gather", "head_gather"):
                 if k in b.host:
-                    b.host[k] = np.searchsorted(
-                        pool_rows, b.host[k]).astype(np.int32)
+                    b.host[k] = pos[np.searchsorted(
+                        pool_rows, b.host[k])].astype(np.int32)
         for sec in sections:
             if sec.kind != "fused" or not sec.host:
                 continue
             for k in list(sec.host):
                 if k.startswith("g"):
-                    sec.host[k] = np.searchsorted(
-                        pool_rows, sec.host[k]).astype(np.int32)
+                    sec.host[k] = pos[np.searchsorted(
+                        pool_rows, sec.host[k])].astype(np.int32)
         expr_mod.finalize_sections(sections, buckets)
         # B5's stream assembles from the remapped gathers
         mega = (megakernel.build_full(buckets, sections)
                 if expr_mod.fused_of(sections) else None)
+        padding = (0, 0.0)
+        if point is not None:
+            pb, _pf = plan_padding(buckets, groups)
+            pb += (n_pool - int(pool_rows.size)) * insights.ROW_BYTES
+            total = sum(b.q * b.r_pad for b in buckets) + n_pool
+            padding = (pb, (pb / insights.ROW_BYTES) / max(1, total))
         plan = _PoolPlan(buckets=buckets, op_groups=_merge_op_groups(buckets),
-                         sids=sids, row_sel=row_sel,
-                         n_pool_rows=int(pool_rows.size), exprs=sections,
-                         owner=owner, mega=mega)
+                         sids=sids, row_sel=row_sel, n_pool_rows=n_pool,
+                         exprs=sections, owner=owner, mega=mega, point=point,
+                         padding=padding)
         self._plans.put(key, plan)
         return plan
+
+    def _pool_need(self, lat, groups, sections, sids, offsets) -> int:
+        """The per-set row-selection need of a pool, judged before the shape
+        snap plants anything: -1 without a lattice or with an empty set.
+        Global row 0 always joins (padded cells gather it), so a need on a
+        rung boundary is judged with it."""
+        if lat is None or not all(self._rows[s] >= 1 for s in sids):
+            return -1
+        refs = [it[2] for items in groups.values() for it in items]
+        refs += [it[6] for items in groups.values() for it in items
+                 if it[6] is not None]
+        refs += [v.ravel() for sec in sections
+                 if sec.kind == "fused" and sec.host
+                 for k, v in sec.host.items() if k.startswith("g")]
+        refs.append(np.zeros(1, np.int64))
+        allr = np.unique(np.concatenate([np.asarray(r).ravel()
+                                         for r in refs]))
+        need = 1
+        for sid in sids:
+            off = offsets[sid]
+            need = max(need, int(((allr >= off)
+                                  & (allr < off + self._rows[sid])).sum()))
+        return need
 
     def _pool_engine(self, plan: _PoolPlan, engine: str,
                      note: bool = True) -> str:
@@ -916,80 +1019,142 @@ class MultiSetBatchEngine:
         eng = self._pool_engine(plan, engine)
         if inject:
             faults.maybe_fail(SITE, eng)
-        outs = self._to_host(self._run(plan, eng))
+        outs = self._program(plan, eng)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
         self.launch_count += 1
-        self.dispatch_memory.append({
-            "engine": eng, "q": len(pooled), "sets": len(plan.sids),
-            "predicted_bytes": self._predict(plan, eng)["peak_bytes"]})
+        mem = {"engine": eng, "q": len(pooled), "sets": len(plan.sids),
+               "predicted_bytes": self._predict(plan, eng)["peak_bytes"]}
+        if plan.point is not None:
+            pb, pf = plan.padding
+            mem["lattice_padding_bytes"] = int(pb)
+            mem["lattice_padding_fraction"] = round(pf, 6)
+            rt_lattice.record_padding(SITE, int(pb), pf)
+        self.dispatch_memory.append(mem)
         flight = _Inflight(plan=plan, outs=outs, event=event,
                            queries=pooled, eng=eng, inject=inject)
         return flight if not sync else self._finish(flight)
 
-    def _pooled_words(self, plan: _PoolPlan, eng: str) -> torch.Tensor:
-        """The pooled image: each referenced set's selected rows, in
-        ``sids`` order, written into one int32[n_pool_rows, 2048] tensor
-        (a stream set's image is rebuilt, B3 on the kernel rungs, and
-        dropped once its rows are selected)."""
+    def _pooled_words(self, plan: _PoolPlan, eng: str, sels) -> torch.Tensor:
+        """The pooled image: each referenced set's selected rows (``sels``,
+        per set in ``sids`` order), written into one int32[n_pool_rows,
+        2048] tensor (a stream set's image is rebuilt, B3 on the kernel
+        rungs, and dropped once its rows are selected)."""
         words = torch.empty((plan.n_pool_rows, WORDS32), dtype=torch.int32,
                             device=self.device)
         off = 0
-        for sid in plan.sids:
+        for sid, sel in zip(plan.sids, sels):
             n = int(plan.row_sel[sid].size)
             if n:
-                torch.index_select(self._engines[sid]._words(eng), 0,
-                                   plan.row_sel_dev(sid, self.device),
+                torch.index_select(self._engines[sid]._words(eng), 0, sel,
                                    out=words[off:off + n])
             off += n
         if off < plan.n_pool_rows:      # only when every set is empty
             words[off:].zero_()
         return words
 
-    def _run(self, plan: _PoolPlan, eng: str):
-        """The device part of one launch: on "megakernel" B5's raw output
-        rows and card partials; otherwise (per-group outputs, fused section
-        outputs)."""
-        words = self._pooled_words(plan, eng)
+    def _operands(self, plan: _PoolPlan, eng: str, packed: bool) -> dict:
+        """The device part's operand tree: the row selections, then B5's
+        stream and banks, or the op groups' and fused sections' arrays;
+        cached device arrays (``packed=False``) or host arrays for an
+        operand pack (``runtime.programs``)."""
+        dev = self.device
+        ops = {"r": [plan.row_sel[s] if packed else plan.row_sel_dev(s, dev)
+                     for s in plan.sids]}
         if eng == "megakernel":
-            arrs = plan.mega.device_arrays(self.device)
-            return megakernel.raw_call(plan.mega, words, arrs["extra"],
-                                       arrs["cols"])
+            ops["m"] = (plan.mega.operands(dev) if packed
+                        else plan.mega.device_arrays(dev))
+            return ops
+        ops["g"] = [{k: g.host[k] for k in _op_group_keys(g, eng)} if packed
+                    else g.device_arrays(dev, _op_group_keys(g, eng))
+                    for g in plan.op_groups]
+        ops["s"] = [sec.host if packed else sec.device_arrays(dev)
+                    for sec in plan.fused]
+        ops["c"] = [[c.device_operands() for c in sec.cols]
+                    for sec in plan.fused]
+        return ops
+
+    def _run(self, plan: _PoolPlan, eng: str, ops: dict,
+             static: bool = False):
+        """The device part of one launch over the operand tree ``ops``: on
+        "megakernel" B5's raw output rows and card partials; otherwise
+        (per-group outputs, fused section outputs).  ``static``: the
+        operands are a program's."""
+        words = self._pooled_words(plan, eng, ops["r"])
+        if eng == "megakernel":
+            m = ops["m"]
+            return megakernel.raw_call(plan.mega, words, m["extra"],
+                                       m["cols"], stream=m["stream"],
+                                       steps_dev=m.get("steps"))
         feeding = expr_mod.expr_bucket_ids(plan.exprs)
         outs, group_heads = [], []
-        for g in plan.op_groups:
+        for g, arrs in zip(plan.op_groups, ops["g"]):
             force = any(bi in feeding for bi in g.bucket_idx)
-            heads, cards = _op_body(
-                words, g.sig,
-                g.device_arrays(self.device, _op_group_keys(g, eng)), eng,
-                force_heads=force)
+            heads, cards = _op_body(words, g.sig, arrs, eng,
+                                    force_heads=force)
             group_heads.append((heads if force else None, cards))
             outs.append((heads if g.needs_words else None, cards))
         if not plan.fused:
             return outs, []
         bucket_heads = expr_mod.traced_bucket_heads(
             plan.buckets, plan.op_groups, group_heads, live_ok=eng != "cuda")
-        return outs, expr_mod.eval_sections(plan.fused, words, bucket_heads)
+        return outs, expr_mod.eval_sections(
+            plan.fused, words, bucket_heads, ops["s"] if static else None,
+            ops["c"] if static else None)
 
-    def _to_host(self, outs):
-        """Queue the copies of a launch's output tensors into pinned host
-        tensors on the current stream (nothing waits); CPU outputs are
-        already on the host."""
-        if self.device.type != "cuda":
-            return outs
+    def _program_key(self, plan: _PoolPlan, eng: str, layout) -> tuple:
+        """The pooled program of a plan: the JAX package's key (rung, the
+        plan's signature, the referenced sets' uids and structure versions,
+        the stream's shape on "megakernel"), then the program cache's
+        generation and the operand pack's layout.  The JAX package's
+        donating variant has no counterpart: nothing is donated here."""
+        key = plan.keys.get(eng)
+        if key is None:
+            key = (eng, plan.signature,
+                   tuple((self._engines[s]._ds.uid,
+                          self._engines[s]._ds.structure_version)
+                         for s in plan.sids))
+            if eng == "megakernel":
+                key += (plan.mega.signature,)
+            plan.keys[eng] = key
+        return key + (self._programs.generation, layout)
 
-        def move(t):
-            if t is None:
+    def _program(self, plan: _PoolPlan, eng: str, run: bool = True):
+        """The device part of one launch through its program, its outputs
+        copied into pinned host tensors (queued, not waited for): a snapped
+        plan replays its signature's graph, an unsnapped one runs eagerly
+        (``BatchEngine._program``).  ``run=False`` only prepares."""
+        if plan.point is None:
+            key = self._program_key(plan, eng, None)
+            if not run:
+                self._programs.note_eager(key, eng, None, 0.0)
                 return None
-            if isinstance(t, (list, tuple)):
-                return type(t)(move(x) for x in t)
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            return h
+            t0 = time.perf_counter()
+            outs = rt_programs.copy_out(self._run(
+                plan, eng, self._operands(plan, eng, False)))
+            self._programs.note_eager(key, eng, None,
+                                      time.perf_counter() - t0)
+            return outs
+        pack = plan.packs.get(eng)
+        if pack is None:
+            pack = plan.packs[eng] = rt_programs.pack_operands(
+                self._operands(plan, eng, packed=True), self.device)
+        if eng == "megakernel":
+            # the replayed stream is this plan's: check it against the banks
+            m = plan.mega
+            m.check((plan.n_pool_rows, m.extra_rows, max(1, m.col_rows)))
+        key = self._program_key(plan, eng, pack.layout)
 
-        return move(outs)
+        def device_part(ops, plan=plan):
+            return self._run(plan, eng, ops, static=True)
+
+        if not run:
+            self._programs.prepare(key, eng, plan.point, device_part, pack)
+            return None
+        return self._programs.dispatch(key, eng, plan.point, device_part,
+                                       pack)
 
     def _finish(self, flight: _Inflight) -> list:
         if flight.event is not None:
@@ -1033,9 +1198,12 @@ class MultiSetBatchEngine:
         else:
             outs, expr_outs = outs
             bucket_outs = self._bucket_outputs(plan, outs, eng)
+        # the owner map skips the pseudo queries of expression reduce nodes
+        # and of the lattice's dead buckets
         results = assemble_pooled_results(
             bucket_outs, pooled, plan.rb_meta,
-            owner=plan.owner if plan.exprs else None)
+            owner=(plan.owner if plan.exprs or plan.point is not None
+                   else None))
         fi = 0
         for sec in plan.exprs:
             if sec.kind == "flat":
@@ -1080,6 +1248,177 @@ class MultiSetBatchEngine:
                     f"cardinality {got.cardinality}/value {got.value}, "
                     f"want {ref.cardinality}/{ref.value}")
 
+    # ---------------------------------------------------------- warmup
+
+    def _lattice_pools(self, point) -> list:
+        """The representative pools of one pooled lattice point (the JAX
+        package's): two tenants, so that the pool is pooled; flat points
+        one query per op of the point, expression depths the
+        ``rung_expressions`` DAGs sized per tenant, analytics depths tenant
+        0's column batches."""
+        if point.bsi:
+            return [[BatchGroup(0, batch)] for batch in analytics_rung_queries(
+                self._engines[0]._ds.columns, point.bsi,
+                self._engines[0].n)]
+        if point.expr:
+            return [[BatchGroup(0, expr_mod.rung_expressions(
+                        point.expr, self._engines[0].n)),
+                     BatchGroup(1, expr_mod.rung_expressions(
+                         point.expr, self._engines[1].n)[:1])]]
+        return [[BatchGroup(0, [BatchQuery(op, (0,)) for op in point.ops]),
+                 BatchGroup(1, [BatchQuery(point.ops[0], (0,))])]]
+
+    def _prepare_pool(self, pool, engine: str) -> list:
+        """Plan a pool and prepare its pooled program on its rung, and on
+        "megakernel" too where its plan fits there.  Returns the plan and
+        the rungs."""
+        pooled, _ = self._flatten(list(pool))
+        plan = self._plan_pool(pooled)
+        eng = self._pool_engine(plan, resolve_query_engine(
+            engine, [q for _, q in pooled], self.device), note=False)
+        engs = [eng]
+        if eng != "megakernel" and self._pool_engine(
+                plan, "megakernel", note=False) == "megakernel":
+            engs.append("megakernel")
+        for e in engs:
+            self._program(plan, e, run=False)
+        return plan, engs
+
+    def _compile_lattice_points(self, lat, engine: str) -> int:
+        """Prepare the POOLED half of the vocabulary: each flat point pins a
+        two-tenant mini-pool (single-tenant pools run on the member engines,
+        warmed separately), so that its program carries the point's bucket
+        shapes, every set and the pinned row rung; expression and analytics
+        shape-classes their representative pools; delta rungs every
+        tenant's patch path.  The JAX package also compiles a donating
+        variant of each pooled program where its backend donates; the port
+        donates nothing, so it has one program less per point there."""
+        if self.n_sets < 2:
+            return 0
+        points = lat.enumerate_points(pooled=True)
+        self._programs.maxsize = max(self._programs.maxsize,
+                                     2 * len(points) + 8)
+        compiled = 0
+        for point in points:
+            if point.delta:
+                for e in self._engines:
+                    e._ds.warmup_delta(point.delta)
+                compiled += 1
+                continue
+            with lat.pin(point):
+                for pool in self._lattice_pools(point):
+                    plan, _ = self._prepare_pool(pool, engine)
+                    for sec in plan.exprs:
+                        lat.note_expr(sec.signature)
+            compiled += 1
+        return compiled
+
+    def _check_pool_budget(self, lat, engine: str, budget) -> int:
+        """The largest predicted pooled dispatch of the vocabulary's
+        representative pools (``insights.predict_multiset_dispatch_bytes``),
+        or of a member engine's: the graph pools one replay at a time
+        needs.  Past ``budget``: ``GraphPoolBudgetError``."""
+        peak = max([0] + [e._check_pool_budget(lat, engine, budget)
+                          for e in self._engines])
+        if self.n_sets >= 2:
+            for point in lat.enumerate_points(pooled=True):
+                if point.delta:
+                    continue
+                with lat.pin(point):
+                    for pool in self._lattice_pools(point):
+                        pooled, _ = self._flatten(pool)
+                        plan = self._plan_pool(pooled)
+                        eng = self._pool_engine(plan, resolve_query_engine(
+                            engine, [q for _, q in pooled], self.device),
+                            note=False)
+                        peak = max(peak, self._predict(plan, eng)[
+                            "peak_bytes"])
+        if budget is not None and peak > budget:
+            raise errors.GraphPoolBudgetError(
+                f"{SITE}: the lattice's predicted graph pool is {peak} "
+                f"bytes, past the budget of {budget}; narrow the profile")
+        return peak
+
+    def _warmup_lattice(self, profile, engine: str) -> dict:
+        """``warmup(profile=...)`` over the pooled engine: activate the
+        lattice, check the predicted pools against the budget, prepare
+        every member engine's vocabulary (the single-set route), then the
+        pooled one, and seal."""
+        t0 = time.perf_counter()
+        lat = rt_lattice.activate(profile)
+        budget = guard.resolve_hbm_budget(None, self.device)
+        try:
+            predicted = self._check_pool_budget(lat, engine, budget)
+        except errors.GraphPoolBudgetError:
+            rt_lattice.deactivate()     # a refused vocabulary snaps nothing
+            raise
+        compiled = 0
+        for e in self._engines:
+            compiled += e._compile_lattice_points(lat, engine)
+        compiled += self._compile_lattice_points(lat, engine)
+        lat.seal()
+        progs = [self._programs] + [e._programs for e in self._engines]
+        return {"site": SITE,
+                "compile_cache_dir": str(rt_warmup.build_dir()),
+                "lattice": {"profile": lat.to_profile(),
+                            "points": lat.n_points(pooled=True),
+                            "compiled": compiled, "sealed": True},
+                "programs": [],
+                "graphs": sum(p.graphs for p in progs),
+                "pool_bytes": self._programs.pool_bytes(),
+                "predicted_pool_bytes": int(predicted),
+                "hbm_budget_bytes": budget,
+                "wall_ms": round((time.perf_counter() - t0) * 1e3, 2)}
+
+    def warmup(self, rungs=(1, 2, 4, 8),
+               ops=("or", "and", "xor", "andnot"),
+               engine: str = "auto", pools=None, profile=None) -> dict:
+        """Prepare pooled programs for known pow2 operand rungs (one pool
+        per rung: every tenant contributes each op over its first ``rung``
+        residents; ``"expr:N"`` and ``"delta:N"`` as in
+        ``BatchEngine.warmup``), or for explicit ``pools=``.  A pool over
+        one set warms that set's engine, as ``execute`` routes it.
+        ``profile=`` is the closed-lattice boot: the member engines' and
+        the pooled vocabularies are prepared, then the lattice seals."""
+        rt_warmup.enable_compile_cache()
+        if profile is not None:
+            return self._warmup_lattice(profile, engine)
+        t0 = time.perf_counter()
+        programs = []
+        if pools is None:
+            pools = []
+            for r in rungs:
+                kind, n = expr_mod.parse_warmup_rung(r)
+                if kind == "delta":
+                    for e in self._engines:
+                        rep = e._ds.warmup_delta(n)
+                        programs.append({"delta_rung": n,
+                                         "engine": "mutation",
+                                         "compiled": rep["compiled"]})
+                    continue
+                pools.append([
+                    BatchGroup(sid, expr_mod.rung_expressions(n, e.n)
+                               if kind == "expr"
+                               else e._rung_queries(n, ops))
+                    for sid, e in enumerate(self._engines)])
+        for pool in pools:
+            pooled, _ = self._flatten(list(pool))
+            if not pooled:
+                continue
+            sids = sorted({sid for sid, _ in pooled})
+            if len(sids) == 1:
+                rep = self._engines[sids[0]].warmup(
+                    queries=[q for _, q in pooled], engine=engine)
+                programs.extend(rep["programs"])
+                continue
+            plan, engs = self._prepare_pool(pool, engine)
+            for e in engs:
+                programs.append({"q": len(pooled), "sets": len(sids),
+                                 "buckets": len(plan.buckets), "engine": e})
+        return {"site": SITE, "compile_cache_dir": str(rt_warmup.build_dir()),
+                "programs": programs,
+                "wall_ms": round((time.perf_counter() - t0) * 1e3, 2)}
+
     # --------------------------------------------------------- conveniences
 
     def cardinalities(self, groups, engine: str = "auto") -> list:
@@ -1089,7 +1428,9 @@ class MultiSetBatchEngine:
 
     def cache_stats(self) -> dict:
         """The pooled plan cache and the engine's counters."""
-        return {"plans": self._plans.stats(), "splits": self.split_count,
+        return {"plans": self._plans.stats(),
+                "programs": self._programs.stats(),
+                "splits": self.split_count,
                 "proactive_splits": self.proactive_split_count,
                 "launches": self.launch_count,
                 "launches_saved": self.launches_saved,

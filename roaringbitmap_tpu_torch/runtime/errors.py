@@ -14,7 +14,8 @@ guard (``runtime.guard``) acts on mechanically:
 
 ``classify`` returns ``None`` for what looks like a programming error, and
 the guard re-raises those untouched.  A failed kernel build or launch
-(``ops.build.KernelBuildError``, ``ops.kernels.KernelLaunchError``) is one:
+(``ops.build.KernelBuildError``, ``ops.kernels.KernelLaunchError``), and a
+failed graph capture or replay (``GraphCaptureError``), is one:
 it is checked before any phrase match, so a launch that failed with
 "out of memory" in its status text re-raises as it is and never demotes to
 a plain rung that would hide the kernel.  ``torch.OutOfMemoryError`` (the
@@ -30,6 +31,12 @@ from ..ops.build import KernelBuildError
 from ..ops.kernels import KernelLaunchError
 
 CorruptInput = InvalidRoaringFormat
+
+
+class GraphCaptureError(RuntimeError):
+    """Capturing or replaying a program's CUDA graph failed
+    (``runtime.programs``).  Like a failed kernel launch it is never
+    classified: nothing runs the eager path in its place."""
 
 
 class RoaringRuntimeError(Exception):
@@ -77,6 +84,12 @@ class ShadowMismatch(RoaringRuntimeError):
     """Shadow cross-check found an engine result diverging from the CPU
     sequential reference: silent corruption — always fatal, never retried
     (a retry that happens to pass would hide a miscompiling engine)."""
+
+
+class GraphPoolBudgetError(ResourceExhausted):
+    """A lattice warmup whose predicted graph pool passes the device-memory
+    budget (``guard.resolve_hbm_budget``): the vocabulary is refused, never
+    shrunk in silence."""
 
 
 class InjectedCrash(RoaringRuntimeError):
@@ -135,7 +148,8 @@ def classify(exc: BaseException):
     """
     if isinstance(exc, (RoaringRuntimeError, InvalidRoaringFormat)):
         return exc
-    if isinstance(exc, (KernelBuildError, KernelLaunchError)):
+    if isinstance(exc, (KernelBuildError, KernelLaunchError,
+                        GraphCaptureError)):
         return None
     msg = f"{type(exc).__name__}: {exc}"
     if isinstance(exc, torch.OutOfMemoryError):

@@ -565,3 +565,151 @@ def test_injected_b5_plan_matches_torch(dev, bitmaps):
     for qq, r in zip(q, got):
         assert r.bitmap == expr.evaluate_host(qq.expr, hosts)
     assert torch.equal(entry.words, saved)
+
+
+# ------------------------------------------- the lattice: captured graphs
+
+#: covers the pools below: 32 keys a bitmap at a 2^21 universe, at most 6
+#: operands a flat query and 4 a reduce node
+GRAPH_PROFILE = "q=16,;rows=256,;keys=32,;heads=both;expr=2;pool=64,"
+
+
+@pytest.fixture
+def lattice_off():
+    from roaringbitmap_tpu_torch.runtime import lattice
+
+    lattice.deactivate()
+    lattice.reset_stats()
+    yield lattice
+    lattice.deactivate()
+
+
+def _graph_pools(n):
+    flat = [q for q in random_query_pool(n, 12, seed=4, max_operands=6)]
+    exprs = random_expr_pool(n, 4, depth=2, seed=4, form="bitmap")
+    return flat, exprs
+
+
+@pytest.mark.parametrize("layout", ["dense", "compact"])
+def test_replay_equals_the_eager_rung(dev, bitmaps, lattice_off, layout):
+    """A warmed engine replays its graphs (B1 on "cuda", B5 on
+    "megakernel", B3 inside both for a compact set), equal to the same
+    batches with no lattice; the replays add the graphs' launches."""
+    eng = BatchEngine(DeviceBitmapSet(bitmaps[:16], layout=layout,
+                                      device=dev))
+    flat, exprs = _graph_pools(16)
+    want = {rung: eng.execute(flat + exprs, engine=rung, fallback=False)
+            for rung in ("cuda", "megakernel")}
+    # the mixed batch is its own expression signature: warmed as a
+    # prepared batch (on "cuda" and "megakernel") before the seal
+    lattice_off.activate(GRAPH_PROFILE)
+    eng.warmup(queries=flat + exprs, engine="cuda")
+    rep = eng.warmup(profile=GRAPH_PROFILE)
+    assert rep["graphs"] >= 3 and rep["pool_bytes"] > 0
+    captures = eng._programs.captures
+    for rung in ("cuda", "megakernel"):
+        kernels.reset_launches()
+        got = eng.execute(flat + exprs, engine=rung, fallback=False)
+        torch.cuda.synchronize()
+        _same_results(got, want[rung])
+        k = kernels.B1 if rung == "cuda" else kernels.B5
+        assert k.launches >= 1, rung
+        if layout == "compact":
+            assert kernels.B3.launches >= 1
+    assert eng._programs.captures == captures
+    assert lattice_off.escape_total() == 0
+
+
+def test_b5_replay_reads_its_step_count(dev, lattice_off):
+    """Two plans of one stream shape with different step counts through one
+    captured B5 launch: each equals its own plain version."""
+    from roaringbitmap_tpu_torch.runtime import programs
+
+    m1, banks = megakernel.random_plan(1, n_steps=300, slots_pad=32,
+                                       out_pad=8, card_pad=16,
+                                       bank_rows=(16, 8, 8))
+    m2, _ = megakernel.random_plan(2, n_steps=420, slots_pad=32, out_pad=8,
+                                   card_pad=16, bank_rows=(16, 8, 8))
+    assert m1.steps_pad == m2.steps_pad and m1.n_steps != m2.n_steps
+    banks = [as_i32(b, dev) for b in banks]
+    cache = programs.ProgramCache(dev, "test")
+
+    def run(ops):
+        return megakernel.raw_call(m1, *banks, stream=ops["stream"],
+                                   steps_dev=ops["steps"])
+
+    for m in (m1, m2, m1):
+        pack = programs.pack_operands(
+            {"stream": m.stream_host(),
+             "steps": np.array([m.n_steps], np.int32)}, dev)
+        key = ("b5", pack.layout)
+        cache.prepare(key, "megakernel", None, run, pack)  # capture: no run
+        kernels.reset_launches()
+        got = cache.dispatch(key, "megakernel", None, run, pack)
+        torch.cuda.synchronize()
+        assert kernels.B5.launches == 1
+        _same(got, [t.cpu() for t in megakernel.raw_call_plain(m, *banks)])
+    assert cache.captures == 1 and cache.replays == 3
+
+
+def test_patch_then_replay_is_exact(dev, bitmaps, lattice_off):
+    ds = DeviceBitmapSet(bitmaps[:16], layout="dense", device=dev)
+    eng = BatchEngine(ds)
+    flat, exprs = _graph_pools(16)
+    lattice_off.activate(GRAPH_PROFILE)
+    eng.warmup(queries=flat + exprs, engine="cuda")
+    eng.warmup(profile=GRAPH_PROFILE)
+    eng.execute(flat + exprs, engine="megakernel")
+    captures = eng._programs.captures
+    srcs = ds.host_bitmaps()
+    rep = ds.apply_delta(adds={1: srcs[1].to_array()[:9] ^ np.uint32(3)},
+                         removes={2: srcs[2].to_array()[:50]})
+    assert rep["mode"] == "patch"
+    want = eng._execute_sequential(flat + exprs)
+    for rung in ("cuda", "megakernel"):
+        got = eng.execute(flat + exprs, engine=rung)
+        _same_results(got, want)
+    assert eng._programs.captures == captures
+    assert lattice_off.escape_total() == 0
+
+
+def test_repack_retires_graphs(dev, bitmaps, lattice_off):
+    ds = DeviceBitmapSet(bitmaps[:16], layout="dense", device=dev)
+    eng = BatchEngine(ds)
+    flat, _ = _graph_pools(16)
+    eng.warmup(profile=GRAPH_PROFILE)
+    eng.execute(flat)
+    graphs, pool = eng._programs.graphs, eng._programs.pool_bytes()
+    assert graphs >= 1 and pool > 0
+    ds.apply_delta(adds={0: [1, 2, 3]}, repack="always")
+    got = eng.execute(flat)
+    assert eng._programs.retired == graphs
+    assert eng._programs.generation == 1
+    assert lattice_off.escape_total() == 1     # the re-capture, post-seal
+    _same_results(got, eng._execute_sequential(flat))
+
+
+def test_failed_capture_raises_typed(dev, bitmaps, lattice_off,
+                                     monkeypatch):
+    """A device part that cannot be captured (a read of a device value on
+    the host inside it) raises GraphCaptureError; nothing runs it eagerly
+    instead."""
+    from roaringbitmap_tpu_torch.runtime import errors
+
+    eng = BatchEngine(DeviceBitmapSet(bitmaps[:16], layout="dense",
+                                      device=dev))
+    words = eng._words
+
+    def syncing(e):
+        w = words(e)
+        int(w[0, 0])
+        return w
+
+    monkeypatch.setattr(eng, "_words", syncing)
+    lattice_off.activate(GRAPH_PROFILE)
+    pool = random_query_pool(16, 4, seed=1, max_operands=6)
+    assert eng.plan(pool).point is not None
+    with pytest.raises(errors.GraphCaptureError):
+        eng.execute(pool, engine="cuda", fallback=False)
+    assert eng._programs.captures == 0
+    torch.cuda.synchronize()
