@@ -166,6 +166,45 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
        served without a launch (``count_cache_hits`` = the hits); a delta
        to tenant 3 dropping only its entries; a structural repack of
        tenant 5, after which the pool equals the per-set loop;
+14. the serving stack (``serving``, ``wire``, ``mutation.durability``), run
+    after 12 and before 6, over phase 11's 16 tenants (the two phase 12
+    mutated rebuilt), each with a ``BsiColumn("v")`` drawn as
+    ``replay.build_dataset`` draws one (ids from 2^24, values in [1,
+    2^16)); the traffic is ``replay.generate(ReplayProfile(sets=16,
+    sources=256, tenants=64, users=2^24, requests=2048, duration_s=4.0,
+    seed))`` under ``ServingPolicy(pool_target=64)``:
+    a. the query-only stream through ``run_inproc`` at the profile's rate,
+       then a ladder at 1/4, 1/16 and 1/64 of it over the stream's first
+       eighth (``replay.sustained``): every served ticket equal to the
+       host oracle, typed outcomes only, no pump error; counts, p50/p99 on
+       the fault clock, Q/s, attainment, pools, launches, a pool's host
+       ms in the loop beside the engine's wall, admission ms; one traced
+       pump;
+    c. the resident ring lane: 32 pools of [expression, flat] from two
+       tenants, each pool's graph captured, ``warmup(profile=...)`` and the
+       seal, then every pool ring-served (the dispatch count flat, no
+       capture, no escape), equal to the one-shot dispatch and 14a; a pool
+       past the vocabulary and a wedged ring demote typed
+       ("vocabulary", "wedged") and are served exactly; host ms a pool,
+       ring against one-shot;
+    e. a ``WireServer`` over 14a's loop at the sustained rate (results
+       equal 14a's; p50/p99 wall, Q/s), ``wire@slow_peer`` and a malformed
+       submit answered typed on a live connection, a tenant outside its
+       grant ``AuthRejected``, tenant 1's captured state as ``mig_*``
+       frames committed onto the card with its source CRCs, and a
+       ``bootstrap --device cuda`` child serving the port's client exactly
+       and exiting 0 when its pipe closes;
+    b. the default mix's first eighth with its deltas (an escalating delta
+       repacks on a ``MaintenanceWorker`` under the loop's lock): typed
+       only; after the drain every tenant's host twin equals a host copy
+       with the deltas applied in order, and a pool equals the host oracle;
+    d. a ``DurableTenant`` over a copy of tenant 0 (journal ``always``),
+       64 deltas of the generator's shape inside its containers, a
+       snapshot after 32, crashes at ``pre_append``, ``pre_apply``,
+       ``pre_apply@torn`` and ``post_apply``, each recovered onto the card
+       equal to a never-crashed twin (image words, host twin,
+       cardinality); group commit over 4 tenants; append, snapshot and
+       recovery ms;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -1606,6 +1645,677 @@ def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
     torch.cuda.empty_cache()
 
 
+def has_value_leaf(e, expr) -> bool:
+    """An expression reading a value column (a predicate or an aggregate)."""
+    if isinstance(e, (expr.ValuePred, expr.Agg)):
+        return True
+    if isinstance(e, expr.Node):
+        return any(has_value_leaf(c, expr) for c in e.children)
+    return False
+
+
+def phase14(smoke, seed: int, tenants11) -> None:
+    """The serving stack on the card (``serving``, ``wire``,
+    ``mutation.durability``) over phase 11's 16 tenants, each with a
+    ``BsiColumn("v")`` made as ``replay.build_dataset`` makes one: 14a a
+    query-only replay stream through ``ServingLoop``; 14c the resident ring
+    lane on 14a's engine; 14e the wire front door over 14a's loop and a
+    ``bootstrap --device cuda`` child; 14b the default mix with deltas;
+    14d a durable tenant."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet
+    from roaringbitmap_tpu_torch.analytics import BsiColumn
+    from roaringbitmap_tpu_torch.mutation import MaintenanceWorker
+    from roaringbitmap_tpu_torch.mutation import delta as mut_delta
+    from roaringbitmap_tpu_torch.mutation import durability
+    from roaringbitmap_tpu_torch.ops import kernels
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
+    from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
+    from roaringbitmap_tpu_torch.runtime import errors, faults, residency
+    from roaringbitmap_tpu_torch.runtime import lattice as rt_lattice
+    from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
+                                                 ServingRequest, replay)
+    from roaringbitmap_tpu_torch.serving import loop as sloop
+    from roaringbitmap_tpu_torch.serving.loop import replay_stream
+    from roaringbitmap_tpu_torch.serving.resident import signature_id
+    from roaringbitmap_tpu_torch.wire import WireClient, WireServer
+    from roaringbitmap_tpu_torch.wire import migrate as wmig
+
+    b1, b3, b5 = kernels.B1.name, kernels.B3.name, kernels.B5.name
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    served = dict.fromkeys((b1, b3, b5), 0)
+
+    def serve(label, fn):
+        """A main-path call of the serving stack: its launches count
+        toward the phase's B1 / B3 / B5 requirement."""
+        out = smoke.main_path(label, fn)
+        for k in served:
+            served[k] += smoke.last[k]
+        return out
+
+    sets, tenants = list(tenants11[0]), tenants11[1]
+    n_t, per = len(sets), min(len(t) for t in tenants)
+    for t, ds in enumerate(sets):
+        if ds.version:          # phase 12 patched or repacked it
+            sets[t] = DeviceBitmapSet(tenants[t], layout="dense" if t < 12
+                                      else "compact")
+    knobs = dict(sets=n_t, sources=per, tenants=64, users=1 << 24,
+                 requests=2048, duration_s=4.0, seed=seed)
+    for ds, (ids, vals) in zip(sets, replay.dataset_columns(
+            replay.ReplayProfile(**knobs))):
+        ds.attach_column(BsiColumn("v", ids, vals))
+    columns = [{"v": ds.columns["v"]} for ds in sets]
+    n_compact = sum(s.layout == "compact" for s in sets)
+    log(f"  14: {n_t} tenants of {per} ({n_compact} compact), a "
+        f"BsiColumn('v') each; resident {residency.snapshot()}")
+
+    def oracle(sid, q, hosts, cols):
+        srcs, cols = hosts[sid], cols[sid]
+        if isinstance(q, BatchQuery):
+            want = host_query(q, srcs)
+            return want.cardinality, None, want
+        if expr.is_agg(q.expr):
+            return expr.evaluate_host_agg(q.expr, srcs, cols)
+        want = expr.evaluate_host(q.expr, srcs, cols)
+        return want.cardinality, None, want
+
+    def exact(res, req, q, hosts, cols=columns) -> bool:
+        card_, value, want = oracle(req.set_id, q, hosts, cols)
+        if (res.cardinality, res.value) != (card_, value):
+            return False
+        return q.form != "bitmap" or res.bitmap == want
+
+    def report_line(label, rep, loop):
+        t = list(loop.timings)
+        lm = float(np.median([x["loop_ms"] for x in t])) if t else 0.0
+        em = float(np.median([x["engine_ms"] for x in t])) if t else 0.0
+        log(f"    {label} [{card}]: {rep['done']} done, {rep['shed']} shed, "
+            f"{rep['rejected']} rejected, {rep['failed']} failed of "
+            f"{rep['queries']} ({rep['deltas']} deltas); p50 "
+            f"{rep['p50_ms']} ms, p99 {rep['p99_ms']} ms (fault clock), "
+            f"{rep['qps']} Q/s, attainment {rep['attainment']}, "
+            f"typed_only {rep['typed_only']}; {loop.stats['pools']} pools, "
+            f"level peak {loop.level_peak}; a pool's host ms in the loop "
+            f"(assembly to the engine call) {lm:.3f} beside the engine's "
+            f"wall {em:.3f} (medians of {len(t)})")
+
+    # ----------------------------------------------------------------- 14a
+    events = replay.generate(replay.ReplayProfile(**knobs, delta_share=0.0))
+    queries = [ev[2] for ev in events]
+    ms = MultiSetBatchEngine(sets, result_cache=None)
+    policy = ServingPolicy(pool_target=64)
+    want: dict = {}         # id(request) -> the host oracle's answer
+
+    def exact_t(t) -> bool:
+        """A done ticket against the host oracle of its request (computed
+        once a request: every run of the stream serves the same ones)."""
+        got = want.get(id(t.request))
+        if got is None:
+            got = want[id(t.request)] = oracle(
+                t.request.set_id, t.request.query, tenants, columns)
+        card_, value, bm = got
+        return ((t.result.cardinality, t.result.value) == (card_, value)
+                and (t.query.form != "bitmap" or t.result.bitmap == bm))
+
+    def run_14a(rate, stream):
+        """``stream`` (events) at ``rate`` x the profile's arrival rate
+        through a fresh loop: the report, the loop and its completed
+        tickets; prints each admission's host ms."""
+        loop = ServingLoop(ms, policy)
+        done: list = []
+        adm: list = []
+        loop.add_completion_listener(done.extend)
+        submit = loop.submit
+
+        def timed_submit(req, arrival=None):
+            a = time.perf_counter()
+            t = submit(req, arrival=arrival)
+            adm.append((time.perf_counter() - a) * 1e3)
+            return t
+
+        loop.submit = timed_submit
+        rep = serve(f"14a run_inproc, {len(stream)} queries at {rate:g}x",
+                    lambda: replay.run_inproc(loop, stream, rate_scale=rate))
+        del loop.submit
+        loop.remove_completion_listener(done.extend)
+        t0 = time.perf_counter()
+        ok = [t for t in done if t.status == "done"]
+        bad = [t for t in ok if not exact_t(t)]
+        require(not bad, f"14a at {rate:g}x: {len(bad)} tickets != the host "
+                f"oracle, first {bad[:1]}")
+        require(rep["typed_only"] and rep["queries"] == len(stream)
+                and sloop.counter("rb_serving_pump_errors_total") == 0,
+                f"14a at {rate:g}x: {rep}")
+        report_line(f"14a at {rate:g}x", rep, loop)
+        log(f"      all {len(ok)} served equal the host oracle (host "
+            f"{time.perf_counter() - t0:.1f} s); admission host ms median "
+            f"{float(np.median(adm)):.3f}, p99 "
+            f"{float(np.percentile(adm, 99)):.3f} ({len(adm)} admitted); "
+            f"launches B1 {smoke.last[b1]}, B3 {smoke.last[b3]}, B5 "
+            f"{smoke.last[b5]}; shed {sloop.counters('rb_serving_shed')}")
+        return rep, loop, done
+
+    # the whole stream at the profile's rate, then a rate ladder on its
+    # first eighth (rising to the diurnal curve's first peak) for the rate
+    # the loop sustains; later arms run at that rate
+    rates = (1.0, 0.25, 0.0625, 0.015625)
+    prefix = events[:len(events) // 8]
+    runs = {}
+    for rate in rates:
+        sloop.reset_counters()
+        runs[rate] = run_14a(rate, events if rate == 1.0 else prefix)
+    sus = replay.sustained(lambda r: runs[r][0], rates, slo_target=0.9)
+    rate_s = sus["sustained_rate_x"] or rates[-1]
+    loop_a = runs[rate_s][1]      # the loop 14e's wire server fronts
+    by_req = {id(t.request): t for rate in rates for t in runs[rate][2]
+              if t.status == "done"}
+    log(f"    14a [{card}]: the profile offers {len(events) / 4.0:.0f} "
+        f"arrivals/s on average; sustained at attainment >= 0.9: "
+        f"{sus['sustained_rate_x']}x, {sus['sustained_qps']} Q/s, p99 "
+        f"{sus['sustained_p99_ms']} ms; ladder {sus['ladder']} (1x on the "
+        f"whole stream, the others on its first {len(prefix)} requests)")
+    probe = queries[:64]
+    loop_t = ServingLoop(ms, ServingPolicy(pool_target=64,
+                                           default_deadline_ms=600_000.0))
+
+    def one_pump():
+        for r in probe:
+            loop_t.submit(r)
+        return loop_t.pump(force=True)
+
+    log(f"    14a one traced pump of 64 requests: {traced(torch, one_pump)}")
+
+    # ----------------------------------------------------------------- 14c
+    exprs = [r for r in queries if isinstance(r.query, expr.ExprQuery)
+             and not has_value_leaf(r.query.expr, expr)]
+    flats = [r for r in queries if isinstance(r.query, BatchQuery)]
+
+    def pooled_of(reqs):
+        return tuple((r.set_id, r.query) for r in reqs)
+
+    pairs, plans = [], []
+    # two tenants a pool: the pooled engine plans it (a one-set pool would
+    # go through that set's own engine)
+    flats = iter(flats)
+    for a in exprs:
+        b = next((f for f in flats if f.set_id != a.set_id), None)
+        if b is None:
+            break
+        p = ms._plan_pool(pooled_of([a, b]))
+        if p.mega is not None and p.mega.fits():
+            pairs.append((a, b))
+            plans.append(p)
+            if len(pairs) == 32:
+                break
+    require(len(pairs) >= 8, f"14c: only {len(pairs)} fused pairs fit B5")
+    need = np.max([lattice_needs(p.buckets) for p in plans], axis=0)
+    pool_need = max(max(r.size for r in p.row_sel.values())
+                    for p in plans) + 1
+    depth = max(s.depth for p in plans for s in p.exprs
+                if s.kind == "fused")
+    prof_c = (f"q={pow2(need[0])},;rows={pow2(need[1])},;"
+              f"keys={pow2(need[2])},;heads=both;expr={depth};"
+              f"pool={pow2(pool_need)},")
+    rt_lattice.activate(prof_c)
+    lat = rt_lattice.active()
+    keep = []
+    for pr in pairs:
+        p = ms._plan_pool(pooled_of(pr))
+        if (p.point is not None and signature_id(lat, p.point) is not None
+                and ms._pool_engine(p, "megakernel", note=False)
+                == "megakernel"):
+            keep.append(pr)
+    pairs = keep
+    require(len(pairs) >= 8, f"14c: {len(pairs)} pairs snap into {prof_c}")
+    arrivals = [(i * 1e-3, r) for i, r in enumerate(
+        [r for pr in pairs for r in pr])]
+    log(f"  14c: {len(pairs)} pools of [expression, flat] from 14a's stream "
+        f"(two tenants each, with a fused section that fits B5, of "
+        f"{len(exprs)} expression requests); needs q {need[0]}, "
+        f"rows {need[1]}, keys {need[2]}, depth {depth}, pool {pool_need}; "
+        f"profile {prof_c!r}")
+    mega_pol = dict(pool_target=2, engine="megakernel",
+                    default_deadline_ms=600_000.0)
+    # each pool's program captured before the seal (a novel DAG is a new
+    # program), then the vocabulary warmed and sealed through the loop
+    replay_stream(ServingLoop(ms, ServingPolicy(**mega_pol)), arrivals)
+    loop_c = ServingLoop(ms, ServingPolicy(resident=True, **mega_pol))
+    t0 = time.perf_counter()
+    wrep = loop_c.warmup(profile=prof_c)
+    require(wrep["lattice"]["sealed"] and loop_c._resident.active,
+            f"14c: warmup not sealed: {wrep['lattice']}")
+    log(f"    14c warmup [{card}]: {wrep['lattice']['points']} points, "
+        f"{wrep['graphs']} graphs, pool {wrep['pool_bytes']} bytes, "
+        f"{time.perf_counter() - t0:.2f} s")
+    caps0 = ms._programs.captures
+    sloop.reset_counters()
+    got_c = serve("14c resident ring stream",
+                  lambda: replay_stream(loop_c, arrivals))
+    rs = loop_c._resident.stats
+    require(sloop.counter("rb_serving_dispatches_total") == 0
+            and rs["served"] == loop_c.stats["pools"] == len(pairs)
+            and rs["demoted"] == 0 and ms._programs.captures == caps0
+            and rt_lattice.escape_total() == 0,
+            f"14c: ring {rs}, pools {loop_c.stats['pools']}, dispatches "
+            f"{sloop.counter('rb_serving_dispatches_total')}, escapes "
+            f"{rt_lattice.escape_total()}")
+    require(smoke.last[b5] >= len(pairs), f"14c: B5 {smoke.last[b5]}")
+    for t in got_c:
+        a = by_req.get(id(t.request))
+        require(t.ok and exact(t.result, t.request, t.query, tenants),
+                f"14c: {t.request} != the host oracle")
+        if a is not None and a.ok and not a.degraded:
+            require(same_results([t.result], [a.result]),
+                    "14c: ring result != 14a's")
+    loop_o = ServingLoop(ms, ServingPolicy(**mega_pol))
+    got_o = serve("14c one-shot stream (same pools, same graphs)",
+                  lambda: replay_stream(loop_o, arrivals))
+    require(all(same_results([a.result], [b.result])
+                for a, b in zip(got_c, got_o)), "14c: ring != one-shot")
+    one_t = list(loop_o.timings)
+    # the ring again on a fresh loop (the same pools), its plans cached as
+    # the one-shot run's were
+    loop_c = ServingLoop(ms, ServingPolicy(resident=True, **mega_pol))
+    d0 = sloop.counter("rb_serving_dispatches_total")
+    got_c = serve("14c resident ring stream, again",
+                  lambda: replay_stream(loop_c, arrivals))
+    require(sloop.counter("rb_serving_dispatches_total") == d0
+            and ms._programs.captures == caps0
+            and rt_lattice.escape_total() == 0
+            and all(same_results([a.result], [b.result])
+                    for a, b in zip(got_c, got_o)), "14c: second ring run")
+    ring_t = list(loop_c.timings)
+    rs = loop_c._resident.stats
+
+    def med(ts, key):
+        return float(np.median([x[key] for x in ts]))
+
+    log(f"    14c [{card}]: {rs['served']} pools ring-served of "
+        f"{loop_c.stats['pools']}, rb_serving_dispatches_total flat, no "
+        f"capture, no escape; results equal 14a's and the host oracle; a "
+        f"pool's host ms (medians of {len(ring_t)}): ring loop "
+        f"{med(ring_t, 'loop_ms'):.3f} + serve {med(ring_t, 'engine_ms'):.3f}"
+        f" against one-shot loop {med(one_t, 'loop_ms'):.3f} + execute "
+        f"{med(one_t, 'engine_ms'):.3f}; ring "
+        f"{loop_c._resident.ring.state_event()}")
+    # one pool past the vocabulary, one wedged ring: typed demotions
+    deep = expr.ref(0)
+    for i in range(depth + 1):
+        deep = expr.xor(expr.and_(deep, expr.ref(i + 1)), expr.ref(i + 2))
+    deep_req = ServingRequest(0, expr.ExprQuery(deep), tenant="deep")
+    d0 = sloop.counter("rb_serving_dispatches_total")
+    t_deep = loop_c.submit(deep_req)
+    loop_c.drain()
+    loop_c._resident.ring.wedge()
+    t_wedged = [loop_c.submit(r) for r in pairs[0]]
+    loop_c.drain()
+    loop_c._resident.ring.reset()
+    dem = {r: sloop.counter("rb_serving_resident_demotions_total", reason=r)
+           for r in ("vocabulary", "wedged")}
+    require(dem == {"vocabulary": 1, "wedged": 1}
+            and sloop.counter("rb_serving_dispatches_total") == d0 + 2,
+            f"14c demotions {dem}")
+    for t in [t_deep] + t_wedged:
+        require(t.ok and exact(t.result, t.request, t.query, tenants),
+                f"14c demoted pool: {t.request} != the host oracle")
+    log(f"    14c: a depth-{depth + 2} pool and a wedged ring demoted typed "
+        f"({dem}), each served exactly by the one-shot dispatch")
+    rt_lattice.deactivate()
+
+    # ----------------------------------------------------------------- 14e
+    sloop.reset_counters()
+    with WireServer(loop_a, max_inflight=4096) as srv:
+        cl = WireClient(srv.address, timeout=120)
+        cl_tickets = recorded(cl)
+        # the stream at 14a's sustained rate, paced, for about 6 s of wall
+        n_wire = max(64, min(len(events), int(len(events) * 6.0 * rate_s
+                                              / 4.0)))
+        rep_e = serve(f"14e run_wire over 127.0.0.1, paced at {rate_s:g}x",
+                      lambda: replay.run_wire(cl, events[:n_wire],
+                                              rate_scale=rate_s, pace=True,
+                                              timeout=120))
+        del cl.submit
+        same = 0
+        for t in cl_tickets:
+            a = by_req.get(id(t.request))
+            if t.ok and a is not None and a.ok:
+                require(t.result.cardinality == a.result.cardinality
+                        and t.result.value == a.result.value and (
+                            t.result.degraded or a.degraded
+                            or t.result.bitmap == a.result.bitmap),
+                        f"14e: {t.request} != 14a's result")
+                same += 1
+        require(rep_e["typed_only"] and same > 0, f"14e: {rep_e}")
+        log(f"    14e wire [{card}]: the first {n_wire} requests at "
+            f"{rate_s:g}x: {rep_e['done']} done, {rep_e['shed']} "
+            f"shed, {rep_e['failed']} failed of {rep_e['queries']}; p50 "
+            f"{rep_e['p50_ms']} ms, p99 {rep_e['p99_ms']} ms (wall, client "
+            f"send to response), {rep_e['qps']} Q/s; {same} results equal "
+            f"14a's; server {srv.stats}")
+        # typed error frames on a live connection
+        with faults.inject(f"wire@slow_peer=1.0:{seed}"):
+            r = cl.call(queries[0], 60)
+        bad_set = cl.submit(ServingRequest(n_t + 5, BatchQuery("or", (0, 1))))
+        err = None
+        try:
+            bad_set.value(60)
+        except errors.CorruptInput as exc:
+            err = exc
+        cl.ping()
+        require(r.cardinality >= 0 and err is not None,
+                f"14e: slow peer / malformed submit: {err!r}")
+        # migration: tenant 1's captured state as mig_* frames
+        t0 = time.perf_counter()
+        state = durability.capture_state(sets[1], tenant="t1")
+        frames = wmig.state_frames("m14", "t1", state)
+        ack = cl.migrate_frames(frames, timeout=300)
+        mig_ms = (time.perf_counter() - t0) * 1e3
+        want_crcs = wmig.source_crcs(sets[1])
+        landed = srv.migrated.pop("t1")
+        require(ack["source_crcs"] == want_crcs,
+                f"14e migration: source CRCs differ ({ack.get('phase')})")
+        require(landed.device.type == "cuda",
+                f"14e migration: landed on {landed.device}, not the card")
+        del landed
+        cl.close()
+        require(srv.stats["pump_errors"] == 0, f"14e: {srv.stats}")
+    with WireServer(loop_a, auth={"tok": ["t0"]}) as asrv:
+        acl = WireClient(asrv.address, token="tok", timeout=60)
+        denied = acl.submit(ServingRequest(1, BatchQuery("or", (0, 1)),
+                                           tenant="t1"))
+        try:
+            denied.value(60)
+            auth_err = None
+        except errors.AuthRejected as exc:
+            auth_err = exc
+        acl.ping()
+        acl.close()
+    require(auth_err is not None and auth_err.context["tenant"] == "t1",
+            "14e: a tenant outside the grant was not AuthRejected")
+    log(f"    14e: wire@slow_peer answered, a malformed submit came back as a "
+        f"typed {type(err).__name__} frame and a tenant outside its grant "
+        f"as AuthRejected, each connection live after (ping); tenant 1 "
+        f"migrated as {len(frames)} mig_* frames "
+        f"({durability.state_bytes(state)} bytes) and committed onto the "
+        f"card in {mig_ms:.1f} ms with its {len(want_crcs)} source CRCs equal")
+    require(sloop.counter("rb_serving_pump_errors_total") == 0,
+            "14e: a pump raised")
+    # the second process: bootstrap --device cuda
+    bknobs = dict(sets=4, sources=64, users=1 << 24, density=40960,
+                  tenants=8, requests=256, seed=seed)
+    cmd = [sys.executable, "-m", "roaringbitmap_tpu_torch.wire.bootstrap",
+           "--device", "cuda", "--seed", str(seed), "--sets", "4",
+           "--sources", "64", "--users", str(1 << 24), "--density", "40960",
+           "--tenants", "8"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        info = json.loads(proc.stdout.readline())
+        up_s = time.perf_counter() - t0
+        bprof = replay.ReplayProfile(**bknobs, delta_share=0.0)
+        bbms, bcols = replay.build_dataset(bprof)
+        bcolumns = [{"v": BsiColumn("v", ids, vals)} for ids, vals in bcols]
+        bev = replay.generate(bprof)
+        bcl = WireClient((info["host"], info["port"]), timeout=120)
+        btk = recorded(bcl)
+        brep = replay.run_wire(bcl, bev, pace=False, timeout=120)
+        bcl.close()
+        for t in btk:
+            require(t.ok and exact(t.result, t.request, t.request.query,
+                                   bbms, bcolumns),
+                    f"14e bootstrap: {t.request} != the host oracle "
+                    f"({t.error!r})")
+        proc.stdin.close()
+        rc = proc.wait(timeout=60)
+        require(rc == 0, f"14e bootstrap: exit {rc}, {info}")
+        require(info["device"].startswith("cuda"),
+                f"14e bootstrap: served from {info['device']}, not the card")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    log(f"    14e bootstrap --device cuda [{card}]: a child process "
+        f"(pid {info['pid']}, {info['device']}, up in {up_s:.1f} s) served "
+        f"{brep['done']} of {brep['queries']} requests exactly, p50 "
+        f"{brep['p50_ms']} ms, p99 {brep['p99_ms']} ms, {brep['qps']} Q/s; "
+        f"exit 0 when its pipe closed")
+
+    # ----------------------------------------------------------------- 14b
+    # the default mix; its first eighth, as 14a's ladder (each delta that
+    # lands in a container its source lacks costs a repack of the tenant)
+    mev = replay.generate(replay.ReplayProfile(**knobs))
+    mev = mev[:len(mev) // 8]
+    hosts = [list(t) for t in tenants]
+    for ev in mev:
+        if ev[0] == "delta":
+            _, _, sid, adds, removes = ev
+            hosts[sid] = host_delta(hosts[sid], adds, removes)
+    mut_delta.reset_stats()
+    loop_b = ServingLoop(ms, policy)
+    # deltas that escalate (a value in a container its source lacks) repack
+    # on a maintenance worker under the loop's lock, off the serving path;
+    # a front door with apply_delta is how the replay arm sends them
+    worker = MaintenanceWorker(lock=loop_b._lock)
+
+    class Front:
+        submit, pump, drain = loop_b.submit, loop_b.pump, loop_b.drain
+
+        @staticmethod
+        def apply_delta(sid, adds, removes):
+            with loop_b._lock:
+                sets[sid].apply_delta(adds, removes, worker=worker)
+
+    rep_b = serve(f"14b run_inproc, mixed stream with deltas at {rate_s:g}x",
+                  lambda: replay.run_inproc(Front, mev, rate_scale=rate_s))
+    t0 = time.perf_counter()
+    worker.stop(drain=True, timeout=600)
+    loop_b.drain()
+    drain_s = time.perf_counter() - t0
+    require(rep_b["typed_only"] and rep_b["deltas"] > 0
+            and worker.jobs_failed == 0
+            and sloop.counter("rb_serving_pump_errors_total") == 0,
+            f"14b: {rep_b}, worker failures {worker.jobs_failed}")
+    report_line("14b", rep_b, loop_b)
+    t0 = time.perf_counter()
+    for t, ds in enumerate(sets):
+        require(ds.host_bitmaps() == hosts[t],
+                f"14b: tenant {t}'s host twin != the host copy")
+    post = [ev[2] for ev in mev if ev[0] == "query"][:64]
+    tk = [loop_b.submit(ServingRequest(r.set_id, r.query, tenant=r.tenant,
+                                       deadline_ms=600_000.0)) for r in post]
+    loop_b.drain()
+    require(all(t.ok and exact(t.result, t.request, t.query, hosts)
+                for t in tk), "14b: the post-drain pool != the host oracle")
+    log(f"    14b: after drain every tenant's host twin equals the host "
+        f"copy with the stream's {rep_b['deltas']} deltas applied in order, "
+        f"and a 64-request pool equals the host oracle (host "
+        f"{time.perf_counter() - t0:.1f} s); the worker's {worker.jobs_done} "
+        f"repacks drained {drain_s:.1f} s after the stream; mutation "
+        f"{mut_delta.stats()}; layouts {[s.layout for s in sets]}")
+
+    # ----------------------------------------------------------------- 14d
+    # the durable root: a temporary directory inside the checkout
+    root = tempfile.mkdtemp(prefix=".durable-", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        drng = np.random.default_rng(seed + 14)
+        def values_in(t, src, n):
+            """``n`` values inside containers tenant ``t``'s source ``src``
+            holds."""
+            k = drng.choice(np.asarray(tenants[t][src].keys, np.uint32), n)
+            return (k << 16) | drng.integers(0, 1 << 16, n).astype(np.uint32)
+
+        def gen_delta(t=0):
+            """The generator's delta shape (8-48 adds to one source, 8
+            removes from one in 3 of 10), its values inside the source's
+            containers: the patch path, whose durability this measures
+            (14b's uniform values take the repack path)."""
+            src = int(drng.integers(0, per))
+            adds = {src: values_in(t, src, int(drng.integers(8, 48)))}
+            removes = None
+            if drng.random() < 0.3:
+                src = int(drng.integers(0, per))
+                removes = {src: values_in(t, src, 8)}
+            return adds, removes
+
+        ds0 = DeviceBitmapSet(tenants[0], layout="dense")
+        twin = DeviceBitmapSet(tenants[0], layout="dense")
+        t0 = time.perf_counter()
+        dt = durability.DurableTenant(
+            ds0, root=root, tenant="d0",
+            policy=durability.FlushPolicy("always"))
+        base_ms = (time.perf_counter() - t0) * 1e3
+        appends = []
+        orig_append = dt.journal.append
+
+        def timed_append(rec):
+            a = time.perf_counter()
+            out = orig_append(rec)
+            appends.append((time.perf_counter() - a) * 1e3)
+            return out
+
+        dt.journal.append = timed_append
+        snap = None
+        for k in range(64):
+            adds, removes = gen_delta()
+            dt.apply_delta(adds=adds, removes=removes)
+            twin.apply_delta(adds=adds, removes=removes)
+            if k == 31:
+                snap = dt.snapshot()
+        dt.journal.append = orig_append
+
+        def same_image(rec) -> bool:
+            torch.cuda.synchronize()
+            return (torch.equal(rec.ds.words, twin.words)
+                    and rec.ds.host_bitmaps() == twin.host_bitmaps()
+                    and rec.ds.aggregate("or").cardinality
+                    == twin.aggregate("or").cardinality)
+
+        rows = []
+        for point, scope in (("pre_append", "pre_append"),
+                             ("pre_apply", "pre_apply"),
+                             ("torn", "torn"), ("post_apply", "post_apply")):
+            adds, removes = gen_delta()
+            with faults.inject(f"crash@{scope}=1.0:1"):
+                try:
+                    dt.apply_delta(adds=adds, removes=removes)
+                    crashed = False
+                except errors.InjectedCrash:
+                    crashed = True
+            require(crashed, f"14d: no crash at {point}")
+            dt.close()
+            committed = point in ("pre_apply", "post_apply")
+            if committed:
+                twin.apply_delta(adds=adds, removes=removes)
+            torn0 = durability.stats()["torn_tails"]
+            rec, rep = durability.recover_tenant(
+                root=root, tenant="d0",
+                policy=durability.FlushPolicy("always"))
+            require(rec.ds.device.type == "cuda",
+                    f"14d {point}: recovered onto {rec.ds.device}, not the "
+                    f"card")
+            require(rep["torn"] == (point == "torn")
+                    and durability.stats()["torn_tails"] - torn0
+                    == (point == "torn") and same_image(rec),
+                    f"14d {point}: recovery != the never-crashed twin {rep}")
+            if not committed:
+                rec.apply_delta(adds=adds, removes=removes)
+                twin.apply_delta(adds=adds, removes=removes)
+            rows.append(f"{point} (replayed {rep['replayed']}, torn "
+                        f"{rep['torn']}): load {rep['load_ms']:.1f} + restore"
+                        f" {rep['restore_ms']:.1f} + replay "
+                        f"{rep['replay_ms']:.1f} ms")
+            dt = rec
+        require(same_image(dt), "14d: the final image != the twin")
+        dt.close()
+        log(f"  14d durable tenant 0 [{card}]: base snapshot {base_ms:.1f} "
+            f"ms; 64 deltas, journal append with fsync median "
+            f"{float(np.median(appends)):.3f} ms (p99 "
+            f"{float(np.percentile(appends, 99)):.3f}); snapshot after 32: "
+            f"{snap['wall_ms']} ms, {snap['bytes']} bytes")
+        log(f"    14d crash seams, each recovered onto the card equal to the "
+            f"never-crashed twin (image words, host twin and cardinality): "
+            f"{'; '.join(rows)}")
+        del ds0, twin, dt, rec
+        # group commit across 4 tenants
+        sched = durability.GroupCommitScheduler(every_n=8)
+        gts = [durability.DurableTenant(
+            DeviceBitmapSet(tenants[t], layout="dense"), root=root,
+            tenant=f"g{t}", policy=sched.policy()) for t in range(4)]
+        ghosts = [list(tenants[t]) for t in range(4)]
+        t0 = time.perf_counter()
+        for k in range(16):
+            for t, gt in enumerate(gts):
+                adds, removes = gen_delta(t)
+                gt.apply_delta(adds=adds, removes=removes)
+                ghosts[t] = host_delta(ghosts[t], adds, removes)
+        sched.commit()
+        g_ms = (time.perf_counter() - t0) * 1e3
+        for gt in gts:
+            gt.close()
+        for t in range(4):
+            rec, _ = durability.recover_tenant(
+                root=root, tenant=f"g{t}",
+                policy=durability.FlushPolicy("never"))
+            require(rec.ds.host_bitmaps() == ghosts[t],
+                    f"14d group: tenant g{t} != its host copy")
+            rec.close()
+        log(f"    14d group commit over 4 tenants: {sched.stats} "
+            f"({sched.stats['fsyncs']} fsyncs for {sched.stats['appends']} "
+            f"appends; 64 applies in {g_ms:.1f} ms); each recovered exact")
+        del gts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    require(all(served.values()), f"14: B1/B3/B5 from the loop {served}")
+    log(f"  14: launches from the serving stack's main-path calls {served}; "
+        f"pump errors {sloop.counter('rb_serving_pump_errors_total')}")
+    del loop_a, loop_b, loop_c, loop_o, loop_t, runs, ms
+    torch.cuda.empty_cache()
+
+
+def host_delta(hosts, adds, removes) -> list:
+    """A delta applied to host bitmaps in the ``apply_delta`` order (adds,
+    then removes)."""
+    from roaringbitmap_tpu_torch import RoaringBitmap
+
+    out = list(hosts)
+    for src, vals in (adds or {}).items():
+        out[src] = out[src] | RoaringBitmap.from_values(
+            np.unique(np.asarray(vals, np.uint32)))
+    for src, vals in (removes or {}).items():
+        out[src] = out[src] - RoaringBitmap.from_values(
+            np.unique(np.asarray(vals, np.uint32)))
+    return out
+
+
+def recorded(client) -> list:
+    """The tickets of every ``client.submit`` from now on (the replay arms
+    keep theirs to themselves); ``del client.submit`` stops recording."""
+    got: list = []
+    submit = client.submit
+
+    def rec(req):
+        t = submit(req)
+        got.append(t)
+        return t
+
+    client.submit = rec
+    return got
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2528,6 +3238,13 @@ def main() -> int:
     phase12(smoke, args.seed, ds, bms, eng, xds, sds, sbms, seng, epool,
             price, cols, batches, tenants11)
     phase_time("phase 12", t_phase)
+
+    # ------------------------------------------------------------ phase 14
+    log("phase 14: the serving stack (ServingLoop, the ring lane, the wire, "
+        "durable tenants)")
+    t_phase = time.perf_counter()
+    phase14(smoke, args.seed, tenants11)
+    phase_time("phase 14", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "

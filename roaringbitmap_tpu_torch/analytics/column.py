@@ -35,6 +35,7 @@ from ..core.bitmap import RoaringBitmap, and_ as rb_and, andnot as rb_andnot
 from ..core.rangebitmap import RangeBitmap
 from ..ops import packing
 from ..ops.words import WORDS32, as_i32, resolve_device
+from ..runtime import residency
 from . import plane
 
 _BSI_OP = {"eq": Operation.EQ, "neq": Operation.NEQ, "lt": Operation.LT,
@@ -68,6 +69,9 @@ class _ColumnBase:
         self.version = 0
         self.structure_version = 0
         self._dev = None
+        residency.register(self, self.kind, lambda c: c.hbm_bytes(),
+                           lambda c: (c.version, c.structure_version,
+                                      getattr(c, "depth_pad", None)))
 
     def _pack(self, ebm_bitmap: RoaringBitmap, slice_bitmaps) -> None:
         """Densify the existence plane and the slices over the ebm's keys,

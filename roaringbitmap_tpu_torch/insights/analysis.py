@@ -245,6 +245,138 @@ def predict_multiset_dispatch_bytes(bucket_sigs: list, sets: list,
     return out
 
 
+# ------------------------------------------------------------ time model
+#
+# The JAX package budgets a pool's execute time before it dispatches
+# (``MultiSetBatchEngine.predict_dispatch_seconds``): bytes and a word-op
+# count through ``obs.cost.estimate_seconds``, at the device's peak rates
+# until dispatches at (site, rung) calibrate the achieved rates.  The port
+# keeps the word-op model (``predict_*_word_ops``, the JAX counts with the
+# port's rung names) and a minimal copy of that calibration here, beside
+# the footprint model, until the obs layer is ported.
+
+#: H100 SXM ceilings: HBM3 bytes/s (NVIDIA data sheet) and the INT32 rate
+#: of the kernels' word operations (64 INT32 lanes per SM x 132 SMs x
+#: 1.98 GHz boost), as ``chip_smoke.py`` bounds the kernels
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 132 * 64 * 1.98e9
+
+
+def predict_batch_dispatch_word_ops(bucket_sigs: list, kind: str,
+                                    n_rows: int, engine: str) -> int:
+    """Word operations of ONE batch dispatch (one u32 lane operation each):
+    per bucket the segmented reduce (one pass on the kernel rungs, the
+    doubling pass's ``n_steps`` sweeps on "torch"), the mask and popcount
+    pass over the head rows and the andnot head pass; plus the rebuilt
+    image of a stream set."""
+    total = 0
+    for op, q, r_pad, k_pad, n_steps, _needs_words in bucket_sigs:
+        passes = (1 if engine in ("cuda", "megakernel")
+                  else max(1, int(n_steps)))
+        total += q * r_pad * WORDS_PER_CONTAINER * 2 * passes
+        head_rows = q * (k_pad + 1)
+        total += head_rows * WORDS_PER_CONTAINER * 2
+        if op == "andnot":
+            total += head_rows * WORDS_PER_CONTAINER * 2
+    if kind == "streams":
+        total += (int(n_rows) + 1) * WORDS_PER_CONTAINER * 2
+    return int(total)
+
+
+def predict_expr_word_ops(expr_sigs, engine: str) -> int:
+    """Word operations the fused sections add to one dispatch: per combine
+    one K-row sweep per pairwise op and per unaligned child, a value step
+    about three per slice plane (plus a sum's popcount sweep), and the
+    root's popcount."""
+    words = WORDS_PER_CONTAINER * 2
+    total = 0
+    for sig in expr_sigs:
+        kind, _bitmap_form, steps, _root, root_k = sig
+        if kind != "fused":
+            continue
+        for step in steps:
+            skind, op, k, copies, n_children = _expr_step_rows(step)
+            if skind == "combine":
+                total += k * words * max(1, n_children - 1)
+                total += k * words * copies
+                if op == "andnot":
+                    total += k * words
+            elif skind in ("vscan", "vagg"):
+                depth = _value_step_depth(step)
+                total += 3 * depth * k * words
+                if skind == "vagg":
+                    total += (depth + copies + 1) * k * words
+        if not any(step[0] == "vagg" for step in steps):
+            total += root_k * words
+    return int(total)
+
+
+def predict_multiset_dispatch_word_ops(bucket_sigs: list, sets: list,
+                                       engine: str,
+                                       pool_rows: int | None = None) -> int:
+    """Word operations of ONE pooled launch: the buckets, each stream
+    set's rebuilt image, and one pass over the pooled image."""
+    words = WORDS_PER_CONTAINER * 2
+    total = predict_batch_dispatch_word_ops(bucket_sigs, "dense", 0, engine)
+    total += sum((int(n) + 1) * words for kind, n in sets
+                 if kind == "streams")
+    if pool_rows:
+        total += int(pool_rows) * words
+    return int(total)
+
+
+class CostModel:
+    """Roofline seconds of a (word ops, bytes) workload, calibrated by the
+    achieved rates of measured launches per (site, rung): the JAX package's
+    ``obs.cost.estimate_seconds`` and its tracker, reduced to what the
+    serving loop's estimate reads.  A launch whose wall included one-time
+    work (a kernel library load, a graph capture, a first eager run) is
+    not recorded by its caller."""
+
+    def __init__(self):
+        self._rows: dict = {}     # (site, rung) -> [launches, s, ops, bytes]
+
+    def record(self, site: str, engine: str, word_ops: int, nbytes: int,
+               seconds: float) -> None:
+        if seconds <= 0.0:
+            return
+        row = self._rows.setdefault((site, engine), [0, 0.0, 0.0, 0.0])
+        row[0] += 1
+        row[1] += float(seconds)
+        row[2] += float(word_ops)
+        row[3] += float(nbytes)
+
+    def rates(self, site: str, engine: str) -> dict | None:
+        """Cumulative achieved rates at (site, rung), or None before any
+        recorded launch."""
+        row = self._rows.get((site, engine))
+        if not row or row[1] <= 0.0 or row[3] <= 0.0:
+            return None
+        return {"launches": row[0], "ops_per_s": row[2] / row[1],
+                "bytes_per_s": row[3] / row[1]}
+
+    def estimate_seconds(self, word_ops: int, nbytes: int,
+                         site: str | None = None,
+                         engine: str | None = None) -> float:
+        """``max(ops / rate_ops, bytes / rate_bytes)`` at the card's peaks,
+        or at the calibrated rates once (site, rung) has launches."""
+        rate_o, rate_b = PEAK_OPS_PER_S, PEAK_BYTES_PER_S
+        got = (self.rates(site, engine)
+               if site is not None and engine is not None else None)
+        if got is not None:
+            if got["ops_per_s"] > 0:
+                rate_o = got["ops_per_s"]
+            rate_b = got["bytes_per_s"]
+        return max(word_ops / rate_o, nbytes / rate_b)
+
+    def reset(self) -> None:
+        self._rows.clear()
+
+
+#: the process's calibration (the JAX package's ``obs.cost.TRACKER``)
+COST = CostModel()
+
+
 def _serialized_size_of(b) -> int | None:
     if isinstance(b, (bytes, bytearray, memoryview)):
         return len(b)

@@ -39,6 +39,7 @@ import torch
 
 from ..ops import packing
 from ..ops.words import WORDS32, as_i32, resolve_device
+from ..runtime import residency
 
 ENV_RESULT_CACHE = "ROARING_TPU_RESULT_CACHE"
 
@@ -218,6 +219,7 @@ class ResultCache:
         self.evictions = 0
         self.invalidations = 0
         _CACHES.add(self)
+        residency.register(self, "result_cache", lambda c: c.nbytes)
 
     # ---------------------------------------------------------- probing
 

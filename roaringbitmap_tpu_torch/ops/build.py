@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DEFINES = {"megakernel.cu": {"RB_RECORD_RING": 128, "RB_PREFETCH_DEPTH": 32}}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: kernel libraries loaded by this process (a first load may include their
+#: nvcc build): a one-time cost no steady-state estimate may learn from
+LOADS = 0
 
 
 class KernelBuildError(RuntimeError):
@@ -107,8 +110,10 @@ def build(sources=SOURCES) -> dict[str, str]:
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of one source, building all sources first if its
     library is missing."""
+    global LOADS
     lib = _LIBS.get(source)
     if lib is None:
+        LOADS += 1
         path = library_path(source)
         if not path.exists():
             build()

@@ -53,7 +53,7 @@ from ..core.bitmap64 import Roaring64Bitmap
 from ..insights import analysis as insights
 from ..ops import dense, kernels, packing
 from ..ops.words import WORDS32, as_i32, resolve_device, to_u32
-from ..runtime import errors, faults, guard
+from ..runtime import errors, faults, guard, residency
 
 ENGINES = ("cuda", "torch")
 #: resident sets also take the nibble engine
@@ -722,6 +722,10 @@ class DeviceBitmapSet:
             base = int(dense.popcount(self.words).sum(dtype=torch.int64))
         self._mutation_base_values = base
         self._mutated_values = 0
+        # resident bytes (runtime.residency), recounted when a repack moves
+        # the structure version
+        residency.register(self, "bitmap_set", DeviceBitmapSet.hbm_bytes,
+                           lambda s: (s.structure_version, s.layout))
 
     def _compact_meta(self, s: packing.CompactStreams, blk_seg: np.ndarray,
                       dev: torch.device) -> None:

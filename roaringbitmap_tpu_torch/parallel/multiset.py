@@ -202,8 +202,10 @@ class _PoolPlan:
     rb_meta: dict = dataclasses.field(default_factory=dict)
     #: the B5 program when the plan has fused sections
     mega: object = None
-    #: the footprint model per rung, computed once per plan
+    #: the footprint model and the word-op count per rung, computed once
+    #: per plan
     predicted: dict = dataclasses.field(default_factory=dict)
+    word_ops: dict = dataclasses.field(default_factory=dict)
     #: the covering lattice point when an active lattice snapped this pool
     #: (every set referenced, one padded row selection each); None = exact
     point: object = None
@@ -425,6 +427,11 @@ class _Inflight:
     queries: tuple
     eng: str
     inject: bool
+    #: launch start (perf_counter) and the process's one-time work count
+    #: then: the drain calibrates the time model only if nothing one-time
+    #: happened in between
+    t0: float = 0.0
+    one_time: int = 0
 
 
 class MultiSetBatchEngine:
@@ -724,6 +731,35 @@ class MultiSetBatchEngine:
             engine, [q for _, q in pooled], self.device), note=False)
         return self._predict(plan, eng)["peak_bytes"]
 
+    def predict_dispatch_seconds(self, pooled_or_groups,
+                                 engine: str = "auto") -> float:
+        """Execute-time estimate of ONE pooled launch, before it dispatches:
+        the footprint model's bytes and the word-op count
+        (``insights.predict_multiset_dispatch_word_ops``) over the card's
+        peak rates, or over the rates this rung's measured launches
+        achieved (``insights.COST``).  What the serving loop's
+        deadline-aware assembly budgets against."""
+        pooled = self._as_pooled(pooled_or_groups)
+        if not pooled:
+            return 0.0
+        plan = self._plan_pool(pooled)
+        eng = self._pool_engine(plan, resolve_query_engine(
+            engine, [q for _, q in pooled], self.device), note=False)
+        return insights.COST.estimate_seconds(
+            self._word_ops(plan, eng), self._predict(plan, eng)["peak_bytes"],
+            SITE, eng)
+
+    def _word_ops(self, plan: _PoolPlan, eng: str) -> int:
+        ops = plan.word_ops.get(eng)
+        if ops is None:
+            ops = insights.predict_multiset_dispatch_word_ops(
+                [b.signature for b in plan.buckets], self._plan_sets(plan),
+                eng, pool_rows=plan.n_pool_rows)
+            if plan.exprs:
+                ops += insights.predict_expr_word_ops(plan.expr_signature, eng)
+            plan.word_ops[eng] = ops
+        return ops
+
     def _as_pooled(self, pooled_or_groups):
         seq = list(pooled_or_groups)
         if seq and isinstance(seq[0], (BatchGroup, tuple)) \
@@ -1015,6 +1051,7 @@ class MultiSetBatchEngine:
         of its outputs to the host; then the host assembly (``sync``) or an
         :class:`_Inflight`.  The fault hooks sit at the engine boundary."""
         pooled = tuple(pooled)
+        t0, one0 = time.perf_counter(), rt_programs.one_time_work()
         plan = self._plan_pool(pooled)
         eng = self._pool_engine(plan, engine)
         if inject:
@@ -1034,7 +1071,8 @@ class MultiSetBatchEngine:
             rt_lattice.record_padding(SITE, int(pb), pf)
         self.dispatch_memory.append(mem)
         flight = _Inflight(plan=plan, outs=outs, event=event,
-                           queries=pooled, eng=eng, inject=inject)
+                           queries=pooled, eng=eng, inject=inject, t0=t0,
+                           one_time=one0)
         return flight if not sync else self._finish(flight)
 
     def _pooled_words(self, plan: _PoolPlan, eng: str, sels) -> torch.Tensor:
@@ -1159,6 +1197,13 @@ class MultiSetBatchEngine:
     def _finish(self, flight: _Inflight) -> list:
         if flight.event is not None:
             flight.event.synchronize()
+        if rt_programs.one_time_work() == flight.one_time:
+            # calibrate the time model with the launch's wall (host plan to
+            # host outputs), never with one that paid a one-time cost
+            plan, eng = flight.plan, flight.eng
+            insights.COST.record(SITE, eng, self._word_ops(plan, eng),
+                                 self._predict(plan, eng)["peak_bytes"],
+                                 time.perf_counter() - flight.t0)
         return self._readback(flight.plan, flight.outs, flight.queries,
                               flight.eng, flight.inject)
 

@@ -101,6 +101,72 @@ class InjectedCrash(RoaringRuntimeError):
     which is exactly what the crash-recovery property tests drive."""
 
 
+class WireError(RoaringRuntimeError):
+    """Base of the wire-boundary taxonomy (``wire``).  Everything the
+    binary RPC front door can do to a caller surfaces as one of these (or
+    as a re-hydrated serving/runtime type carried inside a typed error
+    frame): raw ``socket`` / ``struct`` / ``json`` errors never cross the
+    boundary in either direction.  ``code`` is the error-frame code the
+    class round-trips through."""
+
+    code = "wire"
+
+    def __init__(self, msg: str = "", **context):
+        super().__init__(msg)
+        #: JSON-able detail that rode the error frame (reason, tenant, ...)
+        self.context = dict(context)
+
+
+class WireHelloMismatch(WireError):
+    """The versioned hello failed: wrong magic, wrong protocol version, or
+    a non-hello first frame.  Connection-fatal, but still delivered as a
+    typed error frame before the close."""
+
+    code = "hello_mismatch"
+
+
+class AuthRejected(WireError):
+    """The boundary check refused the caller before any bytes reached a
+    ServingLoop: an unknown token at hello (connection-fatal) or a submit
+    naming a tenant outside the token's grant (per request)."""
+
+    code = "auth"
+
+
+class WireBackpressure(WireError):
+    """The per-connection pipelining window is full: the server refuses
+    the submit with a typed frame instead of buffering without bound.
+    Retryable: drain some responses and resubmit."""
+
+    code = "backpressure"
+    retryable = True
+
+
+class PeerClosed(WireError):
+    """The peer vanished mid-pipeline: every in-flight request on the
+    connection fails with this, typed, instead of a raw
+    ``ConnectionResetError``.  Retryable on a fresh connection."""
+
+    code = "peer_closed"
+    retryable = True
+
+
+class RemoteFailed(WireError):
+    """A server-side ticket failed with an exception class the client
+    could not re-hydrate into a local type: the catch-all that keeps the
+    no-raw-escapes contract total."""
+
+    code = "failed"
+
+
+class TornJournalTail(CorruptInput):
+    """The LAST record of a write-ahead journal is incomplete or fails its
+    CRC: the torn-write shape a crash mid-append leaves.  A torn tail is
+    recoverable (truncate it: the record never committed); corruption
+    anywhere before the tail is not and stays plain :class:`CorruptInput`,
+    which this subclasses."""
+
+
 #: message fragments -> taxonomy, checked in order (first hit wins), the
 #: JAX package's tables unchanged.  OOM before transient: an exhausted-
 #: resource status often also carries noise the transient patterns catch.

@@ -15,8 +15,9 @@ kind   ``transient`` (retryable device hiccup), ``oom`` (allocator
        (distributed barrier timeout), ``silent`` (a result corrupted with
        no exception: only the shadow check catches it), ``slow`` (the fault
        clock below jumps by SLOW_LATENCY_S before a dispatch; nothing
-       sleeps), and ``crash`` / ``wire``, which parse as in the JAX package
-       but fire only at the durability and RPC seams, not ported yet.
+       sleeps), ``crash`` (a simulated process death at a journal seam:
+       ``maybe_crash``) and ``wire`` (an RPC-boundary fault shape:
+       ``maybe_wire``).
 scope  a dispatch site ("aggregation", "batch_engine") or an engine rung
        of the port ("megakernel", "cuda", "torch", "sequential"); omitted
        means everywhere.
@@ -230,6 +231,61 @@ def maybe_fail(site: str, engine: str | None = None) -> None:
     kind = plan.pick(site, engine)
     if kind is not None:
         raise_fault(kind, site, engine)
+
+
+def maybe_crash(site: str, point: str | None = None,
+                tearable: bool = False) -> str | None:
+    """The durability-seam hook: when a ``crash`` rule fires for (site,
+    point), return the crash mode, ``"clean"`` (the journal record hit the
+    disk whole before the process died) or ``"torn"`` (the process died
+    mid-``write``, leaving the last record cut mid-frame); None when no
+    rule fires.  The caller (``mutation.durability``) tears the journal
+    tail for ``"torn"``, then raises ``errors.InjectedCrash`` for either
+    mode, and nothing between the crash point and the recovery entry point
+    may catch it.
+
+    Grammar: ``crash[@scope][=rate]`` where scope is a site or point name
+    (``durability``, ``pre_append``, ``pre_apply``, ``post_apply``) or the
+    special scope ``torn``, which switches the mode to a torn write and so
+    matches only calls with ``tearable=True`` (the one point where a frame
+    write is in flight).  Draws are keyed as in the JAX package."""
+    plan = active()
+    if plan is None:
+        return None
+    for i, r in enumerate(plan.rules):
+        if r.kind != "crash":
+            continue
+        mode = "torn" if r.scope == "torn" else "clean"
+        if mode == "torn" and not tearable:
+            continue
+        if r.scope not in (None, "torn", site, point):
+            continue
+        if plan._draw(i, f"{site}/{point}") < r.rate:
+            return mode
+    return None
+
+
+def maybe_wire(site: str) -> str | None:
+    """The RPC-boundary hook (``wire.server``, ``wire.client``): when a
+    ``wire`` rule fires for ``site``, return its scope, the fault shape the
+    caller enacts: ``"conn_drop"`` (close the socket mid-pipeline, no
+    goodbye frame), ``"slow_peer"`` (the fault clock jumps by
+    SLOW_LATENCY_S before the write; nothing sleeps) or ``"garbage"``
+    (corrupt the outgoing frame's payload; the receiver must die typed
+    ``CorruptInput``).  None when no rule fires.  ``site`` keys the draw
+    only, so server and client schedules are independent streams of one
+    seed."""
+    plan = active()
+    if plan is None:
+        return None
+    for i, r in enumerate(plan.rules):
+        if r.kind != "wire":
+            continue
+        if plan._draw(i, f"{site}/{r.scope}") < r.rate:
+            if r.scope == "slow_peer":
+                advance_clock(SLOW_LATENCY_S)
+            return r.scope
+    return None
 
 
 def should_corrupt(site: str, engine: str | None = None) -> bool:

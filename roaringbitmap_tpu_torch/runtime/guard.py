@@ -71,6 +71,7 @@ ENV_DEADLINE = "ROARING_TPU_DEADLINE_S"
 ENV_SHADOW = "ROARING_TPU_SHADOW"
 ENV_HBM_BUDGET = "ROARING_TPU_HBM_BUDGET"
 ENV_PIPELINE_DEPTH = "ROARING_TPU_PIPELINE_DEPTH"
+ENV_SLO_MS = "ROARING_TPU_SLO_MS"
 
 
 def parse_bytes(spec: str) -> int:
@@ -91,8 +92,7 @@ def parse_bytes(spec: str) -> int:
 @dataclasses.dataclass(frozen=True)
 class GuardPolicy:
     """Knobs for one guarded dispatch; ``from_env`` is the default.  The
-    fields and environment names are the JAX package's.  The JAX policy's
-    SLO deadline waits for the layer that reads it (SLO accounting)."""
+    fields and environment names are the JAX package's."""
 
     max_attempts: int = 3          # per rung, transient faults only
     backoff_base: float = 0.02     # seconds; doubles per retry
@@ -110,6 +110,12 @@ class GuardPolicy:
     #: (``parallel.multiset``): launch k+1 is planned on the host while up
     #: to depth - 1 earlier launches run on the card; 1 is strictly serial
     pipeline_depth: int = 2
+    #: per-query latency objective, milliseconds (``ROARING_TPU_SLO_MS``);
+    #: the serving loop clamps it to each pool's remaining deadline
+    #: (``for_remaining``) and counts every served request attained or
+    #: missed (``count_outcome``).  None disables it.  An SLO miss is
+    #: recorded, never raised: ``deadline`` is the enforcing knob
+    slo_deadline_ms: float | None = None
     sleep: Callable[[float], None] = time.sleep
 
     @classmethod
@@ -131,8 +137,25 @@ class GuardPolicy:
         if ENV_PIPELINE_DEPTH in os.environ:
             env["pipeline_depth"] = max(
                 1, int(os.environ[ENV_PIPELINE_DEPTH]))
+        if ENV_SLO_MS in os.environ:
+            env["slo_deadline_ms"] = float(os.environ[ENV_SLO_MS])
         env.update(overrides)
         return cls(**env)
+
+    def for_remaining(self, remaining_s: float) -> "GuardPolicy":
+        """The per-dispatch policy of an admitted request's REMAINING
+        deadline: the hard guard ``deadline`` (which bounds retries and
+        backoff inside ``run_with_fallback``) and the SLO deadline are both
+        clamped to ``remaining_s``, so a retry storm can never spend more
+        wall than the query has left (the serving loop's deadline
+        propagation)."""
+        remaining_s = max(0.0, float(remaining_s))
+        dl = (remaining_s if self.deadline is None
+              else min(self.deadline, remaining_s))
+        slo = remaining_s * 1e3
+        if self.slo_deadline_ms is not None:
+            slo = min(self.slo_deadline_ms, slo)
+        return dataclasses.replace(self, deadline=dl, slo_deadline_ms=slo)
 
 
 class Deadline:
@@ -331,6 +354,33 @@ def run_with_fallback(site: str, chain, attempt, *, policy=None,
                               policy.backoff_max)
     assert last is not None  # a rung leaves its loop only through a fault
     raise last
+
+
+# ------------------------------------------------------------ SLO outcomes
+#
+# The JAX package counts ``rb_slo_attained_total`` / ``rb_slo_missed_total``
+# by site and tenant in its obs layer (``obs.slo.count_outcome``); until
+# that layer is ported the counts are this module's.
+
+_slo_outcomes: dict = {}
+
+
+def count_outcome(site: str, missed: bool, tenant: str | None = None) -> None:
+    """One served request's SLO outcome, by (site, tenant)."""
+    row = _slo_outcomes.setdefault((site, tenant),
+                                   {"attained": 0, "missed": 0})
+    row["missed" if missed else "attained"] += 1
+
+
+def slo_outcomes(site: str | None = None) -> dict:
+    """``{(site, tenant): {"attained", "missed"}}`` (copies), for one site
+    or all."""
+    return {k: dict(v) for k, v in _slo_outcomes.items()
+            if site is None or k[0] == site}
+
+
+def reset_slo_outcomes() -> None:
+    _slo_outcomes.clear()
 
 
 # ------------------------------------------------------------ shadow checks

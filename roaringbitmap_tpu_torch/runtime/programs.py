@@ -44,9 +44,10 @@ import time
 import numpy as np
 import torch
 
-from ..ops import kernels
+from ..ops import build, kernels
 from . import errors
 from . import lattice as rt_lattice
+from . import residency
 from .cache import LRUCache
 
 #: programs one engine keeps (the JAX package's cap); a lattice warmup
@@ -54,6 +55,19 @@ from .cache import LRUCache
 PROGRAM_CACHE_MAX = 64
 #: byte alignment of each operand in a pack
 ALIGN = 16
+
+#: one-time program work in this process: programs built (a graph capture
+#: on the card, a marker on the CPU) and first eager runs of unsnapped
+#: plans (``one_time_work``)
+_ONE_TIME = {"captures": 0, "eager": 0}
+
+
+def one_time_work() -> int:
+    """Kernel libraries loaded, programs built and first eager runs,
+    process-wide: the port's witness of the JAX package's compile-miss
+    count.  A dispatch during which it moved paid a one-time cost, so its
+    wall must not calibrate a steady-state estimate."""
+    return build.LOADS + _ONE_TIME["captures"] + _ONE_TIME["eager"]
 
 
 # ------------------------------------------------------------ operand packs
@@ -218,6 +232,8 @@ class GraphPool:
         self._handle = None
         self._stream = None
         self.users = 1
+        residency.register(self, "graph_pool", GraphPool.bytes,
+                           lambda p: (_ONE_TIME["captures"], p._handle is None))
 
     def handle(self):
         if self._handle is None:
@@ -305,6 +321,7 @@ class ProgramCache:
         if self._entries.get(key) is not None:
             return
         self.eager += 1
+        _ONE_TIME["eager"] += 1
         self._entries.put(key, Program(run=None))
         rt_lattice.note_compile(self.site, engine, point, run_s)
 
@@ -316,6 +333,7 @@ class ProgramCache:
         if entry is None:
             t0 = time.perf_counter()
             entry = self._build(run, pack)
+            _ONE_TIME["captures"] += 1
             entry.capture_ms = (time.perf_counter() - t0) * 1e3
             self._entries.put(key, entry)
             rt_lattice.note_compile(self.site, engine, point,

@@ -340,7 +340,9 @@ def test_naive_andnot(pair):
 def test_port_imports_no_jax():
     """The port's import graph holds neither jax nor any roaringbitmap_tpu
     module (the port's own name shares that prefix), also after one pooled
-    ``MultiSetBatchEngine.execute`` and one ``apply_delta`` on the CPU."""
+    ``MultiSetBatchEngine.execute``, one ``apply_delta``, a request served
+    by a ``ServingLoop``, a wire frame and a captured durable state on the
+    CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -401,6 +403,18 @@ def test_port_imports_no_jax():
         "rep = ds.apply_delta(adds={0: [1]}, removes={1: [1]})\n"
         "assert rep['mode'] == 'patch' and ds.version == 1\n"
         "assert mutation.ResultCache(1 << 20).stats()['entries'] == 0\n"
+        "from roaringbitmap_tpu_torch import serving, wire\n"
+        "from roaringbitmap_tpu_torch.mutation import durability\n"
+        "from roaringbitmap_tpu_torch.wire import bootstrap, migrate\n"
+        "loop = serving.ServingLoop(ms, serving.ServingPolicy("
+        "default_deadline_ms=1e6))\n"
+        "t = loop.submit(serving.ServingRequest(1, rt.BatchQuery('or', "
+        "(0, 1))))\n"
+        "loop.drain()\n"
+        "assert t.ok and t.result.cardinality > 0\n"
+        "assert wire.protocol.decode_payload(wire.protocol.encode_frame("
+        "4, 1, {})[8:])[1] == 1\n"
+        "assert len(durability.capture_state(ds)['sources']) == 3\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -713,3 +713,121 @@ def test_failed_capture_raises_typed(dev, bitmaps, lattice_off,
         eng.execute(pool, engine="cuda", fallback=False)
     assert eng._programs.captures == 0
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------- the serving stack
+
+def _serving_tenants(dev, bitmaps):
+    from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
+
+    hosts = [bitmaps[0:12], bitmaps[12:24], bitmaps[24:36]]
+    sets = [DeviceBitmapSet(b, layout="dense" if i < 2 else "compact",
+                            device=dev) for i, b in enumerate(hosts)]
+    return hosts, MultiSetBatchEngine(sets, result_cache=None)
+
+
+def test_serving_loop_on_the_card(dev, bitmaps, lattice_off):
+    """A mixed stream through ``ServingLoop`` (its pump on a
+    ``PumpDriver`` thread) equals the host oracle and launches B5 and B3
+    from the loop (its pools hold an expression: the megakernel rung),
+    then a flat-only stream launches B1; no pump error is counted."""
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
+    from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
+                                                 ServingRequest)
+    from roaringbitmap_tpu_torch.serving import loop as sloop
+
+    hosts, ms = _serving_tenants(dev, bitmaps)
+    loop = ServingLoop(ms, ServingPolicy(pool_target=8,
+                                         default_deadline_ms=600_000.0))
+    assert loop.device.type == "cuda"
+    rng = np.random.default_rng(3)
+    reqs = []
+    for i in range(24):
+        sid = i % 3
+        if i % 3 == 1:
+            q = expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.not_(2)),
+                               form="bitmap")
+        else:
+            ops = tuple(int(x) for x in rng.choice(12, 3, replace=False))
+            q = BatchQuery(("or", "and", "xor")[i % 3], ops, form="bitmap")
+        reqs.append(ServingRequest(sid, q, tenant=f"t{sid}"))
+    flat = [ServingRequest(i % 3, BatchQuery("or", (i, i + 1, i + 2),
+                                             form="bitmap"))
+            for i in range(8)]
+    sloop.reset_counters()
+    launches = []
+    drv = loop.start_pump(interval_s=0.002)
+    try:
+        tickets = []
+        for stream in (reqs, flat):
+            kernels.reset_launches()
+            tickets += [loop.submit(r) for r in stream]
+            loop.drain()
+            torch.cuda.synchronize()
+            launches.append((kernels.B1.launches, kernels.B3.launches,
+                             kernels.B5.launches))
+    finally:
+        drv.stop()
+    assert drv.errors == 0
+    assert sloop.counter("rb_serving_pump_errors_total") == 0
+    for t in tickets:
+        assert t.ok, t.error
+        ref = ms._engines[t.request.set_id]._sequential_result(t.query)
+        assert t.result.bitmap == ref.bitmap
+    (_b1, b3, b5), (b1, _, _) = launches
+    assert b5 >= 1 and b3 >= 1 and b1 >= 1, launches
+
+
+def test_resident_lane_and_recovery_on_the_card(dev, bitmaps, lattice_off,
+                                                tmp_path):
+    """The ring lane replays warmed graphs (the dispatch count flat) equal
+    to the one-shot loop; a durable tenant crashed at ``pre_apply``
+    recovers onto the card equal to its never-crashed twin."""
+    from roaringbitmap_tpu_torch.mutation import durability
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.runtime import errors, faults
+    from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
+                                                 ServingRequest)
+    from roaringbitmap_tpu_torch.serving import loop as sloop
+
+    hosts, ms = _serving_tenants(dev, bitmaps)
+    q = [expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.not_(2))),
+         expr.ExprQuery(expr.xor(expr.or_(3, 4), 5))]
+    groups = [(s, [q[s % 2]]) for s in range(3)]
+    want = ms.execute(groups, engine="megakernel")
+    # every set's row selection (3 leaves x 32 keys) fits the pool rung;
+    # the pool's DAGs are warmed under the lattice before its seal
+    profile = "q=4,;rows=128,;keys=32,;heads=both;expr=2;pool=256,"
+    lattice_off.activate(profile)
+    ms.warmup(pools=[groups], engine="megakernel")
+    ms.warmup(profile=profile)
+    loop = ServingLoop(ms, ServingPolicy(
+        pool_target=3, resident=True, engine="megakernel",
+        default_deadline_ms=600_000.0))
+    sloop.reset_counters()
+    tickets = [loop.submit(ServingRequest(s, q[s % 2])) for s in range(3)]
+    loop.drain()
+    assert sloop.counter("rb_serving_dispatches_total") == 0
+    assert loop._resident.stats["served"] == 1
+    for t, w in zip(tickets, [r for rows in want for r in rows]):
+        assert t.result.cardinality == w.cardinality
+    lattice_off.deactivate()
+
+    ds = DeviceBitmapSet(hosts[0], layout="dense", device=dev)
+    twin = DeviceBitmapSet(hosts[0], layout="dense", device=dev)
+    ten = durability.DurableTenant(ds, root=str(tmp_path), tenant="d",
+                                   policy=durability.FlushPolicy("always"))
+    adds = {1: np.array([5, 70000, 1 << 20], np.uint32)}
+    ten.apply_delta(adds=adds)
+    twin.apply_delta(adds=adds)
+    nxt = {2: np.array([9, 99], np.uint32)}
+    with faults.inject("crash@pre_apply=1.0:1"):
+        with pytest.raises(errors.InjectedCrash):
+            ten.apply_delta(adds=nxt)
+    twin.apply_delta(adds=nxt)
+    rec, rep = durability.recover_tenant(root=str(tmp_path), tenant="d")
+    assert rec.ds.device.type == "cuda" and rep["replayed"] == 2
+    assert torch.equal(rec.ds.words, twin.words)
+    assert rec.ds.host_bitmaps() == twin.host_bitmaps()
+    rec.close()
