@@ -205,6 +205,33 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
        equal to a never-crashed twin (image words, host twin,
        cardinality); group commit over 4 tenants; append, snapshot and
        recovery ms;
+15. observability (``obs``), run after 14 and before 6, over 14's tenants:
+    a. the first 256 requests of 14a's stream at 1/16 of its rate through a
+       ``ServingLoop`` traced with ``obs.enable(path)``: every served
+       ticket equal to the host oracle; ``tools/check_trace.py`` (plain
+       mode, a subprocess) accepts the dump; B1, B3 and B5 each launched
+       inside the loop's dispatch (the ``serving.dispatch`` span); the
+       host ms by span (``serving.admit`` / ``assemble`` / ``shed`` /
+       ``dispatch``, and within each the planner spans, ``expr.compile``
+       and the B5 stream builds) beside the engine's wall and the cost
+       events' ``device_ms``;
+    b. traced: 11a's Q 64 pool, 7b's expression batch and a 64-operand
+       ``or`` over the set of 2 (K 256), plus an ad-hoc ``or_`` (B2) under
+       ``aggregation.wide``: each dispatch span's cost event has
+       ``device_ms`` > 0, ``bytes_accessed`` equal to the plan's
+       prediction and a roofline fraction in (0, 1] against the H100 row;
+       its memory event's measured peak is within the prediction; the
+       fractions are printed after 6 beside each kernel's share of its
+       bound;
+    c. an SLO deadline no pool can meet (an ``slo`` event whose phases sum
+       to its wall) and a served request past its deadline (a flight dump
+       that parses and validates); ``transient@multiset.drain=0.5``, after
+       which the registry's guard counters equal ``dispatch_stats()``;
+       ``obs.statusz`` with the serving, ring, journal and lattice
+       sections; every line of ``render_prometheus()`` parsed; one pump
+       under ``torch.profiler`` with the spans as profiler ranges
+       (``ROARING_TPU_TRACE_XPROF``): the device-busy share of each range;
+    d. the Q 64 pool's wall, median of 5 warm, tracing off and on;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -212,15 +239,20 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
-its time.  The last line is the device JSON.  Needs one CUDA device; without
+its time.  The span dumps of 13 and 15 go to ``smoke_out/``
+beside the script (``ROARING_TPU_TRACE=<path>`` traces the whole run as
+well).  The last line is the device JSON.  Needs one CUDA device; without
 one it exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -393,6 +425,68 @@ def check_value(expr, label, eng, pool, srcs, cols, got,
     log(f"    {label}: equal to the {'/'.join(rungs)} rungs and the host "
         f"oracles (checked in {time.perf_counter() - t0:.1f} s); cards "
         f"{[r.cardinality for r in got[:6]]} ...")
+
+
+def ctr(name: str, **labels) -> float:
+    """The obs registry's counter ``name`` summed over every label set that
+    includes ``labels``."""
+    from roaringbitmap_tpu_torch.obs import metrics
+    return sum(inst.value for n, lab, inst in metrics.REGISTRY.instruments()
+               if n == name and inst.kind == "counter"
+               and labels.items() <= lab.items())
+
+
+def delta_modes() -> dict:
+    """{mode: deltas} of the registry's ``rb_delta_apply_seconds``."""
+    from roaringbitmap_tpu_torch.obs import metrics
+    return {lab["mode"]: inst.count
+            for n, lab, inst in metrics.REGISTRY.instruments()
+            if n == "rb_delta_apply_seconds"}
+
+
+def by_label(name: str, key: str) -> dict:
+    """{label value: summed value} of the registry counter ``name``."""
+    from roaringbitmap_tpu_torch.obs import metrics
+    out: dict = {}
+    for n, lab, inst in metrics.REGISTRY.instruments():
+        if n == name and inst.kind == "counter" and key in lab:
+            out[lab[key]] = out.get(lab[key], 0) + inst.value
+    return out
+
+
+#: where the smoke writes its span dumps (gitignored)
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smoke_out")
+
+
+def out_path(name: str) -> str:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, name)
+    if os.path.exists(path):
+        os.remove(path)
+    return path
+
+
+def trace_into(obs, path: str, xprof: bool = False):
+    """Trace into ``path`` until ``stop()`` is called, then go back to the
+    sink that was enabled before (``ROARING_TPU_TRACE`` of the whole run)
+    or to no tracing; returns ``stop``."""
+    prev = obs.trace.path()
+    obs.enable(path, xprof=xprof)
+
+    def stop():
+        obs.enable(path, xprof=False)     # the bridge off, then the sink
+        obs.disable()
+        if prev:
+            obs.enable(prev)
+
+    return stop
+
+
+def read_spans(path: str) -> list:
+    """The span records of a JSONL dump."""
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
 
 
 def phase_time(name: str, t0: float) -> None:
@@ -1260,8 +1354,8 @@ def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
         f"another tenant's; tenant 5's structural repack ({rows5} -> "
         f"{sets[5]._n_rows} rows) retired its pooled plans, and the pool "
         f"equals the per-set loop and the host fold")
-    st = mut_delta.stats()
-    log(f"  12: mutation counters {st}")
+    log(f"  12: mutation counters: deltas by mode {delta_modes()}, rows "
+        f"patched {ctr('rb_delta_rows_patched_total'):.0f}")
 
 
 def pow2(v: int) -> int:
@@ -1295,7 +1389,7 @@ def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
     compact set, 13c 11a's 16 tenants."""
     import torch
 
-    from roaringbitmap_tpu_torch import DeviceBitmapSet
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, obs
     from roaringbitmap_tpu_torch.ops import kernels
     from roaringbitmap_tpu_torch.parallel import expr
     from roaringbitmap_tpu_torch.parallel.batch_engine import (
@@ -1312,7 +1406,6 @@ def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     rt_lattice.deactivate()
-    rt_lattice.reset_stats()
 
     def same_pool(got, want) -> bool:
         return len(got) == len(want) and all(
@@ -1358,7 +1451,7 @@ def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
         replays = sum(a[1] - b[1] for a, b in zip(after, before))
         require(rt_lattice.escape_total() == e0 == 0,
                 f"{label}: {rt_lattice.escape_total()} escapes "
-                f"{rt_lattice.escape_events()[-3:]}")
+                f"{by_label('rb_lattice_escapes_total', 'site')}")
         require(all(a[0] == b[0] and a[2] == b[2]
                     for a, b in zip(after, before)) and replays > 0,
                 f"{label}: not every batch replayed a warmed graph")
@@ -1423,14 +1516,22 @@ def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
     def oov(label, eng, batch, site, want):
         """One batch past the vocabulary: exactly one escape at ``site``,
         not in the vocabulary, exact."""
-        e0 = rt_lattice.escapes_by_site().get(site, 0)
-        got = eng.execute(batch)
+        e0 = ctr("rb_lattice_escapes_total", site=site)
+        dump = out_path(f"escape-{site}.jsonl")
+        stop = trace_into(obs, dump)
+        try:
+            got = eng.execute(batch)
+        finally:
+            stop()
         if got and isinstance(got[0], list):     # a pool's groups
             got = [r for rows in got for r in rows]
-        ev = rt_lattice.escape_events()[-1]
-        require(rt_lattice.escapes_by_site().get(site, 0) == e0 + 1
-                and ev["site"] == site and ev["in_vocabulary"] is False,
-                f"{label}: escape not counted once at {site}: {ev}")
+        evs = [e for sp in read_spans(dump) for e in sp["events"]
+               if e["name"] == "lattice.escape"]
+        ev = evs[-1] if evs else None
+        require(ctr("rb_lattice_escapes_total", site=site) == e0 + 1
+                and len(evs) == 1 and ev["site"] == site
+                and ev["in_vocabulary"] is False,
+                f"{label}: escape not counted once at {site}: {evs}")
         require(same_results(got, want), f"{label}: != the host")
         log(f"    {label}: one escape at {site} ({ev}), exact")
 
@@ -1637,9 +1738,14 @@ def phase13(smoke, seed, ds, bms, sds, sbms, xsds, q_fit, fixed,
            for t in (0, 1)]
     oov("13c out of vocabulary", ms, big, "multiset",
         [r for rows in host_pool(big) for r in rows])
-    log(f"  13: escapes by site {rt_lattice.escapes_by_site()}; padding "
-        f"bytes by site {rt_lattice.padding_bytes_by_site()}, latest "
-        f"padded fraction {rt_lattice.padding_fraction_by_site()}")
+    from roaringbitmap_tpu_torch.obs import metrics
+    frac = {lab["site"]: inst.value
+            for n, lab, inst in metrics.REGISTRY.instruments()
+            if n == "rb_lattice_padding_fraction"}
+    log(f"  13: escapes by site {by_label('rb_lattice_escapes_total', 'site')}"
+        f"; padding bytes by site "
+        f"{by_label('rb_lattice_padding_bytes', 'site')}, latest padded "
+        f"fraction {frac}")
     del ms
     rt_lattice.deactivate()
     torch.cuda.empty_cache()
@@ -1654,7 +1760,7 @@ def has_value_leaf(e, expr) -> bool:
     return False
 
 
-def phase14(smoke, seed: int, tenants11) -> None:
+def phase14(smoke, seed: int, tenants11) -> tuple:
     """The serving stack on the card (``serving``, ``wire``,
     ``mutation.durability``) over phase 11's 16 tenants, each with a
     ``BsiColumn("v")`` made as ``replay.build_dataset`` makes one: 14a a
@@ -1670,17 +1776,16 @@ def phase14(smoke, seed: int, tenants11) -> None:
     from roaringbitmap_tpu_torch import DeviceBitmapSet
     from roaringbitmap_tpu_torch.analytics import BsiColumn
     from roaringbitmap_tpu_torch.mutation import MaintenanceWorker
-    from roaringbitmap_tpu_torch.mutation import delta as mut_delta
     from roaringbitmap_tpu_torch.mutation import durability
     from roaringbitmap_tpu_torch.ops import kernels
     from roaringbitmap_tpu_torch.parallel import expr
     from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
     from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
-    from roaringbitmap_tpu_torch.runtime import errors, faults, residency
+    from roaringbitmap_tpu_torch import obs
+    from roaringbitmap_tpu_torch.runtime import errors, faults
     from roaringbitmap_tpu_torch.runtime import lattice as rt_lattice
     from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
                                                  ServingRequest, replay)
-    from roaringbitmap_tpu_torch.serving import loop as sloop
     from roaringbitmap_tpu_torch.serving.loop import replay_stream
     from roaringbitmap_tpu_torch.serving.resident import signature_id
     from roaringbitmap_tpu_torch.wire import WireClient, WireServer
@@ -1715,7 +1820,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
     columns = [{"v": ds.columns["v"]} for ds in sets]
     n_compact = sum(s.layout == "compact" for s in sets)
     log(f"  14: {n_t} tenants of {per} ({n_compact} compact), a "
-        f"BsiColumn('v') each; resident {residency.snapshot()}")
+        f"BsiColumn('v') each; resident {obs.LEDGER.snapshot()}")
 
     def oracle(sid, q, hosts, cols):
         srcs, cols = hosts[sid], cols[sid]
@@ -1772,6 +1877,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
         loop = ServingLoop(ms, policy)
         done: list = []
         adm: list = []
+        shed0 = by_label("rb_serving_shed_total", "reason")
         loop.add_completion_listener(done.extend)
         submit = loop.submit
 
@@ -1792,7 +1898,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
         require(not bad, f"14a at {rate:g}x: {len(bad)} tickets != the host "
                 f"oracle, first {bad[:1]}")
         require(rep["typed_only"] and rep["queries"] == len(stream)
-                and sloop.counter("rb_serving_pump_errors_total") == 0,
+                and ctr("rb_serving_pump_errors_total") == 0,
                 f"14a at {rate:g}x: {rep}")
         report_line(f"14a at {rate:g}x", rep, loop)
         log(f"      all {len(ok)} served equal the host oracle (host "
@@ -1800,7 +1906,8 @@ def phase14(smoke, seed: int, tenants11) -> None:
             f"{float(np.median(adm)):.3f}, p99 "
             f"{float(np.percentile(adm, 99)):.3f} ({len(adm)} admitted); "
             f"launches B1 {smoke.last[b1]}, B3 {smoke.last[b3]}, B5 "
-            f"{smoke.last[b5]}; shed {sloop.counters('rb_serving_shed')}")
+            f"{smoke.last[b5]}; shed by reason "
+            f"{ {r: v - shed0.get(r, 0) for r, v in by_label('rb_serving_shed_total', 'reason').items()} }")
         return rep, loop, done
 
     # the whole stream at the profile's rate, then a rate ladder on its
@@ -1810,7 +1917,6 @@ def phase14(smoke, seed: int, tenants11) -> None:
     prefix = events[:len(events) // 8]
     runs = {}
     for rate in rates:
-        sloop.reset_counters()
         runs[rate] = run_14a(rate, events if rate == 1.0 else prefix)
     sus = replay.sustained(lambda r: runs[r][0], rates, slo_target=0.9)
     rate_s = sus["sustained_rate_x"] or rates[-1]
@@ -1896,16 +2002,16 @@ def phase14(smoke, seed: int, tenants11) -> None:
         f"{wrep['graphs']} graphs, pool {wrep['pool_bytes']} bytes, "
         f"{time.perf_counter() - t0:.2f} s")
     caps0 = ms._programs.captures
-    sloop.reset_counters()
+    d_ring = ctr("rb_serving_dispatches_total")
     got_c = serve("14c resident ring stream",
                   lambda: replay_stream(loop_c, arrivals))
     rs = loop_c._resident.stats
-    require(sloop.counter("rb_serving_dispatches_total") == 0
+    require(ctr("rb_serving_dispatches_total") == d_ring
             and rs["served"] == loop_c.stats["pools"] == len(pairs)
             and rs["demoted"] == 0 and ms._programs.captures == caps0
             and rt_lattice.escape_total() == 0,
             f"14c: ring {rs}, pools {loop_c.stats['pools']}, dispatches "
-            f"{sloop.counter('rb_serving_dispatches_total')}, escapes "
+            f"{ctr('rb_serving_dispatches_total') - d_ring}, escapes "
             f"{rt_lattice.escape_total()}")
     require(smoke.last[b5] >= len(pairs), f"14c: B5 {smoke.last[b5]}")
     for t in got_c:
@@ -1924,10 +2030,10 @@ def phase14(smoke, seed: int, tenants11) -> None:
     # the ring again on a fresh loop (the same pools), its plans cached as
     # the one-shot run's were
     loop_c = ServingLoop(ms, ServingPolicy(resident=True, **mega_pol))
-    d0 = sloop.counter("rb_serving_dispatches_total")
+    d0 = ctr("rb_serving_dispatches_total")
     got_c = serve("14c resident ring stream, again",
                   lambda: replay_stream(loop_c, arrivals))
-    require(sloop.counter("rb_serving_dispatches_total") == d0
+    require(ctr("rb_serving_dispatches_total") == d0
             and ms._programs.captures == caps0
             and rt_lattice.escape_total() == 0
             and all(same_results([a.result], [b.result])
@@ -1951,17 +2057,19 @@ def phase14(smoke, seed: int, tenants11) -> None:
     for i in range(depth + 1):
         deep = expr.xor(expr.and_(deep, expr.ref(i + 1)), expr.ref(i + 2))
     deep_req = ServingRequest(0, expr.ExprQuery(deep), tenant="deep")
-    d0 = sloop.counter("rb_serving_dispatches_total")
+    d0 = ctr("rb_serving_dispatches_total")
+    dem0 = {r: ctr("rb_serving_resident_demotions_total", reason=r)
+            for r in ("vocabulary", "wedged")}
     t_deep = loop_c.submit(deep_req)
     loop_c.drain()
     loop_c._resident.ring.wedge()
     t_wedged = [loop_c.submit(r) for r in pairs[0]]
     loop_c.drain()
     loop_c._resident.ring.reset()
-    dem = {r: sloop.counter("rb_serving_resident_demotions_total", reason=r)
+    dem = {r: ctr("rb_serving_resident_demotions_total", reason=r) - dem0[r]
            for r in ("vocabulary", "wedged")}
     require(dem == {"vocabulary": 1, "wedged": 1}
-            and sloop.counter("rb_serving_dispatches_total") == d0 + 2,
+            and ctr("rb_serving_dispatches_total") == d0 + 2,
             f"14c demotions {dem}")
     for t in [t_deep] + t_wedged:
         require(t.ok and exact(t.result, t.request, t.query, tenants),
@@ -1971,7 +2079,6 @@ def phase14(smoke, seed: int, tenants11) -> None:
     rt_lattice.deactivate()
 
     # ----------------------------------------------------------------- 14e
-    sloop.reset_counters()
     with WireServer(loop_a, max_inflight=4096) as srv:
         cl = WireClient(srv.address, timeout=120)
         cl_tickets = recorded(cl)
@@ -2046,7 +2153,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
         f"migrated as {len(frames)} mig_* frames "
         f"({durability.state_bytes(state)} bytes) and committed onto the "
         f"card in {mig_ms:.1f} ms with its {len(want_crcs)} source CRCs equal")
-    require(sloop.counter("rb_serving_pump_errors_total") == 0,
+    require(ctr("rb_serving_pump_errors_total") == 0,
             "14e: a pump raised")
     # the second process: bootstrap --device cuda
     bknobs = dict(sets=4, sources=64, users=1 << 24, density=40960,
@@ -2102,7 +2209,6 @@ def phase14(smoke, seed: int, tenants11) -> None:
         if ev[0] == "delta":
             _, _, sid, adds, removes = ev
             hosts[sid] = host_delta(hosts[sid], adds, removes)
-    mut_delta.reset_stats()
     loop_b = ServingLoop(ms, policy)
     # deltas that escalate (a value in a container its source lacks) repack
     # on a maintenance worker under the loop's lock, off the serving path;
@@ -2125,7 +2231,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
     drain_s = time.perf_counter() - t0
     require(rep_b["typed_only"] and rep_b["deltas"] > 0
             and worker.jobs_failed == 0
-            and sloop.counter("rb_serving_pump_errors_total") == 0,
+            and ctr("rb_serving_pump_errors_total") == 0,
             f"14b: {rep_b}, worker failures {worker.jobs_failed}")
     report_line("14b", rep_b, loop_b)
     t0 = time.perf_counter()
@@ -2142,8 +2248,8 @@ def phase14(smoke, seed: int, tenants11) -> None:
         f"copy with the stream's {rep_b['deltas']} deltas applied in order, "
         f"and a 64-request pool equals the host oracle (host "
         f"{time.perf_counter() - t0:.1f} s); the worker's {worker.jobs_done} "
-        f"repacks drained {drain_s:.1f} s after the stream; mutation "
-        f"{mut_delta.stats()}; layouts {[s.layout for s in sets]}")
+        f"repacks drained {drain_s:.1f} s after the stream; deltas by "
+        f"mode {delta_modes()}; layouts {[s.layout for s in sets]}")
 
     # ----------------------------------------------------------------- 14d
     # the durable root: a temporary directory inside the checkout
@@ -2219,7 +2325,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
             committed = point in ("pre_apply", "post_apply")
             if committed:
                 twin.apply_delta(adds=adds, removes=removes)
-            torn0 = durability.stats()["torn_tails"]
+            torn0 = ctr("rb_journal_torn_tails_total")
             rec, rep = durability.recover_tenant(
                 root=root, tenant="d0",
                 policy=durability.FlushPolicy("always"))
@@ -2227,7 +2333,7 @@ def phase14(smoke, seed: int, tenants11) -> None:
                     f"14d {point}: recovered onto {rec.ds.device}, not the "
                     f"card")
             require(rep["torn"] == (point == "torn")
-                    and durability.stats()["torn_tails"] - torn0
+                    and ctr("rb_journal_torn_tails_total") - torn0
                     == (point == "torn") and same_image(rec),
                     f"14d {point}: recovery != the never-crashed twin {rep}")
             if not committed:
@@ -2281,9 +2387,440 @@ def phase14(smoke, seed: int, tenants11) -> None:
 
     require(all(served.values()), f"14: B1/B3/B5 from the loop {served}")
     log(f"  14: launches from the serving stack's main-path calls {served}; "
-        f"pump errors {sloop.counter('rb_serving_pump_errors_total')}")
+        f"pump errors {ctr('rb_serving_pump_errors_total'):.0f}")
     del loop_a, loop_b, loop_c, loop_o, loop_t, runs, ms
     torch.cuda.empty_cache()
+    return tenants, knobs
+
+
+#: the span names a serving pool's host work splits into (15a)
+SERVING_SPANS = ("serving.admit", "serving.assemble", "serving.shed",
+                 "serving.dispatch")
+
+
+def serving_split(spans: list, builds: list) -> dict:
+    """{(serving span, name): [ms, count]} of a dump: every span's wall
+    under the ``serving.*`` span it nests in (by parent links), and the B5
+    stream builds (``builds``: (start, end) wall intervals) under the
+    serving span whose interval holds them."""
+    by_id = {s["span_id"]: s for s in spans}
+
+    def root(s):
+        while s is not None:
+            if s["name"] in SERVING_SPANS:
+                return s["name"]
+            s = by_id.get(s["parent_id"])
+        return None
+
+    out: dict = {}
+    for s in spans:
+        r = root(s)
+        if r is None:
+            continue
+        row = out.setdefault((r, s["name"]), [0.0, 0])
+        row[0] += s["dur_ms"]
+        row[1] += 1
+    holders = [(s["t_start"], s["t_start"] + s["dur_ms"] / 1e3, s["name"])
+               for s in spans if s["name"] in SERVING_SPANS]
+    for a, b in builds:
+        # the innermost serving span holding the build
+        held = [(hi - lo, name) for lo, hi, name in holders
+                if lo - 1e-6 <= a and b <= hi + 1e-6]
+        if held:
+            row = out.setdefault((min(held)[1], "B5 stream build"),
+                                 [0.0, 0])
+            row[0] += (b - a) * 1e3
+            row[1] += 1
+    return out
+
+
+def device_share(trace_path: str, names) -> dict:
+    """{range name: (host ms, device-busy ms)} from a ``torch.profiler``
+    Chrome trace: each kernel, copy or set counts toward every range whose
+    host interval holds the runtime call that launched it (matched by the
+    correlation id), so a range counts the device work of the ranges
+    nested in it."""
+    with open(trace_path) as f:
+        evs = json.load(f).get("traceEvents", [])
+    ranges = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in evs
+              if e.get("ph") == "X" and e.get("name") in names
+              and e.get("cat") == "user_annotation"]
+    launch = {}
+    for e in evs:
+        if e.get("cat") == "cuda_runtime" and "correlation" in e.get(
+                "args", {}):
+            launch[e["args"]["correlation"]] = e["ts"]
+    out = {n: [0.0, 0.0] for n in names}
+    for lo, hi, n in ranges:
+        out[n][0] += (hi - lo) / 1e3
+    for e in evs:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launch.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            continue
+        for n in {n for lo, hi, n in ranges if lo <= ts <= hi}:
+            out[n][1] += e.get("dur", 0) / 1e3
+    return {n: tuple(v) for n, v in out.items()}
+
+
+PROM_LINE = re.compile(
+    r'^(# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|gauge|histogram)'
+    r'|[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*"'
+    r'(,[a-zA-Z_][a-zA-Z0-9_]*="([^"\\]|\\.)*")*)?\})? '
+    r'(-?[0-9.]+(e[-+]?[0-9]+)?|NaN|[-+]Inf))$')
+
+
+def phase15(smoke, seed: int, state14, ds, sds, epool, bms) -> list:
+    """Observability on the card, after 14 and before 6: 15a a traced
+    serving stream (every ticket exact, the dump valid, the pool's host
+    time split by span, B1 / B3 / B5 launched inside ``serving.dispatch``);
+    15b cost and memory events of a traced pool, expression batch and
+    dense ``or``; 15c an SLO miss, a flight dump, guard counters under a
+    drain fault, statusz, the Prometheus text and one profiled pump; 15d
+    the Q 64 pool's wall with tracing off and on.  Returns the roofline
+    fractions of 15b for phase 6 to print beside each kernel's share of
+    its bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, obs
+    from roaringbitmap_tpu_torch.analytics import BsiColumn
+    from roaringbitmap_tpu_torch.mutation import durability
+    from roaringbitmap_tpu_torch.ops import kernels, megakernel
+    from roaringbitmap_tpu_torch.parallel import aggregation, expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import (BatchEngine,
+                                                               BatchQuery)
+    from roaringbitmap_tpu_torch.parallel.multiset import (
+        MultiSetBatchEngine, random_multiset_pool)
+    from roaringbitmap_tpu_torch.runtime import faults, guard
+    from roaringbitmap_tpu_torch.runtime import lattice as rt_lattice
+    from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
+                                                 ServingRequest, replay)
+
+    b1, b3, b5 = kernels.B1.name, kernels.B3.name, kernels.B5.name
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    checker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tools", "check_trace.py")
+
+    def check_dump(path: str) -> str:
+        """``tools/check_trace.py`` in plain mode, as a subprocess."""
+        out = subprocess.run([sys.executable, checker, path],
+                             capture_output=True, text=True, timeout=600)
+        require(out.returncode == 0,
+                f"check_trace {path}: {out.stderr[-3000:]}")
+        return out.stdout.strip()
+
+    # 14a's 16 tenants built anew (14b patched and repacked its own: a
+    # structural delta repacks a compact tenant dense), with 14's columns
+    tenants, knobs = state14
+    per = min(len(t) for t in tenants)
+    sets = smoke.main_path("15 tenant builds", lambda: [
+        DeviceBitmapSet(b, layout="dense" if t < 12 else "compact")
+        for t, b in enumerate(tenants)])
+    for ds_, (ids, vals) in zip(sets, replay.dataset_columns(
+            replay.ReplayProfile(**knobs))):
+        ds_.attach_column(BsiColumn("v", ids, vals))
+    columns = [{"v": ds_.columns["v"]} for ds_ in sets]
+    obs.reset()
+
+    def oracle(sid, q):
+        srcs, cols = tenants[sid], columns[sid]
+        if isinstance(q, BatchQuery):
+            want = host_query(q, srcs)
+            return want.cardinality, None, want
+        if expr.is_agg(q.expr):
+            return expr.evaluate_host_agg(q.expr, srcs, cols)
+        want = expr.evaluate_host(q.expr, srcs, cols)
+        return want.cardinality, None, want
+
+    def exact(t) -> bool:
+        card_, value, bm = oracle(t.request.set_id, t.query)
+        return ((t.result.cardinality, t.result.value) == (card_, value)
+                and (t.query.form != "bitmap" or t.result.bitmap == bm))
+
+    # ----------------------------------------------------------------- 15a
+    events = replay.generate(replay.ReplayProfile(
+        **knobs, delta_share=0.0))[:256]
+    ms = MultiSetBatchEngine(sets, result_cache=None)
+    loop = ServingLoop(ms, ServingPolicy(pool_target=64))
+    done: list = []
+    loop.add_completion_listener(done.extend)
+    # the launches made inside the loop's dispatch (the serving.dispatch
+    # span), and the B5 stream builds by wall interval
+    in_dispatch = dict.fromkeys((b1, b3, b5), 0)
+    dispatch, build_full = loop._dispatch, megakernel.build_full
+    builds: list = []
+
+    def counted(tickets):
+        before = {k.name: k.launches for k in kernels.KERNELS}
+        try:
+            return dispatch(tickets)
+        finally:
+            for k in kernels.KERNELS:
+                if k.name in in_dispatch:
+                    in_dispatch[k.name] += k.launches - before[k.name]
+
+    def timed_build(*a, **kw):
+        t0 = time.time()
+        try:
+            return build_full(*a, **kw)
+        finally:
+            builds.append((t0, time.time()))
+
+    dump_a = out_path("15a-serving.jsonl")
+    loop._dispatch = counted
+    megakernel.build_full = timed_build
+    stop = trace_into(obs, dump_a)
+    try:
+        rep = smoke.main_path(
+            "15a traced replay, first 256 at 1/16",
+            lambda: replay.run_inproc(loop, events, rate_scale=1 / 16))
+    finally:
+        stop()
+        megakernel.build_full = build_full
+        loop._dispatch = dispatch
+    ok = [t for t in done if t.status == "done"]
+    bad = [t for t in ok if not exact(t)]
+    require(not bad and rep["typed_only"],
+            f"15a: {len(bad)} tickets != the host oracle; {rep}")
+    total = {k: smoke.last[k] for k in in_dispatch}
+    require(all(in_dispatch[k] > 0 for k in in_dispatch)
+            and in_dispatch == total,
+            f"15a: launches inside serving.dispatch {in_dispatch}, in the "
+            f"run {total}")
+    log(f"    15a [{card}]: {rep['done']} served (each equal to the host "
+        f"oracle), {rep['shed']} shed, {rep['rejected']} rejected of "
+        f"{rep['queries']}, typed only; {loop.stats['pools']} pools; "
+        f"launches inside serving.dispatch {in_dispatch}; "
+        f"{check_dump(dump_a)}")
+    spans = read_spans(dump_a)
+    split = serving_split(spans, builds)
+    pools = max(1, loop.stats["pools"])
+    engine_ms = sum(t["engine_ms"] for t in loop.timings)
+    cost_evs = [e for s in spans for e in s["events"]
+                if e["name"] in ("batch.cost", "multiset.cost")]
+    dev_ms = sum(e["device_ms"] for e in cost_evs)
+    for name in SERVING_SPANS:
+        ms_, n_ = split.get((name, name), (0.0, 0))
+        inner = sorted(((k[1], v) for k, v in split.items()
+                        if k[0] == name and k[1] != name),
+                       key=lambda kv: -kv[1][0])[:6]
+        log(f"    15a host ms by span: {name} {ms_:.3f} ms in {n_} spans "
+            f"({ms_ / pools:.3f} a pool); inside it "
+            + ", ".join(f"{k} {v[0]:.3f} ms x{v[1]}" for k, v in inner))
+    log(f"    15a: the engine's wall {engine_ms:.3f} ms over {pools} pools "
+        f"({engine_ms / pools:.3f} a pool), device_ms of their "
+        f"{len(cost_evs)} cost events {dev_ms:.3f} ms "
+        f"({dev_ms / pools:.3f} a pool)")
+
+    # ----------------------------------------------------------------- 15b
+    pool64 = random_multiset_pool([per] * len(sets), 64, seed=0xACE,
+                                  max_operands=8)
+    seng = BatchEngine(sds, result_cache=None)
+    deng = BatchEngine(ds, result_cache=None)
+    orq = [BatchQuery("or", tuple(range(64)), form="bitmap")]
+    adhoc = bms[:1024]
+    want = (ms.execute(pool64), seng.execute(epool), deng.execute(orq),
+            aggregation.or_(adhoc))          # warm, untraced
+    require(same_results(want[2], deng.execute(orq, engine="torch")),
+            "15b: the dense or != the torch rung")
+    dump_b = out_path("15b-cost.jsonl")
+    stop = trace_into(obs, dump_b)
+    try:
+        got = (smoke.main_path("15b Q64 pool traced",
+                               lambda: ms.execute(pool64)),
+               smoke.main_path("15b 7b expression batch traced",
+                               lambda: seng.execute(epool)),
+               smoke.main_path("15b dense or at K 256 traced",
+                               lambda: deng.execute(orq)),
+               smoke.main_path("15b ad-hoc or_ (B2) traced",
+                               lambda: aggregation.or_(adhoc)))
+    finally:
+        stop()
+    require(all(same_results(g, w) for g, w in zip(got[0], want[0]))
+            and same_results(got[1], want[1])
+            and same_results(got[2], want[2]) and got[3] == want[3],
+            "15b: a traced result != the untraced one")
+    spans = read_spans(dump_b)
+    log(f"    15b: {check_dump(dump_b)}")
+    predicted = {"multiset.dispatch": ms.predict_dispatch_bytes(pool64),
+                 "seng": seng.predict_dispatch_bytes(epool),
+                 "deng": deng.predict_dispatch_bytes(orq)}
+    dispatches = [s for s in spans
+                  if s["name"] in ("batch.dispatch", "multiset.dispatch")]
+    require(len(dispatches) == 3, f"15b: dispatch spans "
+            f"{[s['name'] for s in dispatches]}")
+    labels = ("11a Q64 pool (B1 + B3)", "7b expression batch (B5)",
+              "dense or at K 256 (B1)")
+    kern = ((b1, b3), (b5,), (b1,))
+    pred = (predicted["multiset.dispatch"], predicted["seng"],
+            predicted["deng"])
+    fractions = []
+    for s, label, ks, p in zip(dispatches, labels, kern, pred):
+        ev = {e["name"]: e for e in s["events"]}
+        cost = ev.get("batch.cost") or ev.get("multiset.cost")
+        mem = ev.get("batch.memory") or ev.get("multiset.memory")
+        require(cost is not None and cost["device_ms"] > 0
+                and cost["bytes_accessed"] == p
+                and 0.0 < cost["roofline_fraction"] <= 1.0,
+                f"15b {label}: cost event {cost}, predicted {p}")
+        require(mem is not None and "measured_peak_bytes" in mem
+                and mem["measured_peak_bytes"] <= mem["predicted_bytes"],
+                f"15b {label}: memory event {mem}")
+        fractions.append((label, ks, cost["roofline_fraction"],
+                          cost["roofline_fraction_raw"]))
+        log(f"    15b [{card}] {label}: device {cost['device_ms']} ms, "
+            f"{cost['bytes_accessed']:.0f} bytes (= the plan's prediction), "
+            f"{cost['flops']:.0f} word ops, roofline fraction "
+            f"{cost['roofline_fraction']} (raw "
+            f"{cost['roofline_fraction_raw']}); measured peak "
+            f"{mem['measured_peak_bytes']} <= predicted "
+            f"{mem['predicted_bytes']}")
+    wide = [s for s in spans if s["name"] == "aggregation.wide"]
+    require(wide and wide[0]["tags"].get("rung_used") == "cuda",
+            f"15b: aggregation.wide {wide}")
+    log(f"    15b: the ad-hoc or_ ran under aggregation.wide "
+        f"({wide[0]['dur_ms']} ms, rung cuda; the JAX schema gives a wide "
+        f"call no cost event)")
+
+    # ----------------------------------------------------------------- 15c
+    dump_c = out_path("15c-slo.jsonl")
+    stop = trace_into(obs, dump_c)
+    try:
+        ms.execute(pool64, policy=guard.GuardPolicy(slo_deadline_ms=1e-3))
+    finally:
+        stop()
+    slos = [e for s in read_spans(dump_c) for e in s["events"]
+            if e["name"] == "slo"]
+    require(slos and slos[0]["missed"] is True
+            and abs(sum(slos[0]["phases_ms"].values()) - slos[0]["wall_ms"])
+            <= 0.05 * slos[0]["wall_ms"], f"15c: slo events {slos}")
+    fdir = os.path.join(OUT_DIR, "flight")
+    shutil.rmtree(fdir, ignore_errors=True)
+    obs.flight.configure(dir=fdir)
+    obs.flight.reset()                 # no debounce left from phase 14
+    lf = ServingLoop(ms, ServingPolicy(pool_target=4, shed=False))
+    late = lf.submit(ServingRequest(0, BatchQuery("or", (0, 1)),
+                                    deadline_ms=1e-3))
+    lf.pump(force=True)
+    dumps = sorted(os.listdir(fdir)) if os.path.isdir(fdir) else []
+    require(late.status == "done" and late.missed and dumps,
+            f"15c: late request {late.status}, missed {late.missed}, "
+            f"flight dumps {dumps}")
+    with open(os.path.join(fdir, dumps[0])) as f:
+        fdoc = json.load(f)
+    log(f"    15c: a {slos[0]['deadline_ms']} ms deadline: slo event, "
+        f"phases {slos[0]['phases_ms']} sum to {slos[0]['wall_ms']} ms; "
+        f"flight dump {dumps[0]} ({fdoc['trigger']}, {len(fdoc['events'])} "
+        f"events) parses; {check_dump(os.path.join(fdir, dumps[0]))}")
+    obs.flight.configure(dir=None)
+    guard.reset_dispatch_stats()
+    pools4 = [random_multiset_pool([per] * len(sets), 64, seed=200 + i,
+                                   max_operands=8) for i in range(4)]
+    r0 = ms.drain_retries
+    with faults.inject("transient@multiset.drain=0.5:0xD4"):
+        ms.execute_pipelined(pools4,
+                             policy=guard.GuardPolicy(pipeline_depth=2))
+    reg = {}
+    for n, lab, inst in obs.metrics.REGISTRY.instruments():
+        if n == "rb_dispatch_events_total":
+            reg.setdefault(lab["site"], {})[lab["event"]] = int(inst.value)
+    stats = guard.dispatch_stats()
+    require(all(reg.get(site, {}).get(k, 0) == v
+                for site, row in stats.items() for k, v in row.items())
+            and all(stats.get(site, {}).get(k, 0) == v
+                    for site, row in reg.items() for k, v in row.items()),
+            f"15c: registry {reg} != dispatch_stats {stats}")
+    log(f"    15c: transient@multiset.drain=0.5: "
+        f"{ms.drain_retries - r0} launches re-run at drain "
+        f"(rb_multiset_drain_retries_total "
+        f"{ctr('rb_multiset_drain_retries_total'):.0f}); guard counters "
+        f"in the registry {reg} equal dispatch_stats() {stats}")
+    root = out_path("15c-durable")
+    shutil.rmtree(root, ignore_errors=True)
+    dt = durability.DurableTenant(
+        DeviceBitmapSet(tenants[0][:16], layout="dense"), root=root,
+        tenant="sz", policy=durability.FlushPolicy("never"),
+        snapshot_every=None)
+    dt.apply_delta(adds={0: [12345]})
+    loop_r = ServingLoop(ms, ServingPolicy(pool_target=4, resident=True))
+    rt_lattice.activate("q=4,;rows=64,;keys=256,;heads=both;pool=256,")
+    try:
+        doc = obs.statusz.merge([obs.statusz.local_doc(
+            sections={"serving": loop_r.snapshot()})])
+        page = obs.render_markdown(doc)
+        top = obs.render_markdown(obs.statusz())
+    finally:
+        rt_lattice.deactivate()
+        dt.close()
+        shutil.rmtree(root, ignore_errors=True)
+    for part in ("- serving: level=", "- resident ring: active=",
+                 "- journal[sz]:", "- lattice:", "- flight: ring"):
+        require(part in page, f"15c statusz: no {part!r} in\n{page}")
+    sz = out_path("15c-statusz.jsonl")
+    with open(sz, "w") as f:
+        f.write(json.dumps(doc, default=str) + "\n")
+    log(f"    15c statusz [{card}]: {check_dump(sz)}; the page:")
+    for line in page.splitlines():
+        if line.startswith("- ") and not line.startswith("- `"):
+            log(f"      {line[:160]}")
+    require(top.startswith("# roaring-tpu statusz"), "15c: obs.statusz()")
+    text = obs.render_prometheus()
+    badp = [line for line in text.splitlines() if not PROM_LINE.match(line)]
+    require(text and not badp, f"15c: Prometheus lines {badp[:3]}")
+    log(f"    15c: render_prometheus: {len(text.splitlines())} lines, "
+        f"{text.count('# TYPE')} families, every line parses")
+    # one pump under torch.profiler with the spans as profiler ranges
+    lp = ServingLoop(ms, ServingPolicy(pool_target=64))
+    # far deadlines: the profiler's own cost must not shed the pool
+    reqs = [dataclasses.replace(ev[2], deadline_ms=600_000.0)
+            for ev in events[:48]]
+    for r in reqs[:4]:
+        lp.submit(r)
+    lp.drain()                                 # warm
+    dump_x = out_path("15c-xprof.jsonl")
+    chrome = out_path("15c-profile.json")
+    stop = trace_into(obs, dump_x, xprof=True)
+    try:
+        for r in reqs[4:]:
+            lp.submit(r)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lp.pump(force=True)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(chrome)
+    finally:
+        stop()
+    names = ("serving.assemble", "serving.dispatch", "multiset.dispatch",
+             "batch.dispatch", "multiset.readback", "batch.readback")
+    share = device_share(chrome, names)
+    require(lp.stats["pools"] >= 2 and share["serving.dispatch"][1] > 0,
+            f"15c: pools {lp.stats}, no device time under serving.dispatch "
+            f"ranges: {share}")
+    log(f"    15c profiled pump [{card}]: device-busy share by range: "
+        + "; ".join(f"{n} {d:.3f} of {h:.3f} ms ({d / h:.1%})"
+                    for n, (h, d) in share.items() if h > 0))
+    os.remove(chrome)
+
+    # ----------------------------------------------------------------- 15d
+    t_off = median_ms(torch, lambda: ms.execute(pool64))
+    dump_d = out_path("15d-on.jsonl")
+    stop = trace_into(obs, dump_d)
+    try:
+        t_on = median_ms(torch, lambda: ms.execute(pool64))
+    finally:
+        stop()
+    log(f"  15d [{card}]: the 11a Q64 pool (cardinality form), wall to host "
+        f"results, median of 5 warm: tracing off {t_off:.3f} ms, on "
+        f"{t_on:.3f} ms ({t_on / t_off:.3f}x)")
+    del loop, lf, loop_r, lp, ms, sets
+    torch.cuda.empty_cache()
+    return fractions
 
 
 def host_delta(hosts, adds, removes) -> list:
@@ -2332,7 +2869,7 @@ def main() -> int:
 
     from roaringbitmap_tpu_torch import (DeviceBitmap, DeviceBitmapSet,
                                          DevicePairSet, RoaringBitmap,
-                                         aggregation, native)
+                                         aggregation, native, obs)
     from roaringbitmap_tpu_torch.analytics import (BsiColumn, RangeColumn,
                                                    two_phase_execute)
     from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap
@@ -2607,11 +3144,12 @@ def main() -> int:
         f"{'fits' if reason is None else 'demoted: ' + reason}")
     require(reason == "slots", f"8-query plan: capacity {reason!r}, "
             f"expected 'slots'")
-    key = ("batch_engine", reason)
-    before = megakernel.DEMOTIONS.get(key, 0)
+    demoted = obs.counter("rb_mega_capacity_demotions_total",
+                          site="batch_engine", reason=reason)
+    before = demoted.value
     got = smoke.main_path("expr x8 @K256", lambda: eng.execute(pool8))
     require(eng.last_timings["engine"] == "cuda"
-            and megakernel.DEMOTIONS.get(key, 0) == before + 1,
+            and demoted.value == before + 1,
             "8-query batch: demotion not counted")
     log(f"    demoted to the cuda rung, counted under {reason!r}")
     require(same_results(got, eng.execute(pool8, engine="torch")),
@@ -2880,11 +3418,12 @@ def main() -> int:
         f"{'fits' if reason is None else 'demoted: ' + reason}")
     require(reason == "steps", f"4 top_k roots: capacity {reason!r}, "
             f"expected 'steps'")
-    key = ("batch_engine", reason)
-    before = megakernel.DEMOTIONS.get(key, 0)
+    demoted = obs.counter("rb_mega_capacity_demotions_total",
+                          site="batch_engine", reason=reason)
+    before = demoted.value
     got = smoke.main_path("top_k(ts) x4", lambda: seng.execute(over))
     require(seng.last_timings["engine"] == "cuda"
-            and megakernel.DEMOTIONS.get(key, 0) == before + 1,
+            and demoted.value == before + 1,
             "4 top_k roots: demotion not counted")
     log(f"    demoted to the cuda rung, counted under {reason!r}")
     check_value(expr, "top_k(ts) x4", seng, over, sbms, cols, got,
@@ -3127,22 +3666,31 @@ def main() -> int:
     with faults.inject("lowering@cuda:1"):
         raised = smoke.main_path("or_ under lowering@cuda", lowered)
     require(raised is not None and not any(smoke.last.values())
-            and guard.dispatch_events() == {},
+            and not any(v for row in guard.dispatch_stats().values()
+                        for v in row.values()),
             f"lowering@cuda: raised {raised!r}, launches {smoke.last}, "
-            f"events {guard.dispatch_events()}")
+            f"events {guard.dispatch_stats()}")
     log(f"    lowering@cuda: or_ raised {type(raised).__name__} on the card "
         f"(no demotion to torch or the host, no launch)")
     guard.reset_dispatch_stats()
     pair = epool[:2]
     clean = seng.execute(pair)
-    with faults.inject("oom@megakernel:1"):
-        got = smoke.main_path("expr x2 under oom@megakernel",
-                              lambda: seng.execute(pair))
-    ev = guard.dispatch_events()
+    dump = out_path("10c-oom.jsonl")
+    stop = trace_into(obs, dump)
+    try:
+        with faults.inject("oom@megakernel:1"):
+            got = smoke.main_path("expr x2 under oom@megakernel",
+                                  lambda: seng.execute(pair))
+    finally:
+        stop()
+    ev = [(e["engine_from"], e["engine_to"]) for sp in read_spans(dump)
+          if sp["name"] == "guard.dispatch" for e in sp["events"]
+          if e["name"] == "demote"]
     require(same_results(got, clean) and seng.last_timings["engine"] == "cuda"
-            and ev.get(("batch_engine", "megakernel", "demotions"), 0) >= 1
-            and not any(k[2] == "sequential" for k in ev),
-            f"oom@megakernel: {ev}, {seng.last_timings['engine']}")
+            and ("megakernel", "cuda") in ev
+            and guard.dispatch_stats("batch_engine")["sequential"] == 0,
+            f"oom@megakernel: {ev}, {guard.dispatch_stats()}, "
+            f"{seng.last_timings['engine']}")
     log(f"    oom@megakernel: the batch was halved ({seng.split_count} "
         f"splits so far) and each half demoted to cuda (counted: {ev}); "
         f"equal result")
@@ -3243,14 +3791,24 @@ def main() -> int:
     log("phase 14: the serving stack (ServingLoop, the ring lane, the wire, "
         "durable tenants)")
     t_phase = time.perf_counter()
-    phase14(smoke, args.seed, tenants11)
+    state14 = phase14(smoke, args.seed, tenants11)
     phase_time("phase 14", t_phase)
+
+    # ------------------------------------------------------------ phase 15
+    log("phase 15: observability (spans, cost and memory events, SLO, "
+        "flight, statusz)")
+    t_phase = time.perf_counter()
+    fractions15 = phase15(smoke, args.seed, state14, ds, sds, epool, bms)
+    del state14
+    phase_time("phase 15", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "
         "(tolerance: bit-exact, max_abs_err must be 0)")
     t_phase = time.perf_counter()
     rows_out = []
+    #: each kernel's share of its bound at its first phase 6 shape
+    bound_share: dict = {}
 
     def row_bytes(starts, ends, per_row):
         return int((ends - starts).sum()) * per_row
@@ -3268,6 +3826,7 @@ def main() -> int:
         t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        bound_share.setdefault(kernel.name, bound / ms)
         per_step = f", {ms * 1e3 / steps:.4f} us a step" if steps else ""
         log(f"  {kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
@@ -3368,6 +3927,11 @@ def main() -> int:
            f"random all-opcode stream, {rmega.n_steps} steps", emit=False,
            steps=rmega.n_steps)
     phase_time("phase 6", t_phase)
+    for label, ks, frac, raw in fractions15:
+        log(f"  15b beside 6 [{card_line}]: {label}: roofline fraction of "
+            f"the whole dispatch {frac} (raw {raw}) against "
+            + ", ".join(f"{k} alone {bound_share[k]:.1%} of its bound"
+                        for k in ks))
 
     for name, c in smoke.launches.items():
         require(c > 0, f"kernel {name} was never launched on the main path")

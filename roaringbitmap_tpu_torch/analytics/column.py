@@ -35,7 +35,8 @@ from ..core.bitmap import RoaringBitmap, and_ as rb_and, andnot as rb_andnot
 from ..core.rangebitmap import RangeBitmap
 from ..ops import packing
 from ..ops.words import WORDS32, as_i32, resolve_device
-from ..runtime import residency
+from ..obs import memory as obs_memory
+from ..obs import trace as obs_trace
 from . import plane
 
 _BSI_OP = {"eq": Operation.EQ, "neq": Operation.NEQ, "lt": Operation.LT,
@@ -69,9 +70,10 @@ class _ColumnBase:
         self.version = 0
         self.structure_version = 0
         self._dev = None
-        residency.register(self, self.kind, lambda c: c.hbm_bytes(),
-                           lambda c: (c.version, c.structure_version,
-                                      getattr(c, "depth_pad", None)))
+        obs_memory.LEDGER.register(
+            self.kind, "dense", lambda c: c.hbm_bytes(), owner=self,
+            stamp=lambda c: (c.version, c.structure_version,
+                             getattr(c, "depth_pad", None)))
 
     def _pack(self, ebm_bitmap: RoaringBitmap, slice_bitmaps) -> None:
         """Densify the existence plane and the slices over the ebm's keys,
@@ -110,13 +112,28 @@ class _ColumnBase:
     def _bits(self, value: int) -> np.ndarray:
         return plane.predicate_bits(value, self.depth_pad)
 
-    def _note_delta(self) -> None:
-        """After a delta: bump the version and drop every result-cache
-        entry that reads this column."""
+    def _trace_build(self) -> None:
+        """The ``analytics.column`` span of a built column."""
+        with obs_trace.span("analytics.column", col=self.name,
+                            kind=self.kind, uid=self.uid, depth=self.depth,
+                            depth_pad=self.depth_pad,
+                            keys=int(self.keys.size),
+                            hbm_bytes=self.hbm_bytes()):
+            pass
+
+    def _note_delta(self, mode: str = "patch") -> None:
+        """After a delta: bump the version, drop every result-cache entry
+        that reads this column, and attach the ``analytics.delta`` event
+        to the current span."""
         from ..mutation import result_cache
 
         self.version += 1
-        result_cache.notify_version_bump(self.uid)
+        dropped = result_cache.notify_version_bump(self.uid)
+        obs_trace.current().event(
+            "analytics.delta", col=self.name, uid=self.uid, kind=self.kind,
+            mode=mode, version=self.version,
+            structure_version=self.structure_version,
+            cache_dropped=dropped, hbm_bytes=self.hbm_bytes())
 
     # ----------------------------------------------------- two-phase lane
     def device_agg(self, kind: str, found: RoaringBitmap, k: int = 0):
@@ -144,6 +161,7 @@ class BsiColumn(_ColumnBase):
         self.host = RoaringBitmapSliceIndex.from_pairs(
             np.asarray(column_ids, np.uint32), np.asarray(values, np.int64))
         self._repack()
+        self._trace_build()
 
     @classmethod
     def from_bsi(cls, name: str, bsi: RoaringBitmapSliceIndex,
@@ -231,6 +249,7 @@ class RangeColumn(_ColumnBase):
         if self.values.size and int(self.values.min()) < 0:
             raise ValueError("range column values must be >= 0")
         self._rebuild()
+        self._trace_build()
 
     def _rebuild(self) -> None:
         self.host = RangeBitmap.from_values(self.values)

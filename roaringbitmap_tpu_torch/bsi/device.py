@@ -28,6 +28,7 @@ import torch
 
 from ..core.bitmap import RoaringBitmap, and_ as rb_and, \
     and_cardinality, or_ as rb_or
+from ..obs import memory as obs_memory
 from ..ops import packing
 from ..ops.words import as_i32, popcount, resolve_device, to_u32
 from .slice_index import (Operation, RoaringBitmapSliceIndex,
@@ -224,6 +225,9 @@ class DeviceBSI:
         self._ebm_host = bsi.ebm.clone()
         self.keys, self.ebm, self.slices = _pack_index(
             bsi.ebm, bsi.slices, self.device)
+        # resident planes in the HBM ledger, released when collected
+        obs_memory.LEDGER.register("bsi", "dense", self.hbm_bytes(),
+                                   owner=self)
 
     def hbm_bytes(self) -> int:
         """Device bytes of the resident planes."""
@@ -373,6 +377,8 @@ class DeviceRangeBitmap:
         self.depth = len(rb.slices)
         self.keys, self.ebm, self.slices = _pack_index(
             RoaringBitmap.from_range(0, self.rows), rb.slices, self.device)
+        obs_memory.LEDGER.register("rangebitmap", "dense", self.hbm_bytes(),
+                                   owner=self)
 
     def hbm_bytes(self) -> int:
         return sum(t.numel() * t.element_size()

@@ -247,20 +247,13 @@ def predict_multiset_dispatch_bytes(bucket_sigs: list, sets: list,
 
 # ------------------------------------------------------------ time model
 #
-# The JAX package budgets a pool's execute time before it dispatches
+# The engines budget a pool's execute time before it dispatches
 # (``MultiSetBatchEngine.predict_dispatch_seconds``): bytes and a word-op
-# count through ``obs.cost.estimate_seconds``, at the device's peak rates
-# until dispatches at (site, rung) calibrate the achieved rates.  The port
-# keeps the word-op model (``predict_*_word_ops``, the JAX counts with the
-# port's rung names) and a minimal copy of that calibration here, beside
-# the footprint model, until the obs layer is ported.
-
-#: H100 SXM ceilings: HBM3 bytes/s (NVIDIA data sheet) and the INT32 rate
-#: of the kernels' word operations (64 INT32 lanes per SM x 132 SMs x
-#: 1.98 GHz boost), as ``chip_smoke.py`` bounds the kernels
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 132 * 64 * 1.98e9
-
+# count (``predict_*_word_ops``, the JAX counts with the port's rung names)
+# through ``obs.cost.estimate_seconds``, at the card's peak rates until
+# dispatches at (site, rung) calibrate the achieved rates in
+# ``obs.cost.TRACKER``.  The same counts are each dispatch's
+# ``batch.cost`` / ``multiset.cost`` event.
 
 def predict_batch_dispatch_word_ops(bucket_sigs: list, kind: str,
                                     n_rows: int, engine: str) -> int:
@@ -325,56 +318,134 @@ def predict_multiset_dispatch_word_ops(bucket_sigs: list, sets: list,
     return int(total)
 
 
-class CostModel:
-    """Roofline seconds of a (word ops, bytes) workload, calibrated by the
-    achieved rates of measured launches per (site, rung): the JAX package's
-    ``obs.cost.estimate_seconds`` and its tracker, reduced to what the
-    serving loop's estimate reads.  A launch whose wall included one-time
-    work (a kernel library load, a graph capture, a first eager run) is
-    not recorded by its caller."""
+# ----------------------------------------------------- resident bytes
 
-    def __init__(self):
-        self._rows: dict = {}     # (site, rung) -> [launches, s, ops, bytes]
-
-    def record(self, site: str, engine: str, word_ops: int, nbytes: int,
-               seconds: float) -> None:
-        if seconds <= 0.0:
-            return
-        row = self._rows.setdefault((site, engine), [0, 0.0, 0.0, 0.0])
-        row[0] += 1
-        row[1] += float(seconds)
-        row[2] += float(word_ops)
-        row[3] += float(nbytes)
-
-    def rates(self, site: str, engine: str) -> dict | None:
-        """Cumulative achieved rates at (site, rung), or None before any
-        recorded launch."""
-        row = self._rows.get((site, engine))
-        if not row or row[1] <= 0.0 or row[3] <= 0.0:
-            return None
-        return {"launches": row[0], "ops_per_s": row[2] / row[1],
-                "bytes_per_s": row[3] / row[1]}
-
-    def estimate_seconds(self, word_ops: int, nbytes: int,
-                         site: str | None = None,
-                         engine: str | None = None) -> float:
-        """``max(ops / rate_ops, bytes / rate_bytes)`` at the card's peaks,
-        or at the calibrated rates once (site, rung) has launches."""
-        rate_o, rate_b = PEAK_OPS_PER_S, PEAK_BYTES_PER_S
-        got = (self.rates(site, engine)
-               if site is not None and engine is not None else None)
-        if got is not None:
-            if got["ops_per_s"] > 0:
-                rate_o = got["ops_per_s"]
-            rate_b = got["bytes_per_s"]
-        return max(word_ops / rate_o, nbytes / rate_b)
-
-    def reset(self) -> None:
-        self._rows.clear()
+def hbm_footprint_bytes(rb) -> int:
+    """Bytes this bitmap occupies once densified into the device packing
+    (int32[K, 2048] rows)."""
+    return dense_rows_bytes(rb.container_count())
 
 
-#: the process's calibration (the JAX package's ``obs.cost.TRACKER``)
-COST = CostModel()
+def _nbytes(t) -> int:
+    if isinstance(t, np.ndarray):
+        return int(t.nbytes)
+    return int(t.numel()) * int(t.element_size())
+
+
+def resident_set_bytes(ds) -> dict:
+    """Component breakdown {component: bytes} of a built DeviceBitmapSet:
+    what ``DeviceBitmapSet.hbm_bytes()`` sums and the HBM ledger pulls.
+    Components: ``meta`` (segment and head index tensors, and on a
+    compact or counts set the fused compact reduce's maps), and per layout
+    ``words`` (the dense image), ``streams`` and ``chunks`` (the compact
+    wire payloads and B3's chunk stream with its bounds), ``counts`` (the
+    nibble tensor).  The port keeps its streams as int32 tensors (u16
+    values widened), so a compact or counts set counts 2 bytes a value
+    more than the JAX package's."""
+    out = {"meta": sum(_nbytes(t) for t in (ds.blk_seg, ds.seg_ids,
+                                            ds.head_idx))}
+    if ds.words is not None:
+        out["words"] = _nbytes(ds.words)
+        return out
+    out["meta"] += sum(_nbytes(t) for t in (
+        ds._grp_seg, ds._dseg, ds._dseg_carry, *ds._dmeta[:2],
+        *ds._dmeta_carry[:2]))
+    if ds._chunks is not None:
+        out["chunks"] = (sum(_nbytes(t) for t in ds._chunks)
+                         + _nbytes(ds._chunk_bounds))
+    out["streams"] = sum(_nbytes(t) for t in ds._streams)
+    if ds.counts is not None:
+        out["counts"] = _nbytes(ds.counts)
+    return out
+
+
+def predict_resident_bytes(sources: list, layout: str = "dense",
+                           block: int | None = None) -> dict:
+    """Device-free prediction of ``DeviceBitmapSet(sources, layout,
+    block)``'s resident bytes, the components of
+    :func:`resident_set_bytes`, from the host pack alone (nothing touches
+    a device)."""
+    from ..ops import dense as _dense
+    from ..ops import packing
+
+    packed = packing.pack_blocked_compact(
+        sources, block=block,
+        min_block=4 if (layout == "dense" and block is None) else 8)
+    s = packed.streams
+    k = packed.keys.size
+    seg_rows, head_idx, _ = packing.blocked_ragged_meta(
+        packed.blk_seg, packed.block, packed.n_blocks, k)
+    out = {"meta": 4 * (packed.blk_seg.size + seg_rows.size
+                        + head_idx.size)}
+    if layout == "dense":
+        out["words"] = dense_rows_bytes(s.n_rows)
+        return out
+    n_groups = s.n_rows // _dense.NIBBLE_GROUP
+    nd = s.dense_dest.size
+    # grp_seg + dseg + dseg_carry + (head int32, valid bool) x {plain,
+    # carry}
+    out["meta"] += ((n_groups + 1) * 4 + nd * 4 + (nd + 1) * 4
+                    + 2 * ((k + 1) * 4 + (k + 1) * 1))
+    cv, cr = packing.chunk_value_stream(
+        s.values, s.val_counts, s.val_dest, s.n_rows, pad_chunks_pow2=False)
+    out["chunks"] = 4 * (cv.size + cr.size + s.n_rows + 1)
+    out["streams"] = 4 * (s.dense_words.size + s.dense_dest.size
+                          + s.values.size + s.val_counts.size
+                          + s.val_dest.size)
+    if layout == "counts":
+        gps = packed.block // _dense.NIBBLE_GROUP
+        g_all = n_groups + 1
+        g_pad = g_all + (-g_all) % gps
+        out["counts"] = g_pad * _dense.NIBBLE_WORDS * 4
+    return out
+
+
+def predict_delta_patch_bytes(p_rows: int) -> dict:
+    """Transient device bytes of ONE in-place delta patch
+    (``mutation.delta``): the gathered current rows, the add/remove masks
+    and the scattered result, all ``p_rows`` 8 KiB rows."""
+    b = int(p_rows) * ROW_BYTES
+    return {"gather_bytes": b, "mask_bytes": 2 * b, "output_bytes": b,
+            "peak_bytes": 4 * b}
+
+
+def expr_node_report(sig) -> list:
+    """Per-DAG-node EXPLAIN rows for one compiled section signature:
+    ``{kind, op, keys, est_bytes, est_word_ops}`` per step, the counts of
+    :func:`predict_expr_dispatch_bytes` and :func:`predict_expr_word_ops`
+    node by node."""
+    _kind, bitmap_form, steps, root, root_k = sig
+    rows = []
+    words = WORDS_PER_CONTAINER * 2
+    for si, step in enumerate(steps):
+        skind, op, k, copies, n_children = _expr_step_rows(step)
+        if skind in ("leaf", "adhoc"):
+            b, w = k * ROW_BYTES, 0
+        elif skind == "reduce":
+            b, w = 0, 0                  # costed in its bucket's row
+        elif skind in ("vscan", "vagg"):
+            depth = _value_step_depth(step)
+            w = 3 * depth * k * words
+            if skind == "vagg":
+                # the planes and the aligned found copy, plus the
+                # aggregate's compact output (per-slice cards for sum, K
+                # result rows for top_k)
+                b = (depth + copies) * k * ROW_BYTES
+                b += depth * k * 4 if op == "sum" else k * ROW_BYTES + k * 4
+                w += (depth + copies + 1) * k * words
+            else:
+                b = (depth + 1 + copies) * k * ROW_BYTES
+        else:
+            b = (1 + copies) * k * ROW_BYTES
+            w = k * words * (max(1, n_children - 1) + copies
+                             + (1 if op == "andnot" else 0))
+        if si == root and skind != "vagg":
+            # a vagg root's output and popcount are in its own row above
+            b += root_k * 4 + (root_k * ROW_BYTES if bitmap_form else 0)
+            w += root_k * words
+        rows.append({"kind": skind, "op": op, "keys": k,
+                     "est_bytes": int(b), "est_word_ops": int(w)})
+    return rows
 
 
 def _serialized_size_of(b) -> int | None:
@@ -428,3 +499,121 @@ def choose_layout(sources) -> dict:
         # the block the dense layout would pick, from the same key scan
         rep["dense_block"] = int(packing.choose_block(seg_sizes, min_block=4))
     return rep
+
+
+def recommend_device_layout(bitmaps, hbm_budget_bytes: int = 512 << 20) -> dict:
+    """Advise a ``DeviceBitmapSet`` layout from the dense blowup and the
+    absolute device bytes: the JAX package's budget ladder.  Dense when
+    its image fits the budget (the fastest repeated queries); counts (the
+    nibble tensor plus the resident streams) when only it fits; compact
+    (the streams alone, rebuilt on the card at every query: a capacity
+    tier) when neither does.  The one exception is the inflation-heavy,
+    mostly-singleton shape that :func:`choose_layout` (the build
+    default) resolves to counts: advised counts here too while it fits
+    the budget.  The same inputs give the JAX package's advice."""
+    auto = choose_layout(bitmaps)
+    dense_b = auto["dense_bytes"]
+    ser_b = auto["serialized_bytes"]
+    ratio = dense_b / ser_b if ser_b else 1.0
+    counts_b = dense_b // 2 + ser_b  # counts tensor + resident streams
+    if auto["layout"] == "counts" and counts_b <= hbm_budget_bytes:
+        layout = "counts"
+        why = ("inflation-heavy mostly-singleton shape: the adaptive "
+               "build default (choose_layout) resolves counts — "
+               + auto["why"])
+    elif auto["layout"] == "counts":
+        layout = "compact"
+        why = ("inflation-heavy mostly-singleton shape whose counts "
+               "footprint still exceeds the budget: keep only the "
+               "streams (~serialized size) — capacity tier")
+    elif dense_b <= hbm_budget_bytes:
+        layout = "dense"
+        why = "dense image fits the budget — fastest repeated queries"
+    elif counts_b < dense_b and counts_b <= hbm_budget_bytes:
+        layout = "counts"
+        why = ("dense image exceeds the budget; the counts-resident "
+               "layout holds about half of it")
+    else:
+        layout = "compact"
+        why = ("neither dense nor counts fits the budget: keep only the "
+               "streams (~serialized size); queries rebuild on the card "
+               "— treat as a capacity tier")
+    return {
+        "layout": layout,
+        "dense_hbm_bytes": dense_b,
+        "counts_hbm_bytes": counts_b,
+        "serialized_bytes": ser_b,
+        "dense_blowup": round(ratio, 2),
+        "why": why,
+    }
+
+
+# ------------------------------------------------ lattice recommendation
+
+def recommend_lattice(trace_path: str, slack_x: float = 1.0) -> dict:
+    """A traffic profile for the closed program-signature lattice
+    (``runtime.lattice``) derived from a span dump (``ROARING_TPU_TRACE``):
+    the planner spans' ``need_q`` / ``need_rows`` / ``need_keys`` tags
+    (``batch.plan`` / ``multiset.plan``), the pooled-row need
+    (``multiset.plan``'s ``need_pool``) and the fused expressions' depths
+    (``expr.compile``), each value set covered by a sparse pow2 rung list.
+    ``slack_x`` scales the observed values before covering.  Returns
+    ``{"profile", "points", "observed"}``: feed ``profile`` to
+    ``warmup(profile=...)`` or ``ROARING_TPU_WARMUP_PROFILE``.  A dump of
+    either package gives the same profile for the same traffic."""
+    import json as _json
+
+    from ..runtime import lattice as _lattice
+
+    qs, rows, keys, pools, depths = set(), set(), set(), set(), set()
+    bsis = set()
+    with open(trace_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                span = _json.loads(line)
+            except ValueError:
+                continue
+            name, tags = span.get("name"), span.get("tags", {})
+            if name in ("batch.plan", "multiset.plan", "sharded.plan"):
+                if tags.get("need_q"):
+                    qs.add(int(tags["need_q"]))
+                if tags.get("need_rows"):
+                    rows.add(int(tags["need_rows"]))
+                if tags.get("need_keys"):
+                    keys.add(int(tags["need_keys"]))
+                if tags.get("need_pool"):
+                    pools.add(int(tags["need_pool"]))
+            elif name == "expr.compile" and tags.get("kind") == "fused":
+                if tags.get("bsi_depth"):
+                    bsis.add(int(tags["bsi_depth"]))
+                    if tags.get("depth"):
+                        depths.add(int(tags["depth"]))
+                else:
+                    depths.add(int(tags.get("depth") or 2))
+
+    def rungs(values, fallback):
+        if not values:
+            return (fallback,)
+        return tuple(sorted({packing.next_pow2(max(1, int(v * slack_x)))
+                             for v in values}))
+
+    lat = _lattice.Lattice(
+        q=rungs(qs, 16), rows=rungs(rows, 16), keys=rungs(keys, 1),
+        pool=rungs(pools, 16),
+        # a dump does not record result forms per dispatch: both heads
+        # planes are programs
+        heads=(False, True),
+        expr=(0,) + tuple(sorted(depths)),
+        # slice depths are pow2-padded at pack time: the observed values
+        # are the rungs
+        bsi=tuple(sorted(bsis)))
+    return {"profile": lat.to_profile(),
+            "points": lat.n_points(pooled=True),
+            "observed": {"q": sorted(qs), "rows": sorted(rows),
+                         "keys": sorted(keys),
+                         "pool_rows": sorted(pools),
+                         "expr_depths": sorted(depths),
+                         "bsi_depths": sorted(bsis)}}

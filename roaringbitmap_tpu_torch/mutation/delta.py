@@ -62,6 +62,9 @@ import time
 import numpy as np
 import torch
 
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..ops import dense, packing
 from ..ops.words import WORDS32, to_u32, upload
 
@@ -77,25 +80,6 @@ DRIFT_FRACTION = 0.5
 #: per-set delta-journal depth; a replayer lagging further re-places
 JOURNAL_DEPTH = 32
 
-_STATS_LOCK = threading.Lock()
-_STATS: dict = {}
-
-
-def _count(name: str, n: int = 1) -> None:
-    with _STATS_LOCK:
-        _STATS[name] = _STATS.get(name, 0) + int(n)
-
-
-def stats() -> dict:
-    """The module counters: ``rb_delta_rows_patched_total`` and
-    ``rb_delta_apply_total{mode=...}`` (one key per mode seen)."""
-    with _STATS_LOCK:
-        return dict(_STATS)
-
-
-def reset_stats() -> None:
-    with _STATS_LOCK:
-        _STATS.clear()
 
 
 def _normalize_delta(n_sources: int, spec) -> dict:
@@ -327,14 +311,35 @@ def apply_delta(ds, adds=None, removes=None, repack: str = "auto",
     removes = _normalize_delta(ds.n, removes)
     n_add = sum(int(v.size) for v in adds.values())
     n_rem = sum(int(v.size) for v in removes.values())
-    if journal is not None and (adds or removes):
-        journal.wal_delta(adds, removes)
+    with obs_trace.span("mutation.delta", site=SITE, uid=ds.uid,
+                        values_added=n_add, values_removed=n_rem) as sp:
+        if journal is not None and (adds or removes):
+            sp.tag(journal_seq=journal.wal_delta(adds, removes))
+        rep, dropped = _apply(ds, adds, removes, repack, drift_limit,
+                              worker, t0, n_add, n_rem)
+        if rep["mode"] == "noop":
+            sp.tag(mode="noop", version=ds.version)
+            return rep
+        obs_metrics.histogram("rb_delta_apply_seconds",
+                              mode=rep["mode"]).observe(
+                                  rep["wall_ms"] / 1e3)
+        obs_metrics.counter("rb_delta_rows_patched_total").inc(
+            rep["rows_patched"])
+        sp.tag(mode=rep["mode"], version=ds.version,
+               rows=rep["rows_patched"], repack_reason=rep["repack_reason"],
+               cache_dropped=dropped)
+        return rep
+
+
+def _apply(ds, adds, removes, repack, drift_limit, worker, t0, n_add,
+           n_rem) -> tuple:
+    """The body of :func:`apply_delta` after normalization and the journal
+    append: ``(report, result-cache entries dropped)``."""
     if not adds and not removes:
-        _count("rb_delta_apply_total{mode=noop}")
         return {"mode": "noop", "version": ds.version, "rows_patched": 0,
                 "values_added": 0, "values_removed": 0,
                 "repack_reason": None, "wall_ms": 0.0,
-                "drift": drift_report(ds, drift_limit)}
+                "drift": drift_report(ds, drift_limit)}, 0
     reason = None
     rows = add_m = rem_m = None
     touched = set(adds) | set(removes)
@@ -349,12 +354,11 @@ def apply_delta(ds, adds=None, removes=None, repack: str = "auto",
             reason = "structural"
         elif rows.size == 0:
             # every removal aimed at containers its source lacks
-            _count("rb_delta_apply_total{mode=noop}")
             return {"mode": "noop", "version": ds.version,
                     "rows_patched": 0, "values_added": 0,
                     "values_removed": n_rem, "repack_reason": None,
                     "wall_ms": round((time.perf_counter() - t0) * 1e3, 3),
-                    "drift": drift_report(ds, drift_limit)}
+                    "drift": drift_report(ds, drift_limit)}, 0
     # drift is judged on the prospective count but committed only when the
     # delta applies: a refusal must not count work never done
     mutated0 = int(ds._mutated_values)
@@ -394,15 +398,13 @@ def apply_delta(ds, adds=None, removes=None, repack: str = "auto",
 
     from . import result_cache
 
-    if mode != "repack_queued":
-        result_cache.notify_version_bump(ds.uid, touched)
+    dropped = (0 if mode == "repack_queued" else
+               result_cache.notify_version_bump(ds.uid, touched))
     wall = time.perf_counter() - t0
-    _count(f"rb_delta_apply_total{{mode={mode}}}")
-    _count("rb_delta_rows_patched_total", rows_patched)
     return {"mode": mode, "version": ds.version,
             "rows_patched": rows_patched, "values_added": n_add,
             "values_removed": n_rem, "repack_reason": reason,
-            "wall_ms": round(wall * 1e3, 3), "drift": drift}
+            "wall_ms": round(wall * 1e3, 3), "drift": drift}, dropped
 
 
 def _queue_escalation(ds, worker, adds, removes, reason, touched) -> None:
@@ -496,9 +498,17 @@ def repack_in_place(ds, bitmaps=None, reason: str = "requested",
             setattr(shell, name, getattr(ds, name))
     if ds.device.type == "cuda":
         torch.cuda.current_stream(ds.device).synchronize()
+    obs_memory.LEDGER.release(ds._ledger_handle)
     ds.__dict__ = shell.__dict__
+    obs_memory.LEDGER.release(shell._ledger_handle)
+    ds._register_residency()
     wall = time.perf_counter() - t0
-    _count("rb_delta_repack_total")
+    obs_metrics.histogram("rb_delta_apply_seconds",
+                          mode="repack").observe(wall)
+    obs_trace.current().event(
+        "mutation.repack", site=SITE, uid=ds.uid, reason=reason,
+        version=ds.version, structure_version=ds.structure_version,
+        wall_ms=round(wall * 1e3, 2))
     return {"mode": "repack", "reason": reason, "version": ds.version,
             "structure_version": ds.structure_version,
             "wall_ms": round(wall * 1e3, 3)}

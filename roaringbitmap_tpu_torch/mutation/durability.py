@@ -42,10 +42,11 @@ sequence).  ``InjectedCrash`` is never caught between the crash point and
 ``recover_tenant``.
 
 Env knobs: ``ROARING_TPU_JOURNAL_DIR`` (the default durable root),
-``ROARING_TPU_SNAPSHOT_EVERY`` (auto-snapshot after N applies).  The JAX
-package's metrics, spans and flight records are module counters here
-(``stats()``) and a bounded list of crash events (``crash_events()``) until
-the observability layer is ported.
+``ROARING_TPU_SNAPSHOT_EVERY`` (auto-snapshot after N applies).  Journal
+and snapshot work is counted in the obs registry under the JAX package's
+names (``rb_journal_*``, ``rb_snapshot_*``), snapshots and recoveries are
+the ``durability.snapshot`` / ``durability.replay`` spans, and an injected
+crash is a flight-recorder record and a ``crash`` trigger.
 """
 
 from __future__ import annotations
@@ -59,10 +60,12 @@ import threading
 import time
 import weakref
 import zlib
-from collections import deque
 
 import numpy as np
 
+from ..obs import flight as obs_flight
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..runtime import errors, faults
 from . import delta as mut_delta
 
@@ -84,28 +87,6 @@ JOURNAL_FILE = "journal.wal"
 CURRENT_FILE = "CURRENT"
 MANIFEST_FILE = "MANIFEST.json"
 SNAPSHOT_FORMAT = "roaring-tpu-snapshot-v1"
-
-#: the JAX package's rb_journal_* / rb_snapshot_* counters
-_STATS = {"appends": 0, "bytes": 0, "fsyncs": 0, "group_commits": 0,
-          "group_fsyncs": 0, "torn_tails": 0, "replayed_records": 0,
-          "snapshots": 0, "snapshot_bytes": 0}
-#: the crash events the JAX package black-boxes in its flight recorder
-_CRASHES: deque = deque(maxlen=64)
-
-
-def stats() -> dict:
-    return dict(_STATS)
-
-
-def crash_events() -> list:
-    return list(_CRASHES)
-
-
-def reset_stats() -> None:
-    for k in _STATS:
-        _STATS[k] = 0
-    _CRASHES.clear()
-
 
 # ------------------------------------------------------------ flush policy
 
@@ -195,8 +176,9 @@ class GroupCommitScheduler:
         if dirty:
             self.stats["commits"] += 1
             self.stats["fsyncs"] += len(dirty)
-            _STATS["group_commits"] += 1
-            _STATS["group_fsyncs"] += len(dirty)
+            obs_metrics.counter("rb_journal_group_commits_total").inc()
+            obs_metrics.counter("rb_journal_group_fsyncs_total").inc(
+                len(dirty))
         return len(dirty)
 
 
@@ -263,8 +245,8 @@ class DeltaJournal:
             self.policy.group.note_append(self)
         else:
             self._f.flush()
-        _STATS["appends"] += 1
-        _STATS["bytes"] += len(frame)
+        obs_metrics.counter("rb_journal_appends_total").inc()
+        obs_metrics.counter("rb_journal_bytes_total").inc(len(frame))
         return self.seq
 
     def flush(self, fsync: bool = True) -> None:
@@ -273,7 +255,7 @@ class DeltaJournal:
             os.fsync(self._f.fileno())
             self._since_fsync = 0
             self._unflushed_bytes = 0
-            _STATS["fsyncs"] += 1
+            obs_metrics.counter("rb_journal_fsyncs_total").inc()
 
     def close(self) -> None:
         if self.policy.mode == "group":
@@ -303,8 +285,12 @@ class DeltaJournal:
         if mode == "torn":
             self.tear_tail()
         self.close()
-        _CRASHES.append({"site": SITE, "point": point, "mode": mode,
-                         "seq": self.seq})
+        # black-box the crash before raising: the flight artifact is the
+        # only observability this "process" leaves behind
+        obs_flight.record("error", site=SITE, error_class="InjectedCrash",
+                          point=point, mode=mode, seq=self.seq)
+        obs_flight.trigger("crash", site=SITE, point=point, mode=mode,
+                           seq=self.seq)
         raise errors.InjectedCrash(
             f"injected crash at {SITE}/{point} (mode={mode}, "
             f"seq={self.seq})")
@@ -830,13 +816,20 @@ class DurableTenant:
 
     def _write_snapshot(self, state: dict) -> dict:
         t0 = time.perf_counter()
-        manifest = _write_snapshot_dir(self.dir, state)
-        with self._lock:
-            kept = self.journal.compact(state["seq"])
-            self._applies_since_snapshot = 0
-        wall = time.perf_counter() - t0
-        _STATS["snapshots"] += 1
-        _STATS["snapshot_bytes"] += manifest["_bytes"]
+        with obs_trace.span("durability.snapshot", site=SITE,
+                            tenant=self.tenant, seq=state["seq"],
+                            sources=len(state["sources"]),
+                            columns=len(state["columns"])) as sp:
+            manifest = _write_snapshot_dir(self.dir, state)
+            with self._lock:
+                kept = self.journal.compact(state["seq"])
+                self._applies_since_snapshot = 0
+            wall = time.perf_counter() - t0
+            sp.tag(bytes=manifest["_bytes"], journal_kept=kept)
+            obs_metrics.counter("rb_snapshot_total").inc()
+            obs_metrics.counter("rb_snapshot_bytes_total").inc(
+                manifest["_bytes"])
+            obs_metrics.histogram("rb_snapshot_seconds").observe(wall)
         self._snapshot_t = time.time()
         return {"seq": state["seq"], "bytes": manifest["_bytes"],
                 "journal_kept": kept, "wall_ms": round(wall * 1e3, 3)}
@@ -925,38 +918,45 @@ def recover_tenant(root: str | None = None, tenant: str = "t0",
     dev = resolve_device(device)
     tenant_dir = os.path.join(str(root), str(tenant))
     t0 = time.perf_counter()
-    bitmaps, columns, manifest = load_snapshot(tenant_dir, device=dev)
-    snap_seq = int(manifest["seq"])
-    journal_path = os.path.join(tenant_dir, JOURNAL_FILE)
-    records, torn, valid_end = scan_journal(journal_path)
-    if torn:
-        with open(journal_path, "ab") as f:
-            f.truncate(valid_end)
-        _STATS["torn_tails"] += 1
-    tail = [r for r in records if int(r["seq"]) > snap_seq]
-    t1 = time.perf_counter()
-    ds = DeviceBitmapSet(bitmaps, layout=manifest["layout"], device=dev)
-    _adopt_lineage(ds, manifest["version"], manifest["structure_version"],
-                   manifest["source_versions"])
-    for col in columns.values():
-        ds.attach_column(col)
-    if dev.type == "cuda":
-        import torch
+    with obs_trace.span("durability.replay", site=SITE,
+                        tenant=str(tenant)) as sp:
+        bitmaps, columns, manifest = load_snapshot(tenant_dir, device=dev)
+        snap_seq = int(manifest["seq"])
+        journal_path = os.path.join(tenant_dir, JOURNAL_FILE)
+        records, torn, valid_end = scan_journal(journal_path)
+        if torn:
+            size = os.path.getsize(journal_path)
+            with open(journal_path, "ab") as f:
+                f.truncate(valid_end)
+            obs_metrics.counter("rb_journal_torn_tails_total").inc()
+            sp.event("torn_tail", truncated_bytes=size - valid_end,
+                     valid_end=valid_end)
+        tail = [r for r in records if int(r["seq"]) > snap_seq]
+        t1 = time.perf_counter()
+        ds = DeviceBitmapSet(bitmaps, layout=manifest["layout"], device=dev)
+        _adopt_lineage(ds, manifest["version"], manifest["structure_version"],
+                       manifest["source_versions"])
+        for col in columns.values():
+            ds.attach_column(col)
+        if dev.type == "cuda":
+            import torch
 
-        torch.cuda.synchronize(dev)
-    t2 = time.perf_counter()
-    for rec in tail:
-        replay_record(ds, rec)
-    if dev.type == "cuda":
-        import torch
+            torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        for rec in tail:
+            replay_record(ds, rec)
+        if dev.type == "cuda":
+            import torch
 
-        torch.cuda.synchronize(dev)
-    t3 = time.perf_counter()
-    _STATS["replayed_records"] += len(tail)
-    last_seq = max([snap_seq] + [int(r["seq"]) for r in records])
-    dt = DurableTenant(ds, root=root, tenant=tenant, policy=policy,
-                       snapshot_every=snapshot_every, worker=worker,
-                       _recovered_seq=last_seq)
+            torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        obs_metrics.counter("rb_journal_replayed_records_total").inc(len(tail))
+        last_seq = max([snap_seq] + [int(r["seq"]) for r in records])
+        sp.tag(snapshot_seq=snap_seq, records=len(tail), torn=bool(torn),
+               version=int(ds.version))
+        dt = DurableTenant(ds, root=root, tenant=tenant, policy=policy,
+                           snapshot_every=snapshot_every, worker=worker,
+                           _recovered_seq=last_seq)
     wall = time.perf_counter() - t0
     return dt, {"snapshot_seq": snap_seq, "replayed": len(tail),
                 "torn": bool(torn), "version": int(ds.version),

@@ -28,6 +28,10 @@ import queue as queue_mod
 import threading
 import time
 
+from ..obs import flight as obs_flight
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+
 _log = logging.getLogger("roaringbitmap_tpu_torch.mutation")
 
 SITE = "maintenance"
@@ -56,10 +60,14 @@ class MaintenanceWorker:
             self._thread.start()
 
     def submit(self, job, kind: str = "repack", desc: str = "") -> None:
-        """Queue one job (jobs run in submission order)."""
+        """Queue one job (jobs run in submission order).  The submitter's
+        trace context rides the queue item, so the job's span parents into
+        the operation that queued it."""
         with self._idle:
             self._pending += 1
-        self._queue.put((job, kind, desc))
+        self._queue.put((job, kind, desc, obs_trace.inject()))
+        obs_metrics.counter("rb_maintenance_jobs_total", kind=kind).inc()
+        obs_metrics.gauge("rb_maintenance_queue_depth").set(self.pending())
 
     def pending(self) -> int:
         return self._pending
@@ -107,16 +115,38 @@ class MaintenanceWorker:
                 with self._idle:
                     self._pending -= 1
                     self._idle.notify_all()
+                obs_metrics.gauge("rb_maintenance_queue_depth").set(
+                    self.pending())
 
-    def _run_one(self, job, kind: str, desc: str) -> None:
-        try:
-            if self._lock is not None:
-                with self._lock:
+    def _run_one(self, job, kind: str, desc: str, ctx=None) -> None:
+        # a span parented into the submitter's context: on the worker
+        # thread the contextvar holds no span
+        t0 = time.perf_counter()
+        with obs_trace.span_from(ctx, "mutation.maintenance", site=SITE,
+                                 kind=kind, desc=desc) as sp:
+            try:
+                if self._lock is not None:
+                    with self._lock:
+                        job()
+                else:
                     job()
-            else:
-                job()
-            self.jobs_done += 1
-        except Exception as exc:   # stay alive, stay visible
-            self.jobs_failed += 1
-            self.last_error = exc
-            _log.exception("%s: job %s (%s) failed", SITE, kind, desc)
+                self.jobs_done += 1
+                sp.tag(ok=True)
+                sp.event("mutation.maintenance", site=SITE, kind=kind,
+                         desc=desc, ok=True, wall_ms=round(
+                             (time.perf_counter() - t0) * 1e3, 2))
+            except Exception as exc:   # stay alive, stay visible
+                self.jobs_failed += 1
+                self.last_error = exc
+                obs_metrics.counter("rb_maintenance_failures_total",
+                                    error_class=type(exc).__name__).inc()
+                # "kind" is the ring event's type: the job kind rides as
+                # job_kind
+                obs_flight.record("error", site=SITE, job_kind=kind,
+                                  desc=desc, error_class=type(exc).__name__)
+                sp.tag(ok=False, status="error",
+                       error_class=type(exc).__name__)
+                sp.event("mutation.maintenance", site=SITE, kind=kind,
+                         desc=desc, ok=False,
+                         error_class=type(exc).__name__)
+                _log.exception("%s: job %s (%s) failed", SITE, kind, desc)

@@ -39,7 +39,9 @@ import torch
 
 from ..ops import packing
 from ..ops.words import WORDS32, as_i32, resolve_device
-from ..runtime import residency
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 
 ENV_RESULT_CACHE = "ROARING_TPU_RESULT_CACHE"
 
@@ -218,8 +220,9 @@ class ResultCache:
         self.misses = 0
         self.evictions = 0
         self.invalidations = 0
+        self._ledger_handle = obs_memory.LEDGER.register(
+            "result_cache", "device", 0, owner=self)
         _CACHES.add(self)
-        residency.register(self, "result_cache", lambda c: c.nbytes)
 
     # ---------------------------------------------------------- probing
 
@@ -232,9 +235,11 @@ class ResultCache:
         e = self._data.get(key)
         if e is None or (form == "bitmap" and e.bitmap is None):
             self.misses += 1
+            obs_metrics.counter("rb_result_cache_misses").inc()
             return None
         self._data.move_to_end(key)
         self.hits += 1
+        obs_metrics.counter("rb_result_cache_hits").inc()
         return BatchResult(
             cardinality=e.cardinality,
             bitmap=e.bitmap.clone() if form == "bitmap" else None,
@@ -259,6 +264,7 @@ class ResultCache:
             return None
         self._data.move_to_end(key)
         self.hits += 1
+        obs_metrics.counter("rb_result_cache_hits").inc()
         return e.keys, e.words, e.cards
 
     # ---------------------------------------------------------- filling
@@ -309,6 +315,8 @@ class ResultCache:
             self._drop_index(k, e)
             self.nbytes -= e.nbytes
             self.evictions += 1
+            obs_metrics.counter("rb_result_cache_evictions").inc()
+        self._account()
 
     # ----------------------------------------------------- invalidation
 
@@ -331,6 +339,8 @@ class ResultCache:
             self._drop_index(key, e)
             self.nbytes -= e.nbytes
             self.invalidations += 1
+        if doomed:
+            self._account()
         return len(doomed)
 
     def _drop_index(self, key, entry) -> None:
@@ -343,10 +353,15 @@ class ResultCache:
 
     # ------------------------------------------------------- accounting
 
+    def _account(self) -> None:
+        obs_metrics.gauge("rb_result_cache_bytes").set(self.nbytes)
+        obs_memory.LEDGER.update(self._ledger_handle, self.nbytes)
+
     def clear(self) -> None:
         self._data.clear()
         self._by_leaf.clear()
         self.nbytes = 0
+        self._account()
 
     def __len__(self) -> int:
         return len(self._data)
@@ -373,8 +388,8 @@ def serve_and_fill(cache, items, key_of, run, site: str, device=None):
     ``items`` are opaque query carriers, ``key_of(item) -> (key, leaves,
     form)``, ``run(miss_items) -> results`` runs the misses through the
     engine's guarded path, and filled rows go to ``device``.  Returns
-    ``(results, hits)``, results in item order.  ``site`` names the caller
-    (the JAX package tags its cache event with it)."""
+    ``(results, hits)``, results in item order, and attaches an
+    ``expr.cache`` event (tagged with ``site``) to the current span."""
     keyed = [key_of(it) for it in items]
     results: list = [None] * len(items)
     miss: list = []
@@ -384,6 +399,8 @@ def serve_and_fill(cache, items, key_of, run, site: str, device=None):
             miss.append(i)
         else:
             results[i] = got
+    obs_trace.current().event("expr.cache", site=site,
+                              hits=len(items) - len(miss), misses=len(miss))
     if miss:
         out = run([items[i] for i in miss])
         for i, r in zip(miss, out):

@@ -19,7 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+
+from ..obs import cost as obs_cost
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
@@ -114,10 +117,14 @@ def load(source: str) -> ctypes.CDLL:
     lib = _LIBS.get(source)
     if lib is None:
         LOADS += 1
+        t0 = time.perf_counter()
         path = library_path(source)
         if not path.exists():
             build()
         lib = ctypes.CDLL(str(path))
+        # a first load (with its nvcc build when the library is missing)
+        # is one program build of the process
+        obs_cost.observe_compile("kernels", "miss", time.perf_counter() - t0)
         lib.rb_error_string.argtypes = [ctypes.c_int]
         lib.rb_error_string.restype = ctypes.c_char_p
         _LIBS[source] = lib

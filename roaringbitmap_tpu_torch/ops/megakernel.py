@@ -51,7 +51,7 @@ stream lives in device memory and has no size limit on the card;
 the JAX package for the same batch.  Whether a longer stream would still
 beat the multi-op rung is not measured.  A plan past either bound,
 or with no fused section, resolves to the multi-op "cuda" rung, counted in
-:data:`DEMOTIONS` by reason (:func:`note_capacity_demotion`).
+``rb_mega_capacity_demotions_total{site,reason}`` (:func:`note_capacity_demotion`).
 """
 
 from __future__ import annotations
@@ -61,6 +61,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..runtime import lattice as rt_lattice
 from . import build, kernels, packing
 from .words import WORDS32, fold_u32, upload
@@ -109,11 +111,6 @@ _OP_SLOT = {"or": OR_SLOT, "and": AND_SLOT, "xor": XOR_SLOT}
 
 #: the eight stream arrays, in the order the kernel reads them
 STREAM_KEYS = ("opc", "dst", "src", "row", "bank", "orow", "crow", "imm")
-
-#: demotions off the megakernel rung, {(site, reason): count}: the port's
-#: counterpart of rb_mega_capacity_demotions_total{site, reason}
-DEMOTIONS: dict = {}
-
 
 class StreamIndexError(IndexError):
     """An instruction stream indexes outside its slots, rows or banks."""
@@ -204,9 +201,11 @@ class MegaPlan:
         return (self.slots_pad + 1) * SLOT_BYTES + RING_BYTES
 
     def stats_event(self) -> dict:
+        """The ``expr.megakernel`` span-event payload (the JAX package's
+        fields: ``vmem_bytes`` is a block's shared memory here)."""
         return {"mode": self.mode, "steps": int(self.n_steps),
                 "slots": int(self.n_slots),
-                "smem_bytes": int(self.smem_bytes),
+                "vmem_bytes": int(self.smem_bytes),
                 "out_rows": int(self.out_pad),
                 "card_rows": int(self.card_pad),
                 "sections": len(self.expr_out),
@@ -297,11 +296,20 @@ def capacity_reason(mega: MegaPlan) -> str | None:
 
 
 def note_capacity_demotion(site: str, mega: MegaPlan | None) -> str:
-    """Count a demotion off the megakernel rung by reason ("no_fused" for a
-    plan without fused sections) and return the reason."""
+    """Count a demotion off the megakernel rung by reason in
+    ``rb_mega_capacity_demotions_total{site,reason}`` ("no_fused" for a
+    plan without fused sections) and return the reason; a plan that
+    assembled but does not fit also gets the JAX package's
+    ``mega.capacity_demotion`` span event."""
     reason = ("no_fused" if mega is None
               else capacity_reason(mega) or "unknown")
-    DEMOTIONS[site, reason] = DEMOTIONS.get((site, reason), 0) + 1
+    obs_metrics.counter("rb_mega_capacity_demotions_total", site=site,
+                        reason=reason).inc()
+    if mega is not None:
+        obs_trace.current().event(
+            "mega.capacity_demotion", site=site, reason=reason,
+            steps=int(mega.steps_pad), slots=int(mega.slots_pad),
+            vmem_bytes=int(mega.smem_bytes))
     return reason
 
 

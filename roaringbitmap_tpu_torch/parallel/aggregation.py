@@ -44,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import operator
+import time
 
 import numpy as np
 import torch
@@ -53,7 +54,10 @@ from ..core.bitmap64 import Roaring64Bitmap
 from ..insights import analysis as insights
 from ..ops import dense, kernels, packing
 from ..ops.words import WORDS32, as_i32, resolve_device, to_u32
-from ..runtime import errors, faults, guard, residency
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..runtime import errors, faults, guard
 
 ENGINES = ("cuda", "torch")
 #: resident sets also take the nibble engine
@@ -149,9 +153,13 @@ def _guarded_wide(op: str, bitmaps: list, engine: str, dev, raw,
         return raw(rung)
 
     policy = guard.GuardPolicy.from_env()
-    res, rung = guard.run_with_fallback(
-        site, guard.chain_from(engine, ladder, dev), attempt, policy=policy,
-        sequential=sequential or (lambda: _sequential_reduce(op, bitmaps)))
+    with obs_trace.span("aggregation.wide", site=site, op=op,
+                        n=len(bitmaps), engine=engine) as sp:
+        res, rung = guard.run_with_fallback(
+            site, guard.chain_from(engine, ladder, dev), attempt,
+            policy=policy, sequential=sequential or (
+                lambda: _sequential_reduce(op, bitmaps)))
+        sp.tag(rung_used=rung)
     if (rung != guard.SEQUENTIAL and policy.shadow_rate > 0.0
             and guard.shadow_sample(1, policy.shadow_rate,
                                     policy.shadow_seed, site)):
@@ -467,6 +475,8 @@ class DevicePairSet:
             # the pack's host streams
             self._a = self._b = None
             p.a_streams = p.b_streams = None
+        obs_memory.LEDGER.register("pair_set", layout, self.hbm_bytes(),
+                                   owner=self)
 
     def _densify(self):
         return tuple(dense.densify_streams(*s, self._n_rows, nv)
@@ -556,6 +566,7 @@ class DeviceBitmapSet:
 
     def __init__(self, bitmaps: list, block: int | None = None,
                  layout: str = "auto", device=None):
+        t_build0 = time.perf_counter()
         dev = resolve_device(device)
         if layout == "auto":
             if block is not None:
@@ -594,6 +605,10 @@ class DeviceBitmapSet:
                 packing.chunk_value_stream(s.values, s.val_counts, s.val_dest,
                                            s.n_rows, pad_chunks_pow2=False)
         self._load(state, layout, dev)
+        # the cold build (pack, transfer, densify) as a first-class metric
+        obs_metrics.histogram("rb_ingest_build_seconds",
+                              layout=layout).observe(
+                                  time.perf_counter() - t_build0)
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "DeviceBitmapSet":
@@ -722,10 +737,16 @@ class DeviceBitmapSet:
             base = int(dense.popcount(self.words).sum(dtype=torch.int64))
         self._mutation_base_values = base
         self._mutated_values = 0
-        # resident bytes (runtime.residency), recounted when a repack moves
-        # the structure version
-        residency.register(self, "bitmap_set", DeviceBitmapSet.hbm_bytes,
-                           lambda s: (s.structure_version, s.layout))
+        self._register_residency()
+
+    def _register_residency(self) -> None:
+        """Resident bytes in the HBM ledger, released when the set is
+        collected, recounted when the structure version moves; a repack
+        (``mutation.delta``) registers the set again under its new
+        layout."""
+        self._ledger_handle = obs_memory.LEDGER.register(
+            "bitmap_set", self.layout, DeviceBitmapSet.hbm_bytes, owner=self,
+            stamp=lambda s: (s.structure_version, s.layout))
 
     def _compact_meta(self, s: packing.CompactStreams, blk_seg: np.ndarray,
                       dev: torch.device) -> None:
@@ -1044,15 +1065,9 @@ class DeviceBitmapSet:
         return mut_delta.host_bitmaps(self)
 
     def hbm_bytes(self) -> int:
-        """Device bytes the set keeps resident."""
-        parts = [self.blk_seg, self.seg_ids, self.head_idx, self.words,
-                 self.counts, *(self._streams or ()), *(self._chunks or ()),
-                 self._chunk_bounds]
-        if self.words is None:   # the fused compact reduce's metadata
-            parts += [self._grp_seg, self._dseg, self._dseg_carry,
-                      *self._dmeta[:2], *self._dmeta_carry[:2]]
-        return sum(t.numel() * t.element_size() for t in parts
-                   if t is not None)
+        """Device bytes the set keeps resident: the sum of
+        ``insights.resident_set_bytes``' components."""
+        return sum(insights.resident_set_bytes(self).values())
 
 
 def _sorted_by(key: np.ndarray, *arrays) -> tuple:

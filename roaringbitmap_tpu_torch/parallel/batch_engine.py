@@ -26,7 +26,7 @@ Rungs (``engine``):
   "megakernel"  the whole plan as one instruction stream, one B5 launch
                 (``ops.megakernel``); a plan without fused expression
                 sections, or past B5's capacity, resolves to "cuda", counted
-                in ``megakernel.DEMOTIONS`` by reason;
+                in ``rb_mega_capacity_demotions_total`` by reason;
   "cuda"        per bucket a gather + the ragged reduce B1
                 (``ops.kernels.segmented_reduce``), then the expression
                 combines and the value columns' plane scans in plain
@@ -68,6 +68,11 @@ from ..core.bitmap import RoaringBitmap
 from ..core.bitmap64 import Roaring64Bitmap
 from ..insights import analysis as insights
 from ..mutation import result_cache as mut_cache
+from ..obs import cost as obs_cost
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import slo as obs_slo
+from ..obs import trace as obs_trace
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, to_u32
 from ..runtime import errors, faults, guard
@@ -295,10 +300,12 @@ class BatchPlan(list):
         self.mega = mega
         self.point = point
         self.padding = padding
-        #: by rung: operand packs, static program-key parts, predicted bytes
+        #: by rung: operand packs, static program-key parts, predicted
+        #: bytes, word operations
         self.packs: dict = {}
         self.keys: dict = {}
         self.predicted: dict = {}
+        self.word_ops: dict = {}
 
     @property
     def fused(self) -> list:
@@ -381,8 +388,11 @@ class BatchEngine:
         #: the programs (captured graphs on the card) by program key
         self._programs = rt_programs.ProgramCache(self.device, SITE)
         self.last_timings: dict = {}
-        #: predicted bytes and lattice padding of the latest dispatch
+        #: the ``batch.memory`` / ``batch.cost`` payloads of the latest
+        #: dispatch
         self.last_dispatch_memory: dict | None = None
+        self.last_dispatch_cost: dict | None = None
+        self._first_query_done = False
         #: batches halved on ResourceExhausted (reactive splits)
         self.split_count = 0
         #: batches halved before dispatch, predicted past the budget
@@ -520,6 +530,14 @@ class BatchEngine:
                        mut_cache.subtree_probe(self.result_cache,
                                                self._leaf_token,
                                                self._col_token))
+        with obs_slo.phase("plan"), \
+                obs_trace.span("batch.plan", q=len(queries)) as sp:
+            plan = self._plan_fresh(queries, lat, cache_probe, sp)
+        self._plans.put(key, plan)
+        return plan
+
+    def _plan_fresh(self, queries, lat, cache_probe, sp) -> BatchPlan:
+        """The body of ``plan`` on a cache miss, inside its span."""
         groups: dict = {}
         owner: dict = {}
         sections: list = []
@@ -551,8 +569,14 @@ class BatchEngine:
             lat, groups, sections,
             any(getattr(q, "form", None) == "bitmap" for q in queries),
             counter, self.keys[:0], placement="single")
-        buckets = [plan_bucket(op, items, pad_to=pad_to)
-                   for (op, _), items in sorted(groups.items())]
+        sp.tag(need_q=max((len(i) for i in groups.values()), default=0),
+               need_rows=max((it[2].size for i in groups.values()
+                              for it in i), default=0),
+               need_keys=max((it[4].size for i in groups.values()
+                              for it in i), default=0))
+        with obs_trace.span("batch.bucket", groups=len(groups)):
+            buckets = [plan_bucket(op, items, pad_to=pad_to)
+                       for (op, _), items in sorted(groups.items())]
         padding = (plan_padding(buckets, groups) if point is not None
                    else (0, 0.0))
         expr_mod.finalize_sections(sections, buckets)
@@ -560,7 +584,8 @@ class BatchEngine:
                 if expr_mod.fused_of(sections) else None)
         plan = BatchPlan(buckets, exprs=sections, owner=owner, mega=mega,
                          point=point, padding=padding)
-        self._plans.put(key, plan)
+        sp.tag(buckets=len(plan), exprs=len(sections),
+               mega=mega is not None, snapped=point is not None)
         return plan
 
     def plan_key(self, queries) -> tuple:
@@ -665,12 +690,15 @@ class BatchEngine:
         if plan.point is None:
             key = self._program_key(plan, eng, None)
             if not run:
-                self._programs.note_eager(key, eng, None, 0.0)
+                self._programs.note_eager(
+                    key, eng, None, 0.0, tags=lambda: self._build_tags(
+                        plan, eng))
                 return None
             t0 = time.perf_counter()
             outs = self._run(plan, eng, self._operands(plan, eng, False))
-            self._programs.note_eager(key, eng, None,
-                                      time.perf_counter() - t0)
+            if key not in self._programs:   # no prepare noted it
+                self._programs.note_eager(key, eng, None,
+                                          time.perf_counter() - t0)
             return outs
         pack = self._pack(plan, eng)
         if eng == "megakernel":
@@ -683,10 +711,22 @@ class BatchEngine:
             return self._run(plan, eng, ops, static=True)
 
         if not run:
-            self._programs.prepare(key, eng, plan.point, device_part, pack)
+            self._programs.prepare(key, eng, plan.point, device_part, pack,
+                                   tags=lambda: self._build_tags(plan, eng))
             return None
         return self._programs.dispatch(key, eng, plan.point, device_part,
                                        pack)
+
+    def _build_tags(self, plan: BatchPlan, eng: str) -> dict:
+        """The ``batch.program_build`` span's tags (the JAX package's keys:
+        there is no compiler analysis, so no measured peak, and the cost
+        is the plan's own count)."""
+        predicted = self._predict_plan(plan, eng)
+        return {"kind": self._resident_kind(), "buckets": len(plan),
+                "exprs": len(plan.fused), "predicted_bytes": predicted,
+                "measured_peak_bytes": None,
+                "flops": float(self._word_ops(plan, eng)),
+                "bytes_accessed": float(predicted)}
 
     @staticmethod
     def _slice(plan: BatchPlan, eng: str, outs):
@@ -725,28 +765,46 @@ class BatchEngine:
         if engine not in ("auto",) + ENGINES:
             raise ValueError(f"unknown engine {engine!r}; expected one of "
                              f"{('auto',) + ENGINES}")
-        if not fallback:
-            return self._execute_once(
-                queries, resolve_query_engine(engine, queries, self.device),
-                inject=False)
-        policy = policy or guard.GuardPolicy.from_env()
-        # one budget resolution per execute, not per split: the card's free
-        # memory costs an allocator query
-        deadline = guard.Deadline(policy.deadline)
-        budget = guard.resolve_hbm_budget(policy, self.device)
+        t_exec0 = time.perf_counter()
+        with obs_trace.span("batch.execute", site=SITE, q=len(queries),
+                            engine=engine, fallback=fallback):
+            if not fallback:
+                return self._execute_once(
+                    queries,
+                    resolve_query_engine(engine, queries, self.device),
+                    inject=False)
+            policy = policy or guard.GuardPolicy.from_env()
+            # SLO accounting + per-phase attribution for the whole execute
+            # (splits and demotions included; the guard's own context is
+            # suppressed under this one)
+            with obs_slo.query(SITE, deadline_ms=policy.slo_deadline_ms):
+                # one budget resolution per execute, not per split: the
+                # card's free memory costs an allocator query
+                deadline = guard.Deadline(policy.deadline)
+                budget = guard.resolve_hbm_budget(policy, self.device)
 
-        def run_misses(qs):
-            chain = guard.chain_from(
-                resolve_query_engine(engine, qs, self.device), ENGINES,
-                self.device)
-            return self._dispatch(qs, chain, policy, deadline, budget)
+                def run_misses(qs):
+                    chain = guard.chain_from(
+                        resolve_query_engine(engine, qs, self.device),
+                        ENGINES, self.device)
+                    return self._dispatch(qs, chain, policy, deadline,
+                                          budget)
 
-        if self.result_cache is None:
-            return run_misses(queries)
-        self._sync_with_ds()
-        return mut_cache.serve_and_fill(
-            self.result_cache, queries, self._cache_key_of, run_misses,
-            "batch_engine", device=self.device)[0]
+                if self.result_cache is None:
+                    results = run_misses(queries)
+                else:
+                    self._sync_with_ds()
+                    results = mut_cache.serve_and_fill(
+                        self.result_cache, queries, self._cache_key_of,
+                        run_misses, SITE, device=self.device)[0]
+            if not self._first_query_done:
+                # the cold path: this engine's first execute pays the plan
+                # and its program's first run or capture
+                self._first_query_done = True
+                obs_metrics.histogram("rb_first_query_seconds",
+                                      site=SITE).observe(
+                                          time.perf_counter() - t_exec0)
+            return results
 
     def _dispatch(self, queries, chain, policy, deadline,
                   budget: int | None = None):
@@ -755,10 +813,17 @@ class BatchEngine:
         deadline.  Before the device is touched, a batch whose predicted
         footprint (``predict_dispatch_bytes``) passes ``budget`` is halved
         (the proactive split, counted in ``proactive_split_count``)."""
-        if budget is not None and len(queries) >= 2 \
-                and self.predict_dispatch_bytes(queries, chain[0]) > budget:
+        predicted = (self.predict_dispatch_bytes(queries, chain[0])
+                     if budget is not None and len(queries) >= 2 else 0)
+        if budget is not None and len(queries) >= 2 and predicted > budget:
             mid = (len(queries) + 1) // 2
             self.proactive_split_count += 1
+            obs_metrics.counter("rb_batch_proactive_splits_total",
+                                site=SITE).inc()
+            obs_trace.current().event(
+                "proactive_split", site=SITE, q=len(queries),
+                predicted_bytes=predicted, budget_bytes=budget,
+                halves=(mid, len(queries) - mid))
             return (self._dispatch(queries[:mid], chain, policy, deadline,
                                    budget)
                     + self._dispatch(queries[mid:], chain, policy, deadline,
@@ -775,6 +840,11 @@ class BatchEngine:
             sub = chain[chain.index(eng):] if eng in chain else chain
             mid = (len(queries) + 1) // 2
             self.split_count += 1
+            obs_metrics.counter("rb_batch_oom_splits_total",
+                                site=SITE).inc()
+            obs_trace.current().event(
+                "oom_split", site=SITE, engine_from=eng, engine_to=eng,
+                q=len(queries), halves=(mid, len(queries) - mid))
             split = True
             return (self._dispatch(queries[:mid], sub, policy, dl, budget)
                     + self._dispatch(queries[mid:], sub, policy, dl, budget))
@@ -801,58 +871,111 @@ class BatchEngine:
         t0 = time.perf_counter()
         plan = self.plan(queries)
         eng = self._bucket_engine(plan, engine)
+        obs_slo.note_engine(eng)
         if inject:
-            faults.maybe_fail("batch_engine", eng)
+            faults.maybe_fail(SITE, eng)
         t1 = time.perf_counter()
         results: list = [None] * len(queries)
         bucket_outs, expr_outs = [], []
         if plan or plan.fused:
-            outs = self._program(plan, eng)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            bucket_outs, expr_outs = self._slice(plan, eng, outs)
-            self._record_dispatch(plan, eng, len(queries))
+            # the program is built (a capture, or a new key's note) before
+            # the launch, outside its span, as the JAX package compiles
+            with obs_slo.phase("program_build"):
+                self._program(plan, eng, run=False)
+            with obs_trace.span("batch.dispatch", engine=eng,
+                                q=len(queries), buckets=len(plan)) as sp:
+                # device time and the allocator's peak are read only while
+                # tracing is on (the peak statistics are device-global)
+                start = obs_cost.launch_timer(self.device)
+                window = obs_memory.PeakWindow(
+                    self.device if start is not None else "cpu")
+                with window, obs_slo.phase("dispatch"):
+                    outs = self._program(plan, eng)
+                    end = obs_cost.end_event(self.device, start is not None)
+                if plan.exprs:
+                    expr_mod.record_fused_dispatch(SITE, plan.exprs)
+                    expr_mod.record_analytics_dispatch(SITE, plan.exprs, sp)
+                if eng == "megakernel":
+                    sp.event("expr.megakernel", **plan.mega.stats_event())
+                with obs_slo.phase("sync"):
+                    sp.sync(end)           # sync_ms, while tracing
+                    if end is not None:
+                        torch.cuda.synchronize(self.device)
+                t2 = time.perf_counter()
+                self._record_dispatch(plan, eng, len(queries), sp,
+                                      window.peak(), obs_cost.launch_seconds(
+                                          start, end, t2 - t1))
         t2 = time.perf_counter()
-        for b, (heads, cards) in zip(plan, bucket_outs):
-            cards = cards.cpu().numpy()
-            heads = None if heads is None else to_u32(heads)
-            for slot, (pid, keys_q) in enumerate(zip(b.qids, b.keys)):
-                qid = plan.owner.get(pid)
-                if qid is None:
-                    continue        # internal expression reduce node
-                kq = keys_q.size
-                bm = None
-                if queries[qid].form == "bitmap":
-                    bm = packing.unpack_result(keys_q, heads[slot, :kq],
-                                               cards[slot, :kq])
-                results[qid] = BatchResult(
-                    cardinality=int(cards[slot, :kq].sum()), bitmap=bm)
-        expr_mod.assemble_section_results(
-            plan.exprs, expr_outs, results, lambda qid: queries[qid].form,
-            self._empty_cls)
+        with obs_slo.phase("readback"), \
+                obs_trace.span("batch.readback", engine=eng, q=len(queries)):
+            if plan or plan.fused:
+                bucket_outs, expr_outs = self._slice(plan, eng, outs)
+            for b, (heads, cards) in zip(plan, bucket_outs):
+                cards = cards.cpu().numpy()
+                heads = None if heads is None else to_u32(heads)
+                for slot, (pid, keys_q) in enumerate(zip(b.qids, b.keys)):
+                    qid = plan.owner.get(pid)
+                    if qid is None:
+                        continue        # internal expression reduce node
+                    kq = keys_q.size
+                    bm = None
+                    if queries[qid].form == "bitmap":
+                        bm = packing.unpack_result(keys_q, heads[slot, :kq],
+                                                   cards[slot, :kq])
+                    results[qid] = BatchResult(
+                        cardinality=int(cards[slot, :kq].sum()), bitmap=bm)
+            expr_mod.assemble_section_results(
+                plan.exprs, expr_outs, results,
+                lambda qid: queries[qid].form, self._empty_cls)
         t3 = time.perf_counter()
         self.last_timings = {"engine": eng, "plan_ms": (t1 - t0) * 1e3,
                              "device_ms": (t2 - t1) * 1e3,
                              "unpack_ms": (t3 - t2) * 1e3}
-        if inject and faults.should_corrupt("batch_engine", eng):
+        if inject and faults.should_corrupt(SITE, eng):
             # deterministic silent corruption (fault kind "silent"): what
             # only the shadow check can catch
             results[0] = dataclasses.replace(
                 results[0], cardinality=results[0].cardinality + 1)
         return results
 
-    def _record_dispatch(self, plan: BatchPlan, eng: str, q: int) -> None:
-        """``last_dispatch_memory`` of a dispatch: the rung, the queries, the
-        predicted bytes and, for a snapped plan, the lattice padding (also
-        counted by site in ``runtime.lattice``)."""
-        mem = {"engine": eng, "q": q,
-               "predicted_bytes": self._predict_plan(plan, eng)}
+    def _record_dispatch(self, plan: BatchPlan, eng: str, q: int, sp,
+                         measured: dict | None, launch_s: float) -> None:
+        """The dispatch's accounting: ``last_dispatch_memory`` (the rung,
+        the queries, the predicted bytes, the measured peak when taken and,
+        for a snapped plan, the lattice padding, also counted by site in
+        ``runtime.lattice``) as the span's ``batch.memory`` event, and the
+        plan's word ops and bytes against the launch's time as its
+        ``batch.cost`` event."""
+        predicted = self._predict_plan(plan, eng)
+        mem = obs_memory.record_dispatch(SITE, predicted, measured)
+        mem["engine"], mem["q"] = eng, q
         if plan.point is not None:
             pb, pf = plan.padding
             mem["lattice_padding_bytes"] = int(pb)
             mem["lattice_padding_fraction"] = round(pf, 6)
             rt_lattice.record_padding(SITE, int(pb), pf)
         self.last_dispatch_memory = mem
+        sp.event("batch.memory", **mem)
+        cost_ev = obs_cost.record_dispatch(
+            SITE, eng, obs_cost.plan_cost(self._word_ops(plan, eng),
+                                          predicted), launch_s, q=q)
+        self.last_dispatch_cost = cost_ev
+        sp.event("batch.cost", **cost_ev)
+
+    def _word_ops(self, plan: BatchPlan, eng: str) -> int:
+        """Word operations of the plan's dispatch on a rung
+        (``insights.predict_batch_dispatch_word_ops`` plus its fused
+        sections'), once per plan."""
+        ops = plan.word_ops.get(eng)
+        if ops is None:
+            ops = insights.predict_batch_dispatch_word_ops(
+                [b.signature for b in plan], self._resident_kind(),
+                self._ds._n_rows, eng)
+            if plan.exprs:
+                ops += insights.predict_expr_word_ops(plan.expr_signature,
+                                                      eng)
+            plan.word_ops[eng] = ops
+        return ops
 
     def _shadow_check(self, queries, results, policy) -> None:
         """Re-run a sampled share of the batch on the host rung; raise
@@ -990,8 +1113,12 @@ class BatchEngine:
         except errors.GraphPoolBudgetError:
             rt_lattice.deactivate()     # a refused vocabulary snaps nothing
             raise
-        compiled = self._compile_lattice_points(lat, engine)
-        lat.seal()
+        with obs_trace.span("lattice.warmup", site=SITE,
+                            points=lat.n_points(),
+                            profile=lat.to_profile()) as sp:
+            compiled = self._compile_lattice_points(lat, engine)
+            lat.seal()
+            sp.tag(compiled=compiled, sealed=True)
         return self._lattice_report(SITE, lat, compiled, t0, predicted,
                                     budget, pooled=False)
 

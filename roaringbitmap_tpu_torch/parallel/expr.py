@@ -49,6 +49,8 @@ import operator
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..ops import dense, packing
 from ..ops.words import WORDS32, to_u32, upload
 
@@ -630,6 +632,40 @@ def _align(host: dict, name: str, ck: np.ndarray, node_keys: np.ndarray
 def compile_query(q: ExprQuery, qid: int, plan_reduce,
                   plan_leaf, cache_probe=None,
                   col_resolve=None) -> ExprSection:
+    """Compile one :class:`ExprQuery` against an engine's planner, inside an
+    ``expr.compile`` span (the JAX package's tags: ``nodes`` / ``depth`` /
+    ``cse_saved`` / ``kind``, and on a fused section its node and step
+    counts); see :func:`_compile_query`."""
+    if not obs_trace.enabled():
+        return _compile_query(q, qid, plan_reduce, plan_leaf, cache_probe,
+                              col_resolve)
+    e = canonicalize(q.expr)
+    core = e.found if isinstance(e, Agg) else e
+    stats = (_dag_stats_canonical(core) if core is not None
+             else {"nodes": 0, "cse_saved": 0, "depth": 0})
+    with obs_trace.span("expr.compile", qid=qid, form=q.form,
+                        nodes=stats["nodes"], depth=stats["depth"],
+                        cse_saved=stats["cse_saved"]) as sp:
+        sec = _compile_query(q, qid, plan_reduce, plan_leaf, cache_probe,
+                             col_resolve)
+        sp.tag(kind=sec.kind)
+        if sec.kind == "fused":
+            sp.tag(reduce_nodes=sec.n_reduce, combine_nodes=sec.n_combine,
+                   steps=len(sec.steps),
+                   root_keys=int(sec.root_keys.size),
+                   cached_nodes=sec.n_cached, depth=sec.depth)
+            n_value = sum(1 for st in sec.steps
+                          if st[0] in ("vscan", "vagg"))
+            if n_value:
+                sp.tag(value_steps=n_value,
+                       bsi_depth=value_depth_of([sec]),
+                       agg=(sec.agg[0] if sec.agg is not None else None))
+    return sec
+
+
+def _compile_query(q: ExprQuery, qid: int, plan_reduce,
+                  plan_leaf, cache_probe=None,
+                  col_resolve=None) -> ExprSection:
     """Compile one :class:`ExprQuery` against an engine's planner.
 
     ``plan_reduce(batch_query, owner)`` registers a pseudo flat query in the
@@ -1194,3 +1230,46 @@ def parse_warmup_rung(r):
     if isinstance(r, tuple) and len(r) == 2 and r[0] in ("expr", "delta"):
         return r[0], int(r[1])
     return "flat", int(r)
+
+
+# ---------------------------------------------------------- accounting
+
+def record_fused_dispatch(site: str, sections) -> None:
+    """Metric bump at a device-dispatch site carrying expressions:
+    ``rb_expr_nodes_fused`` counts DAG op nodes executed fused;
+    ``rb_expr_launches_saved_total`` credits the launches a
+    node-at-a-time evaluator (one launch per op node) would have paid
+    beyond the expression's share of this one dispatch."""
+    sections = [s for s in sections if s is not None]
+    if not sections:
+        return
+    nodes = sum(s.n_nodes for s in sections)
+    obs_metrics.counter("rb_expr_nodes_fused", site=site).inc(nodes)
+    saved = sum(max(0, s.n_nodes - 1) for s in sections)
+    if saved:
+        obs_metrics.counter("rb_expr_launches_saved_total",
+                            site=site).inc(saved)
+
+
+def record_analytics_dispatch(site: str, sections, span) -> None:
+    """Analytics accounting at a device-dispatch site: count the fused
+    vscan/vagg steps (``rb_analytics_scans_total`` /
+    ``rb_analytics_aggs_total``) and attach the ``analytics.scan``
+    event."""
+    scans = aggs = 0
+    for s in sections:
+        if s is None or s.kind != "fused":
+            continue
+        for st in s.steps:
+            if st[0] == "vscan":
+                scans += 1
+            elif st[0] == "vagg":
+                aggs += 1
+    if not scans and not aggs:
+        return
+    obs_metrics.counter("rb_analytics_scans_total", site=site).inc(scans)
+    if aggs:
+        obs_metrics.counter("rb_analytics_aggs_total",
+                            site=site).inc(aggs)
+    span.event("analytics.scan", site=site, scans=scans, aggs=aggs,
+               bsi_depth=value_depth_of(sections))

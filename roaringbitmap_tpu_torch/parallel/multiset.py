@@ -106,6 +106,11 @@ import torch
 
 from ..insights import analysis as insights
 from ..mutation import result_cache as mut_cache
+from ..obs import cost as obs_cost
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import slo as obs_slo
+from ..obs import trace as obs_trace
 from ..ops import dense, kernels, megakernel, packing
 from ..ops.words import WORDS32, popcount, upload
 from ..runtime import errors, faults, guard
@@ -432,6 +437,13 @@ class _Inflight:
     #: happened in between
     t0: float = 0.0
     one_time: int = 0
+    #: the timing event recorded before the launch (tracing on a card),
+    #: and the ``multiset.dispatch`` span the launch ran in
+    start: object = None
+    span_id: str | None = None
+    #: whether the ``multiset.cost`` event was already recorded (a sync
+    #: launch records it in its dispatch span)
+    costed: bool = False
 
 
 class MultiSetBatchEngine:
@@ -484,6 +496,9 @@ class MultiSetBatchEngine:
         self.dispatch_memory: deque = deque(maxlen=DISPATCH_MEMORY_MAX)
         #: stats of the latest pipelined run of more than one launch
         self.last_pipeline: dict | None = None
+        #: the ``multiset.cost`` payload of the latest costed launch
+        self.last_dispatch_cost: dict | None = None
+        self._first_query_done = False
 
     @classmethod
     def from_bitmap_sets(cls, bitmap_sets: list, layout: str = "auto",
@@ -570,6 +585,15 @@ class MultiSetBatchEngine:
         cached = self._plans.get(key)
         if cached is not None:
             return cached
+        with obs_slo.phase("plan"), \
+                obs_trace.span("multiset.plan", q=len(pooled),
+                               sets=len(sids)) as sp:
+            plan = self._plan_pool_fresh(pooled, lat, sids, sp)
+        self._plans.put(key, plan)
+        return plan
+
+    def _plan_pool_fresh(self, pooled, lat, sids, sp) -> _PoolPlan:
+        """The body of ``_plan_pool`` on a cache miss, inside its span."""
         offsets, base = {}, 0
         for sid in sids:
             offsets[sid] = base
@@ -614,8 +638,14 @@ class MultiSetBatchEngine:
             lat, groups, sections, any(q.form == "bitmap" for _, q in pooled),
             counter, self._engines[0].keys[:0], placement="single",
             pool=self._pool_need(lat, groups, sections, sids, offsets))
-        buckets = [plan_bucket(op, items, pad_to=pad_to)
-                   for (op, _), items in sorted(groups.items())]
+        sp.tag(need_q=max((len(i) for i in groups.values()), default=0),
+               need_rows=max((it[2].size for i in groups.values()
+                              for it in i), default=0),
+               need_keys=max((it[4].size for i in groups.values()
+                              for it in i), default=0))
+        with obs_trace.span("multiset.pool", groups=len(groups)):
+            buckets = [plan_bucket(op, items, pad_to=pad_to)
+                       for (op, _), items in sorted(groups.items())]
         # the compacted pooled row space: every row the pool references
         # (bucket gathers, andnot heads, expression leaves), once, sorted;
         # padded cells gather global row 0, which therefore always joins
@@ -635,6 +665,10 @@ class MultiSetBatchEngine:
             in_set = pool_rows[(pool_rows >= off)
                                & (pool_rows < off + self._rows[sid])]
             row_sel[sid] = (in_set - off).astype(np.int32)
+        # the pooled-row need, pre-pad: what a lattice's pool rungs cover
+        # (insights.recommend_lattice reads it off the plan span)
+        sp.tag(need_pool=int(max((r.size for r in row_sel.values()),
+                                 default=1)))
         n_pool = int(pool_rows.size)
         pos = np.arange(n_pool, dtype=np.int64)
         if point is not None:
@@ -670,6 +704,8 @@ class MultiSetBatchEngine:
         # B5's stream assembles from the remapped gathers
         mega = (megakernel.build_full(buckets, sections)
                 if expr_mod.fused_of(sections) else None)
+        obs_metrics.gauge("rb_multiset_pool_occupancy", site=SITE).set(
+            len(pooled) / max(1, sum(b.q for b in buckets)))
         padding = (0, 0.0)
         if point is not None:
             pb, _pf = plan_padding(buckets, groups)
@@ -680,7 +716,11 @@ class MultiSetBatchEngine:
                          sids=sids, row_sel=row_sel, n_pool_rows=n_pool,
                          exprs=sections, owner=owner, mega=mega, point=point,
                          padding=padding)
-        self._plans.put(key, plan)
+        sp.tag(buckets=len(buckets),
+               occupancy=round(len(pooled) / max(1, sum(b.q for b in buckets)),
+                               4),
+               pool_rows=n_pool, exprs=len(sections),
+               snapped=point is not None)
         return plan
 
     def _pool_need(self, lat, groups, sections, sids, offsets) -> int:
@@ -710,7 +750,7 @@ class MultiSetBatchEngine:
                      note: bool = True) -> str:
         """The rung a pooled plan runs on: "megakernel" resolves to "cuda"
         when the plan has no fused section or does not fit B5, counted by
-        reason in ``megakernel.DEMOTIONS`` (``note=False`` for a
+        reason in ``rb_mega_capacity_demotions_total`` (``note=False`` for a
         prediction).  The JAX package's demotion past its scalar-memory
         prefetch bound has no counterpart: B1 and B3 take any length."""
         if engine == "megakernel" and not (plan.mega is not None
@@ -737,7 +777,7 @@ class MultiSetBatchEngine:
         the footprint model's bytes and the word-op count
         (``insights.predict_multiset_dispatch_word_ops``) over the card's
         peak rates, or over the rates this rung's measured launches
-        achieved (``insights.COST``).  What the serving loop's
+        achieved (``obs.cost.TRACKER``).  What the serving loop's
         deadline-aware assembly budgets against."""
         pooled = self._as_pooled(pooled_or_groups)
         if not pooled:
@@ -745,7 +785,7 @@ class MultiSetBatchEngine:
         plan = self._plan_pool(pooled)
         eng = self._pool_engine(plan, resolve_query_engine(
             engine, [q for _, q in pooled], self.device), note=False)
-        return insights.COST.estimate_seconds(
+        return obs_cost.estimate_seconds(
             self._word_ops(plan, eng), self._predict(plan, eng)["peak_bytes"],
             SITE, eng)
 
@@ -813,41 +853,53 @@ class MultiSetBatchEngine:
                              f"{('auto',) + ENGINES}")
         self.queries_total += len(pooled)
         sids = sorted({sid for sid, _ in pooled})
-        if len(sids) == 1:
-            flat = self._engines[sids[0]].execute(
-                [q for _, q in pooled], engine=engine, fallback=fallback,
-                policy=policy)
+        with obs_trace.span("multiset.execute", site=SITE, q=len(pooled),
+                            sets=len(sids), engine=engine,
+                            fallback=fallback):
+            obs_metrics.counter("rb_multiset_queries_total",
+                                site=SITE).inc(len(pooled))
+            if len(sids) == 1:
+                flat = self._engines[sids[0]].execute(
+                    [q for _, q in pooled], engine=engine, fallback=fallback,
+                    policy=policy)
+                return self._regroup(flat, lengths)
+            if not fallback:
+                start = resolve_query_engine(engine, [q for _, q in pooled],
+                                             self.device)
+                return self._regroup(self._launch_once(pooled, start,
+                                                       inject=False), lengths)
+            t_exec0 = time.perf_counter()
+            policy = policy or guard.GuardPolicy.from_env()
+            budget = guard.resolve_hbm_budget(policy, self.device)
+            deadline = guard.Deadline(policy.deadline)
+
+            def run_misses(qs):
+                qs = tuple(qs)
+                chain = guard.chain_from(
+                    resolve_query_engine(engine, [q for _, q in qs],
+                                         self.device), ENGINES, self.device)
+                # an in-budget pool is one launch, dispatched synchronously; a
+                # pool the budget splits stays a generator, so that the halving
+                # and planning of launch k+1 run while launch k is on the card
+                if (budget is None or len(qs) < 2
+                        or self.predict_dispatch_bytes(qs, chain[0]) <= budget):
+                    launches = [(0, qs)]
+                else:
+                    launches = ((0, sub) for sub in
+                                self._launch_iter(qs, chain[0], budget))
+                return self._pipeline(launches, chain, policy, deadline,
+                                      budget).get(0, [])
+
+            with obs_slo.query(SITE, deadline_ms=policy.slo_deadline_ms):
+                flat = self._serve(pooled, run_misses)
+            if not self._first_query_done:
+                self._first_query_done = True
+                obs_metrics.histogram("rb_first_query_seconds",
+                                      site=SITE).observe(
+                                          time.perf_counter() - t_exec0)
+            if policy.shadow_rate > 0.0:
+                self._shadow_check(pooled, flat, policy)
             return self._regroup(flat, lengths)
-        if not fallback:
-            start = resolve_query_engine(engine, [q for _, q in pooled],
-                                         self.device)
-            return self._regroup(self._launch_once(pooled, start,
-                                                   inject=False), lengths)
-        policy = policy or guard.GuardPolicy.from_env()
-        budget = guard.resolve_hbm_budget(policy, self.device)
-        deadline = guard.Deadline(policy.deadline)
-
-        def run_misses(qs):
-            qs = tuple(qs)
-            chain = guard.chain_from(
-                resolve_query_engine(engine, [q for _, q in qs],
-                                     self.device), ENGINES, self.device)
-            # an in-budget pool is one launch, dispatched synchronously; a
-            # pool the budget splits stays a generator, so that the halving
-            # and planning of launch k+1 run while launch k is on the card
-            if (budget is None or len(qs) < 2
-                    or self.predict_dispatch_bytes(qs, chain[0]) <= budget):
-                launches = [(0, qs)]
-            else:
-                launches = ((0, sub) for sub in
-                            self._launch_iter(qs, chain[0], budget))
-            return self._pipeline(launches, chain, policy, deadline,
-                                  budget).get(0, [])
-
-        flat = self._serve(pooled, run_misses)
-        if policy.shadow_rate > 0.0:
-            self._shadow_check(pooled, flat, policy)
-        return self._regroup(flat, lengths)
 
     def execute_pipelined(self, pools, engine: str = "auto",
                           policy: guard.GuardPolicy | None = None) -> list:
@@ -865,37 +917,46 @@ class MultiSetBatchEngine:
         policy = policy or guard.GuardPolicy.from_env()
         budget = guard.resolve_hbm_budget(policy, self.device)
         deadline = guard.Deadline(policy.deadline)
-        for pooled, _ in metas:
-            self.queries_total += len(pooled)
+        n_sets = len({sid for pooled, _ in metas for sid, _ in pooled})
+        with obs_trace.span("multiset.execute", site=SITE,
+                            q=sum(len(p) for p, _ in metas), sets=n_sets,
+                            engine=engine, pools=len(pools)):
+            for pooled, _ in metas:
+                self.queries_total += len(pooled)
+                obs_metrics.counter("rb_multiset_queries_total",
+                                    site=SITE).inc(len(pooled))
 
-        def run_misses(items):
-            # items: (pool index, set id, query), in pool order
-            by_pi: dict = {}
-            for pi, sid, q in items:
-                by_pi.setdefault(pi, []).append((sid, q))
-            chain = guard.chain_from(
-                resolve_query_engine(engine, [q for _, _, q in items],
-                                     self.device), ENGINES, self.device)
+            def run_misses(items):
+                # items: (pool index, set id, query), in pool order
+                by_pi: dict = {}
+                for pi, sid, q in items:
+                    by_pi.setdefault(pi, []).append((sid, q))
+                chain = guard.chain_from(
+                    resolve_query_engine(engine, [q for _, _, q in items],
+                                         self.device), ENGINES, self.device)
 
-            def launches():
-                for pi, pooled in by_pi.items():
-                    for qs in self._launch_iter(pooled, chain[0], budget):
-                        yield pi, qs
+                def launches():
+                    for pi, pooled in by_pi.items():
+                        for qs in self._launch_iter(pooled, chain[0], budget):
+                            yield pi, qs
 
-            got = self._pipeline(launches(), chain, policy, deadline, budget)
-            return [r for pi in by_pi for r in got.get(pi, [])]
+                got = self._pipeline(launches(), chain, policy, deadline, budget)
+                return [r for pi in by_pi for r in got.get(pi, [])]
 
-        items = [(pi, sid, q) for pi, (pooled, _) in enumerate(metas)
-                 for sid, q in pooled]
-        flat_all = self._serve(items, run_misses) if items else []
-        out, i = [], 0
-        for pooled, lengths in metas:
-            flat = flat_all[i:i + len(pooled)]
-            i += len(pooled)
-            if policy.shadow_rate > 0.0 and flat:
-                self._shadow_check(pooled, flat, policy)
-            out.append(self._regroup(flat, lengths))
-        return out
+            items = [(pi, sid, q) for pi, (pooled, _) in enumerate(metas)
+                     for sid, q in pooled]
+            # one attribution context over the whole streamed window (a
+            # per-pool wall cannot be separated once launches overlap)
+            with obs_slo.query(SITE, deadline_ms=policy.slo_deadline_ms):
+                flat_all = self._serve(items, run_misses) if items else []
+            out, i = [], 0
+            for pooled, lengths in metas:
+                flat = flat_all[i:i + len(pooled)]
+                i += len(pooled)
+                if policy.shadow_rate > 0.0 and flat:
+                    self._shadow_check(pooled, flat, policy)
+                out.append(self._regroup(flat, lengths))
+            return out
 
     def _serve(self, items, run_misses) -> list:
         """``run_misses(items)`` alone without a result cache; with one, the
@@ -930,10 +991,17 @@ class MultiSetBatchEngine:
         while stack:
             qs = stack.pop()
             while budget is not None and len(qs) >= 2:
-                if self.predict_dispatch_bytes(qs, engine) <= budget:
+                predicted = self.predict_dispatch_bytes(qs, engine)
+                if predicted <= budget:
                     break
                 mid = (len(qs) + 1) // 2
                 self.proactive_split_count += 1
+                obs_metrics.counter("rb_multiset_proactive_splits_total",
+                                    site=SITE).inc()
+                obs_trace.current().event(
+                    "proactive_split", site=SITE, q=len(qs),
+                    predicted_bytes=predicted, budget_bytes=budget,
+                    halves=(mid, len(qs) - mid))
                 stack.append(qs[mid:])
                 qs = qs[:mid]
             yield tuple(qs)
@@ -976,48 +1044,59 @@ class MultiSetBatchEngine:
                         raise
                     # re-run this launch synchronously down the chain
                     self.drain_retries += 1
+                    obs_metrics.counter("rb_multiset_drain_retries_total",
+                                        site=SITE).inc()
+                    obs_trace.current().event(
+                        "drain_retry", site=SITE, q=len(qs),
+                        error_class=type(fault).__name__)
                     res, _ = self._launch_guarded(qs, chain, policy,
                                                   deadline, budget, sync=True)
             drain_ms += (time.perf_counter() - t0) * 1e3
             out.setdefault(tag, []).extend(res)
 
-        it = iter(launches)
-        while True:
-            t0 = time.perf_counter()
-            # pulling the iterator runs the next launch's budget halving
-            nxt = next(it, None)
-            if nxt is None:
-                break
-            tag, qs = nxt
-            tag_sids.setdefault(tag, set()).update(sid for sid, _ in qs)
-            payload, _rung = self._launch_guarded(qs, chain, policy, deadline,
-                                                  budget, sync=single)
-            h = (time.perf_counter() - t0) * 1e3
-            host_ms += h
-            # overlapped only when a device launch was in flight: finished
-            # lists (landings, split recoveries) hide nothing
-            if any(isinstance(p, _Inflight) for _, _, p in inflight):
-                overlapped_ms += h
-            n_launches += 1
-            inflight.append((tag, qs, payload))
-            # keep at most depth - 1 undrained: depth 1 drains at once
-            while len(inflight) >= depth:
+        with obs_trace.span("multiset.pipeline", depth=depth) as sp:
+            it = iter(launches)
+            while True:
+                t0 = time.perf_counter()
+                # pulling the iterator runs the next launch's budget halving
+                nxt = next(it, None)
+                if nxt is None:
+                    break
+                tag, qs = nxt
+                tag_sids.setdefault(tag, set()).update(sid for sid, _ in qs)
+                payload, _rung = self._launch_guarded(
+                    qs, chain, policy, deadline, budget, sync=single)
+                h = (time.perf_counter() - t0) * 1e3
+                host_ms += h
+                # overlapped only when a device launch was in flight:
+                # finished lists (landings, split recoveries) hide nothing
+                if any(isinstance(p, _Inflight) for _, _, p in inflight):
+                    overlapped_ms += h
+                n_launches += 1
+                inflight.append((tag, qs, payload))
+                # keep at most depth - 1 undrained: depth 1 drains at once
+                while len(inflight) >= depth:
+                    drain()
+            while inflight:
                 drain()
-        while inflight:
-            drain()
-        stats = {"launches": n_launches, "depth": depth,
-                 "host_ms": round(host_ms, 3),
-                 "host_overlapped_ms": round(overlapped_ms, 3),
-                 "overlap_ratio": round(overlapped_ms / host_ms
-                                        if host_ms else 0.0, 4),
-                 "drain_ms": round(drain_ms, 3)}
+            stats = {"launches": n_launches, "depth": depth,
+                     "host_ms": round(host_ms, 3),
+                     "host_overlapped_ms": round(overlapped_ms, 3),
+                     "overlap_ratio": round(overlapped_ms / host_ms
+                                            if host_ms else 0.0, 4),
+                     "drain_ms": round(drain_ms, 3)}
+            sp.tag(**stats)
         if n_launches > 1:
             # a single launch has no overlap to measure
+            obs_metrics.gauge("rb_multiset_pipeline_overlap_ratio",
+                              site=SITE).set(stats["overlap_ratio"])
             self.last_pipeline = stats
         device_launches = self.launch_count - launches0
-        if device_launches:
-            self.launches_saved += max(
-                0, sum(len(s) for s in tag_sids.values()) - device_launches)
+        saved = (max(0, sum(len(s) for s in tag_sids.values())
+                     - device_launches) if device_launches else 0)
+        self.launches_saved += saved
+        obs_metrics.counter("rb_multiset_launches_saved_total",
+                            site=SITE).inc(saved)
         return out
 
     def _launch_guarded(self, qs, chain, policy, deadline, budget,
@@ -1035,6 +1114,11 @@ class MultiSetBatchEngine:
             sub = chain[chain.index(eng):] if eng in chain else chain
             mid = (len(qs) + 1) // 2
             self.split_count += 1
+            obs_metrics.counter("rb_multiset_oom_splits_total",
+                                site=SITE).inc()
+            obs_trace.current().event(
+                "oom_split", site=SITE, engine_from=eng, engine_to=eng,
+                q=len(qs), halves=(mid, len(qs) - mid))
             return (self._launch_guarded(qs[:mid], sub, policy, dl, budget,
                                          sync=True)[0]
                     + self._launch_guarded(qs[mid:], sub, policy, dl, budget,
@@ -1054,26 +1138,77 @@ class MultiSetBatchEngine:
         t0, one0 = time.perf_counter(), rt_programs.one_time_work()
         plan = self._plan_pool(pooled)
         eng = self._pool_engine(plan, engine)
+        obs_slo.note_engine(eng)
         if inject:
             faults.maybe_fail(SITE, eng)
-        outs = self._program(plan, eng)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record()
-        self.launch_count += 1
-        mem = {"engine": eng, "q": len(pooled), "sets": len(plan.sids),
-               "predicted_bytes": self._predict(plan, eng)["peak_bytes"]}
-        if plan.point is not None:
-            pb, pf = plan.padding
-            mem["lattice_padding_bytes"] = int(pb)
-            mem["lattice_padding_fraction"] = round(pf, 6)
-            rt_lattice.record_padding(SITE, int(pb), pf)
-        self.dispatch_memory.append(mem)
-        flight = _Inflight(plan=plan, outs=outs, event=event,
-                           queries=pooled, eng=eng, inject=inject, t0=t0,
-                           one_time=one0)
+        # the program is built before the launch, outside its span
+        with obs_slo.phase("program_build"):
+            self._program(plan, eng, run=False)
+        with obs_trace.span("multiset.dispatch", engine=eng, q=len(pooled),
+                            sets=len(plan.sids), buckets=len(plan.buckets),
+                            pipelined=not sync) as sp:
+            # device time is read only while tracing is on, and the
+            # allocator's (device-global) peak only on a sync launch
+            start = obs_cost.launch_timer(self.device)
+            window = obs_memory.PeakWindow(
+                self.device if start is not None and sync else "cpu")
+            with window, obs_slo.phase("dispatch"):
+                outs = self._program(plan, eng)
+                event = obs_cost.end_event(self.device, start is not None)
+            # counted here, not per window slot: an OOM-split slot
+            # dispatches 2+ launches, a sequential landing none
+            self.launch_count += 1
+            obs_metrics.counter("rb_multiset_launches_total",
+                                site=SITE).inc()
+            if plan.exprs:
+                expr_mod.record_fused_dispatch(SITE, plan.exprs)
+                expr_mod.record_analytics_dispatch(SITE, plan.exprs, sp)
+            if eng == "megakernel":
+                sp.event("expr.megakernel", **plan.mega.stats_event())
+            flight = _Inflight(plan=plan, outs=outs, event=event,
+                               queries=pooled, eng=eng, inject=inject, t0=t0,
+                               one_time=one0, start=start,
+                               span_id=sp.span_id)
+            if sync:
+                with obs_slo.phase("sync"):
+                    sp.sync(event)          # sync_ms, while tracing
+                    if event is not None:
+                        event.synchronize()
+            mem = obs_memory.record_dispatch(
+                SITE, self._predict(plan, eng)["peak_bytes"],
+                window.peak() if sync else None)
+            mem.update(engine=eng, q=len(pooled), sets=len(plan.sids))
+            if plan.point is not None:
+                pb, pf = plan.padding
+                mem["lattice_padding_bytes"] = int(pb)
+                mem["lattice_padding_fraction"] = round(pf, 6)
+                rt_lattice.record_padding(SITE, int(pb), pf)
+            self.dispatch_memory.append(mem)
+            sp.event("multiset.memory", **mem)
+            if sync:
+                sp.event("multiset.cost", **self._record_cost(flight))
         return flight if not sync else self._finish(flight)
+
+    def _record_cost(self, flight: _Inflight, **extra) -> dict:
+        """The launch's ``multiset.cost`` payload (``obs.cost``): the plan's
+        word ops and bytes over its CUDA-event device time while tracing,
+        else over its wall from the host plan to the host outputs.  That
+        wall also calibrates ``predict_dispatch_seconds`` unless the launch
+        paid one-time work (a kernel library load, a capture, a first
+        eager run)."""
+        flight.costed = True
+        wall = time.perf_counter() - flight.t0
+        plan, eng = flight.plan, flight.eng
+        predicted = self._predict(plan, eng)["peak_bytes"]
+        cost_ev = obs_cost.record_dispatch(
+            SITE, eng, obs_cost.plan_cost(self._word_ops(plan, eng),
+                                          predicted),
+            obs_cost.launch_seconds(flight.start, flight.event, wall),
+            track=(flight.start is not None
+                   or rt_programs.one_time_work() == flight.one_time),
+            q=len(flight.queries), sets=len(plan.sids), **extra)
+        self.last_dispatch_cost = cost_ev
+        return cost_ev
 
     def _pooled_words(self, plan: _PoolPlan, eng: str, sels) -> torch.Tensor:
         """The pooled image: each referenced set's selected rows (``sels``,
@@ -1167,13 +1302,16 @@ class MultiSetBatchEngine:
         if plan.point is None:
             key = self._program_key(plan, eng, None)
             if not run:
-                self._programs.note_eager(key, eng, None, 0.0)
+                self._programs.note_eager(
+                    key, eng, None, 0.0, tags=lambda: self._build_tags(
+                        plan, eng))
                 return None
             t0 = time.perf_counter()
             outs = rt_programs.copy_out(self._run(
                 plan, eng, self._operands(plan, eng, False)))
-            self._programs.note_eager(key, eng, None,
-                                      time.perf_counter() - t0)
+            if key not in self._programs:   # no prepare noted it
+                self._programs.note_eager(key, eng, None,
+                                          time.perf_counter() - t0)
             return outs
         pack = plan.packs.get(eng)
         if pack is None:
@@ -1189,21 +1327,32 @@ class MultiSetBatchEngine:
             return self._run(plan, eng, ops, static=True)
 
         if not run:
-            self._programs.prepare(key, eng, plan.point, device_part, pack)
+            self._programs.prepare(key, eng, plan.point, device_part, pack,
+                                   tags=lambda: self._build_tags(plan, eng))
             return None
         return self._programs.dispatch(key, eng, plan.point, device_part,
                                        pack)
 
+    def _build_tags(self, plan: _PoolPlan, eng: str) -> dict:
+        """The ``multiset.program_build`` span's tags (the JAX package's
+        keys; nothing is donated here, there is no compiler analysis, and
+        the cost is the plan's own count)."""
+        predicted = self._predict(plan, eng)["peak_bytes"]
+        return {"sets": len(plan.sids), "buckets": len(plan.buckets),
+                "donate": False, "exprs": len(plan.fused),
+                "predicted_bytes": predicted, "measured_peak_bytes": None,
+                "flops": float(self._word_ops(plan, eng)),
+                "bytes_accessed": float(predicted)}
+
     def _finish(self, flight: _Inflight) -> list:
         if flight.event is not None:
             flight.event.synchronize()
-        if rt_programs.one_time_work() == flight.one_time:
-            # calibrate the time model with the launch's wall (host plan to
-            # host outputs), never with one that paid a one-time cost
-            plan, eng = flight.plan, flight.eng
-            insights.COST.record(SITE, eng, self._word_ops(plan, eng),
-                                 self._predict(plan, eng)["peak_bytes"],
-                                 time.perf_counter() - flight.t0)
+        if not flight.costed:
+            # a pipelined launch completed under this drain: its cost is
+            # stamped here, flagged async and pointing at the launch span
+            # (the wall includes pipeline queueing: a lower bound)
+            obs_trace.current().event("multiset.cost", **self._record_cost(
+                flight, **{"async": True, "launch_span_id": flight.span_id}))
         return self._readback(flight.plan, flight.outs, flight.queries,
                               flight.eng, flight.inject)
 
@@ -1235,6 +1384,13 @@ class MultiSetBatchEngine:
     def _readback(self, plan: _PoolPlan, outs, pooled, eng: str,
                   inject: bool) -> list:
         """Host outputs -> per-query ``BatchResult``s in pooled order."""
+        with obs_slo.phase("readback"), \
+                obs_trace.span("multiset.readback", engine=eng,
+                               q=len(pooled)):
+            return self._readback_results(plan, outs, pooled, eng, inject)
+
+    def _readback_results(self, plan: _PoolPlan, outs, pooled, eng: str,
+                          inject: bool) -> list:
         if eng == "megakernel":
             b_outs, expr_outs = megakernel._slice_outputs(plan.mega, *outs)
             bucket_outs = (

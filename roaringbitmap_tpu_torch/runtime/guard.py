@@ -34,10 +34,11 @@ sequential rung after a successful dispatch and raises ``ShadowMismatch``
 on any divergence.
 
 Nothing here is silent: every retry, demotion and sequential landing is
-counted by site (``dispatch_stats``, the JAX package's per-site shape) and
-by (site, rung, event) (``dispatch_events``), and logged.  These module
-counters stand in for the JAX package's trace, SLO, flight and metrics
-hooks until those are ported.
+counted in the obs registry (``rb_dispatch_events_total{site,event}``;
+``dispatch_stats`` is the JAX package's per-site view over it), logged,
+recorded as an event on the ``guard.dispatch`` span, and — demotions,
+landings and fatal faults — in the flight recorder.  Each served attempt
+observes ``rb_execute_latency_seconds{site,engine}``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..obs import flight as obs_flight
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import slo as obs_slo
+from ..obs import trace as obs_trace
 from . import errors, faults
 
 _log = logging.getLogger("roaringbitmap_tpu_torch.runtime")
@@ -71,7 +77,7 @@ ENV_DEADLINE = "ROARING_TPU_DEADLINE_S"
 ENV_SHADOW = "ROARING_TPU_SHADOW"
 ENV_HBM_BUDGET = "ROARING_TPU_HBM_BUDGET"
 ENV_PIPELINE_DEPTH = "ROARING_TPU_PIPELINE_DEPTH"
-ENV_SLO_MS = "ROARING_TPU_SLO_MS"
+ENV_SLO_MS = obs_slo.ENV_SLO_MS
 
 
 def parse_bytes(spec: str) -> int:
@@ -203,7 +209,7 @@ def resolve_hbm_budget(policy: GuardPolicy | None = None,
     cached = _free_budget_cache
     if cached is not None and now < cached[0] and cached[1] == dev:
         return cached[2]
-    free = int(torch.cuda.mem_get_info(dev)[0])
+    free = obs_memory.backend_free_bytes(dev)
     _free_budget_cache = (now + _FREE_BUDGET_TTL_S, dev, free)
     return free
 
@@ -223,33 +229,32 @@ def chain_from(engine: str, ladder: tuple, device=None) -> tuple:
 # --------------------------------------------------------- dispatch stats
 
 _EVENTS = ("retries", "demotions", "sequential")
-_dispatch_stats: dict = {}
-_dispatch_events: dict = {}
+_EVENT_METRIC = "rb_dispatch_events_total"
 
 
-def _bump(site: str, key: str, rung: str) -> None:
-    row = _dispatch_stats.setdefault(site, dict.fromkeys(_EVENTS, 0))
-    row[key] += 1
-    ev = (site, rung, key)
-    _dispatch_events[ev] = _dispatch_events.get(ev, 0) + 1
+def _bump(site: str, key: str) -> None:
+    obs_metrics.counter(_EVENT_METRIC, site=site, event=key).inc()
 
 
 def dispatch_stats(site: str | None = None) -> dict:
-    """Per-site retry / demotion / sequential-landing counts (copies)."""
+    """Per-site retry / demotion / sequential-landing counts: a view over
+    the registry's ``rb_dispatch_events_total{site,event}`` counters."""
+    rows: dict = {}
+    for name, labels, inst in obs_metrics.REGISTRY.instruments():
+        if name == _EVENT_METRIC and labels.get("event") in _EVENTS:
+            row = rows.setdefault(labels["site"], dict.fromkeys(_EVENTS, 0))
+            row[labels["event"]] += int(inst.value)
     if site is not None:
-        return dict(_dispatch_stats.get(site, dict.fromkeys(_EVENTS, 0)))
-    return {s: dict(row) for s, row in _dispatch_stats.items()}
-
-
-def dispatch_events() -> dict:
-    """The same counts by (site, rung, event): the rung retried, the rung
-    demoted from, or "sequential" for a landing."""
-    return dict(_dispatch_events)
+        return rows.get(site, dict.fromkeys(_EVENTS, 0))
+    return rows
 
 
 def reset_dispatch_stats() -> None:
-    _dispatch_stats.clear()
-    _dispatch_events.clear()
+    """Zero the ``rb_dispatch_events_total`` counters (``obs.reset()``
+    drops them with the rest of the registry)."""
+    for name, _labels, inst in obs_metrics.REGISTRY.instruments():
+        if name == _EVENT_METRIC:
+            inst.value = 0.0
 
 
 def _deadline_error(site: str, dl: Deadline, last):
@@ -262,14 +267,33 @@ def _deadline_error(site: str, dl: Deadline, last):
 
 
 def _log_transition(level: int, site: str, event: str, engine_from: str,
-                    engine_to: str | None, fault) -> None:
+                    engine_to: str | None, fault, span=None,
+                    **fields) -> None:
+    """One guard decision, emitted through ONE schema on two surfaces: a
+    structured log record (``extra=`` fields, ``rb_`` prefixed) and an
+    event on the enclosing trace span; demotions, landings and fatal
+    faults also enter the flight recorder's ring."""
     error_class = type(fault).__name__ if fault is not None else None
     _log.log(level, "%s: %s %s -> %s: %s", site, event, engine_from,
              engine_to or "-", fault,
              extra={"rb_site": site, "rb_event": event,
                     "rb_engine_from": engine_from,
                     "rb_engine_to": engine_to,
-                    "rb_error_class": error_class})
+                    "rb_error_class": error_class,
+                    **{f"rb_{k}": v for k, v in fields.items()}})
+    (span if span is not None else obs_trace.current()).event(
+        event, site=site, engine_from=engine_from, engine_to=engine_to,
+        error_class=error_class, **fields)
+    if level >= logging.WARNING:
+        obs_flight.record("guard", event=event, site=site,
+                          engine_from=engine_from, engine_to=engine_to,
+                          error_class=error_class)
+
+
+def _observe_latency(site: str, engine: str, seconds: float) -> None:
+    """Per-(site, engine) execute-latency histogram."""
+    obs_metrics.histogram("rb_execute_latency_seconds", site=site,
+                          engine=engine).observe(seconds)
 
 
 def run_with_fallback(site: str, chain, attempt, *, policy=None,
@@ -294,93 +318,90 @@ def run_with_fallback(site: str, chain, attempt, *, policy=None,
         raise ValueError(f"{site}: the sequential rung must come last and "
                          f"needs sequential=")
     last = None
+    # the span is the OUTER context manager so the query context closes
+    # first and its SLO-miss event lands on the still-open guard.dispatch
+    with obs_trace.span("guard.dispatch", site=site) as sp, \
+            obs_slo.query(site, deadline_ms=policy.slo_deadline_ms):
+        demotion_chain: list = []   # "cuda->torch"-style hops, in order
+        retries = 0
 
-    def demote(rung, next_rung, fault):
-        if next_rung is None:      # the chain's last rung: re-raise
-            _log_transition(logging.ERROR, site, "exhausted", rung, None,
-                            fault)
-            return
-        _bump(site, "demotions", rung)
-        _log_transition(logging.WARNING, site, "demote", rung, next_rung,
-                        fault)
+        def done(res, rung, **tags):
+            obs_slo.note_engine(rung)
+            sp.tag(rung_used=rung, retries=retries,
+                   demotions=len(demotion_chain),
+                   demotion_chain=demotion_chain, **tags)
+            return res, rung
 
-    for ri, rung in enumerate(rungs):
-        next_rung = rungs[ri + 1] if ri + 1 < len(rungs) else None
-        backoff = policy.backoff_base
-        for att in range(policy.max_attempts):
-            # injected latency lands before the expiry check, so a slowed
-            # attempt can exhaust the deadline deterministically
-            faults.maybe_delay(site, rung)
-            if dl.expired():
-                raise _deadline_error(site, dl, last)
-            try:
-                if rung == SEQUENTIAL:
-                    _bump(site, "sequential", SEQUENTIAL)
-                    _log_transition(logging.WARNING, site, "sequential",
-                                    rungs[ri - 1] if ri else SEQUENTIAL,
-                                    SEQUENTIAL, last)
-                    return sequential(), SEQUENTIAL
-                return attempt(rung), rung
-            except Exception as exc:
-                fault = errors.classify(exc)
-                if fault is None or isinstance(fault, errors.ShadowMismatch):
-                    raise      # programming error / proven corruption
-                last = fault
-                if isinstance(fault, errors.CorruptInput):
-                    _log_transition(logging.ERROR, site, "fatal", rung,
-                                    None, fault)
-                    if fault is exc:
-                        raise
-                    raise fault from exc
-                if isinstance(fault, errors.ResourceExhausted):
-                    if on_resource_exhausted is not None:
-                        res = on_resource_exhausted(rung, fault, dl)
-                        if res is not NO_SPLIT:
-                            return res, rung
-                    demote(rung, next_rung, fault)   # same shape OOMs again
-                    break
-                if isinstance(fault, errors.EngineLoweringError):
-                    demote(rung, next_rung, fault)
-                    break
-                # retryable (transient / coordinator): bounded backoff
-                if att + 1 >= policy.max_attempts:
-                    demote(rung, next_rung, fault)
-                    break
-                _bump(site, "retries", rung)
-                _log_transition(logging.DEBUG, site, "retry", rung, rung,
-                                fault)
-                policy.sleep(min(backoff, dl.remaining()))
-                backoff = min(backoff * policy.backoff_factor,
-                              policy.backoff_max)
-    assert last is not None  # a rung leaves its loop only through a fault
-    raise last
+        def demote(rung, next_rung, fault, **fields):
+            if next_rung is None:      # the chain's last rung: re-raise
+                _log_transition(logging.ERROR, site, "exhausted", rung,
+                                None, fault, span=sp, **fields)
+                return
+            _bump(site, "demotions")
+            demotion_chain.append(f"{rung}->{next_rung}")
+            _log_transition(logging.WARNING, site, "demote", rung,
+                            next_rung, fault, span=sp, **fields)
 
-
-# ------------------------------------------------------------ SLO outcomes
-#
-# The JAX package counts ``rb_slo_attained_total`` / ``rb_slo_missed_total``
-# by site and tenant in its obs layer (``obs.slo.count_outcome``); until
-# that layer is ported the counts are this module's.
-
-_slo_outcomes: dict = {}
-
-
-def count_outcome(site: str, missed: bool, tenant: str | None = None) -> None:
-    """One served request's SLO outcome, by (site, tenant)."""
-    row = _slo_outcomes.setdefault((site, tenant),
-                                   {"attained": 0, "missed": 0})
-    row["missed" if missed else "attained"] += 1
-
-
-def slo_outcomes(site: str | None = None) -> dict:
-    """``{(site, tenant): {"attained", "missed"}}`` (copies), for one site
-    or all."""
-    return {k: dict(v) for k, v in _slo_outcomes.items()
-            if site is None or k[0] == site}
-
-
-def reset_slo_outcomes() -> None:
-    _slo_outcomes.clear()
+        for ri, rung in enumerate(rungs):
+            next_rung = rungs[ri + 1] if ri + 1 < len(rungs) else None
+            backoff = policy.backoff_base
+            for att in range(policy.max_attempts):
+                # injected latency lands before the expiry check, so a
+                # slowed attempt can exhaust the deadline deterministically
+                faults.maybe_delay(site, rung)
+                if dl.expired():
+                    raise _deadline_error(site, dl, last)
+                try:
+                    if rung == SEQUENTIAL:
+                        _bump(site, "sequential")
+                        _log_transition(logging.WARNING, site, "sequential",
+                                        rungs[ri - 1] if ri else SEQUENTIAL,
+                                        SEQUENTIAL, last, span=sp)
+                        t0 = time.perf_counter()
+                        res = sequential()
+                        _observe_latency(site, SEQUENTIAL,
+                                         time.perf_counter() - t0)
+                        return done(res, SEQUENTIAL)
+                    t0 = time.perf_counter()
+                    res = attempt(rung)
+                    _observe_latency(site, rung, time.perf_counter() - t0)
+                    return done(res, rung)
+                except Exception as exc:
+                    fault = errors.classify(exc)
+                    if fault is None or isinstance(fault,
+                                                   errors.ShadowMismatch):
+                        raise      # programming error / proven corruption
+                    last = fault
+                    if isinstance(fault, errors.CorruptInput):
+                        _log_transition(logging.ERROR, site, "fatal", rung,
+                                        None, fault, span=sp)
+                        if fault is exc:
+                            raise
+                        raise fault from exc
+                    if isinstance(fault, errors.ResourceExhausted):
+                        if on_resource_exhausted is not None:
+                            res = on_resource_exhausted(rung, fault, dl)
+                            if res is not NO_SPLIT:
+                                return done(res, rung, split=True)
+                        demote(rung, next_rung, fault)  # same shape OOMs
+                        break
+                    if isinstance(fault, errors.EngineLoweringError):
+                        demote(rung, next_rung, fault)
+                        break
+                    # retryable (transient / coordinator): bounded backoff
+                    if att + 1 >= policy.max_attempts:
+                        demote(rung, next_rung, fault,
+                               reason="retries_exhausted")
+                        break
+                    _bump(site, "retries")
+                    retries += 1
+                    _log_transition(logging.DEBUG, site, "retry", rung, rung,
+                                    fault, span=sp, attempt=att + 1)
+                    policy.sleep(min(backoff, dl.remaining()))
+                    backoff = min(backoff * policy.backoff_factor,
+                                  policy.backoff_max)
+        assert last is not None  # a rung leaves its loop only via a fault
+        raise last
 
 
 # ------------------------------------------------------------ shadow checks

@@ -19,12 +19,11 @@ signature space one level above ``plan_bucket``:
   *escape*: counted by site, and recorded with its point.
 
 On the card a program is a captured CUDA graph (``runtime.programs``); its
-"compile" time is the capture time.  The JAX package reports escapes and
-padding through its metrics registry and trace; until the port has that
-layer, the counts live here: :func:`escapes_by_site`,
-:func:`padding_bytes_by_site`, :func:`padding_fraction_by_site` and the
-bounded event list :func:`escape_events`.  ``ROARING_TPU_WARMUP_PROFILE``
-activates a lattice from the environment.
+"compile" time is the capture time.  Escapes and padding go to the obs
+registry as in the JAX package (``rb_lattice_escapes_total{site}``,
+``rb_lattice_padding_bytes{site}``, ``rb_lattice_padding_fraction{site}``),
+and each escape is a ``lattice.escape`` event on the current span.
+``ROARING_TPU_WARMUP_PROFILE`` activates a lattice from the environment.
 """
 
 from __future__ import annotations
@@ -33,7 +32,9 @@ import contextlib
 import dataclasses
 import logging
 import os
-from collections import deque
+
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 
 _log = logging.getLogger("roaringbitmap_tpu_torch.runtime")
 
@@ -41,9 +42,6 @@ ENV_PROFILE = "ROARING_TPU_WARMUP_PROFILE"
 
 #: canonical op order (sorted; ``plan()`` iterates groups sorted by op)
 OPS = ("and", "andnot", "or", "xor")
-
-#: escape events kept, newest last
-ESCAPE_EVENTS_MAX = 256
 
 
 def _pow2_ladder(n: int) -> tuple:
@@ -374,11 +372,6 @@ def parse_profile(s: str) -> dict:
 
 _active: Lattice | None = None
 _generation = 0
-#: site -> escapes / padding bytes / latest padded fraction
-_ESCAPES: dict = {}
-_PADDING_BYTES: dict = {}
-_PADDING_FRACTION: dict = {}
-_EVENTS: deque = deque(maxlen=ESCAPE_EVENTS_MAX)
 
 
 def activate(lat: Lattice | str | dict) -> Lattice:
@@ -432,31 +425,33 @@ def plan_token():
 def note_compile(site: str, engine: str, point, compile_s: float) -> bool:
     """Called by every engine's program-cache miss.  Before the seal a new
     program is the expected cold path; after it, any new program is an
-    escape: counted by site and recorded as an event with the fields of
-    the JAX package's ``lattice.escape`` (``site``, ``engine``,
-    ``in_vocabulary``, ``compile_ms`` and ``point``).  Returns True when an
-    escape was recorded."""
+    escape: counted in ``rb_lattice_escapes_total{site}`` and traced as a
+    ``lattice.escape`` event (``site``, ``engine``, ``in_vocabulary``,
+    ``compile_ms`` and ``point``).  Returns True when an escape was
+    recorded."""
     lat = _active
     if lat is None or not lat.sealed:
         return False
     lat.escapes += 1
-    _ESCAPES[site] = _ESCAPES.get(site, 0) + 1
+    obs_metrics.counter("rb_lattice_escapes_total", site=site).inc()
     ev = {"site": site, "engine": engine,
           "in_vocabulary": lat.contains(point),
           "compile_ms": round(compile_s * 1e3, 3)}
     if point is not None:
         ev["point"] = point.as_dict()
-    _EVENTS.append(ev)
+    obs_trace.current().event("lattice.escape", **ev)
     return True
 
 
 def record_padding(site: str, padding_bytes: int, fraction: float) -> None:
     """Per-dispatch padding: the bytes the snapped shapes stream beyond the
-    exact plan, and the padded fraction of the latest dispatch."""
+    exact plan (``rb_lattice_padding_bytes``), and the padded fraction of
+    the latest dispatch (``rb_lattice_padding_fraction``)."""
     if padding_bytes:
-        _PADDING_BYTES[site] = _PADDING_BYTES.get(site, 0) + int(
-            padding_bytes)
-    _PADDING_FRACTION[site] = round(fraction, 6)
+        obs_metrics.counter("rb_lattice_padding_bytes",
+                            site=site).inc(padding_bytes)
+    obs_metrics.gauge("rb_lattice_padding_fraction",
+                      site=site).set(round(fraction, 6))
 
 
 def escape_total() -> int:
@@ -468,30 +463,6 @@ def sealed_active() -> bool:
     """True when a sealed lattice governs the process."""
     lat = _active
     return lat is not None and lat.sealed
-
-
-def escapes_by_site() -> dict:
-    return dict(_ESCAPES)
-
-
-def padding_bytes_by_site() -> dict:
-    return dict(_PADDING_BYTES)
-
-
-def padding_fraction_by_site() -> dict:
-    return dict(_PADDING_FRACTION)
-
-
-def escape_events() -> list:
-    return list(_EVENTS)
-
-
-def reset_stats() -> None:
-    """Clear the per-site counters and the event list."""
-    _ESCAPES.clear()
-    _PADDING_BYTES.clear()
-    _PADDING_FRACTION.clear()
-    _EVENTS.clear()
 
 
 refresh_from_env()

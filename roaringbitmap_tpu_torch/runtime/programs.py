@@ -34,6 +34,14 @@ bookkeeping, with the device part run on the packed operands each time.
 A failed capture or replay raises ``errors.GraphCaptureError``; an
 allocator failure stays a ``torch.OutOfMemoryError`` (the guard halves the
 batch).  Nothing falls back to the eager path.
+
+Each dispatch's program lookup (``prepare``, which the engines call before
+the launch, or ``note_eager``) observes ``rb_compile_seconds{site,cache}``:
+a capture (on the CPU, a marker's build) or a new unsnapped key is a
+``miss`` inside the engine's ``*.program_build`` span (a new unsnapped key
+noted before its first run is timed 0: its first eager run is inside the
+launch), an existing program a ``hit``.  The graph pools' reserved
+bytes are resident in ``obs.memory.LEDGER`` (kind ``graph_pool``).
 """
 
 from __future__ import annotations
@@ -44,11 +52,17 @@ import time
 import numpy as np
 import torch
 
+from ..obs import cost as obs_cost
+from ..obs import memory as obs_memory
+from ..obs import trace as obs_trace
 from ..ops import build, kernels
 from . import errors
 from . import lattice as rt_lattice
-from . import residency
 from .cache import LRUCache
+
+#: the JAX engines' program-build span of each site
+_BUILD_SPAN = {"batch_engine": "batch.program_build",
+               "multiset": "multiset.program_build"}
 
 #: programs one engine keeps (the JAX package's cap); a lattice warmup
 #: raises it to fit the whole vocabulary
@@ -232,8 +246,9 @@ class GraphPool:
         self._handle = None
         self._stream = None
         self.users = 1
-        residency.register(self, "graph_pool", GraphPool.bytes,
-                           lambda p: (_ONE_TIME["captures"], p._handle is None))
+        obs_memory.LEDGER.register(
+            "graph_pool", "device", GraphPool.bytes, owner=self,
+            stamp=lambda p: (_ONE_TIME["captures"], p._handle is None))
 
     def handle(self):
         if self._handle is None:
@@ -313,31 +328,51 @@ class ProgramCache:
 
     # ----------------------------------------------------------- lookups
 
-    def note_eager(self, key, engine: str, point, run_s: float) -> None:
+    def note_eager(self, key, engine: str, point, run_s: float,
+                   tags=None) -> None:
         """An unsnapped plan ran eagerly (it has no program): the first run
         of its key counts as a new program, reported to the lattice and
         timed by the run, as the JAX package reports a compile; warmup
-        registers such keys ahead with ``run_s`` 0."""
+        and the engines' pre-launch lookup register such keys ahead with
+        ``run_s`` 0.  ``tags()`` gives the build span's tags."""
+        t0 = time.perf_counter()
         if self._entries.get(key) is not None:
+            obs_cost.observe_compile(self.site, "hit",
+                                     time.perf_counter() - t0)
             return
         self.eager += 1
         _ONE_TIME["eager"] += 1
         self._entries.put(key, Program(run=None))
+        with obs_trace.span(_BUILD_SPAN.get(self.site, "program_build"),
+                            engine=engine) as sp:
+            sp.tag(**(tags() if tags is not None else {}),
+                   compile_ms=round(run_s * 1e3, 2))
+            obs_cost.observe_compile(self.site, "miss", run_s)
         rt_lattice.note_compile(self.site, engine, point, run_s)
 
-    def prepare(self, key, engine: str, point, run, pack: OperandPack
-                ) -> Program:
+    def prepare(self, key, engine: str, point, run, pack: OperandPack,
+                tags=None) -> Program:
         """The program of ``key``, captured now if it is missing (a counted
-        lattice escape after the seal); warmup calls this alone."""
+        lattice escape after the seal); warmup calls this alone.
+        ``tags()`` gives the build span's tags."""
+        t0 = time.perf_counter()
         entry = self._entries.get(key)
-        if entry is None:
-            t0 = time.perf_counter()
+        if entry is not None:
+            obs_cost.observe_compile(self.site, "hit",
+                                     time.perf_counter() - t0)
+            return entry
+        with obs_trace.span(_BUILD_SPAN.get(self.site, "program_build"),
+                            engine=engine) as sp:
             entry = self._build(run, pack)
             _ONE_TIME["captures"] += 1
             entry.capture_ms = (time.perf_counter() - t0) * 1e3
-            self._entries.put(key, entry)
-            rt_lattice.note_compile(self.site, engine, point,
-                                    entry.capture_ms / 1e3)
+            sp.tag(**(tags() if tags is not None else {}),
+                   compile_ms=round(entry.capture_ms, 2))
+            obs_cost.observe_compile(self.site, "miss",
+                                     entry.capture_ms / 1e3)
+        self._entries.put(key, entry)
+        rt_lattice.note_compile(self.site, engine, point,
+                                entry.capture_ms / 1e3)
         return entry
 
     def dispatch(self, key, engine: str, point, run, pack: OperandPack):
@@ -345,7 +380,9 @@ class ProgramCache:
         program of ``key`` (which must hold ``pack.layout``): captured on
         first use (a counted lattice escape after the seal), replayed
         after.  Returns the outputs, copied out (``copy_out``)."""
-        entry = self.prepare(key, engine, point, run, pack)
+        entry = self._entries.get(key)
+        if entry is None:       # no prepare built it: built now
+            entry = self.prepare(key, engine, point, run, pack)
         return copy_out(self._replay(entry, pack))
 
     def _build(self, run, pack: OperandPack) -> Program:

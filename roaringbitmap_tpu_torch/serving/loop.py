@@ -32,10 +32,14 @@ The degradation ladder (level 0..3, symmetric recovery): 1 halves the pool
 target; 2 serves bitmap-form requests cardinality-only (typed
 ``degraded``); 3 caps each tenant at its weighted share of a pool.
 
-The JAX package's spans, metrics and flight records are this module's
-counters (``counters()``, ``rb_serving_*`` names and labels kept) and a
-bounded event list (``events()``), both readable through
-``ServingLoop.snapshot()``.
+Observability is the JAX package's: the ``serving.admit``,
+``serving.assemble``, ``serving.shed`` and ``serving.dispatch`` spans (each
+request's ``serving.request`` span parented through its admission context
+with ``span_from``, since the pump runs on another thread), the
+``rb_serving_*`` counters and gauges in the obs registry, SLO outcomes by
+tenant (``obs.slo.count_outcome``), and flight records and triggers on an
+SLO miss and an overload escalation.  ``ServingLoop.snapshot()`` is the
+serving section of ``obs.statusz()``.
 """
 
 from __future__ import annotations
@@ -50,12 +54,16 @@ from collections import deque
 
 import torch
 
+from ..obs import flight as obs_flight
+from ..obs import memory as obs_memory
+from ..obs import metrics as obs_metrics
+from ..obs import slo as obs_slo
+from ..obs import trace as obs_trace
 from ..parallel import expr as expr_mod
 from ..parallel.batch_engine import BatchQuery, query_desc
 from ..parallel.multiset import BatchGroup
-from ..runtime import errors, faults, guard, residency
+from ..runtime import errors, faults, guard
 from ..runtime import lattice as rt_lattice
-from ..runtime import programs as rt_programs
 from ..runtime.cache import LRUCache
 
 _log = logging.getLogger("roaringbitmap_tpu_torch.serving")
@@ -74,55 +82,6 @@ ENV_RESIDENT = "ROARING_TPU_SERVING_RESIDENT"
 MAX_LEVEL = 3
 #: per-pool timing records a loop keeps (``timings``)
 TIMINGS_MAX = 4096
-
-# ------------------------------------------------------- counters, events
-
-_counter_lock = threading.Lock()
-_counters: dict = {}
-_events: deque = deque(maxlen=256)
-
-
-def count(name: str, n: int = 1, **labels) -> None:
-    """Bump the process-wide counter ``name{labels}``."""
-    key = (name, tuple(sorted(labels.items())))
-    with _counter_lock:
-        _counters[key] = _counters.get(key, 0) + n
-
-
-def counter(name: str, **labels) -> int:
-    """The counter ``name`` summed over every label set that includes
-    ``labels``."""
-    want = set(labels.items())
-    with _counter_lock:
-        return sum(v for (n, lab), v in _counters.items()
-                   if n == name and want <= set(lab))
-
-
-def counters(prefix: str = "") -> dict:
-    """``{"name{k=v,...}": value}`` of every counter starting with
-    ``prefix``."""
-    with _counter_lock:
-        items = sorted(_counters.items())
-    return {n + ("{" + ",".join(f"{k}={v}" for k, v in lab) + "}"
-                 if lab else ""): v
-            for (n, lab), v in items if n.startswith(prefix)}
-
-
-def event(kind: str, **fields) -> None:
-    """Record one bounded event (the JAX package's trace events and flight
-    records of this site)."""
-    _events.append(dict(fields, kind=kind))
-
-
-def events() -> list:
-    return list(_events)
-
-
-def reset_counters() -> None:
-    with _counter_lock:
-        _counters.clear()
-    _events.clear()
-
 
 # ------------------------------------------------------------- the types
 
@@ -303,8 +262,9 @@ class Ticket:
     wall_ms: float | None = None
     missed: bool | None = None   # SLO outcome (done tickets)
     pending_bytes: int = 0       # admission-time footprint estimate
-    #: the JAX package's trace context minted at admission; None until
-    #: tracing is ported
+    #: trace context minted at admission ({"trace_id", "span_id"}, None
+    #: with tracing off): the post-dispatch ``serving.request`` span
+    #: parents into it, so one request is one trace across threads
     trace_ctx: dict | None = None
     _degraded_query: object = None
 
@@ -365,6 +325,9 @@ class ServingLoop:
         self._sheds_since_pump = 0
         self._completed_sheds: list = []
         self._t_assemble = 0.0
+        #: the pooled prediction the budget trim computed, for the
+        #: dispatch span (None when nothing was trimmed against a budget)
+        self._assembled_bytes: int | None = None
         #: per-pool host timings (``pool``, ``loop_ms``: assembly and
         #: dispatch preparation on the host before the engine call,
         #: ``engine_ms``: the engine call's wall, ``post_ms``: completing
@@ -413,41 +376,57 @@ class ServingLoop:
             raise IndexError(
                 f"set_id out of range 0..{self.n_sets - 1}: "
                 f"{request.set_id}")
+        with obs_trace.span("serving.admit", site=SITE,
+                            tenant=request.tenant,
+                            set_id=request.set_id) as sp:
+            return self._admit(sp, request, tp, arrival, deadline_ms)
+
+    def _admit(self, sp, request: ServingRequest, tp, arrival: float,
+               deadline_ms: float) -> Ticket:
         q = self._queues.setdefault(request.tenant, deque())
         cap = tp.max_queue or self.policy.max_queue
         if len(q) >= cap:
-            self._reject(request, "queue_full", queue_depth=len(q), cap=cap)
+            self._reject(sp, request, "queue_full", queue_depth=len(q),
+                         cap=cap)
         req_bytes = self._request_bytes(request)
         budget = self._budget()
         # resident counts everything on the device: sets, value columns,
-        # result-cache rows and graph pools (runtime.residency)
-        resident = residency.resident_bytes()
+        # result-cache rows and graph pools (obs.memory.LEDGER)
+        resident = obs_memory.LEDGER.resident_bytes()
         headroom = (None if budget is None
                     else int(budget * self.policy.hbm_headroom))
         if (headroom is not None
                 and resident + self._pending_bytes + req_bytes > headroom):
-            self._reject(request, "hbm", predicted_bytes=req_bytes,
+            self._reject(sp, request, "hbm", predicted_bytes=req_bytes,
                          pending_bytes=self._pending_bytes,
                          resident_bytes=resident, budget_bytes=budget,
                          headroom_bytes=headroom)
         self._seq += 1
+        # the request's root context, minted inside the admit span
         t = Ticket(request=request, seq=self._seq, enqueued_at=arrival,
                    deadline_at=arrival + deadline_ms / 1e3,
-                   pending_bytes=req_bytes)
+                   pending_bytes=req_bytes, trace_ctx=obs_trace.inject())
         q.append(t)
         self._vtime.setdefault(
             request.tenant, max(self._vtime.values(), default=0.0))
         self._pending_bytes += req_bytes
         self.stats["admitted"] += 1
-        count("rb_serving_requests_total", tenant=request.tenant)
+        obs_metrics.counter("rb_serving_requests_total",
+                            tenant=request.tenant).inc()
+        self._queue_gauge(request.tenant)
+        sp.tag(outcome="admitted", queue_depth=len(q),
+               predicted_bytes=req_bytes, resident_bytes=resident,
+               budget_bytes=budget, deadline_ms=deadline_ms)
         return t
 
     def _budget(self):
         return guard.resolve_hbm_budget(self.policy.guard, self.device)
 
-    def _reject(self, request: ServingRequest, reason: str, **ctx):
+    def _reject(self, sp, request: ServingRequest, reason: str, **ctx):
         self.stats["rejected"] += 1
-        count("rb_serving_admission_rejected_total", reason=reason)
+        obs_metrics.counter("rb_serving_admission_rejected_total",
+                            reason=reason).inc()
+        sp.tag(outcome="rejected", reason=reason, **ctx)
         _log.warning("%s: admission rejected (%s) for tenant %r: %s",
                      SITE, reason, request.tenant, ctx)
         raise AdmissionRejected(
@@ -487,6 +466,7 @@ class ServingLoop:
             self._completed_sheds = []
             if not progressed:
                 break
+        self._queue_gauge()
         self._notify_completions(out)
         return out
 
@@ -508,7 +488,8 @@ class ServingLoop:
             try:
                 fn(out)
             except Exception:          # a broken observer must never
-                count("rb_serving_listener_errors_total")  # wedge the loop
+                obs_metrics.counter(      # wedge the loop
+                    "rb_serving_listener_errors_total").inc()
                 _log.exception("%s: completion listener failed", SITE)
 
     def drain(self) -> list:
@@ -545,6 +526,7 @@ class ServingLoop:
             self._vtime.setdefault(
                 tenant, max(self._vtime.values(), default=0.0))
             self._pending_bytes += ticket.pending_bytes
+            self._queue_gauge(tenant)
         return ticket
 
     def evict_queued(self) -> list:
@@ -558,6 +540,7 @@ class ServingLoop:
                     self._pending_bytes -= t.pending_bytes
                     out.append(t)
             out.sort(key=lambda t: (t.enqueued_at, t.seq))
+            self._queue_gauge()
             return out
 
     def _pool_target(self) -> int:
@@ -584,16 +567,19 @@ class ServingLoop:
             est = ((self._s_per_q or 1e-3) * take * self.policy.slack_x)
             if oldest - now > est + self.policy.dispatch_margin_ms / 1e3:
                 return None, False
-        picked = self._pick(target)
-        if not picked:
-            return None, False
-        if self.level >= 2 and self.policy.degrade:
-            for t in picked:
-                if t.degrade_fields():
-                    self._count_degraded("fields")
-        picked = self._shed_unmeetable(picked, now)
-        picked = self._trim_to_budget(picked)
-        return (picked or None), True
+        with obs_trace.span("serving.assemble", site=SITE, backlog=backlog,
+                            target=target, level=self.level) as sp:
+            picked = self._pick(target)
+            if not picked:
+                return None, False
+            if self.level >= 2 and self.policy.degrade:
+                for t in picked:
+                    if t.degrade_fields():
+                        self._count_degraded("fields")
+            picked = self._shed_unmeetable(picked, now)
+            picked = self._trim_to_budget(picked, sp)
+            sp.tag(pool=len(picked), shed=self._sheds_since_pump)
+            return (picked or None), True
 
     def _pick(self, target: int) -> list:
         """Weighted stride scheduling over tenant queues; level 3 adds the
@@ -642,18 +628,21 @@ class ServingLoop:
             keep.append(t)
         return keep
 
-    def _trim_to_budget(self, picked: list) -> list:
+    def _trim_to_budget(self, picked: list, sp) -> list:
         """Device-memory backpressure at assembly: requeue the pool's tail
         while the POOLED prediction plus resident bytes passes the
         headroom; a single request past it alone is shed typed."""
+        self._assembled_bytes = None
         budget = self._budget()
         if budget is None or not picked:
             return picked
         headroom = int(budget * self.policy.hbm_headroom)
         while picked:
             predicted = self._pool_bytes(picked)
-            resident = residency.resident_bytes()
+            resident = obs_memory.LEDGER.resident_bytes()
             if predicted + resident <= headroom:
+                # kept for the dispatch span's tag
+                self._assembled_bytes = predicted
                 break
             if len(picked) == 1:
                 self._shed(picked[0], "hbm", predicted_bytes=predicted,
@@ -664,8 +653,9 @@ class ServingLoop:
                 tail = picked.pop()
                 self._queues[tail.request.tenant].appendleft(tail)
                 est -= tail.pending_bytes
-                count("rb_serving_requeued_total",
-                      tenant=tail.request.tenant)
+                sp.event("requeue", site=SITE, tenant=tail.request.tenant,
+                         predicted_bytes=predicted, resident_bytes=resident,
+                         headroom_bytes=headroom)
         return picked
 
     def _shed(self, t: Ticket, reason: str, **ctx) -> None:
@@ -676,12 +666,18 @@ class ServingLoop:
         self._pending_bytes -= t.pending_bytes
         self.stats["shed"] += 1
         self._sheds_since_pump += 1
-        count("rb_serving_shed_total", reason=reason)
+        obs_metrics.counter("rb_serving_shed_total", reason=reason).inc()
+        with obs_trace.span("serving.shed", site=SITE,
+                            tenant=t.request.tenant, reason=reason,
+                            **{k: v for k, v in ctx.items()
+                               if isinstance(v, (int, float))}):
+            pass
         self._completed_sheds.append(t)
 
     def _count_degraded(self, reason: str) -> None:
         self.stats["degraded"] += 1
-        count("rb_serving_degraded_total", reason=reason)
+        obs_metrics.counter("rb_serving_degraded_total",
+                            reason=reason).inc()
 
     # ------------------------------------------------------------- dispatch
 
@@ -721,33 +717,48 @@ class ServingLoop:
         pol = base.for_remaining(deadline_s)
         groups, order = self._group(tickets)
         faults.maybe_delay(SITE)
-        one0 = rt_programs.one_time_work()
-        t0 = faults.clock()
-        h0 = time.perf_counter()
-        loop_ms = (h0 - self._t_assemble) * 1e3
-        rows = None
-        if self._resident is not None:
-            rows = self._try_resident(groups)
-        resident = rows is not None
-        try:
-            if rows is None:
-                # the per-pool dispatch: ring-served steady state never
-                # takes it (rb_serving_dispatches_total stays flat)
-                count("rb_serving_dispatches_total", site=SITE)
-                rows = self._engine.execute(
-                    groups, engine=self.policy.engine, policy=pol)
-        except Exception as exc:
-            fault = errors.classify(exc)
-            if fault is None:
-                raise              # programming error, never masked
-            return self._fail(tickets, fault)
-        wall = faults.clock() - t0
-        h1 = time.perf_counter()
+        budget = self._budget()
+        predicted = self._assembled_bytes
+        self._assembled_bytes = None
+        if predicted is None:
+            predicted = self._pool_bytes(tickets)
+        with obs_trace.span("serving.dispatch", site=SITE,
+                            pool=len(tickets), tenants=len(
+                                {t.request.tenant for t in tickets}),
+                            level=self.level) as sp:
+            sp.tag(predicted_bytes=predicted,
+                   resident_bytes=obs_memory.LEDGER.resident_bytes(),
+                   budget_bytes=budget, est_ms=round(est * 1e3, 4),
+                   deadline_s=round(deadline_s, 6))
+            miss0 = self._compile_misses()
+            t0 = faults.clock()
+            h0 = time.perf_counter()
+            loop_ms = (h0 - self._t_assemble) * 1e3
+            rows = None
+            if self._resident is not None:
+                rows = self._try_resident(groups, sp)
+            resident = rows is not None
+            try:
+                if rows is None:
+                    # the per-pool dispatch: ring-served steady state
+                    # never takes it (rb_serving_dispatches_total stays
+                    # flat)
+                    obs_metrics.counter("rb_serving_dispatches_total",
+                                        site=SITE).inc()
+                    rows = self._engine.execute(
+                        groups, engine=self.policy.engine, policy=pol)
+            except Exception as exc:
+                fault = errors.classify(exc)
+                if fault is None:
+                    raise              # programming error, never masked
+                return self._fail(tickets, fault, sp)
+            wall = faults.clock() - t0
+            h1 = time.perf_counter()
         flat = [r for rws in rows for r in rws]
         # the per-query wall, learned compile-aware: a one-time cost (a
         # library load, a capture, a first eager run) folded in would read
         # as sustained slowness and shed the next pools
-        compiled = rt_programs.one_time_work() != one0
+        compiled = self._compile_misses() != miss0
         self._walls.append((wall / max(1, len(tickets)), compiled))
         warm = [w for w, c in self._walls if not c]
         majority = (2 * sum(c for _, c in self._walls)
@@ -761,7 +772,7 @@ class ServingLoop:
             else sorted(warm)
         self._s_per_q = vals[len(vals) // 2]
         self.stats["pools"] += 1
-        count("rb_serving_pools_total")
+        obs_metrics.counter("rb_serving_pools_total").inc()
         done = faults.clock()
         for t, res in zip(order, flat):
             t.result = res
@@ -769,11 +780,21 @@ class ServingLoop:
             t.wall_ms = (done - t.enqueued_at) * 1e3
             dl_ms = (t.deadline_at - t.enqueued_at) * 1e3
             t.missed = t.wall_ms > dl_ms
-            guard.count_outcome(SITE, t.missed, tenant=t.request.tenant)
+            obs_slo.count_outcome(SITE, t.missed, tenant=t.request.tenant)
+            # one outcome span per request after the pooled span closed,
+            # parented into the request's admission context
+            with obs_trace.span_from(
+                    t.trace_ctx, "serving.request", site=SITE,
+                    tenant=t.request.tenant, set_id=t.request.set_id,
+                    outcome="done", wall_ms=round(t.wall_ms, 4),
+                    missed=t.missed, degraded=t.degraded,
+                    dispatch_span_id=sp.span_id):
+                pass
             if t.missed:
-                event("slo_miss", site=SITE, tenant=t.request.tenant,
-                      set_id=t.request.set_id, wall_ms=round(t.wall_ms, 3),
-                      deadline_ms=round(dl_ms, 3))
+                obs_flight.trigger(
+                    "slo_miss", site=SITE, tenant=t.request.tenant,
+                    set_id=t.request.set_id, wall_ms=round(t.wall_ms, 3),
+                    deadline_ms=round(dl_ms, 3))
             self._pending_bytes -= t.pending_bytes
             self.stats["served"] += 1
         self.timings.append({
@@ -783,22 +804,30 @@ class ServingLoop:
             "resident": resident})
         return order
 
-    def _try_resident(self, groups):
+    def _try_resident(self, groups, sp):
         """One attempt at the resident lane; None means a TYPED demotion
-        happened (counted) and the one-shot dispatch must serve the
-        pool."""
+        happened (counted and traced) and the one-shot dispatch must serve
+        the pool."""
         from . import resident as resident_mod
         try:
             rows = self._resident.serve(groups)
         except resident_mod.ResidentEscape as exc:
-            count("rb_serving_resident_demotions_total", site=SITE,
-                  reason=exc.reason)
-            event("mega.resident", site=SITE, outcome="demoted",
-                  reason=exc.reason)
+            obs_metrics.counter("rb_serving_resident_demotions_total",
+                                site=SITE, reason=exc.reason).inc()
+            sp.event("mega.resident", site=SITE, outcome="demoted",
+                     reason=exc.reason)
             _log.warning("%s: resident demotion (%s); pool falls back "
                          "to one-shot dispatch", SITE, exc.reason)
             return None
+        sp.tag(resident=True)
         return rows
+
+    @staticmethod
+    def _compile_misses() -> int:
+        """Process-wide program-build count (``rb_compile_seconds``
+        misses): the witness that a dispatch paid a one-time cost and its
+        wall must not calibrate the steady-state estimate."""
+        return obs_metrics.compile_miss_total()
 
     def _group(self, tickets: list):
         """Tickets -> BatchGroups by set_id (first-appearance order), and
@@ -811,18 +840,26 @@ class ServingLoop:
         order = [t for ts in by_sid.values() for t in ts]
         return groups, order
 
-    def _fail(self, tickets: list, fault) -> list:
+    def _fail(self, tickets: list, fault, sp) -> list:
         """A whole-pool typed failure (the guard walked its ladder): every
         member gets the classified fault."""
-        count("rb_serving_pool_failures_total",
-              error_class=type(fault).__name__)
-        event("error", site=SITE, error_class=type(fault).__name__,
-              tickets=len(tickets))
+        sp.tag(status="failed", error_class=type(fault).__name__)
+        obs_metrics.counter("rb_serving_pool_failures_total",
+                            error_class=type(fault).__name__).inc()
+        obs_flight.record("error", site=SITE,
+                          error_class=type(fault).__name__,
+                          tickets=len(tickets))
         for t in tickets:
             t.status = "failed"
             t.error = fault
             self._pending_bytes -= t.pending_bytes
             self.stats["failed"] += 1
+            with obs_trace.span_from(
+                    t.trace_ctx, "serving.request", site=SITE,
+                    tenant=t.request.tenant, set_id=t.request.set_id,
+                    outcome="failed", error_class=type(fault).__name__,
+                    dispatch_span_id=sp.span_id):
+                pass
         _log.error("%s: pool of %d failed: %s", SITE, len(tickets), fault)
         return tickets
 
@@ -856,10 +893,21 @@ class ServingLoop:
     def _set_level(self, level: int, pressure: float) -> None:
         prev, self.level = self.level, level
         self.level_peak = max(self.level_peak, level)
-        event("degrade", site=SITE, level_from=prev, level_to=level,
-              pressure=round(pressure, 4))
+        obs_metrics.gauge("rb_serving_degrade_level").set(level)
+        obs_trace.current().event(
+            "degrade", site=SITE, level_from=prev, level_to=level,
+            pressure=round(pressure, 4))
+        obs_flight.record("degrade", site=SITE, level_from=prev,
+                          level_to=level, pressure=round(pressure, 4))
+        if level > prev:
+            # an escalation is an incident (a recovery is not): dump the
+            # flight ring
+            obs_flight.trigger("overload", site=SITE, level_from=prev,
+                               level_to=level, pressure=round(pressure, 4))
         _log.warning("%s: degradation level %d -> %d (pressure %.2f)",
-                     SITE, prev, level, pressure)
+                     SITE, prev, level, pressure,
+                     extra={"rb_site": SITE, "rb_event": "degrade",
+                            "rb_level": level})
 
     # -------------------------------------------------------------- warmup
 
@@ -890,10 +938,16 @@ class ServingLoop:
 
     # -------------------------------------------------------------- health
 
+    def _queue_gauge(self, tenant: str | None = None) -> None:
+        tenants = [tenant] if tenant is not None else list(self._queues)
+        for t in tenants:
+            obs_metrics.gauge("rb_serving_queue_depth", tenant=t).set(
+                len(self._queues.get(t) or ()))
+
     def snapshot(self) -> dict:
         """Loop state as plain JSON: the level, queues, pending bytes, the
-        estimator, stats, resident bytes, the serving counters and recent
-        events, the result cache, the resident lane and the lattice."""
+        estimator, stats, the HBM ledger, the registry's serving counters,
+        the result cache, the resident lane and the lattice."""
         out = {
             "level": self.level,
             "level_peak": self.level_peak,
@@ -903,11 +957,10 @@ class ServingLoop:
             "pending_bytes": self._pending_bytes,
             "s_per_query_est": self._s_per_q,
             "stats": dict(self.stats),
-            "resident_bytes": residency.snapshot(),
-            "counters": counters("rb_serving_"),
-            "slo": {f"{s}/{t}": v for (s, t), v
-                    in guard.slo_outcomes(SITE).items()},
-            "events": events()[-16:],
+            "resident_bytes": obs_memory.LEDGER.snapshot(),
+            "counters": {name: rows for name, rows in
+                         obs_metrics.REGISTRY.snapshot()["counters"].items()
+                         if name.startswith("rb_serving_")},
         }
         rc = getattr(self._engine, "result_cache", None)
         if rc is not None:
@@ -984,8 +1037,8 @@ class PumpDriver:
             except Exception as exc:  # keep pumping; stay visible
                 self.last_error = exc
                 self.errors += 1
-                count("rb_serving_pump_errors_total",
-                      error_class=type(exc).__name__)
+                obs_metrics.counter("rb_serving_pump_errors_total",
+                                    error_class=type(exc).__name__).inc()
                 _log.exception("%s: pump thread tick failed", SITE)
             self._wake.wait(self.interval_s)
             self._wake.clear()

@@ -35,6 +35,8 @@ import dataclasses
 
 import torch
 
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
 from ..ops.words import resolve_device
 from ..runtime import errors, faults
 from ..runtime import lattice as rt_lattice
@@ -314,6 +316,14 @@ class ResidentQueue:
             raise ResidentEscape("wedged", "completion stamp missing",
                                  seq=seq)
         self.stats["served"] += 1
+        obs_metrics.counter("rb_serving_resident_pools_total",
+                            site=SITE).inc()
+        cur = obs_trace.current()
+        cur.event("expr.megakernel", **plan.mega.stats_event())
+        cur.event("mega.resident", site=SITE, outcome="served",
+                  sig_id=int(sig_id), seq=int(seq), slot=int(slot),
+                  pool=len(pooled))
+        cur.event("mega.queue", site=SITE, **self.ring.state_event())
         return eng._regroup(flat, lengths)
 
     def _consume(self, plan, pooled, slot: int, seq: int) -> list:

@@ -17,6 +17,7 @@ import socket
 import threading
 import time
 
+from ..obs import trace as obs_trace
 from ..runtime import errors, faults
 from . import protocol as wp
 
@@ -193,13 +194,20 @@ class WireClient:
 
     def _submit_frame(self, t: WireTicket, request) -> bytes:
         qh, blobs = wp.encode_query(request.query)
-        # "trace" is the JAX package's trace context; None until tracing
-        # is ported (the JAX client sends None too with tracing off)
-        header = {"set_id": request.set_id,
-                  "tenant": request.tenant, "query": qh, "trace": None}
-        if request.deadline_ms is not None:
-            header["deadline_ms"] = request.deadline_ms
-        return wp.encode_frame(wp.T_SUBMIT, t.req_id, header, tuple(blobs))
+        # the call's span context rides the header: the server's
+        # rpc.submit parents into it (None with tracing off)
+        with obs_trace.span("rpc.call", site=SITE, req_id=t.req_id,
+                            tenant=request.tenant,
+                            set_id=request.set_id) as sp:
+            header = {"set_id": request.set_id,
+                      "tenant": request.tenant, "query": qh,
+                      "trace": obs_trace.inject(sp)}
+            if request.deadline_ms is not None:
+                header["deadline_ms"] = request.deadline_ms
+            frame = wp.encode_frame(wp.T_SUBMIT, t.req_id, header,
+                                    tuple(blobs))
+            sp.tag(frame_bytes=len(frame))
+        return frame
 
     def submit(self, request) -> WireTicket:
         """Pipeline one ServingRequest; returns its future at once."""

@@ -24,10 +24,12 @@ arbitrates; its pump enters the loop's device and stream on that thread):
 - **fault injection**: ``wire@{conn_drop,slow_peer,garbage}`` rules
   (``runtime.faults.maybe_wire``) fire on the response path.
 
-The JAX package's ``rpc.*`` spans and ``rb_wire_*`` metrics are counters
-of ``serving.loop`` (``counters("rb_wire_")``) and ``stats`` here; an
-exception on the pump thread is counted as
-``rb_serving_pump_errors_total{site=wire}``.
+The ``rpc.hello`` / ``rpc.submit`` / ``rpc.result`` spans are the JAX
+package's: a submit's span parents into the client's ``rpc.call`` through
+the trace context its header carries, so one request is one trace across
+the socket.  Error frames count in ``rb_wire_error_frames_total{code}``,
+received migrations in ``rb_wire_migrations_total``, and an exception on
+the pump thread in ``rb_serving_pump_errors_total{site=wire}``.
 """
 
 from __future__ import annotations
@@ -39,7 +41,9 @@ import threading
 
 from ..mutation import durability
 from ..runtime import errors, faults
-from ..serving.loop import AdmissionRejected, ServingRequest, count
+from ..obs import metrics as obs_metrics
+from ..obs import trace as obs_trace
+from ..serving.loop import AdmissionRejected, ServingRequest
 from . import protocol as wp
 
 _log = logging.getLogger("roaringbitmap_tpu_torch.wire")
@@ -211,7 +215,8 @@ class WireServer:
                     exc: BaseException) -> None:
         self.stats["errors"] += 1
         fields = wp.error_fields(exc)
-        count("rb_wire_error_frames_total", code=fields["code"])
+        obs_metrics.counter("rb_wire_error_frames_total",
+                            code=fields["code"]).inc()
         self._send(conn, [wp.encode_frame(wp.T_ERROR, req_id, fields)])
 
     def _conn_loop(self, conn: _Conn) -> None:
@@ -252,7 +257,6 @@ class WireServer:
         except (ConnectionError, OSError):
             self._drop_conn(conn)
         except Exception:
-            count("rb_wire_conn_errors_total")
             _log.exception("%s: connection handler died", SITE)
             self._drop_conn(conn)
 
@@ -264,30 +268,32 @@ class WireServer:
             self._drop_conn(conn)
             return False
         ftype, _, h, _ = wp.read_frame(conn.sock)
-        if ftype != wp.T_HELLO or int(h.get("version", -1)) \
-                != wp.WIRE_VERSION:
-            count("rb_wire_hello_total", outcome="hello_mismatch")
-            self._send_error(conn, 0, errors.WireHelloMismatch(
-                f"{SITE}: hello version "
-                f"{h.get('version')!r} != {wp.WIRE_VERSION} "
-                f"(frame type {ftype})"))
-            self._drop_conn(conn)
-            return False
-        if self._auth is None:
-            conn.tenants = ("*",)
-        else:
-            token = h.get("token")
-            grant = self._auth.get(str(token)) \
-                if token is not None else None
-            if grant is None:
-                count("rb_wire_hello_total", outcome="auth_rejected")
-                self._send_error(conn, 0, errors.AuthRejected(
-                    f"{SITE}: unknown or missing auth token",
-                    reason="token"))
+        with obs_trace.span("rpc.hello", site=SITE,
+                            client=str(h.get("client", "?"))) as sp:
+            if ftype != wp.T_HELLO or int(h.get("version", -1)) \
+                    != wp.WIRE_VERSION:
+                sp.tag(outcome="hello_mismatch")
+                self._send_error(conn, 0, errors.WireHelloMismatch(
+                    f"{SITE}: hello version "
+                    f"{h.get('version')!r} != {wp.WIRE_VERSION} "
+                    f"(frame type {ftype})"))
                 self._drop_conn(conn)
                 return False
-            conn.tenants = grant
-        count("rb_wire_hello_total", outcome="accepted")
+            if self._auth is None:
+                conn.tenants = ("*",)
+            else:
+                token = h.get("token")
+                grant = self._auth.get(str(token)) \
+                    if token is not None else None
+                if grant is None:
+                    sp.tag(outcome="auth_rejected")
+                    self._send_error(conn, 0, errors.AuthRejected(
+                        f"{SITE}: unknown or missing auth token",
+                        reason="token"))
+                    self._drop_conn(conn)
+                    return False
+                conn.tenants = grant
+            sp.tag(outcome="accepted", version=wp.WIRE_VERSION)
         self._send(conn, [wp.encode_frame(
             wp.T_WELCOME, 0,
             {"version": wp.WIRE_VERSION, "server": self.name,
@@ -334,41 +340,44 @@ class WireServer:
         tenant = str(header.get("tenant", "default"))
         # boundary checks BEFORE any bytes reach the loop: grant, then the
         # pipelining window, then the decode
-        if not conn.allows(tenant):
-            self._send_error(conn, req_id, errors.AuthRejected(
-                f"{SITE}: tenant {tenant!r} outside this "
-                f"connection's grant", reason="tenant", tenant=tenant))
-            return
-        if len(conn.inflight) >= self._max_inflight:
-            self._send_error(conn, req_id, errors.WireBackpressure(
-                f"{SITE}: {len(conn.inflight)} requests in flight "
-                f"(cap {self._max_inflight}) — drain responses and "
-                f"resubmit", inflight=len(conn.inflight),
-                cap=self._max_inflight))
-            return
-        try:
-            query = wp.decode_query(header.get("query") or {}, blobs)
-            request = ServingRequest(
-                set_id=int(header.get("set_id", 0)), query=query,
-                tenant=tenant, deadline_ms=header.get("deadline_ms"))
-            # submit and register under the TARGET's lock: the pump fires
-            # the completion listener while holding it, so a ticket cannot
-            # complete between admission and its req_id registration
-            with self._target._lock:
-                ticket = self._target.submit(request)
-                with self._lock:
-                    self._pending[id(ticket)] = (conn, req_id)
-        except (AdmissionRejected, errors.RoaringRuntimeError,
-                errors.CorruptInput) as exc:
-            self._send_error(conn, req_id, exc)
-            return
-        except Exception as exc:
-            # a malformed submit (bad set_id, bad op) dies as a typed
-            # frame, never a raw traceback or a dropped connection
-            self._send_error(conn, req_id, errors.CorruptInput(
-                f"{SITE}: unserviceable submit: "
-                f"{type(exc).__name__}: {exc}"))
-            return
+        with obs_trace.span_from(header.get("trace"), "rpc.submit",
+                                 site=SITE, req_id=req_id,
+                                 tenant=tenant) as sp:
+            if not conn.allows(tenant):
+                sp.tag(outcome="auth_rejected")
+                self._send_error(conn, req_id, errors.AuthRejected(
+                    f"{SITE}: tenant {tenant!r} outside this "
+                    f"connection's grant", reason="tenant", tenant=tenant))
+                return
+            if len(conn.inflight) >= self._max_inflight:
+                sp.tag(outcome="backpressure")
+                self._send_error(conn, req_id, errors.WireBackpressure(
+                    f"{SITE}: {len(conn.inflight)} requests in flight "
+                    f"(cap {self._max_inflight}) — drain responses and "
+                    f"resubmit", inflight=len(conn.inflight),
+                    cap=self._max_inflight))
+                return
+            try:
+                query = wp.decode_query(header.get("query") or {}, blobs)
+                request = ServingRequest(
+                    set_id=int(header.get("set_id", 0)), query=query,
+                    tenant=tenant, deadline_ms=header.get("deadline_ms"))
+                with self._target._lock:
+                    ticket = self._target.submit(request)
+                    with self._lock:
+                        self._pending[id(ticket)] = (conn, req_id)
+            except (AdmissionRejected, errors.RoaringRuntimeError,
+                    errors.CorruptInput) as exc:
+                sp.tag(outcome=wp.error_fields(exc)["code"])
+                self._send_error(conn, req_id, exc)
+                return
+            except Exception as exc:
+                sp.tag(outcome="corrupt_input")
+                self._send_error(conn, req_id, errors.CorruptInput(
+                    f"{SITE}: unserviceable submit: "
+                    f"{type(exc).__name__}: {exc}"))
+                return
+            sp.tag(outcome="admitted", set_id=request.set_id)
         conn.inflight.add(req_id)
         self.stats["submits"] += 1
         self._kick.set()
@@ -438,19 +447,26 @@ class WireServer:
             self._send(conn, frames)
 
     def _ticket_frame(self, t, req_id: int) -> bytes:
-        if t.status == "done":
-            self.stats["results"] += 1
-            h, bl = wp.encode_result(t.result, degraded=t.degraded,
-                                     wall_ms=t.wall_ms,
-                                     missed=bool(t.missed))
-            return wp.encode_frame(wp.T_RESULT, req_id, h, tuple(bl))
-        self.stats["errors"] += 1
-        exc = t.error if t.error is not None else errors.RemoteFailed(
-            f"{SITE}: ticket finished {t.status!r} with no error "
-            f"attached")
-        fields = wp.error_fields(exc)
-        count("rb_wire_error_frames_total", code=fields["code"])
-        return wp.encode_frame(wp.T_ERROR, req_id, fields)
+        with obs_trace.span_from(t.trace_ctx, "rpc.result", site=SITE,
+                                 req_id=req_id, outcome=t.status) as sp:
+            if t.status == "done":
+                self.stats["results"] += 1
+                h, bl = wp.encode_result(t.result, degraded=t.degraded,
+                                         wall_ms=t.wall_ms,
+                                         missed=bool(t.missed))
+                frame = wp.encode_frame(wp.T_RESULT, req_id, h, tuple(bl))
+            else:
+                self.stats["errors"] += 1
+                exc = t.error if t.error is not None \
+                    else errors.RemoteFailed(
+                        f"{SITE}: ticket finished {t.status!r} with no "
+                        f"error attached")
+                fields = wp.error_fields(exc)
+                obs_metrics.counter("rb_wire_error_frames_total",
+                                    code=fields["code"]).inc()
+                frame = wp.encode_frame(wp.T_ERROR, req_id, fields)
+            sp.tag(frame_bytes=len(frame))
+        return frame
 
     # ------------------------------------------------------------- pumping
 
@@ -479,8 +495,9 @@ class WireServer:
                     break
             except Exception as exc:   # keep pumping; stay visible
                 self.stats["pump_errors"] += 1
-                count("rb_serving_pump_errors_total", site=SITE,
-                      error_class=type(exc).__name__)
+                obs_metrics.counter("rb_serving_pump_errors_total",
+                                    site=SITE,
+                                    error_class=type(exc).__name__).inc()
                 _log.exception("%s: pump thread error", SITE)
 
     # ----------------------------------------------------------- migration
@@ -525,7 +542,7 @@ class WireServer:
                 else:
                     self.migrated[mig["tenant"]] = ds
                 self.stats["migrations"] += 1
-                count("rb_wire_migrations_total")
+                obs_metrics.counter("rb_wire_migrations_total").inc()
                 ack = {"phase": "commit", "source_crcs": crcs,
                        "records": len(mig["records"]),
                        "bytes": sum(len(b) for b in mig["blobs"])}

@@ -341,8 +341,9 @@ def test_port_imports_no_jax():
     """The port's import graph holds neither jax nor any roaringbitmap_tpu
     module (the port's own name shares that prefix), also after one pooled
     ``MultiSetBatchEngine.execute``, one ``apply_delta``, a request served
-    by a ``ServingLoop``, a wire frame and a captured durable state on the
-    CPU."""
+    by a ``ServingLoop``, a wire frame, a captured durable state and a
+    traced pooled execute with the obs layer's statusz and Prometheus
+    renders on the CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -415,6 +416,16 @@ def test_port_imports_no_jax():
         "assert wire.protocol.decode_payload(wire.protocol.encode_frame("
         "4, 1, {})[8:])[1] == 1\n"
         "assert len(durability.capture_state(ds)['sources']) == 3\n"
+        "import os, tempfile\n"
+        "from roaringbitmap_tpu_torch import obs\n"
+        "dump = os.path.join(tempfile.mkdtemp(), 't.jsonl')\n"
+        "obs.enable(dump)\n"
+        "got = ms.execute([multiset.BatchGroup(0, [rt.BatchQuery('or', (0, "
+        "2))]), multiset.BatchGroup(1, [rt.BatchQuery('and', (0, 1))])])\n"
+        "obs.disable()\n"
+        "assert 'multiset.dispatch' in open(dump).read()\n"
+        "assert obs.render_markdown(obs.statusz()).startswith('#')\n"
+        "assert 'rb_serving_requests_total' in obs.render_prometheus()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

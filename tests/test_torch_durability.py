@@ -29,6 +29,7 @@ from roaringbitmap_tpu.parallel.aggregation import DeviceBitmapSet as JSet
 from roaringbitmap_tpu.runtime import errors as jerrors
 from roaringbitmap_tpu.runtime import faults as jfaults
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.analytics.column import BsiColumn, RangeColumn
 from roaringbitmap_tpu_torch.mutation import delta as tdelta
 from roaringbitmap_tpu_torch.mutation import durability as tdur
@@ -45,13 +46,18 @@ JNEVER = jdur.FlushPolicy(mode="never")
 
 
 @pytest.fixture(autouse=True)
-def _clean():
+def _clean(tmp_path):
     jobs.disable()
     jobs.reset()
-    tdur.reset_stats()
+    tobs.reset()
+    tobs.flight.reset()
+    # crash triggers dump the flight ring: keep the dumps in the test's dir
+    tobs.flight.configure(dir=str(tmp_path / "flight"))
     yield
     jobs.disable()
     jobs.reset()
+    tobs.flight.configure(dir=None)
+    tobs.flight.reset()
     gc.collect()
 
 
@@ -318,7 +324,8 @@ def test_crashed_dir_recovers_in_the_other_package(tmp_path, writer, point):
     for k in ("snapshot_seq", "replayed", "torn", "version"):
         assert trep[k] == jrep[k], k
     assert trep["torn"] == (point == "torn")
-    assert tdur.stats()["torn_tails"] == (point == "torn")
+    assert tobs.counter("rb_journal_torn_tails_total").value == (
+        point == "torn")
     assert _bytes_of(trec.ds.host_bitmaps()) == _bytes_of(
         jrec.ds.host_bitmaps())
     assert trec.ds.columns["price"].host_sum(None) == \
@@ -417,8 +424,10 @@ def test_crash_recovery_property(tmp_path, layout, point):
         [BatchQuery("or", (0, 1, 2), form="bitmap")])[0]
     ref = oracle.hosts[0] | oracle.hosts[1] | oracle.hosts[2]
     assert got.bitmap == ref
-    assert [e["point"] for e in tdur.crash_events()][-1] == (
-        "pre_apply" if point == "torn" else point)
+    crashes = [e for e in tobs.flight._ring
+               if e.get("error_class") == "InjectedCrash"]
+    assert crashes[-1]["point"] == ("pre_apply" if point == "torn"
+                                    else point)
 
 
 def test_recovery_replays_snapshot_plus_tail(tmp_path):

@@ -10,12 +10,14 @@ bytes, warmup ``lattice`` reports, escape counts and results.
 """
 
 import gc
+import json
 import logging
 
 import numpy as np
 import pytest
 
 from roaringbitmap_tpu import RoaringBitmap as JRB
+from roaringbitmap_tpu import obs as jobs
 from roaringbitmap_tpu.analytics import BsiColumn as JBsi
 from roaringbitmap_tpu.parallel import batch_engine as jbe
 from roaringbitmap_tpu.parallel import expr as jexpr
@@ -24,6 +26,7 @@ from roaringbitmap_tpu.parallel.aggregation import DeviceBitmapSet as JSet
 from roaringbitmap_tpu.runtime import lattice as jlat
 from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap as TRB
 from roaringbitmap_tpu_torch import native
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.analytics import BsiColumn
 from roaringbitmap_tpu_torch.ops import build
 from roaringbitmap_tpu_torch.parallel import batch_engine as tbe
@@ -50,12 +53,14 @@ def _clean(monkeypatch):
         monkeypatch.delenv(var, raising=False)
     jlat.deactivate()
     tlat.deactivate()
-    tlat.reset_stats()
+    tobs.reset()
+    jobs.reset()
     twarm.disable_compile_cache()
     yield
     jlat.deactivate()
     tlat.deactivate()
-    tlat.reset_stats()
+    tobs.reset()
+    jobs.reset()
     twarm.disable_compile_cache()
 
 
@@ -397,7 +402,8 @@ def test_warmup_profile_reports_and_zero_escapes():
         _same(got, je.execute([_jq(q) for q in pool]))
         _same(got, te._execute_sequential(pool))
     assert tlat.escape_total() == jlat.escape_total() == 0
-    assert tlat.escapes_by_site() == {}
+    assert _by_site(tobs, "rb_lattice_escapes_total") == {} \
+        == _by_site(jobs, "rb_lattice_escapes_total")
 
 
 def test_multiset_warmup_reports_and_zero_escapes():
@@ -477,18 +483,34 @@ def test_warmup_refuses_a_pool_past_the_budget(monkeypatch):
     assert tlat.active() is None and len(te._programs) == 0
 
 
-def test_escape_counted_in_both_packages():
+def _by_site(o, name) -> dict:
+    """{site: value} of one registry instrument of either package."""
+    snap = o.snapshot()
+    rows = snap["counters"].get(name, []) + snap["gauges"].get(name, [])
+    return {r["labels"]["site"]: r["value"] for r in rows}
+
+
+def test_escape_counted_in_both_packages(tmp_path):
     je, te = _fresh_single()
     te.warmup(profile=PROFILE)
     je.warmup(profile=PROFILE)
     big = [tbe.BatchQuery("or", (0, 1)) for _ in range(17)]
-    got = te.execute(big)
+    path = tmp_path / "escape.jsonl"
+    tobs.enable(str(path))
+    try:
+        got = te.execute(big)
+    finally:
+        tobs.disable()
     _same(got, je.execute([_jq(q) for q in big]))
     _same(got, te._execute_sequential(big))
     assert tlat.escape_total() == jlat.escape_total() == 1
-    assert tlat.escapes_by_site() == {"batch_engine": 1}
-    (ev,) = tlat.escape_events()
-    assert set(ev) == {"site", "engine", "in_vocabulary", "compile_ms"}
+    assert _by_site(tobs, "rb_lattice_escapes_total") == {
+        "batch_engine": 1} == _by_site(jobs, "rb_lattice_escapes_total")
+    (ev,) = [e for line in path.read_text().splitlines()
+             for e in json.loads(line)["events"]
+             if e["name"] == "lattice.escape"]
+    assert set(ev) == {"name", "t_offset_ms", "site", "engine",
+                       "in_vocabulary", "compile_ms"}
     assert ev["site"] == "batch_engine" and ev["in_vocabulary"] is False
     assert isinstance(ev["compile_ms"], float)
     # a second run of the same shape is no new program
@@ -507,10 +529,11 @@ def test_padding_on_last_dispatch_memory():
     tm, jm = te.last_dispatch_memory, je.last_dispatch_memory
     assert tm["lattice_padding_bytes"] == jm["lattice_padding_bytes"] > 0
     assert tm["lattice_padding_fraction"] == jm["lattice_padding_fraction"]
-    assert tlat.padding_bytes_by_site()["batch_engine"] == tm[
-        "lattice_padding_bytes"]
-    assert tlat.padding_fraction_by_site()["batch_engine"] == tm[
-        "lattice_padding_fraction"]
+    assert _by_site(tobs, "rb_lattice_padding_bytes")["batch_engine"] \
+        == tm["lattice_padding_bytes"] \
+        == _by_site(jobs, "rb_lattice_padding_bytes")["batch_engine"]
+    assert _by_site(tobs, "rb_lattice_padding_fraction")["batch_engine"] \
+        == tm["lattice_padding_fraction"]
 
 
 def test_warmup_rungs_listing():

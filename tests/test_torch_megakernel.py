@@ -21,6 +21,7 @@ from roaringbitmap_tpu.parallel import BatchEngine as JEngine
 from roaringbitmap_tpu.parallel import BatchQuery as JQuery
 from roaringbitmap_tpu.parallel import expr as jexpr
 from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap as TRB
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.ops import build
 from roaringbitmap_tpu_torch.ops import megakernel as mk
 from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
@@ -182,16 +183,19 @@ def test_capacity_demotion_counted(pair, monkeypatch):
     tp = _pool(texpr, BatchQuery, TRB)
     want = teng.execute(tp, engine="megakernel")
     monkeypatch.setattr(mk, "MAX_SLOTS", 8)
-    monkeypatch.setattr(mk, "DEMOTIONS", {})
+    tobs.reset()
     plan = teng.plan(tp)
     assert not plan.mega.fits() and mk.capacity_reason(plan.mega) == "slots"
     got = teng.execute(tp, engine="megakernel")
     assert teng.last_timings["engine"] == "cuda"
-    assert mk.DEMOTIONS == {("batch_engine", "slots"): 1}
+    demoted = tobs.snapshot()["counters"]["rb_mega_capacity_demotions_total"]
+    assert demoted == [{"labels": {"reason": "slots", "site": "batch_engine"},
+                        "value": 1.0}]
     _same(got, want, tp)
     flat = [q for q in tp if isinstance(q, BatchQuery)]
     teng.execute(flat, engine="megakernel")
-    assert mk.DEMOTIONS[("batch_engine", "no_fused")] == 1
+    assert tobs.counter("rb_mega_capacity_demotions_total",
+                        site="batch_engine", reason="no_fused").value == 1
 
 
 def test_auto_resolution(pair):

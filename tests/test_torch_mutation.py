@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from roaringbitmap_tpu import RoaringBitmap as JRB
+from roaringbitmap_tpu import obs as jobs
 from roaringbitmap_tpu.core.bitmap64 import Roaring64Bitmap as J64
 from roaringbitmap_tpu.mutation import MaintenanceWorker as JWorker
 from roaringbitmap_tpu.mutation import ResultCache as JCache
@@ -35,6 +36,7 @@ from roaringbitmap_tpu.parallel.batch_engine import BatchEngine as JEngine
 from roaringbitmap_tpu.parallel.batch_engine import BatchQuery as JQ
 from roaringbitmap_tpu.runtime import faults as jfaults
 from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap as TRB
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap as T64
 from roaringbitmap_tpu_torch.mutation import (MaintenanceWorker, ResultCache,
                                               result_cache)
@@ -185,15 +187,19 @@ def test_patch_and_versioning():
 
 
 def test_patch_counts_rows_and_modes():
-    """The port's module counters stand in for the JAX metrics."""
-    tdelta.reset_stats()
-    _, ts = both_sets(mk_values(2, n=3))
-    ts.apply_delta(adds={0: [7, 9], 1: [70000]})
-    ts.apply_delta(removes={2: [(0x7F7F << 16) + 1]})
-    st = tdelta.stats()
-    assert st["rb_delta_rows_patched_total"] == 2
-    assert st["rb_delta_apply_total{mode=patch}"] == 1
-    assert st["rb_delta_apply_total{mode=noop}"] == 1
+    """A patch and a no-op move the registry as in the JAX package:
+    ``rb_delta_rows_patched_total`` and ``rb_delta_apply_seconds{mode}``
+    (a no-op observes nothing)."""
+    tobs.reset()
+    jobs.reset()
+    js, ts = both_sets(mk_values(2, n=3))
+    both_delta(js, ts, adds={0: [7, 9], 1: [70000]})
+    both_delta(js, ts, removes={2: [(0x7F7F << 16) + 1]})
+    for o in (tobs, jobs):
+        assert o.counter("rb_delta_rows_patched_total").value == 2
+        assert o.histogram("rb_delta_apply_seconds", mode="patch").count == 1
+        assert "noop" not in {r["labels"]["mode"] for r in o.snapshot()[
+            "histograms"]["rb_delta_apply_seconds"]}
 
 
 def test_structural_escalation_and_engine_resync():

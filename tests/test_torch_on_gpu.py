@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation
+from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation, obs
 from roaringbitmap_tpu_torch.ops import dense, kernels, megakernel, packing
 from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
 from roaringbitmap_tpu_torch.parallel.batch_engine import (BatchEngine,
@@ -380,7 +380,8 @@ def test_guard_never_demotes_on_the_card(dev, bitmaps):
     with faults.inject("lowering@cuda:1"):
         with pytest.raises(errors.EngineLoweringError):
             aggregation.or_(bitmaps, engine="cuda", device=dev)
-    assert guard.dispatch_events() == {}
+    assert guard.dispatch_stats("aggregation") == {
+        "retries": 0, "demotions": 0, "sequential": 0}
     assert kernels.B2.launches == 0
 
 
@@ -430,6 +431,43 @@ def test_pooled_launch_matches_plain(dev, bitmaps):
                      for g in pool])
     cpu_sets, _ = _tenants(bitmaps, "cpu")
     _pool_same(got, MultiSetBatchEngine(cpu_sets).execute(pool))
+
+
+def test_traced_pooled_dispatch_has_device_time(dev, bitmaps, tmp_path):
+    """One traced pooled dispatch on the card: its ``multiset.cost`` event
+    carries CUDA-event device time (> 0), the pool's predicted bytes and a
+    roofline fraction in (0, 1] against the H100 row; its memory event's
+    measured peak is within the prediction; the dump validates."""
+    import importlib.util
+    import json
+    import os
+
+    from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
+
+    sets, per = _tenants(bitmaps, dev)
+    ms = MultiSetBatchEngine(sets)
+    pool = _bitmap_pool(per, len(sets), 32, 3)
+    ms.execute(pool)                     # warm: the first run is eager
+    path = tmp_path / "pool.jsonl"
+    obs.enable(str(path))
+    try:
+        ms.execute(pool)
+    finally:
+        obs.disable()
+    spans = [json.loads(line) for line in open(path)]
+    (d,) = [s for s in spans if s["name"] == "multiset.dispatch"]
+    (cost,) = [e for e in d["events"] if e["name"] == "multiset.cost"]
+    (mem,) = [e for e in d["events"] if e["name"] == "multiset.memory"]
+    assert cost["device_ms"] > 0
+    assert cost["bytes_accessed"] == ms.predict_dispatch_bytes(pool)
+    assert 0.0 < cost["roofline_fraction"] <= 1.0
+    assert 0 <= mem["measured_peak_bytes"] <= mem["predicted_bytes"]
+    spec = importlib.util.spec_from_file_location(
+        "check_trace", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tools", "check_trace.py"))
+    ct = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ct)
+    assert ct.validate(str(path)) == []
 
 
 def test_pooled_expression_pool_is_one_b5_launch(dev, bitmaps):
@@ -579,7 +617,7 @@ def lattice_off():
     from roaringbitmap_tpu_torch.runtime import lattice
 
     lattice.deactivate()
-    lattice.reset_stats()
+    obs.reset()
     yield lattice
     lattice.deactivate()
 
@@ -735,7 +773,6 @@ def test_serving_loop_on_the_card(dev, bitmaps, lattice_off):
     from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
     from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
                                                  ServingRequest)
-    from roaringbitmap_tpu_torch.serving import loop as sloop
 
     hosts, ms = _serving_tenants(dev, bitmaps)
     loop = ServingLoop(ms, ServingPolicy(pool_target=8,
@@ -755,7 +792,7 @@ def test_serving_loop_on_the_card(dev, bitmaps, lattice_off):
     flat = [ServingRequest(i % 3, BatchQuery("or", (i, i + 1, i + 2),
                                              form="bitmap"))
             for i in range(8)]
-    sloop.reset_counters()
+    obs.reset()
     launches = []
     drv = loop.start_pump(interval_s=0.002)
     try:
@@ -770,7 +807,7 @@ def test_serving_loop_on_the_card(dev, bitmaps, lattice_off):
     finally:
         drv.stop()
     assert drv.errors == 0
-    assert sloop.counter("rb_serving_pump_errors_total") == 0
+    assert "rb_serving_pump_errors_total" not in obs.snapshot()["counters"]
     for t in tickets:
         assert t.ok, t.error
         ref = ms._engines[t.request.set_id]._sequential_result(t.query)
@@ -789,7 +826,6 @@ def test_resident_lane_and_recovery_on_the_card(dev, bitmaps, lattice_off,
     from roaringbitmap_tpu_torch.runtime import errors, faults
     from roaringbitmap_tpu_torch.serving import (ServingLoop, ServingPolicy,
                                                  ServingRequest)
-    from roaringbitmap_tpu_torch.serving import loop as sloop
 
     hosts, ms = _serving_tenants(dev, bitmaps)
     q = [expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.not_(2))),
@@ -805,10 +841,10 @@ def test_resident_lane_and_recovery_on_the_card(dev, bitmaps, lattice_off,
     loop = ServingLoop(ms, ServingPolicy(
         pool_target=3, resident=True, engine="megakernel",
         default_deadline_ms=600_000.0))
-    sloop.reset_counters()
+    obs.reset()
     tickets = [loop.submit(ServingRequest(s, q[s % 2])) for s in range(3)]
     loop.drain()
-    assert sloop.counter("rb_serving_dispatches_total") == 0
+    assert "rb_serving_dispatches_total" not in obs.snapshot()["counters"]
     assert loop._resident.stats["served"] == 1
     for t, w in zip(tickets, [r for rows in want for r in rows]):
         assert t.result.cardinality == w.cardinality

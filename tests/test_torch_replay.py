@@ -29,8 +29,7 @@ from roaringbitmap_tpu_torch.parallel.aggregation import DeviceBitmapSet
 from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
 from roaringbitmap_tpu_torch.runtime import faults, guard
 from roaringbitmap_tpu_torch import serving
-from roaringbitmap_tpu_torch.insights import analysis as tins
-from roaringbitmap_tpu_torch.serving import loop as tloop
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.serving import replay as treplay
 from roaringbitmap_tpu_torch.wire import WireClient, WireServer
 from roaringbitmap_tpu_torch.wire import protocol as wp
@@ -46,8 +45,8 @@ KNOBS = dict(sets=2, sources=6, tenants=6, density=500, users=1 << 16,
 def _clean():
     jobs.disable()
     jobs.reset()
-    tloop.reset_counters()
-    tins.COST.reset()            # as obs.reset() clears the JAX tracker
+    tobs.reset()
+    tobs.flight.reset()
     jfaults.reset_clock()
     faults.reset_clock()
     yield

@@ -42,8 +42,7 @@ from roaringbitmap_tpu_torch.parallel.multiset import (BatchGroup,
 from roaringbitmap_tpu_torch.runtime import faults, guard
 from roaringbitmap_tpu_torch.runtime import lattice as tlat
 from roaringbitmap_tpu_torch import serving
-from roaringbitmap_tpu_torch.insights import analysis as tins
-from roaringbitmap_tpu_torch.serving import loop as tloop
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.serving import resident as tres
 from roaringbitmap_tpu_torch.serving.loop import replay_stream
 
@@ -55,12 +54,20 @@ TNOSLEEP = guard.GuardPolicy(backoff_base=0.0, sleep=lambda s: None)
 PROFILE = "q=4,;rows=16,;keys=4,;ops=or,and;heads=both;pool=16,;expr=2;"
 
 
+def _ctr(name: str, **labels) -> float:
+    """The port's registry counter ``name`` summed over every label set
+    that includes ``labels``."""
+    return sum(row["value"] for row in
+               tobs.snapshot()["counters"].get(name, [])
+               if labels.items() <= row["labels"].items())
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     jobs.disable()
     jobs.reset()
-    tloop.reset_counters()
-    tins.COST.reset()            # as obs.reset() clears the JAX tracker
+    tobs.reset()
+    tobs.flight.reset()
     jfaults.reset_clock()
     faults.reset_clock()
     jlat.deactivate()
@@ -295,7 +302,7 @@ def test_resident_serves_every_pool_without_a_dispatch(tenants, warmed):
         s, _query(i, texpr), tenant=f"t{s}")) for at, s, i in arr])
     jt = jreplay(jl, [(at, jserving.ServingRequest(
         s, _query(i, jexpr), tenant=f"t{s}")) for at, s, i in arr])
-    assert tloop.counter("rb_serving_dispatches_total") == 0
+    assert _ctr("rb_serving_dispatches_total") == 0
     assert tl._resident.stats == {"served": n // 2, "demoted": 0,
                                   "pushed": n // 2}
     assert jl._resident.stats["served"] == tl._resident.stats["served"]
@@ -325,11 +332,11 @@ def test_wedged_ring_demotes_typed_and_exact(tenants, warmed):
                                             tenant="t0")) for i in range(2)]
     tl.drain()
     jl.drain()
-    assert tloop.counter("rb_serving_resident_demotions_total",
+    assert _ctr("rb_serving_resident_demotions_total",
                          reason="wedged") == 1
     assert jmetrics.counter("rb_serving_resident_demotions_total",
                             site="serving", reason="wedged").value == jd0 + 1
-    assert tloop.counter("rb_serving_dispatches_total") == 1
+    assert _ctr("rb_serving_dispatches_total") == 1
     assert tl._resident.stats == jl._resident.stats
     for a, b in zip(jt, tt):
         _check_host(b, tenants)

@@ -18,6 +18,8 @@ against roaringbitmap_tpu.runtime.
   here.  Exact: counts, cardinalities and members.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -39,6 +41,8 @@ from roaringbitmap_tpu_torch.parallel import expr as texpr
 from roaringbitmap_tpu_torch.parallel.batch_engine import ENGINES as BATCH_ENGINES
 from roaringbitmap_tpu_torch.parallel.batch_engine import BatchEngine as TEng
 from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery as TQ
+from roaringbitmap_tpu_torch.obs import metrics as tmetrics
+from roaringbitmap_tpu_torch.obs import trace as ttrace
 from roaringbitmap_tpu_torch.runtime import errors, faults, guard
 
 torch.set_num_threads(2)
@@ -292,8 +296,9 @@ def test_every_rung_down_lands_on_sequential():
         got = te.execute(q, engine="megakernel")
     assert te.last_timings["engine"] == guard.SEQUENTIAL
     assert guard.dispatch_stats("batch_engine")["sequential"] == 1
-    assert guard.dispatch_events()[("batch_engine", "sequential",
-                                    "sequential")] == 1
+    assert tmetrics.histogram("rb_execute_latency_seconds",
+                              site="batch_engine",
+                              engine="sequential").count == 1
     assert [g.cardinality for g in got] == \
         [r.cardinality for r in te._execute_sequential(q)]
 
@@ -403,7 +408,7 @@ def test_wide_fault_on_the_card_raises_typed(spec, fault, retries):
     ("lowering=1.0:23", None, errors.EngineLoweringError),
     ("oom=1.0:5", None, errors.ResourceExhausted),
 ])
-def test_batch_fault_on_the_card_chain(spec, landed, fault):
+def test_batch_fault_on_the_card_chain(spec, landed, fault, tmp_path):
     """The card's chain, megakernel -> cuda: a megakernel fault lands on the
     "cuda" kernels; a fault "cuda" cannot split away re-raises typed after
     the OOM halving, with no sequential landing."""
@@ -416,15 +421,26 @@ def test_batch_fault_on_the_card_chain(spec, landed, fault):
     policy = guard.GuardPolicy.from_env()
     guard.reset_dispatch_stats()
     splits = te.split_count
-    with faults.inject(spec):
-        if fault is None:
-            got = te._dispatch(q, chain, policy, guard.Deadline(None))
-        else:
-            with pytest.raises(fault):
-                te._dispatch(q, chain, policy, guard.Deadline(None))
+    path = tmp_path / "guard.jsonl"
+    ttrace.enable(str(path))
+    try:
+        with faults.inject(spec):
+            if fault is None:
+                got = te._dispatch(q, chain, policy, guard.Deadline(None))
+            else:
+                with pytest.raises(fault):
+                    te._dispatch(q, chain, policy, guard.Deadline(None))
+    finally:
+        ttrace.disable()
     stats = guard.dispatch_stats("batch_engine")
     assert stats["sequential"] == 0
-    assert not any(rung == "torch" for _, rung, _ in guard.dispatch_events())
+    # no guard decision (retry, demotion, landing) ever touched "torch"
+    spans = [json.loads(line) for line in path.read_text().splitlines()]
+    rungs = {ev.get(k) for sp in spans if sp["name"] == "guard.dispatch"
+             for ev in sp["events"] for k in ("engine_from", "engine_to")}
+    assert "torch" not in rungs
+    assert all(sp["tags"].get("rung_used") != "torch" for sp in spans
+               if sp["name"] == "guard.dispatch")
     if spec.startswith("oom"):
         assert te.split_count - splits == 1      # halved to single queries
     if fault is None:

@@ -13,7 +13,7 @@ deadlines are far (``EASY_MS``) unless a test forces shedding with a clock
 jump much larger than any wall.
 
 Device-memory budgets are stated in each package's own units: the port
-counts resident bytes with ``runtime.residency`` (its sets keep other
+counts resident bytes in ``obs.memory.LEDGER`` (its sets keep other
 resident arrays than the JAX sets), the JAX package with its HBM ledger.
 """
 
@@ -38,17 +38,16 @@ from roaringbitmap_tpu.runtime import faults as jfaults
 from roaringbitmap_tpu.runtime import guard as jguard
 from roaringbitmap_tpu import serving as jserving
 from roaringbitmap_tpu_torch import RoaringBitmap as TRB
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.analytics import BsiColumn
-from roaringbitmap_tpu_torch.insights import analysis as tins
 from roaringbitmap_tpu_torch.mutation import ResultCache
 from roaringbitmap_tpu_torch.parallel import expr as texpr
 from roaringbitmap_tpu_torch.parallel.aggregation import DeviceBitmapSet
 from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery as TQ
 from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
-from roaringbitmap_tpu_torch.runtime import errors, faults, guard, residency
+from roaringbitmap_tpu_torch.runtime import errors, faults, guard
 from roaringbitmap_tpu_torch.runtime import programs
 from roaringbitmap_tpu_torch import serving
-from roaringbitmap_tpu_torch.serving import loop as tloop
 
 torch.set_num_threads(2)
 
@@ -59,18 +58,28 @@ JNOSLEEP = jguard.GuardPolicy(backoff_base=0.0, sleep=lambda s: None)
 TNOSLEEP = guard.GuardPolicy(backoff_base=0.0, sleep=lambda s: None)
 
 
+def _ctr(name: str, **labels) -> float:
+    """The port's registry counter ``name`` summed over every label set
+    that includes ``labels``."""
+    return sum(row["value"] for row in
+               tobs.snapshot()["counters"].get(name, [])
+               if labels.items() <= row["labels"].items())
+
+
 @pytest.fixture(autouse=True)
-def _clean():
+def _clean(tmp_path):
     jobs.disable()
     jobs.reset()
     jguard.reset_dispatch_stats()
-    guard.reset_dispatch_stats()
-    guard.reset_slo_outcomes()
-    tloop.reset_counters()
-    tins.COST.reset()            # as obs.reset() clears the JAX tracker
+    tobs.reset()
+    tobs.flight.reset()
+    # SLO-miss and overload triggers dump the flight ring: keep the dumps
+    # in the test's directory
+    tobs.flight.configure(dir=str(tmp_path / "flight"))
     jfaults.reset_clock()
     faults.reset_clock()
     yield
+    tobs.flight.configure(dir=None)
     jobs.disable()
     jobs.reset()
     jfaults.reset_clock()
@@ -208,10 +217,10 @@ def test_mixed_stream_same_tickets(engines):
         _exact(engines[1], b)
     assert tl.stats == jl.stats
     assert tl.stats["served"] == 25 and tl.stats["pools"] >= 2
-    slo = guard.slo_outcomes("serving")
-    assert sum(v["attained"] + v["missed"] for v in slo.values()) == 25
-    assert tloop.counter("rb_serving_requests_total") == 25
-    assert tloop.counter("rb_serving_dispatches_total") == tl.stats["pools"]
+    assert _ctr("rb_slo_attained_total", site="serving") \
+        + _ctr("rb_slo_missed_total", site="serving") == 25
+    assert _ctr("rb_serving_requests_total") == 25
+    assert _ctr("rb_serving_dispatches_total") == tl.stats["pools"]
 
 
 def test_expr_and_flat_share_one_path(engines):
@@ -249,7 +258,7 @@ def test_queue_cap_rejects_typed(engines):
                                                     "cap": 4}
     assert tl.stats["rejected"] == jl.stats["rejected"] == 1
     assert tl._backlog() == jl._backlog() == 4
-    assert tloop.counter("rb_serving_admission_rejected_total",
+    assert _ctr("rb_serving_admission_rejected_total",
                          reason="queue_full") == 1
     tl.drain()
     jl.drain()
@@ -267,7 +276,7 @@ def test_hbm_backpressure_same_admissions(engines):
     tper = serving.ServingLoop(t, serving.ServingPolicy(
         guard=TNOSLEEP))._request_bytes(tprobe)
     jbudget = int((jmem.LEDGER.resident_bytes() + 3.2 * jper) / 0.9)
-    tbudget = int((residency.resident_bytes() + 3.2 * tper) / 0.9)
+    tbudget = int((tobs.LEDGER.resident_bytes() + 3.2 * tper) / 0.9)
     jl, tl = _loops(
         engines, pool_target=8,
         jguard=jguard.GuardPolicy(backoff_base=0.0, sleep=lambda s: None,
@@ -298,7 +307,7 @@ def test_hbm_backpressure_same_admissions(engines):
         _exact(t, x)
     # the assembly gate: every pool the port dispatched fits the headroom
     for x in served:
-        assert tl._pool_bytes([x]) + residency.resident_bytes() \
+        assert tl._pool_bytes([x]) + tobs.LEDGER.resident_bytes() \
             <= int(tbudget * 0.9)
 
 
@@ -316,7 +325,7 @@ def test_expired_requests_shed_typed(engines):
     _same_ticket(jt, tt)
     assert tt.status == "shed" and tt.error.reason == "expired"
     assert isinstance(tt.error, serving.RequestShed)
-    assert tloop.counter("rb_serving_shed_total", reason="expired") == 1
+    assert _ctr("rb_serving_shed_total", reason="expired") == 1
 
 
 def test_unmeetable_drop_vs_degrade_per_tenant(engines):
@@ -346,7 +355,7 @@ def test_unmeetable_drop_vs_degrade_per_tenant(engines):
     assert td.status == "shed" and td.error.reason == "deadline"
     assert tg.status == "done" and tg.degraded and tg.result.bitmap is None
     _exact(engines[1], tg)
-    assert tloop.counter("rb_serving_degraded_total", reason="deadline") == 1
+    assert _ctr("rb_serving_degraded_total", reason="deadline") == 1
 
 
 def test_shedding_disabled_serves_late(engines):
@@ -376,7 +385,7 @@ def test_slow_fault_is_counted_against_slo(engines):
         tl.pump(force=True)
     _same_ticket(jt, tt, missed=True)
     assert tt.missed is True
-    assert guard.slo_outcomes("serving")[("serving", "s")]["missed"] == 1
+    assert _ctr("rb_slo_missed_total", site="serving", tenant="s") == 1
 
 
 # ------------------------------------------------- deadline propagation
@@ -423,7 +432,7 @@ def test_guard_cannot_outspend_remaining_deadline(engines):
     assert isinstance(tt.error, errors.RoaringRuntimeError)
     assert "deadline" in str(tt.error)
     assert spent <= remaining_ms / 1e3 + 2 * faults.SLOW_LATENCY_S
-    assert tloop.counter("rb_serving_pool_failures_total") >= 1
+    assert _ctr("rb_serving_pool_failures_total") >= 1
 
 
 # ------------------------------------------------------ overload ladder
@@ -455,7 +464,7 @@ def test_ladder_escalates_and_recovers_symmetrically(engines):
             loop.pump()
         assert tl.level == jl.level == want
     assert tl.level_peak == jl.level_peak == 3
-    assert [e["level_to"] for e in tloop.events()
+    assert [e["level_to"] for e in tobs.flight._ring
             if e["kind"] == "degrade"] == [1, 2, 3, 2, 1, 0]
 
 
@@ -563,7 +572,7 @@ def test_pump_driver_counts_errors_and_survives(engines):
     finally:
         drv.stop()
     assert drv.errors == 1 and isinstance(drv.last_error, TypeError)
-    assert tloop.counter("rb_serving_pump_errors_total",
+    assert _ctr("rb_serving_pump_errors_total",
                          error_class="TypeError") == 1
 
 
@@ -589,8 +598,8 @@ def test_snapshot_and_timings(engines):
     tl.drain()
     snap = tl.snapshot()
     assert snap["stats"]["served"] == 8 and snap["backlog"] == 0
-    assert snap["resident_bytes"]["by_kind"]["bitmap_set"] > 0
-    assert snap["counters"]["rb_serving_pools_total"] == \
+    assert snap["resident_bytes"]["by_kind"]["bitmap_set"]["dense"] > 0
+    assert snap["counters"]["rb_serving_pools_total"][0]["value"] == \
         snap["stats"]["pools"] == len(tl.timings)
     assert all(t["loop_ms"] >= 0 and t["engine_ms"] > 0
                and not t["resident"] for t in tl.timings)
@@ -622,57 +631,60 @@ def test_predict_dispatch_seconds_calibrates_on_warm_launches(engines):
     launch that built or first-ran a program does not calibrate, a warm
     one does."""
     t = engines[1]
-    tins.COST.reset()
+    tobs.reset()
     pool = [(0, TQ("or", (0, 1, 2))), (1, TQ("xor", (1, 3))),
             (2, TQ("and", (0, 4)))]
     plan = t._plan_pool(tuple(pool))
     eng = t._pool_engine(plan, "torch", note=False)
     ops, nbytes = t._word_ops(plan, eng), t._predict(plan, eng)["peak_bytes"]
+    peaks = tobs.cost.device_peaks()
     assert t.predict_dispatch_seconds(pool, engine="torch") == max(
-        ops / tins.PEAK_OPS_PER_S, nbytes / tins.PEAK_BYTES_PER_S)
+        ops / peaks["peak_flops_per_s"], nbytes / peaks["peak_bytes_per_s"])
     one0 = programs.one_time_work()
     warm = t._programs
     t._programs = programs.ProgramCache(CPU, "multiset")   # a cold cache
     try:
         t.execute([(s, [q]) for s, q in pool], engine="torch")
         assert programs.one_time_work() > one0
-        assert tins.COST.rates("multiset", "torch") is None
+        assert tobs.TRACKER.observed_rates("multiset", "torch") is None
         t.execute([(s, [q]) for s, q in pool], engine="torch")
     finally:
         t._programs = warm
-    rates = tins.COST.rates("multiset", "torch")
-    assert rates is not None and rates["launches"] == 1
+    rates = tobs.TRACKER.observed_rates("multiset", "torch")
+    assert rates is not None and rates["dispatches"] == 1
     est = t.predict_dispatch_seconds(pool, engine="torch")
-    assert est == pytest.approx(max(ops / rates["ops_per_s"],
-                                    nbytes / rates["bytes_per_s"]))
-    tins.COST.reset()
+    assert est == pytest.approx(max(ops / rates["achieved_flops_per_s"],
+                                    nbytes / rates["achieved_bytes_per_s"]))
+    tobs.reset()
 
 
 # ------------------------------------------------------ resident bytes
 
 def test_residency_counts_sets_columns_caches_and_releases():
-    """The port's resident bytes: a set counts its ``hbm_bytes()`` (not the
-    JAX set's count for the same bitmaps: the port keeps other resident
-    arrays), a value column its planes (the JAX column's count exactly), a
-    result cache its rows; each is released when its owner goes."""
+    """The port's resident bytes in the HBM ledger: a set counts its
+    ``hbm_bytes()`` (not the JAX set's count for the same bitmaps: the port
+    keeps other resident arrays), a value column its planes (the JAX
+    column's count exactly), a result cache its rows; each is released
+    when its owner goes."""
     vals = _values()[0]
     gc.collect()            # earlier tests' garbage must not leave between
-    before = residency.resident_bytes()
+    before = tobs.LEDGER.resident_bytes()
     ts = DeviceBitmapSet([TRB.from_values(v) for v in vals], layout="dense",
                          device=CPU)
     js = JSet([JRB.from_values(v) for v in vals], layout="dense")
-    assert residency.resident_bytes() - before == ts.hbm_bytes() > 0
+    assert tobs.LEDGER.resident_bytes() - before == ts.hbm_bytes() > 0
     assert js.hbm_bytes() > 0
     ids = np.unique(np.concatenate(vals))[:500]
     tcol = BsiColumn("p", ids, ids % 97, device=CPU)
     jcol = JBsi("p", ids, ids % 97)
     assert tcol.hbm_bytes() == jcol.hbm_bytes()
-    assert residency.resident_bytes("bsi_column") >= tcol.hbm_bytes()
+    assert tobs.LEDGER.resident_bytes("bsi_column") >= tcol.hbm_bytes()
     ts.attach_column(tcol)
     cache = ResultCache(1 << 20)
-    assert residency.snapshot()["by_kind"]["result_cache"] >= 0
-    cache.nbytes = 4096                  # a filled cache reads its rows
-    assert residency.resident_bytes("result_cache") >= 4096
+    assert tobs.LEDGER.snapshot()["by_kind"]["result_cache"]["device"] >= 0
+    cache.nbytes = 4096                  # a filled cache accounts its rows
+    cache._account()
+    assert tobs.LEDGER.resident_bytes("result_cache") >= 4096
     del ts, tcol, cache, js, jcol
     gc.collect()
-    assert residency.resident_bytes() == before
+    assert tobs.LEDGER.resident_bytes() == before

@@ -49,7 +49,7 @@ from roaringbitmap_tpu_torch.parallel.batch_engine import BatchResult as TRes
 from roaringbitmap_tpu_torch.parallel.multiset import MultiSetBatchEngine
 from roaringbitmap_tpu_torch.runtime import errors, faults, guard
 from roaringbitmap_tpu_torch import serving
-from roaringbitmap_tpu_torch.insights import analysis as tins
+from roaringbitmap_tpu_torch import obs as tobs
 from roaringbitmap_tpu_torch.serving import loop as tloop
 from roaringbitmap_tpu_torch.serving import replay as treplay
 from roaringbitmap_tpu_torch.wire import WireClient, WireServer
@@ -65,12 +65,20 @@ PROFILE = dict(sets=2, sources=6, tenants=4, density=600, users=1 << 16,
                seed=11)
 
 
+def _ctr(name: str, **labels) -> float:
+    """The port's registry counter ``name`` summed over every label set
+    that includes ``labels``."""
+    return sum(row["value"] for row in
+               tobs.snapshot()["counters"].get(name, [])
+               if labels.items() <= row["labels"].items())
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     jobs.disable()
     jobs.reset()
-    tloop.reset_counters()
-    tins.COST.reset()            # as obs.reset() clears the JAX tracker
+    tobs.reset()
+    tobs.flight.reset()
     jfaults.reset_clock()
     faults.reset_clock()
     yield
@@ -308,7 +316,7 @@ def test_port_server_serves_both_clients(dataset):
                 _exact(loop._engine, r, t.value(timeout=60))
             cl.close()
         assert srv.stats["pump_errors"] == 0
-    assert tloop.counter("rb_serving_pump_errors_total") == 0
+    assert _ctr("rb_serving_pump_errors_total") == 0
 
 
 def test_port_client_against_jax_server(dataset):
