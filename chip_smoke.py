@@ -232,10 +232,49 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
        under ``torch.profiler`` with the spans as profiler ranges
        (``ROARING_TPU_TRACE_XPROF``): the device-busy share of each range;
     d. the Q 64 pool's wall, median of 5 warm, tracing off and on;
+16. mesh and pod (``parallel.sharding``, ``sharded_engine``,
+    ``multihost``, ``podmesh``; ``serving.frontdoor``, ``migration``), run
+    after 15 and before 6, over logical shards of the one card (they
+    measure the combine's cost, not scaling):
+    a. ``wide_aggregate_sharded`` or/xor (both ingests) and and over
+       phase 5's 1,024 bitmaps and AND inputs on ("rows", "lanes") meshes
+       1x1, 4x1, 2x2, 8x1 (and or on 2x4, 1x8): each equal to the
+       single-device ``or_`` / ``xor`` / ``and_`` and the host fold, B1
+       launched at width 2048 / lanes; 10a's lifted u48 bitmaps over 4x1
+       against ``or64`` / ``xor64`` / ``and64``; 8,969 keys, chunked;
+    b. ``ShardedBSI`` over 9c's 2^24 rows and ``ShardedRangeBitmap`` over
+       9a's ``ts`` on a 4x2 mesh, equal to ``DeviceBSI`` /
+       ``DeviceRangeBitmap``;
+    c. ``ShardedBatchEngine`` over 15's 16 tenants (12 dense, 4 compact,
+       placed by B3 from their resident words): 4x1 sharded and 2x2
+       replicated, the Q 64 and Q 256 pools in both forms equal to
+       ``MultiSetBatchEngine`` (and samples to the host fold), walls
+       beside it; the Q 256 pool under a quarter of its per-shard
+       prediction (split counts beside the pooled engine's); faults
+       ``transient@mesh`` and ``lowering@mesh`` demoting to ``single``
+       only; ``warmup(profile=...)`` and the sealed Q 64 pool as a graph
+       replay with zero escapes; 11b's expression pool as ONE B5
+       combine-mode launch;
+    e. ``multihost.initialize`` at world size 1 on NCCL: 16c's Q 64 pool
+       over ``global_mesh()`` equal to 16c's, a ``ShardedBSI`` sum through
+       an NCCL ``all_reduce``; two gloo ranks sharing the card (this script
+       run as ``--gloo-rank R``) run the Q 64 pool's tenants 0-2 over a
+       pod-spanning mesh, equal, with the bytes staged through pinned host
+       memory counted; an unreachable coordinator raises
+       ``CoordinatorTimeout`` within its budget;
+    d. ``PodMesh.simulate(2, devices=["cuda:0"] * 8)``: ``place`` with a
+       budget and rates that yield all three regimes; a ``PodFrontDoor``
+       replays 14a's first 256 requests at 1/16 with ``fail_host(1)``
+       midway (every served ticket equal to the host oracle, reroutes and
+       single-host demotions counted); ``migrate_tenant`` with a delta in
+       flight, ``host_join``, ``host_leave``; ``migrate_tenant_wire`` to a
+       ``bootstrap --frontdoor 2 --device cuda`` child, CRCs equal;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
-   CUDA-event median times, the bound; B5's time per step.
+   CUDA-event median times, the bound; B5's time per step; B1 at 1,024,
+   512 and 256 words (16a's shard shapes) and B5 on 16c's combine-mode
+   plan, each its own row of the kernels line (launches by variant).
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -253,6 +292,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -286,6 +326,8 @@ class Smoke:
         self.torch = torch_mod
         self.kernels = kernels_mod
         self.launches = {k.name: 0 for k in kernels_mod.KERNELS}
+        #: launches by (kernel, variant): B1's row width, B5's stream mode
+        self.variants: dict = {}
         #: the launch counts of the latest main-path call
         self.last = dict(self.launches)
 
@@ -301,6 +343,10 @@ class Smoke:
         self.last = counts
         for name, c in counts.items():
             self.launches[name] += c
+        for k in self.kernels.KERNELS:
+            for v, c in k.variants.items():
+                self.variants[(k.name, v)] = \
+                    self.variants.get((k.name, v), 0) + c
         used = ", ".join(f"{n}={c}" for n, c in counts.items() if c) or "none"
         log(f"  [{label}] {dt:.3f} s, launches: {used}")
         return out
@@ -2818,9 +2864,661 @@ def phase15(smoke, seed: int, state14, ds, sds, epool, bms) -> list:
     log(f"  15d [{card}]: the 11a Q64 pool (cardinality form), wall to host "
         f"results, median of 5 warm: tracing off {t_off:.3f} ms, on "
         f"{t_on:.3f} ms ({t_on / t_off:.3f}x)")
-    del loop, lf, loop_r, lp, ms, sets
+    del loop, lf, loop_r, lp, ms
     torch.cuda.empty_cache()
-    return fractions
+    return fractions, sets
+
+
+def phase16(smoke, seed: int, shapes: dict, adhoc, abms, lift, bsi9, sbms,
+            price, sets15, tenants15, knobs15) -> None:
+    """Mesh and pod on the card (``parallel.sharding``,
+    ``parallel.sharded_engine``, ``parallel.multihost``,
+    ``parallel.podmesh``, ``serving.frontdoor``, ``serving.migration``),
+    after 15 and before 6, over logical shards of the one card (they
+    measure the combine's cost, not scaling): 16a the sharded wide ops,
+    16b the sharded value columns, 16c the sharded engine, 16d the pod,
+    16e process groups.  Fills ``shapes`` with B1's narrow widths and B5's
+    combine-mode plan for phase 6."""
+    import tempfile
+
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, aggregation
+    from roaringbitmap_tpu_torch.bsi import Operation
+    from roaringbitmap_tpu_torch.bsi.device import _topk_res
+    from roaringbitmap_tpu_torch.core.bitmap import RoaringBitmap
+    from roaringbitmap_tpu_torch.ops import kernels, packing
+    from roaringbitmap_tpu_torch.ops.words import popcount
+    from roaringbitmap_tpu_torch.parallel import (
+        BatchGroup, BatchQuery, MultiSetBatchEngine, ShardedBatchEngine, expr,
+        multihost, podmesh, sharding)
+    from roaringbitmap_tpu_torch.parallel.multiset import random_multiset_pool
+    from roaringbitmap_tpu_torch.runtime import errors, faults, guard
+    from roaringbitmap_tpu_torch.runtime import lattice as rt_lattice
+    from roaringbitmap_tpu_torch.serving import (PodFrontDoor, ServingPolicy,
+                                                 host_join, host_leave,
+                                                 migrate_tenant)
+    from roaringbitmap_tpu_torch.serving.loop import AdmissionRejected
+    from roaringbitmap_tpu_torch.serving import replay
+    from roaringbitmap_tpu_torch.wire import WireClient
+    from roaringbitmap_tpu_torch.wire import migrate as wmig
+
+    b1, b3, b5 = kernels.B1.name, kernels.B3.name, kernels.B5.name
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    def mesh(rows, cols, names=("rows", "lanes")):
+        devs = np.empty((rows, cols), dtype=object)
+        devs.flat[:] = [torch.device("cuda", 0)] * (rows * cols)
+        return sharding.Mesh(devs, names)
+
+    def same_pool(got, want) -> bool:
+        return len(got) == len(want) and all(
+            same_results(g, w) for g, w in zip(got, want))
+
+    # ----------------------------------------------------------------- 16a
+    t0 = time.perf_counter()
+    inputs = {"or": adhoc, "xor": adhoc, "and": abms}
+    single = {"or": aggregation.or_(adhoc), "xor": aggregation.xor(adhoc),
+              "and": aggregation.and_(abms)}
+    host = {op: host_fold(op, inputs[op]) for op in inputs}
+    for op in inputs:
+        require(single[op] == host[op], f"16a: single-device {op} != host")
+    log(f"  16a: single-device or_/xor/and_ over {len(adhoc)} / "
+        f"{len(abms)} bitmaps equal the host folds (host "
+        f"{time.perf_counter() - t0:.1f} s)")
+    runs = []
+    for (r, l) in ((1, 1), (4, 1), (2, 2), (8, 1), (2, 4), (1, 8)):
+        m = mesh(r, l)
+        width = 2048 // l
+        ops = ("or", "xor", "and") if l <= 2 and r * l != 2 * 4 else ("or",)
+        for op in ops:
+            ingests = (("dense", "compact") if op != "and" and l <= 2
+                       else ("dense",))
+            for ingest in ingests:
+                t1 = time.perf_counter()
+                k, w, c = smoke.main_path(
+                    f"16a {r}x{l} {op} {ingest}",
+                    lambda m=m, op=op, ingest=ingest:
+                    sharding.wide_aggregate_sharded(m, op, inputs[op],
+                                                    ingest=ingest))
+                wall = (time.perf_counter() - t1) * 1e3
+                nw = kernels.B1.variants.get(width, 0)
+                require(nw >= r * l and smoke.last[b1] == nw,
+                        f"16a {r}x{l} {op}: B1 launches {smoke.last[b1]}, "
+                        f"at width {width}: {nw}")
+                got = packing.unpack_result(k, w, c)
+                require(got == single[op] and got == host[op],
+                        f"16a {r}x{l} {op} {ingest}: != the single-device "
+                        f"op or the host fold")
+                runs.append(f"{r}x{l} {op} {ingest} {wall:.0f} ms "
+                            f"(B1 x{nw} at {width} words)")
+    log(f"  16a [{card}]: every sharded result equals the single-device op "
+        f"and the host fold: " + "; ".join(runs))
+    l_or, l_and = lift(adhoc), lift(abms, bucket=2**31)
+    m41 = mesh(4, 1)
+    for op, src, fn in (("or", l_or, aggregation.or64),
+                        ("xor", l_or, aggregation.xor64),
+                        ("and", l_and, aggregation.and64)):
+        k, w, c = smoke.main_path(
+            f"16a u48 4x1 {op}", lambda op=op, src=src:
+            sharding.wide_aggregate_sharded(m41, op, src))
+        got = packing.unpack_result(k, w, c)
+        require(got == fn(src), f"16a u48 {op}: != the single-device op")
+        require(k.dtype == np.uint64, "16a u48: keys are not u48 keys")
+    log(f"    16a u48: 10a's lifted bitmaps, or/xor/and over 4x1 equal "
+        f"or64/xor64/and64 (K {k.size} for and)")
+    n_keys = 2 * sharding.MAX_KEYS_PER_SHARD_PASS + 777
+    base = np.arange(n_keys, dtype=np.uint32) << 16
+    kbms = [RoaringBitmap.from_values(base + np.uint32(7 * i))
+            for i in range(4)]
+    kbms.append(RoaringBitmap.from_values(
+        (1000 << 16) + np.arange(30000, dtype=np.uint32)))
+    for op in ("or", "xor"):
+        for ingest in ("dense", "compact"):
+            k, w, c = smoke.main_path(
+                f"16a chunked {op} {ingest}", lambda op=op, ingest=ingest:
+                sharding.wide_aggregate_sharded(m41, op, kbms,
+                                                ingest=ingest))
+            require(k.size == n_keys and packing.unpack_result(k, w, c)
+                    == host_fold(op, kbms), f"16a chunked {op} {ingest}")
+    log(f"    16a: {n_keys} keys (3 key chunks of at most "
+        f"{sharding.MAX_KEYS_PER_SHARD_PASS}) over 4x1, or/xor in both "
+        f"ingests, equal the host fold")
+    # B1 at each narrow width, at the shape 16a gives it there: the first
+    # shard of the mesh that runs that width (2x2, 2x4, 1x8) holds the
+    # first 1/rows of the pack's rows and the first 2048/lanes words of each
+    pk = shapes["segmented_reduce"]
+    for (r, l) in ((2, 2), (2, 4), (1, 8)):
+        width, n = 2048 // l, -(-pk.words.shape[0] // r)
+        shapes[f"segmented_reduce_w{width}"] = (
+            np.ascontiguousarray(pk.words[:n, :width]), pk.seg_ids[:n],
+            pk.num_keys, f"{r}x{l}")
+
+    # ----------------------------------------------------------------- 16b
+    hbsi, dbsi, ts_host, drb = bsi9
+    m42 = mesh(4, 2)
+    t1 = time.perf_counter()
+    sb = smoke.main_path("16b ShardedBSI build 4x2",
+                         lambda: sharding.ShardedBSI(m42, hbsi))
+    stored = int(hbsi.get_value(12345)[0])
+    for op, a, b in (("EQ", stored, 0), ("NEQ", stored, 0),
+                     ("LT", PRICE_MAX // 3, 0), ("LE", PRICE_MAX // 3, 0),
+                     ("GT", PRICE_MAX // 2, 0), ("GE", PRICE_MAX // 2, 0),
+                     ("RANGE", PRICE_MAX // 4, PRICE_MAX // 2)):
+        got = smoke.main_path(f"16b compare {op}", lambda op=op, a=a, b=b:
+                              sb.compare_cardinality(Operation[op], a, b))
+        require(got == dbsi.compare_cardinality(Operation[op], a, b),
+                f"16b ShardedBSI {op} != DeviceBSI")
+    require(sb.sum() == dbsi.sum(), "16b ShardedBSI sum != DeviceBSI")
+    want_k = int(popcount(_topk_res(dbsi.slices, dbsi.ebm, 1000)).sum())
+    require(sb.top_k_cardinality(1000) == want_k,
+            "16b ShardedBSI top_k != DeviceBSI")
+    srb = sharding.ShardedRangeBitmap(m42, ts_host)
+    tmax = ts_host.max_value
+    for op, a in (("lte", tmax // 3), ("lt", tmax // 3), ("gte", tmax // 2),
+                  ("gt", tmax // 2), ("eq", tmax // 5), ("neq", tmax // 5)):
+        require(getattr(srb, f"{op}_cardinality")(a)
+                == getattr(drb, f"{op}_cardinality")(a),
+                f"16b ShardedRangeBitmap {op} != DeviceRangeBitmap")
+    require(srb.between_cardinality(tmax // 4, tmax // 2)
+            == drb.between_cardinality(tmax // 4, tmax // 2),
+            "16b ShardedRangeBitmap between != DeviceRangeBitmap")
+    ge_ms = median_ms(torch, lambda: sb.compare_cardinality(
+        Operation.GE, PRICE_MAX // 2))
+    dge_ms = median_ms(torch, lambda: dbsi.compare_cardinality(
+        Operation.GE, PRICE_MAX // 2))
+    log(f"  16b [{card}]: ShardedBSI over 9c's 2^24 rows (4x2 mesh) equals "
+        f"DeviceBSI on every compare op, sum and top_k(1000); "
+        f"ShardedRangeBitmap over 9a's ts equals DeviceRangeBitmap; GE "
+        f"cardinality {ge_ms:.3f} ms sharded against {dge_ms:.3f} ms single "
+        f"(medians of 5; {time.perf_counter() - t1:.1f} s in all)")
+    del sb, srb
+
+    # ----------------------------------------------------------------- 16c
+    per = min(len(t) for t in tenants15)
+    n_t = len(sets15)
+    ms = MultiSetBatchEngine(sets15, result_cache=None)
+    pools = {q: random_multiset_pool([per] * n_t, q, seed=0xACE,
+                                     max_operands=8) for q in (64, 256)}
+
+    def as_form(pool, form):
+        return [BatchGroup(g.set_id, [BatchQuery(q.op, q.operands, form=form)
+                                      for q in g.queries]) for g in pool]
+
+    forms = {(q, f): as_form(pools[q], f) for q in (64, 256)
+             for f in ("cardinality", "bitmap")}
+    want = {k: ms.execute(p) for k, p in forms.items()}
+    for g, rows in zip(forms[(64, "bitmap")], want[(64, "bitmap")]):
+        q = g.queries[0]
+        require(rows[0].bitmap == host_query(q, tenants15[g.set_id]),
+                f"16c: pooled reference != host fold (tenant {g.set_id})")
+    results64 = None
+    for shape, placement in (((4, 1), "sharded"), ((2, 2), "replicated")):
+        label = f"{shape[0]}x{shape[1]} {placement}"
+        m = mesh(*shape, names=("rows", "data"))
+        eng = smoke.main_path(f"16c {label} build", lambda m=m, placement=(
+            placement): ShardedBatchEngine(sets15, mesh=m,
+                                           placement=placement,
+                                           result_cache=None))
+        require(smoke.last[b3] >= 4, f"16c {label}: the compact tenants' "
+                f"rows were not rebuilt by B3 ({smoke.last})")
+        log(f"  16c {label} [{card}]: pool image {eng.pool_rows} rows, "
+            f"{eng.hbm_bytes()} bytes held (shards of the card share it), "
+            f"rows a shard {eng.rows_per_shard}, balance "
+            f"{eng.shard_balance:.4f}")
+        for (q, f), pool in forms.items():
+            got = smoke.main_path(f"16c {label} Q{q} {f}",
+                                  lambda pool=pool: eng.execute(pool))
+            require(smoke.last[b1] >= 1 and same_pool(got, want[(q, f)]),
+                    f"16c {label} Q{q} {f}: != MultiSetBatchEngine")
+            if (q, f) == (64, "cardinality"):
+                results64 = got
+        for q in (64, 256):
+            pool = forms[(q, "cardinality")]
+            t_sh = median_ms(torch, lambda: eng.execute(pool))
+            t_ms = median_ms(torch, lambda: ms.execute(pool))
+            log(f"    16c {label} Q{q} [{card}]: sharded {t_sh:.3f} ms "
+                f"against MultiSetBatchEngine {t_ms:.3f} ms (wall to host "
+                f"results, medians of 5, warm)")
+        if placement == "sharded":
+            pool256 = forms[(256, "cardinality")]
+            budget = eng.predict_dispatch_bytes(pool256)[
+                "per_shard_bytes"] // 4
+            pol = guard.GuardPolicy(hbm_budget=budget)
+            s0, m0 = eng.proactive_split_count, ms.proactive_split_count
+            got = smoke.main_path("16c Q256 under a quarter budget",
+                                  lambda: eng.execute(pool256, policy=pol))
+            require(same_pool(got, want[(256, "cardinality")]),
+                    "16c budget: != MultiSetBatchEngine")
+            got_ms = ms.execute(pool256, policy=pol)
+            require(same_pool(got_ms, got), "16c budget: single != sharded")
+            log(f"    16c Q256 under {budget} bytes (a quarter of its "
+                f"per-shard prediction): sharded splits "
+                f"{eng.proactive_split_count - s0}, MultiSetBatchEngine at "
+                f"the same budget {ms.proactive_split_count - m0}")
+            guard.reset_dispatch_stats()
+            pool64 = forms[(64, "cardinality")]
+            for spec in ("transient@mesh=1.0:3", "lowering@mesh=1.0:4"):
+                with faults.inject(spec):
+                    got = smoke.main_path(f"16c {spec}",
+                                          lambda: eng.execute(pool64))
+                require(same_pool(got, results64), f"16c {spec}: != clean")
+            st = guard.dispatch_stats(
+                "sharded_engine")
+            require(st["demotions"] == 2 and st["retries"] >= 1
+                    and st["sequential"] == 0,
+                    f"16c faults: {st}; want 2 demotions to single, none "
+                    f"to the host")
+            log(f"    16c faults: transient@mesh and lowering@mesh each "
+                f"demoted mesh -> single (the pooled engine's kernels), "
+                f"counted {st}; no host landing; results equal")
+            plan = eng._plan(tuple(eng._single._flatten(pool64)[0]))
+            need = lattice_needs(plan.buckets)
+            prof = (f"q={pow2(need[0])},;rows={pow2(need[1])},;"
+                    f"keys={pow2(need[2])},;heads=cardinality")
+            rt_lattice.deactivate()
+            rep = smoke.main_path("16c warmup", lambda: eng.warmup(
+                profile=prof))
+            esc0 = rt_lattice.escape_total()
+            got = smoke.main_path("16c sealed Q64",
+                                  lambda: eng.execute(pool64))
+            require(same_pool(got, results64)
+                    and rt_lattice.escape_total() == esc0 == 0,
+                    f"16c sealed: escapes {rt_lattice.escape_total()}")
+            require(smoke.last[b1] >= 1, "16c sealed: no B1 in the replay")
+            g_ms = median_ms(torch, lambda: eng.execute(pool64))
+            rt_lattice.deactivate()
+            log(f"    16c warmup({prof!r}): {rep['lattice']['points']} "
+                f"points, {rep['graphs']} graphs, {rep['wall_ms']} ms; the "
+                f"sealed Q64 pool replays its graph, zero escapes, equal; "
+                f"{g_ms:.3f} ms a pool (median of 5)")
+        del eng
+        torch.cuda.empty_cache()
+    # 11b's expression pool on 11b's tenants: one B5 combine launch
+    sets_e = [DeviceBitmapSet(sbms[t * per:(t + 1) * per], layout="dense")
+              for t in range(n_t)]
+    for t in range(4):
+        sets_e[t].attach_column(price)
+    ems = MultiSetBatchEngine(sets_e, result_cache=None)
+    lo, hi = PRICE_MAX // 4, PRICE_MAX // 2
+
+    def expr_pool(q_t):
+        return [BatchGroup(t, expr.random_expr_pool(per, q_t, depth=2,
+                                                    seed=300 + t)
+                           + ([expr.ExprQuery(expr.and_(
+                               expr.or_(2 * t, 2 * t + 1),
+                               expr.range_("price", lo, hi)), form="bitmap"),
+                               expr.ExprQuery(expr.sum_(
+                                   "price", found=expr.or_(0, 1)))]
+                              if t < 4 else []))
+                for t in range(n_t)]
+
+    epool = next(p for p in (expr_pool(q) for q in (4, 2, 1))
+                 if ems._plan_pool(ems._flatten(p)[0]).mega.fits())
+    ewant = ems.execute(epool)
+    for shape, placement in (((4, 1), "sharded"), ((2, 2), "replicated")):
+        m = mesh(*shape, names=("rows", "data"))
+        eeng = ShardedBatchEngine(sets_e, mesh=m, placement=placement,
+                                  result_cache=None)
+        got = smoke.main_path(f"16c {shape[0]}x{shape[1]} expression pool",
+                              lambda: eeng.execute(epool))
+        require(smoke.last[b5] == 1
+                and kernels.B5.variants.get("combine", 0) == 1,
+                f"16c expressions: B5 {smoke.last[b5]} "
+                f"{kernels.B5.variants}; want one combine-mode launch")
+        require(same_pool(got, ewant), "16c expressions: != pooled")
+        eplan = eeng._plan(tuple(eeng._single._flatten(epool)[0]))
+        require(eplan.megas is not None and len(eplan.megas) == 1,
+                f"16c expressions: {eplan.megas}; want one stream")
+        mega = eplan.megas[0]
+        log(f"    16c {shape[0]}x{shape[1]} {placement} expression pool "
+            f"[{card}]: {sum(len(g.queries) for g in epool)} queries, one "
+            f"B5 combine-mode launch ({mega.n_steps} steps, "
+            f"{mega.n_slots} slots, {mega.leaf_rows} leaf rows), B1 "
+            f"{smoke.last[b1]}; equal to MultiSetBatchEngine; "
+            f"{median_ms(torch, lambda: eeng.execute(epool)):.3f} ms against "
+            f"{median_ms(torch, lambda: ems.execute(epool)):.3f} ms")
+        if placement == "sharded":
+            ops_ = eeng._eager_operands(eplan)
+            heads = [eeng._group_body(g.sig, a)[0]
+                     for g, a in zip(eplan.op_groups, ops_["g"])]
+            bank_a = torch.cat([h for h, gb in zip(heads, mega.group_base)
+                                if gb >= 0])
+            leaves = eeng._replicated_rows(ops_["leaf"][0])
+            m_arrs = ops_["m"][0]
+            shapes["megakernel_combine"] = (
+                mega, bank_a, torch.cat([leaves, m_arrs["extra"]]),
+                m_arrs["cols"])
+            # a larger pool whose one combine stream passes B5's capacity:
+            # its sections are halved into streams that fit, one
+            # combine-mode launch each, with no demotion
+            for q_t in (2, 4, 8, 16):
+                bpool = expr_pool(q_t)
+                bplan = eeng._plan(tuple(eeng._single._flatten(bpool)[0]))
+                if bplan.megas is None or len(bplan.megas) > 1:
+                    break
+            n_m = len(bplan.megas or ())
+            require(n_m > 1, f"16c past capacity: {bplan.megas}; want "
+                    f"several streams that each fit B5")
+            guard.reset_dispatch_stats()
+            got = smoke.main_path("16c expression pool past B5's capacity",
+                                  lambda: eeng.execute(bpool))
+            st = guard.dispatch_stats("sharded_engine")
+            require(smoke.last[b5] == n_m
+                    and kernels.B5.variants.get("combine", 0) == n_m
+                    and st["demotions"] == 0,
+                    f"16c past capacity: B5 {smoke.last[b5]} "
+                    f"{kernels.B5.variants}, guard {st}; want {n_m} "
+                    f"combine-mode launches and no demotion")
+            require(same_pool(got, ems.execute(bpool)),
+                    "16c past capacity: != MultiSetBatchEngine")
+            n_host = 0
+            for g, rows in zip(bpool, got):
+                for q, r_ in list(zip(g.queries, rows))[::4]:
+                    ref = eeng._engines[g.set_id]._sequential_result(q)
+                    require(r_.cardinality == ref.cardinality
+                            and (q.form != "bitmap" or r_.bitmap
+                                 == ref.bitmap),
+                            f"16c past capacity: != the host oracle "
+                            f"(tenant {g.set_id})")
+                    n_host += 1
+            log(f"    16c 4x1 sharded expression pool past B5's capacity "
+                f"[{card}]: {sum(len(g.queries) for g in bpool)} queries "
+                f"({q_t} a tenant); one stream would not fit, so "
+                f"{n_m} combine-mode launches of "
+                f"{[m.n_steps for m in bplan.megas]} steps, no demotion; "
+                f"equal to MultiSetBatchEngine, and {n_host} of them "
+                f"(every fourth) to the host oracle")
+        del eeng
+    del ems, sets_e
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- 16e
+    import torch.distributed as dist
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    multihost.initialize(f"127.0.0.1:{port}", num_processes=1, process_id=0,
+                         backend="nccl", timeout=60)
+    try:
+        gm = multihost.global_mesh(row_axis="rows", lane_axis="data")
+        geng = ShardedBatchEngine(sets15, mesh=gm, result_cache=None)
+        got = smoke.main_path("16e NCCL world 1 Q64", lambda: geng.execute(
+            forms[(64, "cardinality")]))
+        require(same_pool(got, results64),
+                "16e: the global mesh's Q64 != 16c's")
+        sbm = sharding.ShardedBSI(multihost.global_mesh(), hbsi)
+        require(sbm.compare_cardinality(Operation.GE, PRICE_MAX // 2)
+                == dbsi.compare_cardinality(Operation.GE, PRICE_MAX // 2),
+                "16e: ShardedBSI over the NCCL group != DeviceBSI")
+        log(f"  16e [{card}]: multihost.initialize at world size 1 on "
+            f"{dist.get_backend()}: global_mesh {gm.devices.shape}, the Q64 "
+            f"pool equals 16c's, a ShardedBSI compare (its sum an NCCL "
+            f"all_reduce) equals DeviceBSI; {multihost.snapshot()}")
+        del geng, sbm
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    # two gloo ranks on the card (NCCL refuses two ranks on one device)
+    store = os.path.join(tempfile.mkdtemp(), "store")
+    me = os.path.abspath(__file__)
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, me, "--gloo-rank", str(r), "--gloo-store", store,
+         "--gloo-per", str(per), "--seed", str(seed)],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=os.path.dirname(me))
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    docs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("GLOO16 ")]
+        require(p.returncode == 0 and line,
+                f"16e gloo rank {r}: exit {p.returncode}\n{out[-3000:]}")
+        docs.append(json.loads(line[0][len("GLOO16 "):]))
+    n3 = 3
+    want3 = [[r.cardinality for r in rows]
+             for g, rows in zip(forms[(64, "cardinality")], results64)
+             if g.set_id < n3]
+    require(docs[0]["cards"] == docs[1]["cards"] == want3,
+            f"16e gloo: the two ranks' pool != the single-process pool: "
+            f"{docs[0]['cards']} / {docs[1]['cards']} / {want3}")
+    require(all(d["staged_bytes"] > 0 for d in docs),
+            f"16e gloo: nothing staged through host memory: {docs}")
+    log(f"  16e [{card}]: two gloo ranks on cuda:0 (pod_mesh "
+        f"{docs[0]['mesh']}, each holding its own row shard) ran 16c's Q64 "
+        f"pool over tenants 0-{n3 - 1} bit-equal to the single-process "
+        f"pool; staged through pinned host memory "
+        f"{[d['staged_bytes'] for d in docs]} bytes in "
+        f"{[d['exchanges'] for d in docs]} exchanges; dispatch "
+        f"{[d['ms'] for d in docs]} ms; both ranks up and done in "
+        f"{time.perf_counter() - t1:.1f} s")
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        dead = s_.getsockname()[1]
+    t1 = time.perf_counter()
+    try:
+        multihost.initialize(f"127.0.0.1:{dead}", num_processes=2,
+                             process_id=1, backend="gloo", timeout=3)
+        raised = None
+    except errors.CoordinatorTimeout as exc:
+        raised = exc
+    waited = time.perf_counter() - t1
+    require(raised is not None and f"127.0.0.1:{dead}" in str(raised)
+            and waited < 10, f"16e: unreachable coordinator {raised!r} "
+            f"after {waited:.1f} s")
+    log(f"    16e: an unreachable coordinator raised CoordinatorTimeout "
+        f"after {waited:.2f} s of its 3 s budget: {str(raised)[:120]}")
+
+    # ----------------------------------------------------------------- 16d
+    pod = podmesh.PodMesh.simulate(2, devices=["cuda:0"] * 8)
+    t_bytes = podmesh.tenant_bytes_of(sets15)
+    big = int(np.argmax(t_bytes))
+    hot = int(np.argmin(t_bytes))
+    qps = [100.0 if s == hot else 1.0 for s in range(n_t)]
+    plan = podmesh.place(sets15, pod, budget_per_host=2 * t_bytes[big] - 2,
+                         qps=qps, replicate_max_bytes=1 << 40)
+    counts = plan.regime_counts()
+    require(set(counts) == {"sharded", "replicated", "local"},
+            f"16d: regimes {counts}; want all three")
+    log(f"  16d: place over {n_t} tenants ({min(t_bytes)}-{max(t_bytes)} "
+        f"bytes) on a simulated 2-host pod of cuda:0 x8, budget "
+        f"{2 * t_bytes[big] - 2} a host: {counts}; bytes a host "
+        f"{list(plan.bytes_per_host)}")
+    columns = [{"v": ds_.columns["v"]} for ds_ in sets15]
+
+    def oracle(sid, q):
+        srcs, cols = tenants15[sid], columns[sid]
+        if isinstance(q, BatchQuery):
+            w = host_query(q, srcs)
+            return w.cardinality, None, w
+        if expr.is_agg(q.expr):
+            return expr.evaluate_host_agg(q.expr, srcs, cols)
+        w = expr.evaluate_host(q.expr, srcs, cols)
+        return w.cardinality, None, w
+
+    def exact(t) -> bool:
+        card_, value, bm = oracle(t.pod_sid, t.query)
+        return ((t.result.cardinality, t.result.value) == (card_, value)
+                and (t.query.form != "bitmap" or t.result.bitmap == bm))
+
+    fd = PodFrontDoor(sets15, pod=pod, plan=plan,
+                      policy=ServingPolicy(pool_target=64))
+    events = replay.generate(replay.ReplayProfile(
+        **knobs15, delta_share=0.0))[:256]
+
+    def replay_pod():
+        t0_ = faults.clock()
+        out, rejected = [], 0
+        for i, ev in enumerate(events):
+            sched = t0_ + ev[1] * 16
+            now = faults.clock()
+            if sched > now:
+                faults.advance_clock(sched - now)
+            if i == len(events) // 2:
+                fd.fail_host(1)
+            try:
+                out.append(fd.submit(ev[2], arrival=sched))
+            except AdmissionRejected:
+                rejected += 1
+            fd.pump()
+        fd.drain()
+        return out, rejected
+
+    tickets, rejected = smoke.main_path("16d pod replay, first 256 at 1/16",
+                                        replay_pod)
+    done = [t for t in tickets if t.status == "done"]
+    untyped = [t for t in tickets if t.status != "done"
+               and not isinstance(t.error, errors.RoaringRuntimeError)
+               and type(t.error).__name__ not in ("RequestShed",
+                                                  "AdmissionRejected")]
+    bad = [t for t in done if not exact(t)]
+    require(not bad and not untyped and done,
+            f"16d: {len(bad)} served tickets != the host oracle, "
+            f"{len(untyped)} untyped")
+    st = fd.stats
+    require(st["host_drops"] == 1
+            and st["reroutes"] + st["single_demotions"] > 0,
+            f"16d: host loss not taken: {st}")
+    hosts_ = {}
+    for t in done:
+        hosts_[str(t.pod_host)] = hosts_.get(str(t.pod_host), 0) + 1
+    log(f"  16d [{card}]: {len(done)} served (each equal to the host "
+        f"oracle), {sum(t.status == 'shed' for t in tickets)} shed, "
+        f"{rejected} rejected of {len(events)}; served by {hosts_}; "
+        f"fail_host(1) at request {len(events) // 2}: {st}, reroutes by "
+        f"kind {by_label('rb_pod_reroutes_total', 'to')}; launches "
+        f"{ {k: v for k, v in smoke.last.items() if v} }")
+    fd.pod.mark_up(1)
+    local = [s for s in range(n_t) if plan.regime(s) == "local"]
+    sid = local[0]
+    src = fd.owner_host(sid)
+    dst = 1 - src
+
+    def ask(q=BatchQuery("or", (0, 1, 2))):
+        from roaringbitmap_tpu_torch.serving import ServingRequest
+
+        t = fd.submit(ServingRequest(sid, q, tenant="mig"))
+        fd.drain()
+        require(t.status == "done", f"16d migration ask: {t.status}")
+        return t.result.cardinality
+
+    before = ask()
+    key0 = int(tenants15[sid][0].keys[0]) << 16
+    added = [int(v) for v in np.setdiff1d(
+        np.arange(key0, key0 + 4096, dtype=np.uint32),
+        tenants15[sid][0].to_array())[:2]]
+
+    def during(fd_):
+        fd_.apply_delta(sid, adds={0: added})
+        require(ask() == before + 2, "16d: dual-write window lost a delta")
+
+    rep = smoke.main_path("16d migrate_tenant", lambda: migrate_tenant(
+        fd, sid, dst, during=during))
+    require(fd.owner_host(sid) == dst and ask() == before + 2
+            and rep["catch_up_records"] >= 1,
+            f"16d migration: {rep}")
+    j = smoke.main_path("16d host_join", lambda: host_join(
+        fd, devices=["cuda:0"] * 4))
+    require(ask() == before + 2, "16d: host_join changed the bits")
+    lv = smoke.main_path("16d host_leave", lambda: host_leave(
+        fd, j["host"]))
+    require(ask() == before + 2, "16d: host_leave changed the bits")
+    log(f"    16d: tenant {sid} migrated {src} -> {dst} with a delta in "
+        f"flight ({rep['bytes']} bytes, {rep['catch_up_records']} catch-up "
+        f"records, blip {rep['blip_ms']} ms), bits kept; host_join added "
+        f"host {j['host']} (plan changed {j['changed']}, moved "
+        f"{j['moved']}), host_leave drained it (moved {lv['moved']})")
+    # over the wire: a bootstrap --frontdoor 2 child on the card
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "roaringbitmap_tpu_torch.wire.bootstrap",
+         "--device", "cuda", "--frontdoor", "2", "--seed", str(seed)],
+        cwd=here, env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        text=True)
+    try:
+        info = json.loads(proc.stdout.readline())
+        cl = WireClient((info["host"], info["port"]), timeout=300)
+        wsid = local[-1]
+        wrep = smoke.main_path("16d migrate_tenant_wire", lambda: (
+            wmig.migrate_tenant_wire(fd, wsid, cl, tenant="16d")))
+        cl.close()
+        require(wrep["source_crcs"] == wmig.source_crcs(fd._sets[wsid]),
+                "16d wire: CRCs differ")
+        proc.stdin.close()
+        require(proc.wait(timeout=60) == 0, "16d wire child: exit != 0")
+        require(info["device"].startswith("cuda"),
+                f"16d wire child on {info['device']}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    log(f"    16d wire: a bootstrap --frontdoor 2 --device cuda child "
+        f"received tenant {wsid} ({wrep['bytes']} bytes) and committed it "
+        f"with its {len(wrep['source_crcs'])} source CRCs equal")
+    del fd
+    torch.cuda.empty_cache()
+
+
+def gloo_child(rank: int, store: str, seed: int, per: int) -> int:
+    """One of phase 16e's two gloo ranks on the card: phase 2's first
+    3 x ``per`` bitmaps (the same seed) as tenants 0-2 of ``per``, a
+    pod-spanning sharded engine over both ranks (each holds its own row
+    shard), 16c's Q64 pool on those tenants; prints ``GLOO16 <json>``."""
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet
+    from roaringbitmap_tpu_torch.parallel import (BatchGroup,
+                                                  MultiSetBatchEngine,
+                                                  ShardedBatchEngine,
+                                                  multihost, podmesh)
+    from roaringbitmap_tpu_torch.parallel.multiset import random_multiset_pool
+    from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
+
+    multihost.initialize("file://" + store, num_processes=2,
+                         process_id=rank, backend="gloo", timeout=300)
+    bms = synthetic_bitmaps(3 * per, seed=seed, universe=1 << 24,
+                            density=0.0025)
+    sets = [DeviceBitmapSet(bms[t * per:(t + 1) * per], layout="dense")
+            for t in range(3)]
+    pool = [g for g in random_multiset_pool([per] * 16, 64, seed=0xACE,
+                                            max_operands=8)
+            if g.set_id < 3]
+    pod = podmesh.PodMesh.detect(devices=["cuda:0"])
+    mesh = pod.pod_mesh()
+    eng = ShardedBatchEngine(sets, mesh=mesh, placement="sharded",
+                             result_cache=None)
+    got = eng.execute(pool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = eng.execute(pool)
+    ms_ = (time.perf_counter() - t0) * 1e3
+    ref = MultiSetBatchEngine(sets, result_cache=None).execute(pool)
+    require(all(same_results(a, b) for a, b in zip(got, ref)),
+            f"gloo rank {rank}: sharded != single-process pooled")
+    torch.distributed.barrier()
+    print("GLOO16 " + json.dumps({
+        "rank": rank, "cards": [[r.cardinality for r in rows]
+                                for rows in got],
+        "staged_bytes": mesh.comm.staged_bytes,
+        "exchanges": mesh.comm.exchanges, "ms": round(ms_, 3),
+        "mesh": list(mesh.devices.shape)}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
 
 
 def host_delta(hosts, adds, removes) -> list:
@@ -2859,6 +3557,11 @@ def main() -> int:
     ap.add_argument("--bitmaps", type=int, default=4096,
                     help="bitmaps of the dense set (phase 2); the counts set "
                          "(phase 3) holds twice as many")
+    ap.add_argument("--gloo-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gloo-per", type=int, default=256,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2866,6 +3569,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.gloo_rank is not None:
+        # one of phase 16e's two gloo ranks (the script starts them itself)
+        return gloo_child(args.gloo_rank, args.gloo_store, args.seed,
+                          args.gloo_per)
 
     from roaringbitmap_tpu_torch import (DeviceBitmap, DeviceBitmapSet,
                                          DevicePairSet, RoaringBitmap,
@@ -3515,6 +4222,7 @@ def main() -> int:
         _, p_ms = device_ms(fn)
         log(f"    {name}: total == {reps} x {single} mod 2^32; "
             f"{p_ms / reps:.3f} ms per iteration")
+    bsi9 = (hbsi, dbsi, ts.host, drb)     # phase 16b shards them
     del dbsi, drb, hbsi
     phase_time("phase 9", t_phase)
 
@@ -3798,9 +4506,19 @@ def main() -> int:
     log("phase 15: observability (spans, cost and memory events, SLO, "
         "flight, statusz)")
     t_phase = time.perf_counter()
-    fractions15 = phase15(smoke, args.seed, state14, ds, sds, epool, bms)
-    del state14
+    fractions15, sets15 = phase15(smoke, args.seed, state14, ds, sds, epool,
+                                  bms)
     phase_time("phase 15", t_phase)
+
+    # ------------------------------------------------------------ phase 16
+    log("phase 16: mesh and pod (sharded wide ops and value columns, the "
+        "sharded engine, the pod front door, migration, process groups)")
+    t_phase = time.perf_counter()
+    phase16(smoke, args.seed, shapes, adhoc, abms, lift, bsi9, sbms, price,
+            sets15, state14[0], state14[1])
+    del state14, sets15, bsi9
+    torch.cuda.empty_cache()
+    phase_time("phase 16", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "
@@ -3814,9 +4532,10 @@ def main() -> int:
         return int((ends - starts).sum()) * per_row
 
     def record(kernel, run, plain, bytes_moved, ops, shape_note, emit=True,
-               steps=None):
+               steps=None, name=None, launches=None):
         """Hold ``run`` bit-equal to ``plain``, time them, and add the
-        kernel's row to the kernels line."""
+        kernel's row to the kernels line (``name`` / ``launches`` for a
+        variant's row: B1 at a narrow width, B5 in combine mode)."""
         got, want = run(), plain()
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
@@ -3826,17 +4545,18 @@ def main() -> int:
         t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        bound_share.setdefault(kernel.name, bound / ms)
+        bound_share.setdefault(name or kernel.name, bound / ms)
         per_step = f", {ms * 1e3 / steps:.4f} us a step" if steps else ""
-        log(f"  {kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
+        log(f"  {name or kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bytes_moved} bytes), {bound / ms:.1%} of bound{per_step}")
         if emit:
             rows_out.append({
-                "name": kernel.name, "route": "cuda",
+                "name": name or kernel.name, "route": "cuda",
                 "source": f"roaringbitmap_tpu_torch/ops/csrc/{kernel.source}",
                 "replaces": kernel.replaces,
-                "launches": smoke.launches[kernel.name],
+                "launches": (smoke.launches[kernel.name] if launches is None
+                             else launches),
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3851,6 +4571,22 @@ def main() -> int:
            lambda: kernels.segmented_reduce("or", w1, s1, k1),
            lambda: kernels.segmented_reduce_plain("or", w1, s1, k1),
            b1, pk.m * 2048, f"rows {pk.words.shape[0]}, K {k1}")
+    # B1 at the row widths a "lanes" axis hands each shard (16a)
+    for width in (1024, 512, 256):
+        wn, sn, kn, shape = shapes.pop(f"segmented_reduce_w{width}")
+        wn, sn = as_i32(wn, "cuda"), as_i32(sn, "cuda")
+        bn = (wn.shape[0] * width * 4 + sn.numel() * 4
+              + kn * (width * 4 + 4))
+        record(kernels.B1,
+               lambda wn=wn, sn=sn, kn=kn:
+               kernels.segmented_reduce("or", wn, sn, kn),
+               lambda wn=wn, sn=sn, kn=kn:
+               kernels.segmented_reduce_plain("or", wn, sn, kn),
+               bn, wn.shape[0] * width,
+               f"width {width} words: {wn.shape[0]} rows, K {kn} (a shard "
+               f"of 16a's {shape} mesh over its dense pack)",
+               name=f"segmented_reduce@{width}",
+               launches=smoke.variants.get((kernels.B1.name, width), 0))
     # B2: blocked reduce at the dense set's shape
     w2, blk2, k2, block2 = shapes["segmented_reduce_blocked"]
     st2, en2 = kernels.segment_ranges(blk2, k2, scale=block2)
@@ -3908,6 +4644,15 @@ def main() -> int:
            megakernel.stream_bytes(mega5), mega5.n_steps * WORDS32,
            f"7b plan, {mega5.n_steps} steps, {mega5.n_slots} slots",
            steps=mega5.n_steps)
+    megac, *banksc = shapes.pop("megakernel_combine")
+    record(kernels.B5, lambda: megakernel.raw_call(megac, *banksc),
+           lambda: megakernel.raw_call_plain(megac, *banksc),
+           megakernel.stream_bytes(megac), megac.n_steps * WORDS32,
+           f"16c combine-mode plan, {megac.n_steps} steps, "
+           f"{megac.n_slots} slots, bank 0 {banksc[0].shape[0]} head rows, "
+           f"{megac.leaf_rows} leaf rows", steps=megac.n_steps,
+           name="megakernel@combine",
+           launches=smoke.variants.get((kernels.B5.name, "combine"), 0))
     mega9, words9 = shapes.pop("megakernel_value")
     arrs9 = mega9.device_arrays(words9.device)
     banks9 = (words9, arrs9["extra"], arrs9["cols"])
@@ -3935,6 +4680,10 @@ def main() -> int:
 
     for name, c in smoke.launches.items():
         require(c > 0, f"kernel {name} was never launched on the main path")
+    for key in ((kernels.B1.name, 1024), (kernels.B1.name, 512),
+                (kernels.B1.name, 256), (kernels.B5.name, "combine")):
+        require(smoke.variants.get(key, 0) > 0,
+                f"kernel variant {key} was never launched on the main path")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows_out}))
     print(card_line)

@@ -409,6 +409,129 @@ def predict_delta_patch_bytes(p_rows: int) -> dict:
             "peak_bytes": 4 * b}
 
 
+def predict_sharded_dispatch_bytes(bucket_sigs: list, pool_rows: int,
+                                   mesh_devices: int,
+                                   mesh_rows: int | None = None,
+                                   engine: str = "mesh") -> dict:
+    """Transient device bytes of ONE mesh-sharded pooled launch
+    (``parallel.sharded_engine``), per shard and mesh-total: the quantity
+    the sharded proactive split compares with the per-device budget.  The
+    arithmetic is the JAX package's, term for term, so the two packages
+    split a pool the same number of times at one budget:
+
+    - the gathered operand block and its doubling scratch (one extra block,
+      the JAX engines' ping-pong copy) shard over ALL ``mesh_devices``;
+    - the per-key head accumulator (``q * (k_pad + 1)`` rows a bucket, plus
+      the andnot head gather) and the outputs are replicated per device;
+    - the placed pool is resident, not transient: ``resident_per_shard_bytes``
+      reports one row-shard's share (over ``mesh_rows``) for context.
+
+    ``peak_bytes`` is the mesh total (sharded parts + D x replicated parts);
+    ``per_shard_bytes`` one device's peak, the budget-relevant figure."""
+    d = max(1, int(mesh_devices))
+    rows_d = max(1, int(mesh_rows if mesh_rows is not None
+                        else mesh_devices))
+    gather = scratch = heads = outputs = 0
+    for op, q, r_pad, k_pad, _n_steps, needs_words in bucket_sigs:
+        if engine == "megakernel":
+            outputs += q * k_pad * MEGA_CARD_ROW_BYTES
+            if needs_words:
+                outputs += q * k_pad * ROW_BYTES
+            continue
+        block = q * r_pad * ROW_BYTES
+        gather += block
+        if engine != "pallas":
+            scratch += block
+        heads += q * (k_pad + 1) * ROW_BYTES
+        if op == "andnot":
+            heads += q * k_pad * ROW_BYTES
+        outputs += q * k_pad * 4
+        if needs_words:
+            outputs += q * k_pad * ROW_BYTES
+    sharded = gather + scratch
+    replicated = heads + outputs
+    per_shard = -(-sharded // d) + replicated
+    return {
+        "gather_bytes": gather, "scratch_bytes": scratch,
+        "heads_bytes": heads, "output_bytes": outputs,
+        "resident_per_shard_bytes": dense_rows_bytes(
+            -(-int(pool_rows) // rows_d)),
+        "per_shard_bytes": int(per_shard),
+        "peak_bytes": int(sharded + d * replicated),
+    }
+
+
+def plan_pod_placement(tenant_bytes, n_hosts: int,
+                       budget_per_host: int | None = None,
+                       qps=None, replicate_max_bytes: int = 64 << 20,
+                       hot_share_x: float = 2.0) -> dict:
+    """Pure tenant -> host placement math of the pod data plane
+    (``parallel.podmesh``), the JAX package's decision for decision, so
+    every host (of either package) computes the same plan:
+
+    1. **sharded**: ``bytes > capacity_threshold``, half the per-host budget
+       when one resolves, else ``replicate_max_bytes``;
+    2. **replicated-N**: rate share >= ``hot_share_x`` x the uniform share
+       and small enough to copy; N = clamp(ceil(share * n_hosts) + 1, 2,
+       n_hosts) full copies;
+    3. **local**: greedy least-loaded byte balancing (descending size, ties
+       to the lowest host id).
+
+    Returns ``{"regimes", "hosts", "bytes_per_host", "over_budget",
+    "capacity_threshold"}``; one host degenerates to ``local``."""
+    t_bytes = [int(b) for b in tenant_bytes]
+    n_hosts = max(1, int(n_hosts))
+    s = len(t_bytes)
+    cap = (int(budget_per_host) // 2 if budget_per_host
+           else int(replicate_max_bytes))
+    shares = None
+    if qps is not None and s:
+        q = [max(0.0, float(x)) for x in qps]
+        total = sum(q)
+        if total > 0:
+            shares = [x / total for x in q]
+    regimes = ["local"] * s
+    hosts: list = [()] * s
+    loads = [0] * n_hosts
+    if n_hosts > 1:
+        for sid in range(s):
+            if t_bytes[sid] > cap:
+                regimes[sid] = "sharded"
+            elif (shares is not None
+                  and shares[sid] >= hot_share_x / s
+                  and t_bytes[sid] <= replicate_max_bytes):
+                ceil_share = int(shares[sid] * n_hosts)
+                if shares[sid] * n_hosts > ceil_share:
+                    ceil_share += 1
+                n = min(n_hosts, max(2, ceil_share + 1))
+                regimes[sid] = f"replicated-{n}"
+    for sid in range(s):
+        if regimes[sid] == "sharded":
+            hosts[sid] = tuple(range(n_hosts))
+            share = t_bytes[sid] // n_hosts
+            loads = [b + share for b in loads]
+
+    def assign(sid, n_copies):
+        order = sorted(range(n_hosts), key=lambda h: (loads[h], h))
+        picked = tuple(sorted(order[:n_copies]))
+        for h in picked:
+            loads[h] += t_bytes[sid]
+        hosts[sid] = picked
+
+    by_size = sorted(range(s), key=lambda i: (-t_bytes[i], i))
+    for sid in by_size:
+        if regimes[sid].startswith("replicated"):
+            assign(sid, int(regimes[sid].split("-")[1]))
+    for sid in by_size:
+        if regimes[sid] == "local":
+            assign(sid, 1)
+    over = bool(budget_per_host
+                and any(b > int(budget_per_host) for b in loads))
+    return {"regimes": regimes, "hosts": [list(h) for h in hosts],
+            "bytes_per_host": loads, "over_budget": over,
+            "capacity_threshold": cap}
+
+
 def expr_node_report(sig) -> list:
     """Per-DAG-node EXPLAIN rows for one compiled section signature:
     ``{kind, op, keys, est_bytes, est_word_ops}`` per step, the counts of

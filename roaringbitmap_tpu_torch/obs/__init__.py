@@ -62,6 +62,16 @@ def snapshot() -> dict:
     doc["trace"] = {"enabled": trace.enabled(), "path": trace.path()}
     doc["hbm"] = memory.LEDGER.snapshot()
     doc["cost"] = cost.TRACKER.snapshot()
+    # the multihost bootstrap's state (coordinator, process id, the
+    # pre-flight probe's latency), only when that module is loaded:
+    # snapshot() does not pull the parallel package in for obs-only users
+    import sys
+
+    mh = sys.modules.get("roaringbitmap_tpu_torch.parallel.multihost")
+    if mh is not None:
+        info = mh.snapshot()
+        if info:
+            doc["multihost"] = info
     return doc
 
 

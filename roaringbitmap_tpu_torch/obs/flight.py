@@ -16,15 +16,16 @@ What feeds the ring:
   compact summary (name, ids, duration, error tags).  The disabled-span
   fast path allocates nothing and is untouched.
 - **Typed errors and state transitions** — ``record(kind, **fields)``
-  calls at the seams that matter: guard fatal/demote rungs, serving
-  pool failures, maintenance job failures, overload-ladder moves.  These are plain dict appends under a lock: always-on cheap.
+  calls at the seams that matter: guard fatal/demote rungs, pod host
+  loss, serving pool failures, maintenance job failures, overload-ladder
+  moves.  These are plain dict appends under a lock: always-on cheap.
 - **Metric deltas** — each dump carries ``metrics_delta``, the registry
   movement since the previous dump (or process start), via
   ``obs.metrics.snapshot_delta`` — the "what was trending" context.
 
 Triggers (wired by the owning subsystems): SLO miss (serving loop),
-crash faults (mutation durability), overload-ladder escalation (serving
-loop).  ``trigger(reason, **ctx)``
+``HostLost`` (the pod front door's ``host_lost``), crash faults
+(mutation durability), overload-ladder escalation (serving loop).  ``trigger(reason, **ctx)``
 debounces per reason (``ROARING_TPU_FLIGHT_DEBOUNCE_S``, first firing
 always dumps) and writes the artifact with the same atomic-write
 discipline as ``mutation.durability`` snapshots: temp file, flush+fsync,

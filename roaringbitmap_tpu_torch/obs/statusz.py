@@ -26,9 +26,11 @@ Document shapes (``"kind": "rb_statusz"``, validated by
   labels)), so a stale copy can lag but never regress the view, and
   re-merging an already-merged doc is idempotent.
 
-``statusz()`` (re-exported as ``obs.statusz``) is the entry point: the
-local doc, merged.  (The JAX package's providers, through which its pod
-front door adds the other hosts' docs, wait for the port's pod slice.)
+``statusz()`` (re-exported as ``obs.statusz``) is the entry point: it
+builds the local doc, asks every registered provider (the pod front door
+registers one per instance, weakly: ``register_provider``) for more
+per-host docs, and merges.  On a 2-host simulated pod that yields both
+hosts' journal, lattice, ring and degrade state in one report.
 
 ``render_markdown(doc)`` turns either doc shape into the human page.
 """
@@ -39,11 +41,27 @@ import os
 import sys
 import time
 import types
+import weakref
 
 from . import flight as _flight
 
 SCHEMA_KIND = "rb_statusz"
 SCHEMA_VERSION = 1
+
+#: name -> weak callable returning a list of extra statusz docs
+_PROVIDERS: dict = {}
+
+
+def register_provider(name: str, method) -> None:
+    """Register a bound method returning ``list[dict]`` of statusz docs to
+    fold into ``statusz()``.  Held weakly: when its owner dies the provider
+    drops out, with no unregister needed."""
+    _PROVIDERS[name] = weakref.WeakMethod(method)
+
+
+def unregister_provider(name: str) -> None:
+    _PROVIDERS.pop(name, None)
+
 
 def local_doc(host: str | None = None, sections: dict | None = None) -> dict:
     """This process's (or one simulated host's) statusz document."""
@@ -106,7 +124,8 @@ def merge_counters(counter_sections) -> dict:
 def merge(docs, **pod_sections) -> dict:
     """Fold statusz docs (local or already-merged) into one doc.
     Idempotent: merging a merged doc with its own inputs changes
-    nothing.  ``pod_sections`` land at the top level."""
+    nothing.  ``pod_sections`` land at the top level (the pod front
+    door's placement map and stats)."""
     hosts: dict = {}
     counter_secs = []
     t = 0.0
@@ -142,8 +161,18 @@ def merge(docs, **pod_sections) -> dict:
 
 
 def statusz() -> dict:
-    """The report: this process's local doc, merged."""
-    return merge([local_doc()])
+    """The report: the local doc and every provider's docs, merged."""
+    docs = [local_doc()]
+    for name in list(_PROVIDERS):
+        fn = _PROVIDERS[name]()
+        if fn is None:
+            _PROVIDERS.pop(name, None)
+            continue
+        try:
+            docs.extend(fn() or [])
+        except Exception:  # health must not raise out of a dying subsystem
+            continue
+    return merge(docs)
 
 
 # ------------------------------------------------------------- rendering

@@ -13,6 +13,11 @@
 // B2 is the same kernel over block-padded ranges: its padding rows are zero,
 // the identity of or/xor.
 //
+// B1 also takes a row width (2048, 1024, 512 or 256 words): a mesh's
+// "lanes" axis hands each shard a slice of every row, and the kernel walks
+// rows of that width.  Block (k, s) then owns word slice s of the narrower
+// row; a 256-word row is one slice of 64 threads.  B2 keeps 2048 words.
+//
 // Bound on the H100: device-memory bytes.  Each input row is read once
 // (8 KiB) and each output row written once, with one bitwise op per word.
 // Every thread issues 16-byte loads, neighbouring threads on neighbouring
@@ -26,9 +31,7 @@
 
 namespace {
 
-constexpr int kVecPerRow = 2048 / 4;                 // uint4 per row
 constexpr int kThreads = 128;                        // one uint4 per thread
-constexpr int kSlices = kVecPerRow / kThreads;       // blockIdx.y range
 
 enum Op { kOr = 0, kAnd = 1, kXor = 2, kAndNot = 3 };
 
@@ -51,28 +54,29 @@ __global__ void __launch_bounds__(kThreads)
 seg_reduce_kernel(const uint4* __restrict__ rows,
                   const int32_t* __restrict__ starts,
                   const int32_t* __restrict__ ends,
-                  uint4* __restrict__ out, int32_t* __restrict__ cards) {
+                  uint4* __restrict__ out, int32_t* __restrict__ cards,
+                  int vec_per_row) {
   const int seg = blockIdx.x;
-  const int col = blockIdx.y * kThreads + threadIdx.x;
+  const int col = blockIdx.y * blockDim.x + threadIdx.x;
   const int64_t start = starts[seg];
   const int64_t end = ends[seg];
   uint4 acc = make_uint4(0u, 0u, 0u, 0u);
   if (start < end) {
-    acc = __ldg(rows + start * kVecPerRow + col);
+    acc = __ldg(rows + start * vec_per_row + col);
     int64_t r = start + 1;
     for (; r + 4 <= end; r += 4) {
-      const uint4 a = __ldg(rows + (r + 0) * kVecPerRow + col);
-      const uint4 b = __ldg(rows + (r + 1) * kVecPerRow + col);
-      const uint4 c = __ldg(rows + (r + 2) * kVecPerRow + col);
-      const uint4 d = __ldg(rows + (r + 3) * kVecPerRow + col);
+      const uint4 a = __ldg(rows + (r + 0) * vec_per_row + col);
+      const uint4 b = __ldg(rows + (r + 1) * vec_per_row + col);
+      const uint4 c = __ldg(rows + (r + 2) * vec_per_row + col);
+      const uint4 d = __ldg(rows + (r + 3) * vec_per_row + col);
       acc = apply4<OP>(acc, a);
       acc = apply4<OP>(acc, b);
       acc = apply4<OP>(acc, c);
       acc = apply4<OP>(acc, d);
     }
-    for (; r < end; ++r) acc = apply4<OP>(acc, __ldg(rows + r * kVecPerRow + col));
+    for (; r < end; ++r) acc = apply4<OP>(acc, __ldg(rows + r * vec_per_row + col));
   }
-  out[static_cast<int64_t>(seg) * kVecPerRow + col] = acc;
+  out[static_cast<int64_t>(seg) * vec_per_row + col] = acc;
   int n = __popc(acc.x) + __popc(acc.y) + __popc(acc.z) + __popc(acc.w);
   for (int off = 16; off > 0; off >>= 1) n += __shfl_down_sync(0xffffffffu, n, off);
   if ((threadIdx.x & 31) == 0 && n) atomicAdd(cards + seg, n);
@@ -80,12 +84,18 @@ seg_reduce_kernel(const uint4* __restrict__ rows,
 
 }  // namespace
 
-// rows u32[M, 2048], starts/ends i32[K], out u32[K, 2048], cards i32[K]
-// (zeroed by the caller).  Returns cudaGetLastError() after the launch.
+// rows u32[M, width], starts/ends i32[K], out u32[K, width], cards i32[K]
+// (zeroed by the caller); width is 2048, 1024, 512 or 256 words (B2 always
+// passes 2048).  Returns cudaGetLastError() after the launch.
 extern "C" int rb_segmented_reduce(const void* rows, const void* starts,
                                    const void* ends, void* out, void* cards,
-                                   int num_segments, int op, void* stream) {
-  const dim3 grid(num_segments, kSlices);
+                                   int num_segments, int op, int width,
+                                   void* stream) {
+  if (width != 2048 && width != 1024 && width != 512 && width != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = width / 4;
+  const int threads = vec < kThreads ? vec : kThreads;
+  const dim3 grid(num_segments, vec / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint4* r = static_cast<const uint4*>(rows);
   const int32_t* st = static_cast<const int32_t*>(starts);
@@ -93,10 +103,10 @@ extern "C" int rb_segmented_reduce(const void* rows, const void* starts,
   uint4* o = static_cast<uint4*>(out);
   int32_t* c = static_cast<int32_t*>(cards);
   switch (op) {
-    case kOr: seg_reduce_kernel<kOr><<<grid, kThreads, 0, s>>>(r, st, en, o, c); break;
-    case kAnd: seg_reduce_kernel<kAnd><<<grid, kThreads, 0, s>>>(r, st, en, o, c); break;
-    case kXor: seg_reduce_kernel<kXor><<<grid, kThreads, 0, s>>>(r, st, en, o, c); break;
-    case kAndNot: seg_reduce_kernel<kAndNot><<<grid, kThreads, 0, s>>>(r, st, en, o, c); break;
+    case kOr: seg_reduce_kernel<kOr><<<grid, threads, 0, s>>>(r, st, en, o, c, vec); break;
+    case kAnd: seg_reduce_kernel<kAnd><<<grid, threads, 0, s>>>(r, st, en, o, c, vec); break;
+    case kXor: seg_reduce_kernel<kXor><<<grid, threads, 0, s>>>(r, st, en, o, c, vec); break;
+    case kAndNot: seg_reduce_kernel<kAndNot><<<grid, threads, 0, s>>>(r, st, en, o, c, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -10,7 +10,7 @@ Each wrapper checks its tensors, then
 
 | kernel | wrapper                    | TPU kernel replaced (roaringbitmap_tpu/ops/kernels.py) |
 |--------|----------------------------|---------------------------------------------------------|
-| B1     | ``segmented_reduce``        | ``segmented_reduce_pallas``                            |
+| B1     | ``segmented_reduce``        | ``segmented_reduce_pallas`` (any of ``ROW_WIDTHS``)    |
 | B2     | ``segmented_reduce_blocked``| ``segmented_reduce_pallas_blocked``                    |
 | B3     | ``densify_chunks``          | ``densify_chunks_impl`` / ``densify_chunks_pallas``    |
 | B4     | ``counts_segmented_reduce`` | ``counts_segmented_reduce``                            |
@@ -53,7 +53,13 @@ class CudaKernel:
         self.replaces = replaces
         #: launches since the last reset, counted where the kernel launches
         self.launches = 0
+        #: the same launches by variant (the row width of B1 and B2, B5's
+        #: stream mode), counted by the wrapper right after its launch
+        self.variants: dict = {}
         self._fn = None
+
+    def count_variant(self, key) -> None:
+        self.variants[key] = self.variants.get(key, 0) + 1
 
     def launch(self, *args) -> None:
         if self._fn is None:
@@ -71,7 +77,7 @@ class CudaKernel:
         self.launches += 1
 
 
-_ROW_ARGS = [_P, _P, _P, _P, _P, _I, _I, _P]
+_ROW_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
 B1 = CudaKernel("segmented_reduce", "segmented_reduce.cu",
                 "rb_segmented_reduce", _ROW_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:61")
@@ -82,7 +88,7 @@ B3 = CudaKernel("densify_chunks", "densify_chunks.cu", "rb_densify_chunks",
                 [_P, _P, _P, _I, _I, _P],
                 "roaringbitmap_tpu/ops/kernels.py:286")
 B4 = CudaKernel("counts_segmented_reduce", "counts_reduce.cu",
-                "rb_counts_reduce", _ROW_ARGS,
+                "rb_counts_reduce", [_P, _P, _P, _P, _P, _I, _I, _P],
                 "roaringbitmap_tpu/ops/kernels.py:334")
 B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
                 [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -92,10 +98,15 @@ B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
                 "roaringbitmap_tpu/ops/kernels.py:170")
 KERNELS = (B1, B2, B3, B4, B5, B6)
 
+#: the row widths B1 takes, in words: the full row, and the slices a mesh's
+#: "lanes" axis of 2, 4 or 8 devices hands each shard
+ROW_WIDTHS = (2048, 1024, 512, 256)
+
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+        k.variants = {}
 
 
 # ------------------------------------------------------------------ checks
@@ -142,13 +153,17 @@ def segment_ranges(seg_ids: torch.Tensor, num_segments: int, scale: int = 1):
 
 def _launch_rows(kernel: CudaKernel, op: str, rows: torch.Tensor,
                  starts: torch.Tensor, ends: torch.Tensor, num_segments: int):
-    heads = torch.empty((num_segments, WORDS32), dtype=torch.int32,
+    """One launch of B1 or B2 over rows int32[M, W] into int32[K, W] heads,
+    the width W passed to the kernel and counted as the launch's variant."""
+    width = int(rows.shape[1])
+    heads = torch.empty((num_segments, width), dtype=torch.int32,
                         device=rows.device)
     cards = torch.zeros(num_segments, dtype=torch.int32, device=rows.device)
     if num_segments:
         kernel.launch(rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
                       heads.data_ptr(), cards.data_ptr(), num_segments,
-                      _OPCODE[op], _stream())
+                      _OPCODE[op], width, _stream())
+        kernel.count_variant(width)
     return heads, cards
 
 
@@ -161,7 +176,7 @@ def segmented_reduce_plain(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
     is what the kernel computes (the doubling pass alone would nest it).
     A segment with no rows reduces to zero, as in the kernel."""
     if num_segments == 0 or words.shape[0] == 0:
-        return (words.new_zeros((num_segments, WORDS32)),
+        return (words.new_zeros((num_segments, words.shape[1])),
                 torch.zeros(num_segments, dtype=torch.int32,
                             device=words.device))
     starts, ends = segment_ranges(seg_ids, num_segments)
@@ -183,12 +198,17 @@ def segmented_reduce_plain(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
 
 def segmented_reduce(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
                      num_segments: int):
-    """B1, ragged per-key reduce: (int32[M, 2048], sorted int32[M]) ->
-    (int32[K, 2048] per-key words, int32[K] cardinalities); op is one of
-    or/and/xor/andnot, applied in row order."""
+    """B1, ragged per-key reduce: (int32[M, W], sorted int32[M]) ->
+    (int32[K, W] per-key words, int32[K] cardinalities); op is one of
+    or/and/xor/andnot, applied in row order.  The row width W is one of
+    ``ROW_WIDTHS``: the full 2048-word row, or the slice of it a shard of a
+    mesh's "lanes" axis holds.  A segment with no rows reduces to zero."""
     if op not in _OPCODE:
         raise ValueError(f"unsupported op {op!r}")
-    _check("words", words, 2, WORDS32)
+    _check("words", words, 2)
+    if words.shape[1] not in ROW_WIDTHS:
+        raise ValueError(f"words: row width {words.shape[1]} is not one of "
+                         f"{ROW_WIDTHS}")
     _check("seg_ids", seg_ids, 1)
     if seg_ids.shape[0] != words.shape[0]:
         raise ValueError("seg_ids must hold one id per row")
@@ -313,7 +333,14 @@ def counts_segmented_reduce(op: str, counts: torch.Tensor,
     if not _on_cuda(counts, grp_seg):
         return counts_segmented_reduce_plain(op, counts, grp_seg, num_segments)
     starts, ends = segment_ranges(grp_seg, num_segments)
-    return _launch_rows(B4, op, counts, starts, ends, num_segments)
+    heads = torch.empty((num_segments, WORDS32), dtype=torch.int32,
+                        device=counts.device)
+    cards = torch.zeros(num_segments, dtype=torch.int32, device=counts.device)
+    if num_segments:
+        B4.launch(counts.data_ptr(), starts.data_ptr(), ends.data_ptr(),
+                  heads.data_ptr(), cards.data_ptr(), num_segments,
+                  _OPCODE[op], _stream())
+    return heads, cards
 
 
 # ------------------------------------------------ B6: fused nibble reduce

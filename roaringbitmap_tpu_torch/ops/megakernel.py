@@ -19,7 +19,12 @@ container row each:
 Three banks feed row ops: bank 0 is the resident row image, bank 1 the
 ad-hoc leaf rows, bank 2 the attached columns' slice planes and existence
 rows, per (section, column slot), built once per plan
-(:meth:`MegaPlan.device_arrays`).  Every step reads ``acc[dst]`` and
+(:meth:`MegaPlan.device_arrays`).  The mesh composition assembles a
+**combine-mode** stream (:func:`build_combines`, evaluated by
+:func:`eval_combines`): the reduces ran per shard on B1 before the
+butterfly, so bank 0 holds the combined head tensors, bank 1 the gathered
+resident leaves ahead of the ad-hoc rows, and the stream holds only the
+combine steps and root outputs.  The kernel is the same.  Every step reads ``acc[dst]`` and
 ``acc[src]`` and writes ``acc[dst]``; OUT/CARD steps point dst at the dead
 slot ``slots_pad``, and steps that write no output point orow/crow at the
 dead rows ``out_pad`` / ``card_pad``, which the kernel never stores.
@@ -160,7 +165,7 @@ class MegaPlan:
     """One assembled megakernel program: the host instruction stream, the
     kernel's shape, and the output layout :func:`_slice_outputs` reads."""
 
-    mode: str                 # "full"
+    mode: str                 # "full" or "combine"
     n_steps: int              # real instruction count (pre-pad)
     steps_pad: int
     n_slots: int              # real accumulator slots (pre-pad)
@@ -183,6 +188,8 @@ class MegaPlan:
     n_vagg: int = 0
     #: the columns bank 2 is built from, in its (section, slot) order
     cols: tuple = ()
+    #: combine mode: each op group's first bank-0 row (-1: no heads)
+    group_base: tuple = ()
     _arrays: dict = dataclasses.field(default_factory=dict, repr=False)
     _checked: set = dataclasses.field(default_factory=set, repr=False)
 
@@ -672,24 +679,26 @@ def _pack_extra(sections) -> tuple:
     return np.concatenate(rows, axis=0), bases
 
 
-def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
-              extra_bases) -> MegaPlan:
-    """Allocate slots and output rows, walk the buckets, then every
-    section's combine steps in topological order, and close with the
+def _assemble(mode: str, buckets, sections, slot_of_reduce, leaf_row,
+              extra, extra_bases, emit_buckets: bool) -> MegaPlan:
+    """The assembly tail of :func:`build_full` and :func:`build_combines`:
+    allocate slots and output rows, walk the buckets (full mode), then
+    every section's combine steps in topological order, and close with the
     sections' CARD/OUT outputs."""
     n_slots = 0
     bucket_base: list = []
-    for b in buckets:
-        bucket_base.append(n_slots)
-        n_slots += len(b.qids) * b.k_pad
     n_card = n_out = 0
     bucket_out: list = []
-    for b in buckets:
-        ob = n_out if b.needs_words else None
-        bucket_out.append((n_card, ob, len(b.qids), b.k_pad))
-        n_card += len(b.qids) * b.k_pad
-        if ob is not None:
-            n_out += len(b.qids) * b.k_pad
+    if emit_buckets:
+        for b in buckets:
+            bucket_base.append(n_slots)
+            n_slots += len(b.qids) * b.k_pad
+        for b in buckets:
+            ob = n_out if b.needs_words else None
+            bucket_out.append((n_card, ob, len(b.qids), b.k_pad))
+            n_card += len(b.qids) * b.k_pad
+            if ob is not None:
+                n_out += len(b.qids) * b.k_pad
 
     em = _Emitter()
     for b, base, (cb, ob, _n, _k) in zip(buckets, bucket_base, bucket_out):
@@ -732,7 +741,8 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
         k_root = int(sec.root_keys.size)
         root_srcs = [ctx.source(sec.root, j) for j in range(k_root)]
         if any(s[0] == "row" for s in root_srcs):
-            # a bare leaf/ad-hoc root: give it its own slots so OUT/CARD
+            # a bare leaf/ad-hoc root (or, in combine mode, a reduce root,
+            # whose value is a bank row): give it its own slots so OUT/CARD
             # have a slot source
             base = n_slots
             n_slots += k_root
@@ -769,7 +779,7 @@ def _assemble(buckets, sections, slot_of_reduce, leaf_row, extra,
     host = em.finish(slots_pad, out_pad, card_pad)
     host["extra"] = extra
     return MegaPlan(
-        mode="full", n_steps=n_real,
+        mode=mode, n_steps=n_real,
         steps_pad=int(host["opc"].shape[0]),
         n_slots=n_slots, slots_pad=slots_pad,
         out_pad=out_pad, card_pad=card_pad, host=host,
@@ -798,8 +808,75 @@ def build_full(buckets, sections) -> MegaPlan:
         # resident leaves stream straight from the row image (bank 0)
         return 0, int(sec.host[f"g{ci}"][j])
 
-    return _assemble(buckets, fused, slot_of_reduce, leaf_row, extra,
-                     extra_bases)
+    return _assemble("full", buckets, fused, slot_of_reduce, leaf_row,
+                     extra, extra_bases, emit_buckets=True)
+
+
+def build_combines(buckets, op_groups, sections, expr_bis) -> MegaPlan:
+    """Assemble the combine-only program of the mesh composition
+    (``parallel.sharded_engine``): the reduces ran per shard on B1 and the
+    butterfly combined them, so B5 runs only the sections' combine steps
+    and root outputs.  The banks:
+
+    - bank 0: the concatenated flat head tensors of the op groups that
+      produce heads (a query returns words, or a combine step reads them),
+      in the padded ``q * (k_pad + 1)`` layout of
+      ``expr.traced_bucket_heads``: a reduce node's value is a row there;
+    - bank 1: the resident leaves' rows, gathered before the launch in the
+      order of ``host["leafidx"]``, then the ad-hoc rows;
+    - bank 2: the columns, as in full mode.
+
+    ``mega.group_base`` holds each group's first bank-0 row (-1 for a group
+    that produces no heads) and ``mega.leaf_rows`` the gathered leaf rows."""
+    fused = [s for s in sections if s.kind == "fused"]
+    extra, extra_bases = _pack_extra(fused)
+    produces = [g.needs_words or any(bi in expr_bis for bi in g.bucket_idx)
+                for g in op_groups]
+    group_base, off = [], 0
+    for g, p in zip(op_groups, produces):
+        group_base.append(off if p else -1)
+        if p:
+            off += int(g.nseg)
+    bucket_row0 = {}
+    for g, gb in zip(op_groups, group_base):
+        for bi, s0 in zip(g.bucket_idx, g.seg_offs):
+            bucket_row0[bi] = (gb + s0) if gb >= 0 else -1
+
+    def slot_of_reduce(_bucket_base):
+        def fn(bi, slot, j):
+            r0 = bucket_row0[bi]
+            if r0 < 0:
+                raise AssertionError(
+                    f"expr-feeding bucket {bi} in a headless op group")
+            return ("row", 0, r0 + slot * (buckets[bi].k_pad + 1) + j)
+        return fn
+
+    leaf_parts, leaf_bases = [], {}
+    off = 0
+    for sid, sec in enumerate(fused):
+        for ci, st in enumerate(sec.steps):
+            if st[0] == "leaf":
+                g = np.asarray(sec.host[f"g{ci}"], np.int64)
+                leaf_bases[(sid, ci)] = off
+                leaf_parts.append(g)
+                off += int(g.size)
+    leaf_idx = (np.concatenate(leaf_parts) if leaf_parts
+                else np.zeros(0, np.int64)).astype(np.int32)
+    n_leaf = int(leaf_idx.size)
+    sec_id = {id(sec): sid for sid, sec in enumerate(fused)}
+
+    def leaf_row(sec, ci, j):
+        # combine mode reads the leaves gathered into bank 1, before the
+        # ad-hoc rows
+        return 1, leaf_bases[(sec_id[id(sec)], ci)] + j
+
+    extra_bases = {k: v + n_leaf for k, v in extra_bases.items()}
+    mega = _assemble("combine", buckets, fused, slot_of_reduce, leaf_row,
+                     extra, extra_bases, emit_buckets=False)
+    mega.host["leafidx"] = leaf_idx
+    mega.group_base = tuple(group_base)
+    mega.leaf_rows = n_leaf
+    return mega
 
 
 # --------------------------------------------------------------- B5
@@ -947,6 +1024,7 @@ def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
         out.data_ptr(),
         cards.data_ptr(), take.data_ptr(), mega.slots_pad, mega.out_pad,
         mega.card_pad, kernels._stream())
+    kernels.B5.count_variant(mega.mode)
     return out, cards
 
 
@@ -988,6 +1066,30 @@ def eval_full(mega: MegaPlan, words: torch.Tensor, arrs: dict | None = None):
                                    stream=arrs["stream"],
                                    steps_dev=arrs.get("steps"))
     return _slice_outputs(mega, out_rows, card_rows)
+
+
+def eval_combines(mega: MegaPlan, bank_a: torch.Tensor | None,
+                  leaf_rows: torch.Tensor | None, arrs: dict | None = None
+                  ) -> list:
+    """Combine-mode evaluation (the sharded engine's replicated side, after
+    the butterfly): ``bank_a`` the producing groups' flat head tensors,
+    concatenated (None: one zero row), ``leaf_rows`` the gathered resident
+    leaves (bank 1 before the ad-hoc rows).  One B5 launch; returns the
+    per-section expr outs (the buckets' outputs stay with the groups)."""
+    dev = (bank_a if bank_a is not None else leaf_rows).device \
+        if (bank_a is not None or leaf_rows is not None) else None
+    if arrs is None:
+        arrs = mega.device_arrays(dev)
+    if bank_a is None:
+        bank_a = torch.zeros((1, WORDS32), dtype=torch.int32,
+                             device=arrs["extra"].device)
+    bank_b = arrs["extra"]
+    if leaf_rows is not None and leaf_rows.shape[0]:
+        bank_b = torch.cat([leaf_rows, bank_b])
+    out_rows, card_rows = raw_call(mega, bank_a, bank_b, arrs["cols"],
+                                   stream=arrs["stream"],
+                                   steps_dev=arrs.get("steps"))
+    return _slice_outputs(mega, out_rows, card_rows)[1]
 
 
 # ------------------------------------------------- test and smoke streams

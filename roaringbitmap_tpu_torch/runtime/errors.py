@@ -7,6 +7,7 @@ serialized input.  ``classify`` maps them onto a small taxonomy that the
 guard (``runtime.guard``) acts on mechanically:
 
   retryable              -> TransientDeviceError, CoordinatorTimeout
+                            (HostLost, its host-granular form)
   demote / split         -> ResourceExhausted
   demote (deterministic) -> EngineLoweringError
   fatal (input's fault)  -> CorruptInput (== format.spec.InvalidRoaringFormat)
@@ -78,6 +79,15 @@ class CoordinatorTimeout(RoaringRuntimeError):
 
     retryable = True
     demotable = True
+
+
+class HostLost(CoordinatorTimeout):
+    """A pod host stopped answering (process death, network partition,
+    preemption): the host-granular form of :class:`CoordinatorTimeout`.
+    Raised typed by the pod front door (``serving.frontdoor``) when it
+    marks a host down; the message names the host id.  Retryable and
+    demotable like its base: the pod ladder's ``reroute`` rung serves the
+    affected tenants from a replica or the single-host loop."""
 
 
 class ShadowMismatch(RoaringRuntimeError):

@@ -18,9 +18,12 @@ kind   ``transient`` (retryable device hiccup), ``oom`` (allocator
        sleeps), ``crash`` (a simulated process death at a journal seam:
        ``maybe_crash``) and ``wire`` (an RPC-boundary fault shape:
        ``maybe_wire``).
-scope  a dispatch site ("aggregation", "batch_engine") or an engine rung
-       of the port ("megakernel", "cuda", "torch", "sequential"); omitted
-       means everywhere.
+scope  a dispatch site ("aggregation", "batch_engine", "sharding",
+       "sharded_engine", "multihost", "pod") or an engine rung of the port
+       ("megakernel", "cuda", "torch", "sequential", the sharded ladder's
+       "mesh" and "single", a pod host "host<N>", the bootstrap's
+       "coordinator": ``coordinator@multihost`` kills the handshake);
+       omitted means everywhere.
 rate   probability per dispatch in (0, 1]; omitted means 1.0.
 
 Examples::

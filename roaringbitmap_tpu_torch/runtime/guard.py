@@ -67,6 +67,20 @@ SEQUENTIAL = "sequential"
 #: the rung that runs the kernels' plain PyTorch versions
 PLAIN = "torch"
 
+#: the mesh-sharded engine's ladder (``parallel.sharded_engine``): a sharded
+#: dispatch demotes MESH -> SINGLE_DEVICE (the un-sharded pooled engine on
+#: its kernel rungs) -> SEQUENTIAL off the card; on the card the chain
+#: holds the two kernel rungs alone, as every other ladder of the port
+MESH = "mesh"
+SINGLE_DEVICE = "single"
+
+#: the pod front door's top rung, above the mesh ladder
+#: (``serving.frontdoor``): a classified host-loss fault (CoordinatorTimeout
+#: / HostLost) first RE-ROUTES the affected tenants to an alive replica,
+#: and tenants with no replica demote to single-host mode.  The pod ladder
+#: reads reroute -> mesh -> single -> sequential, every rung bit-exact.
+REROUTE = "reroute"
+
 #: sentinel a ResourceExhausted splitter returns to decline (fall through
 #: to demotion)
 NO_SPLIT = object()

@@ -62,7 +62,8 @@ from .cache import LRUCache
 
 #: the JAX engines' program-build span of each site
 _BUILD_SPAN = {"batch_engine": "batch.program_build",
-               "multiset": "multiset.program_build"}
+               "multiset": "multiset.program_build",
+               "sharded_engine": "sharded.program_build"}
 
 #: programs one engine keeps (the JAX package's cap); a lattice warmup
 #: raises it to fit the whole vocabulary
@@ -234,6 +235,8 @@ class Program:
     static_flat: object = None
     outs: object = None
     launches: tuple = ()
+    #: per kernel, the launches by variant one replay makes
+    variants: tuple = ()
     capture_ms: float = 0.0
 
 
@@ -402,6 +405,7 @@ class ProgramCache:
                 run(views)
             main.wait_stream(side)
             before = [k.launches for k in kernels.KERNELS]
+            before_v = [dict(k.variants) for k in kernels.KERNELS]
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.stream(side):
@@ -417,8 +421,13 @@ class ProgramCache:
                     graph.capture_end()
             finally:
                 counted = [k.launches for k in kernels.KERNELS]
-                for k, b in zip(kernels.KERNELS, before):
+                counted_v = [{v: n - bv.get(v, 0)
+                              for v, n in k.variants.items()
+                              if n != bv.get(v, 0)}
+                             for k, bv in zip(kernels.KERNELS, before_v)]
+                for k, b, bv in zip(kernels.KERNELS, before, before_v):
                     k.launches = b
+                    k.variants = bv
         except (torch.OutOfMemoryError, kernels.KernelLaunchError,
                 errors.GraphCaptureError):
             raise
@@ -429,7 +438,8 @@ class ProgramCache:
         self.captures += 1
         return Program(run=run, graph=graph,
                        static_flat=static_flat, outs=outs,
-                       launches=tuple(c - b for c, b in zip(counted, before)))
+                       launches=tuple(c - b for c, b in zip(counted, before)),
+                       variants=tuple(counted_v))
 
     def _replay(self, entry: Program, pack: OperandPack):
         self.replays += 1
@@ -444,6 +454,9 @@ class ProgramCache:
                 f"{type(exc).__name__}: {exc}") from exc
         for k, n in zip(kernels.KERNELS, entry.launches):
             k.launches += n
+        for k, vs in zip(kernels.KERNELS, entry.variants):
+            for v, n in vs.items():
+                k.variants[v] = k.variants.get(v, 0) + n
         return entry.outs
 
     # --------------------------------------------------------- lifecycle

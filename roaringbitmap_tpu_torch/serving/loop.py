@@ -686,8 +686,13 @@ class ServingLoop:
 
     def _pool_bytes(self, tickets: list) -> int:
         groups, _ = self._group(tickets)
-        return int(self._engine.predict_dispatch_bytes(
-            groups, engine=self.policy.engine))
+        pred = self._engine.predict_dispatch_bytes(
+            groups, engine=self.policy.engine)
+        if isinstance(pred, dict):
+            # a ShardedBatchEngine reports per-shard and mesh-total bytes;
+            # the budget is per device, so the per-shard figure gates
+            return int(pred.get("per_shard_bytes", pred["peak_bytes"]))
+        return int(pred)
 
     def _estimate_seconds(self, tickets: list) -> float:
         """Predicted pool execute seconds: the engine's time model

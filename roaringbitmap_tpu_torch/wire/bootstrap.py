@@ -2,9 +2,10 @@
 
 Builds the SAME seeded dataset as the parent (both sides call
 ``serving.replay.build_dataset`` with the same knobs, so parity needs no
-data shipping), stands up a :class:`WireServer` over a ``ServingLoop`` on
-``--device`` (the card by default; ``--device cpu`` for the CPU), prints
-ONE JSON line::
+data shipping), stands up a :class:`WireServer` over a ``ServingLoop`` (or
+a ``PodFrontDoor`` over a simulated N-host pod with ``--frontdoor N``, the
+migration-capable target) on ``--device`` (the card by default; ``--device
+cpu`` for the CPU), prints ONE JSON line::
 
     {"port": 12345, "host": "127.0.0.1", "sets": 2, "pid": 4242,
      "device": "cuda:0"}
@@ -59,6 +60,9 @@ def main(argv=None) -> int:
     ap.add_argument("--pool-target", type=int, default=8)
     ap.add_argument("--max-queue", type=int, default=256)
     ap.add_argument("--deadline-ms", type=float, default=10_000.0)
+    ap.add_argument("--frontdoor", type=int, default=0, metavar="HOSTS",
+                    help="serve a PodFrontDoor over a simulated N-host "
+                         "pod instead of a bare ServingLoop")
     ap.add_argument("--max-inflight", type=int, default=256)
     ap.add_argument("--coalesce-s", type=float, default=0.002)
     args = ap.parse_args(argv)
@@ -81,7 +85,16 @@ def main(argv=None) -> int:
         pool_target=args.pool_target, max_queue=args.max_queue,
         default_deadline_ms=args.deadline_ms,
         guard=guard.GuardPolicy(backoff_base=0.0, sleep=lambda s: None))
-    loop = ServingLoop(MultiSetBatchEngine(sets), policy)
+    if args.frontdoor:
+        from ..parallel import podmesh
+        from ..serving.frontdoor import PodFrontDoor
+
+        loop = PodFrontDoor(
+            sets, pod=podmesh.PodMesh.simulate(
+                args.frontdoor, devices=[sets[0].device] * args.frontdoor),
+            policy=policy)
+    else:
+        loop = ServingLoop(MultiSetBatchEngine(sets), policy)
     server = WireServer(loop, host=args.host, port=args.port,
                         auth=_parse_auth(args.auth),
                         max_inflight=args.max_inflight,

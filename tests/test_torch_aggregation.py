@@ -343,7 +343,8 @@ def test_port_imports_no_jax():
     ``MultiSetBatchEngine.execute``, one ``apply_delta``, a request served
     by a ``ServingLoop``, a wire frame, a captured durable state and a
     traced pooled execute with the obs layer's statusz and Prometheus
-    renders on the CPU."""
+    renders, a sharded wide op, a sharded-engine query and a pod front
+    door request on the CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -426,6 +427,27 @@ def test_port_imports_no_jax():
         "assert 'multiset.dispatch' in open(dump).read()\n"
         "assert obs.render_markdown(obs.statusz()).startswith('#')\n"
         "assert 'rb_serving_requests_total' in obs.render_prometheus()\n"
+        "from roaringbitmap_tpu_torch.parallel import (multihost, podmesh, "
+        "sharded_engine, sharding)\n"
+        "from roaringbitmap_tpu_torch.serving import frontdoor, migration\n"
+        "mesh = sharding.Mesh(np.array(['cpu'] * 4).reshape(2, 2), "
+        "('rows', 'lanes'))\n"
+        "k, w, c = sharding.wide_aggregate_sharded(mesh, 'or', bms)\n"
+        "assert int(c.sum()) == rt.aggregation.or_(bms, device='cpu')"
+        ".cardinality\n"
+        "se = sharded_engine.ShardedBatchEngine([ms.sets[0], ms.sets[1]], "
+        "mesh=sharded_engine.default_mesh(['cpu'] * 2))\n"
+        "assert se.execute([rt.BatchQuery('or', (0, 2))])[0].cardinality "
+        "> 0\n"
+        "pod = podmesh.PodMesh.simulate(2, devices=['cpu'] * 2)\n"
+        "fd = frontdoor.PodFrontDoor(ms.sets, pod=pod, policy="
+        "serving.ServingPolicy(default_deadline_ms=1e6))\n"
+        "t = fd.submit(serving.ServingRequest(1, rt.BatchQuery('or', (0, "
+        "1))))\n"
+        "fd.drain()\n"
+        "assert t.ok and multihost.snapshot() == {}\n"
+        "assert migration.MigrationError.__name__ and migrate."
+        "migrate_tenant_wire\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

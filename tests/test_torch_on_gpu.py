@@ -867,3 +867,107 @@ def test_resident_lane_and_recovery_on_the_card(dev, bitmaps, lattice_off,
     assert torch.equal(rec.ds.words, twin.words)
     assert rec.ds.host_bitmaps() == twin.host_bitmaps()
     rec.close()
+
+
+# ------------------------------------------------------------ mesh and pod
+
+@pytest.mark.parametrize("width", kernels.ROW_WIDTHS)
+@pytest.mark.parametrize("op", ["or", "and", "xor", "andnot"])
+def test_b1_at_every_width_matches_plain(dev, bitmaps, op, width):
+    pk = packing.pack_for_aggregation(bitmaps)
+    w = as_i32(np.ascontiguousarray(pk.words[:, :width]), dev)
+    s = as_i32(pk.seg_ids, dev)
+    got = kernels.segmented_reduce(op, w, s, pk.num_keys)
+    torch.cuda.synchronize()
+    assert kernels.B1.launches == 1 and got[0].shape[1] == width
+    _same(got, kernels.segmented_reduce_plain(op, w, s, pk.num_keys))
+
+
+def test_sharded_wide_ops_on_the_card(dev, bitmaps):
+    """The wide ops over meshes of logical shards on one card equal the
+    single-device ops, with B1 launched at width 2048 / lanes."""
+    from roaringbitmap_tpu_torch.parallel import sharding
+
+    for rows, lanes in ((1, 1), (4, 1), (2, 2), (8, 1), (1, 8)):
+        mesh = sharding.Mesh(np.array(["cuda"] * (rows * lanes)).reshape(
+            rows, lanes), ("rows", "lanes"))
+        for op, fn in (("or", aggregation.or_), ("xor", aggregation.xor),
+                       ("and", aggregation.and_)):
+            kernels.reset_launches()
+            k, w, c = sharding.wide_aggregate_sharded(mesh, op, bitmaps,
+                                                      fallback=False)
+            # an AND whose key intersection is empty launches nothing
+            assert kernels.B1.launches >= 1 or (op == "and" and not k.size)
+            assert packing.unpack_result(k, w, c) == fn(bitmaps, device=dev)
+
+
+def test_sharded_engine_on_the_card(dev, bitmaps, lattice_off):
+    """The sharded engine over 4x1 / 2x2 meshes of one card equals the
+    pooled engine; an expression pool is one B5 combine-mode launch; a
+    sealed vocabulary replays captured graphs with zero escapes."""
+    from roaringbitmap_tpu_torch.parallel import (BatchGroup, BatchQuery,
+                                                  MultiSetBatchEngine,
+                                                  ShardedBatchEngine, expr)
+    from roaringbitmap_tpu_torch.parallel.sharding import Mesh
+    from roaringbitmap_tpu_torch.runtime import lattice
+
+    sets = [DeviceBitmapSet(bitmaps[i * 12:(i + 1) * 12], layout=lay,
+                            device=dev)
+            for i, lay in enumerate(("dense", "compact", "dense", "dense"))]
+    pool = [BatchGroup(s, [BatchQuery(op, (0, 1, 2, 3), form="bitmap")
+                           for op in ("or", "and", "xor", "andnot")]
+                       + [expr.ExprQuery(expr.and_(expr.or_(0, 1),
+                                                   expr.not_(2)))])
+            for s in range(4)]
+    want = MultiSetBatchEngine(sets).execute(pool, engine="cuda")
+    for shape, placement in (((4, 1), "sharded"), ((2, 2), "replicated")):
+        eng = ShardedBatchEngine(sets, mesh=Mesh(np.array(
+            ["cuda"] * 4).reshape(shape), ("rows", "data")),
+            placement=placement)
+        kernels.reset_launches()
+        got = eng.execute(pool)
+        assert kernels.B5.launches == 1 and kernels.B1.launches >= 4
+        for a, b in zip(got, want):
+            assert [r.cardinality for r in a] == [r.cardinality for r in b]
+            assert [r.bitmap for r in a[:4]] == [r.bitmap for r in b[:4]]
+    eng.warmup(profile=GRAPH_PROFILE, pools=[pool])
+    assert eng._programs.graphs >= 1
+    got = eng.execute(pool)
+    assert lattice.escape_total() == 0
+    for a, b in zip(got, want):
+        assert [r.cardinality for r in a] == [r.cardinality for r in b]
+
+
+def test_sharded_sections_past_capacity_split_on_the_card(dev, bitmaps,
+                                                          monkeypatch):
+    """Fused sections past B5's step cap run as several combine-mode
+    launches, one a stream, each under the cap; equal to the pooled
+    engine, nothing demoted."""
+    from roaringbitmap_tpu_torch.ops import megakernel
+    from roaringbitmap_tpu_torch.parallel import (BatchGroup,
+                                                  MultiSetBatchEngine,
+                                                  ShardedBatchEngine, expr)
+    from roaringbitmap_tpu_torch.parallel.sharding import Mesh
+    from roaringbitmap_tpu_torch.runtime import guard
+
+    sets = [DeviceBitmapSet(bitmaps[i * 12:(i + 1) * 12], layout="dense",
+                            device=dev) for i in range(4)]
+    pool = [BatchGroup(s, expr.random_expr_pool(12, 6, depth=2, seed=s))
+            for s in range(4)]
+    want = MultiSetBatchEngine(sets).execute(pool, engine="cuda")
+    eng = ShardedBatchEngine(sets, mesh=Mesh(np.array(["cuda"] * 4).reshape(
+        4, 1), ("rows", "data")), placement="sharded")
+    pooled = tuple(eng._single._flatten(pool)[0])
+    cap = max(eng._plan(pooled).megas[0].steps_pad // 2, 1)
+    monkeypatch.setattr(megakernel, "MAX_STEPS", cap)
+    eng._plans.clear()
+    plan = eng._plan(pooled)
+    assert plan.megas is not None and len(plan.megas) >= 2
+    guard.reset_dispatch_stats()
+    kernels.reset_launches()
+    got = eng.execute(pool)
+    assert kernels.B5.launches == len(plan.megas)
+    assert kernels.B5.variants == {"combine": len(plan.megas)}
+    assert guard.dispatch_stats("sharded_engine")["demotions"] == 0
+    for a, b in zip(got, want):
+        assert [r.cardinality for r in a] == [r.cardinality for r in b]

@@ -573,3 +573,88 @@ def test_bootstrap_child_serves_the_port_client(dataset):
         if proc.poll() is None:
             proc.kill()
             proc.wait(timeout=10)
+
+
+# ---------------------------------------------------- migration, sending
+
+def _tfront_door(dataset):
+    from roaringbitmap_tpu_torch.parallel import podmesh
+
+    prof = treplay.ReplayProfile(**PROFILE)
+    sets = [DeviceBitmapSet(b, layout="dense", device=CPU)
+            for b in dataset[0]]
+    treplay.attach_columns(sets, prof, dataset[1])
+    return serving.PodFrontDoor(
+        sets, pod=podmesh.PodMesh.simulate(2, devices=[CPU] * 2),
+        policy=serving.ServingPolicy(
+            guard=guard.GuardPolicy(backoff_base=0.0, sleep=lambda s: None),
+            pool_target=4, default_deadline_ms=EASY_MS))
+
+
+@pytest.mark.parametrize("dest", ["port", "jax"])
+def test_wire_migration_bit_exact_with_catch_up(dataset, dest):
+    """``migrate_tenant(via=client)`` ships snapshot and dual-write
+    catch-up tail as frames, to the port's server and to the JAX
+    package's; the destination's copy passes the per-source CRC pin and
+    the source keeps serving."""
+    from roaringbitmap_tpu_torch.mutation import delta as mut_delta
+
+    fd = _tfront_door(dataset)
+    srv = WireServer(_tloop(dataset), name="dest") if dest == "port" \
+        else JServer(_jloop(), name="dest")
+    with srv:
+        cl = WireClient(srv.address, timeout=60)
+
+        def during(fd_):
+            t = fd_.submit(serving.ServingRequest(
+                1, TQ("or", (0, 1)), tenant="t1"))
+            fd_.apply_delta(1, {0: np.array([31337], np.uint32)}, None)
+            fd_.drain()
+            assert t.ok
+
+        report = serving.migrate_tenant(fd, 1, via=cl, tenant="mig-t1",
+                                        during=during)
+        assert report["to"] == "wire" and report["catch_up_records"] >= 1
+        assert report["source_crcs"] == tmig.source_crcs(fd._sets[1])
+        ds = srv.migrated["mig-t1"]
+        from roaringbitmap_tpu.mutation import delta as jdelta
+
+        got = (mut_delta.host_bitmaps(ds) if dest == "port"
+               else [TRB.from_values(b.to_array())
+                     for b in jdelta.host_bitmaps(ds)])
+        assert got == mut_delta.host_bitmaps(fd._sets[1])
+        assert 31337 in got[0].to_array()
+        t = fd.submit(serving.ServingRequest(1, TQ("or", (0, 1)),
+                                             tenant="t1"))
+        fd.drain()
+        assert t.ok
+        cl.close()
+    assert not fd._dual_writes
+
+
+def test_wire_migration_to_a_frontdoor_child(dataset):
+    """``bootstrap --frontdoor 2 --device cpu``: a second OS process
+    serving a pod front door receives a migrated tenant; the commit's
+    per-source CRCs equal the source's."""
+    args = [sys.executable, "-m", "roaringbitmap_tpu_torch.wire.bootstrap",
+            "--device", "cpu", "--frontdoor", "2"]
+    for k in ("seed", "sets", "sources", "tenants", "density", "users"):
+        args += [f"--{k}", str(PROFILE[k])]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(args, cwd=REPO, env=env, stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        info = json.loads(proc.stdout.readline())
+        fd = _tfront_door(dataset)
+        cl = WireClient((info["host"], info["port"]), timeout=120)
+        report = tmig.migrate_tenant_wire(fd, 0, cl, tenant="xp-t0")
+        assert report["bytes"] > 0
+        assert report["source_crcs"] == tmig.source_crcs(fd._sets[0])
+        cl.close()
+        proc.stdin.close()
+        assert proc.wait(timeout=30) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
