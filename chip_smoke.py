@@ -174,7 +174,7 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
     sources=256, tenants=64, users=2^24, requests=2048, duration_s=4.0,
     seed))`` under ``ServingPolicy(pool_target=64)``:
     a. the query-only stream through ``run_inproc`` at the profile's rate,
-       then a ladder at 1/4, 1/16 and 1/64 of it over the stream's first
+       then a ladder at 1/4 and 1/16 of it over the stream's first
        eighth (``replay.sustained``): every served ticket equal to the
        host oracle, typed outcomes only, no pump error; counts, p50/p99 on
        the fault clock, Q/s, attainment, pools, launches, a pool's host
@@ -269,6 +269,32 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
        single-host demotions counted); ``migrate_tenant`` with a delta in
        flight, ``host_join``, ``host_leave``; ``migrate_tenant_wire`` to a
        ``bootstrap --frontdoor 2 --device cuda`` child, CRCs equal;
+17. the engine leftovers of queues A2-A8, run after 16 and before 6:
+    a. ``models.flagship.forward`` over phase 5's 1,024 bitmaps (K 256):
+       one B1 launch, equal to B1's plain version and to ``or_``;
+    b. ``DeviceBitmapSet.evaluate`` over 7b's shard, every 7b expression
+       in both forms: one B5 launch a call, equal to ``execute``, plan
+       cache hits on repeat; 7b's compact set: B3 + B5 a call;
+    c. ``BatchEngine.chained_cardinality`` over 7a's batch at 8 reps (and
+       a Q 16 batch on 7b's compact set, B3 + B1 a rep): total == 8 x the
+       sum mod 2^32; ms a rep beside one ``execute``;
+    d. the "torch-vmap" rung asked for by name over 7a's batch and 11a's
+       Q 64 pool, bit-equal to "cuda"; the card's chain stays
+       megakernel -> cuda with zero demotions;
+    e. ``expr.execute_node_at_a_time`` over 7b's 32 expressions (B1 a
+       reduce node, host combines) equal to the fused B5 batch; both walls;
+    g. ``explain`` of 7a's and 7b's batches and ``explain_wide`` of 5's
+       ``or_``: engine chains, predicted bytes beside the measured peak of
+       the call that follows; ``hbm_bytes`` of the engines against their
+       sets';
+    f. (last: it moves the set's version) ``warmup_delta(64)`` on phase
+       2's dense set captures one CUDA graph a rung; 12a's 64 deltas
+       replayed through them leave the image as the eager patches did (a
+       value's fate is set by the last delta naming it); patch ms graph
+       against eager with the host planning share; on two sets of 2's
+       first 256 bitmaps, 16 deltas through graphs with the host twin
+       riding leave image and twin equal to the eager set's, and a repack
+       drops the warmed set's graphs;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -668,7 +694,7 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
 
     from roaringbitmap_tpu_torch import DeviceBitmapSet
     from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64Bitmap
-    from roaringbitmap_tpu_torch.ops import kernels
+    from roaringbitmap_tpu_torch.ops import kernels, megakernel
     from roaringbitmap_tpu_torch.parallel import expr
     from roaringbitmap_tpu_torch.parallel.batch_engine import BatchQuery
     from roaringbitmap_tpu_torch.parallel.multiset import (
@@ -815,6 +841,27 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
         f"plan {plan_ms:.1f} ms (host, cold), device {dev_ms:.3f} ms "
         f"(pooled image, B5 and the copies to the host, to a synchronize; "
         f"median of 5, warm), unpack {unpack_ms:.3f} ms")
+    # B5 alone on this stream against its bound, the bytes and word ops
+    # as obs.cost counts the dispatch (the plan's predicted bytes and word
+    # operations) and as the kernels line counts a stream
+    ops_e = ems._operands(eplan, "megakernel", False)
+    pw = ems._pooled_words(eplan, "megakernel", ops_e["r"])
+    me = ops_e["m"]
+    k_ms = timed_ms(torch, lambda: megakernel.raw_call(
+        eplan.mega, pw, me["extra"], me["cols"], stream=me["stream"],
+        steps_dev=me.get("steps")), 20)
+    c_bytes = ems._predict(eplan, "megakernel")["peak_bytes"]
+    c_ops = ems._word_ops(eplan, "megakernel")
+    s_bytes = megakernel.stream_bytes(eplan.mega)
+    s_ops = eplan.mega.n_steps * 2048
+    for label, nb, no in (("obs.cost's counts", c_bytes, c_ops),
+                          ("the stream's counts", s_bytes, s_ops)):
+        bound = max(nb / PEAK_BYTES_PER_S, no / PEAK_OPS_PER_S) * 1e3
+        log(f"    11b B5 alone: {k_ms:.4f} ms for {eplan.mega.n_steps} "
+            f"steps; bound by {label} {bound:.4f} ms ({nb} bytes, {no} "
+            f"word ops; {'bytes' if nb / PEAK_BYTES_PER_S >= no / PEAK_OPS_PER_S else 'operations'}"
+            f"), {bound / k_ms:.1%} of it")
+    del pw
 
     # 11c: the pipeline, the budget and the guard
     pools8 = [random_multiset_pool([per] * n_t, 64, seed=s, max_operands=8)
@@ -1020,12 +1067,13 @@ class HostRows:
 
 
 def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
-            cols, batches, tenants11) -> None:
+            cols, batches, tenants11) -> dict:
     """Mutable tenants: 12a 64 in-place patches of phase 2's dense set,
     12b the escalations (structural, drift, layout, never, the maintenance
     worker), 12c the result cache on 7b's shard (replays, subtree injection
     into B5, exact invalidation, a column delta), 12d the cache shared by
-    phase 11's 16 tenants."""
+    phase 11's 16 tenants.  Returns 12a's deltas with their eager patch
+    and host planning ms (phase 17f replays them)."""
     import threading
 
     import torch
@@ -1071,6 +1119,7 @@ def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
     pre = [t.clone() for t in ds.aggregate_device("or")]
     patch_ms, plan_ms, patched = [], [], 0
     touched: list = []
+    deltas12: list = []
 
     def check_12a(label):
         for op in ("or", "xor"):
@@ -1116,6 +1165,7 @@ def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
         rep, ms = sync_ms(lambda: ds.apply_delta(adds=adds, removes=removes))
         require(rep["mode"] == "patch" and rep["rows_patched"] == p,
                 f"12a delta {i}: {rep}")
+        deltas12.append((adds, removes))
         host.apply(adds, removes)
         want_rows[rows] = ds.version
         want_srcs[list(adds)] = ds.version
@@ -1402,6 +1452,7 @@ def phase12(smoke, seed, ds, bms, eng, xds, sds, sbms, seng, epool, price,
         f"equals the per-set loop and the host fold")
     log(f"  12: mutation counters: deltas by mode {delta_modes()}, rows "
         f"patched {ctr('rb_delta_rows_patched_total'):.0f}")
+    return {"deltas": deltas12, "patch_ms": patch_ms, "plan_ms": plan_ms}
 
 
 def pow2(v: int) -> int:
@@ -1959,14 +2010,18 @@ def phase14(smoke, seed: int, tenants11) -> tuple:
     # the whole stream at the profile's rate, then a rate ladder on its
     # first eighth (rising to the diurnal curve's first peak) for the rate
     # the loop sustains; later arms run at that rate
-    rates = (1.0, 0.25, 0.0625, 0.015625)
+    # (the ladder's 1/64 rung was cut to make room for phase 17: when no
+    # rung sustains, the later arms still run at 1/64, 14e on a fresh loop)
+    rates = (1.0, 0.25, 0.0625)
     prefix = events[:len(events) // 8]
     runs = {}
     for rate in rates:
         runs[rate] = run_14a(rate, events if rate == 1.0 else prefix)
     sus = replay.sustained(lambda r: runs[r][0], rates, slo_target=0.9)
-    rate_s = sus["sustained_rate_x"] or rates[-1]
-    loop_a = runs[rate_s][1]      # the loop 14e's wire server fronts
+    rate_s = sus["sustained_rate_x"] or 0.015625
+    # the loop 14e's wire server fronts
+    loop_a = (runs[rate_s][1] if rate_s in runs
+              else ServingLoop(ms, policy))
     by_req = {id(t.request): t for rate in rates for t in runs[rate][2]
               if t.status == "done"}
     log(f"    14a [{card}]: the profile offers {len(events) / 4.0:.0f} "
@@ -3474,6 +3529,320 @@ def phase16(smoke, seed: int, shapes: dict, adhoc, abms, lift, bsi9, sbms,
     torch.cuda.empty_cache()
 
 
+def phase17(smoke, seed: int, shapes: dict, union, adhoc, ds, bms256, eng,
+            flat, sds, seng, epool, xsds, xpool, tenants11, state12) -> None:
+    """The engine leftovers of ROADMAP A2-A8 on the card: 17a the flagship
+    model on B1, 17b ``DeviceBitmapSet.evaluate`` (one B5 launch a query),
+    17c ``BatchEngine.chained_cardinality``, 17d the "torch-vmap" rung by
+    name, 17e ``execute_node_at_a_time`` beside the fused B5 batch, 17g
+    ``explain`` / ``explain_wide`` and ``hbm_bytes``, then 17f phase 12's
+    patches replayed through warmed "delta:N" graphs and a repack that drops
+    them (17f last: it moves the set's version and replaces its image)."""
+    import torch
+
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, aggregation
+    from roaringbitmap_tpu_torch.models import flagship
+    from roaringbitmap_tpu_torch.mutation import delta as mut_delta
+    from roaringbitmap_tpu_torch.ops import kernels, packing
+    from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import (
+        ENGINES, BatchEngine, BatchQuery, random_query_pool,
+        resolve_query_engine)
+    from roaringbitmap_tpu_torch.parallel.multiset import (
+        BatchGroup, MultiSetBatchEngine)
+    from roaringbitmap_tpu_torch.runtime import guard
+
+    b1, b3, b5 = (kernels.B1.name, kernels.B3.name, kernels.B5.name)
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def peak_of(fn) -> int:
+        """Device bytes ``fn`` allocates at its peak above what was live."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    # 17a: the flagship model over phase 5's 1,024 bitmaps, on B1
+    pk = shapes["segmented_reduce"]
+    w, sg, hd = (as_i32(a, "cuda") for a in (pk.words, pk.seg_ids,
+                                             pk.head_idx))
+    words, cards = smoke.main_path("17a flagship forward",
+                                   lambda: flagship.forward(w, sg, hd))
+    require(smoke.last[b1] == 1 and sum(smoke.last.values()) == 1,
+            f"17a: launches {smoke.last}; want one B1")
+    pw, pc = kernels.segmented_reduce_plain("or", w, sg, pk.num_keys)
+    require(torch.equal(words, pw) and torch.equal(cards, pc),
+            "17a: flagship forward != B1's plain version")
+    require(packing.unpack_result(pk.keys, to_u32(words),
+                                  cards.cpu().numpy()) == union,
+            "17a: flagship forward != aggregation.or_")
+    f_ms = timed_ms(torch, lambda: flagship.forward(w, sg, hd), 20)
+    log(f"  17a: forward over {len(adhoc)} bitmaps ({pk.m} rows, K "
+        f"{pk.num_keys}): one B1 launch, equal to B1's plain version and "
+        f"to or_ (cardinality {union.cardinality}); {f_ms:.4f} ms (CUDA "
+        f"events, median of 20)")
+    del w, sg, hd, words, cards, pw, pc
+
+    # 17b: evaluate over 7b's shard, every 7b expression in both forms.
+    # A query with a fused section is one B5 launch; one whose canonical
+    # DAG is a single reduce has none, and runs one B1 a bucket
+    def launches_of(set_, pool):
+        planner = BatchEngine(set_)
+        n5 = n1 = 0
+        for q in pool:
+            plan = planner.plan([q])
+            if plan.fused and plan.mega.fits():
+                n5 += 1
+            else:
+                n1 += len(plan)
+        return n5, n1
+
+    want = seng.execute(epool)
+    n5, n1 = launches_of(sds, epool)
+
+    def evaluate_all():
+        return [(sds.evaluate(q), sds.evaluate(q, form="cardinality"))
+                for q in epool]
+
+    got = smoke.main_path(f"17b evaluate x{2 * len(epool)}", evaluate_all)
+    require(smoke.last[b5] == 2 * n5 and smoke.last[b1] == 2 * n1,
+            f"17b: launches {smoke.last}; want B5 {2 * n5}, B1 {2 * n1}")
+    for (bm, card), w_ in zip(got, want):
+        require(bm == w_.bitmap and card == w_.cardinality,
+                "17b: evaluate != BatchEngine.execute")
+    hits0 = sds._expr_engine._plans.stats()["hits"]
+    _, ev_ms = sync_ms(evaluate_all)
+    hits = sds._expr_engine._plans.stats()["hits"] - hits0
+    require(hits == 2 * len(epool), f"17b: {hits} plan-cache hits on repeat")
+    log(f"  17b: {len(epool)} expressions x 2 forms through evaluate: one "
+        f"B5 launch each for the {n5} with a fused section (the other "
+        f"{len(epool) - n5} are one reduce: {n1} B1 launches a form), equal "
+        f"to BatchEngine.execute; on repeat "
+        f"{hits} plan-cache hits, {ev_ms / (2 * len(epool)):.3f} ms a call "
+        f"(host clock, warm)")
+    xwant = BatchEngine(xsds).execute(xpool, engine="cuda")
+    x5, x1 = launches_of(xsds, xpool)
+    got = smoke.main_path(f"17b compact evaluate x{len(xpool)}",
+                          lambda: [xsds.evaluate(q) for q in xpool])
+    require(smoke.last[b5] == x5 and smoke.last[b1] == x1
+            and smoke.last[b3] == len(xpool)
+            and all(g == w_.bitmap for g, w_ in zip(got, xwant)),
+            f"17b compact: launches {smoke.last} (want B5 {x5}, B1 {x1}, "
+            f"B3 {len(xpool)}), or != execute")
+    log(f"  17b: 7b's compact set: {len(xpool)} evaluate calls, B3 each and "
+        f"B5 {x5} / B1 {x1}, equal to execute on the cuda rung")
+
+    # 17c: the chained flat-batch probe over 7a's batch
+    want7a = eng.execute(flat)
+    total = sum(r.cardinality for r in want7a)
+    n_buckets = len(eng.plan(flat))
+    probe = eng.chained_cardinality(flat, 8)
+    got = smoke.main_path("17c chained_cardinality x8", probe)
+    require(int(got) == (8 * total) % (1 << 32)
+            and smoke.last[b1] == 8 * n_buckets,
+            f"17c: total {int(got)} (want {(8 * total) % (1 << 32)}), B1 "
+            f"{smoke.last[b1]} (want {8 * n_buckets})")
+    rep_ms = median_ms(torch, probe) / 8
+    one_ms = median_ms(torch, lambda: eng.execute(flat))
+    log(f"  17c: 8 reps of the Q {len(flat)} batch ({n_buckets} buckets, "
+        f"one B1 each): total == 8 x {total} mod 2^32; {rep_ms:.3f} ms a "
+        f"rep on the device loop beside {one_ms:.3f} ms for one execute "
+        f"(host clock to a synchronize, medians of 5)")
+    xeng = BatchEngine(xsds)
+    xflat = random_query_pool(xsds.n, 16, seed=seed + 17)
+    xtotal = sum(r.cardinality for r in xeng.execute(xflat))
+    xb = len(xeng.plan(xflat))
+    got = smoke.main_path("17c compact chained_cardinality x8",
+                          xeng.chained_cardinality(xflat, 8))
+    require(int(got) == (8 * xtotal) % (1 << 32)
+            and smoke.last[b3] == 8 and smoke.last[b1] == 8 * xb,
+            f"17c compact: total {int(got)}, launches {smoke.last}")
+    log(f"  17c: on 7b's compact set, 8 reps of a Q 16 batch: B3 once and "
+        f"B1 {xb} times a rep, total == 8 x {xtotal} mod 2^32")
+    del xeng
+
+    # 17d: the per-query cross-check rung, asked for by name
+    stats0 = guard.dispatch_stats("batch_engine")
+    mstats0 = guard.dispatch_stats("multiset")
+    got = smoke.main_path("17d torch-vmap 7a",
+                          lambda: eng.execute(flat, engine="torch-vmap"))
+    require(eng.last_timings["engine"] == "torch-vmap"
+            and not any(smoke.last.values())
+            and same_results(got, want7a),
+            "17d: torch-vmap on 7a's batch != the cuda rung")
+    ms11 = MultiSetBatchEngine(tenants11[0])
+    pool11 = [BatchGroup(g.set_id, [BatchQuery(q.op, q.operands,
+                                               form="bitmap")
+                                    for q in g.queries])
+              for g in tenants11[2]]
+    want11 = ms11.execute(pool11)
+    got = smoke.main_path("17d torch-vmap 11a Q64",
+                          lambda: ms11.execute(pool11, engine="torch-vmap"))
+    require(smoke.last[b1] == 0 and len(got) == len(want11)
+            and all(same_results(g, w_) for g, w_ in zip(got, want11)),
+            "17d: torch-vmap on 11a's pool != pooled cuda")
+    chain = guard.chain_from(resolve_query_engine("auto", epool, "cuda"),
+                             ENGINES, "cuda")
+    require(chain == ("megakernel", "cuda")
+            and guard.dispatch_stats("batch_engine") == stats0
+            and guard.dispatch_stats("multiset") == mstats0,
+            f"17d: chain {chain}, or a demotion on the clean runs")
+    log(f"  17d: torch-vmap (explicit) over 7a's batch and 11a's Q 64 pool "
+        f"bit-equal to cuda; the card's chain {' -> '.join(chain)}, zero "
+        f"demotions")
+
+    # 17e: node at a time against the fused B5 batch (7b's expressions)
+    e32 = epool[:-2]
+    fused = smoke.main_path(f"17e fused x{len(e32)}",
+                            lambda: seng.execute(e32))
+    require(smoke.last[b5] == 1, f"17e fused: launches {smoke.last}")
+    fused_ms = median_ms(torch, lambda: seng.execute(e32))
+    nodes = smoke.main_path(f"17e node at a time x{len(e32)}",
+                            lambda: expr.execute_node_at_a_time(seng, e32))
+    n_b1 = smoke.last[b1]
+    require(smoke.last[b5] == 0 and n_b1 > 0
+            and same_results(nodes, fused),
+            "17e: node at a time != the fused batch")
+    node_ms = median_ms(torch, lambda: expr.execute_node_at_a_time(seng,
+                                                                   e32), 3)
+    log(f"  17e: {len(e32)} expressions node at a time ({n_b1} B1 "
+        f"launches, host combines) equal the fused batch (one B5); wall "
+        f"{node_ms:.3f} ms against {fused_ms:.3f} ms fused (host clock, "
+        f"medians, warm)")
+
+    # 17g: explain and explain_wide, predicted beside the measured peak
+    ms_eng = MultiSetBatchEngine(tenants11[0])
+    require(eng.hbm_bytes() == ds.hbm_bytes()
+            and seng.hbm_bytes() == sds.hbm_bytes()
+            and ms_eng.hbm_bytes() == sum(s.hbm_bytes()
+                                          for s in tenants11[0]),
+            "17g: an engine's hbm_bytes != the sum of its sets'")
+    for label, ex, run, chain_want in (
+            ("7a", eng.explain(flat), lambda: eng.execute(flat), ["cuda"]),
+            ("7b", seng.explain(epool), lambda: seng.execute(epool),
+             ["megakernel", "cuda"]),
+            ("or_ 1024", aggregation.explain_wide("or", adhoc),
+             lambda: aggregation.or_(adhoc), ["cuda"])):
+        require(ex["engine_chain"] == chain_want,
+                f"17g {label}: chain {ex['engine_chain']}")
+        pred = (ex["predicted"]["peak_bytes"] if "predicted" in ex
+                else ex["predicted_hbm_bytes"])
+        peak = peak_of(run)
+        extra = ("" if "predicted" not in ex else
+                 f"; {len(ex['buckets'])} buckets, plan cache hit "
+                 f"{ex['plan_cache_hit']}, program cache hit "
+                 f"{ex['program_cache_hit']}, host pairwise ops "
+                 f"{ex['sequential_floor']['host_pairwise_ops']}, est "
+                 f"device {ex['cost']['est_device_total_ms']} ms")
+        log(f"  17g {label}: engine {ex['engine']}, chain "
+            f"{ex['engine_chain']}; predicted {pred} bytes beside a "
+            f"measured peak of {peak} ({peak / max(1, pred):.2f}x); budget "
+            f"{ex['hbm_budget_bytes']}{extra}")
+    log(f"  17g: hbm_bytes of the batch engines and of the pooled engine "
+        f"over 11a's tenants ({ms_eng.hbm_bytes()}) equal their sets' sums")
+    del ms_eng, ms11
+
+    # 17f: phase 12's 64 patches replayed through warmed delta:N graphs.
+    # A value's fate is set by the last delta that names it, so the
+    # replayed sequence must leave the image as the eager patches left it.
+    # As in 12a no host twin rides along (advancing one is host work of its
+    # own); the twin is held on a set of 256 below
+    deltas = state12["deltas"]
+    before = ds.words.clone()
+    ds._host_cache = None
+    rep = smoke.main_path("17f warmup_delta(64)", lambda: ds.warmup_delta(64))
+    progs = list(ds._delta_programs.values())
+    require(rep["compiled"] and rep["rungs"] == [1, 2, 4, 8, 16, 32, 64]
+            and len(progs) == 7 and all(p.graph is not None for p in progs),
+            f"17f: warmup {rep}")
+    graph_ms, plan_ms = [], []
+
+    def replay(set_, stream, times=None, plans=None):
+        for adds, removes in stream:
+            if plans is not None:
+                t1 = time.perf_counter()
+                mut_delta.plan_patch(
+                    set_, mut_delta._normalize_delta(set_.n, adds),
+                    mut_delta._normalize_delta(set_.n, removes))
+                plans.append((time.perf_counter() - t1) * 1e3)
+            r, ms = sync_ms(lambda: set_.apply_delta(adds=adds,
+                                                     removes=removes))
+            require(r["mode"] == "patch", f"17f: {r}")
+            if times is not None:
+                times.append(ms)
+
+    smoke.main_path("17f 64 patches through graphs",
+                    lambda: replay(ds, deltas, graph_ms, plan_ms))
+    require(torch.equal(ds.words, before),
+            "17f: the graph-patched image != the eager patches'")
+    del before
+    eager_ms, eager_plan = state12["patch_ms"], state12["plan_ms"]
+    log(f"  17f: warmup_delta(64) captured {len(progs)} graphs (rungs "
+        f"{rep['rungs']}); 12a's 64 deltas replayed through them leave the "
+        f"image as the eager patches did; patch median "
+        f"{np.median(graph_ms):.3f} ms (graph; min {min(graph_ms):.3f}, max "
+        f"{max(graph_ms):.3f}) against {np.median(eager_ms):.3f} ms (12a, "
+        f"eager), of which host planning {np.median(plan_ms):.3f} / "
+        f"{np.median(eager_plan):.3f} ms (host clock to a synchronize)")
+    # the host twin and the repack, on two sets of phase 2's first 256
+    # bitmaps (one warmed), each with its twin; 12a-shaped deltas over their
+    # keys (a repack of phase 2's whole set first rebuilds the host twin
+    # of all 4,096 sources, which the run has no time for)
+    warm = DeviceBitmapSet(bms256, layout="dense")
+    cold = DeviceBitmapSet(bms256, layout="dense")
+    rng = np.random.default_rng(seed + 17)
+    live = np.flatnonzero(warm.row_src >= 0)
+    stream = []
+    hosts = [b.clone() for b in bms256]
+    for _ in range(16):
+        rows = rng.choice(live, int(rng.integers(1, 33)), replace=False)
+        adds, removes = {}, {}
+        for r in rows:
+            src = int(warm.row_src[r])
+            base = np.uint32(int(warm.keys[warm.row_seg[r]])) << np.uint32(16)
+            adds.setdefault(src, []).extend(
+                (base | rng.integers(0, 1 << 16, 50).astype(np.uint32)).tolist())
+            cur = hosts[src].to_array()
+            cur = cur[(cur >> np.uint32(16)) == (base >> np.uint32(16))]
+            removes.setdefault(src, []).extend(
+                rng.choice(cur, min(50, cur.size), replace=False).tolist())
+        stream.append((adds, removes))
+    twins = [s.host_bitmaps() for s in (warm, cold)]
+    warm.warmup_delta(32)
+    smoke.main_path("17f 16 patches through graphs, twin riding",
+                    lambda: replay(warm, stream))
+    replay(cold, stream)
+    t_w, t_c = warm.host_bitmaps(), cold.host_bitmaps()
+    require(torch.equal(warm.words, cold.words)
+            and warm._host_cache[0] == warm.version
+            and twins[0] is not t_w
+            and all(a.serialize() == b.serialize() for a, b in zip(t_w, t_c)),
+            "17f: image or host twin after graph patches != the eager ones")
+    # a repack replaces the image: the set's graphs go before it is freed
+    _, r_ms = sync_ms(lambda: mut_delta.repack_in_place(warm))
+    require(warm._delta_programs == {} and warm._delta_pool is None,
+            "17f: the repack kept its graphs")
+    adds, removes = stream[-1]
+    warm.apply_delta(adds=adds, removes=removes)
+    cold.apply_delta(adds=adds, removes=removes)
+    require(all(a.serialize() == b.serialize() for a, b in
+                zip(warm.host_bitmaps(), cold.host_bitmaps())),
+            "17f: a cold patch after the repack is not exact")
+    log(f"  17f: on 2's first 256 bitmaps, 16 deltas through graphs with "
+        f"the host twin riding: image and twin equal the eager set's; a "
+        f"repack ({r_ms:.0f} ms) dropped the graphs and their pool; a cold "
+        f"patch afterwards is exact")
+
+
 def gloo_child(rank: int, store: str, seed: int, per: int) -> int:
     """One of phase 16e's two gloo ranks on the card: phase 2's first
     3 x ``per`` bitmaps (the same seed) as tenants 0-2 of ``per``, a
@@ -4491,8 +4860,8 @@ def main() -> int:
     # ------------------------------------------------------------ phase 12
     log("phase 12: mutable tenants (deltas, repacks, the result cache)")
     t_phase = time.perf_counter()
-    phase12(smoke, args.seed, ds, bms, eng, xds, sds, sbms, seng, epool,
-            price, cols, batches, tenants11)
+    state12 = phase12(smoke, args.seed, ds, bms, eng, xds, sds, sbms, seng,
+                      epool, price, cols, batches, tenants11)
     phase_time("phase 12", t_phase)
 
     # ------------------------------------------------------------ phase 14
@@ -4519,6 +4888,16 @@ def main() -> int:
     del state14, sets15, bsi9
     torch.cuda.empty_cache()
     phase_time("phase 16", t_phase)
+
+    # ------------------------------------------------------------ phase 17
+    log("phase 17: the engine leftovers (flagship, evaluate, the chained "
+        "batch probe, torch-vmap, node at a time, explain, delta graphs)")
+    t_phase = time.perf_counter()
+    phase17(smoke, args.seed, shapes, union, adhoc, ds, bms[:256], eng,
+            flat, sds, seng, epool, xsds, xpool, tenants11, state12)
+    del state12
+    torch.cuda.empty_cache()
+    phase_time("phase 17", t_phase)
 
     # ------------------------------------------------------------ phase 6
     log("phase 6: each kernel against its plain version "

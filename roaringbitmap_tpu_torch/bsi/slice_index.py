@@ -8,8 +8,8 @@ top-K, the sum, value lookups, addition with carry, merge, and both
 serialized forms (the Hadoop-vint stream and the fixed-width big-endian
 buffer).  ``from_pairs`` builds every slice with one NumPy mask per bit.
 The device tier (``bsi.device``) and the analytics columns are held against
-this class.  ``run_optimize`` is not ported: the serialized run flag is
-always written as 0.
+this class.  ``run_optimize`` re-encodes the ebm and every slice in run
+containers where smaller and sets the run flag both serialized forms write.
 """
 
 from __future__ import annotations
@@ -288,6 +288,18 @@ class RoaringBitmapSliceIndex:
         exists = np.isin(cols, self.ebm.to_array())
         vals[~exists] = 0
         return vals, exists
+
+    def run_optimize(self) -> None:
+        """Re-encode the ebm and every slice in their smallest container
+        kinds (run containers where smaller); the serialized forms then
+        carry the run flag."""
+        self.ebm.run_optimize()
+        for s in self.slices:
+            s.run_optimize()
+        self.run_optimized = True
+
+    def has_run_compression(self) -> bool:
+        return self.run_optimized
 
     def clone(self) -> "RoaringBitmapSliceIndex":
         out = RoaringBitmapSliceIndex()

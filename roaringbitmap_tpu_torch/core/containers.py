@@ -10,10 +10,10 @@ ArrayContainer / BitmapContainer / RunContainer):
 
 Containers are thin wrappers over NumPy arrays, and the pairwise ops the host
 fold needs are vectorized word algebra (densify -> bitwise -> normalize).
-This is the subset of ``roaringbitmap_tpu.core.containers`` that the wide
-aggregation path and ``core.bitmap64`` use (point ops, rank/select, run
-optimization, range containers), kept as the port's own copy so that the port never
-imports the JAX package.
+This is the port's own copy of ``roaringbitmap_tpu.core.containers`` (point
+ops, rank/select, run optimization, range containers, the pairwise algebra
+and the subset, intersection and shift helpers of ``core.bitmap``), so that
+the port never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -360,6 +360,26 @@ def _member_mask(c: Container, queries: np.ndarray) -> np.ndarray:
     return ((words[q >> 6] >> (q & np.int64(63)).astype(np.uint64)) & np.uint64(1)).astype(bool)
 
 
+def container_is_subset(a: Container, b: Container) -> bool:
+    if a.cardinality > b.cardinality:
+        return False
+    return bool(_member_mask(b, a.values()).all())
+
+
+def container_intersects(a: Container, b: Container) -> bool:
+    if isinstance(a, ArrayContainer) and not isinstance(b, ArrayContainer):
+        return bool(_member_mask(b, a.values()).any())
+    if isinstance(b, ArrayContainer) and not isinstance(a, ArrayContainer):
+        return bool(_member_mask(a, b.values()).any())
+    if isinstance(a, ArrayContainer):
+        return np.intersect1d(a.values(), b.values(), assume_unique=True).size > 0
+    return bool(np.any(a.words() & b.words()))
+
+
+def container_and_cardinality(a: Container, b: Container) -> int:
+    return container_and(a, b).cardinality
+
+
 def container_equals(a: Container, b: Container) -> bool:
     """Set equality: same-kind bitmaps compare words, runs compare their
     pairs, anything else compares member values."""
@@ -371,3 +391,64 @@ def container_equals(a: Container, b: Container) -> bool:
             and np.array_equal(a.runs, b.runs):
         return True
     return bool(np.array_equal(a.values(), b.values()))
+
+
+def container_join_disjoint(a: Container, b: Container) -> Container:
+    """OR two containers where every member of a lies below every member of
+    b (the carry merge of ``RoaringBitmap.add_offset``).  Run/run and
+    array/array pairs concatenate without building a dense word image."""
+    if isinstance(a, RunContainer) and isinstance(b, RunContainer):
+        ra, rb = a.runs, b.runs
+        if int(ra[-2]) + int(ra[-1]) + 1 == int(rb[0]):  # touching: fuse
+            end = int(rb[0]) + int(rb[1])
+            fused = np.array([end - int(ra[-2])], dtype=np.uint16)
+            return RunContainer(np.concatenate([ra[:-1], fused, rb[2:]]))
+        return RunContainer(np.concatenate([ra, rb]))
+    if isinstance(a, ArrayContainer) and isinstance(b, ArrayContainer):
+        return from_values(np.concatenate([a.values(), b.values()]))
+    return container_or(a, b)
+
+
+def container_shift(c: Container, inoff: int) -> tuple[Container | None,
+                                                       Container | None]:
+    """Shift a container's values up by ``inoff`` in [0, 65536), split at the
+    chunk boundary: ``(low, high)``, low the values still below 2^16, high
+    the overflow less 2^16; either is None when empty.  Bitmap and run
+    containers shift as words and runs, never as value arrays."""
+    if inoff == 0:
+        return (c if c.cardinality else None), None
+    if isinstance(c, BitmapContainer):
+        words = c.words()
+        w, s = inoff >> 6, inoff & 63
+        out = np.zeros(2 * WORDS_PER_CONTAINER, dtype=np.uint64)
+        if s == 0:
+            out[w:w + WORDS_PER_CONTAINER] = words
+        else:
+            out[w:w + WORDS_PER_CONTAINER] = words << np.uint64(s)
+            out[w + 1:w + 1 + WORDS_PER_CONTAINER] |= words >> np.uint64(64 - s)
+        lo_w, hi_w = out[:WORDS_PER_CONTAINER], out[WORDS_PER_CONTAINER:]
+        lo = from_words(lo_w) if np.any(lo_w) else None
+        hi = from_words(hi_w) if np.any(hi_w) else None
+        return lo, hi
+    if isinstance(c, RunContainer):
+        starts = c.runs[0::2].astype(np.int64) + inoff
+        ends = starts + c.runs[1::2].astype(np.int64)  # inclusive
+
+        def build(s, e):
+            if s.size == 0:
+                return None
+            runs = np.empty(2 * s.size, dtype=np.uint16)
+            runs[0::2] = s.astype(np.uint16)
+            runs[1::2] = (e - s).astype(np.uint16)
+            return RunContainer(runs)
+        lo_m, hi_m = starts < (1 << 16), ends >= (1 << 16)
+        lo = build(starts[lo_m], np.minimum(ends[lo_m], 0xFFFF))
+        hi = build(np.maximum(starts[hi_m], 1 << 16) - (1 << 16),
+                   ends[hi_m] - (1 << 16))
+        return lo, hi
+    vals = c.values().astype(np.int64) + inoff
+    split = int(np.searchsorted(vals, 1 << 16))
+    lo = ArrayContainer(vals[:split].astype(np.uint16)) if split else None
+    hi = (ArrayContainer((vals[split:] - (1 << 16)).astype(np.uint16))
+          if split < vals.size else None)
+    return lo, hi

@@ -72,6 +72,17 @@ def serialized_size_in_bytes(keys: np.ndarray, containers: list[Container]) -> i
     return header + sum(c.serialized_size_in_bytes() for c in containers)
 
 
+def maximum_serialized_size(cardinality: int, universe_size: int) -> int:
+    """Upper bound on the serialized bytes of any bitmap with ``cardinality``
+    members below ``universe_size`` (the reference's
+    ``RoaringBitmap.maximumSerializedSize``)."""
+    contnbr = (universe_size + 65535) // 65536
+    contnbr = min(contnbr, cardinality)  # no more containers than values
+    headermax = max(8, 4 + (contnbr + 7) // 8) + 8 * contnbr
+    valsbest = min(2 * cardinality, contnbr * 8192)
+    return headermax + valsbest
+
+
 def serialize(keys: np.ndarray, containers: list[Container]) -> bytes:
     """Serialize a (sorted keys, containers) pair to the portable format."""
     size = len(containers)
@@ -223,6 +234,12 @@ class SerializedView:
         if self.size == 0:
             return 8
         return int(self.payload_offsets[-1] + self.payload_sizes[-1])
+
+
+def deserialize_meta(buf: bytes | memoryview) -> SerializedView:
+    """Zero-copy metadata parse: header arrays decoded, payloads left in
+    place (the ingest seam of ``ops.packing``)."""
+    return SerializedView(buf)
 
 
 def deserialize(buf: bytes | memoryview) -> tuple[np.ndarray, list[Container]]:

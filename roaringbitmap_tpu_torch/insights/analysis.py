@@ -26,6 +26,7 @@ import numpy as np
 
 from ..core.containers import WORDS_PER_CONTAINER
 from ..ops import packing
+from ..runtime.guard import PLAIN_RUNGS as PLAIN_ENGINES
 
 #: bytes of one densified container row: u32[2048] = 2^16 bits = 8 KiB
 ROW_BYTES = WORDS_PER_CONTAINER * 8
@@ -68,7 +69,7 @@ def densify_bytes(n_rows: int, engine: str) -> int:
     writes the image once on the kernel rungs; the plain scatter needs
     ``PLAIN_DENSIFY_ROWS`` rows per image row."""
     rows = dense_rows_bytes(int(n_rows) + 1)
-    return rows * PLAIN_DENSIFY_ROWS if engine == "torch" else rows
+    return rows * PLAIN_DENSIFY_ROWS if engine in PLAIN_ENGINES else rows
 
 
 def _bucket_bytes(bucket_sigs: list, engine: str) -> dict:
@@ -87,12 +88,12 @@ def _bucket_bytes(bucket_sigs: list, engine: str) -> dict:
             continue
         block, slots = q * r_pad, q * (k_pad + 1)
         gather += block * (ROW_BYTES + INDEX_BYTES)
-        if engine == "torch":
+        if engine in PLAIN_ENGINES:
             scratch += DOUBLING_BLOCKS * block * ROW_BYTES
         heads += slots * (ROW_BYTES + INDEX_BYTES)
         if op == "andnot":
             heads += slots * ROW_BYTES          # the head gather
-        if op == "andnot" or engine == "torch":
+        if op == "andnot" or engine in PLAIN_ENGINES:
             # B1 returns the cards of or/xor/and; andnot and the plain
             # rung count their heads again
             scratch += POPCOUNT_ROWS * slots * ROW_BYTES

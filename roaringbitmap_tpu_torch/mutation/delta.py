@@ -14,7 +14,16 @@ and uploaded as ONE ``[P, 2, 2048]`` tensor through pinned memory
 (``ops.words.upload``); the patch is queued on the set's current stream and
 reads nothing back.  Rows are unique within a patch, so the scatter is
 deterministic.  This is the JAX package's donated jitted program: XLA there,
-three eager tensor ops here, with no program to compile per row count.
+three tensor ops here.  ``warmup_delta(n)`` prepares the "delta:N" rungs as
+the JAX package compiles them: a patch pads to the next power of two with
+neutral entries on the layout's padding row, and each rung is one CUDA
+graph captured over a static operand buffer and the image
+(``_PatchProgram``): an in-band patch of that rung is staged in a pinned
+buffer, copied in and replayed.
+A graph writes the image by address, so its key holds the image's address
+and a repack drops every graph of the set before the old image is freed.
+A cold rung runs the exact patch eagerly; on the CPU a warmed rung runs the
+padded patch eagerly.
 
 Escalation.  These take the full repack instead (``repack_in_place``):
 
@@ -183,27 +192,168 @@ def plan_patch(ds, adds: dict, removes: dict):
 
 
 def _pad_row(ds) -> int:
-    """A padding row of the blocked layout (row_src == -1), or -1."""
-    pad = np.flatnonzero(ds.row_src < 0)
-    return int(pad[0]) if pad.size else -1
+    """A padding row of the blocked layout (row_src == -1), or -1; found
+    once a layout (a repack's new state starts without it)."""
+    got = ds.__dict__.get("_pad_row_found")
+    if got is None:
+        pad = np.flatnonzero(ds.row_src < 0)
+        got = ds._pad_row_found = int(pad[0]) if pad.size else -1
+    return got
+
+
+def _rung_of(ds, p: int) -> int:
+    """The "delta:N" rung of a ``p``-row patch: the next power of two, or
+    ``p`` itself when the layout has no padding row to aim extra entries
+    at."""
+    return packing.next_pow2(max(1, p)) if _pad_row(ds) >= 0 else max(1, p)
+
+
+def _patch_body(words: torch.Tensor, rows: torch.Tensor,
+                masks: torch.Tensor) -> None:
+    """The in-place patch: rows i32[P] of ``words`` take ``(w | add) &
+    ~rem``, masks int32[P, 2, 2048] holding add (plane 0) and rem."""
+    idx = rows.long()
+    cur = words.index_select(0, idx)
+    cur.bitwise_or_(masks[:, 0]).bitwise_and_(masks[:, 1].bitwise_not())
+    words.index_copy_(0, idx, cur)
+
+
+class _PatchProgram:
+    """One warmed "delta:N" rung: a static operand buffer (rows i32[p_pad],
+    then masks int32[p_pad, 2, 2048]), the pinned host buffer a patch is
+    staged in, and, on the card, the graph of ``_patch_body`` captured over
+    the static buffer and the set's image.  A patch of p < p_pad rows pads
+    with entries on the layout's padding row and zero masks: ``(w | 0) &
+    ~0 == w``, and every duplicate writes the same value, so the scatter
+    stays deterministic.  On the CPU the staged patch runs eagerly."""
+
+    def __init__(self, ds, p_pad: int):
+        dev = ds.device
+        n = p_pad * (1 + 2 * WORDS32)
+        self.p_pad = p_pad
+        self.pad = max(_pad_row(ds), 0)
+        self.buf = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.rows = self.buf[:p_pad]
+        self.masks = self.buf[p_pad:].view(p_pad, 2, WORDS32)
+        # zero masks over a valid row: the warm run and the capture leave
+        # the image as it is
+        self.rows.fill_(self.pad)
+        self.graph = None
+        #: the last copy out of the staging buffer, waited for before the
+        #: next patch overwrites it
+        self._staged = None
+        if dev.type == "cuda":
+            self.host = torch.zeros(n, dtype=torch.int32, pin_memory=True)
+            self._capture(ds)
+        else:
+            self.host = self.buf
+
+    def _capture(self, ds) -> None:
+        from ..runtime import errors, programs
+
+        if ds._delta_pool is None:
+            ds._delta_pool = programs.GraphPool()
+        pool = ds._delta_pool
+        main = torch.cuda.current_stream(ds.device)
+        side = pool.stream(ds.device)
+        side.wait_stream(main)
+        try:
+            with torch.cuda.stream(side):
+                _patch_body(ds.words, self.rows, self.masks)
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool.handle())
+                try:
+                    _patch_body(ds.words, self.rows, self.masks)
+                finally:
+                    graph.capture_end()
+            main.wait_stream(side)
+        except torch.OutOfMemoryError:
+            raise
+        except Exception as exc:
+            raise errors.GraphCaptureError(
+                f"{SITE}: capturing the delta:{self.p_pad} patch failed: "
+                f"{type(exc).__name__}: {exc}") from exc
+        self.graph = graph
+
+    def run(self, ds, rows, add_m, rem_m) -> None:
+        """Stage one patch (rows, u32 add and remove masks of p <= p_pad
+        rows), padded to the rung, copy it in and replay (eagerly on the
+        CPU, over the same buffer)."""
+        if self._staged is not None:
+            self._staged.synchronize()
+        p, pp = int(rows.size), self.p_pad
+        h = self.host.numpy()
+        h[:p] = rows
+        h[p:pp] = self.pad
+        m = h[pp:].reshape(pp, 2, WORDS32)
+        m[:p, 0] = add_m.view(np.int32)
+        m[:p, 1] = rem_m.view(np.int32)
+        m[p:] = 0
+        if self.graph is None:
+            _patch_body(ds.words, self.rows, self.masks)
+            return
+        self.buf.copy_(self.host, non_blocking=True)
+        self._staged = torch.cuda.Event()
+        self._staged.record()
+        self.graph.replay()
+
+
+def _program_key(ds, p_pad: int) -> tuple:
+    """A rung's program key: the image's shape and address, so a graph is
+    never replayed over an image it was not captured on."""
+    return (int(ds._n_rows), int(p_pad), ds.words.data_ptr())
+
+
+def _patch_program(ds, p_pad: int, build: bool = True):
+    """The warmed program of the ``p_pad`` rung, captured now when missing
+    and ``build`` (else None).  Hits and misses are observed in
+    ``rb_compile_seconds{site="mutation"}``, as the JAX package's
+    compiles."""
+    from ..obs import cost as obs_cost
+
+    t0 = time.perf_counter()
+    key = _program_key(ds, p_pad)
+    prog = ds._delta_programs.get(key)
+    if prog is not None:
+        obs_cost.observe_compile(SITE, "hit", time.perf_counter() - t0)
+        return prog
+    if not build:
+        return None
+    prog = _PatchProgram(ds, p_pad)
+    obs_cost.observe_compile(SITE, "miss", time.perf_counter() - t0)
+    ds._delta_programs[key] = prog
+    return prog
+
+
+def drop_patch_programs(ds) -> int:
+    """Drop every warmed patch program of the set (a repack replaces the
+    image they write); returns how many were dropped."""
+    n = len(ds._delta_programs)
+    ds._delta_programs.clear()
+    if ds._delta_pool is not None:
+        torch.cuda.synchronize(ds.device)
+        ds._delta_pool.release()
+        ds._delta_pool = None
+    return n
 
 
 def warmup_delta(ds, n: int) -> dict:
-    """The "delta:N" warmup rungs of an ``n``-row delta, as the JAX package
-    reports them (every power of two up to ``n``'s, or ``n`` alone when the
-    layout has no padding row).  The port patches eagerly: no program
-    compiles per rung, so ``compiled`` is False and nothing runs."""
+    """Prepare the in-place patch program of every power-of-two "delta:N"
+    rung up to ``n``'s (``n`` alone when the layout has no padding row), as
+    the JAX package compiles them: on the card one captured CUDA graph per
+    ``(rows, rung)`` over the set's image, on the CPU the rung's static
+    buffer.  A delta pads to its own rung, so an in-band ``apply_delta`` of
+    up to ``n`` rows replays a program.  Nothing is mutated."""
     if ds.layout != "dense":
         return {"site": SITE, "rung": int(n), "compiled": False,
                 "why": f"{ds.layout} layout deltas repack (no patch "
                        "program to warm)"}
-    if _pad_row(ds) < 0:
-        rungs = [max(1, int(n))]
-    else:
-        top = packing.next_pow2(max(1, int(n)))
-        rungs = [1 << i for i in range(top.bit_length())]
-    return {"site": SITE, "rung": int(n), "rungs": rungs, "compiled": False,
-            "why": "the port patches eagerly: no program compiles per rung"}
+    top = _rung_of(ds, int(n))
+    rungs = ([1 << i for i in range(top.bit_length())]
+             if _pad_row(ds) >= 0 else [top])
+    for p in rungs:
+        _patch_program(ds, p)
+    return {"site": SITE, "rung": int(n), "rungs": rungs, "compiled": True}
 
 
 # ------------------------------------------------------------ host tier
@@ -444,15 +594,15 @@ def _queue_escalation(ds, worker, adds, removes, reason, touched) -> None:
 
 def _patch_rows(ds, rows, add_m, rem_m) -> None:
     """The in-place row patch of the dense image, queued on the current
-    stream, plus its journal entry."""
-    words = ds.words
-    dev = words.device
-    masks = np.stack((add_m, rem_m), axis=1)          # u32[P, 2, 2048]
-    idx = upload(rows, dev).long()
-    m = upload(masks, dev)
-    cur = words.index_select(0, idx)
-    cur.bitwise_or_(m[:, 0]).bitwise_and_(m[:, 1].bitwise_not())
-    words.index_copy_(0, idx, cur)
+    stream, plus its journal entry.  A warmed rung stages the patch padded
+    and replays its program; a cold one runs the exact patch eagerly."""
+    prog = _patch_program(ds, _rung_of(ds, int(rows.size)), build=False)
+    if prog is not None:
+        prog.run(ds, rows, add_m, rem_m)
+    else:
+        dev = ds.words.device
+        _patch_body(ds.words, upload(rows, dev),
+                    upload(np.stack((add_m, rem_m), axis=1), dev))
     journal = ds._delta_journal
     journal.append((ds.version, np.asarray(rows, np.int32).copy(),
                     add_m.copy(), rem_m.copy()))
@@ -498,6 +648,8 @@ def repack_in_place(ds, bitmaps=None, reason: str = "requested",
             setattr(shell, name, getattr(ds, name))
     if ds.device.type == "cuda":
         torch.cuda.current_stream(ds.device).synchronize()
+    # the graphs write the old image by address: gone before it is freed
+    drop_patch_programs(ds)
     obs_memory.LEDGER.release(ds._ledger_handle)
     ds.__dict__ = shell.__dict__
     obs_memory.LEDGER.release(shell._ledger_handle)

@@ -367,6 +367,39 @@ def and64(*bitmaps, engine: str = "auto", device=None,
                 out_cls=Roaring64Bitmap, fallback=fallback)
 
 
+def explain_wide(op: str, bitmaps, engine: str = "auto", device=None) -> dict:
+    """Plan report of one wide op (the ``BatchEngine.explain`` analog for
+    the ad-hoc entry points): the engine that would run and its fallback
+    chain, the device rows the call would gather and their bytes
+    (``insights.dense_rows_bytes``), and whether that clears the device
+    memory budget.  Keys as the JAX package's; engine names the port's."""
+    if op not in ("or", "and", "xor"):
+        raise ValueError(f"unsupported wide op {op!r}")
+    dev = resolve_device(device)
+    bitmaps = _flatten([bitmaps] if hasattr(bitmaps, "keys") else bitmaps)
+    # the AND is pinned to its one rung (see and_): name what really runs
+    if op == "and":
+        _engine(engine, dev)
+        eng, ladder = _AND_RUNG, (_AND_RUNG,)
+    else:
+        eng, ladder = _engine(engine, dev), ENGINES
+    chain = guard.chain_from(eng, ladder, dev)
+    containers = sum(b.container_count() for b in bitmaps)
+    rows = packing.blocked_block_count(bitmaps, BLOCK) * BLOCK \
+        if bitmaps else 0
+    predicted = insights.dense_rows_bytes(rows)
+    budget = guard.resolve_hbm_budget(None, dev)
+    return {
+        "site": "aggregation", "op": op, "n": len(bitmaps),
+        "engine_requested": engine, "engine": eng,
+        "engine_chain": list(chain),
+        "containers": int(containers), "device_rows": int(rows),
+        "predicted_hbm_bytes": int(predicted),
+        "hbm_budget_bytes": budget,
+        "within_budget": budget is None or predicted <= budget,
+    }
+
+
 # ---------------------------------------------------------- batched pairwise
 #
 # P pairs aligned on their per-pair key unions, both sides densified on the
@@ -727,6 +760,10 @@ class DeviceBitmapSet:
         (for a state without streams, the image's set bits)."""
         self.row_versions = np.full(self._n_rows, self.version, np.int64)
         self._delta_journal: list = []
+        #: the warmed "delta:N" patch programs (``mutation.delta``): keyed
+        #: on this image's address, so a repack's new image starts empty
+        self._delta_programs: dict = {}
+        self._delta_pool = None
         self._journal_dropped_version = getattr(
             self, "_journal_dropped_version", 0)
         self._host_cache = None
@@ -1049,8 +1086,9 @@ class DeviceBitmapSet:
                                      journal=journal)
 
     def warmup_delta(self, n: int) -> dict:
-        """The "delta:N" warmup rungs of an ``n``-row delta.  The port
-        patches eagerly, so nothing compiles (``compiled`` is False)."""
+        """Prepare the in-place patch program of every "delta:N" rung up to
+        ``n`` rows (a captured CUDA graph each on the card), so no in-band
+        ``apply_delta`` of up to ``n`` rows pays a capture."""
         from ..mutation import delta as mut_delta
 
         return mut_delta.warmup_delta(self, n)
@@ -1063,6 +1101,28 @@ class DeviceBitmapSet:
         from ..mutation import delta as mut_delta
 
         return mut_delta.host_bitmaps(self)
+
+    def evaluate(self, expression, form: str | None = None,
+                 engine: str = "auto"):
+        """Evaluate one set-algebra expression over this resident set: one
+        fused launch (B5) on the card.  ``expression`` is an ``expr`` tree
+        or an ``ExprQuery``; an explicit ``form`` overrides the query's
+        own.  Returns the cardinality (``form="cardinality"``) or the
+        result bitmap (``form="bitmap"``).  The ``BatchEngine`` behind it
+        is built on first use and kept, so repeated shapes hit its plan
+        and program caches."""
+        from . import expr as expr_mod
+        from .batch_engine import BatchEngine
+
+        if getattr(self, "_expr_engine", None) is None:
+            self._expr_engine = BatchEngine(self)
+        if isinstance(expression, expr_mod.ExprQuery):
+            q = (expression if form is None
+                 else dataclasses.replace(expression, form=form))
+        else:
+            q = expr_mod.ExprQuery(expression, form=form or "cardinality")
+        [res] = self._expr_engine.execute([q], engine=engine)
+        return res.bitmap if q.form == "bitmap" else res.cardinality
 
     def hbm_bytes(self) -> int:
         """Device bytes the set keeps resident: the sum of

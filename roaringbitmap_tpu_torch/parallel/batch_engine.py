@@ -33,6 +33,10 @@ Rungs (``engine``):
                 PyTorch (the JAX "pallas" rung);
   "torch"       the plain versions: gather + the doubling reduce (the JAX
                 "xla" rung);
+  "torch-vmap"  the per-query cross-check (the JAX "xla-vmap" rung): each
+                bucket reduced query by query, neither flattened over the
+                query axis nor merged per op, which proves both equivalent;
+                on the card it runs only when asked for by name;
   "auto"        "megakernel" on a CUDA device when the batch holds an
                 ``ExprQuery``, else "cuda" on the card and "torch" on the
                 CPU.
@@ -40,7 +44,7 @@ Rungs (``engine``):
 (``insights.analysis``); a batch predicted past the budget
 (``runtime.guard.resolve_hbm_budget``) is halved before dispatch.
 Compact and counts sets rebuild the row image first: B3 on the "cuda" and
-"megakernel" rungs, the plain scatter on "torch".
+"megakernel" rungs, the plain scatter on "torch" and "torch-vmap".
 
 Programs and the lattice (``runtime.lattice``, ``runtime.programs``): the
 device part of a plan runs through the engine's program cache.  Under an
@@ -86,7 +90,7 @@ from .aggregation import DeviceBitmapSet, _engine
 _RED_OP = {"or": "or", "xor": "xor", "and": "and", "andnot": "or"}
 
 #: also the guard's ladder for a batch, in order
-ENGINES = ("megakernel", "cuda", "torch")
+ENGINES = ("megakernel", "cuda", "torch", guard.PLAIN_VMAP)
 
 #: cap of the prepared-plan cache: novel query shapes must not grow a
 #: long-lived server without bound
@@ -108,8 +112,8 @@ def resolve_query_engine(engine: str, queries, device) -> str:
     """The rung a batch starts at: an explicit "megakernel" always starts
     there; "auto" starts there only on a CUDA device and only when the batch
     holds expression queries (flat batches gain nothing from the
-    instruction stream)."""
-    if engine == "megakernel":
+    instruction stream); "torch-vmap" runs only when asked for."""
+    if engine in ("megakernel", guard.PLAIN_VMAP):
         return engine
     eng = _engine(engine, torch.device(device))
     if (engine == "auto" and eng == "cuda"
@@ -318,7 +322,8 @@ class BatchPlan(list):
 
 def bucket_body(words: torch.Tensor, b_sig, arrays: dict, eng: str):
     """One bucket on the device: gather -> flat segmented reduce (B1 on the
-    "cuda" rung, the doubling pass on "torch") -> per-op post pass.
+    "cuda" rung, the doubling pass on "torch", one doubling reduce per query
+    over its own rows on "torch-vmap") -> per-op post pass.
     Returns (heads int32[q, k_pad, 2048], cards int32[q, k_pad]).  The masks
     apply in place on tensors the body made; B1's cards serve or/xor/and,
     and andnot and the plain rung count their heads again."""
@@ -332,6 +337,18 @@ def bucket_body(words: torch.Tensor, b_sig, arrays: dict, eng: str):
         heads, cards = kernels.segmented_reduce(red, g, arrays["flat_seg"],
                                                 nseg)
         cards = cards.view(qn, k_pad + 1)[:, :k_pad]
+    elif eng == guard.PLAIN_VMAP:
+        # query by query on the unflattened [q, r_pad] layout: each query's
+        # own segment ids and heads, as the flat reduce must equal
+        g3 = g.view(qn, r_pad, WORDS32)
+        seg = arrays["seg_local"]
+        slots = torch.arange(k_pad + 1, dtype=torch.int32, device=g.device)
+        heads = torch.stack([
+            dense.segmented_reduce(
+                red, g3[i], seg[i],
+                torch.searchsorted(seg[i], slots, out_int32=True).clamp(
+                    max=r_pad - 1), n_steps)[0]
+            for i in range(qn)])
     else:
         red_rows = dense.doubling_pass(dense.OPS[red], g,
                                        arrays["flat_seg"], n_steps)
@@ -614,7 +631,8 @@ class BatchEngine:
     def _words(self, eng: str) -> torch.Tensor:
         """The resident row image: the dense image itself, or rebuilt from
         the compact streams (B3 on the kernel rungs)."""
-        return self._ds._resident_words("torch" if eng == "torch" else "cuda")
+        return self._ds._resident_words(
+            "torch" if eng in guard.PLAIN_RUNGS else "cuda")
 
     def _operands(self, plan: BatchPlan, eng: str, packed: bool) -> dict:
         """The device part's operand tree: the plan's cached device arrays
@@ -1267,6 +1285,169 @@ class BatchEngine:
         mid = (len(queries) + 1) // 2
         return (self._split_layout(queries[:mid], eng, budget)
                 + self._split_layout(queries[mid:], eng, budget))
+
+    def explain(self, queries, engine: str = "auto",
+                policy: guard.GuardPolicy | None = None) -> dict:
+        """A JSON-serializable report of what ``execute`` would do with a
+        batch, without dispatching it (the JAX package's keys).
+
+        Per query: its bucket, pow2 operand rung and form.  Per bucket: the
+        padded (q, r_pad, k_pad) shape, its share of the predicted bytes
+        and its roofline time estimate (``obs.cost.estimate_seconds`` at the
+        card's peak row, or at the observed rates once dispatches have
+        calibrated it).  Then the resolved engine and its chain, the plan
+        and program caches as they stood before this call planned, the
+        resident set's footprint, the predicted peak against the budget
+        with the split schedule, the expression sections node by node, and
+        the sequential floor (host pairwise ops; the mean observed landing
+        when there has been one)."""
+        queries = list(queries)
+        policy = policy or guard.GuardPolicy.from_env()
+        budget = guard.resolve_hbm_budget(policy, self.device)
+        self._sync_with_ds()
+        plan_hit = self.plan_key(queries) in self._plans
+        plan = self.plan(queries)
+        start = resolve_query_engine(engine, queries, self.device)
+        eng = self._bucket_engine(plan, start, note=False)
+        kind = self._resident_kind()
+        layout = (None if plan.point is None or not (plan or plan.fused)
+                  else self._pack(plan, eng).layout)
+        prog_hit = self._program_key(plan, eng, layout) in self._programs
+        predicted = insights.predict_batch_dispatch_bytes(
+            [b.signature for b in plan], kind, self._ds._n_rows, eng)
+        if plan.exprs:
+            predicted = dict(predicted)
+            predicted["expr_bytes"] = insights.predict_expr_dispatch_bytes(
+                plan.expr_signature, eng)["peak_bytes"]
+            predicted["peak_bytes"] += predicted["expr_bytes"]
+        buckets, q_rows = [], [None] * len(queries)
+        est_total_s = 0.0
+        for bi, b in enumerate(plan):
+            # a bucket's share leaves out the stream set's densify, which is
+            # batch-wide and reported once (``densify_bytes``)
+            share = insights.predict_batch_dispatch_bytes(
+                [b.signature], "dense", 0, eng)
+            word_ops = insights.predict_batch_dispatch_word_ops(
+                [b.signature], "dense", 0, eng)
+            est_s = obs_cost.estimate_seconds(word_ops, share["peak_bytes"],
+                                              SITE, eng)
+            est_total_s += est_s
+            buckets.append({
+                "op": b.op, "queries": [int(q) for q in b.qids],
+                "q_padded": b.q, "r_pad": b.r_pad, "k_pad": b.k_pad,
+                "n_steps": b.n_steps, "needs_words": b.needs_words,
+                "predicted_bytes": share["peak_bytes"],
+                "est_word_ops": word_ops,
+                "est_device_ms": round(est_s * 1e3, 4)})
+            for pid in b.qids:
+                qid = plan.owner.get(pid)
+                if qid is None or isinstance(queries[qid],
+                                             expr_mod.ExprQuery):
+                    continue        # expression rows are below
+                q = queries[qid]
+                n_ops = len(set(q.operands))
+                q_rows[qid] = {"op": q.op, "form": q.form, "operands": n_ops,
+                               "rung": packing.next_pow2(max(1, n_ops)),
+                               "bucket": bi}
+        expr_rows = []
+        for sec in plan.exprs:
+            sig = sec.signature
+            expr_rows.append({
+                "qid": sec.qid, "kind": sec.kind, "form": sec.form,
+                "nodes": sec.n_nodes, "reduce_nodes": sec.n_reduce,
+                "combine_nodes": sec.n_combine, "depth": sec.depth,
+                "cse_saved": sec.cse_saved,
+                "predicted_bytes": insights.predict_expr_dispatch_bytes(
+                    [sig], eng)["peak_bytes"],
+                "est_word_ops": insights.predict_expr_word_ops([sig], eng),
+                "per_node": insights.expr_node_report(sig)})
+            q_rows[sec.qid] = {"op": "expr", "form": sec.form,
+                               "nodes": sec.n_nodes, "depth": sec.depth,
+                               "kind": sec.kind}
+        floor = {"host_pairwise_ops": sum(
+            expr_mod.host_op_count(q.expr)
+            if isinstance(q, expr_mod.ExprQuery)
+            else max(0, len(set(q.operands)) - 1) for q in queries),
+            "observed_mean_seconds": None}
+        for name, labels, inst in obs_metrics.REGISTRY.instruments():
+            # read-only scan: explain never creates an instrument
+            if (name == "rb_execute_latency_seconds"
+                    and labels.get("site") == SITE
+                    and labels.get("engine") == guard.SEQUENTIAL
+                    and inst.count):
+                floor["observed_mean_seconds"] = round(
+                    inst.sum / inst.count, 6)
+        split_sizes = self._split_layout(queries, eng, budget)
+        densify_s = obs_cost.estimate_seconds(
+            insights.predict_batch_dispatch_word_ops(
+                [], kind, self._ds._n_rows, eng),
+            predicted["densify_bytes"], SITE, eng)
+        return {
+            "site": SITE, "q": len(queries),
+            "engine_requested": engine, "engine": eng,
+            "engine_chain": list(guard.chain_from(start, ENGINES,
+                                                  self.device)),
+            "layout": self._ds.layout, "source_kind": kind,
+            "plan_cache_hit": plan_hit,
+            "program_cache_hit": prog_hit,
+            "resident": {
+                "hbm_bytes": self.hbm_bytes(),
+                "components": {k: int(v) for k, v in
+                               insights.resident_set_bytes(
+                                   self._ds).items()}},
+            "buckets": buckets, "queries": q_rows, "exprs": expr_rows,
+            "predicted": {k: int(v) for k, v in predicted.items()},
+            "hbm_budget_bytes": budget,
+            "proactive_split": {"would_split": len(split_sizes) > 1,
+                                "dispatches": split_sizes},
+            "sequential_floor": floor,
+            "cost": {
+                "peaks": obs_cost.device_peaks(),
+                "per_bucket_est_device_ms": [b["est_device_ms"]
+                                             for b in buckets],
+                "densify_est_device_ms": round(densify_s * 1e3, 4),
+                "est_device_total_ms": round(
+                    (est_total_s + densify_s) * 1e3, 4),
+                "observed": obs_cost.TRACKER.observed_rates(SITE, eng)},
+        }
+
+    def chained_cardinality(self, queries, reps: int, engine: str = "auto"):
+        """A callable running the whole flat batch ``reps`` times in turn on
+        the resident image, every query's cards summed into an int64 device
+        total; it returns the total mod 2^32 as a 0-d device tensor (callers
+        check it against ``(reps * expected) % 2**32``).  On the card each
+        repetition is a gather and a B1 launch per bucket (B3 first for a
+        stream set).  PyTorch runs eagerly and never elides a repeated call,
+        so JAX's optimization_barrier has no counterpart."""
+        queries = list(queries)
+        if any(isinstance(q, expr_mod.ExprQuery) for q in queries):
+            raise ValueError(
+                "chained_cardinality probes flat batches only; time "
+                "expression pools with repeated execute() calls")
+        if engine not in ("auto",) + ENGINES:
+            raise ValueError(f"unknown engine {engine!r}; expected one of "
+                             f"{('auto',) + ENGINES}")
+        plan = self.plan(queries)
+        eng = self._bucket_engine(
+            plan, resolve_query_engine(engine, queries, self.device),
+            note=False)
+        sigs = [b.signature for b in plan]
+        arrays = [b.device_arrays(self.device) for b in plan]
+
+        def run():
+            total = torch.zeros((), dtype=torch.int64, device=self.device)
+            for _ in range(reps):
+                words = self._words(eng)
+                for sig, arr in zip(sigs, arrays):
+                    total += bucket_body(words, sig, arr, eng)[1].sum(
+                        dtype=torch.int64)
+            return total % (1 << 32)
+
+        return run
+
+    def hbm_bytes(self) -> int:
+        """Device bytes the set keeps resident (``DeviceBitmapSet.hbm_bytes``)."""
+        return self._ds.hbm_bytes()
 
 
 def analytics_rung_queries(columns: dict, depth: int,

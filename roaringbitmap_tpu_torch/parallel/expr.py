@@ -447,6 +447,38 @@ def _dag_stats_canonical(e: Expr) -> dict:
             "cse_saved": tree_nodes - len(uniq), "depth": depth}
 
 
+def host_op_count(e: Expr) -> int:
+    """Pairwise host container ops a sequential evaluation pays: the
+    expression analog of ``len(operands) - 1`` in the explain floor."""
+    try:
+        return _host_op_count_canonical(canonicalize(e))
+    except ValueError:
+        return 0
+
+
+def _host_op_count_canonical(e: Expr) -> int:
+    return sum(max(0, len(n.children) - 1) for n in _dag_nodes(e)
+               if isinstance(n, Node) and n.op != "empty")
+
+
+def _dag_nodes(e: Expr) -> list:
+    """Unique nodes of the canonical DAG, children first."""
+    seen: set = set()
+    order: list = []
+
+    def walk(n):
+        if n in seen:
+            return
+        seen.add(n)
+        if isinstance(n, Node):
+            for c in n.children:
+                walk(c)
+        order.append(n)
+
+    walk(e)
+    return order
+
+
 # ------------------------------------------------- host reference rung
 
 def _host_column(columns, name: str):
@@ -1159,6 +1191,69 @@ def assemble_section_results(sections, expr_outs, results, form_of,
 
 
 # ------------------------------------------------- workload generator
+
+def execute_node_at_a_time(engine, queries) -> list:
+    """The unfused baseline the fused B5 path is compared with: every
+    reduce node of every expression is its own one-query
+    ``BatchEngine.execute`` (one B1 launch on the card, after B3 for a
+    compact set), its bitmap read back, and the combines run on the host.
+    ``Agg`` roots go through ``analytics.two_phase_execute``.  Bit-exact
+    with the fused path by construction."""
+    from .batch_engine import BatchQuery, BatchResult
+
+    out = []
+    for q in queries:
+        if isinstance(q, BatchQuery):
+            out.append(engine.execute([q])[0])
+            continue
+        e = canonicalize(q.expr)
+        if isinstance(e, Agg):
+            from ..analytics.two_phase import two_phase_execute
+
+            out.extend(two_phase_execute(engine, [q]))
+            continue
+        memo: dict = {}
+
+        def ev(n):
+            got = memo.get(n)
+            if got is not None:
+                return got
+            if isinstance(n, Ref):
+                v = engine._ds.host_bitmaps()[n.index]
+            elif isinstance(n, AdHoc):
+                v = n.bm
+            elif isinstance(n, ValuePred):
+                v = engine._column(n.col).host_filter(n.op, n.lo, n.hi)
+            elif n.op == "empty":
+                v = engine._empty_cls()
+            elif _is_reduce(n):
+                ops = tuple(c.index for c in n.children)
+                v = engine.execute(
+                    [BatchQuery(n.op, ops, form="bitmap")])[0].bitmap
+            elif n.op == "andnot":
+                v = ev(n.children[0]).clone()
+                for r in n.children[1:]:
+                    v = v - ev(r)
+            else:
+                fn = {"or": operator.or_, "and": operator.and_,
+                      "xor": operator.xor}[n.op]
+                parts = [ev(c) for c in n.children]
+                v = parts[0]
+                for p in parts[1:]:
+                    v = fn(v, p)
+            memo[n] = v
+            return v
+
+        rb = ev(e)
+        if isinstance(e, (Ref, AdHoc)):
+            # a bare-leaf root must not alias the set's host copies or
+            # the AdHoc snapshot
+            rb = rb.clone()
+        out.append(BatchResult(
+            cardinality=rb.cardinality,
+            bitmap=rb if q.form == "bitmap" else None))
+    return out
+
 
 def random_expr_pool(n_bitmaps: int, q: int, depth: int = 2,
                      seed: int = 0xDA6, form: str = "cardinality",

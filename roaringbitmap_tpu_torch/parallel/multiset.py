@@ -29,6 +29,9 @@ resident set.  The planner:
    "torch" the doubling pass, or a halving fold over the row axis when
    every member has one key slot per query.  A plan with fused expression
    sections runs on "megakernel" as ONE B5 launch over the pooled image.
+   The cross-check rung "torch-vmap" skips the merge: each bucket runs on
+   its own, query by query (``batch_engine.bucket_body``), which proves
+   the per-op merge and the query-axis flattening equivalent.
 
 Pipelined (depth-N) dispatch
 ----------------------------
@@ -122,8 +125,9 @@ from . import expr as expr_mod
 from .aggregation import DeviceBitmapSet, _device_key
 from .batch_engine import (ENGINES, PLAN_CACHE_MAX, _RED_OP, BatchEngine,
                            BatchQuery, BatchResult, analytics_rung_queries,
-                           plan_bucket, plan_padding, query_desc,
-                           resolve_query_engine, snap_plan_groups)
+                           bucket_body, plan_bucket, plan_padding,
+                           query_desc, resolve_query_engine,
+                           snap_plan_groups)
 
 #: the guard site of every pooled dispatch
 SITE = "multiset"
@@ -1240,9 +1244,13 @@ class MultiSetBatchEngine:
             ops["m"] = (plan.mega.operands(dev) if packed
                         else plan.mega.device_arrays(dev))
             return ops
-        ops["g"] = [{k: g.host[k] for k in _op_group_keys(g, eng)} if packed
-                    else g.device_arrays(dev, _op_group_keys(g, eng))
-                    for g in plan.op_groups]
+        if eng == guard.PLAIN_VMAP:
+            ops["b"] = [b.host if packed else b.device_arrays(dev)
+                        for b in plan.buckets]
+        else:
+            ops["g"] = [{k: g.host[k] for k in _op_group_keys(g, eng)} if packed
+                        else g.device_arrays(dev, _op_group_keys(g, eng))
+                        for g in plan.op_groups]
         ops["s"] = [sec.host if packed else sec.device_arrays(dev)
                     for sec in plan.fused]
         ops["c"] = [[c.device_operands() for c in sec.cols]
@@ -1262,6 +1270,17 @@ class MultiSetBatchEngine:
                                        m["cols"], stream=m["stream"],
                                        steps_dev=m.get("steps"))
         feeding = expr_mod.expr_bucket_ids(plan.exprs)
+        if eng == guard.PLAIN_VMAP:
+            # unmerged: one body a bucket, outputs per bucket
+            outs, heads_by_bi = [], []
+            for bi, (b, arrs) in enumerate(zip(plan.buckets, ops["b"])):
+                heads, cards = bucket_body(words, b.signature, arrs, eng)
+                heads_by_bi.append(heads if bi in feeding else None)
+                outs.append((heads if b.needs_words else None, cards))
+            return outs, (expr_mod.eval_sections(
+                plan.fused, words, heads_by_bi,
+                ops["s"] if static else None,
+                ops["c"] if static else None) if plan.fused else [])
         outs, group_heads = [], []
         for g, arrs in zip(plan.op_groups, ops["g"]):
             force = any(bi in feeding for bi in g.bucket_idx)
@@ -1359,7 +1378,13 @@ class MultiSetBatchEngine:
     def _bucket_outputs(self, plan: _PoolPlan, outs, eng: str):
         """Per-group host outputs -> per-bucket (bucket, heads u32 | None,
         cards) NumPy arrays, each bucket's slots sliced out of the flat head
-        axis (one live slot per query for a regular group on "torch")."""
+        axis (one live slot per query for a regular group on "torch"); the
+        unmerged "torch-vmap" rung's outputs are per bucket already."""
+        if eng == guard.PLAIN_VMAP:
+            for b, (heads, cards) in zip(plan.buckets, outs):
+                yield (b, None if heads is None
+                       else heads.numpy().view(np.uint32), cards.numpy())
+            return
         for grp, (heads_f, cards_f) in zip(plan.op_groups, outs):
             heads_f = (None if heads_f is None
                        else heads_f.numpy().view(np.uint32))
@@ -1637,6 +1662,10 @@ class MultiSetBatchEngine:
                 "launches_saved": self.launches_saved,
                 "drain_retries": self.drain_retries,
                 "queries": self.queries_total}
+
+    def hbm_bytes(self) -> int:
+        """Device bytes the member sets keep resident, summed."""
+        return sum(e.hbm_bytes() for e in self._engines)
 
 
 def random_multiset_pool(set_sizes: list, q: int, seed: int = 0x5E75,

@@ -20,9 +20,10 @@ kind   ``transient`` (retryable device hiccup), ``oom`` (allocator
        ``maybe_wire``).
 scope  a dispatch site ("aggregation", "batch_engine", "sharding",
        "sharded_engine", "multihost", "pod") or an engine rung of the port
-       ("megakernel", "cuda", "torch", "sequential", the sharded ladder's
-       "mesh" and "single", a pod host "host<N>", the bootstrap's
-       "coordinator": ``coordinator@multihost`` kills the handshake);
+       ("megakernel", "cuda", "torch", "torch-vmap", "sequential", the
+       sharded ladder's "mesh" and "single", a pod host "host<N>", the
+       bootstrap's "coordinator": ``coordinator@multihost`` kills the
+       handshake);
        omitted means everywhere.
 rate   probability per dispatch in (0, 1]; omitted means 1.0.
 
@@ -35,8 +36,9 @@ Determinism: every draw comes from numpy's counter-keyed Philox stream,
 seeded by (seed, rule index, site hash, call ordinal) exactly as in the JAX
 package, so a fixed seed and call sequence reproduce the same schedule in
 any process.  The site hash names the port's rungs by the JAX rungs they
-stand for ("cuda" as "pallas", "torch" as "xla"), so a spec gives the port
-the same schedule as the JAX package over the same calls.  Injected
+stand for ("cuda" as "pallas", "torch" as "xla", "torch-vmap" as
+"xla-vmap"), so a spec gives the port the same schedule as the JAX package
+over the same calls.  Injected
 exceptions take the raw shapes real faults arrive in (status-text
 ``RuntimeError``, ``torch.OutOfMemoryError``, ``NotImplementedError``), so
 ``errors.classify`` runs end to end.
@@ -74,7 +76,7 @@ WIRE_SCOPES = ("conn_drop", "slow_peer", "garbage")
 SLOW_LATENCY_S = 0.05
 
 #: the JAX rung each port rung stands for, in the draw's site hash
-_DRAW_ENGINE = {"cuda": "pallas", "torch": "xla"}
+_DRAW_ENGINE = {"cuda": "pallas", "torch": "xla", "torch-vmap": "xla-vmap"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,7 +15,8 @@ Every guarded entry point (``parallel.aggregation``'s wide calls and
   rung**, the container-algebra fold every engine is held bit-exact
   against, so a demotion changes throughput, never results.
 - On a CUDA device a chain holds the requested rung and the hand-written
-  kernel rungs below it, never the plain version ("torch") or the host: a
+  kernel rungs below it, never the plain versions ("torch", "torch-vmap")
+  or the host unless asked for by name: a
   fault the last rung cannot retry or split away re-raises, typed.
 - An expired **deadline** stops the ladder and re-raises the last fault,
   typed.
@@ -66,6 +67,11 @@ _log = logging.getLogger("roaringbitmap_tpu_torch.runtime")
 SEQUENTIAL = "sequential"
 #: the rung that runs the kernels' plain PyTorch versions
 PLAIN = "torch"
+#: the batch ladder's per-query cross-check rung: plain PyTorch run query
+#: by query (the JAX package's "xla-vmap")
+PLAIN_VMAP = "torch-vmap"
+#: the rungs a chain on the card leaves out unless they are asked for
+PLAIN_RUNGS = (PLAIN, PLAIN_VMAP)
 
 #: the mesh-sharded engine's ladder (``parallel.sharded_engine``): a sharded
 #: dispatch demotes MESH -> SINGLE_DEVICE (the un-sharded pooled engine on
@@ -232,11 +238,12 @@ def chain_from(engine: str, ladder: tuple, device=None) -> tuple:
     """The fallback chain starting at ``engine``'s rung of ``ladder`` (an
     engine outside the ladder gets itself alone).  Off the card it ends at
     the sequential rung.  On a CUDA ``device`` it keeps the requested rung
-    and the kernel rungs below it, without the plain rung or the host."""
+    and the kernel rungs below it, without the plain rungs or the host."""
     chain = (tuple(ladder[ladder.index(engine):]) if engine in ladder
              else (engine,))
     if device is not None and torch.device(device).type == "cuda":
-        return chain[:1] + tuple(r for r in chain[1:] if r != PLAIN)
+        return chain[:1] + tuple(r for r in chain[1:]
+                                 if r not in PLAIN_RUNGS)
     return chain + (SEQUENTIAL,)
 
 

@@ -343,8 +343,9 @@ def test_port_imports_no_jax():
     ``MultiSetBatchEngine.execute``, one ``apply_delta``, a request served
     by a ``ServingLoop``, a wire frame, a captured durable state and a
     traced pooled execute with the obs layer's statusz and Prometheus
-    renders, a sharded wide op, a sharded-engine query and a pod front
-    door request on the CPU."""
+    renders, a sharded wide op, a sharded-engine query, a pod front
+    door request, the flagship model, the bitmap iterators, an explain, a
+    node-at-a-time batch and a warmed delta rung on the CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -448,6 +449,17 @@ def test_port_imports_no_jax():
         "assert t.ok and multihost.snapshot() == {}\n"
         "assert migration.MigrationError.__name__ and migrate."
         "migrate_tenant_wire\n"
+        "from roaringbitmap_tpu_torch.models import flagship\n"
+        "from roaringbitmap_tpu_torch.core import iterators\n"
+        "w, c = flagship.forward(*flagship.example_inputs(device='cpu'))\n"
+        "assert int(c.sum()) > 0 and w.shape[1] == 2048\n"
+        "it = iterators.PeekableIntIterator(bms[0])\n"
+        "it.advance_if_needed(9)\n"
+        "assert it.peek_next() == 9 and bms[0].rank(9) == 4\n"
+        "assert eng.explain([q])['engine'] == 'torch'\n"
+        "assert expr.execute_node_at_a_time(eng, [q])[0].cardinality > 0\n"
+        "assert ds.warmup_delta(4)['compiled']\n"
+        "assert ds.apply_delta(adds={2: [5]})['mode'] == 'patch'\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

@@ -146,6 +146,66 @@ def test_serialization_matches_jax(pair, form):
         assert RoaringBitmapSliceIndex.deserialize(data) == t
 
 
+def _run_pairs():
+    """Dense ids with values in long runs: run containers win in the ebm
+    and in the high slices."""
+    ids = np.arange(0, 3 << 16, dtype=np.uint32)
+    return ids, (ids // 3000).astype(np.int64)
+
+
+@pytest.fixture(scope="module")
+def run_pair():
+    ids, vals = _run_pairs()
+    j, t = JBSI.from_pairs(ids, vals), RoaringBitmapSliceIndex.from_pairs(
+        ids, vals)
+    assert not t.has_run_compression()
+    j.run_optimize()
+    t.run_optimize()
+    return j, t
+
+
+@pytest.mark.parametrize("form", ["buffer", "stream"])
+def test_run_optimized_serialization_matches_jax(run_pair, form):
+    """A run-optimized index writes the run flag and run containers byte
+    for byte as the JAX package does, and each package reads the other's
+    bytes back run-optimized."""
+    j, t = run_pair
+    assert t.has_run_compression() and j.has_run_compression()
+    assert t.ebm.has_run_compression()
+    data = getattr(t, f"serialize_{form}")()
+    assert data == getattr(j, f"serialize_{form}")()
+    plain = RoaringBitmapSliceIndex.from_pairs(*_run_pairs())
+    assert len(data) < len(getattr(plain, f"serialize_{form}")())
+    for reader in (RoaringBitmapSliceIndex, JBSI):
+        back = getattr(reader, f"deserialize_{form}")(data)
+        assert back.has_run_compression()
+        _same_index(j, back)
+        assert getattr(back, f"serialize_{form}")() == data
+
+
+def test_run_optimized_index_answers_as_before(run_pair):
+    """``DeviceBSI`` and ``BsiColumn`` built from a run-optimized index
+    answer as from the plain one."""
+    from roaringbitmap_tpu_torch.analytics import BsiColumn
+
+    _, t = run_pair
+    plain = RoaringBitmapSliceIndex.from_pairs(*_run_pairs())
+    dr, dp = DeviceBSI(t, device="cpu"), DeviceBSI(plain, device="cpu")
+    cr = BsiColumn.from_bsi("v", t, device="cpu")
+    cp = BsiColumn.from_bsi("v", plain, device="cpu")
+    for op, a, b in (("GE", 40, 0), ("EQ", 7, 0), ("RANGE", 3, 50),
+                     ("LT", 12, 0)):
+        want = plain.compare(Operation[op], a, b)
+        assert _arr(t.compare(Operation[op], a, b)) == _arr(want)
+        assert _arr(dr.compare(Operation[op], a, b)) == _arr(
+            dp.compare(Operation[op], a, b)) == _arr(want)
+        assert _arr(cr.host_filter(op.lower() if op != "RANGE" else "range",
+                                   a, b)) == _arr(want)
+    assert dr.sum() == dp.sum() == plain.sum()
+    assert cr.host_sum(None) == cp.host_sum(None)
+    assert _arr(dr.top_k(100)) == _arr(dp.top_k(100))
+
+
 @pytest.mark.parametrize("cut", [0, 5, 9, 40, -1])
 def test_truncated_buffer_raises_alike(pair, cut):
     j, t = pair

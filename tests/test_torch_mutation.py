@@ -304,11 +304,104 @@ def test_property_interleaved_delta_query_stream(layout, fault_spec):
 def test_warmup_delta_rungs(n):
     js, ts = both_sets(mk_values(7, n=3))
     want, got = js.warmup_delta(n), ts.warmup_delta(n)
-    assert got["rungs"] == want["rungs"] and got["rung"] == want["rung"]
-    assert got["compiled"] is False and "eager" in got["why"]
+    assert got == want and got["compiled"] is True
+    assert len(ts._delta_programs) == len(got["rungs"])
     js, ts = both_sets(mk_values(7, n=3), layout="compact")
     want, got = js.warmup_delta(n), ts.warmup_delta(n)
     assert got == want
+
+
+def _delta_stream(seed: int, steps: int = 6) -> list:
+    """Seeded deltas inside the containers of ``mk_values(7)``'s sources
+    (keys 0 and 1 of five sources): patches of 1 to 10 rows."""
+    rng = np.random.default_rng(1000 + seed)
+    out = []
+    for _ in range(steps):
+        srcs = rng.choice(5, int(rng.integers(1, 6)), replace=False)
+        adds = {int(s): rng.integers(0, 1 << 17, 40) for s in srcs}
+        removes = {int(s): rng.integers(0, 1 << 17, 40)
+                   for s in srcs[:int(rng.integers(0, srcs.size + 1))]}
+        out.append((adds, removes))
+    return out
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_warmed_rungs_replay_equal_to_eager_patch(seed):
+    """A set whose "delta:N" rungs are warmed pads each patch to its rung
+    and runs the rung's program; image, host twin, journal and reports
+    equal the eager set's and the JAX package's."""
+    vals = mk_values(7)
+    js, warm = both_sets(vals)
+    eager = DeviceBitmapSet([TRB.from_values(v) for v in vals], device=CPU)
+    assert warm.warmup_delta(16) == js.warmup_delta(16)
+    for adds, removes in _delta_stream(seed):
+        want = report(js.apply_delta(adds=adds, removes=removes))
+        assert report(warm.apply_delta(adds=adds, removes=removes)) == want
+        assert report(eager.apply_delta(adds=adds, removes=removes)) == want
+        assert want["mode"] == "patch"
+        assert torch.equal(warm.words, eager.words)
+    for a, b in zip(warm._delta_journal, eager._delta_journal):
+        assert a[0] == b[0] and all(np.array_equal(x, y)
+                                    for x, y in zip(a[1:], b[1:]))
+    same_sets(js, warm)
+    same_lineage(js, warm)
+    assert len(warm._delta_programs) == 5 and not eager._delta_programs
+
+
+def test_warmed_rung_pads_and_counts_compiles():
+    """Warmup observes one compile miss a rung on
+    ``rb_compile_seconds{site="mutation"}``, a warmed in-band patch a hit;
+    a rung's staged operands are the JAX package's padded patch (extra
+    entries on the padding row, zero masks), and only the patch's rows
+    change."""
+    tobs.reset()
+    js, ts = both_sets(mk_values(7))
+    rep = ts.warmup_delta(4)
+    hist = lambda c: tobs.histogram("rb_compile_seconds", site="mutation",
+                                    cache=c).count
+    assert hist("miss") == len(rep["rungs"]) == 3 and hist("hit") == 0
+    rows = np.flatnonzero(ts.row_src >= 0)[:3].astype(np.int32)
+    rng = np.random.default_rng(3)
+    add = rng.integers(0, 1 << 32, (3, 2048), dtype=np.uint64).astype(
+        np.uint32)
+    rem = np.zeros((3, 2048), np.uint32)
+    prog = ts._delta_programs[tdelta._program_key(ts, 4)]
+    before = ts.words.clone()
+    prog.run(ts, rows, add, rem)
+    rows_p, add_p, rem_p, p_pad = jdelta._pad_patch(js, rows, add, rem)
+    assert p_pad == prog.p_pad == 4
+    assert np.array_equal(prog.rows.numpy(), rows_p)
+    assert np.array_equal(to_u32(prog.masks[:, 0]), add_p)
+    assert np.array_equal(to_u32(prog.masks[:, 1]), rem_p)
+    assert rows_p[3] == tdelta._pad_row(ts) and ts.row_src[rows_p[3]] < 0
+    want = before.clone()
+    want[torch.from_numpy(rows).long()] |= torch.from_numpy(add.view(np.int32))
+    assert torch.equal(ts.words, want)
+    ts.words.copy_(before)
+    both_delta(js, ts, adds={0: [5, 6], 1: [70001], 2: [9]})
+    assert hist("hit") == 1
+    same_sets(js, ts)
+
+
+def test_repack_drops_patch_programs():
+    """A repack replaces the image the graphs write: the set's programs
+    are dropped first, a later patch runs cold and exact, and a new
+    warmup keys on the new image."""
+    js, ts = both_sets(mk_values(7))
+    ts.warmup_delta(8)
+    js.warmup_delta(8)
+    key0 = next(iter(ts._delta_programs))
+    rep = both_delta(js, ts, adds={0: [(9 << 16) + 1]})
+    assert rep["mode"] == "repack" and ts._delta_programs == {}
+    both_delta(js, ts, adds={1: [3, 4]})
+    same_sets(js, ts)
+    assert ts.warmup_delta(8)["compiled"] is True
+    assert next(iter(ts._delta_programs))[2] == ts.words.data_ptr()
+    assert key0[:2] == next(iter(ts._delta_programs))[:2] or \
+        key0[0] != ts._n_rows
+    both_delta(js, ts, removes={1: [3]})
+    same_sets(js, ts)
+    assert tdelta.drop_patch_programs(ts) == 4
 
 
 # --------------------------------------------------------- result cache

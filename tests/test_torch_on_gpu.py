@@ -971,3 +971,119 @@ def test_sharded_sections_past_capacity_split_on_the_card(dev, bitmaps,
     assert guard.dispatch_stats("sharded_engine")["demotions"] == 0
     for a, b in zip(got, want):
         assert [r.cardinality for r in a] == [r.cardinality for r in b]
+
+
+# ------------------------------------- engine leftovers on the card (17a-f)
+
+def test_flagship_runs_b1_on_the_card(dev):
+    from roaringbitmap_tpu_torch.models import flagship
+
+    args = flagship.example_inputs(32, seed=2)        # device=None: the card
+    assert args[0].device.type == "cuda"
+    words, cards = flagship.forward(*args)
+    torch.cuda.synchronize()
+    assert kernels.B1.launches == 1
+    cpu = flagship.forward(*flagship.example_inputs(32, seed=2,
+                                                    device="cpu"))
+    assert torch.equal(words.cpu(), cpu[0]) and torch.equal(cards.cpu(),
+                                                            cpu[1])
+
+
+def test_evaluate_is_one_b5_launch(dev, bitmaps):
+    from roaringbitmap_tpu_torch.parallel import expr
+
+    ds = DeviceBitmapSet(bitmaps, layout="dense")
+    pool = random_expr_pool(len(bitmaps), 4, depth=2, seed=3, form="bitmap")
+    want = BatchEngine(ds).execute(pool, engine="torch")
+    kernels.reset_launches()
+    for q, w in zip(pool, want):
+        assert ds.evaluate(q) == w.bitmap
+        assert ds.evaluate(q, form="cardinality") == w.cardinality
+    torch.cuda.synchronize()
+    assert kernels.B5.launches == 2 * len(pool) and kernels.B1.launches == 0
+    hits = ds._expr_engine._plans.stats()["hits"]
+    ds.evaluate(pool[0])
+    assert ds._expr_engine._plans.stats()["hits"] == hits + 1
+    assert ds.evaluate(expr.or_(0, 1)) == (bitmaps[0] | bitmaps[1]).cardinality
+
+
+def test_chained_cardinality_on_the_card(dev, bitmaps):
+    eng = BatchEngine(DeviceBitmapSet(bitmaps, layout="dense"))
+    pool = random_query_pool(len(bitmaps), 16, seed=4)
+    total = sum(r.cardinality for r in eng.execute(pool))
+    plan = eng.plan(pool)
+    kernels.reset_launches()
+    got = eng.chained_cardinality(pool, 8)()
+    assert got.device.type == "cuda" and int(got) == (8 * total) % (1 << 32)
+    assert kernels.B1.launches == 8 * len(plan)
+
+
+def test_torch_vmap_rung_on_the_card(dev, bitmaps):
+    from roaringbitmap_tpu_torch.parallel import multiset
+    from roaringbitmap_tpu_torch.runtime import guard
+
+    eng = BatchEngine(DeviceBitmapSet(bitmaps, layout="dense"))
+    pool = random_query_pool(len(bitmaps), 16, seed=6)
+    pool = [type(q)(q.op, q.operands, form="bitmap") for q in pool]
+    guard.reset_dispatch_stats()
+    want = eng.execute(pool)
+    assert eng.last_timings["engine"] == "cuda"
+    got = eng.execute(pool, engine="torch-vmap")
+    assert eng.last_timings["engine"] == "torch-vmap"
+    for g, w in zip(got, want):
+        assert g.cardinality == w.cardinality and g.bitmap == w.bitmap
+    ms = multiset.MultiSetBatchEngine.from_bitmap_sets(
+        [bitmaps[:24], bitmaps[24:]], layout="dense")
+    mp = multiset.random_multiset_pool([24, 24], 16, seed=7)
+    a, b = ms.execute(mp, engine="torch-vmap"), ms.execute(mp)
+    assert [[r.cardinality for r in g] for g in a] == \
+        [[r.cardinality for r in g] for g in b]
+    assert guard.dispatch_stats("batch_engine")["demotions"] == 0
+    from roaringbitmap_tpu_torch.parallel.batch_engine import ENGINES
+
+    assert guard.chain_from("megakernel", ENGINES, dev) == \
+        ("megakernel", "cuda")
+
+
+def test_node_at_a_time_on_the_card(dev, bitmaps):
+    from roaringbitmap_tpu_torch.parallel import expr
+
+    eng = BatchEngine(DeviceBitmapSet(bitmaps, layout="dense"))
+    pool = random_expr_pool(len(bitmaps), 8, depth=2, seed=9, form="bitmap")
+    fused = eng.execute(pool)
+    kernels.reset_launches()
+    got = expr.execute_node_at_a_time(eng, pool)
+    torch.cuda.synchronize()
+    assert kernels.B1.launches > 0 and kernels.B5.launches == 0
+    for g, w in zip(got, fused):
+        assert g.cardinality == w.cardinality and g.bitmap == w.bitmap
+
+
+def test_warmed_delta_rung_replays_a_graph(dev, bitmaps):
+    vals = [b.to_array() for b in bitmaps[:8]]
+    warm = DeviceBitmapSet([RoaringBitmap.from_values(v) for v in vals],
+                           layout="dense")
+    eager = DeviceBitmapSet([RoaringBitmap.from_values(v) for v in vals],
+                            layout="dense")
+    rep = warm.warmup_delta(8)
+    assert rep["compiled"] is True
+    progs = list(warm._delta_programs.values())
+    assert progs and all(p.graph is not None for p in progs)
+    rng = np.random.default_rng(1)
+    for _ in range(6):
+        adds = {int(s): vals[s][rng.integers(0, vals[s].size, 30)] ^ 1
+                for s in rng.choice(8, 3, replace=False)}
+        removes = {int(s): vals[s][rng.integers(0, vals[s].size, 30)]
+                   for s in rng.choice(8, 2, replace=False)}
+        ra = warm.apply_delta(adds=adds, removes=removes, repack="never")
+        rb = eager.apply_delta(adds=adds, removes=removes, repack="never")
+        assert ra["mode"] == rb["mode"] == "patch"
+        assert torch.equal(warm.words, eager.words)
+    assert [b.serialize() for b in warm.host_bitmaps()] == \
+        [b.serialize() for b in eager.host_bitmaps()]
+    warm.apply_delta(adds={0: [(200 << 16) + 1]})        # structural: repack
+    assert warm._delta_programs == {} and warm._delta_pool is None
+    eager.apply_delta(adds={0: [(200 << 16) + 1]})
+    warm.apply_delta(adds={1: [5]})
+    eager.apply_delta(adds={1: [5]})
+    assert torch.equal(warm.words, eager.words)

@@ -50,7 +50,8 @@ torch.set_num_threads(2)
 CPU = "cpu"
 N = 10
 #: the JAX rung each port rung stands for
-RUNG_OF = {"pallas": "cuda", "xla": "torch", "megakernel": "megakernel"}
+RUNG_OF = {"pallas": "cuda", "xla": "torch", "xla-vmap": "torch-vmap",
+           "megakernel": "megakernel"}
 
 MESSAGES = [
     "RESOURCE_EXHAUSTED: out of memory allocating 8388608 bytes",
@@ -249,10 +250,16 @@ def test_wide_ladder_matches_jax(spec, call):
     ("transient=0.3,oom@pallas=0.4:8", "pallas", None),
     ("lowering@megakernel,lowering@pallas:4", "megakernel", "torch"),
     ("oom@megakernel:6", "megakernel", "cuda"),
+    ("lowering@pallas,lowering@xla:3", "pallas", "torch-vmap"),
+    ("transient@xla=1.0,lowering@pallas:5", "pallas", "torch-vmap"),
+    ("lowering@megakernel,lowering@pallas,lowering@xla:4", "megakernel",
+     "torch-vmap"),
+    ("oom@xla=1.0,lowering@pallas:9", "pallas", None),
 ])
 def test_batch_ladder_matches_jax(spec, start, landed):
-    """Specs whose walk stays on the rungs both ladders share (the JAX
-    ladder has an "xla-vmap" rung after "xla" that the port lacks)."""
+    """A fault spec walks both ladders alike: the same retries, demotions,
+    splits and landings, down to the per-query cross-check rung
+    ("xla-vmap" in the JAX package, "torch-vmap" in the port)."""
     tb, jb = _bitmaps(TRB), _bitmaps(JRB)
     te = TEng(tagg.DeviceBitmapSet(tb, device=CPU))
     je = JEng(jagg.DeviceBitmapSet(jb))
@@ -285,6 +292,58 @@ def test_batch_ladder_matches_jax(spec, start, landed):
         assert g.cardinality == w.cardinality == r.cardinality
         assert g.bitmap == r.bitmap
         assert g.bitmap.serialize() == w.bitmap.serialize()
+
+
+@pytest.mark.parametrize("spec", [
+    "lowering@pallas,lowering@xla:3",
+    "transient@xla=1.0,lowering@pallas:5",
+    "oom@xla=1.0,lowering@pallas:9",
+    "transient@multiset=0.5:11",
+])
+def test_multiset_ladder_matches_jax(spec):
+    """The pooled engine walks the same ladder: a walk that reaches the
+    per-query rung runs the unmerged per-bucket path on both packages."""
+    from roaringbitmap_tpu.parallel import multiset as jms
+    from roaringbitmap_tpu_torch.parallel import multiset as tms
+
+    tb, jb = _bitmaps(TRB), _bitmaps(JRB)
+    tm = tms.MultiSetBatchEngine.from_bitmap_sets([tb[:5], tb[5:]],
+                                                  layout="dense", device=CPU)
+    jm = jms.MultiSetBatchEngine.from_bitmap_sets([jb[:5], jb[5:]],
+                                                  layout="dense")
+    flat = [(0, "or", (0, 3)), (1, "xor", (1, 2, 4)), (0, "and", (0, 1)),
+            (1, "andnot", (2, 0, 3))]
+    tg = [tms.BatchGroup(s, [TQ(o, ops, form="bitmap")])
+          for s, o, ops in flat]
+    jg = [jms.BatchGroup(s, [JQ(o, ops, form="bitmap")])
+          for s, o, ops in flat]
+    guard.reset_dispatch_stats()
+    jguard.reset_dispatch_stats()
+    with jfaults.inject(spec):
+        want = jm.execute(jg, engine="pallas")
+    with faults.inject(_port_spec(spec)):
+        got = tm.execute(tg, engine="cuda")
+    stats = guard.dispatch_stats("multiset")
+    assert stats == jguard.dispatch_stats("multiset")
+    assert stats["sequential"] == 0
+    ref = tm._sequential([(g.set_id, q) for g in tg for q in g.queries])
+    for g, w, r in zip(sum(got, []), sum(want, []), ref):
+        assert g.cardinality == w.cardinality == r.cardinality
+        assert g.bitmap.serialize() == w.bitmap.serialize()
+        assert g.bitmap == r.bitmap
+
+
+def test_plain_rungs_stay_off_the_card_chain():
+    """On a CUDA device the chain drops both plain rungs unless one is the
+    requested rung; off the card it walks them before the host."""
+    from roaringbitmap_tpu_torch.parallel.batch_engine import ENGINES
+
+    assert ENGINES[-1] == "torch-vmap"
+    assert guard.chain_from("megakernel", ENGINES, "cuda") == \
+        ("megakernel", "cuda")
+    assert guard.chain_from("torch-vmap", ENGINES, "cuda") == ("torch-vmap",)
+    assert guard.chain_from("cuda", ENGINES, "cpu") == \
+        ("cuda", "torch", "torch-vmap", "sequential")
 
 
 def test_every_rung_down_lands_on_sequential():
