@@ -295,6 +295,27 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
        first 256 bitmaps, 16 deltas through graphs with the host twin
        riding leave image and twin equal to the eager set's, and a repack
        drops the warmed set's graphs;
+18. the rest of the host tier, run after 16 and before 17: phase 2's 4,096
+    bitmaps and phase 5's 1,024 (and its AND inputs) serialized once and
+    wrapped as ``ImmutableRoaringBitmap``s over one memoryview each; every
+    arm runs beside its heap-source twin (both walls printed) and is
+    bit-equal to it:
+    a. ``or_`` / ``xor`` / ``and_`` / ``or_cardinality`` over the 1,024
+       immutables (B2, B1);
+    b. ``DeviceBitmapSet`` of the 4,096 in the dense, compact and counts
+       layouts (row sources and bytes equal; or/xor/and through B2, B3 + B2,
+       B4), and the "auto" layout's choice the same over both sources;
+    c. 7b's expression batch over a dense set of the shard's immutables (one
+       B5 launch), and a query with an immutable ``AdHoc`` leaf;
+    d. phase 9's ``price`` column re-attached as a ``BsiColumn`` over an
+       ``ImmutableBitSliceIndex`` of its serialized bytes and ``ts`` as a
+       ``RangeColumn`` over ``RangeBitmap.map`` of its bytes: 9a's value
+       batches, one B5 launch each;
+    e. 10a's lifted bitmaps as ``Roaring64NavigableMap``s through ``or64``
+       (B2) and ``and64``;
+    f. bitmaps built by ``RoaringBitmapWriter`` (the first 256) and
+       ``RoaringBitSet``s (all 1,024) through ``or_``;
+    B1-B5 must each launch in the phase;
 6. each kernel against its plain PyTorch version on the card, at the shapes
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
@@ -3843,6 +3864,202 @@ def phase17(smoke, seed: int, shapes: dict, union, adhoc, ds, bms256, eng,
         f"patch afterwards is exact")
 
 
+def phase18(smoke, bms, abms, union, sbms, price, ts, batches, epool,
+            lift) -> None:
+    """The rest of the host tier on the card: phase 2's 4,096 bitmaps and
+    phase 5's 1,024 (and AND inputs) serialized once and wrapped as
+    ``ImmutableRoaringBitmap``s over one memoryview each.  18a the wide ops
+    over 1,024 immutables, 18b resident sets of the 4,096 in the dense,
+    compact and counts layouts (and the "auto" choice), 18c 7b's expression
+    batch over a set of immutables (and an immutable ad-hoc leaf), 18d 9a's
+    value batches over an ``ImmutableBitSliceIndex`` "price" and a mapped
+    ``RangeBitmap`` "ts", 18e 10a's lifted bitmaps as
+    ``Roaring64NavigableMap``s through ``or64`` / ``and64``, 18f
+    writer-built bitmaps and ``RoaringBitSet``s through ``or_``.  Each arm
+    is bit-equal to its heap-source twin, run beside it, and B1-B5 must
+    each launch in the phase."""
+    from roaringbitmap_tpu_torch import DeviceBitmapSet, aggregation
+    from roaringbitmap_tpu_torch.analytics import BsiColumn, RangeColumn
+    from roaringbitmap_tpu_torch.bsi import ImmutableBitSliceIndex
+    from roaringbitmap_tpu_torch.buffer import ImmutableRoaringBitmap
+    from roaringbitmap_tpu_torch.core.bitmap64 import Roaring64NavigableMap
+    from roaringbitmap_tpu_torch.core.bitset import RoaringBitSet
+    from roaringbitmap_tpu_torch.core.rangebitmap import RangeBitmap
+    from roaringbitmap_tpu_torch.core.writer import RoaringBitmapWriter
+    from roaringbitmap_tpu_torch.insights import choose_layout
+    from roaringbitmap_tpu_torch.ops import kernels, packing
+    from roaringbitmap_tpu_torch.parallel import expr
+    from roaringbitmap_tpu_torch.parallel.batch_engine import BatchEngine
+
+    launched = {k.name: 0 for k in kernels.KERNELS}
+
+    def run(label, fn):
+        """A main-path call, timed; its launches count for the phase."""
+        t0 = time.perf_counter()
+        out = smoke.main_path(label, fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        for name, c in smoke.last.items():
+            launched[name] += c
+        return out, ms
+
+    def twin(label, im_fn, heap_fn, same, kinds=("immutable", "heap")):
+        """An arm and its heap-source twin, each through the user entry
+        point; returns (the arm's result, the twin's)."""
+        got, im_ms = run(f"18 {label} ({kinds[0]})", im_fn)
+        want, heap_ms = run(f"18 {label} ({kinds[1]})", heap_fn)
+        require(same(got, want), f"18 {label}: {kinds[0]} != {kinds[1]}")
+        log(f"    {label}: {kinds[0]} {im_ms:.1f} ms, {kinds[1]} "
+            f"{heap_ms:.1f} ms (host clock to a synchronize), bit-equal")
+        return got, want
+
+    eq = lambda a, b: a == b     # noqa: E731
+
+    def wrap(src):
+        blobs = [b.serialize() for b in src]
+        return [ImmutableRoaringBitmap(memoryview(b)) for b in blobs], \
+            sum(map(len, blobs))
+
+    t0 = time.perf_counter()
+    ims, nbytes = wrap(bms)
+    iabms, _ = wrap(abms)
+    m = len(abms)
+    adhoc, iadhoc = bms[:m], ims[:m]
+    log(f"  {len(bms)} + {m} bitmaps serialized ({nbytes} + "
+        f"{sum(b.serialized_size_in_bytes() for b in iabms)} bytes) and "
+        f"wrapped in {time.perf_counter() - t0:.1f} s")
+
+    # 18a: the wide ops over phase 5's 1,024 as immutables
+    log(f"  18a: wide ops over {m} immutables")
+    for name, fn, a, b in (("or_", aggregation.or_, iadhoc, adhoc),
+                           ("xor", aggregation.xor, iadhoc, adhoc),
+                           ("and_", aggregation.and_, iabms, abms)):
+        got, _ = twin(name, lambda fn=fn, a=a: fn(a),
+                      lambda fn=fn, b=b: fn(b), eq)
+        if name == "or_":
+            require(got == union, "18a or_ != phase 5's or_")
+    twin("or_cardinality", lambda: aggregation.or_cardinality(iadhoc),
+         lambda: aggregation.or_cardinality(adhoc), eq)
+    require(launched[kernels.B1.name] > 0 and launched[kernels.B2.name] > 0,
+            f"18a: launches {launched}")
+
+    # 18b: resident sets of the 4,096 immutables in every layout
+    t0 = time.perf_counter()
+    auto_im = choose_layout([packing._as_view(b) for b in ims])["layout"]
+    auto_heap = choose_layout(bms)["layout"]
+    require(auto_im == auto_heap, f"18b: auto chose {auto_im} over "
+            f"immutables, {auto_heap} over the heap bitmaps")
+    log(f"  18b: layout 'auto' chooses {auto_im} over both sources "
+        f"({time.perf_counter() - t0:.1f} s)")
+    for layout in ("dense", "compact", "counts"):
+        ops = ("or", "xor") if layout == "counts" else ("or", "xor", "and")
+        ids, hds = twin(f"{layout} build of {len(bms)}",
+                        lambda layout=layout: DeviceBitmapSet(ims,
+                                                              layout=layout),
+                        lambda layout=layout: DeviceBitmapSet(bms,
+                                                              layout=layout),
+                        lambda a, b: a.layout == b.layout
+                        and a.hbm_bytes() == b.hbm_bytes()
+                        and np.array_equal(a.row_src, b.row_src))
+        for op in ops:
+            twin(f"{layout} {op}", lambda op=op: ids.aggregate(op),
+                 lambda op=op: hds.aggregate(op), eq)
+        del ids, hds
+        smoke.torch.cuda.empty_cache()
+    for k in (kernels.B2, kernels.B3, kernels.B4):
+        require(launched[k.name] > 0, f"18b: {k.name} did not launch")
+
+    # 18c: 7b's expression batch over a set of the shard's immutables
+    isbms, _ = wrap(sbms)
+    isds, hsds = twin("shard build", lambda: DeviceBitmapSet(
+        isbms, layout="dense"), lambda: DeviceBitmapSet(sbms, layout="dense"),
+        lambda a, b: np.array_equal(a.row_src, b.row_src))
+    ieng, heng = BatchEngine(isds), BatchEngine(hsds)
+    before = launched[kernels.B5.name]
+    twin(f"expr x{len(epool)}", lambda: ieng.execute(epool),
+         lambda: heng.execute(epool), same_results)
+    require(ieng.last_timings["engine"] == "megakernel"
+            and launched[kernels.B5.name] == before + 2,
+            "18c: the batch did not run as one B5 launch each")
+    leaf = [expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.AdHoc(isbms[7])),
+                           form="bitmap")]
+    got, _ = twin("expr with an immutable ad-hoc leaf",
+                  lambda: ieng.execute(leaf), lambda: heng.execute(
+                      [expr.ExprQuery(expr.and_(expr.or_(0, 1),
+                                                expr.AdHoc(sbms[7])),
+                                      form="bitmap")]), same_results)
+    require(got[0].bitmap == (sbms[0] | sbms[1]) & sbms[7],
+            "18c: the ad-hoc leaf query != the host")
+
+    # 18d: 9a's value batches over mapped columns
+    t0 = time.perf_counter()
+    blob_p = price.host.serialize_buffer()
+    blob_t = ts.host.serialize()
+    t1 = time.perf_counter()
+    iprice = BsiColumn.from_bsi("price", ImmutableBitSliceIndex(
+        memoryview(blob_p)))
+    its = RangeColumn.from_range_bitmap("ts", RangeBitmap.map(
+        memoryview(blob_t)))
+    t2 = time.perf_counter()
+    require(np.array_equal(its.values, ts.values)
+            and np.array_equal(iprice.slices_np, price.slices_np)
+            and np.array_equal(its.slices_np, ts.slices_np),
+            "18d: a mapped column's planes or values != the heap column's")
+    log(f"  18d: price serialized ({len(blob_p)} bytes) and ts "
+        f"({len(blob_t)} bytes) in {(t1 - t0) * 1e3:.0f} ms; the mapped "
+        f"columns built in {(t2 - t1) * 1e3:.0f} ms")
+    for c in (iprice, its):
+        isds.attach_column(c)
+    for c in (price, ts):
+        hsds.attach_column(c)
+    for bi, (batch, _) in enumerate(batches):
+        before = launched[kernels.B5.name]
+        twin(f"value batch {bi} x{len(batch)}",
+             lambda batch=batch: ieng.execute(batch),
+             lambda batch=batch: heng.execute(batch), same_results)
+        require(launched[kernels.B5.name] == before + 2,
+                f"18d value batch {bi}: not one B5 launch each")
+    del isds, hsds, ieng, heng
+
+    # 18e: 10a's lifted bitmaps as navigable maps
+    l64 = lift(adhoc)
+    a64 = lift(abms, bucket=2**31)
+    t0 = time.perf_counter()
+    nms = [Roaring64NavigableMap.from_roaring64(b) for b in l64]
+    anms = [Roaring64NavigableMap.from_roaring64(b) for b in a64]
+    log(f"  18e: {len(nms) + len(anms)} Roaring64NavigableMaps built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, a, b in (("or64", nms, l64), ("and64", anms, a64)):
+        fn = getattr(aggregation, name)
+        got, want = twin(name, lambda fn=fn, a=a: fn(a),
+                         lambda fn=fn, b=b: fn(b), eq,
+                         ("navigable maps", "Roaring64Bitmaps"))
+        require(got.serialize() == want.serialize() and got.cardinality,
+                f"18e {name}: bytes differ")
+
+    # 18f: writer-built bitmaps and RoaringBitSets through or_ (the writer
+    # rebuilds the first 256 only: all 1,024 take over 10 s on the host)
+    t0 = time.perf_counter()
+    built = []
+    for b in adhoc[:256]:
+        w = RoaringBitmapWriter.wizard().optimise_for_runs().get()
+        w.add_many(b.to_array())
+        built.append(w.get())
+    log(f"  18f: {len(built)} bitmaps written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    twin("or_", lambda: aggregation.or_(built),
+         lambda: aggregation.or_(adhoc[:256]), eq, ("writer-built", "heap"))
+    sets = [RoaringBitSet(b) for b in adhoc]
+    got, _ = twin("or_", lambda: aggregation.or_(sets),
+                  lambda: aggregation.or_(adhoc), eq, ("RoaringBitSets",
+                                                       "heap"))
+    require(got == union, "18f: != phase 5's or_")
+
+    for k in (kernels.B1, kernels.B2, kernels.B3, kernels.B4, kernels.B5):
+        require(launched[k.name] > 0, f"phase 18: {k.name} did not launch")
+    log(f"  phase 18 launches: " + ", ".join(
+        f"{n}={c}" for n, c in launched.items() if c))
+
+
 def gloo_child(rank: int, store: str, seed: int, per: int) -> int:
     """One of phase 16e's two gloo ranks on the card: phase 2's first
     3 x ``per`` bitmaps (the same seed) as tenants 0-2 of ``per``, a
@@ -4888,6 +5105,15 @@ def main() -> int:
     del state14, sets15, bsi9
     torch.cuda.empty_cache()
     phase_time("phase 16", t_phase)
+
+    # ------------------------------------------------------------ phase 18
+    log("phase 18: the rest of the host tier (immutable sources on the wide "
+        "path, resident sets and value columns; navigable maps; the writer "
+        "and RoaringBitSet)")
+    t_phase = time.perf_counter()
+    phase18(smoke, bms, abms, union, sbms, price, ts, batches, epool, lift)
+    torch.cuda.empty_cache()
+    phase_time("phase 18", t_phase)
 
     # ------------------------------------------------------------ phase 17
     log("phase 17: the engine leftovers (flagship, evaluate, the chained "

@@ -6,7 +6,11 @@ A column binds a value domain to a set's row-id universe twice:
 - a **host oracle**: ``bsi.slice_index.RoaringBitmapSliceIndex`` for a
   sparse column (:class:`BsiColumn`), ``core.rangebitmap.RangeBitmap`` for a
   dense row-indexed one (:class:`RangeColumn`), the reference every engine
-  rung is held against;
+  rung is held against.  Either may be the mapped, read-only form over
+  serialized bytes (``BsiColumn.from_bsi`` of a
+  ``bsi.ImmutableBitSliceIndex``, ``RangeColumn.from_range_bitmap`` of a
+  ``RangeBitmap.map``): the planes pack straight off the views, and the
+  first delta copies the oracle to the heap;
 - a **device artifact**: the slice planes densified once over the column's
   container keys and padded to a power-of-two depth (``int32[S_pad, K,
   2048]``) with the existence plane (``int32[K, 2048]``), uploaded once to
@@ -28,6 +32,7 @@ import numpy as np
 
 from ..bsi.device import _densify, _slice_cards_res, _unpack, \
     _weighted_total
+from ..bsi.immutable import ImmutableBitSliceIndex
 from ..bsi.slice_index import (Operation, RoaringBitmapSliceIndex,
                                clamp_range_bounds, kaser_top_k,
                                minmax_decision, trim_smallest)
@@ -166,9 +171,13 @@ class BsiColumn(_ColumnBase):
     @classmethod
     def from_bsi(cls, name: str, bsi: RoaringBitmapSliceIndex,
                  device=None) -> "BsiColumn":
+        """A column over a host BSI: a copy of a heap one, or a read-only
+        ``ImmutableBitSliceIndex`` as it is (its planes pack off the
+        serialized bytes; the first delta copies it to the heap)."""
         out = cls.__new__(cls)
         out._init_identity(name, device)
-        out.host = bsi.clone()
+        out.host = (bsi if isinstance(bsi, ImmutableBitSliceIndex)
+                    else bsi.clone())
         out._repack()
         return out
 
@@ -210,6 +219,8 @@ class BsiColumn(_ColumnBase):
         ``set_values`` ({row_id: value} or (ids, values)) upsert.  The
         device planes re-pack, the version bumps, and the dependent
         result-cache entries drop."""
+        if isinstance(self.host, ImmutableBitSliceIndex):
+            self.host = self.host.to_mutable()
         removes = list(removes)
         if removes:
             rm = RoaringBitmap.from_values(np.asarray(removes, np.uint32))
@@ -250,6 +261,30 @@ class RangeColumn(_ColumnBase):
             raise ValueError("range column values must be >= 0")
         self._rebuild()
         self._trace_build()
+
+    @classmethod
+    def from_range_bitmap(cls, name: str, rb: RangeBitmap,
+                          device=None) -> "RangeColumn":
+        """A column over a RangeBitmap (a built one or one attached to its
+        serialized bytes with ``RangeBitmap.map``), kept as the threshold
+        oracle.  The row values, the aggregate oracle, are read back off
+        its slices; the planes and the min/max pruning are the same as
+        ``RangeColumn(name, values)`` builds, so are the plans."""
+        if len(rb.slices) > 63 and not rb.slices[63].is_empty():
+            raise ValueError("range column values must be below 2^63")
+        values = np.zeros(rb.row_count, np.int64)
+        for i, s in enumerate(rb.slices):
+            values[s.to_array()] |= np.int64(1) << np.int64(i)
+        out = cls.__new__(cls)
+        out._init_identity(name, device)
+        out.values = values
+        out.host = rb
+        out.rows = int(values.size)
+        out.min_value = int(values.min()) if out.rows else 0
+        out.max_value = int(values.max()) if out.rows else 0
+        out._pack(RoaringBitmap.from_range(0, out.rows), rb.slices)
+        out._trace_build()
+        return out
 
     def _rebuild(self) -> None:
         self.host = RangeBitmap.from_values(self.values)

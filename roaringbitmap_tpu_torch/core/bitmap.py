@@ -426,9 +426,15 @@ class RoaringBitmap:
         self._insert(int(self.keys.size), np.uint16(key), container)
 
     def get_container_pointer(self) -> "ContainerPointer":
-        """Expert container cursor (getContainerPointer /
-        )."""
+        """Expert container cursor (getContainerPointer)."""
         return ContainerPointer(self)
+
+    def to_mutable_roaring_bitmap(self):
+        """Copy into the buffer tier's mutable class
+        (toMutableRoaringBitmap)."""
+        from ..buffer import MutableRoaringBitmap
+
+        return MutableRoaringBitmap(self.keys.copy(), list(self.containers))
 
     @staticmethod
     def maximum_serialized_size(cardinality: int, universe_size: int) -> int:
@@ -654,7 +660,7 @@ class RoaringBitmap:
         """For each of o's keys: its position in self.keys and whether it
         matches an existing key.  The O(|o| log |self|) probe shared by the
         in-place delta merges (the addN-style contract: touch only
-        containers the delta names, )."""
+        containers the delta names)."""
         pos = np.searchsorted(self.keys, o.keys)
         match = np.zeros(o.keys.size, dtype=bool)
         inb = pos < self.keys.size
@@ -771,9 +777,9 @@ class RoaringBitmap:
         return cls(keys, conts)
 
     def __reduce__(self):
-        """Pickle via the portable format — the Externalizable/Kryo analog
-       .  Subclasses
-        (FastRank, MutableRoaringBitmap) round-trip to their own class."""
+        """Pickle via the portable format (the Externalizable analog).
+        Subclasses (FastRank, MutableRoaringBitmap) round-trip to their own
+        class."""
         return (type(self)._from_serialized, (self.serialize(),))
 
     @staticmethod
@@ -853,6 +859,14 @@ def _chunk_ranges(start: int, stop: int):
 # ---------------------------------------------------------------------------
 
 
+def _result_cls(a):
+    """Class of an op's result: type(a), unless the class routes results
+    elsewhere (``RESULT_CLS``: ops on a byte-backed ImmutableRoaringBitmap
+    return in-RAM RoaringBitmaps, as the reference's immutable ops return
+    mutable ones)."""
+    return getattr(type(a), "RESULT_CLS", None) or type(a)
+
+
 def and_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
     common, ia, ib = np.intersect1d(a.keys, b.keys, assume_unique=True,
                                     return_indices=True)
@@ -862,7 +876,7 @@ def and_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
         if c.cardinality:
             keys.append(k)
             conts.append(c)
-    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)
+    return _result_cls(a)(np.array(keys, dtype=a.keys.dtype), conts)
 
 
 def or_(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
@@ -882,7 +896,7 @@ def andnot(a: RoaringBitmap, b: RoaringBitmap) -> RoaringBitmap:
         if c.cardinality:
             keys.append(k)
             conts.append(c)
-    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)
+    return _result_cls(a)(np.array(keys, dtype=a.keys.dtype), conts)
 
 
 def or_not(a: RoaringBitmap, b: RoaringBitmap, range_end: int) -> RoaringBitmap:
@@ -929,7 +943,7 @@ def or_not(a: RoaringBitmap, b: RoaringBitmap, range_end: int) -> RoaringBitmap:
         if int(k) > max_key:
             keys.append(int(k))
             conts.append(ca)  # shared, same as _merge_union's lone-side rows
-    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)
+    return _result_cls(a)(np.array(keys, dtype=a.keys.dtype), conts)
 
 
 def _merge_union(a: RoaringBitmap, b: RoaringBitmap, op, drop_empty: bool = False):
@@ -949,7 +963,7 @@ def _merge_union(a: RoaringBitmap, b: RoaringBitmap, op, drop_empty: bool = Fals
             continue
         keys.append(k)
         conts.append(c)
-    return type(a)(np.array(keys, dtype=a.keys.dtype), conts)
+    return _result_cls(a)(np.array(keys, dtype=a.keys.dtype), conts)
 
 
 def and_cardinality(a: RoaringBitmap, b: RoaringBitmap) -> int:

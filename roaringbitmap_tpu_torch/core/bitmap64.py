@@ -13,10 +13,13 @@ native serialization, its ART node graph, is a codec here
 (``serialize_art`` / ``deserialize_art``); ``deserialize`` reads both.
 Hostile blobs raise ``InvalidRoaringFormat``.
 
-This is the port's own copy of ``roaringbitmap_tpu.core.bitmap64``'s
-``Roaring64Bitmap``, byte for byte in both serialized forms.
-``Roaring64NavigableMap`` needs the rest of the 32-bit host API and is not
-ported yet.
+``Roaring64NavigableMap`` is the reference's other 64-bit class: a map of
+high-32-bit words to 32-bit RoaringBitmaps, signed or unsigned long order,
+with both of its serialized forms (the legacy Java one and the portable
+one, chosen by ``SERIALIZATION_MODE``).
+
+This is the port's own copy of ``roaringbitmap_tpu.core.bitmap64``, byte for
+byte in every serialized form.
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ from .containers import Container
 from ..format import spec
 
 U64_MAX = (1 << 64) - 1
+
+#: Roaring64NavigableMap's serialization mode: a module-wide default, like
+#: the reference's static field
+SERIALIZATION_MODE_LEGACY = 0
+SERIALIZATION_MODE_PORTABLE = 1
+SERIALIZATION_MODE = SERIALIZATION_MODE_LEGACY
 
 # ART wire-format node kinds (art/NodeType.java ordinals)
 _ART_NODE4, _ART_NODE16, _ART_NODE48, _ART_NODE256, _ART_LEAF = range(5)
@@ -795,3 +804,468 @@ def _chunk_ranges64(start: int, stop: int):
         lo = start & 0xFFFF if hb == hb_first else 0
         hi_excl = ((stop - 1) & 0xFFFF) + 1 if hb == hb_last else 0x10000
         yield lo, hi_excl, hb
+
+
+# ---------------------------------------------------------------------------
+# Roaring64NavigableMap: the high-32 / low-32 NavigableMap variant.
+# ---------------------------------------------------------------------------
+
+class Roaring64NavigableMap:
+    """Map of high-32-bit key -> 32-bit RoaringBitmap (the reference's
+    ``Roaring64NavigableMap``), with signed or unsigned long ordering and
+    both serialization formats.
+
+    ``supplier`` is the BitmapDataProviderSupplier analog: a zero-argument
+    callable making each bucket's 32-bit bitmap, so the backend is
+    pluggable (``FastRankRoaringBitmap`` for rank-heavy work,
+    ``MutableRoaringBitmap`` for the buffer tier).  The wide 64-bit entry
+    points (``aggregation.or64`` / ``xor64`` / ``and64``) and the resident
+    sets take a navigable map through :meth:`to_roaring64`, which shares the
+    containers.
+    """
+
+    def __init__(self, signed_longs: bool = False, supplier=None):
+        self.signed_longs = signed_longs
+        self._supplier = supplier or RoaringBitmap
+        self._map: dict[int, RoaringBitmap] = {}  # unsigned u32 high -> bitmap
+        self._sorted_highs: list[int] | None = None
+        self._cum_cards: np.ndarray | None = None
+
+    # ----------------------------------------------------------------- build
+    @staticmethod
+    def bitmap_of(*values: int) -> "Roaring64NavigableMap":
+        rb = Roaring64NavigableMap()
+        for v in values:
+            rb.add(v)
+        return rb
+
+    @staticmethod
+    def from_values(values: np.ndarray, signed_longs: bool = False,
+                    supplier=None) -> "Roaring64NavigableMap":
+        rb = Roaring64NavigableMap(signed_longs, supplier)
+        v = np.unique(np.asarray(values, dtype=np.uint64))
+        if v.size == 0:
+            return rb
+        hi = (v >> np.uint64(32)).astype(np.uint32)
+        highs, starts = np.unique(hi, return_index=True)
+        bounds = np.append(starts, v.size)
+        for i, h in enumerate(highs):
+            lows = (v[bounds[i]:bounds[i + 1]] & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+            if rb._supplier is RoaringBitmap:
+                rb._map[int(h)] = RoaringBitmap.from_values(lows)
+            else:  # pluggable backend: bulk-ingest into a supplied bucket
+                b = rb._supplier()
+                b.add_many(lows)
+                rb._map[int(h)] = b
+        rb._invalidate()
+        return rb
+
+    # ------------------------------------------------------------- key order
+    def _key_order(self, high: int) -> int:
+        """Sort key for a stored (unsigned) high word under the active order."""
+        if self.signed_longs and high >= 1 << 31:
+            return high - (1 << 32)
+        return high
+
+    def _highs(self) -> list[int]:
+        if self._sorted_highs is None:
+            self._sorted_highs = sorted(self._map, key=self._key_order)
+        return self._sorted_highs
+
+    def _cum(self) -> np.ndarray:
+        """Cached cumulative cardinalities (the reference's perf helpers)."""
+        if self._cum_cards is None:
+            cards = [self._map[h].cardinality for h in self._highs()]
+            self._cum_cards = np.cumsum([0] + cards)
+        return self._cum_cards
+
+    def _invalidate(self) -> None:
+        self._sorted_highs = None
+        self._cum_cards = None
+
+    # -------------------------------------------------------------- accessors
+    @property
+    def cardinality(self) -> int:
+        return sum(b.cardinality for b in self._map.values())
+
+    def __len__(self) -> int:
+        return self.cardinality
+
+    def is_empty(self) -> bool:
+        return all(b.is_empty() for b in self._map.values())
+
+    def contains(self, x: int) -> bool:
+        x &= U64_MAX
+        b = self._map.get(x >> 32)
+        return b is not None and b.contains(x & 0xFFFFFFFF)
+
+    def __contains__(self, x: int) -> bool:
+        return self.contains(x)
+
+    def rank(self, x: int) -> int:
+        """Members <= x in the active long order (rankLong)."""
+        x &= U64_MAX
+        highs = self._highs()
+        cum = self._cum()
+        hx = self._key_order(x >> 32)
+        total = 0
+        for i, h in enumerate(highs):
+            kh = self._key_order(h)
+            if kh < hx:
+                total = int(cum[i + 1])
+            elif kh == hx:
+                total = int(cum[i]) + self._map[h].rank(x & 0xFFFFFFFF)
+        return total
+
+    def select(self, j: int) -> int:
+        """j-th member in the active long order (select), 0-based."""
+        highs = self._highs()
+        cum = self._cum()
+        i = int(np.searchsorted(cum, j, side="right")) - 1
+        if i < 0 or i >= len(highs) or j >= cum[-1]:
+            raise ValueError("select: rank out of bounds")
+        h = highs[i]
+        low = self._map[h].select(j - int(cum[i]))
+        return ((h << 32) | low) & U64_MAX
+
+    def first(self) -> int:
+        highs = self._highs()
+        if not highs:
+            raise ValueError("empty bitmap")
+        h = highs[0]
+        return ((h << 32) | self._map[h].first()) & U64_MAX
+
+    def last(self) -> int:
+        highs = self._highs()
+        if not highs:
+            raise ValueError("empty bitmap")
+        h = highs[-1]
+        return ((h << 32) | self._map[h].last()) & U64_MAX
+
+    # -------------------------------------------------------------- mutation
+    def add(self, x: int) -> None:
+        x &= U64_MAX
+        h = x >> 32
+        b = self._map.get(h)
+        if b is None:
+            b = self._supplier()
+            self._map[h] = b
+            self._sorted_highs = None
+        b.add(x & 0xFFFFFFFF)
+        self._cum_cards = None
+
+    def add_long(self, x: int) -> None:
+        self.add(x)
+
+    def add_int(self, x: int) -> None:
+        """addInt: zero-extends a 32-bit int (Roaring64NavigableMap.addInt)."""
+        self.add(x & 0xFFFFFFFF)
+
+    def remove(self, x: int) -> None:
+        x &= U64_MAX
+        h = x >> 32
+        b = self._map.get(h)
+        if b is None:
+            return
+        b.remove(x & 0xFFFFFFFF)
+        if b.is_empty():
+            del self._map[h]
+            self._sorted_highs = None
+        self._cum_cards = None
+
+    def add_range(self, start: int, stop: int) -> None:
+        """addRange over [start, stop) split at 2^32 bucket boundaries."""
+        if start >= stop:
+            return
+        h_first, h_last = start >> 32, (stop - 1) >> 32
+        for h in range(h_first, h_last + 1):
+            lo = start & 0xFFFFFFFF if h == h_first else 0
+            hi = ((stop - 1) & 0xFFFFFFFF) + 1 if h == h_last else 1 << 32
+            b = self._map.get(h)
+            if b is None:
+                b = self._supplier()
+                self._map[h] = b
+            b.add_range(lo, hi)
+        self._invalidate()
+
+    # ----------------------------------------------------------- set algebra
+    def _binary_inplace(self, o: "Roaring64NavigableMap", op: str) -> None:
+        ops = {"and": and_, "or": or_, "xor": xor, "andnot": andnot}
+        f = ops[op]
+        if op == "and":
+            keep = {}
+            for h, b in self._map.items():
+                ob = o._map.get(h)
+                if ob is not None:
+                    r = f(b, ob)
+                    if not r.is_empty():
+                        keep[h] = r
+            self._map = keep
+        else:
+            for h, ob in (o._map.items() if op != "andnot" else ()):
+                b = self._map.get(h)
+                r = f(b, ob) if b is not None else ob.clone()
+                if r.is_empty():
+                    self._map.pop(h, None)
+                else:
+                    self._map[h] = r
+            if op == "andnot":
+                for h in list(self._map):
+                    ob = o._map.get(h)
+                    if ob is not None:
+                        r = f(self._map[h], ob)
+                        if r.is_empty():
+                            del self._map[h]
+                        else:
+                            self._map[h] = r
+        self._invalidate()
+
+    def iand(self, o: "Roaring64NavigableMap") -> None:
+        self._binary_inplace(o, "and")
+
+    def ior(self, o: "Roaring64NavigableMap") -> None:
+        self._binary_inplace(o, "or")
+
+    def ixor(self, o: "Roaring64NavigableMap") -> None:
+        self._binary_inplace(o, "xor")
+
+    def iandnot(self, o: "Roaring64NavigableMap") -> None:
+        self._binary_inplace(o, "andnot")
+
+    # ------------------------------------------------------------- iteration
+    def __iter__(self) -> Iterator[int]:
+        for h in self._highs():
+            base = (h << 32) & U64_MAX
+            for v in self._map[h]:
+                yield base | v
+
+    def to_array(self) -> np.ndarray:
+        parts = [((np.uint64(h) << np.uint64(32)) | self._map[h].to_array().astype(np.uint64))
+                 for h in self._highs()]
+        return np.concatenate(parts) if parts else np.empty(0, dtype=np.uint64)
+
+    def run_optimize(self) -> bool:
+        return any([b.run_optimize() for b in self._map.values()])
+
+    # ------------------------------------------------- long-tail API parity
+    def clear(self) -> None:
+        """Empty the map (Roaring64NavigableMap.clear)."""
+        self._map = {}
+        self._invalidate()
+
+    def flip(self, x: int) -> None:
+        """Single-bit flip (flip(long))."""
+        if x in self:
+            self.remove(x)
+        else:
+            self.add(x)
+
+    def for_each(self, fn) -> None:
+        """Visit every member in the active key order (forEach/accept)."""
+        for v in self:
+            fn(v)
+
+    def get_long_iterator(self) -> Iterator[int]:
+        """Ascending (in the active order) value iterator (getLongIterator)."""
+        return iter(self)
+
+    def get_reverse_long_iterator(self) -> Iterator[int]:
+        """Descending value iterator (getReverseLongIterator) — the
+        per-bucket reverse flyweight keeps memory O(one container)."""
+        for h in reversed(self._highs()):
+            base = (h << 32) & U64_MAX
+            for v in self._map[h].get_reverse_int_iterator():
+                yield base | v
+
+    def limit(self, max_cardinality: int) -> "Roaring64NavigableMap":
+        """First max_cardinality members in the active order (limit)."""
+        out = Roaring64NavigableMap(self.signed_longs, self._supplier)
+        left = max_cardinality
+        for h in self._highs():
+            if left <= 0:
+                break
+            b = self._map[h]
+            take = b if b.cardinality <= left else b.limit(left)
+            bucket = self._supplier()  # keep the pluggable backend
+            bucket.ior(take)  # splices shared (persistent) containers
+            out._map[h] = bucket
+            left -= take.cardinality
+        out._invalidate()
+        return out
+
+    def trim(self) -> None:
+        """trim(): exact-sized NumPy arrays already; API parity."""
+
+    def get_size_in_bytes(self) -> int:
+        """Rough in-memory footprint (getSizeInBytes analog)."""
+        return 8 + sum(8 + b.get_size_in_bytes() for b in self._map.values())
+
+    def get_long_size_in_bytes(self) -> int:
+        return self.get_size_in_bytes()
+
+    @property
+    def long_cardinality(self) -> int:
+        """getLongCardinality: alias of cardinality."""
+        return self.cardinality
+
+    @property
+    def int_cardinality(self) -> int:
+        """getIntCardinality: raises when the count exceeds a signed
+        32-bit int, like the reference's UnsupportedOperationException."""
+        card = self.cardinality
+        if card > 0x7FFFFFFF:
+            raise OverflowError("cardinality exceeds a 32-bit int")
+        return card
+
+    def naive_lazy_or(self, o: "Roaring64NavigableMap") -> None:
+        """naivelazyor: the reference defers per-container cardinality
+        during OR chains and repairs at the end; here there is no deferred
+        state, so this is the plain in-place union."""
+        self.ior(o)
+
+    def repair_after_lazy(self) -> None:
+        """repairAfterLazy: no deferred state to repair (see
+        naive_lazy_or)."""
+
+    def and_not(self, o: "Roaring64NavigableMap") -> None:
+        """In-place difference, Java's andNot(other) naming."""
+        self.iandnot(o)
+
+    def __eq__(self, o: object) -> bool:
+        if not isinstance(o, Roaring64NavigableMap):
+            return NotImplemented
+        return ({h: None for h in self._map} == {h: None for h in o._map}
+                and all(self._map[h] == o._map[h] for h in self._map))
+
+    def __hash__(self) -> int:
+        return hash(self.to_array().tobytes())
+
+    def __repr__(self) -> str:
+        return (f"Roaring64NavigableMap(card={self.cardinality}, "
+                f"buckets={len(self._map)}, signed={self.signed_longs})")
+
+    # ------------------------------------------------------------------- I/O
+    def serialize(self, mode: int | None = None) -> bytes:
+        mode = SERIALIZATION_MODE if mode is None else mode
+        if mode == SERIALIZATION_MODE_PORTABLE:
+            return self.serialize_portable()
+        return self.serialize_legacy()
+
+    def serialize_legacy(self) -> bytes:
+        """The legacy Java format (serializeLegacy): a 1-byte boolean
+        signedLongs, an i32-BE bucket count, then per bucket an i32-BE high
+        word and the 32-bit portable payload."""
+        out = bytearray()
+        out += struct.pack(">?i", self.signed_longs, len(self._map))
+        for h in self._highs():
+            out += struct.pack(">i", h - (1 << 32) if h >= 1 << 31 else h)
+            out += self._map[h].serialize()
+        return bytes(out)
+
+    def serialize_portable(self) -> bytes:
+        """The portable spec (serializePortable): a u64-LE bucket count, then
+        per bucket a u32-LE high word and the 32-bit payload, in unsigned
+        key order."""
+        out = bytearray(struct.pack("<Q", len(self._map)))
+        for h in sorted(self._map):
+            out += struct.pack("<I", h)
+            out += self._map[h].serialize()
+        return bytes(out)
+
+    @staticmethod
+    def deserialize(buf: bytes | memoryview,
+                    mode: int | None = None) -> "Roaring64NavigableMap":
+        mode = SERIALIZATION_MODE if mode is None else mode
+        if mode == SERIALIZATION_MODE_PORTABLE:
+            return Roaring64NavigableMap.deserialize_portable(buf)
+        return Roaring64NavigableMap.deserialize_legacy(buf)
+
+    @staticmethod
+    def deserialize_legacy(buf: bytes | memoryview) -> "Roaring64NavigableMap":
+        mv = memoryview(buf)
+        if len(mv) < 5:
+            raise spec.InvalidRoaringFormat("truncated legacy 64-bit header")
+        signed, n = struct.unpack_from(">?i", mv, 0)
+        if n < 0:
+            raise spec.InvalidRoaringFormat("negative bucket count")
+        rb = Roaring64NavigableMap(signed_longs=bool(signed))
+        pos = 5
+        for _ in range(n):
+            if pos + 4 > len(mv):
+                raise spec.InvalidRoaringFormat("truncated legacy bucket")
+            (h,) = struct.unpack_from(">i", mv, pos)
+            pos += 4
+            view = spec.SerializedView(mv[pos:])
+            conts = [view.container(i) for i in range(view.size)]
+            pos += view.serialized_end()
+            rb._map[h & 0xFFFFFFFF] = RoaringBitmap(view.keys.copy(), conts)
+        return rb
+
+    @staticmethod
+    def deserialize_portable(buf: bytes | memoryview) -> "Roaring64NavigableMap":
+        mv = memoryview(buf)
+        if len(mv) < 8:
+            raise spec.InvalidRoaringFormat("truncated portable 64-bit header")
+        (n,) = struct.unpack_from("<Q", mv, 0)
+        rb = Roaring64NavigableMap(signed_longs=False)
+        pos = 8
+        for _ in range(n):
+            if pos + 4 > len(mv):
+                raise spec.InvalidRoaringFormat("truncated portable bucket")
+            (h,) = struct.unpack_from("<I", mv, pos)
+            pos += 4
+            view = spec.SerializedView(mv[pos:])
+            conts = [view.container(i) for i in range(view.size)]
+            pos += view.serialized_end()
+            rb._map[h] = RoaringBitmap(view.keys.copy(), conts)
+        return rb
+
+    def serialized_size_in_bytes(self, mode: int | None = None) -> int:
+        mode = SERIALIZATION_MODE if mode is None else mode
+        header = 8 if mode == SERIALIZATION_MODE_PORTABLE else 5
+        return header + sum(4 + b.serialized_size_in_bytes()
+                            for b in self._map.values())
+
+    def __reduce__(self):
+        """Pickle in the legacy format (which carries signedLongs); the
+        supplier rides alongside, so a pluggable backend survives the round
+        trip (the wire format has no supplier field)."""
+        return (_restore_navigable_map,
+                (self.serialize_legacy(), self._supplier))
+
+    # ------------------------------------------------------------- interop
+    def to_roaring64(self) -> Roaring64Bitmap:
+        """Lossless in-memory conversion to the array-keyed implementation:
+        high48 = (high32 << 16) | key16, containers shared."""
+        keys_parts: list[np.ndarray] = []
+        conts: list[Container] = []
+        for h in sorted(self._map):
+            rb32 = self._map[h]
+            keys_parts.append((np.uint64(h) << np.uint64(16))
+                              | rb32.keys.astype(np.uint64))
+            conts.extend(rb32.containers)
+        keys = (np.concatenate(keys_parts) if keys_parts
+                else np.empty(0, dtype=np.uint64))
+        return Roaring64Bitmap(keys, conts)
+
+    @staticmethod
+    def from_roaring64(rb: Roaring64Bitmap,
+                       signed_longs: bool = False) -> "Roaring64NavigableMap":
+        out = Roaring64NavigableMap(signed_longs)
+        for high, rb32 in rb._buckets32():
+            out._map[high] = RoaringBitmap(rb32.keys.copy(),
+                                           list(rb32.containers))
+        return out
+
+
+def _restore_navigable_map(blob: bytes, supplier) -> Roaring64NavigableMap:
+    """Pickle restore: the legacy-format payload, re-bucketed under the
+    original supplier (module level, so pickle can name it)."""
+    nm = Roaring64NavigableMap.deserialize_legacy(blob)
+    nm._supplier = supplier or RoaringBitmap
+    if nm._supplier is not RoaringBitmap:
+        for h, b in list(nm._map.items()):
+            fresh = nm._supplier()
+            fresh.ior(b)
+            nm._map[h] = fresh
+    return nm

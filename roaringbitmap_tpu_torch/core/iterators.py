@@ -35,8 +35,7 @@ def _cardinality_at(conts, j: int) -> int:
 
 
 class PeekableIntIterator:
-    """Ascending iterator with peek_next and advance_if_needed
-   .
+    """Ascending iterator with peek_next and advance_if_needed.
 
     Expands one container at a time: _load(ci) materializes container ci's
     values; moving to the next container drops the previous array.

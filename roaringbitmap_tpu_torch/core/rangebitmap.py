@@ -12,18 +12,111 @@ Two builders give the same slices: :class:`Appender` (the reference's
 ``RangeBitmap.Appender``, one mask and bitmap build per bit at flush) and
 :meth:`RangeBitmap.from_values`, which packs each bit plane of a dense value
 vector straight into container words.  The serialized form (cookie 0xF00D,
-``serialize`` / ``map``) is not ported.
+``serialize`` / ``map``) is the reference's byte for byte:
+
+  u16 cookie 0xF00D | u8 base=2 | u8 sliceCount | u16 maxKey | u32 maxRid
+  maxKey * ceil(sliceCount/8) bytes of per-chunk slice-presence masks (LE)
+  container records, per chunk in key order, per present slice ascending:
+    u8 type (0=BITMAP,1=RUN,2=ARRAY)
+    BITMAP: u16 cardinality (mod 2^16) + 1024 u64 words
+    RUN:    u16 nbrRuns + (start u16, length-1 u16) pairs
+    ARRAY:  u16 cardinality + cardinality u16 values
+
+The reference's appender stores the complement (slice i's container holds
+the rows whose value has bit i clear); the slices here are direct, so
+``serialize`` and ``map`` complement within each 2^16-row chunk on the way
+through.  A mapped RangeBitmap answers every query as the built one does
+(its ``max_value`` is the slice count's mask, as in the reference).
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
 from . import containers as C
 from .bitmap import RoaringBitmap, and_ as rb_and, andnot as rb_andnot, \
     or_ as rb_or
+from ..format import spec
 
 _CHUNK = 1 << 16
+COOKIE = 0xF00D
+_T_BITMAP, _T_RUN, _T_ARRAY = 0, 1, 2
+
+
+def _record_kind(slice_i: int, card: int, n_runs: int) -> int:
+    """The container type the reference's appender emits.
+
+    Slices < 5 live as bitmap containers in that appender, whose run
+    optimize converts to a run only when the run form beats 8192 bytes and
+    never downgrades to an array.  Slices >= 5 live as run containers, whose
+    efficient form picks the run on ties, else array or bitmap by
+    cardinality.
+    """
+    run_sz = 2 + 4 * n_runs
+    if slice_i < 5:
+        return _T_RUN if run_sz < 8192 else _T_BITMAP
+    if run_sz <= min(8192, 2 * card + 2):
+        return _T_RUN
+    return _T_ARRAY if card <= C.ARRAY_MAX_SIZE else _T_BITMAP
+
+
+def _emit_record(out: bytearray, c: C.Container, slice_i: int) -> None:
+    """One typed container record of the serialized form."""
+    if isinstance(c, C.RunContainer):
+        card, n_runs = c.cardinality, c.n_runs
+    else:
+        card, n_runs = c.cardinality, C.number_of_runs(c.values())
+    kind = _record_kind(slice_i, card, n_runs)
+    if kind == _T_RUN:
+        runs = c.runs if isinstance(c, C.RunContainer) \
+            else C.values_to_runs(c.values())
+        out.append(_T_RUN)
+        out += struct.pack("<H", runs.size // 2)
+        out += runs.astype("<u2").tobytes()
+    elif kind == _T_BITMAP:
+        out.append(_T_BITMAP)
+        out += struct.pack("<H", card & 0xFFFF)  # a Java char: mod 2^16
+        out += c.words().astype("<u8").tobytes()
+    else:
+        out.append(_T_ARRAY)
+        out += struct.pack("<H", card)
+        out += c.values().astype("<u2").tobytes()
+
+
+def _rows_container(chunk_rows: int) -> C.Container:
+    """All appended rows of a chunk as one run: the constant the full and
+    empty fast paths need, without an 8 KiB word round trip."""
+    if chunk_rows == 1 << 16:
+        return C.full_container()
+    return C.RunContainer(np.array([0, chunk_rows - 1], dtype=np.uint16))
+
+
+def _read_record(mv: memoryview, pos: int) -> tuple[C.Container, int]:
+    ctype = mv[pos]
+    pos += 1
+    if ctype == _T_BITMAP:
+        if len(mv) < pos + 2 + 8192:
+            raise spec.InvalidRoaringFormat("truncated bitmap record")
+        words = np.frombuffer(mv[pos + 2:pos + 2 + 8192],
+                              dtype="<u8").astype(np.uint64)
+        return C.BitmapContainer(words), pos + 2 + 8192
+    if ctype == _T_RUN:
+        (n_runs,) = struct.unpack_from("<H", mv, pos)
+        end = pos + 2 + 4 * n_runs
+        if len(mv) < end:
+            raise spec.InvalidRoaringFormat("truncated run record")
+        runs = np.frombuffer(mv[pos + 2:end], dtype="<u2").astype(np.uint16)
+        return C.RunContainer(runs), end
+    if ctype == _T_ARRAY:
+        (card,) = struct.unpack_from("<H", mv, pos)
+        end = pos + 2 + 2 * card
+        if len(mv) < end:
+            raise spec.InvalidRoaringFormat("truncated array record")
+        vals = np.frombuffer(mv[pos + 2:end], dtype="<u2").astype(np.uint16)
+        return C.ArrayContainer(vals), end
+    raise spec.InvalidRoaringFormat(f"unknown container type {ctype}")
 
 
 def _range_mask_bits(max_value: int) -> int:
@@ -60,6 +153,7 @@ class RangeBitmap:
         self._slices = slices
         self._rows = row_count
         self._max = max_value
+        self._serialized_cache: bytes | None = None
 
     # ----------------------------------------------------------------- build
     @staticmethod
@@ -218,6 +312,113 @@ class RangeBitmap:
                             context=None) -> int:
         return self.between(min_value, max_value, context).cardinality
 
+    # ------------------------------------------------------------------- I/O
+    def _chunk_container(self, slice_i: int, key: int) -> C.Container | None:
+        """Direct-encoding container of slice i at chunk `key`, or None."""
+        s = self._slices[slice_i]
+        idx = int(np.searchsorted(s.keys, np.uint16(key)))
+        if idx < s.keys.size and s.keys[idx] == key:
+            return s.containers[idx]
+        return None
+
+    def serialize(self) -> bytes:
+        """The reference's serialized stream.  Cached: the index is
+        immutable, and the size-then-serialize calling pattern must not pay
+        the encoding pass twice."""
+        if self._serialized_cache is None:
+            self._serialized_cache = self._serialize_impl()
+        return self._serialized_cache
+
+    def _serialize_impl(self) -> bytes:
+        depth = len(self._slices)
+        bytes_per_mask = (depth + 7) >> 3
+        n_keys = -(-self._rows // (1 << 16))
+        if self._rows >= 1 << 32 or n_keys > 0xFFFF:
+            raise ValueError("RangeBitmap supports at most 2^32-1 rows")
+        out = bytearray(struct.pack("<HBBHI", COOKIE, 2, depth, n_keys,
+                                    self._rows))
+        masks = bytearray()
+        records = bytearray()
+        for key in range(n_keys):
+            chunk_rows = min(self._rows - (key << 16), 1 << 16)
+            keep = (C.values_to_words(np.arange(chunk_rows, dtype=np.uint16))
+                    if chunk_rows < 1 << 16 else None)
+            mask_bits = 0
+            for i in range(depth):
+                direct = self._chunk_container(i, key)
+                # complement within the appended rows of this chunk (the
+                # reference stores the ~value bits)
+                if direct is None:
+                    comp = _rows_container(chunk_rows)  # all rows, one run
+                else:
+                    comp_words = ~direct.words()
+                    if keep is not None:
+                        comp_words = comp_words & keep
+                    comp = C.from_words(comp_words)
+                    if comp.cardinality == 0:
+                        continue
+                mask_bits |= 1 << i
+                _emit_record(records, comp, i)
+            masks += mask_bits.to_bytes(bytes_per_mask, "little")
+        return bytes(out + masks + records)
+
+    def serialized_size_in_bytes(self) -> int:
+        if self._serialized_cache is None:
+            self._serialized_cache = self.serialize()
+        return len(self._serialized_cache)
+
+    @staticmethod
+    def map(buf: bytes | memoryview) -> "RangeBitmap":
+        """Attach to a serialized RangeBitmap (RangeBitmap.map).  Takes any
+        stream the reference's appender produces and answers queries
+        bit-exactly; the complement containers are decoded back into direct
+        slices."""
+        mv = memoryview(buf)
+        if len(mv) < 10:
+            raise spec.InvalidRoaringFormat("truncated RangeBitmap header")
+        cookie, base, depth, n_keys, rows = struct.unpack_from("<HBBHI", mv, 0)
+        if cookie != COOKIE:
+            raise spec.InvalidRoaringFormat(
+                f"invalid RangeBitmap cookie {cookie:#x}")
+        if base != 2:
+            raise spec.InvalidRoaringFormat(
+                f"unsupported RangeBitmap base {base}")
+        bytes_per_mask = (depth + 7) >> 3
+        pos = 10
+        if len(mv) < pos + n_keys * bytes_per_mask:
+            raise spec.InvalidRoaringFormat("truncated RangeBitmap masks")
+        chunk_masks = [
+            int.from_bytes(mv[pos + k * bytes_per_mask:
+                              pos + (k + 1) * bytes_per_mask], "little")
+            for k in range(n_keys)]
+        pos += n_keys * bytes_per_mask
+        slice_keys: list[list[int]] = [[] for _ in range(depth)]
+        slice_conts: list[list[C.Container]] = [[] for _ in range(depth)]
+        for key in range(n_keys):
+            chunk_rows = min(rows - (key << 16), 1 << 16)
+            keep = None
+            if chunk_rows < 1 << 16:
+                keep = C.values_to_words(np.arange(chunk_rows, dtype=np.uint16))
+            for i in range(depth):
+                if (chunk_masks[key] >> i) & 1:
+                    comp, pos = _read_record(mv, pos)
+                    direct_words = ~comp.words()
+                    if keep is not None:
+                        direct_words = direct_words & keep
+                    direct = C.from_words(direct_words)
+                    if direct.cardinality == 0:
+                        continue
+                else:
+                    # empty complement: every appended row has bit i set
+                    direct = _rows_container(chunk_rows)
+                slice_keys[i].append(key)
+                slice_conts[i].append(direct)
+        slices = [
+            RoaringBitmap(np.array(slice_keys[i], dtype=np.uint16),
+                          slice_conts[i])
+            for i in range(depth)]
+        return RangeBitmap(slices, rows, (1 << depth) - 1)
+
 
 class Appender:
     """Append-only builder: ``add`` assigns the next dense row id; ``build``
@@ -230,6 +431,7 @@ class Appender:
         self._pending: list[np.ndarray] = []
         self._slices = [RoaringBitmap() for _ in range(self.depth)]
         self._rows = 0
+        self._ser_cache: bytes | None = None
 
     def add(self, value: int) -> None:
         """Append one value at the next row id."""
@@ -245,6 +447,7 @@ class Appender:
         if int(v.max()) > self.max_value:
             raise ValueError("value exceeds appender maxValue")
         self._pending.append(v)
+        self._ser_cache = None
 
     def _flush(self) -> None:
         if not self._pending:
@@ -270,3 +473,21 @@ class Appender:
         self._pending = []
         self._slices = [RoaringBitmap() for _ in range(self.depth)]
         self._rows = 0
+        self._ser_cache = None
+
+    def _serialized(self) -> bytes:
+        """The encoded bytes, cached so the size-then-serialize calling
+        pattern runs the encoding pass once; ``add`` and ``clear``
+        invalidate them."""
+        if self._ser_cache is None:
+            self._flush()
+            self._ser_cache = RangeBitmap(
+                self._slices, self._rows, self.max_value).serialize()
+        return self._ser_cache
+
+    def serialized_size_in_bytes(self) -> int:
+        return len(self._serialized())
+
+    def serialize(self) -> bytes:
+        """Serialize without building a RangeBitmap first."""
+        return self._serialized()

@@ -1,3 +1,15 @@
-from .analysis import ROW_BYTES, choose_layout, dense_rows_bytes
+"""Insights: container-mix analysis and writer advice, the resident layout
+choice and the dispatch footprint model."""
 
-__all__ = ["ROW_BYTES", "choose_layout", "dense_rows_bytes"]
+from .analysis import (
+    ROW_BYTES,
+    BitmapAnalyser,
+    BitmapStatistics,
+    NaiveWriterRecommender,
+    analyse,
+    choose_layout,
+    dense_rows_bytes,
+)
+
+__all__ = ["BitmapAnalyser", "BitmapStatistics", "NaiveWriterRecommender",
+           "analyse", "ROW_BYTES", "choose_layout", "dense_rows_bytes"]

@@ -1,5 +1,9 @@
-"""Layout choice for resident sets and the dispatch footprint model, from
-host metadata alone.
+"""Container-mix insights, the layout choice for resident sets and the
+dispatch footprint model, from host metadata alone.
+
+``BitmapAnalyser`` / ``BitmapStatistics`` / ``NaiveWriterRecommender`` are
+the port's own copies of the JAX package's (the reference's insights
+package): container-type tallies and ``RoaringBitmapWriter`` advice.
 
 The uscensus2000 shape (thousands of mostly-singleton containers) inflates a
 few dozen KB of serialized bytes into a dense image tens of MB large, which
@@ -22,11 +26,123 @@ holds a pooled launch's measured peak under it on the card.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+
 import numpy as np
 
+from ..core import containers as C
+from ..core.bitmap import RoaringBitmap
 from ..core.containers import WORDS_PER_CONTAINER
 from ..ops import packing
 from ..runtime.guard import PLAIN_RUNGS as PLAIN_ENGINES
+
+# ------------------------------------------------------ container mix
+
+@dataclass
+class ArrayContainersStats:
+    """BitmapStatistics.ArrayContainersStats: count and total cardinality."""
+
+    containers_count: int = 0
+    cardinality_sum: int = 0
+
+    def average_cardinality(self) -> int:
+        if self.containers_count == 0:
+            return 2 ** 63 - 1  # Long.MAX_VALUE, the reference's sentinel
+        return self.cardinality_sum // self.containers_count
+
+
+@dataclass
+class BitmapStatistics:
+    """Container-mix tallies (the reference's BitmapStatistics)."""
+
+    array_stats: ArrayContainersStats = field(default_factory=ArrayContainersStats)
+    bitmap_containers_count: int = 0
+    run_containers_count: int = 0
+    bitmaps_count: int = 0
+
+    def container_count(self) -> int:
+        return (self.array_stats.containers_count
+                + self.bitmap_containers_count + self.run_containers_count)
+
+    def container_fraction(self, count: int) -> float:
+        if self.container_count() == 0:
+            return float("nan")
+        return count / self.container_count()
+
+    # ------------------------------------------------------------- accounting
+    def merge(self, o: "BitmapStatistics") -> "BitmapStatistics":
+        return BitmapStatistics(
+            ArrayContainersStats(
+                self.array_stats.containers_count + o.array_stats.containers_count,
+                self.array_stats.cardinality_sum + o.array_stats.cardinality_sum),
+            self.bitmap_containers_count + o.bitmap_containers_count,
+            self.run_containers_count + o.run_containers_count,
+            self.bitmaps_count + o.bitmaps_count)
+
+
+class BitmapAnalyser:
+    """analyse() over one or many bitmaps (the reference's BitmapAnalyser)."""
+
+    @staticmethod
+    def analyse(rb: RoaringBitmap) -> BitmapStatistics:
+        stats = BitmapStatistics(bitmaps_count=1)
+        for c in rb.containers:
+            if isinstance(c, C.RunContainer):
+                stats.run_containers_count += 1
+            elif isinstance(c, C.BitmapContainer):
+                stats.bitmap_containers_count += 1
+            else:
+                stats.array_stats.containers_count += 1
+                stats.array_stats.cardinality_sum += c.cardinality
+        return stats
+
+    @staticmethod
+    def analyse_all(bitmaps) -> BitmapStatistics:
+        out = BitmapStatistics()
+        for rb in bitmaps:
+            out = out.merge(BitmapAnalyser.analyse(rb))
+        return out
+
+
+def analyse(rb: RoaringBitmap) -> BitmapStatistics:
+    return BitmapAnalyser.analyse(rb)
+
+
+class NaiveWriterRecommender:
+    """Expert rules mapping stats to writer advice (the reference's
+    NaiveWriterRecommender)."""
+
+    # thresholds mirror the reference's rules-of-thumb
+    RUN_FRACTION_FOR_RUN_OPT = 0.10
+    BITMAP_FRACTION_FOR_CONSTANT = 0.50
+    SMALL_ARRAY_AVG = 8
+
+    @staticmethod
+    def recommend(stats: BitmapStatistics) -> list[str]:
+        advice: list[str] = []
+        total = stats.container_count()
+        if total == 0:
+            return ["empty input: defaults are fine"]
+        if stats.container_fraction(stats.run_containers_count) \
+                >= NaiveWriterRecommender.RUN_FRACTION_FOR_RUN_OPT:
+            advice.append(".optimise_for_runs()")
+        else:
+            advice.append(".optimise_for_arrays()")
+        if stats.container_fraction(stats.bitmap_containers_count) \
+                >= NaiveWriterRecommender.BITMAP_FRACTION_FOR_CONSTANT:
+            advice.append(".constant_memory()")
+        avg = stats.array_stats.average_cardinality()
+        if avg < 2 ** 62 and avg <= NaiveWriterRecommender.SMALL_ARRAY_AVG:
+            advice.append(f".expected_container_size({max(avg, 1)})")
+        if stats.bitmaps_count > 0 and total // stats.bitmaps_count > 1:
+            advice.append(
+                f".initial_capacity({total // stats.bitmaps_count})")
+        return advice
+
+    @staticmethod
+    def recommend_for(rb: RoaringBitmap) -> list[str]:
+        return NaiveWriterRecommender.recommend(BitmapAnalyser.analyse(rb))
+
 
 #: bytes of one densified container row: u32[2048] = 2^16 bits = 8 KiB
 ROW_BYTES = WORDS_PER_CONTAINER * 8

@@ -189,11 +189,16 @@ class CompactStreams:
 
 
 def _as_view(b):
-    """SerializedView of ``b`` when it is byte-backed, else None."""
+    """SerializedView of ``b`` when it is byte-backed (bytes, a view, or an
+    ``ImmutableRoaringBitmap``, whose parsed header is its ``_view``), else
+    None."""
     if isinstance(b, (bytes, bytearray, memoryview)):
         return spec.SerializedView(b)
     if isinstance(b, spec.SerializedView):
         return b
+    view = getattr(b, "_view", None)
+    if isinstance(view, spec.SerializedView):
+        return view
     return None
 
 
@@ -204,52 +209,79 @@ def _keys_of(b) -> np.ndarray:
     return b.keys if v is None else v.keys
 
 
+def _view_table(view) -> tuple:
+    """A SerializedView's per-container header as Python lists, so the
+    per-container loop reads no NumPy scalars: (buffer, payload offsets,
+    kinds (0 array, 1 bitmap, 2 run), cardinalities)."""
+    kinds = view.is_bitmap.astype(np.int8) + 2 * view.is_run.astype(np.int8)
+    return (view.buf, view.payload_offsets.tolist(), kinds.tolist(),
+            view.cardinalities.tolist())
+
+
+def _check_increasing(values: np.ndarray, counts: list, conts: list) -> None:
+    """Every value piece (``counts`` values each, concatenated in
+    ``values``) strictly increasing, checked in one pass: a byte-backed
+    array payload is validated here rather than container by container."""
+    if values.size < 2:
+        return
+    bad = values[1:] <= values[:-1]
+    ends = np.cumsum(counts)
+    bad[ends[:-1] - 1] = False     # comparisons across two pieces
+    if bad.any():
+        k = int(np.searchsorted(ends, int(np.argmax(bad)), side="right"))
+        raise InvalidRoaringFormat(
+            f"container {conts[k]}: array values not strictly increasing")
+
+
 def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
                             n_rows: int) -> CompactStreams:
     """Classify every container of the rotated batch into the dense or the
-    sparse stream, in ``order`` (rows sorted by segment), to rows ``dest``."""
+    sparse stream, in ``order`` (rows sorted by segment), to rows ``dest``.
+
+    A byte-backed source streams its payloads off the buffer with the same
+    corruption guards as ``SerializedView.container``, minus the bitmap
+    popcount (a wrong declared bitmap cardinality cannot shift the stream,
+    payloads are fixed 8 KB, and every device aggregate recomputes
+    cardinalities exactly).  Its array payloads are checked for order
+    together, after the loop."""
     sizes = [_keys_of(s).size for s in sources]
-    src_of = np.repeat(np.arange(len(sources)), sizes)
-    idx_in_src = np.concatenate([np.arange(k) for k in sizes]) if sizes \
-        else np.empty(0, np.int64)
+    src_of = np.repeat(np.arange(len(sources)), sizes).tolist()
+    idx_in_src = (np.concatenate([np.arange(k) for k in sizes]).tolist()
+                  if sizes else [])
 
     dense_rows: list[int] = []
     dense_words: list[np.ndarray] = []
     pieces: list[np.ndarray] = []       # sparse per-container value arrays
+    piece_cont: list[int] = []          # the container index of each piece
     val_dest: list[int] = []
     views = [_as_view(s) for s in sources]
-    for pos, row in zip(order, np.asarray(dest, dtype=np.int64)):
-        s, i = int(src_of[pos]), int(idx_in_src[pos])
-        view = views[s]
-        if view is not None:
-            # byte path: the same corruption guards as SerializedView.
-            # container(), minus the bitmap popcount (a wrong declared bitmap
-            # cardinality cannot shift the stream, payloads are fixed 8 KB,
-            # and every device aggregate recomputes cardinalities exactly)
-            payload = view.container_payload(i)
-            if view.is_bitmap[i]:
-                if len(payload) != 8192:
-                    raise InvalidRoaringFormat(
-                        f"container {i}: truncated bitmap payload")
+    tables = [None if v is None else _view_table(v) for v in views]
+    for pos, row in zip(np.asarray(order).tolist(),
+                        np.asarray(dest, dtype=np.int64).tolist()):
+        s, i = src_of[pos], idx_in_src[pos]
+        table = tables[s]
+        if table is not None:
+            buf, offs, kinds, cards = table
+            kind = kinds[i]
+            if kind == 1:
                 dense_rows.append(row)
-                dense_words.append(np.frombuffer(payload, dtype="<u4"))
+                dense_words.append(np.frombuffer(buf, "<u4", WORDS32,
+                                                 offs[i]))
                 continue
-            if view.is_run[i]:
+            if kind == 0:
+                vals = np.frombuffer(buf, "<u2", cards[i], offs[i])
+            else:
+                payload = views[s].container_payload(i)
                 nruns = int(np.frombuffer(payload[:2], dtype="<u2")[0])
                 runs = np.frombuffer(payload[2:2 + 4 * nruns], dtype="<u2")
                 if runs.size != 2 * nruns:
                     raise InvalidRoaringFormat(
                         f"container {i}: truncated run payload")
                 starts, ends = validate_runs(runs, i)
-                if int((ends - starts + 1).sum()) != int(view.cardinalities[i]):
+                if int((ends - starts + 1).sum()) != cards[i]:
                     raise InvalidRoaringFormat(
                         f"container {i}: run cardinality mismatch")
                 vals = C.runs_to_values(runs.astype(np.uint16))
-            else:
-                vals = np.frombuffer(payload, dtype="<u2")
-                if vals.size > 1 and bool(np.any(vals[1:] <= vals[:-1])):
-                    raise InvalidRoaringFormat(
-                        f"container {i}: array values not strictly increasing")
         else:
             c = sources[s].containers[i]
             if isinstance(c, C.BitmapContainer):
@@ -264,16 +296,20 @@ def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
             dense_words.append(C.values_to_words(vals).view(np.uint32))
         elif vals.size:
             pieces.append(vals)
+            piece_cont.append(i)
             val_dest.append(row)
     values = (np.ascontiguousarray(np.concatenate(pieces)).astype(np.uint16)
               if pieces else np.empty(0, np.uint16))
+    val_counts = [p.size for p in pieces]
+    if any(t is not None for t in tables):
+        _check_increasing(values, val_counts, piece_cont)
     return CompactStreams(
         n_rows=n_rows,
         dense_words=(np.stack(dense_words).astype(np.uint32) if dense_words
                      else np.empty((0, WORDS32), np.uint32)),
         dense_dest=np.asarray(dense_rows, dtype=np.int32),
         values=values,
-        val_counts=np.array([p.size for p in pieces], dtype=np.int32),
+        val_counts=np.array(val_counts, dtype=np.int32),
         val_dest=np.asarray(val_dest, dtype=np.int32))
 
 
@@ -389,8 +425,9 @@ def pack_blocked_compact(sources: list, block: int | None = None,
                          carry_slot: bool = True,
                          min_block: int = 8) -> PackedBlockedCompact:
     """Group-by-key rotation emitting compact streams instead of a host-built
-    dense tensor.  ``sources`` may mix RoaringBitmaps, SerializedViews and
-    raw serialized bytes.
+    dense tensor.  ``sources`` may mix RoaringBitmaps,
+    ImmutableRoaringBitmaps, SerializedViews and raw serialized bytes; the
+    byte-backed ones stream their payloads off the buffer.
 
     carry_slot guarantees segment 0 at least one zero padding row.
     round_blocks pads the block count to a multiple (not pow2: a resident
@@ -490,6 +527,14 @@ class PackedIntersection:
     words: np.ndarray   # u32[K, N, 2048]
 
 
+def _container_at(b, i: int):
+    """Container i of a bitmap-like source.  A byte-backed source
+    (ImmutableRoaringBitmap) decodes just this payload, so a wide AND never
+    decodes the containers its key intersection dropped."""
+    get = getattr(b, "_container", None)
+    return get(i) if get is not None else b.containers[i]
+
+
 def pack_for_intersection(bitmaps: list[RoaringBitmap],
                           keys: np.ndarray) -> PackedIntersection:
     """keys is the surviving key set: every bitmap holds a container for
@@ -498,7 +543,7 @@ def pack_for_intersection(bitmaps: list[RoaringBitmap],
     conts, dest = [], []
     for j, b in enumerate(bitmaps):
         for i, bi in enumerate(np.searchsorted(b.keys, keys)):
-            conts.append(b.containers[int(bi)])
+            conts.append(_container_at(b, int(bi)))
             dest.append(i * n + j)
     words = densify_containers(conts, dest, keys.size * n)
     return PackedIntersection(keys=keys,
@@ -532,8 +577,9 @@ class PackedPairwiseCompact:
 
 def pack_pairwise(pairs, pad_rows: bool = True) -> PackedPairwiseCompact:
     """Align each pair's containers on its key union and emit one compact
-    stream per side.  Operands may mix RoaringBitmaps, SerializedViews and
-    raw serialized bytes; byte-backed ones stream off the wire layout.
+    stream per side.  Operands may mix RoaringBitmaps,
+    ImmutableRoaringBitmaps, SerializedViews and raw serialized bytes;
+    byte-backed ones stream off the wire layout.
     Pairs that are all serialized bytes take the C++ ingest engine
     (``native``) unless ``RB_NATIVE=0``."""
     if pairs and all(isinstance(a, (bytes, bytearray))

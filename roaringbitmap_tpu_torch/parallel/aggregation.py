@@ -51,6 +51,7 @@ import torch
 
 from ..core.bitmap import RoaringBitmap
 from ..core.bitmap64 import Roaring64Bitmap
+from ..core.bitset import RoaringBitSet
 from ..insights import analysis as insights
 from ..ops import dense, kernels, packing
 from ..ops.words import WORDS32, as_i32, resolve_device, to_u32
@@ -89,10 +90,28 @@ def _device_key(device) -> torch.device:
     return dev
 
 
+def _source(b):
+    """An input as the engines read it: a ``Roaring64NavigableMap`` as the
+    ``Roaring64Bitmap`` over the same containers (``to_roaring64``), a
+    ``RoaringBitSet`` as its backing bitmap; anything with ``keys`` /
+    ``containers`` (heap bitmaps, ``ImmutableRoaringBitmap``s), bytes and
+    ``SerializedView``s as they are."""
+    if hasattr(b, "to_roaring64"):
+        return b.to_roaring64()
+    if isinstance(b, RoaringBitSet):
+        return b.to_bitmap()
+    return b
+
+
+def _is_source(b) -> bool:
+    return hasattr(b, "keys") or hasattr(b, "to_roaring64") or isinstance(
+        b, RoaringBitSet)
+
+
 def _flatten(bitmaps) -> list[RoaringBitmap]:
-    if len(bitmaps) == 1 and not hasattr(bitmaps[0], "keys"):
-        return list(bitmaps[0])
-    return list(bitmaps)
+    if len(bitmaps) == 1 and not _is_source(bitmaps[0]):
+        bitmaps = bitmaps[0]
+    return [_source(b) for b in bitmaps]
 
 
 def _device_streams(s: packing.CompactStreams, device) -> tuple:
@@ -376,7 +395,7 @@ def explain_wide(op: str, bitmaps, engine: str = "auto", device=None) -> dict:
     if op not in ("or", "and", "xor"):
         raise ValueError(f"unsupported wide op {op!r}")
     dev = resolve_device(device)
-    bitmaps = _flatten([bitmaps] if hasattr(bitmaps, "keys") else bitmaps)
+    bitmaps = _flatten([bitmaps] if _is_source(bitmaps) else bitmaps)
     # the AND is pinned to its one rung (see and_): name what really runs
     if op == "and":
         _engine(engine, dev)
@@ -580,8 +599,10 @@ _STATE_LAYOUT = {
 
 class DeviceBitmapSet:
     """N bitmaps packed once and kept resident on the card for repeated wide
-    queries.  Inputs may mix RoaringBitmaps, SerializedViews and raw
-    serialized bytes; byte-backed inputs are ingested off the wire layout.
+    queries.  Inputs may mix RoaringBitmaps, ImmutableRoaringBitmaps,
+    SerializedViews and raw serialized bytes (byte-backed inputs are
+    ingested off the wire layout, no container decoded), and over u48 keys
+    Roaring64Bitmaps and Roaring64NavigableMaps.
 
     layout (a device-memory / query-cost ladder):
       - "dense": the dense int32[rows, 2048] image is resident; or/xor run
@@ -601,6 +622,7 @@ class DeviceBitmapSet:
                  layout: str = "auto", device=None):
         t_build0 = time.perf_counter()
         dev = resolve_device(device)
+        bitmaps = [_source(b) for b in bitmaps]
         if layout == "auto":
             if block is not None:
                 layout = "dense"   # an explicit block targets the dense image

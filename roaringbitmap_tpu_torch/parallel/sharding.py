@@ -748,17 +748,18 @@ def make_sharded_and(mesh: Mesh, row_axis: str = "rows",
 
 def _wrap_bytes(bitmaps) -> list:
     """Serialized sources (bytes or a ``format.spec.SerializedView``) ->
-    host bitmaps, for the object consumers (the dense pack, the AND key
-    intersection); the compact packer reads bytes natively."""
-    from ..core.bitmap import RoaringBitmap
+    zero-copy ``ImmutableRoaringBitmap``s (headers parsed, payloads left in
+    the buffer), for the object consumers: the AND runs its key
+    intersection first and decodes only the containers that survive."""
+    from ..buffer import ImmutableRoaringBitmap
     from ..format import spec
 
     out = []
     for b in bitmaps:
         if isinstance(b, (bytes, bytearray, memoryview)):
-            out.append(RoaringBitmap.deserialize(bytes(b)))
+            out.append(ImmutableRoaringBitmap(b))
         elif isinstance(b, spec.SerializedView):
-            out.append(RoaringBitmap.deserialize(bytes(b.buf)))
+            out.append(ImmutableRoaringBitmap(b.buf))
         else:
             out.append(b)
     return out

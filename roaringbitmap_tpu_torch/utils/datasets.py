@@ -1,15 +1,87 @@
-"""Synthetic bitmap sets for tests and the chip smoke run.
+"""Dataset loaders and synthetic bitmap sets.
 
-The real-roaring dataset zips are not shipped with the repository, so the
-port carries the JAX package's synthetic generator, which makes the same
-bitmaps from the same seed.
+The loaders read the real-roaring-dataset zips (each ``.txt`` member of a
+zip is one bitmap's comma-separated sorted values; the range zip's lines are
+``start:end`` pairs), as the JAX package's ``utils.datasets`` and the
+reference's ZipRealDataRetriever do.  The zips are not shipped with the
+repository: they are looked for under ``ROARING_DATASET_DIR`` (by default
+``datasets/`` at the repository root, holding the reference's
+``real-roaring-dataset/`` and ``random-generated-data/`` folders), and
+``has_dataset`` / ``has_range_dataset`` say whether they are there.
+
+``synthetic_bitmaps`` is the JAX package's generator: the same bitmaps from
+the same seed.
 """
 
 from __future__ import annotations
 
+import os
+import zipfile
+
 import numpy as np
 
 from ..core.bitmap import RoaringBitmap
+
+#: where the dataset folders are looked for
+DATASET_ROOT = os.environ.get(
+    "ROARING_DATASET_DIR",
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), "datasets"))
+REFERENCE_DATASET_DIR = os.path.join(DATASET_ROOT, "real-roaring-dataset")
+RANGE_DATASET_ZIP = os.path.join(DATASET_ROOT, "random-generated-data",
+                                 "random_range.zip")
+
+#: the datasets the JAX package's loaders name
+AVAILABLE = (
+    "census1881", "census1881_srt", "uscensus2000",
+    "wikileaks-noquotes", "wikileaks-noquotes_srt",
+)
+
+
+def dataset_path(name: str) -> str:
+    return os.path.join(REFERENCE_DATASET_DIR, f"{name}.zip")
+
+
+def has_dataset(name: str) -> bool:
+    return os.path.exists(dataset_path(name))
+
+
+def load_value_arrays(name: str) -> list[np.ndarray]:
+    """Each zip member -> one sorted u32 value array."""
+    out = []
+    with zipfile.ZipFile(dataset_path(name)) as z:
+        for member in sorted(z.namelist()):
+            raw = z.read(member).decode()
+            parts = [p for p in raw.replace("\n", ",").split(",") if p]
+            out.append(np.array(parts, dtype=np.int64).astype(np.uint32))
+    return out
+
+
+def load_bitmaps(name: str) -> list[RoaringBitmap]:
+    return [RoaringBitmap.from_values(v) for v in load_value_arrays(name)]
+
+
+#: the reference's ZipRealDataRetriever.fetchBitPositions name
+fetch_bit_positions = load_value_arrays
+
+
+def load_range_arrays() -> list[np.ndarray]:
+    """The ZipRealDataRangeRetriever analog: each line of each member is
+    comma-separated ``start:end`` pairs -> one [N, 2] int64 array a line."""
+    out = []
+    with zipfile.ZipFile(RANGE_DATASET_ZIP) as z:
+        for member in sorted(z.namelist()):
+            raw = z.read(member).decode()
+            for line in raw.splitlines():
+                if not line.strip():
+                    continue
+                pairs = [p.split(":") for p in line.split(",") if p]
+                out.append(np.array(pairs, dtype=np.int64))
+    return out
+
+
+def has_range_dataset() -> bool:
+    return os.path.exists(RANGE_DATASET_ZIP)
 
 
 def synthetic_bitmaps(n: int, seed: int = 0, universe: int = 1 << 22,

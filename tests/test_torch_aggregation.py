@@ -345,7 +345,10 @@ def test_port_imports_no_jax():
     traced pooled execute with the obs layer's statusz and Prometheus
     renders, a sharded wide op, a sharded-engine query, a pod front
     door request, the flagship model, the bitmap iterators, an explain, a
-    node-at-a-time batch and a warmed delta rung on the CPU."""
+    node-at-a-time batch, a warmed delta rung, and the rest of the host
+    tier (immutables and navigable maps through the wide ops, the writer,
+    the bitset, a mapped RangeBitmap and BSI, the insights, the dataset
+    loaders) on the CPU."""
     code = (
         "import sys, numpy as np\n"
         "import roaringbitmap_tpu_torch as rt\n"
@@ -460,6 +463,26 @@ def test_port_imports_no_jax():
         "assert expr.execute_node_at_a_time(eng, [q])[0].cardinality > 0\n"
         "assert ds.warmup_delta(4)['compiled']\n"
         "assert ds.apply_delta(adds={2: [5]})['mode'] == 'patch'\n"
+        "from roaringbitmap_tpu_torch import buffer, insights\n"
+        "from roaringbitmap_tpu_torch.bsi import immutable as bimm\n"
+        "from roaringbitmap_tpu_torch.core import bitset, fastrank, writer\n"
+        "from roaringbitmap_tpu_torch.utils import datasets\n"
+        "im = buffer.ImmutableRoaringBitmap(bms[0].serialize())\n"
+        "assert rt.aggregation.or_([im, bms[1]], device='cpu') == "
+        "rt.aggregation.or_(bms[:2], device='cpu')\n"
+        "nm = rt.Roaring64NavigableMap.from_values(np.array([1, 1 << 40], "
+        "np.uint64))\n"
+        "assert rt.aggregation.or64([nm, nm], device='cpu').cardinality == 2\n"
+        "w = writer.RoaringBitmapWriter.wizard().fast_rank().get()\n"
+        "w.add(3)\n"
+        "assert isinstance(w.get(), fastrank.FastRankRoaringBitmap)\n"
+        "assert bitset.RoaringBitSet(bms[0]).cardinality() == "
+        "bms[0].cardinality\n"
+        "assert rt.RangeBitmap.map(rb.serialize()).lte_cardinality(70) == 11\n"
+        "assert bimm.ImmutableBitSliceIndex(hb.serialize_buffer()).sum()[1]"
+        " == ids.size\n"
+        "assert insights.BitmapAnalyser.analyse(bms[0]).bitmaps_count == 1\n"
+        "datasets.has_dataset('census1881')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'roaringbitmap_tpu' or m.startswith('roaringbitmap_tpu.')]\n"
         "assert not bad, bad\n"

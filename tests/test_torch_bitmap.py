@@ -277,7 +277,7 @@ def test_iterators_cover_the_jax_module():
     assert public <= set(dir(ti))
     missing = [n for n in dir(jb.RoaringBitmap) if not n.startswith("__")
                and n not in dir(tb.RoaringBitmap)]
-    assert missing == ["to_mutable_roaring_bitmap"]
+    assert missing == []
 
 
 def test_mutating_iteration_does_not_desync():

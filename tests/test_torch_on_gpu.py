@@ -1087,3 +1087,65 @@ def test_warmed_delta_rung_replays_a_graph(dev, bitmaps):
     warm.apply_delta(adds={1: [5]})
     eager.apply_delta(adds={1: [5]})
     assert torch.equal(warm.words, eager.words)
+
+
+def test_wide_ops_over_immutables_on_the_card(dev, bitmaps):
+    """chip_smoke 18a at a small size: the wide ops over
+    ``ImmutableRoaringBitmap``s launch the kernels and equal the heap
+    sources' results."""
+    from roaringbitmap_tpu_torch.buffer import ImmutableRoaringBitmap
+
+    ims = [ImmutableRoaringBitmap(memoryview(b.serialize())) for b in bitmaps]
+    for fn in (aggregation.or_, aggregation.xor, aggregation.and_):
+        assert fn(ims) == fn(bitmaps)
+    kernels.reset_launches()
+    assert aggregation.or_cardinality(ims) == \
+        aggregation.or_(bitmaps).cardinality
+    torch.cuda.synchronize()
+    assert kernels.B1.launches == 1 and kernels.B2.launches == 1
+    for layout in ("dense", "compact", "counts"):
+        a = DeviceBitmapSet(ims, layout=layout)
+        b = DeviceBitmapSet(bitmaps, layout=layout)
+        for op in ("or", "xor"):
+            assert a.aggregate(op) == b.aggregate(op)
+
+
+def test_mapped_value_columns_on_the_card(dev, bitmaps):
+    """chip_smoke 18d at a small size: a ``BsiColumn`` over an
+    ``ImmutableBitSliceIndex`` and a ``RangeColumn`` over a mapped
+    ``RangeBitmap`` give a value batch the heap columns' answers, in one B5
+    launch."""
+    from roaringbitmap_tpu_torch.analytics import BsiColumn, RangeColumn
+    from roaringbitmap_tpu_torch.bsi import ImmutableBitSliceIndex
+    from roaringbitmap_tpu_torch.core.rangebitmap import RangeBitmap
+    from roaringbitmap_tpu_torch.parallel import expr
+
+    rng = np.random.default_rng(18)
+    ids = np.unique(rng.integers(0, 1 << 21, 20_000)).astype(np.uint32)
+    price = BsiColumn("price", ids, rng.integers(0, 1 << 30, ids.size))
+    ts = RangeColumn("ts", rng.integers(0, 1 << 40, 1 << 17))
+    iprice = BsiColumn.from_bsi("price", ImmutableBitSliceIndex(
+        price.host.serialize_buffer()))
+    its = RangeColumn.from_range_bitmap("ts", RangeBitmap.map(
+        ts.host.serialize()))
+    pool = [expr.ExprQuery(expr.and_(expr.or_(0, 1), expr.range_(
+                "price", 1 << 20, 1 << 29)), form="bitmap"),
+            expr.ExprQuery(expr.andnot(expr.cmp("ts", "lt", 1 << 38),
+                                       expr.ref(2))),
+            expr.ExprQuery(expr.sum_("price", found=expr.or_(3, 4))),
+            expr.ExprQuery(expr.top_k("ts", 50, found=expr.or_(5, 6)),
+                           form="bitmap")]
+    out = []
+    for cols in ((price, ts), (iprice, its)):
+        ds = DeviceBitmapSet(bitmaps, layout="dense")
+        for c in cols:
+            ds.attach_column(c)
+        eng = BatchEngine(ds)
+        kernels.reset_launches()
+        out.append(eng.execute(pool))
+        torch.cuda.synchronize()
+        assert eng.last_timings["engine"] == "megakernel"
+        assert kernels.B5.launches == 1
+    for g, w in zip(*out):
+        assert (g.cardinality, g.value, g.bitmap) == \
+            (w.cardinality, w.value, w.bitmap)
