@@ -320,8 +320,16 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
    of 2-5 and 8a and, for B5, of 7b and of 9a's longest plan, plus a
    random stream over all 20 opcodes: bit-equal words and cards,
    CUDA-event median times, the bound; B5's time per step; B1 at 1,024,
-   512 and 256 words (16a's shard shapes) and B5 on 16c's combine-mode
-   plan, each its own row of the kernels line (launches by variant).
+   512 and 256 words (16a's shard shapes), B1 at the largest op group of
+   11a's Q 64 pooled launch (2-8 rows a segment) and B5 on 16c's
+   combine-mode plan, each its own row of the kernels line (launches by
+   variant; the pooled row's are 11a's pooled B1 launches); B1's and B2's
+   rows print the port's PR 14 times beside their own, and B1's rows the
+   time of the same call's device part alone (one CUDA graph replay) at
+   the wrapper's chunk rows and at half and twice its blocks an SM, and
+   the host's microseconds a call.  Phase 1 prints
+   ``ptxas -v``'s registers, shared memory and spills of every kernel
+   entry of B1's chunked kernel.
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -620,6 +628,22 @@ def check_set(smoke: Smoke, label: str, ds, ops, unpack) -> dict:
     return times
 
 
+def ptxas_entries(report: str) -> list:
+    """(entry function, "stack/spill; registers/smem") pairs of one
+    ``nvcc -Xptxas -v`` report."""
+    out, entry, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and entry:
+            out.append((entry, f"{line.split(':', 1)[-1].strip()}; {spill}"))
+            entry = None
+    return out
+
+
 def timed_ms(torch, fn, reps: int) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after one warm-up."""
     fn()
@@ -633,6 +657,20 @@ def timed_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def graph_ms(torch, fn, reps: int) -> float:
+    """Median CUDA-event time of one replay of ``fn`` captured in a CUDA
+    graph: its device work without the host's part of the call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        fn()
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    return timed_ms(torch, graph.replay, reps)
 
 
 def max_abs_err(torch, a, b) -> int:
@@ -706,11 +744,13 @@ def fires_first(faults, spec_of, key: str, rate: float, later: int) -> str:
     raise AssertionError("no seed fires only first")
 
 
-def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
+def phase11(smoke, bms, sbms, price, lift, seed: int, shapes: dict):
     """The pooled multi-tenant engine (``MultiSetBatchEngine``): 11a flat
     pools over 16 tenants of phase 2's bitmaps (12 dense, 4 compact),
     11b one pooled expression and value pool in one B5 launch, 11c the
-    pipeline, the budget split and the guard, 11d 64-bit tenants."""
+    pipeline, the budget split and the guard, 11d 64-bit tenants.  Puts
+    the inputs of the Q 64 pool's largest B1 call, and 11a's pooled B1
+    launches, into ``shapes`` for phase 6."""
     import torch
 
     from roaringbitmap_tpu_torch import DeviceBitmapSet
@@ -760,6 +800,7 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
     require(smoke.last[b1] == len(plan.op_groups) and smoke.last[b3] == 4,
             f"11a pooled: B1 {smoke.last[b1]}, B3 {smoke.last[b3]}; want "
             f"{len(plan.op_groups)} and 4")
+    pooled_b1 = smoke.last[b1]
     loop = smoke.main_path("11a per-set loop bitmap Q64",
                            lambda: per_set(bm64))
     require(same_pool(got, loop), "11a: pooled cuda != the per-set loop")
@@ -778,6 +819,7 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
     for q, pool in pools.items():
         pooled = smoke.main_path(f"11a pooled Q{q}", lambda: ms.execute(pool))
         pl = dict(smoke.last)
+        pooled_b1 += pl[b1]
         loop = smoke.main_path(f"11a per-set loop Q{q}",
                                lambda: per_set(pool))
         ll = dict(smoke.last)
@@ -792,6 +834,25 @@ def phase11(smoke, bms, sbms, price, lift, seed: int) -> None:
         log(f"    Q{q} traced: pooled "
             f"{traced(torch, lambda: ms.execute(pool))}; per-set loop "
             f"{traced(torch, lambda: per_set(pool))}")
+
+    # the Q 64 pool's op groups, run eagerly with B1's inputs kept: the
+    # largest is phase 6's pooled row
+    plan64 = ms._plan_pool(ms._flatten(pools[64])[0])
+    calls, real_b1 = [], kernels.segmented_reduce
+
+    def keep(op, w, s, k, *args, **kw):
+        calls.append((op, w.clone(), s.clone(), k))
+        return real_b1(op, w, s, k, *args, **kw)
+
+    kernels.segmented_reduce = keep
+    try:
+        ms._run(plan64, "cuda", ms._operands(plan64, "cuda", False))
+    finally:
+        kernels.segmented_reduce = real_b1
+    shapes["segmented_reduce_pooled"] = max(calls,
+                                            key=lambda c: c[1].shape[0])
+    shapes["segmented_reduce_pooled_launches"] = pooled_b1
+    del calls
 
     # 11b: pooled expressions and value queries, one B5 launch
     sets_e = smoke.main_path("11b shard tenant builds", lambda: [
@@ -4201,6 +4262,11 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
+    for entry, used in ptxas_entries(reports.get("segmented_reduce.cu", "")):
+        m_op = re.search(r"chunk_reduce_kernelILi(\d)ELi(\d+)E", entry)
+        if m_op:
+            log(f"  B1 chunk_reduce_kernel<op {m_op.group(1)}, "
+                f"{m_op.group(2)} columns>: {used}")
     smoke = Smoke(torch, kernels)
     guard.reset_dispatch_stats()
     shapes = {}
@@ -5064,7 +5130,7 @@ def main() -> int:
     # ------------------------------------------------------------ phase 11
     log("phase 11: the pooled multi-tenant engine (MultiSetBatchEngine)")
     t_phase = time.perf_counter()
-    tenants11 = phase11(smoke, bms, sbms, price, lift, args.seed)
+    tenants11 = phase11(smoke, bms, sbms, price, lift, args.seed, shapes)
     phase_time("phase 11", t_phase)
 
     # ------------------------------------------------------------ phase 13
@@ -5129,6 +5195,14 @@ def main() -> int:
     log("phase 6: each kernel against its plain version "
         "(tolerance: bit-exact, max_abs_err must be 0)")
     t_phase = time.perf_counter()
+    # what the host's share of a timed call runs beside
+    import gc
+    import threading
+    others = sorted(t.name for t in threading.enumerate()
+                    if t is not threading.main_thread())
+    log(f"  the process: {len(others)} other Python threads {others[:6]}, "
+        f"{len(gc.get_objects())} objects under gc, load "
+        f"{os.getloadavg()[0]:.2f} on {os.cpu_count()} cores")
     rows_out = []
     #: each kernel's share of its bound at its first phase 6 shape
     bound_share: dict = {}
@@ -5136,8 +5210,15 @@ def main() -> int:
     def row_bytes(starts, ends, per_row):
         return int((ends - starts).sum()) * per_row
 
+    #: the port's PR 14 times of B1's and B2's rows (PERF.md; NVIDIA H100
+    #: 80GB HBM3, 700.00 W), printed beside this run's
+    pr14_ms = {"segmented_reduce": 0.4493, "segmented_reduce@1024": 0.1632,
+               "segmented_reduce@512": 0.1866,
+               "segmented_reduce@256": 0.1731,
+               "segmented_reduce_blocked": 1.2557}
+
     def record(kernel, run, plain, bytes_moved, ops, shape_note, emit=True,
-               steps=None, name=None, launches=None):
+               steps=None, name=None, launches=None, b1_args=None):
         """Hold ``run`` bit-equal to ``plain``, time them, and add the
         kernel's row to the kernels line (``name`` / ``launches`` for a
         variant's row: B1 at a narrow width, B5 in combine mode)."""
@@ -5152,8 +5233,43 @@ def main() -> int:
         bound = max(t_bytes, t_ops)
         bound_share.setdefault(name or kernel.name, bound / ms)
         per_step = f", {ms * 1e3 / steps:.4f} us a step" if steps else ""
-        log(f"  {name or kernel.name} [{shape_note}]: {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound:.4f} ms "
+        before = pr14_ms.get(name or kernel.name)
+        then = (f" (PR 14: {before:.4f} ms, {bound / before:.1%})"
+                if before else "")
+        if b1_args:
+            # the host's share of the call (the same launch from a graph),
+            # the host's own time, and the device part at half and twice
+            # the wrapper's blocks an SM (chunk rows of twice and half as
+            # many SMs)
+            alone = graph_ms(torch, run, 20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                run()
+            host_us = (time.perf_counter() - t0) / 50 * 1e6
+            torch.cuda.synchronize()
+            op_, w_, s_, k_ = b1_args
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            per_sm = []
+            for label, n in (("half", sms // 2), ("twice", 2 * sms)):
+                rows_ = kernels.b1_chunk_rows(w_.shape[0], w_.shape[1],
+                                              k_, n)
+
+                def other(rows_=rows_):
+                    return kernels._launch_chunked(kernels.B1, op_, w_, s_,
+                                                   k_, rows_)
+                err_o = max_abs_err(torch, other(), want)
+                require(err_o == 0, f"{name or kernel.name}: {label} the "
+                        f"blocks an SM != plain (max err {err_o})")
+                per_sm.append(f"{label}: {graph_ms(torch, other, 20):.4f} "
+                              f"ms at {rows_} rows a chunk")
+            then += (f", device part alone {alone:.4f} ms "
+                     f"({bound / alone:.1%}, one graph replay at "
+                     f"{kernels.b1_chunk_rows(w_.shape[0], w_.shape[1], k_, sms)}"
+                     f" rows a chunk; "
+                     f"{'; '.join(per_sm)}), host {host_us:.1f} us a call")
+        log(f"  {name or kernel.name} [{shape_note}]: {ms:.4f} ms{then}, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
             f"({bytes_moved} bytes), {bound / ms:.1%} of bound{per_step}")
         if emit:
             rows_out.append({
@@ -5175,7 +5291,8 @@ def main() -> int:
     record(kernels.B1,
            lambda: kernels.segmented_reduce("or", w1, s1, k1),
            lambda: kernels.segmented_reduce_plain("or", w1, s1, k1),
-           b1, pk.m * 2048, f"rows {pk.words.shape[0]}, K {k1}")
+           b1, pk.m * 2048, f"rows {pk.words.shape[0]}, K {k1}",
+           b1_args=("or", w1, s1, k1))
     # B1 at the row widths a "lanes" axis hands each shard (16a)
     for width in (1024, 512, 256):
         wn, sn, kn, shape = shapes.pop(f"segmented_reduce_w{width}")
@@ -5191,16 +5308,31 @@ def main() -> int:
                f"width {width} words: {wn.shape[0]} rows, K {kn} (a shard "
                f"of 16a's {shape} mesh over its dense pack)",
                name=f"segmented_reduce@{width}",
-               launches=smoke.variants.get((kernels.B1.name, width), 0))
+               launches=smoke.variants.get((kernels.B1.name, width), 0),
+               b1_args=("or", wn, sn, kn))
+    # B1 at the largest op group of 11a's Q 64 pooled launch
+    opp, wp, sp, kp = shapes.pop("segmented_reduce_pooled")
+    runs = torch.bincount(sp.long(), minlength=kp + 1)[:kp]
+    record(kernels.B1,
+           lambda: kernels.segmented_reduce(opp, wp, sp, kp),
+           lambda: kernels.segmented_reduce_plain(opp, wp, sp, kp),
+           wp.shape[0] * 8192 + sp.numel() * 4 + kp * (8192 + 4),
+           wp.shape[0] * 2048,
+           f"11a Q64 pooled op group ({opp}): {wp.shape[0]} rows, "
+           f"{kp} segments of {int(runs.min())}-{int(runs.max())} rows",
+           name="segmented_reduce@pooled",
+           launches=shapes.pop("segmented_reduce_pooled_launches"),
+           b1_args=(opp, wp, sp, kp))
+    del wp, sp
     # B2: blocked reduce at the dense set's shape
     w2, blk2, k2, block2 = shapes["segmented_reduce_blocked"]
-    st2, en2 = kernels.segment_ranges(blk2, k2, scale=block2)
-    b2 = row_bytes(st2, en2, 8192) + blk2.numel() * 4 + k2 * (8192 + 4)
+    real2 = int((blk2 < k2).sum()) * block2
+    b2 = real2 * 8192 + blk2.numel() * 4 + k2 * (8192 + 4)
     record(kernels.B2,
            lambda: kernels.segmented_reduce_blocked("or", w2, blk2, k2, block2),
            lambda: kernels.segmented_reduce_blocked_plain("or", w2, blk2, k2,
                                                           block2),
-           b2, int((en2 - st2).sum()) * 2048,
+           b2, real2 * 2048,
            f"rows {w2.shape[0]}, block {block2}, K {k2}")
     # B3: chunk densify at the compact set's shape
     cv3, cr3, nrows3, bounds3 = shapes["densify_chunks"]

@@ -15,13 +15,17 @@ layout and everything else to the dense one, deciding exactly as
 The ``predict_*_dispatch_bytes`` functions keep the JAX package's names,
 signatures and ``peak_bytes`` key, but count what the port allocates on the
 card during one dispatch, not what an XLA program or a TPU kernel would:
-the gathered row block, B1's heads, the andnot head gather, popcount's
-int64 working copies, the plain rung's doubling scratch, B3's rebuilt image,
-the pooled image and B5's outputs.  Each term is the sum of the tensors the
-code allocates, so the total bounds the allocator's peak above what was
-allocated before the dispatch (``torch.cuda.max_memory_allocated``), which
-the pooled engine's proactive split relies on; ``chip_smoke.py`` phase 11c
-holds a pooled launch's measured peak under it on the card.
+the gathered row block, B1's heads and its workspace (partials and
+counters, one allocation with the heads), the andnot head gather,
+popcount's int64 working copies, the plain rung's doubling scratch, B3's
+rebuilt image, the pooled image and B5's outputs.  Each term is the sum of
+the tensors the code allocates, so the total bounds the allocator's peak
+above what was allocated before the dispatch
+(``torch.cuda.max_memory_allocated``), which the pooled engine's proactive
+split relies on; ``chip_smoke.py`` phase 11c holds a pooled launch's
+measured peak under it on the card.  B1's workspace is sized by the card's
+SM count, so where a card is visible the model reads it
+(``kernels.b1_workspace_bytes``); everything else is host metadata.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import numpy as np
 from ..core import containers as C
 from ..core.bitmap import RoaringBitmap
 from ..core.containers import WORDS_PER_CONTAINER
-from ..ops import packing
+from ..ops import kernels, packing
 from ..runtime.guard import PLAIN_RUNGS as PLAIN_ENGINES
 
 # ------------------------------------------------------ container mix
@@ -207,6 +211,10 @@ def _bucket_bytes(bucket_sigs: list, engine: str) -> dict:
         if engine in PLAIN_ENGINES:
             scratch += DOUBLING_BLOCKS * block * ROW_BYTES
         heads += slots * (ROW_BYTES + INDEX_BYTES)
+        if engine not in PLAIN_ENGINES:
+            # B1's workspace lives as long as its heads; a bucket's call
+            # needs at least the share of a pooled op group's call
+            heads += kernels.b1_workspace_bytes(block, slots)
         if op == "andnot":
             heads += slots * ROW_BYTES          # the head gather
         if op == "andnot" or engine in PLAIN_ENGINES:
@@ -483,7 +491,6 @@ def predict_resident_bytes(sources: list, layout: str = "dense",
     :func:`resident_set_bytes`, from the host pack alone (nothing touches
     a device)."""
     from ..ops import dense as _dense
-    from ..ops import packing
 
     packed = packing.pack_blocked_compact(
         sources, block=block,

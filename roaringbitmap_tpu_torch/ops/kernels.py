@@ -77,12 +77,12 @@ class CudaKernel:
         self.launches += 1
 
 
-_ROW_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+_CHUNK_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 B1 = CudaKernel("segmented_reduce", "segmented_reduce.cu",
-                "rb_segmented_reduce", _ROW_ARGS,
+                "rb_segmented_reduce_chunked", _CHUNK_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:61")
 B2 = CudaKernel("segmented_reduce_blocked", "segmented_reduce.cu",
-                "rb_segmented_reduce", _ROW_ARGS,
+                "rb_segmented_reduce_chunked", _CHUNK_ARGS,
                 "roaringbitmap_tpu/ops/kernels.py:116")
 B3 = CudaKernel("densify_chunks", "densify_chunks.cu", "rb_densify_chunks",
                 [_P, _P, _P, _I, _I, _P],
@@ -137,34 +137,219 @@ def _on_cuda(*ts: torch.Tensor) -> bool:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The current CUDA stream as a raw handle, without the
+    ``torch.cuda.Stream`` object ``current_stream()`` builds (a share of
+    B1's shortest calls); Triton's launcher makes the same call."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
-def segment_ranges(seg_ids: torch.Tensor, num_segments: int, scale: int = 1):
-    """Per-segment [start, end) ranges (int32) of sorted segment ids, in
-    units of ``scale`` rows per id (the kernels' launch plan)."""
+def segment_ranges(seg_ids: torch.Tensor, num_segments: int):
+    """Per-segment [start, end) row ranges (int32) of sorted segment ids."""
     seg = torch.arange(num_segments, dtype=torch.int32, device=seg_ids.device)
     starts = torch.searchsorted(seg_ids, seg, out_int32=True)
     ends = torch.searchsorted(seg_ids, seg, right=True, out_int32=True)
-    if scale != 1:
-        starts, ends = starts * scale, ends * scale
     return starts, ends
 
 
-def _launch_rows(kernel: CudaKernel, op: str, rows: torch.Tensor,
-                 starts: torch.Tensor, ends: torch.Tensor, num_segments: int):
-    """One launch of B1 or B2 over rows int32[M, W] into int32[K, W] heads,
-    the width W passed to the kernel and counted as the launch's variant."""
-    width = int(rows.shape[1])
-    heads = torch.empty((num_segments, width), dtype=torch.int32,
-                        device=rows.device)
-    cards = torch.zeros(num_segments, dtype=torch.int32, device=rows.device)
-    if num_segments:
-        kernel.launch(rows.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-                      heads.data_ptr(), cards.data_ptr(), num_segments,
-                      _OPCODE[op], width, _stream())
-        kernel.count_variant(width)
-    return heads, cards
+# ----------------------------------------------------- B1: the chunk plan
+#
+# B1's kernel (csrc/segmented_reduce.cu) cuts the rows into chunks of R
+# rows; block c folds chunk c.  A segment of at most R rows belongs whole to
+# the chunk its head row lies in; a longer one is cut at the chunk edges,
+# each piece a partial that the last piece to arrive folds.  The functions
+# below are that plan, written once: ``b1_chunk_rows`` sizes the launch,
+# ``b1_chunk_plan`` is what block c works out from the ids around it (the
+# kernel does the same steps in parallel), and ``segmented_reduce_emulated``
+# walks the plan on the host, blocks in any order, counters and all.
+
+#: row loads each thread of B1 keeps in flight (csrc ``kUnroll``)
+B1_UNROLL = 8
+#: most rows a B1 chunk may take (csrc ``kMaxChunkRows``)
+B1_MAX_CHUNK_ROWS = 1024
+#: B1 blocks an SM its chunks make: two waves of resident blocks at 2,048
+#: words (512 threads, two resident), one wave at the narrower widths (256
+#: threads, four resident).  Twice as many where the mean segment has
+#: fewer rows than a thread's batch of loads (``B1_UNROLL``): a chunk then
+#: folds its many runs one after another, and smaller chunks spread them
+#: over more blocks.  ``chip_smoke.py`` phase 6 times half and twice as
+#: many beside the choice (PERF.md section 6)
+B1_BLOCKS_PER_SM = 4
+
+_SMS: dict = {}
+
+
+def b1_block_threads(width: int) -> int:
+    """Threads of one B1 block: one 16-byte column each, 256 at least."""
+    return max(width // 4, 256)
+
+
+def b1_chunk_rows(m: int, width: int, num_segments: int, sms: int) -> int:
+    """Rows of one B1 chunk for ``m`` rows of ``width`` words in K segments
+    on a card of ``sms`` SMs: enough chunks for ``B1_BLOCKS_PER_SM`` blocks
+    an SM (twice as many for short segments), at least one batch of loads
+    per row group, and at most ``B1_MAX_CHUNK_ROWS``."""
+    groups = b1_block_threads(width) // (width // 4)
+    per_sm = B1_BLOCKS_PER_SM * (2 if m < B1_UNROLL * num_segments else 1)
+    return min(max(m // (per_sm * sms), B1_UNROLL * groups),
+               B1_MAX_CHUNK_ROWS)
+
+
+def b1_num_chunks(m: int, chunk_rows: int) -> int:
+    return max(1, -(-m // chunk_rows))
+
+
+def b1_work_words(m: int, width: int, num_segments: int,
+                  chunk_rows: int) -> int:
+    """int32 words of B1's workspace: two partial rows a chunk, then a
+    counter and two chunk indices a segment."""
+    return 2 * b1_num_chunks(m, chunk_rows) * width + 3 * num_segments
+
+
+#: SMs of an NVIDIA H100 SXM, for sizing B1's launch where no card is seen
+H100_SMS = 132
+
+
+def b1_workspace_bytes(m: int, num_segments: int, width: int = WORDS32,
+                       sms: int | None = None) -> int:
+    """Device bytes of B1's workspace for one call over ``m`` rows and K
+    segments on a card of ``sms`` SMs: the footprint model's term for B1.
+    Without ``sms`` it reads the current card's SM count (an H100's where
+    no card is seen), since the launch is sized by it."""
+    if sms is None:
+        sms = (_sm_count(torch.device("cuda")) if torch.cuda.is_available()
+               else H100_SMS)
+    rows = b1_chunk_rows(m, width, num_segments, sms)
+    return 4 * b1_work_words(m, width, num_segments, rows)
+
+
+def b1_chunk_plan(ids, num_segments: int, chunk_rows: int, c: int,
+                  m: int | None = None, scale: int = 1):
+    """What block ``c`` of B1 works out from the sorted ids of the rows
+    around its chunk [cR, cR + R) (``ids`` one per ``scale`` rows, ``m``
+    rows): the empty segments it zeroes, as ranges [a, b), and the runs it
+    folds, as (segment, first row, end row, continues a piece from the chunk
+    before, continues into the chunk after).  A run that continues either
+    way is a piece of a split segment.
+
+    The block sees only rows [cR - R, cR + 2R): a run whose boundary lies
+    outside them has more than R rows, which is all the plan needs to
+    know."""
+    ids = list(map(int, ids))
+    K, R = num_segments, chunk_rows
+    m = len(ids) * scale if m is None else m
+    last = b1_num_chunks(m, R) - 1
+    lo, base = c * R, c * R - R
+    hi = min(lo + R, m)
+
+    def sid(r):
+        return -1 if r < 0 else (K if r >= m else ids[r // scale])
+
+    hr = next((r for r in range(lo, hi)
+               if sid(r) == K and (r == lo or sid(r - 1) != K)), hi)
+    k0 = sid(lo) if hr > lo else K
+    kl = sid(hr - 1) if hr > lo else K
+    s0 = sl = base - 1
+    e0 = el = base + 3 * R + 1
+    gaps, runs = [], []
+    for r in range(base + 1, base + 3 * R):
+        a, b = sid(r - 1), sid(r)
+        if a == b:
+            continue
+        s0 = r if b == k0 else s0
+        e0 = r if a == k0 else e0
+        sl = r if b == kl else sl
+        el = r if a == kl else el
+        if b > a + 1 and (lo <= r < hi or (r == m and c == last)):
+            gaps.append((a + 1, b))
+    if hr <= lo:
+        return gaps, runs
+    before0, short0 = s0 < lo, e0 - s0 <= R
+    p0 = e0 if before0 and short0 else lo
+    if sl < lo:
+        p1 = p0 if short0 else hr
+    else:
+        p1 = el if el - sl <= R else hr
+    a = p0
+    while a < p1:
+        k, b = sid(a), a + 1
+        while b < p1 and sid(b) == k:
+            b += 1
+        runs.append((k, a, b, a == lo and before0,
+                     b == hr and hr < m and sid(hr) == k))
+        a = b
+    return gaps, runs
+
+
+def _fold_run(op: str, rows: torch.Tensor, head: bool) -> torch.Tensor:
+    """One run's value: the op over its rows; andnot with ``head`` keeps row
+    0 aside, head & ~(or of the rest), and without it is the or."""
+    if op == "andnot":
+        rest = rows[1:] if head else rows
+        acc = torch.zeros_like(rows[0])
+        for r in rest:
+            acc |= r
+        return rows[0] & ~acc if head else acc
+    fn = dense.OPS[op]
+    acc = rows[0].clone()
+    for r in rows[1:]:
+        acc = fn(acc, r)
+    return acc
+
+
+def segmented_reduce_emulated(op: str, words: torch.Tensor,
+                              seg_ids: torch.Tensor, num_segments: int,
+                              chunk_rows: int, order=None, scale: int = 1):
+    """B1's kernel walked on the host: the blocks of ``b1_chunk_plan`` run
+    one after another in ``order`` (a permutation of the chunks; blocks on
+    the card run in no order), each folding its runs, publishing the pieces
+    of split segments and counting them in; the last piece folds the
+    partials in chunk order.  Outputs start as garbage, as the kernel's
+    ``torch.empty`` ones do.  Returns (heads, cards, counters): the counters
+    must end at 0."""
+    m, width = words.shape
+    K = num_segments
+    n = b1_num_chunks(m, chunk_rows)
+    ids = seg_ids.tolist()
+    heads = torch.full((K, width), 0x5A5A5A5A, dtype=torch.int32)
+    cards = torch.full((K,), -7, dtype=torch.int32)
+    partials = torch.full((2 * n, width), -1, dtype=torch.int32)
+    counters = torch.zeros(K, dtype=torch.int64)
+    ends = torch.full((2 * K,), -1, dtype=torch.int64)
+    for c in (range(n) if order is None else order):
+        gaps, runs = b1_chunk_plan(ids, K, chunk_rows, c, m, scale)
+        for a, b in gaps:
+            heads[a:b] = 0
+            cards[a:b] = 0
+        for k, a, b, before, after in runs:
+            v = _fold_run(op, words[a:b], head=not before)
+            if before or after:
+                partials[2 * c + (0 if before else 1)] = v
+                if not before:
+                    ends[2 * k] = c
+                if not after:
+                    ends[2 * k + 1] = c
+                add = 1 + (0 if before else c) - (0 if after else c + 1)
+                counters[k] += add
+                if counters[k] != 0:
+                    continue
+                cf = int(ends[2 * k]) if before else c
+                cl = int(ends[2 * k + 1]) if after else c
+                parts = torch.stack([partials[2 * cf + 1]]
+                                    + [partials[2 * j]
+                                       for j in range(cf + 1, cl + 1)])
+                v = _fold_run(op, parts, head=True)
+            heads[k] = v
+            cards[k] = popcount(v[None])[0]
+    return heads, cards, counters
+
+
+def _sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device, read once."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 # ------------------------------------------------------- B1 + B2: reduce
@@ -202,7 +387,8 @@ def segmented_reduce(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
     (int32[K, W] per-key words, int32[K] cardinalities); op is one of
     or/and/xor/andnot, applied in row order.  The row width W is one of
     ``ROW_WIDTHS``: the full 2048-word row, or the slice of it a shard of a
-    mesh's "lanes" axis holds.  A segment with no rows reduces to zero."""
+    mesh's "lanes" axis holds.  A segment with no rows reduces to zero.
+    On the card one launch of the chunked kernel."""
     if op not in _OPCODE:
         raise ValueError(f"unsupported op {op!r}")
     _check("words", words, 2)
@@ -214,8 +400,38 @@ def segmented_reduce(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError("seg_ids must hold one id per row")
     if not _on_cuda(words, seg_ids):
         return segmented_reduce_plain(op, words, seg_ids, num_segments)
-    starts, ends = segment_ranges(seg_ids, num_segments)
-    return _launch_rows(B1, op, words, starts, ends, num_segments)
+    return _launch_chunked(B1, op, words, seg_ids, num_segments)
+
+
+def _launch_chunked(kernel: CudaKernel, op: str, words: torch.Tensor,
+                    ids: torch.Tensor, num_segments: int,
+                    chunk_rows: int | None = None, scale: int = 1):
+    """One launch of the chunked kernel (B1, or B2 over blocks) over rows
+    int32[M, W], one sorted id per ``scale`` rows, into int32[K, W] heads
+    and int32[K] cards, the width W counted as the launch's variant.  The
+    chunk rows are ``b1_chunk_rows`` unless ``chunk_rows`` forces them (the
+    tests).  Heads, workspace and cards are one allocation, in that order
+    (the workspace's partial rows stay 16-byte aligned): the workspace lives
+    as long as the heads or the cards do."""
+    m, width = words.shape
+    rows = chunk_rows or b1_chunk_rows(m, width, num_segments,
+                                       _sm_count(words.device))
+    if not 1 <= rows <= B1_MAX_CHUNK_ROWS:
+        raise ValueError(f"chunk_rows {rows} is not in [1, "
+                         f"{B1_MAX_CHUNK_ROWS}]")
+    k = num_segments
+    head_words = k * width
+    work_words = b1_work_words(m, width, k, rows) if k else 0
+    buf = words.new_empty(head_words + work_words + k)
+    heads = buf[:head_words].view(k, width)
+    cards = buf[head_words + work_words:]
+    if k:
+        ptr = buf.data_ptr()
+        kernel.launch(words.data_ptr(), ids.data_ptr(), ptr,
+                      ptr + 4 * (head_words + work_words), ptr + 4 * head_words,
+                      m, k, _OPCODE[op], width, rows, scale, _stream())
+        kernel.count_variant(width)
+    return heads, cards
 
 
 def segmented_reduce_blocked_plain(op: str, words: torch.Tensor,
@@ -231,7 +447,9 @@ def segmented_reduce_blocked(op: str, words: torch.Tensor,
                              block: int):
     """B2, the blocked layout's reduce: rows int32[NB*block, 2048], one
     sorted segment id per block of rows.  OR/XOR only: the segment-padding
-    rows are zero, which is the identity of those two ops alone."""
+    rows are zero, which is the identity of those two ops alone.  On the
+    card one launch of B1's chunked kernel, reading one id per ``block``
+    rows, counted as B2's."""
     if op not in ("or", "xor"):
         raise ValueError(f"blocked reduce supports or/xor only, got {op!r}")
     _check("words", words, 2, WORDS32)
@@ -241,8 +459,7 @@ def segmented_reduce_blocked(op: str, words: torch.Tensor,
     if not _on_cuda(words, blk_seg):
         return segmented_reduce_blocked_plain(op, words, blk_seg,
                                               num_segments, block)
-    starts, ends = segment_ranges(blk_seg, num_segments, scale=block)
-    return _launch_rows(B2, op, words, starts, ends, num_segments)
+    return _launch_chunked(B2, op, words, blk_seg, num_segments, scale=block)
 
 
 # ------------------------------------------------------------ B3: densify

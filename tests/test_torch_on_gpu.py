@@ -1149,3 +1149,125 @@ def test_mapped_value_columns_on_the_card(dev, bitmaps):
     for g, w in zip(*out):
         assert (g.cardinality, g.value, g.bitmap) == \
             (w.cardinality, w.value, w.bitmap)
+
+
+# ------------------------------------------- B1's split segments (chunks)
+
+def _split_case(case: str, width: int, dev):
+    """Rows int32[M, width] (random bits, seeded), sorted ids and K, at
+    shapes that make B1 split segments over chunks."""
+    if case == "k1_10000":          # one segment of 10,000 rows
+        lengths = [10_000]
+    elif case == "mixed":           # 1-row and 2,000-row segments in turn
+        lengths = [1, 2000, 1, 1, 2000, 1, 2000, 2000, 1]
+    elif case == "empties":         # most segments empty, some long
+        lengths = [0] * 300 + [700] + [0] * 500 + [3, 1500] + [0] * 200
+    elif case == "andnot_head":     # long segments whose head rows are
+        # alone at a chunk's end at the forced chunk sizes
+        lengths = [7, 900, 63, 1200, 255, 3000, 1]
+    else:
+        raise ValueError(case)
+    k = len(lengths)
+    ids = np.concatenate([np.repeat(np.arange(k, dtype=np.int32), lengths),
+                          np.full(37, k, np.int32)])
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows = torch.randint(-(1 << 31), 1 << 31, (ids.size, width),
+                         dtype=torch.int32, device=dev, generator=gen)
+    return rows, as_i32(ids, dev), k
+
+
+SPLIT_CASES = ("k1_10000", "mixed", "empties", "andnot_head")
+
+
+@pytest.mark.parametrize("width", kernels.ROW_WIDTHS)
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_b1_splits_match_plain(dev, case, width):
+    """B1 at shapes that split segments, through the wrapper at the
+    launch's own chunk rows and at forced ones (every piece a row, and sizes
+    that leave a head row alone in its chunk), all four ops: equal to the
+    plain version, one launch a call."""
+    w, s, k = _split_case(case, width, dev)
+    for op in ("or", "and", "xor", "andnot"):
+        want = kernels.segmented_reduce_plain(op, w, s, k)
+        for chunk in (None, 1, 8, 64, 256):
+            kernels.reset_launches()
+            got = (kernels.segmented_reduce(op, w, s, k) if chunk is None
+                   else kernels._launch_chunked(kernels.B1, op, w, s, k,
+                                                chunk))
+            torch.cuda.synchronize()
+            assert kernels.B1.launches == 1
+            _same(got, want)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_b2_splits_match_plain(dev, case):
+    """B2 (one id per block of rows, the chunked kernel) at shapes that
+    split segments, at its own chunk rows and at forced ones that cut a
+    block: equal to its plain version, one B2 launch a call."""
+    block = 4
+    w, s, k = _split_case(case, 2048, dev)
+    nb = w.shape[0] // block
+    w, blk = w[:nb * block], s[:nb * block:block].contiguous()
+    for op in ("or", "xor"):
+        want = kernels.segmented_reduce_blocked_plain(op, w, blk, k, block)
+        for chunk in (None, 3, 64):
+            kernels.reset_launches()
+            got = (kernels.segmented_reduce_blocked(op, w, blk, k, block)
+                   if chunk is None else kernels._launch_chunked(
+                       kernels.B2, op, w, blk, k, chunk, scale=block))
+            torch.cuda.synchronize()
+            assert kernels.B2.launches == 1 and kernels.B1.launches == 0
+            _same(got, want)
+
+
+def test_b1_counters_come_back_to_zero(dev):
+    """The launch zeroes its counters, and every split segment's counter is
+    back at 0 when the launch ends: garbage in the workspace's counters
+    before a launch is 0 after it."""
+    w, s, k = _split_case("mixed", 2048, dev)
+    m, width = w.shape
+    chunk = 8
+    n = kernels.b1_num_chunks(m, chunk)
+    heads = torch.empty((k, width), dtype=torch.int32, device=dev)
+    cards = torch.empty(k, dtype=torch.int32, device=dev)
+    work = torch.full((kernels.b1_work_words(m, width, k, chunk),), 12345,
+                      dtype=torch.int32, device=dev)
+    kernels.B1.launch(w.data_ptr(), s.data_ptr(), heads.data_ptr(),
+                      cards.data_ptr(), work.data_ptr(), m, k, 0, width,
+                      chunk, 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    counters = work[2 * n * width:2 * n * width + k]
+    assert not counters.any()
+    _same((heads, cards), kernels.segmented_reduce_plain("or", w, s, k))
+
+
+@pytest.mark.parametrize("width", kernels.ROW_WIDTHS)
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_b1_splits_replay_in_a_graph(dev, case, width):
+    """B1 captured in a CUDA graph with split segments replays twice to the
+    same bits (the captured launch zeroes its counters again each replay)."""
+    w, s, k = _split_case(case, width, dev)
+    want = {op: kernels.segmented_reduce_plain(op, w, s, k)
+            for op in ("or", "andnot")}
+    for op in want:
+        kernels._launch_chunked(kernels.B1, op, w, s, k, 64)   # loads it
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    kernels.reset_launches()
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        outs = {op: kernels._launch_chunked(kernels.B1, op, w, s, k, 64)
+                for op in want}
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    assert kernels.B1.launches == 2
+    for _ in range(2):
+        for got in outs.values():
+            for t in got:
+                t.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        for op, got in outs.items():
+            _same(got, want[op])
