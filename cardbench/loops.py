@@ -1,0 +1,109 @@
+"""The entry a traffic mix drives, as a measured closed loop.
+
+``aggregate_device``: ``DeviceBitmapSet.aggregate_device`` over the whole
+resident set, ``in_flight`` ops enqueued ahead: op ``i + in_flight`` is
+enqueued before op ``i``'s cardinality is read back.  The result words stay
+on the card; an op completes when its exact cardinality (the sum of its
+per-key cardinalities, summed on the card) is on the host.
+
+The loop runs ``seconds`` of window from its first timed call; what
+completes in it is counted, what is in flight at its close is waited for
+and kept for the check, but not counted.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+
+from . import gen
+
+#: a host range the profiler shows, for charging idle gaps
+from torch.profiler import record_function as _range
+
+
+@dataclasses.dataclass
+class Outcome:
+    seconds: float
+    completed: int                 # ops done in the window
+    units: int                     # ops run, window and drain
+    work_bytes: int                # frozen count of everything run
+    host_ms: list                  # harness span around each call
+    answers: dict                  # what the check compares
+
+
+def _sample_positions(n_ops: int, ops: list, k0: int) -> dict:
+    """The first op of each kind at or after ``k0``: whose heads are kept."""
+    out = {}
+    for i in range(k0, n_ops):
+        out.setdefault(ops[i], i)
+        if len(out) == len(set(ops)):
+            break
+    return {i: op for op, i in out.items()}
+
+
+def wide(ds, mix: dict, seed: int, seconds: float, op_bytes: int,
+         torch, warmup: bool = False) -> Outcome:
+    """The closed loop of wide ops (see the module docstring).  With
+    ``warmup`` it runs ``mix["warmup_ops"]`` ops of every kind and
+    returns."""
+    depth = int(mix["in_flight"])
+    cuda = ds.device.type == "cuda"
+    if warmup:
+        for op in sorted(mix["ops"]) * int(mix["warmup_ops"]):
+            words, cards = ds.aggregate_device(op)
+            int(cards.sum(dtype=torch.int64))
+        if cuda:
+            torch.cuda.synchronize(ds.device)
+        return None
+    n_max = int(mix["max_ops"])
+    ops = gen.wide_ops(mix, seed, n_max)
+    rng = gen._rng(seed, 0x5A3)
+    keep = _sample_positions(n_max, ops, int(rng.integers(0, 64)))
+    cards_host = torch.zeros(n_max, dtype=torch.int64,
+                             pin_memory=cuda)
+    inflight: collections.deque = collections.deque()
+    host_ms, answers_card = [], []
+    heads = {}
+    last = None
+    done_in_window = 0
+    t0 = time.perf_counter()
+    deadline = t0 + seconds
+    i, stop = 0, False
+    with _range("cardbench.window"):
+        while True:
+            while not stop and len(inflight) < depth and i < n_max:
+                ts = time.perf_counter()
+                with _range("cardbench.submit"):
+                    words, cards = ds.aggregate_device(ops[i])
+                    total = cards.sum(dtype=torch.int64)
+                    cards_host[i].copy_(total, non_blocking=cuda)
+                    ev = None
+                    if cuda:
+                        ev = torch.cuda.Event()
+                        ev.record()
+                host_ms.append((time.perf_counter() - ts) * 1e3)
+                inflight.append((i, ev, words, cards))
+                i += 1
+            if not inflight:
+                break
+            j, ev, words, cards = inflight.popleft()
+            if ev is not None:
+                with _range("cardbench.wait"):
+                    ev.synchronize()
+            t = time.perf_counter()
+            answers_card.append(int(cards_host[j]))
+            if t <= deadline:
+                done_in_window += 1
+            if j in keep:
+                heads[j] = (words, cards)
+            last = (j, words, cards)
+            if t >= deadline or i >= n_max:
+                stop = True
+    if last is not None and last[0] not in heads:
+        heads[last[0]] = last[1:]
+    return Outcome(
+        seconds=seconds, completed=done_in_window,
+        units=i, work_bytes=i * op_bytes, host_ms=host_ms,
+        answers={"ops": ops[:i], "cards": answers_card, "heads": heads})
