@@ -17,10 +17,17 @@ Design constraints:
   ``span()`` returns one shared no-op object without allocating a Span,
   touching a contextvar, or opening a file — the fast path is a module
   flag check.
-- **Crash-usable dumps.**  Each span is written and flushed when it
-  closes, so a trace survives the process dying mid-query; parents close
-  after children, hence appear later in the file (consumers must collect
-  ids before resolving ``parent_id``).
+- **Crash-usable dumps, no system call a span.**  Each span is written
+  when it closes into a buffered sink that is flushed at the first close
+  ``FLUSH_S`` (1 s) after the last flush, at ``disable()``, before a
+  ``fork`` and at exit, so a trace survives the process dying mid-query
+  but for its last second; the process id is read once, not per span.
+  Where a system call costs tens of microseconds (an NVIDIA H100 host of
+  PERF.md read ~50 us a ``getpid`` and ~80 us a line write inside a
+  wide-op loop), a write and two ``getpid`` a span made a traced run
+  host-bound.  Parents close after children, hence
+  appear later in the file (consumers must collect ids before resolving
+  ``parent_id``).
 - **Device alignment.**  ``ROARING_TPU_TRACE_XPROF=1`` additionally wraps
   every span in ``torch.profiler.record_function`` so spans appear as
   named ranges in a ``torch.profiler`` trace beside the card's kernels;
@@ -58,6 +65,7 @@ Programmatic: ``enable(path)`` / ``disable()`` / ``refresh_from_env()``.
 
 from __future__ import annotations
 
+import atexit
 import contextvars
 import itertools
 import json
@@ -72,6 +80,10 @@ ENV_TRACE_MAX_BYTES = "ROARING_TPU_TRACE_MAX_BYTES"
 ENV_TRACE_KEEP = "ROARING_TPU_TRACE_KEEP"
 
 DEFAULT_KEEP = 2
+#: seconds a dump may lag its process (see the module docstring)
+FLUSH_S = 1.0
+#: the sink's buffer, bytes
+_SINK_BUFFER = 1 << 16
 
 _log = logging.getLogger("roaringbitmap_tpu_torch.obs")
 
@@ -84,6 +96,8 @@ _ids = itertools.count(1)
 _max_bytes = 0                # 0 = unbounded sink
 _keep = DEFAULT_KEEP
 _bytes = 0                    # bytes written to the current sink file
+_flushed = 0.0                # perf_counter of the sink's last flush
+_pid = os.getpid()            # read once, and again in a forked child
 _current: contextvars.ContextVar = contextvars.ContextVar(
     "rb_torch_span", default=None)
 
@@ -130,7 +144,7 @@ class Span:
 
     def __init__(self, name: str, tags: dict):
         self.name = name
-        self.span_id = f"{os.getpid():x}-{next(_ids):x}"
+        self.span_id = f"{_pid:x}-{next(_ids):x}"
         self.tags = tags
         self.events: list = []
         self._ann = None
@@ -151,12 +165,15 @@ class Span:
             self.parent_id = None
             self.trace_id = self.span_id
         self._token = _current.set(self)
+        # stamped before the profiler range opens, as the range's end is
+        # after the span's: the range's own start-up cost (a first range
+        # of a profiling session takes ~1 ms) falls inside both
+        self.t_start = time.time()
+        self._t0 = time.perf_counter()
         if _xprof:
             self._ann = _xprof_annotation(self.name)
             if self._ann is not None:
                 self._ann.__enter__()
-        self.t_start = time.time()
-        self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -170,7 +187,7 @@ class Span:
         record = {
             "name": self.name, "span_id": self.span_id,
             "parent_id": self.parent_id, "trace_id": self.trace_id,
-            "pid": os.getpid(), "t_start": round(self.t_start, 6),
+            "pid": _pid, "t_start": round(self.t_start, 6),
             "dur_ms": round(dur_ms, 4), "tags": self.tags,
             "events": self.events,
         }
@@ -279,7 +296,7 @@ def current():
 
 
 def _write(record: dict) -> None:
-    global _bytes
+    global _bytes, _flushed
     with _write_lock:
         if not _enabled or _file is None:
             return
@@ -288,6 +305,10 @@ def _write(record: dict) -> None:
                               default=str) + "\n"
             _file.write(line)
             _bytes += len(line)
+            now = time.perf_counter()
+            if now - _flushed >= FLUSH_S:
+                _file.flush()
+                _flushed = now
             if _max_bytes > 0 and _bytes >= _max_bytes:
                 _rotate_locked()
         except OSError as exc:
@@ -313,7 +334,7 @@ def _rotate_locked() -> None:
         os.replace(_path, f"{_path}.1")
     else:
         os.remove(_path)
-    _file = open(_path, "a", buffering=1)
+    _file = open(_path, "a", buffering=_SINK_BUFFER)
     _bytes = 0
     from . import metrics as _metrics
 
@@ -347,7 +368,7 @@ def enable(path: str, xprof: bool | None = None,
     enable's explicit rotation caps are NOT sticky across sinks."""
     global _enabled, _path, _file, _xprof, _max_bytes, _keep, _bytes
     disable()
-    f = open(path, "a", buffering=1)
+    f = open(path, "a", buffering=_SINK_BUFFER)
     size = f.tell()
     with _write_lock:
         _path = path
@@ -384,6 +405,27 @@ def enabled() -> bool:
 
 def path() -> str | None:
     return _path
+
+
+def _flush_sink() -> None:
+    with _write_lock:
+        if _file is not None:
+            try:
+                _file.flush()
+            except OSError as exc:
+                _log.warning("trace flush to %s failed, disabling tracer: "
+                             "%s", _path, exc)
+                _disable_locked()
+
+
+def _after_fork_in_child() -> None:
+    global _pid
+    _pid = os.getpid()
+
+
+# the buffer is flushed before a fork, so a child inherits none of it
+os.register_at_fork(before=_flush_sink, after_in_child=_after_fork_in_child)
+atexit.register(disable)
 
 
 def refresh_from_env() -> None:

@@ -19,6 +19,15 @@ Each wrapper checks its tensors, then
 
 Rows are int32 views of u32[2048] words (``ops.words``).  Segment ids are
 sorted; id K (``num_segments``) marks padding rows, which no segment reads.
+
+Each launch passes the bytes it must move, counted from the tensors' shapes
+by the kernel's ``b*_launch_bytes`` function beside its wrapper (B5's is
+``megakernel.stream_bytes``): the resident input read once, the heads and
+cardinalities written once.  Workspace, partial rows and segment metadata,
+which stay in L2 or are a few KiB, are left out; padding rows or groups of
+id K, which the kernels skip, are counted, since only the shapes are read
+(a resident set pads fewer than 8 blocks).  While tracing is on the count
+rides a ``kernel.launch`` event on the enclosing span.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import ctypes
 
 import torch
 
+from ..obs import trace as obs_trace
 from . import build, dense
 from .packing import CHUNK_VALUES
 from .words import WORDS32, fold_u32, popcount
@@ -45,8 +55,10 @@ class CudaKernel:
     """One hand-written kernel: its source, C entry point and launch count."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
-                 replaces: str):
+                 replaces: str, label: str = ""):
         self.name = name
+        #: the kernel's name in the port's table (B1-B6)
+        self.label = label
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
@@ -54,14 +66,17 @@ class CudaKernel:
         #: launches since the last reset, counted where the kernel launches
         self.launches = 0
         #: the same launches by variant (the row width of B1 and B2, B5's
-        #: stream mode), counted by the wrapper right after its launch
+        #: stream mode), as the wrappers pass it
         self.variants: dict = {}
         self._fn = None
 
-    def count_variant(self, key) -> None:
-        self.variants[key] = self.variants.get(key, 0) + 1
-
-    def launch(self, *args) -> None:
+    def launch(self, *args, nbytes, variant=None) -> None:
+        """Launch the C entry with ``args`` and count the launch, and its
+        ``variant`` where one is given.  ``nbytes`` is what the launch must
+        move, or a function that counts it (called only while tracing is
+        on); while tracing is on it is recorded as a ``kernel.launch``
+        event (``kernel``, ``variant``, ``bytes``) on the enclosing span,
+        with no wait on the card."""
         if self._fn is None:
             lib = build.load(self.source)
             fn = getattr(lib, self.symbol)
@@ -75,27 +90,33 @@ class CudaKernel:
                 f"{self.name}: CUDA error {err} "
                 f"({lib.rb_error_string(err).decode()})")
         self.launches += 1
+        if variant is not None:
+            self.variants[variant] = self.variants.get(variant, 0) + 1
+        if obs_trace.enabled():
+            obs_trace.current().event(
+                "kernel.launch", kernel=self.label, variant=variant,
+                bytes=int(nbytes() if callable(nbytes) else nbytes))
 
 
 _CHUNK_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 B1 = CudaKernel("segmented_reduce", "segmented_reduce.cu",
                 "rb_segmented_reduce_chunked", _CHUNK_ARGS,
-                "roaringbitmap_tpu/ops/kernels.py:61")
+                "roaringbitmap_tpu/ops/kernels.py:61", "B1")
 B2 = CudaKernel("segmented_reduce_blocked", "segmented_reduce.cu",
                 "rb_segmented_reduce_chunked", _CHUNK_ARGS,
-                "roaringbitmap_tpu/ops/kernels.py:116")
+                "roaringbitmap_tpu/ops/kernels.py:116", "B2")
 B3 = CudaKernel("densify_chunks", "densify_chunks.cu", "rb_densify_chunks",
                 [_P, _P, _P, _I, _I, _P],
-                "roaringbitmap_tpu/ops/kernels.py:286")
+                "roaringbitmap_tpu/ops/kernels.py:286", "B3")
 B4 = CudaKernel("counts_segmented_reduce", "counts_reduce.cu",
                 "rb_counts_reduce", [_P, _P, _P, _P, _P, _I, _I, _P],
-                "roaringbitmap_tpu/ops/kernels.py:334")
+                "roaringbitmap_tpu/ops/kernels.py:334", "B4")
 B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
                 [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-                "roaringbitmap_tpu/ops/megakernel.py:140")
+                "roaringbitmap_tpu/ops/megakernel.py:140", "B5")
 B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-                "roaringbitmap_tpu/ops/kernels.py:170")
+                "roaringbitmap_tpu/ops/kernels.py:170", "B6")
 KERNELS = (B1, B2, B3, B4, B5, B6)
 
 #: the row widths B1 takes, in words: the full row, and the slices a mesh's
@@ -381,6 +402,16 @@ def segmented_reduce_plain(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
     return heads, popcount(heads)
 
 
+#: bytes of one result row and its cardinality, written once
+HEAD_BYTES = 4 * WORDS32 + 4
+
+
+def b1_launch_bytes(m: int, width: int, num_segments: int) -> int:
+    """Bytes one B1 launch must move: ``m`` rows of ``width`` words read
+    once, K heads of that width and their cardinalities written once."""
+    return 4 * m * width + num_segments * (4 * width + 4)
+
+
 def segmented_reduce(op: str, words: torch.Tensor, seg_ids: torch.Tensor,
                      num_segments: int):
     """B1, ragged per-key reduce: (int32[M, W], sorted int32[M]) ->
@@ -427,10 +458,11 @@ def _launch_chunked(kernel: CudaKernel, op: str, words: torch.Tensor,
     cards = buf[head_words + work_words:]
     if k:
         ptr = buf.data_ptr()
+        # B2's count is B1's at 2,048 words (b2_launch_bytes)
         kernel.launch(words.data_ptr(), ids.data_ptr(), ptr,
                       ptr + 4 * (head_words + work_words), ptr + 4 * head_words,
-                      m, k, _OPCODE[op], width, rows, scale, _stream())
-        kernel.count_variant(width)
+                      m, k, _OPCODE[op], width, rows, scale, _stream(),
+                      nbytes=b1_launch_bytes(m, width, k), variant=width)
     return heads, cards
 
 
@@ -440,6 +472,13 @@ def segmented_reduce_blocked_plain(op: str, words: torch.Tensor,
     """Plain version of B2: B1's plain version over the row segment ids."""
     return segmented_reduce_plain(
         op, words, torch.repeat_interleave(blk_seg, block), num_segments)
+
+
+def b2_launch_bytes(m: int, num_segments: int) -> int:
+    """Bytes one B2 launch must move: the ``m`` rows of the blocked image
+    read once (a segment's zero padding rows too: the kernel folds them),
+    K heads and cardinalities written once."""
+    return b1_launch_bytes(m, WORDS32, num_segments)
 
 
 def segmented_reduce_blocked(op: str, words: torch.Tensor,
@@ -487,6 +526,12 @@ def densify_chunk_bounds(chunk_row: torch.Tensor, n_rows: int) -> torch.Tensor:
     return torch.searchsorted(chunk_row, rows, out_int32=True)
 
 
+def b3_launch_bytes(n_chunks: int, n_rows: int) -> int:
+    """Bytes one B3 launch must move: the chunk stream's values read once,
+    the ``n_rows`` rows of the image written once."""
+    return 4 * n_chunks * CHUNK_VALUES + 4 * n_rows * WORDS32
+
+
 def densify_chunks(chunk_vals: torch.Tensor, chunk_row: torch.Tensor,
                    n_rows: int, bounds: torch.Tensor | None = None
                    ) -> torch.Tensor:
@@ -521,7 +566,8 @@ def densify_chunks(chunk_vals: torch.Tensor, chunk_row: torch.Tensor,
                       device=chunk_vals.device)
     if n_rows:
         B3.launch(chunk_vals.data_ptr(), bounds.data_ptr(), out.data_ptr(),
-                  CHUNK_VALUES, n_rows, _stream())
+                  CHUNK_VALUES, n_rows, _stream(),
+                  nbytes=b3_launch_bytes(chunk_vals.shape[0], n_rows))
     return out
 
 
@@ -534,6 +580,12 @@ def counts_segmented_reduce_plain(op: str, counts: torch.Tensor,
     g = counts.shape[0]
     words = dense.counts_to_words(counts.view(g, 4, WORDS32), op)
     return segmented_reduce_plain(op, words, grp_seg, num_segments)
+
+
+def b4_launch_bytes(groups: int, num_segments: int) -> int:
+    """Bytes one B4 launch must move: each count group's four planes
+    (32 KiB) read once, K heads and cardinalities written once."""
+    return 4 * groups * dense.NIBBLE_WORDS + num_segments * HEAD_BYTES
 
 
 def counts_segmented_reduce(op: str, counts: torch.Tensor,
@@ -556,7 +608,8 @@ def counts_segmented_reduce(op: str, counts: torch.Tensor,
     if num_segments:
         B4.launch(counts.data_ptr(), starts.data_ptr(), ends.data_ptr(),
                   heads.data_ptr(), cards.data_ptr(), num_segments,
-                  _OPCODE[op], _stream())
+                  _OPCODE[op], _stream(),
+                  nbytes=b4_launch_bytes(counts.shape[0], num_segments))
     return heads, cards
 
 
@@ -571,6 +624,14 @@ def fused_nibble_reduce_plain(op: str, counts: torch.Tensor,
                                              num_segments)
     heads = dense.OPS[op](heads, dense_partial[:num_segments])
     return heads, popcount(heads)
+
+
+def b6_launch_bytes(groups: int, num_segments: int) -> int:
+    """Bytes one B6 launch must move: the ``groups`` count groups read once
+    (the scratch group, which no segment reads, left out), K dense-row
+    partials read once, K heads and cardinalities written once."""
+    return (4 * (groups - 1) * dense.NIBBLE_WORDS
+            + num_segments * (4 * WORDS32 + HEAD_BYTES))
 
 
 def fused_nibble_reduce(op: str, counts: torch.Tensor,
@@ -602,5 +663,6 @@ def fused_nibble_reduce(op: str, counts: torch.Tensor,
     if num_segments:
         B6.launch(counts.data_ptr(), dense_partial.data_ptr(),
                   starts.data_ptr(), ends.data_ptr(), heads.data_ptr(),
-                  cards.data_ptr(), num_segments, _OPCODE[op], _stream())
+                  cards.data_ptr(), num_segments, _OPCODE[op], _stream(),
+                  nbytes=b6_launch_bytes(counts.shape[0], num_segments))
     return heads, cards

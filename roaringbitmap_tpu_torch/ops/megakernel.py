@@ -1023,8 +1023,8 @@ def raw_call(mega: MegaPlan, bank_a: torch.Tensor, bank_b: torch.Tensor,
         bank_a.data_ptr(), bank_b.data_ptr(), bank_c.data_ptr(),
         out.data_ptr(),
         cards.data_ptr(), take.data_ptr(), mega.slots_pad, mega.out_pad,
-        mega.card_pad, kernels._stream())
-    kernels.B5.count_variant(mega.mode)
+        mega.card_pad, kernels._stream(),
+        nbytes=lambda: stream_bytes(mega), variant=mega.mode)
     return out, cards
 
 

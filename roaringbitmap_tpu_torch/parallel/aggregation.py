@@ -41,6 +41,7 @@ synchronization inside the loop.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import operator
@@ -597,6 +598,47 @@ _STATE_LAYOUT = {
 }
 
 
+class _BuildClock:
+    """The clock of one resident set's build, opened as the ``set.build``
+    span (use as a context manager).  Each phase (``choose_layout``,
+    ``pack``, ``upload``, ``device``) runs once and is timed once: the
+    time is a child span ``set.build.<phase>`` and, at ``finish``, one
+    observation of ``rb_ingest_phase_seconds{layout, phase}``.  ``finish``
+    also observes ``rb_ingest_build_seconds{layout}`` from the clock's
+    start and tags the span.  The device phase ends with the card done
+    (``DeviceBitmapSet._load``), so the build's clock stops after it."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.seconds: dict = {}
+        self._span = obs_trace.span("set.build")
+
+    def __enter__(self):
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._span.__exit__(*exc)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        with obs_trace.span("set.build." + name):
+            t = time.perf_counter()
+            yield
+            self.seconds[name] = time.perf_counter() - t
+
+    def finish(self, ds: "DeviceBitmapSet") -> None:
+        for name, sec in self.seconds.items():
+            obs_metrics.histogram("rb_ingest_phase_seconds", layout=ds.layout,
+                                  phase=name).observe(sec)
+        # the cold build (pack, transfer, densify) as a first-class metric
+        obs_metrics.histogram("rb_ingest_build_seconds",
+                              layout=ds.layout).observe(
+                                  time.perf_counter() - self.t0)
+        self._span.tag(layout=ds.layout, n=ds.n, keys=int(ds.keys.size),
+                       rows=ds._n_rows)
+
+
 class DeviceBitmapSet:
     """N bitmaps packed once and kept resident on the card for repeated wide
     queries.  Inputs may mix RoaringBitmaps, ImmutableRoaringBitmaps,
@@ -620,50 +662,35 @@ class DeviceBitmapSet:
 
     def __init__(self, bitmaps: list, block: int | None = None,
                  layout: str = "auto", device=None):
-        t_build0 = time.perf_counter()
-        dev = resolve_device(device)
-        bitmaps = [_source(b) for b in bitmaps]
-        if layout == "auto":
-            if block is not None:
-                layout = "dense"   # an explicit block targets the dense image
-            else:
-                rep = insights.choose_layout(
-                    [v if (v := packing._as_view(b)) is not None else b
-                     for b in bitmaps])
-                layout = rep["layout"]
-                if layout == "dense":
-                    # empty or unsizeable input carries no block advice
-                    block = rep.get("dense_block")
-        if layout not in _STATE_LAYOUT:
-            raise ValueError(f"unknown layout {layout!r}")
-        g = dense.NIBBLE_GROUP
-        if (layout in ("compact", "counts") and block is not None
-                and (block < g or block % g
-                     or (block // g) & (block // g - 1))):
-            # the nibble count groups (8 rows) must tile the block
-            raise ValueError(
-                f"{layout} layout requires block = {g} * 2^k, got {block}")
-        packed = packing.pack_blocked_compact(
-            bitmaps, block=block,
-            min_block=4 if (layout == "dense" and block is None) else 8)
-        s = packed.streams   # rows in segment order: dense_dest ascends
-        state = {"keys": packed.keys, "n": len(bitmaps),
-                 "block": packed.block, "blk_seg": packed.blk_seg,
-                 "n_blocks": packed.n_blocks, "seg_sizes": packed.seg_sizes,
-                 "seg_offsets": packed.seg_offsets, "row_src": packed.row_src,
-                 "carry_row": packed.carry_row}
-        state.update(dense_words=s.dense_words, dense_dest=s.dense_dest,
-                     values=s.values, val_counts=s.val_counts,
-                     val_dest=s.val_dest)
-        if layout != "dense":
-            state["chunk_vals"], state["chunk_row"] = \
-                packing.chunk_value_stream(s.values, s.val_counts, s.val_dest,
-                                           s.n_rows, pad_chunks_pow2=False)
-        self._load(state, layout, dev)
-        # the cold build (pack, transfer, densify) as a first-class metric
-        obs_metrics.histogram("rb_ingest_build_seconds",
-                              layout=layout).observe(
-                                  time.perf_counter() - t_build0)
+        with _BuildClock() as clock:
+            dev = resolve_device(device)
+            bitmaps = [_source(b) for b in bitmaps]
+            if layout == "auto":
+                if block is not None:
+                    layout = "dense"   # an explicit block targets the image
+                else:
+                    with clock.phase("choose_layout"):
+                        rep = insights.choose_layout(
+                            [v if (v := packing._as_view(b)) is not None
+                             else b for b in bitmaps])
+                    layout = rep["layout"]
+                    if layout == "dense":
+                        # empty or unsizeable input carries no block advice
+                        block = rep.get("dense_block")
+            if layout not in _STATE_LAYOUT:
+                raise ValueError(f"unknown layout {layout!r}")
+            g = dense.NIBBLE_GROUP
+            if (layout in ("compact", "counts") and block is not None
+                    and (block < g or block % g
+                         or (block // g) & (block // g - 1))):
+                # the nibble count groups (8 rows) must tile the block
+                raise ValueError(
+                    f"{layout} layout requires block = {g} * 2^k, "
+                    f"got {block}")
+            with clock.phase("pack"):
+                state = _pack_state(bitmaps, block, layout)
+            self._load(state, layout, dev, clock)
+            clock.finish(self)
 
     @classmethod
     def from_numpy_state(cls, state: dict, device=None) -> "DeviceBitmapSet":
@@ -687,20 +714,27 @@ class DeviceBitmapSet:
         destination row.  The layout follows from which arrays are present.
         The set then answers the same queries as the set the arrays came
         from."""
-        dev = resolve_device(device)
-        layout = next((name for name, need in _STATE_LAYOUT.items()
-                       if need[0] in state), None)
-        if layout is None:
-            raise ValueError("state holds none of words / counts / chunk_vals")
-        missing = [k for k in _STATE_COMMON + _STATE_LAYOUT[layout]
-                   if k not in state]
-        if missing:
-            raise ValueError(f"{layout} state is missing {missing}")
-        self = cls.__new__(cls)
-        self._load(state, layout, dev)
+        with _BuildClock() as clock:
+            dev = resolve_device(device)
+            layout = next((name for name, need in _STATE_LAYOUT.items()
+                           if need[0] in state), None)
+            if layout is None:
+                raise ValueError(
+                    "state holds none of words / counts / chunk_vals")
+            missing = [k for k in _STATE_COMMON + _STATE_LAYOUT[layout]
+                       if k not in state]
+            if missing:
+                raise ValueError(f"{layout} state is missing {missing}")
+            self = cls.__new__(cls)
+            self._load(state, layout, dev, clock)
+            clock.finish(self)
         return self
 
-    def _load(self, state: dict, layout: str, dev: torch.device) -> None:
+    def _load(self, state: dict, layout: str, dev: torch.device,
+              clock: "_BuildClock") -> None:
+        """Load a packed state: the host maps, then every array the card
+        keeps in one upload, then the device work (the image, the counts,
+        B3's chunk bounds) in one phase that ends once the card is done."""
         self.device = dev
         self.layout = layout
         # u16 keys (32-bit tier) or u64 u48 keys (64-bit tier): the keys
@@ -731,17 +765,19 @@ class DeviceBitmapSet:
         self.row_seg = np.repeat(blk_seg, self.block)
         k = self.keys.size
         self._n_rows = int(blk_seg.size) * self.block
-        self.blk_seg = as_i32(blk_seg, dev)
         seg_rows, head_idx, self.n_steps = packing.blocked_ragged_meta(
             blk_seg, self.block, int(state["n_blocks"]), k)
-        self.seg_ids = as_i32(seg_rows, dev)
-        self.head_idx = as_i32(head_idx, dev)
         #: a spare zero row of segment 0: the compact probe's carry slot
         self.carry_row = int(state.get(
             "carry_row", self._seg_sizes[0] if k else -1))
         self.words = self.counts = self._chunks = self._streams = None
         self._chunk_bounds = None
-        if "values" in state:
+        # what the card keeps, by attribute: host arrays (or tuples of
+        # them) uploaded in one phase
+        host = {"blk_seg": blk_seg, "seg_ids": seg_rows, "head_idx": head_idx}
+        if "words" in state:
+            host["words"] = np.asarray(state["words"])
+        else:
             s = packing.CompactStreams(
                 n_rows=self._n_rows,
                 dense_words=np.asarray(state["dense_words"], np.uint32),
@@ -751,35 +787,48 @@ class DeviceBitmapSet:
                 val_dest=np.asarray(state["val_dest"], np.int32))
             if layout != "dense":
                 s = _sort_dense_stream(s)
-                self._compact_meta(s, blk_seg, dev)
-            self._streams = _device_streams(s, dev)
+                host.update(self._compact_meta(s, blk_seg))
+            host["_streams"] = (s.dense_words, s.dense_dest, s.values,
+                                s.val_counts, s.val_dest)
             self._total_values = s.total_values
-        if layout == "dense":
-            self.words = (as_i32(np.asarray(state["words"]), dev)
-                          if "words" in state else
-                          dense.densify_streams(*self._streams, self._n_rows,
-                                                self._total_values))
-        self._init_mutation(state)
-        if layout == "dense":
-            self._streams = None   # the image is the resident form
-            return
         if "chunk_vals" in state:
             # B3 takes each row's chunks between two bounds of the stream
             # sorted by row: sort it, and plan the bounds once
             rows, vals = _sorted_by(np.asarray(state["chunk_row"]),
                                     np.asarray(state["chunk_vals"]))
-            self._chunks = (as_i32(vals, dev), as_i32(rows, dev))
-            self._chunk_bounds = kernels.densify_chunk_bounds(
-                self._chunks[1], self._n_rows)
+            host["_chunks"] = (vals, rows)
         if layout == "counts":
-            self._load_counts(state, k, dev)
+            host.update(self._counts_meta(state, k))
+        with clock.phase("upload"):
+            for name, a in host.items():
+                setattr(self, name, _to_device(a, dev))
+        with clock.phase("device"):
+            if layout == "dense" and self.words is None:
+                self.words = dense.densify_streams(
+                    *self._streams, self._n_rows, self._total_values)
+            if self._chunks is not None:
+                self._chunk_bounds = kernels.densify_chunk_bounds(
+                    self._chunks[1], self._n_rows)
+            if layout == "counts" and self.counts is None:
+                self._build_counts()
+            if "values" in state:
+                base = (int(np.asarray(state["values"]).size) + 4096
+                        * int(np.asarray(state["dense_words"]).shape[0]))
+            else:
+                base = int(dense.popcount(self.words).sum(dtype=torch.int64))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        if layout == "dense":
+            self._streams = None   # the image is the resident form
+        self._init_mutation(base)
 
-    def _init_mutation(self, state: dict) -> None:
+    def _init_mutation(self, base: int) -> None:
         """Per-pack mutation state (``mutation.delta``): every row stamped
         at the current version, an empty delta journal, no host twin, and
-        the pack-time value floor of the drift heuristic: the sparse stream
-        values plus 4,096 per dense-wire row, as the JAX package counts it
-        (for a state without streams, the image's set bits)."""
+        the pack-time value floor ``base`` of the drift heuristic: the
+        sparse stream values plus 4,096 per dense-wire row, as the JAX
+        package counts it (for a state without streams, the image's set
+        bits)."""
         self.row_versions = np.full(self._n_rows, self.version, np.int64)
         self._delta_journal: list = []
         #: the warmed "delta:N" patch programs (``mutation.delta``): keyed
@@ -789,11 +838,6 @@ class DeviceBitmapSet:
         self._journal_dropped_version = getattr(
             self, "_journal_dropped_version", 0)
         self._host_cache = None
-        if "values" in state:
-            base = (int(np.asarray(state["values"]).size)
-                    + 4096 * int(np.asarray(state["dense_words"]).shape[0]))
-        else:
-            base = int(dense.popcount(self.words).sum(dtype=torch.int64))
         self._mutation_base_values = base
         self._mutated_values = 0
         self._register_residency()
@@ -807,19 +851,19 @@ class DeviceBitmapSet:
             "bitmap_set", self.layout, DeviceBitmapSet.hbm_bytes, owner=self,
             stamp=lambda s: (s.structure_version, s.layout))
 
-    def _compact_meta(self, s: packing.CompactStreams, blk_seg: np.ndarray,
-                      dev: torch.device) -> None:
-        """Metadata of the fused compact reduce (B6): the count groups'
-        segment ids (the scratch group last, under id K), and the dense-wire
-        rows' segment ids with their head maps, plain and with the compact
-        probe's carry row prepended as a segment-0 row."""
+    def _compact_meta(self, s: packing.CompactStreams,
+                      blk_seg: np.ndarray) -> dict:
+        """Host metadata of the fused compact reduce (B6), by attribute:
+        the count groups' segment ids (the scratch group last, under id K),
+        and the dense-wire rows' segment ids with their head maps, plain
+        and with the compact probe's carry row prepended as a segment-0
+        row."""
         k = self.keys.size
         n_groups = s.n_rows // dense.NIBBLE_GROUP
         grp_seg = np.full(n_groups + 1, k, dtype=np.int32)
         grp_seg[:n_groups] = np.repeat(blk_seg,
                                        self.block // dense.NIBBLE_GROUP)
         self._n_groups = n_groups
-        self._grp_seg = as_i32(grp_seg, dev)
         dseg = blk_seg[s.dense_dest // self.block].astype(np.int32)
 
         def head_maps(seg_ids: np.ndarray):
@@ -831,42 +875,48 @@ class DeviceBitmapSet:
                      if seg_ids.size else np.zeros(k + 1, bool))
             sizes = np.diff(np.append(head, seg_ids.size))
             n_steps = dense.n_steps_for(int(sizes.max()) if k else 0)
-            return (as_i32(head, dev), torch.from_numpy(valid).to(dev),
-                    n_steps)
+            return head, valid, n_steps
 
-        self._dseg = as_i32(dseg, dev)
-        self._dmeta = head_maps(dseg)
         dseg_c = np.concatenate(([np.int32(0)], dseg))
-        self._dseg_carry = as_i32(dseg_c, dev)
-        self._dmeta_carry = head_maps(dseg_c)
+        return {"_grp_seg": grp_seg, "_dseg": dseg, "_dmeta": head_maps(dseg),
+                "_dseg_carry": dseg_c, "_dmeta_carry": head_maps(dseg_c)}
 
-    def _load_counts(self, state: dict, k: int, dev: torch.device) -> None:
-        """Counts layout: the resident counts (built once from the streams
-        when the state has none), with the group axis padded to a multiple
-        of block // 8 under segment id K, as the JAX set pads it."""
+    def _counts_meta(self, state: dict, k: int) -> dict:
+        """Host metadata of the counts layout, by attribute: the groups'
+        segment ids, with the group axis padded to a multiple of block // 8
+        under segment id K as the JAX set pads it, their heads for the
+        torch engine, and the state's counts where it has them (else
+        ``_build_counts`` builds them on the device)."""
         n_groups = self._n_rows // dense.NIBBLE_GROUP
+        out = {}
         if "counts" in state:
-            self.counts = as_i32(np.asarray(state["counts"]), dev)
+            out["counts"] = np.asarray(state["counts"])
             grp_seg = np.asarray(state["grp_seg"], dtype=np.int32)
         else:
             gps = self.block // dense.NIBBLE_GROUP
-            counts = dense.build_group_counts(
-                *self._streams, n_groups, self._total_values)
             pad = (-(n_groups + 1)) % gps
-            if pad:
-                counts = torch.cat([counts, counts.new_zeros(
-                    (pad, dense.NIBBLE_WORDS))])
-            self.counts = counts
             grp_seg = np.full(n_groups + 1 + pad, k, dtype=np.int32)
             grp_seg[:n_groups] = np.repeat(
                 np.asarray(state["blk_seg"], np.int32),
                 self.block // dense.NIBBLE_GROUP)
-        self._grp_seg_counts = as_i32(grp_seg, dev)
         # group-level ragged metadata for the torch engine
         head_g = np.searchsorted(grp_seg[:n_groups], np.arange(k)).astype(np.int32)
         sizes_g = np.diff(np.append(head_g, n_groups))
-        self._counts_head = as_i32(head_g, dev)
         self._counts_steps = dense.n_steps_for(int(sizes_g.max()) if k else 0)
+        out.update(_grp_seg_counts=grp_seg, _counts_head=head_g)
+        return out
+
+    def _build_counts(self) -> None:
+        """The resident counts built once from the streams, padded with
+        zero groups to the length of the groups' segment ids."""
+        n_groups = self._n_rows // dense.NIBBLE_GROUP
+        counts = dense.build_group_counts(
+            *self._streams, n_groups, self._total_values)
+        pad = self._grp_seg_counts.shape[0] - counts.shape[0]
+        if pad:
+            counts = torch.cat([counts, counts.new_zeros(
+                (pad, dense.NIBBLE_WORDS))])
+        self.counts = counts
 
     def _select_engine(self, engine: str) -> str:
         """Resolve ``engine`` for this set.  ``"cuda-nibble"`` exists only
@@ -944,13 +994,23 @@ class DeviceBitmapSet:
         so their rows are gathered from the image and AND-reduced as a
         regular block; the other keys get zero rows.  The AND is plain
         PyTorch on every engine; ``"cuda-nibble"`` rebuilds a stream
-        layout's image as ``"cuda"`` does."""
-        eng = self._select_engine(engine)
-        if op == "and":
-            return self._and_words(self._resident_words(eng))
-        if op not in ("or", "xor"):
-            raise ValueError(f"unsupported wide op {op!r}")
-        return self._aggregate_or_xor(op, eng)
+        layout's image as ``"cuda"`` does.
+
+        The call is the ``set.aggregate`` span (tags ``op``, ``layout``,
+        ``engine``, ``keys`` and ``rows``, or ``groups`` on the counts
+        layout), which never waits for the card: the kernels' launches
+        record their bytes on it."""
+        extent = ({"groups": int(self.counts.shape[0])}
+                  if self.counts is not None else {"rows": self._n_rows})
+        with obs_trace.span("set.aggregate", op=op, layout=self.layout,
+                            keys=int(self.keys.size), **extent) as sp:
+            eng = self._select_engine(engine)
+            sp.tag(engine=eng)
+            if op == "and":
+                return self._and_words(self._resident_words(eng))
+            if op not in ("or", "xor"):
+                raise ValueError(f"unsupported wide op {op!r}")
+            return self._aggregate_or_xor(op, eng)
 
     def _and_words(self, image: torch.Tensor):
         """The wide AND over a blocked row image."""
@@ -1150,6 +1210,41 @@ class DeviceBitmapSet:
         """Device bytes the set keeps resident: the sum of
         ``insights.resident_set_bytes``' components."""
         return sum(insights.resident_set_bytes(self).values())
+
+
+def _pack_state(bitmaps: list, block: int | None, layout: str) -> dict:
+    """The packed state of ``bitmaps`` for ``layout``: the blocked
+    rotation's maps and compact streams, and for the stream layouts the
+    chunked value stream."""
+    packed = packing.pack_blocked_compact(
+        bitmaps, block=block,
+        min_block=4 if (layout == "dense" and block is None) else 8)
+    s = packed.streams   # rows in segment order: dense_dest ascends
+    state = {"keys": packed.keys, "n": len(bitmaps),
+             "block": packed.block, "blk_seg": packed.blk_seg,
+             "n_blocks": packed.n_blocks, "seg_sizes": packed.seg_sizes,
+             "seg_offsets": packed.seg_offsets, "row_src": packed.row_src,
+             "carry_row": packed.carry_row,
+             "dense_words": s.dense_words, "dense_dest": s.dense_dest,
+             "values": s.values, "val_counts": s.val_counts,
+             "val_dest": s.val_dest}
+    if layout != "dense":
+        state["chunk_vals"], state["chunk_row"] = packing.chunk_value_stream(
+            s.values, s.val_counts, s.val_dest, s.n_rows,
+            pad_chunks_pow2=False)
+    return state
+
+
+def _to_device(x, device):
+    """A host array on ``device``, int32 (bool arrays as they are); a tuple
+    of them element by element, with plain numbers left on the host."""
+    if isinstance(x, tuple):
+        return tuple(_to_device(v, device) for v in x)
+    if not isinstance(x, np.ndarray):
+        return x
+    if x.dtype == np.bool_:
+        return torch.from_numpy(x).to(device)
+    return as_i32(x, device)
 
 
 def _sorted_by(key: np.ndarray, *arrays) -> tuple:

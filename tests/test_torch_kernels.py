@@ -257,10 +257,10 @@ def test_launch_counts_and_errors(monkeypatch):
     monkeypatch.setattr(build, "load", lambda source: FakeLib())
     k = kernels.CudaKernel("probe", "segmented_reduce.cu",
                            "rb_segmented_reduce", [ctypes.c_int], "x")
-    k.launch(0)
+    k.launch(0, nbytes=8)
     assert k.launches == 1
     with pytest.raises(kernels.KernelLaunchError, match="illegal memory"):
-        k.launch(0)
+        k.launch(0, nbytes=8)
     assert k.launches == 1
 
 

@@ -17,6 +17,11 @@ Two kinds of cases:
   dispatch events by (site, event) and ``rb_expr_launches_saved_total``.
   Timings and the values of engine-name tags are exempt: the packages
   time different hardware and name their rungs differently.
+  The port's set build and resident wide op spans, its kernels' launch
+  events and its build-phase histogram have no JAX counterpart: the
+  comparisons leave out exactly those names (``PORT_ONLY_SPANS``,
+  ``PORT_ONLY_EVENTS``, ``PORT_ONLY_FAMILIES``), and one case checks that
+  the port's dump holds them and the JAX package's does not.
 
 Every port dump passes ``tools/check_trace.py``'s validator in plain mode.
 Each tracer is enabled with an explicit path; no case sets
@@ -150,18 +155,36 @@ def _traced(o, path, fn):
         o.disable()
 
 
+#: spans only the port opens: its set build, with one child a phase, and
+#: its resident wide op (the JAX package times neither inside the program)
+PORT_ONLY_SPANS = {"set.aggregate", "set.build", "set.build.choose_layout",
+                   "set.build.pack", "set.build.upload", "set.build.device"}
+#: events only the port records: the bytes of each CUDA kernel launch
+PORT_ONLY_EVENTS = {"kernel.launch"}
+
+
 def _shape(spans: list) -> dict:
     """The parts of a dump two packages must share: span names, (parent,
-    child) name edges, tag keys and event names by span name."""
+    child) name edges, tag keys and event names by span name, without
+    :data:`PORT_ONLY_SPANS` and :data:`PORT_ONLY_EVENTS` (a span under a
+    port-only span takes the nearest other ancestor as its parent)."""
     by_id = {s["span_id"]: s for s in spans}
+
+    def parent(s):
+        p = by_id.get(s["parent_id"])
+        while p is not None and p["name"] in PORT_ONLY_SPANS:
+            p = by_id.get(p["parent_id"])
+        return None if p is None else p["name"]
+
+    spans = [s for s in spans if s["name"] not in PORT_ONLY_SPANS]
     tags: dict = {}
     events: dict = {}
     for s in spans:
         tags.setdefault(s["name"], set()).update(s["tags"])
         events.setdefault(s["name"], set()).update(
-            e["name"] for e in s["events"])
-    edges = {(by_id[s["parent_id"]]["name"] if s["parent_id"] in by_id
-              else None, s["name"]) for s in spans}
+            e["name"] for e in s["events"]
+            if e["name"] not in PORT_ONLY_EVENTS)
+    edges = {(parent(s), s["name"]) for s in spans}
     return {"names": set(tags), "edges": edges, "tags": tags,
             "events": events}
 
@@ -169,14 +192,16 @@ def _shape(spans: list) -> dict:
 #: the one family only a card has: the allocator's measured peak of a
 #: dispatch (the JAX package reads its compiler's analysis on the CPU too)
 CARD_ONLY = {"rb_hbm_measured_peak_bytes"}
+#: the one family only the port has: its set build's phases
+PORT_ONLY_FAMILIES = {"rb_ingest_phase_seconds"}
 
 
 def _families(o) -> dict:
     """{family: (kind, label keys)} of a registry's Prometheus text,
-    without :data:`CARD_ONLY`."""
+    without :data:`CARD_ONLY` and :data:`PORT_ONLY_FAMILIES`."""
     out: dict = {}
     for name, labels, inst in o.metrics.REGISTRY.instruments():
-        if name in CARD_ONLY:
+        if name in CARD_ONLY or name in PORT_ONLY_FAMILIES:
             continue
         keys = out.setdefault(name, (inst.kind, set()))[1]
         keys.update(labels)
@@ -245,6 +270,57 @@ def test_parity_batch_with_one_demotion(tmp_path, engine, jengine, pool):
     (ev,) = [e for e in d["events"] if e["name"] == "demote"]
     assert (ev["engine_from"], ev["engine_to"], ev["error_class"]) == (
         "cuda", "torch", "EngineLoweringError")
+
+
+def test_port_only_names_are_the_ports_alone(tmp_path, vals, monkeypatch):
+    """The same workload, a set built and a wide OR and XOR over it, in
+    each package: the port's dump holds every port-only span and event and
+    its registry the port-only family; the JAX package's hold none.  Kernel
+    launches need a card, so the port's go to a library that does nothing
+    (their outputs are not read)."""
+    from roaringbitmap_tpu.parallel.aggregation import DeviceBitmapSet as JS
+    from roaringbitmap_tpu_torch.ops import kernels
+
+    def port():
+        ds = DeviceBitmapSet([TRB.from_values(v) for v in vals],
+                             device=CPU)
+        ds.aggregate_device("or")
+
+        class Lib:
+            def __getattr__(self, name):
+                return lambda *args: 0
+
+        with monkeypatch.context() as m:
+            m.setattr(kernels.build, "load", lambda source: Lib())
+            m.setattr(kernels, "_on_cuda", lambda *ts: True)
+            m.setattr(kernels, "_stream", lambda: 0)
+            m.setattr(kernels, "_sm_count", lambda dev: kernels.H100_SMS)
+            for k in kernels.KERNELS:
+                m.setattr(k, "_fn", None)
+            ds.aggregate_device("xor", engine="cuda")
+
+    def jax():
+        js = JS([JRB.from_values(v) for v in vals])
+        js.aggregate_device("or")
+        js.aggregate_device("xor")
+
+    tpath, jpath = tmp_path / "t.jsonl", tmp_path / "j.jsonl"
+    _traced(obs, tpath, port)
+    _traced(jobs, jpath, jax)
+    tspans, jspans = _read(tpath), _read(jpath)
+    assert PORT_ONLY_SPANS <= {s["name"] for s in tspans}
+    assert PORT_ONLY_EVENTS <= {e["name"] for s in tspans
+                                for e in s["events"]}
+    assert not PORT_ONLY_SPANS & {s["name"] for s in jspans}
+    assert not PORT_ONLY_EVENTS & {e["name"] for s in jspans
+                                   for e in s["events"]}
+
+    def families(o):
+        return {name for name, _, _ in o.metrics.REGISTRY.instruments()}
+
+    assert PORT_ONLY_FAMILIES <= families(obs)
+    assert not PORT_ONLY_FAMILIES & families(jobs)
+    assert _load_check_trace().validate(str(tpath)) == []
 
 
 def _tenants(n_t: int = 4, per: int = 6):
@@ -568,6 +644,43 @@ def test_span_sync_records_sync_ms_on_a_cpu_tensor(tmp_path):
     obs.disable()
     (rec,) = _read(tmp_path / "s.jsonl")
     assert rec["tags"]["sync_ms"] >= 0
+
+
+def test_sink_lags_by_at_most_a_flush_interval(tmp_path, monkeypatch):
+    """Spans go to a buffered sink: a close within ``FLUSH_S`` of the last
+    flush writes no system call, the first close after it flushes all,
+    and ``disable()`` flushes what is left."""
+    path = tmp_path / "t.jsonl"
+    obs.enable(str(path))
+    monkeypatch.setattr(obs.trace, "FLUSH_S", 3600.0)
+    monkeypatch.setattr(obs.trace, "_flushed", obs.trace.time.perf_counter())
+    with obs.span("a"):
+        pass
+    assert path.read_text() == ""
+    monkeypatch.setattr(obs.trace, "FLUSH_S", 0.0)
+    with obs.span("b"):
+        pass
+    assert [s["name"] for s in _read(path)] == ["a", "b"]
+    monkeypatch.setattr(obs.trace, "FLUSH_S", 3600.0)
+    with obs.span("c"):
+        pass
+    obs.disable()
+    assert [s["name"] for s in _read(path)] == ["a", "b", "c"]
+
+
+def test_span_reads_no_process_id(tmp_path, monkeypatch):
+    """The process id is read once (and again in a forked child), not per
+    span: span ids and records carry the cached one."""
+    monkeypatch.setattr(obs.trace, "_pid", obs.trace._pid)
+    monkeypatch.setattr(obs.trace.os, "getpid", lambda: 0x3039)
+    obs.trace._after_fork_in_child()
+    monkeypatch.setattr(obs.trace.os, "getpid", lambda: 1 / 0)
+    obs.enable(str(tmp_path / "t.jsonl"))
+    with obs.span("s"):
+        pass
+    obs.disable()
+    (rec,) = _read(tmp_path / "t.jsonl")
+    assert rec["pid"] == 0x3039 and rec["span_id"].startswith("3039-")
 
 
 def test_xprof_bridge_wraps_spans_in_profiler_ranges(tmp_path):

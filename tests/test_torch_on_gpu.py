@@ -1234,7 +1234,8 @@ def test_b1_counters_come_back_to_zero(dev):
                       dtype=torch.int32, device=dev)
     kernels.B1.launch(w.data_ptr(), s.data_ptr(), heads.data_ptr(),
                       cards.data_ptr(), work.data_ptr(), m, k, 0, width,
-                      chunk, 1, torch.cuda.current_stream().cuda_stream)
+                      chunk, 1, torch.cuda.current_stream().cuda_stream,
+                      nbytes=kernels.b1_launch_bytes(m, width, k))
     torch.cuda.synchronize()
     counters = work[2 * n * width:2 * n * width + k]
     assert not counters.any()
