@@ -10,8 +10,10 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
    density=0.0025)``; or/xor/and on the "cuda" engine are bit-equal to the
    "torch" engine, and a set of the first 512 bitmaps equals the host fold;
 3. counts set (uscensus2000-shaped: 2N = 8,192 bitmaps of 4 containers of
-   4 values on uniform keys): ``layout="auto"`` must choose counts; or/xor
-   checked as in 2;
+   4 values on uniform keys): ``layout="auto"`` must choose counts and
+   record B7's path; or/xor checked as in 2; a counts set forced over 64
+   bitmaps of bitmap containers on 512 keys must keep B4, its or/xor equal
+   to the host fold;
 4. compact set over the first 1,024 bitmaps of 2; or/xor/and checked as in 2;
    one ``or`` traced with ``torch.profiler``: its host time beside its
    kernels' device time;
@@ -327,7 +329,9 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
    rows print the port's PR 14 times beside their own, and B1's rows the
    time of the same call's device part alone (one CUDA graph replay) at
    the wrapper's chunk rows and at half and twice its blocks an SM, and
-   the host's microseconds a call.  Phase 1 prints
+   the host's microseconds a call; B7 at the uscensus2000_like cell's
+   shape, and B7 against B4, each alone, over that set and over 3's
+   bitmap-container set, where the rule keeps B4.  Phase 1 prints
    ``ptxas -v``'s registers, shared memory and spills of every kernel
    entry of B1's chunked kernel.
 
@@ -626,6 +630,58 @@ def check_set(smoke: Smoke, label: str, ds, ops, unpack) -> dict:
             f"device {times[op][0]:.3f} ms, host unpack "
             f"{times[op][1]:.3f} ms (medians of {len(split)})")
     return times
+
+
+def bitmap_container_bitmaps(n: int, keys: int, seed: int) -> list:
+    """``n`` RoaringBitmaps, each a bitmap container of random bits at
+    density 1/8 (~8,192 values) on every key of [0, keys): a counts set of
+    them reads more dense-wire rows than count groups, so it keeps B4."""
+    from roaringbitmap_tpu_torch import RoaringBitmap
+    from roaringbitmap_tpu_torch.core import containers
+
+    rng = np.random.default_rng(seed)
+    key_ids = np.arange(keys, dtype=np.uint16)
+
+    def words():
+        return np.frombuffer(rng.bytes(keys * 8192), np.uint64).reshape(
+            keys, 1024)
+
+    out = []
+    for _ in range(n):
+        w = words() & words() & words()
+        out.append(RoaringBitmap(key_ids.copy(),
+                                 [containers.from_words(r) for r in w]))
+    return out
+
+
+def b7_and_b4_alone(torch, kernels, ds, label: str) -> tuple:
+    """B7 off a counts set's value stream and plan, and B4 off its counts
+    (xor), bit-equal, then each alone (one graph replay of its wrapper),
+    logged beside its bound.  Returns (B7 ms, B4 ms)."""
+    k, plan = ds.keys.size, ds._stream_plan
+
+    def run7():
+        return kernels.stream_segmented_reduce("xor", *ds._streams,
+                                               ds.seg_ids, plan, k)
+
+    def run4():
+        return kernels.counts_segmented_reduce("xor", ds.counts,
+                                               ds._grp_seg_counts, k)
+
+    require(max_abs_err(torch, run4(), run7()) == 0,
+            f"B4 != B7 over {label}")
+    b7 = kernels.b7_launch_bytes(plan.values, plan.dense_rows, k)
+    b4 = kernels.b4_launch_bytes(ds.counts.shape[0], k)
+    alone7, alone4 = graph_ms(torch, run7, 20), graph_ms(torch, run4, 20)
+    log(f"  {label} ({ds.reduce_path} path recorded; K {k}, "
+        f"{plan.values} values, {plan.dense_rows} dense rows, "
+        f"{plan.pieces.shape[0]} pieces, {ds.counts.shape[0]} groups), "
+        f"each alone (one graph replay): B7 {alone7:.4f} ms, "
+        f"{b7 / PEAK_BYTES_PER_S * 1e3 / alone7:.1%} of its bound ({b7} "
+        f"bytes); B4 {alone4:.4f} ms, "
+        f"{b4 / PEAK_BYTES_PER_S * 1e3 / alone4:.1%} of its bound ({b4} "
+        f"bytes); B4 / B7 {alone4 / alone7:.2f}")
+    return alone7, alone4
 
 
 def ptxas_entries(report: str) -> list:
@@ -4024,9 +4080,12 @@ def phase18(smoke, bms, abms, union, sbms, price, ts, batches, epool,
         for op in ops:
             twin(f"{layout} {op}", lambda op=op: ids.aggregate(op),
                  lambda op=op: hds.aggregate(op), eq)
+        if layout == "counts":
+            auto_counts_path = ids.reduce_path
         del ids, hds
         smoke.torch.cuda.empty_cache()
-    for k in (kernels.B2, kernels.B3, kernels.B4):
+    for k in (kernels.B2, kernels.B3, kernels.B4 if auto_counts_path
+              == "counts" else kernels.B7):
         require(launched[k.name] > 0, f"18b: {k.name} did not launch")
 
     # 18c: 7b's expression batch over a set of the shard's immutables
@@ -4115,7 +4174,7 @@ def phase18(smoke, bms, abms, union, sbms, price, ts, batches, epool,
                                                        "heap"))
     require(got == union, "18f: != phase 5's or_")
 
-    for k in (kernels.B1, kernels.B2, kernels.B3, kernels.B4, kernels.B5):
+    for k in (kernels.B1, kernels.B2, kernels.B3, kernels.B5):
         require(launched[k.name] > 0, f"phase 18: {k.name} did not launch")
     log(f"  phase 18 launches: " + ", ".join(
         f"{n}={c}" for n, c in launched.items() if c))
@@ -4237,7 +4296,8 @@ def main() -> int:
     from roaringbitmap_tpu_torch.parallel import expr
     from roaringbitmap_tpu_torch.parallel.batch_engine import (
         BatchEngine, BatchQuery, random_query_pool)
-    from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
+    from roaringbitmap_tpu_torch.utils.datasets import (synthetic_bitmaps,
+                                                        uscensus_like_values)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4312,9 +4372,30 @@ def main() -> int:
             ((keys[:, None] << np.uint32(16)) | lows).ravel()))
     cds = smoke.main_path("counts build", lambda: DeviceBitmapSet(cbms))
     require(cds.layout == "counts", f"auto chose {cds.layout}, not counts")
-    log(f"  layout auto -> counts; groups {cds.counts.shape[0]}, "
-        f"bytes {cds.hbm_bytes()}, K {cds.keys.size}")
+    require(cds.reduce_path == "streams",
+            f"counts set recorded {cds.reduce_path}, not streams (B7)")
+    log(f"  layout auto -> counts, reduce path {cds.reduce_path}; groups "
+        f"{cds.counts.shape[0]}, bytes {cds.hbm_bytes()}, K {cds.keys.size}")
     check_set(smoke, "counts", cds, ("or", "xor"), unpack)
+    require(smoke.last[kernels.B7.name] == 1 and smoke.last[kernels.B4.name]
+            == 0, f"counts xor: launches {smoke.last}, not one B7")
+    # a counts set forced over bitmap containers keeps B4 (the rule); phase
+    # 6 times B7 against B4 over it
+    fbms = bitmap_container_bitmaps(64, 512, args.seed + 3)
+    fds = DeviceBitmapSet(fbms, layout="counts")
+    require(fds.reduce_path == "counts",
+            f"bitmap-container counts set recorded {fds.reduce_path}")
+    for op in ("or", "xor"):
+        got = smoke.main_path(f"counts over bitmap containers {op}",
+                              lambda op=op: fds.aggregate(op))
+        require(smoke.last[kernels.B4.name] == 1
+                and smoke.last[kernels.B7.name] == 0,
+                f"forced counts {op}: launches {smoke.last}, not one B4")
+        require(got == host_fold(op, fbms),
+                f"forced counts {op} != host fold")
+    log(f"    a counts set over bitmap containers ({len(fbms)} bitmaps x "
+        f"{fds.keys.size} keys) keeps B4: or/xor equal the host fold")
+    del fbms
     shapes["counts_segmented_reduce"] = (cds.counts, cds._grp_seg_counts,
                                          cds.keys.size)
     csub = cbms[:HOST_CHECK_N]
@@ -5353,6 +5434,38 @@ def main() -> int:
            lambda: kernels.counts_segmented_reduce_plain("xor", c4, g4, k4),
            b4, int((en4 - st4).sum()) * 2048 * 40,
            f"groups {c4.shape[0]}, K {k4}")
+    # B7: stream reduce at the uscensus2000_like cell's shape (109 segments
+    # of 200 bitmaps over 600 keys), beside B4 over the same set's counts
+    t0 = time.perf_counter()
+    uds = DeviceBitmapSet([RoaringBitmap.from_values(v)
+                           for v in uscensus_like_values(109)])
+    plan7, k7, s7 = uds._stream_plan, uds.keys.size, uds._streams
+    require(uds.layout == "counts" and uds.reduce_path == "streams",
+            f"B7's set: {uds.layout} layout, {uds.reduce_path} path")
+    log(f"  B7's set: {uds.n} bitmaps, K {k7}, {plan7.values} values, "
+        f"{plan7.dense_rows} dense rows, {plan7.pieces.shape[0]} pieces, "
+        f"groups {uds.counts.shape[0]}, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    smoke.main_path("B7's set xor", lambda: uds.aggregate_device("xor"))
+    require(smoke.last[kernels.B7.name] == 1,
+            f"B7's set xor: launches {smoke.last}")
+
+    def run7():
+        return kernels.stream_segmented_reduce("xor", *s7, uds.seg_ids,
+                                               plan7, k7)
+    b7 = kernels.b7_launch_bytes(plan7.values, plan7.dense_rows, k7)
+    record(kernels.B7, run7,
+           lambda: kernels.stream_segmented_reduce_plain("xor", *s7,
+                                                         uds.seg_ids, k7),
+           b7, plan7.values,
+           f"K {k7}, {plan7.values} values, {plan7.dense_rows} dense rows "
+           f"(uscensus2000_like)")
+    # B7 against B4, each alone, on both sides of the rule: B7's set, and
+    # phase 3's counts set over bitmap containers, where the rule keeps B4
+    b7_and_b4_alone(torch, kernels, uds, "B7's set")
+    b7_and_b4_alone(torch, kernels, fds, "phase 3's bitmap-container set")
+    del uds, s7, plan7, fds
+    torch.cuda.empty_cache()
     # B6: fused nibble reduce at the 8a set's shape (or)
     nds = shapes.pop("fused_nibble_reduce")
     c6 = dense.nibble_counts_impl(*nds._streams[2:], nds._n_groups,

@@ -460,8 +460,9 @@ def _nbytes(t) -> int:
 def resident_set_bytes(ds) -> dict:
     """Component breakdown {component: bytes} of a built DeviceBitmapSet:
     what ``DeviceBitmapSet.hbm_bytes()`` sums and the HBM ledger pulls.
-    Components: ``meta`` (segment and head index tensors, and on a
-    compact or counts set the fused compact reduce's maps), and per layout
+    Components: ``meta`` (segment and head index tensors, on a compact or
+    counts set the fused compact reduce's maps, and on a counts set B7's
+    per-key plan), and per layout
     ``words`` (the dense image), ``streams`` and ``chunks`` (the compact
     wire payloads and B3's chunk stream with its bounds), ``counts`` (the
     nibble tensor).  The port keeps its streams as int32 tensors (u16
@@ -481,6 +482,7 @@ def resident_set_bytes(ds) -> dict:
     out["streams"] = sum(_nbytes(t) for t in ds._streams)
     if ds.counts is not None:
         out["counts"] = _nbytes(ds.counts)
+        out["meta"] += ds._stream_plan.nbytes()
     return out
 
 
@@ -517,6 +519,10 @@ def predict_resident_bytes(sources: list, layout: str = "dense",
                           + s.values.size + s.val_counts.size
                           + s.val_dest.size)
     if layout == "counts":
+        from ..ops import kernels as _kernels
+
+        out["meta"] += _kernels.stream_reduce_plan(
+            s.val_counts, s.val_dest, s.dense_dest, seg_rows, k).nbytes()
         gps = packed.block // _dense.NIBBLE_GROUP
         g_all = n_groups + 1
         g_pad = g_all + (-g_all) % gps

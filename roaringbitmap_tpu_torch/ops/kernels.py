@@ -16,6 +16,7 @@ Each wrapper checks its tensors, then
 | B4     | ``counts_segmented_reduce`` | ``counts_segmented_reduce``                            |
 | B5     | ``megakernel.raw_call``     | ``megakernel.py`` ``_kernel`` (via ``_raw_call``)      |
 | B6     | ``fused_nibble_reduce``     | ``fused_nibble_reduce``                                |
+| B7     | ``stream_segmented_reduce`` | none: the counts layout's or/xor off its value stream  |
 
 Rows are int32 views of u32[2048] words (``ops.words``).  Segment ids are
 sorted; id K (``num_segments``) marks padding rows, which no segment reads.
@@ -24,7 +25,8 @@ Each launch passes the bytes it must move, counted from the tensors' shapes
 by the kernel's ``b*_launch_bytes`` function beside its wrapper (B5's is
 ``megakernel.stream_bytes``): the resident input read once, the heads and
 cardinalities written once.  Workspace, partial rows and segment metadata,
-which stay in L2 or are a few KiB, are left out; padding rows or groups of
+which stay in L2 or are a few KiB, are left out (B7 counts its per-key
+offsets, which grow with the keys); padding rows or groups of
 id K, which the kernels skip, are counted, since only the shapes are read
 (a resident set pads fewer than 8 blocks).  While tracing is on the count
 rides a ``kernel.launch`` event on the enclosing span.
@@ -33,7 +35,9 @@ rides a ``kernel.launch`` event on the enclosing span.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from ..obs import trace as obs_trace
@@ -57,7 +61,7 @@ class CudaKernel:
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
                  replaces: str, label: str = ""):
         self.name = name
-        #: the kernel's name in the port's table (B1-B6)
+        #: the kernel's name in the port's table (B1-B7)
         self.label = label
         self.source = source
         self.symbol = symbol
@@ -117,7 +121,11 @@ B5 = CudaKernel("megakernel", "megakernel.cu", "rb_megakernel",
 B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
                 [_P, _P, _P, _P, _P, _P, _I, _I, _P],
                 "roaringbitmap_tpu/ops/kernels.py:170", "B6")
-KERNELS = (B1, B2, B3, B4, B5, B6)
+B7 = CudaKernel("stream_segmented_reduce", "stream_reduce.cu",
+                "rb_stream_reduce",
+                [_P] * 9 + [_I, _I, _I, ctypes.c_int64, _I, _P],
+                "none (no TPU kernel: the TPU streamed nibble counts)", "B7")
+KERNELS = (B1, B2, B3, B4, B5, B6, B7)
 
 #: the row widths B1 takes, in words: the full row, and the slices a mesh's
 #: "lanes" axis of 2, 4 or 8 devices hands each shard
@@ -665,4 +673,225 @@ def fused_nibble_reduce(op: str, counts: torch.Tensor,
                   starts.data_ptr(), ends.data_ptr(), heads.data_ptr(),
                   cards.data_ptr(), num_segments, _OPCODE[op], _stream(),
                   nbytes=b6_launch_bytes(counts.shape[0], num_segments))
+    return heads, cards
+
+
+# ---------------------------------------------------- B7: stream reduce
+#
+# B7 (csrc/stream_reduce.cu) runs the counts layout's wide or/xor off the
+# compact streams the layout keeps resident: block b builds key k's head in
+# shared memory from the key's sparse values, folds in its dense-wire rows
+# and writes the head once.  What it reads of a key is one contiguous range
+# of each stream, so the streams must be sorted by destination row and the
+# rows must lie in key order, as the blocked layout puts them.  The ranges
+# are planned once, on the host, when a set is loaded: ``stream_reduce_plan``.
+
+#: most bytes one B7 block reads for a key (4 a value, 8,192 a dense-wire
+#: row); a heavier key is cut into pieces of at most this many bytes each,
+#: and the last of its pieces to finish folds the others' partial heads
+B7_PIECE_BYTES = 1 << 18
+#: bytes of one dense-wire row
+_ROW_BYTES = 4 * WORDS32
+#: int64 columns of B7's piece table: the key, its value range [v0, v1),
+#: its dense-row range [d0, d1), the key's first piece, the key's piece
+#: count and the key's counter (csrc ``kPieceCols``)
+B7_PIECE_COLS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamPlan:
+    """B7's per-key metadata: ``voff`` int64[K + 1] and ``doff`` int32[K + 1],
+    each key's value and dense-row offsets into the streams; ``pieces``
+    int64[P, B7_PIECE_COLS], the pieces of the keys that read more than
+    ``piece_bytes`` (the first ``n_split`` keys' counters); ``values`` and
+    ``dense_rows``, what the keys read in all."""
+
+    voff: torch.Tensor
+    doff: torch.Tensor
+    pieces: torch.Tensor
+    n_split: int
+    piece_bytes: int
+    values: int
+    dense_rows: int
+
+    def to(self, device) -> "StreamPlan":
+        return dataclasses.replace(
+            self, voff=self.voff.to(device), doff=self.doff.to(device),
+            pieces=self.pieces.to(device))
+
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.voff, self.doff, self.pieces))
+
+
+def _key_offsets(dest: np.ndarray, row_seg: np.ndarray, k: int) -> np.ndarray:
+    """int64[K + 1] offsets of each key's entries in a stream whose entries
+    go to rows ``dest`` (row n_rows, the scratch row, belongs to no key);
+    the keys must ascend along the stream."""
+    seg = np.append(np.asarray(row_seg, np.int64), k)[np.asarray(dest,
+                                                                 np.int64)]
+    if seg.size and np.any(np.diff(seg) < 0):
+        raise ValueError("B7 needs the stream sorted by destination row, "
+                         "with the rows in key order")
+    return np.searchsorted(seg, np.arange(k + 1)).astype(np.int64)
+
+
+def stream_reduce_plan(val_counts, val_dest, dense_dest, row_seg,
+                       num_segments: int,
+                       piece_bytes: int = B7_PIECE_BYTES) -> StreamPlan:
+    """B7's plan of host NumPy streams (``val_counts`` / ``val_dest`` per
+    sparse container, ``dense_dest`` per dense-wire row) over rows whose key
+    is ``row_seg`` (K on padding rows): each key's value range (its
+    containers' values, in order) and dense-row range, and the pieces of
+    every key that reads more than ``piece_bytes``: value pieces of up to
+    ``piece_bytes // 4`` values, then dense pieces of up to ``piece_bytes //
+    8192`` rows (at least one each).  CPU tensors; ``StreamPlan.to`` moves
+    them."""
+    k = num_segments
+    coff = _key_offsets(val_dest, row_seg, k)
+    ends = np.concatenate(([0], np.cumsum(np.asarray(val_counts, np.int64))))
+    voff = ends[coff]
+    doff = _key_offsets(dense_dest, row_seg, k)
+    work = 4 * np.diff(voff) + _ROW_BYTES * np.diff(doff)
+    per_v = max(1, piece_bytes // 4)
+    per_d = max(1, piece_bytes // _ROW_BYTES)
+    heavy = np.flatnonzero(work > piece_bytes)
+    rows = []
+    for c, key in enumerate(heavy.tolist()):
+        v0, v1, d0, d1 = (int(voff[key]), int(voff[key + 1]),
+                          int(doff[key]), int(doff[key + 1]))
+        cuts = ([(a, min(a + per_v, v1), d0, d0)
+                 for a in range(v0, v1, per_v)]
+                + [(v1, v1, a, min(a + per_d, d1))
+                   for a in range(d0, d1, per_d)])
+        first = len(rows)
+        rows += [(key, *cut, first, len(cuts), c) for cut in cuts]
+    pieces = np.array(rows, np.int64).reshape(-1, B7_PIECE_COLS)
+    return StreamPlan(
+        voff=torch.from_numpy(voff), doff=torch.from_numpy(doff.astype(
+            np.int32)), pieces=torch.from_numpy(pieces),
+        n_split=int(heavy.size), piece_bytes=int(piece_bytes),
+        values=int(voff[k]), dense_rows=int(doff[k]))
+
+
+def stream_segmented_reduce_plain(op: str, dense_words, dense_dest, values,
+                                  val_counts, val_dest, seg_ids,
+                                  num_segments: int):
+    """Plain version of B7: the streams densified into the row image
+    (``dense.densify_streams``), then B1's plain version over the rows'
+    segment ids."""
+    words = dense.densify_streams(dense_words, dense_dest, values, val_counts,
+                                  val_dest, seg_ids.shape[0],
+                                  values.shape[0])
+    return segmented_reduce_plain(op, words, seg_ids, num_segments)
+
+
+def stream_segmented_reduce_emulated(op: str, values, dense_words,
+                                     plan: StreamPlan, num_segments: int,
+                                     order=None):
+    """B7's kernel walked on the host: blocks 0..P-1 take the pieces, block
+    P + k takes key k unless the key reads more than ``plan.piece_bytes``,
+    in ``order`` (a permutation of the blocks; on the card they run in no
+    order).  A piece publishes its partial head and counts itself in; the
+    last of a key's pieces folds the others' partials into its own.
+    Outputs start as garbage, as the kernel's ``torch.empty`` ones do.
+    Returns (heads, cards, counters): each counter ends at its key's piece
+    count."""
+    fn = dense.OPS[op]
+    k, p = num_segments, plan.pieces.shape[0]
+    heads = torch.full((k, WORDS32), 0x5A5A5A5A, dtype=torch.int32)
+    cards = torch.full((k,), -7, dtype=torch.int32)
+    partials = torch.full((p, WORDS32), -1, dtype=torch.int32)
+    counters = torch.zeros(plan.n_split, dtype=torch.int64)
+    voff, doff = plan.voff.tolist(), plan.doff.tolist()
+    for b in (range(p + k) if order is None else order):
+        if b < p:
+            key, v0, v1, d0, d1, first, count, ctr = plan.pieces[b].tolist()
+        else:
+            key = b - p
+            v0, v1, d0, d1 = voff[key], voff[key + 1], doff[key], doff[key + 1]
+            if 4 * (v1 - v0) + _ROW_BYTES * (d1 - d0) > plan.piece_bytes:
+                continue
+        acc = _b7_block_head(values[v0:v1], dense_words[d0:d1], fn)
+        if b < p:
+            partials[b] = acc
+            counters[ctr] += 1
+            if counters[ctr] != count:
+                continue
+            for q in range(first, first + count):
+                if q != b:
+                    acc = fn(acc, partials[q])
+        heads[key] = acc
+        cards[key] = popcount(acc[None])[0]
+    return heads, cards, counters
+
+
+def _b7_block_head(values, dense_words, fn) -> torch.Tensor:
+    """One block's head of B7: the values' bits set (or) or toggled (xor) in
+    a zero row, then the dense rows folded in with ``fn``."""
+    bits = torch.zeros(WORDS32 * 32, dtype=torch.int64)
+    v = values.long() & 0xFFFF
+    if fn is torch.bitwise_xor:
+        bits.index_add_(0, v, torch.ones_like(v))
+        bits &= 1
+    else:
+        bits[v] = 1
+    acc = fold_u32((bits.view(WORDS32, 32)
+                    << torch.arange(32, dtype=torch.int64)).sum(1))
+    for row in dense_words:
+        acc = fn(acc, row)
+    return acc
+
+
+def b7_launch_bytes(values: int, dense_rows: int, num_segments: int) -> int:
+    """Bytes one B7 launch must move: the keys' values (4 bytes each) and
+    dense-wire rows (8 KiB each) read once, the per-key offsets (int64 value
+    and int32 dense-row offsets, K + 1 each) read once, K heads and
+    cardinalities written once.  A heavy key's partial heads, in L2, are
+    left out."""
+    return (4 * values + _ROW_BYTES * dense_rows + 12 * (num_segments + 1)
+            + num_segments * HEAD_BYTES)
+
+
+def stream_segmented_reduce(op: str, dense_words, dense_dest, values,
+                            val_counts, val_dest, seg_ids,
+                            plan: StreamPlan, num_segments: int):
+    """B7, the counts layout's wide OR/XOR off its resident streams: the
+    compact streams (``dense_words`` int32[Md, 2048], ``dense_dest``,
+    ``values`` int32[V], ``val_counts``, ``val_dest``) sorted by
+    destination row, the rows' sorted segment ids int32[n_rows] and their
+    ``stream_reduce_plan`` -> (int32[K, 2048], int32[K]).  On the card one
+    launch, which reads only the values, the dense-wire rows and the plan;
+    on the CPU the plain version, which reads the streams and not the
+    plan."""
+    if op not in ("or", "xor"):
+        raise ValueError(f"stream reduce supports or/xor only, got {op!r}")
+    # the kernel reads the values, the dense rows and the plan alone: the
+    # other streams are checked where the plain version reads them
+    _check("values", values, 1)
+    _check("dense_words", dense_words, 2, WORDS32)
+    if plan.voff.shape[0] != num_segments + 1:
+        raise ValueError("plan must hold K + 1 offsets")
+    if not _on_cuda(values, dense_words, plan.voff):
+        for name, t in (("dense_dest", dense_dest), ("val_counts", val_counts),
+                        ("val_dest", val_dest), ("seg_ids", seg_ids)):
+            _check(name, t, 1)
+        return stream_segmented_reduce_plain(
+            op, dense_words, dense_dest, values, val_counts, val_dest,
+            seg_ids, num_segments)
+    k, p = num_segments, plan.pieces.shape[0]
+    head_words, part_words = k * WORDS32, p * WORDS32
+    buf = values.new_empty(head_words + part_words + k + plan.n_split)
+    heads = buf[:head_words].view(k, WORDS32)
+    cards = buf[head_words + part_words:head_words + part_words + k]
+    if k:
+        ptr = buf.data_ptr()
+        B7.launch(values.data_ptr(), plan.voff.data_ptr(),
+                  dense_words.data_ptr(), plan.doff.data_ptr(),
+                  plan.pieces.data_ptr(), ptr, cards.data_ptr(),
+                  ptr + 4 * head_words,
+                  ptr + 4 * (head_words + part_words + k),
+                  k, p, plan.n_split, plan.piece_bytes, _OPCODE[op],
+                  _stream(),
+                  nbytes=b7_launch_bytes(plan.values, plan.dense_rows, k))
     return heads, cards

@@ -15,13 +15,16 @@ Engines: ``"cuda"`` runs the hand-written kernels, ``"torch"`` their plain
 PyTorch versions; ``"auto"`` means ``"cuda"`` for a CUDA device and
 ``"torch"`` for the CPU.  Resident sets also take ``"cuda-nibble"`` (the JAX
 package's ``"pallas-nibble"``): on the compact layout it runs the fused
-nibble reduce (B6), on the counts layout the counts reduce (B4), and on the
-dense layout it means ``"cuda"``.  ``device=None`` means ``"cuda"``: only a
-caller who passes ``device="cpu"`` gets the CPU, and without a card the call
-raises.  The wide AND (key intersection, then one regular [K, N, 2048]
-AND-reduce) is plain PyTorch on every engine, as it was XLA in the JAX
-package, and so are the batched pairwise ops and ``DeviceBitmap``'s
-composition (one fused XLA op + popcount there, with no Pallas kernel).
+nibble reduce (B6), on the counts layout what ``"cuda"`` runs there, and on
+the dense layout it means ``"cuda"``.  On the counts layout the kernel
+engines run the reduce the set recorded at load: B7 off the resident streams
+where it reads no more than B4 off the counts, else B4.  ``device=None``
+means ``"cuda"``: only a caller who passes ``device="cpu"`` gets the CPU, and
+without a card the call raises.  The wide AND (key intersection, then one
+regular [K, N, 2048] AND-reduce) is plain PyTorch on every engine, as it was
+XLA in the JAX package, and so are the batched pairwise ops and
+``DeviceBitmap``'s composition (one fused XLA op + popcount there, with no
+Pallas kernel).
 
 The wide calls run under ``runtime.guard`` (``fallback=True``, the default):
 transient faults retry, and all of it is counted.  On the CPU lowering
@@ -650,7 +653,9 @@ class DeviceBitmapSet:
       - "dense": the dense int32[rows, 2048] image is resident; or/xor run
         the blocked reduce (B2) over it.
       - "counts": per-group 4-bit occurrence counts (half the dense image)
-        plus the compact streams; or/xor run one pass off the counts (B4).
+        plus the compact streams; or/xor run one pass off the streams (B7)
+        where that reads no more than one pass off the counts (B4), which
+        runs otherwise (``reduce_path``).
       - "compact": only the compact streams and the chunked value stream;
         every query rebuilds the image (B3) and then reduces it (B2), or,
         under ``"cuda-nibble"``, builds the value stream's nibble counts
@@ -786,7 +791,7 @@ class DeviceBitmapSet:
                 val_counts=np.asarray(state["val_counts"], np.int32),
                 val_dest=np.asarray(state["val_dest"], np.int32))
             if layout != "dense":
-                s = _sort_dense_stream(s)
+                s = _sort_streams(s)
                 host.update(self._compact_meta(s, blk_seg))
             host["_streams"] = (s.dense_words, s.dense_dest, s.values,
                                 s.val_counts, s.val_dest)
@@ -799,6 +804,8 @@ class DeviceBitmapSet:
             host["_chunks"] = (vals, rows)
         if layout == "counts":
             host.update(self._counts_meta(state, k))
+            host["_stream_plan"] = self._stream_meta(
+                s, host["_grp_seg_counts"].size)
         with clock.phase("upload"):
             for name, a in host.items():
                 setattr(self, name, _to_device(a, dev))
@@ -906,6 +913,21 @@ class DeviceBitmapSet:
         out.update(_grp_seg_counts=grp_seg, _counts_head=head_g)
         return out
 
+    def _stream_meta(self, s: packing.CompactStreams,
+                     groups: int) -> kernels.StreamPlan:
+        """B7's per-key plan of the counts layout's sorted streams, and the
+        reduce the kernel engines run (``reduce_path``): ``"streams"`` (B7)
+        where what B7 reads, 4 bytes a value and 8 KiB a dense-wire row, is
+        no more than B4's 32 KiB a count group (both write the same heads),
+        else ``"counts"`` (B4)."""
+        plan = kernels.stream_reduce_plan(s.val_counts, s.val_dest,
+                                          s.dense_dest, self.row_seg,
+                                          self.keys.size)
+        reads = 4 * plan.values + 4 * WORDS32 * plan.dense_rows
+        self.reduce_path = ("streams" if reads <= 4 * dense.NIBBLE_WORDS
+                            * groups else "counts")
+        return plan
+
     def _build_counts(self) -> None:
         """The resident counts built once from the streams, padded with
         zero groups to the length of the groups' segment ids."""
@@ -953,10 +975,23 @@ class DeviceBitmapSet:
         return kernels.segmented_reduce_blocked(op, words, self.blk_seg,
                                                 self.keys.size, self.block)
 
+    def _counts_path(self, eng: str) -> str:
+        """The reduce a counts-layout or/xor runs under ``eng``: the path
+        recorded at load on the kernel engines, the counts under "torch"."""
+        return "counts" if eng == "torch" else self.reduce_path
+
     def _counts_reduce(self, op: str, eng: str):
-        """Wide or/xor off the resident counts: B4, or per-group words and
-        the group-level doubling pass under "torch"."""
+        """Wide or/xor of the counts layout, counted in
+        ``rb_wide_reduce_total{layout, path}``: B7 off the resident streams
+        or B4 off the counts (``reduce_path``), or per-group words and the
+        group-level doubling pass under "torch"."""
         k = self.keys.size
+        path = self._counts_path(eng)
+        obs_metrics.counter("rb_wide_reduce_total", layout=self.layout,
+                            path=path).inc()
+        if path == "streams":
+            return kernels.stream_segmented_reduce(
+                op, *self._streams, self.seg_ids, self._stream_plan, k)
         if eng != "torch":
             return kernels.counts_segmented_reduce(
                 op, self.counts, self._grp_seg_counts, k)
@@ -998,7 +1033,8 @@ class DeviceBitmapSet:
 
         The call is the ``set.aggregate`` span (tags ``op``, ``layout``,
         ``engine``, ``keys`` and ``rows``, or ``groups`` on the counts
-        layout), which never waits for the card: the kernels' launches
+        layout, where an or/xor also tags its ``path``: ``streams`` or
+        ``counts``), which never waits for the card: the kernels' launches
         record their bytes on it."""
         extent = ({"groups": int(self.counts.shape[0])}
                   if self.counts is not None else {"rows": self._n_rows})
@@ -1010,6 +1046,8 @@ class DeviceBitmapSet:
                 return self._and_words(self._resident_words(eng))
             if op not in ("or", "xor"):
                 raise ValueError(f"unsupported wide op {op!r}")
+            if self.counts is not None:
+                sp.tag(path=self._counts_path(eng))
             return self._aggregate_or_xor(op, eng)
 
     def _and_words(self, image: torch.Tensor):
@@ -1240,6 +1278,8 @@ def _to_device(x, device):
     of them element by element, with plain numbers left on the host."""
     if isinstance(x, tuple):
         return tuple(_to_device(v, device) for v in x)
+    if isinstance(x, kernels.StreamPlan):
+        return x.to(device)
     if not isinstance(x, np.ndarray):
         return x
     if x.dtype == np.bool_:
@@ -1256,12 +1296,25 @@ def _sorted_by(key: np.ndarray, *arrays) -> tuple:
     return (key, *arrays)
 
 
-def _sort_dense_stream(s: packing.CompactStreams) -> packing.CompactStreams:
-    """The dense-wire rows reordered by destination row, so that their
-    segment ids ascend (the partial's doubling pass needs sorted segments;
-    the NumPy packer emits them sorted, the JAX native ingest may not)."""
+def _sort_streams(s: packing.CompactStreams) -> packing.CompactStreams:
+    """The dense-wire rows, and the sparse containers with their runs of
+    values, reordered by destination row where they do not ascend, so that
+    their segment ids ascend: the dense partial's doubling pass needs sorted
+    segments, and B7 reads each key's entries as one range of each stream.
+    The NumPy packer emits both sorted; the JAX native ingest may not."""
     dest, words = _sorted_by(s.dense_dest, s.dense_words)
-    return dataclasses.replace(s, dense_words=words, dense_dest=dest)
+    s = dataclasses.replace(s, dense_words=words, dense_dest=dest)
+    vd, counts = s.val_dest, np.asarray(s.val_counts, np.int64)
+    if vd.size and np.any(np.diff(vd) < 0):
+        order = np.argsort(vd, kind="stable")
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))[order]
+        runs = counts[order]
+        at = np.repeat(starts - np.concatenate(([0], np.cumsum(runs)[:-1])),
+                       runs) + np.arange(int(runs.sum()))
+        s = dataclasses.replace(s, values=s.values[at],
+                                val_counts=s.val_counts[order],
+                                val_dest=vd[order])
+    return s
 
 
 def _fused_compact_run(op: str, dense_words, values, val_counts, val_dest,

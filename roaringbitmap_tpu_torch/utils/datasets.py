@@ -104,3 +104,28 @@ def synthetic_bitmaps(n: int, seed: int = 0, universe: int = 1 << 22,
             v = np.concatenate([np.arange(s, s + l) for s, l in zip(starts, lens)])
         out.append(RoaringBitmap.from_values((v % universe).astype(np.uint32)))
     return out
+
+
+def uscensus_like_values(segments: int, keys: int = 600, attrs: int = 200,
+                         seed: int = 2000) -> list[np.ndarray]:
+    """u32 value arrays of ``segments`` x ``attrs`` bitmaps shaped as the
+    uscensus2000 file is recorded (mostly-singleton containers): segment s
+    holds keys [s * keys, (s + 1) * keys), one container on 55% of them and
+    3-8 on the rest, in distinct bitmaps drawn with weights rank ** -0.5,
+    each of 1 + a geometric count (mean 3.1) of values.  A bitmap left
+    empty gets one value."""
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, attrs + 1) ** -0.5
+    w /= w.sum()
+    out = []
+    for s in range(segments):
+        per: list = [[] for _ in range(attrs)]
+        for key in range(keys):
+            n = 1 if rng.random() < 0.55 else int(rng.integers(3, 9))
+            for b in rng.choice(attrs, n, replace=False, p=w):
+                card = min(int(rng.geometric(1 / 3.1)), 4096)
+                per[b].append(((s * keys + key) << 16)
+                              + rng.choice(1 << 16, card, replace=False))
+        out += [np.concatenate(p) if p else np.array([(s * keys) << 16])
+                for p in per]
+    return [np.unique(v).astype(np.uint32) for v in out]

@@ -17,7 +17,8 @@ from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
 from roaringbitmap_tpu_torch.parallel.batch_engine import (BatchEngine,
                                                            random_query_pool)
 from roaringbitmap_tpu_torch.parallel.expr import random_expr_pool
-from roaringbitmap_tpu_torch.utils.datasets import synthetic_bitmaps
+from roaringbitmap_tpu_torch.utils.datasets import (synthetic_bitmaps,
+                                                    uscensus_like_values)
 
 pytestmark = pytest.mark.cuda
 
@@ -1272,3 +1273,71 @@ def test_b1_splits_replay_in_a_graph(dev, case, width):
         torch.cuda.synchronize()
         for op, got in outs.items():
             _same(got, want[op])
+
+
+@pytest.fixture(scope="module")
+def uscensus():
+    """Eight uscensus2000-shaped segments (4,800 keys, ~45K values)."""
+    return [RoaringBitmap.from_values(v) for v in uscensus_like_values(8)]
+
+
+def _heavy_key_bitmaps():
+    """One key holding a 4,096-value array container in each of 120
+    bitmaps and a bitmap container in 40 more (~3.6 MB to read, cut into
+    pieces), beside 200 light keys."""
+    rng = np.random.default_rng(17)
+    out = []
+    for i in range(160):
+        n = 4096 if i < 120 else 9000
+        vals = [(7 << 16) + rng.choice(1 << 16, n, replace=False)]
+        vals += [(k << 16) + rng.choice(1 << 16, 3, replace=False)
+                 for k in rng.choice(np.arange(8, 208), 5, replace=False)]
+        out.append(RoaringBitmap.from_values(
+            np.unique(np.concatenate(vals)).astype(np.uint32)))
+    return out
+
+
+@pytest.mark.parametrize("shape", ["uscensus", "heavy_key"])
+@pytest.mark.parametrize("op", ["or", "xor"])
+def test_b7_matches_b4_and_plain(dev, uscensus, op, shape):
+    bms = uscensus if shape == "uscensus" else _heavy_key_bitmaps()
+    ds = DeviceBitmapSet(bms, layout="counts", device=dev)
+    assert ds.reduce_path == "streams"
+    if shape == "heavy_key":
+        assert ds._stream_plan.n_split == 1
+    k = ds.keys.size
+    kernels.reset_launches()
+    got = ds.aggregate_device(op)
+    torch.cuda.synchronize()
+    assert kernels.B7.launches == 1 and kernels.B4.launches == 0
+    _same(got, kernels.counts_segmented_reduce(op, ds.counts,
+                                               ds._grp_seg_counts, k))
+    _same(got, kernels.stream_segmented_reduce_plain(op, *ds._streams,
+                                                     ds.seg_ids, k))
+    # every key cut into pieces of a few values: the last-arriver fold
+    s = ds._streams
+    plan = kernels.stream_reduce_plan(
+        *(t.cpu().numpy() for t in (s[3], s[4], s[1])), ds.row_seg, k,
+        piece_bytes=16).to(dev)
+    assert plan.n_split > k // 2
+    _same(got, kernels.stream_segmented_reduce(op, *s, ds.seg_ids, plan, k))
+    assert kernels.B7.launches == 2
+
+
+def test_b7_launch_records_its_bytes(dev, uscensus, tmp_path):
+    import json
+
+    ds = DeviceBitmapSet(uscensus, device=dev)
+    assert ds.layout == "counts" and ds.reduce_path == "streams"
+    obs.enable(str(tmp_path / "t.jsonl"))
+    ds.aggregate_device("or")
+    obs.disable()
+    spans = [json.loads(line) for line in open(tmp_path / "t.jsonl")]
+    (agg,) = [s for s in spans if s["name"] == "set.aggregate"]
+    assert agg["tags"]["path"] == "streams"
+    (ev,) = [e for e in agg["events"] if e["name"] == "kernel.launch"]
+    plan = ds._stream_plan
+    assert ev["kernel"] == "B7"
+    assert ev["bytes"] == kernels.b7_launch_bytes(plan.values,
+                                                  plan.dense_rows,
+                                                  ds.keys.size)

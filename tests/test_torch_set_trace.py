@@ -6,6 +6,8 @@
 - Each kernel launch passes the bytes it must move (``ops/kernels.py``'s
   ``b*_launch_bytes``, the closed forms below), recorded as a
   ``kernel.launch`` event on the enclosing span while tracing is on.  The
+  counts layout runs B7 where it reads no more than B4, and B4 otherwise:
+  ``"counts-b4"`` is a counts set over bitmap containers, which keeps B4.  The
   CPU tests have no card, so the launches go to a library that does
   nothing: the wrappers take the card's path up to the C call, and their
   outputs are not read.
@@ -31,8 +33,11 @@ from roaringbitmap_tpu_torch.parallel.aggregation import DeviceBitmapSet
 
 CPU = "cpu"
 LAYOUTS = ("dense", "counts", "compact")
-#: (layout, engine) -> the kernels one wide OR launches, in order
-LAUNCHES = {("dense", "cuda"): ["B2"], ("counts", "cuda"): ["B4"],
+#: the sets the tests build (``_build``): one a layout, and "counts-b4"
+SETS = LAYOUTS + ("counts-b4",)
+#: (set, engine) -> the kernels one wide OR launches, in order
+LAUNCHES = {("dense", "cuda"): ["B2"], ("counts", "cuda"): ["B7"],
+            ("counts-b4", "cuda"): ["B4"],
             ("compact", "cuda"): ["B3", "B2"],
             ("compact", "cuda-nibble"): ["B6"]}
 
@@ -59,11 +64,29 @@ def _bitmaps(n: int = 12, seed: int = 7) -> list:
     return out
 
 
+def _container_bitmaps(n: int = 64, seed: int = 5) -> list:
+    """``n`` bitmaps of one bitmap container on each of keys 0-2."""
+    rng = np.random.default_rng(seed)
+    return [RoaringBitmap.from_values(np.concatenate(
+        [(k << 16) + np.sort(rng.choice(1 << 16, 6000, replace=False))
+         for k in range(3)]).astype(np.uint32)) for _ in range(n)]
+
+
+def _build(name: str, n: int = 12) -> DeviceBitmapSet:
+    """The set ``name`` of ``SETS``: a layout over ``_bitmaps(n)``, or
+    "counts-b4", the counts layout over ``_container_bitmaps()``, whose
+    dense-wire rows (8 KiB each, 64 a key) outweigh its count groups (32
+    KiB each, 12 a key with the padding), so that it keeps B4."""
+    if name != "counts-b4":
+        return DeviceBitmapSet(_bitmaps(n), layout=name, device=CPU)
+    ds = DeviceBitmapSet(_container_bitmaps(), layout="counts", device=CPU)
+    assert ds.reduce_path == "counts"
+    return ds
+
+
 @pytest.fixture(scope="module")
 def sets():
-    bms = _bitmaps()
-    return {layout: DeviceBitmapSet(bms, layout=layout, device=CPU)
-            for layout in LAYOUTS}
+    return {name: _build(name) for name in SETS}
 
 
 def _read(path) -> list:
@@ -90,10 +113,11 @@ def fake_card(monkeypatch):
 # ------------------------------------------------------- set.aggregate
 
 @pytest.mark.parametrize("op", ["or", "xor", "and"])
-@pytest.mark.parametrize("layout", LAYOUTS)
-def test_aggregate_is_one_span_a_call_under_the_caller(tmp_path, sets, layout,
+@pytest.mark.parametrize("name", SETS)
+def test_aggregate_is_one_span_a_call_under_the_caller(tmp_path, sets, name,
                                                        op):
-    ds = sets[layout]
+    ds = sets[name]
+    layout = ds.layout
     path = tmp_path / "t.jsonl"
     obs.enable(str(path))
     with obs.span("caller") as outer:
@@ -106,10 +130,13 @@ def test_aggregate_is_one_span_a_call_under_the_caller(tmp_path, sets, layout,
     extent = "groups" if layout == "counts" else "rows"
     for s in aggs:
         assert s["parent_id"] == outer.span_id
+        path = ({"path": "counts"} if layout == "counts" and op != "and"
+                else {})
         assert s["tags"] == {"op": op, "layout": layout, "engine": "torch",
                              "keys": int(ds.keys.size),
                              extent: (int(ds.counts.shape[0])
-                                      if layout == "counts" else ds._n_rows)}
+                                      if layout == "counts" else ds._n_rows),
+                             **path}
         assert s["dur_ms"] >= 0
 
 
@@ -133,7 +160,7 @@ def test_tracing_off_writes_nothing(monkeypatch, fake_card, sets, layout,
     monkeypatch.setattr(obs.trace, "Span", boom)
     monkeypatch.setattr(obs.trace, "current", boom)
     sets[layout].aggregate_device("or", engine=engine)
-    DeviceBitmapSet(_bitmaps(4), layout=layout, device=CPU)
+    _build(layout, 4)
 
 
 @pytest.mark.parametrize("xprof", [False, True])
@@ -181,8 +208,11 @@ def _expected_bytes(ds, layout, engine) -> list:
     k = int(ds.keys.size)
     if layout == "dense":
         return [kernels.b2_launch_bytes(ds.words.shape[0], k)]
-    if layout == "counts":
+    if layout == "counts-b4":
         return [kernels.b4_launch_bytes(ds.counts.shape[0], k)]
+    if layout == "counts":
+        plan = ds._stream_plan
+        return [kernels.b7_launch_bytes(plan.values, plan.dense_rows, k)]
     if engine == "cuda-nibble":
         return [kernels.b6_launch_bytes(ds._grp_seg.shape[0], k)]
     return [kernels.b3_launch_bytes(ds._chunks[0].shape[0], ds._n_rows),
