@@ -9,11 +9,18 @@ per-key cardinalities, summed on the card) is on the host.
 The loop runs ``seconds`` of window from its first timed call; what
 completes in it is counted, what is in flight at its close is waited for
 and kept for the check, but not counted.
+
+The harness's own host work an op is its cardinality sum, one copy and
+one event record (from a ring made before the window); its host ranges,
+for charging a traced run's idle gaps, open only while tracing.  Each
+costs tens of microseconds, and an op of a sparse set costs the card
+under 0.2 ms: more would pace the loop by the host.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 
@@ -43,11 +50,15 @@ def _sample_positions(n_ops: int, ops: list, k0: int) -> dict:
     return {i: op for op, i in out.items()}
 
 
+def _no_range(name: str):
+    return contextlib.nullcontext()
+
+
 def wide(ds, mix: dict, seed: int, seconds: float, op_bytes: int,
-         torch, warmup: bool = False) -> Outcome:
+         torch, warmup: bool = False, trace: bool = False) -> Outcome:
     """The closed loop of wide ops (see the module docstring).  With
     ``warmup`` it runs ``mix["warmup_ops"]`` ops of every kind and
-    returns."""
+    returns; with ``trace`` it opens its host ranges."""
     depth = int(mix["in_flight"])
     cuda = ds.device.type == "cuda"
     if warmup:
@@ -63,6 +74,10 @@ def wide(ds, mix: dict, seed: int, seconds: float, op_bytes: int,
     keep = _sample_positions(n_max, ops, int(rng.integers(0, 64)))
     cards_host = torch.zeros(n_max, dtype=torch.int64,
                              pin_memory=cuda)
+    # at most ``depth`` ops in flight: op i's slot was op i - depth - 1's
+    events = [torch.cuda.Event() if cuda else None
+              for _ in range(depth + 1)]
+    span = _range if trace else _no_range
     inflight: collections.deque = collections.deque()
     host_ms, answers_card = [], []
     heads = {}
@@ -71,17 +86,16 @@ def wide(ds, mix: dict, seed: int, seconds: float, op_bytes: int,
     t0 = time.perf_counter()
     deadline = t0 + seconds
     i, stop = 0, False
-    with _range("cardbench.window"):
+    with span("cardbench.window"):
         while True:
             while not stop and len(inflight) < depth and i < n_max:
                 ts = time.perf_counter()
-                with _range("cardbench.submit"):
+                with span("cardbench.submit"):
                     words, cards = ds.aggregate_device(ops[i])
                     total = cards.sum(dtype=torch.int64)
                     cards_host[i].copy_(total, non_blocking=cuda)
-                    ev = None
-                    if cuda:
-                        ev = torch.cuda.Event()
+                    ev = events[i % (depth + 1)]
+                    if ev is not None:
                         ev.record()
                 host_ms.append((time.perf_counter() - ts) * 1e3)
                 inflight.append((i, ev, words, cards))
@@ -90,7 +104,7 @@ def wide(ds, mix: dict, seed: int, seconds: float, op_bytes: int,
                 break
             j, ev, words, cards = inflight.popleft()
             if ev is not None:
-                with _range("cardbench.wait"):
+                with span("cardbench.wait"):
                     ev.synchronize()
             t = time.perf_counter()
             answers_card.append(int(cards_host[j]))

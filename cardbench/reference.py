@@ -95,7 +95,8 @@ def decode_set(sources, chunk: int = 1 << 22,
                workers: int = WORKERS) -> Decoded:
     """Every container of every bitmap in ``sources`` (serialized bytes),
     with the array payloads set ``chunk`` members at a time, ``workers``
-    chunks at once (each writes rows of its own)."""
+    chunks at once (each writes rows of its own), and the run payloads
+    ``chunk`` runs at a time."""
     heads = [parse(b) for b in sources]
     counts = np.array([h[0].size for h in heads], np.int64)
     first = np.concatenate(([0], np.cumsum(counts)))
@@ -136,13 +137,49 @@ def decode_set(sources, chunk: int = 1 << 22,
         list(ex.map(fill, cuts[:-1].tolist(), cuts[1:].tolist()))
     for i in np.flatnonzero(~runs & (cards > ARRAY_MAX)).tolist():
         rows[i] = blob[offs[i]:offs[i] + 4 * WORDS32].view("<u4")
-    for i in np.flatnonzero(runs).tolist():
-        nr = int(blob[offs[i]:offs[i] + 2].view("<u2")[0])
-        r = blob[offs[i] + 2:offs[i] + 2 + 4 * nr].view("<u2").astype(
-            np.int64).reshape(nr, 2)
-        low = np.concatenate([np.arange(s, s + ln + 1) for s, ln in r])
-        _set_bits(rows, np.full(low.size, i), low)
+    _fill_runs(rows, blob, np.flatnonzero(runs), offs, chunk)
     return Decoded(keys, rows, first)
+
+
+def _u16(blob: np.ndarray, pos: np.ndarray) -> np.ndarray:
+    """The little-endian u16 at each byte position ``pos`` of ``blob``."""
+    return blob[pos].astype(np.int64) | (blob[pos + 1].astype(np.int64) << 8)
+
+
+def _within(counts: np.ndarray) -> np.ndarray:
+    """For groups of ``counts`` items laid end to end, each item's place in
+    its group."""
+    return np.arange(int(counts.sum())) - np.repeat(
+        np.cumsum(counts) - counts, counts)
+
+
+def _fill_runs(rows: np.ndarray, blob: np.ndarray, conts: np.ndarray,
+               offs: np.ndarray, chunk: int) -> None:
+    """Set the bits of the run containers ``conts`` (ascending), word by
+    word, about ``chunk`` runs at a time: each run [start, start + length]
+    covers the words from its first to its last, masked at both ends."""
+    if not conts.size:
+        return
+    nr = _u16(blob, offs[conts])
+    cuts = np.unique(np.concatenate((
+        [0], np.searchsorted(np.cumsum(nr), np.arange(
+            chunk, int(nr.sum()), chunk)) + 1, [conts.size])))
+    flat = rows.reshape(-1)
+    for lo, hi in zip(cuts[:-1].tolist(), cuts[1:].tolist()):
+        n = nr[lo:hi]
+        pos = np.repeat(offs[conts[lo:hi]] + 2, n) + 4 * _within(n)
+        start = _u16(blob, pos)
+        end = start + _u16(blob, pos + 2)
+        nw = (end >> 5) - (start >> 5) + 1
+        word = np.repeat(start >> 5, nw) + _within(nw)
+        mask = np.full(word.size, 0xFFFFFFFF, np.int64)
+        head = np.cumsum(nw) - nw
+        mask[head] &= 0xFFFFFFFF << (start & 31)
+        mask[head + nw - 1] &= 0xFFFFFFFF >> (31 - (end & 31))
+        # runs of one container ascend, so equal words are neighbours
+        idx = np.repeat(np.repeat(conts[lo:hi], n), nw) * WORDS32 + word
+        cut = np.concatenate(([0], np.flatnonzero(np.diff(idx)) + 1))
+        flat[idx[cut]] = np.bitwise_or.reduceat(mask, cut).astype(np.uint32)
 
 
 def members(dec: Decoded, bitmap: int) -> np.ndarray:

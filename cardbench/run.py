@@ -152,7 +152,7 @@ def run(cell, seed: int, seconds: float, trace: bool, torch, device,
         prof = profile(activities=acts)
         prof.start()
     out = loops.wide(state["ds"], cell.traffic, seed, seconds,
-                     state["op_bytes"], torch)
+                     state["op_bytes"], torch, trace=trace)
     if cuda:
         torch.cuda.synchronize(device)
     spans, dtrace = [], None

@@ -28,3 +28,18 @@ def make_root(tmp: Path) -> Path:
 def workloads() -> list[str]:
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     return [w["name"] for w in spec["workloads"]]
+
+
+#: a small configuration with run containers: a share of the containers
+#: drawn as runs, some too many runs to pay (written as arrays or bitmaps),
+#: bitmaps of 1 to 8 containers
+RUN_CONFIG = {
+    "segments": 3, "attributes": 24, "segment_span_keys": 16,
+    "universe_keys": 8, "layout": "dense", "key_placement": "window",
+    "containers_per_bitmap": {"dist": "loguniform", "lo": 1, "hi": 8},
+    "array_card": {"dist": "loguniform", "lo": 1, "hi": 4096},
+    "bitmap_share": 0.05, "bitmap_density": [0.5], "shape_seed": 77,
+    "run_share": 0.6,
+    "run_card": {"dist": "loguniform", "lo": 1, "hi": 65536},
+    "run_count": {"dist": "loguniform", "lo": 1, "hi": 3000},
+}

@@ -4,6 +4,7 @@ a small size."""
 import json
 
 import numpy as np
+import pytest
 
 from roaringbitmap_tpu_torch.core.bitmap import RoaringBitmap
 from roaringbitmap_tpu_torch.parallel.aggregation import DeviceBitmapSet
@@ -77,3 +78,47 @@ def test_wide_by_sorting_and_one_container_left_out():
     cut[3] = vals[3][(vals[3] >> 16) != low_key]
     assert cut[3].size < vals[3].size
     assert _totals(lossy) == _by_sorting(cut)
+
+
+def _run_data():
+    return gen.dataset_bytes(minibench.RUN_CONFIG, minibench.SEED)
+
+
+def test_run_bitmaps_round_trip_through_the_port():
+    """Every bitmap with run containers reads back byte for byte through
+    the program's deserialize and serialize, with the reference's
+    members."""
+    src = _run_data()
+    dec = reference.decode_set(src)
+    runs = 0
+    for i, b in enumerate(src):
+        b = bytes(b)
+        rb = RoaringBitmap.deserialize(b)
+        assert rb.serialize() == b
+        assert np.array_equal(rb.to_array().astype(np.uint32),
+                              reference.members(dec, i))
+        runs += int(reference.parse(b)[3].any())
+    assert runs > 10
+
+
+def test_run_decode_in_chunks():
+    """Run payloads set a few runs at a time decode as in one go."""
+    src = _run_data()
+    whole = reference.decode_set(src)
+    assert np.array_equal(reference.decode_set(src, chunk=7).rows,
+                          whole.rows)
+
+
+@pytest.mark.parametrize("layout", ["dense", "counts", "compact"])
+def test_wide_with_runs_matches_the_plain_path(layout):
+    src = _run_data()
+    dec = reference.decode_set(src)
+    ds = DeviceBitmapSet(src, layout=layout, device="cpu")
+    for op in ("or", "xor"):
+        words, cards = ds.aggregate_device(op, engine="torch")
+        k, w, c = reference.wide(op, dec)
+        pc = cards.numpy()
+        nz = pc > 0
+        assert np.array_equal(ds.keys[nz].astype(np.uint32), k)
+        assert np.array_equal(words.numpy().view(np.uint32)[nz], w)
+        assert np.array_equal(pc[nz], c)
