@@ -334,6 +334,15 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
    bitmap-container set, where the rule keeps B4.  Phase 1 prints
    ``ptxas -v``'s registers, shared memory and spills of every kernel
    entry of B1's chunked kernel.
+19. B8 at the dense cells' full builds, run last: the compact streams of
+    the benchmark's ``census1881_srt_like`` and ``census1881_like`` sets
+    (``cardbench/gen.py``, 128 segments each, the dense layout's pack with
+    its run stream) on the card; B8 (``kernels.row_build``) bit-equal to
+    its plain version; B8 alone (one graph replay) and the plain version's
+    time beside its bound from the bytes the build needs
+    (``b8_launch_bytes``, the count of ``row_build_roofline.setup``) and
+    from the bytes the kernel reads (each value as an int32, and its plan);
+    each a row of the kernels line.
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -682,6 +691,76 @@ def b7_and_b4_alone(torch, kernels, ds, label: str) -> tuple:
         f"{b4 / PEAK_BYTES_PER_S * 1e3 / alone4:.1%} of its bound ({b4} "
         f"bytes); B4 / B7 {alone4 / alone7:.2f}")
     return alone7, alone4
+
+
+def phase19(torch, kernels, packing, seed: int) -> list:
+    """B8 at the benchmark's two dense configurations at full size: the
+    dense layout's pack of each set, its streams on the card, B8 held
+    bit-equal to the plain version, then B8 alone (one graph replay) and
+    the plain version each timed beside the bound.  Returns the rows of the
+    kernels line."""
+    from pathlib import Path
+
+    from cardbench import gen
+
+    from roaringbitmap_tpu_torch.ops import dense
+    from roaringbitmap_tpu_torch.ops.words import as_i32
+
+    rows = []
+    for name in ("census1881_srt_like", "census1881_like"):
+        cfg = json.loads((Path(__file__).resolve().parent / "cardbench"
+                          / "configs" / f"{name}.json").read_text())
+        t0 = time.perf_counter()
+        sources = gen.dataset_bytes(cfg, seed)
+        p = packing.pack_blocked_compact(sources, min_block=4, runs=True)
+        s, n = p.streams, p.n_rows
+        log(f"  {name}: generated and packed in "
+            f"{time.perf_counter() - t0:.1f} s: {n} rows, block {p.block}, "
+            f"{s.total_values} values, {s.total_runs} runs, "
+            f"{s.dense_words.shape[0]} dense-wire rows, kinds {s.kinds}")
+        streams = tuple(as_i32(a, "cuda") for a in (
+            s.dense_words, s.dense_dest, s.values.astype(np.int32),
+            s.val_counts, s.val_dest))
+        runs = tuple(as_i32(a, "cuda") for a in (
+            s.runs.view(np.uint32), s.run_counts, s.run_dest))
+        plan = kernels.row_build_plan(streams[3], streams[4], streams[1], n,
+                                      runs[1], runs[2])
+        del sources, s
+
+        def run():
+            return kernels.row_build(*streams, n, plan.values, runs=runs,
+                                     plan=plan)
+
+        def plain():
+            return dense.densify_streams_impl(*streams, n, plan.values,
+                                              runs=runs)
+
+        got = run()
+        want = plain()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"B8 != plain over {name}")
+        del got, want
+        torch.cuda.empty_cache()
+        alone = graph_ms(torch, run, 10)
+        plain_ms = timed_ms(torch, plain, 3)
+        torch.cuda.empty_cache()
+        nbytes = kernels.b8_launch_bytes(n, plan.values, plan.runs,
+                                         plan.dense_rows)
+        read = nbytes + 2 * plan.values + 20 * n + 16
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        log(f"  B8 [{name}, {n} rows]: alone {alone:.4f} ms (one graph "
+            f"replay), bound {bound:.4f} ms ({nbytes} bytes needed), "
+            f"{bound / alone:.1%} of its bound; the {read} bytes the kernel "
+            f"reads and writes, {read / PEAK_BYTES_PER_S * 1e3 / alone:.1%}; "
+            f"plain {plain_ms:.4f} ms")
+        rows.append({"name": f"row_build@{name}", "route": "cuda",
+                     "source": "roaringbitmap_tpu_torch/ops/csrc/row_build.cu",
+                     "replaces": kernels.B8.replaces, "ms": alone,
+                     "bound_ms": bound, "bytes": nbytes,
+                     "share": bound / alone, "plain_ms": plain_ms})
+        del streams, runs, plan
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ptxas_entries(report: str) -> list:
@@ -5527,6 +5606,12 @@ def main() -> int:
             f"the whole dispatch {frac} (raw {raw}) against "
             + ", ".join(f"{k} alone {bound_share[k]:.1%} of its bound"
                         for k in ks))
+
+    # ------------------------------------------------------------ phase 19
+    log("phase 19: B8 at the dense cells' full builds")
+    t_phase = time.perf_counter()
+    rows_out += phase19(torch, kernels, packing, args.seed)
+    phase_time("phase 19", t_phase)
 
     for name, c in smoke.launches.items():
         require(c > 0, f"kernel {name} was never launched on the main path")

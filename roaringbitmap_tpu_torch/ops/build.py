@@ -27,7 +27,7 @@ from ..obs import cost as obs_cost
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
 SOURCES = ("segmented_reduce.cu", "densify_chunks.cu", "counts_reduce.cu",
-           "megakernel.cu", "stream_reduce.cu")
+           "megakernel.cu", "stream_reduce.cu", "row_build.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 #: compile-time sizes by source, passed to nvcc as -D defines: the

@@ -5,10 +5,11 @@ Containers live on the device as int32 views of u32[..., 2048] word rows
 on the wide-aggregation path, one twin for each function of
 ``roaringbitmap_tpu.ops.dense`` that the path uses, and they give the same
 bits.  ``pairwise``, ``regular_reduce_and``, ``range_cardinality``,
-``densify_streams``, ``build_group_counts``, ``nibble_counts_impl`` and
-``dense_partial_impl`` stay plain PyTorch on the main path, as the JAX
-package runs them in XLA; the rest are the references the hand-written
-kernels (``ops.kernels``) are held against.
+``build_group_counts``, ``nibble_counts_impl`` and ``dense_partial_impl``
+stay plain PyTorch on the main path, as the JAX package runs them in XLA;
+the rest, ``densify_streams`` among them (B8, ``ops.kernels.row_build``),
+are the references the hand-written kernels (``ops.kernels``) are held
+against.
 
 Scatter-adds that build words from distinct bits or nibble counts accumulate
 in int64 and fold to the int32 view explicitly (``words.fold_u32``), so no
@@ -132,14 +133,43 @@ def _value_rows(val_dest: torch.Tensor, val_counts: torch.Tensor,
                                    output_size=total_values)
 
 
+def _run_words(runs, run_counts, run_dest):
+    """(int64 flat word index row*2048 + word, int64 mask) of every word a
+    run stream touches: ``runs`` int32[R] holds each (start, length - 1)
+    u16 pair as serialized, read as one little-endian u32 (start in the low
+    half), ``run_counts`` / ``run_dest`` the runs and row of each run
+    container.  A run (s, l) sets bits s..s+l of its row; a word it covers
+    whole gets the all-ones mask, its edge words the bits inside it."""
+    dev = runs.device
+    r = runs.long() & 0xFFFFFFFF
+    start = r & 0xFFFF
+    last = start + (r >> 16)
+    rows = torch.repeat_interleave(run_dest.long(), run_counts.long(),
+                                   output_size=r.shape[0])
+    w0, w1 = start >> 5, last >> 5
+    n = w1 - w0 + 1
+    run_of = torch.repeat_interleave(torch.arange(r.shape[0], device=dev), n)
+    first = torch.cumsum(n, 0) - n
+    w = w0[run_of] + torch.arange(run_of.shape[0], device=dev) - first[run_of]
+    lo = (start[run_of] - 32 * w).clamp(0, 31)
+    hi = (last[run_of] - 32 * w).clamp(0, 31)
+    mask = ((1 << (hi - lo + 1)) - 1) << lo      # under 2^32: no wrap
+    return rows[run_of] * WORDS32 + w, mask
+
+
 def densify_streams_impl(dense_words, dense_dest, values, val_counts, val_dest,
-                         n_rows: int, total_values: int) -> torch.Tensor:
+                         n_rows: int, total_values: int,
+                         runs=None) -> torch.Tensor:
     """Build the dense int32[n_rows, 2048] container image from compact
     streams (``ops.packing.CompactStreams``, values as int32) on the device.
 
-    Each sparse value adds its bit at flat position row*2048 + (v>>5).  The
-    add is exact: (row, word, bit) triples are unique, so sums never carry
-    across bits.  Row n_rows is a scratch row for sentinel-padded entries.
+    Each sparse value adds its bit at flat position row*2048 + (v>>5); a run
+    stream ``runs`` (int32 pairs, run counts and destination rows, as
+    ``_run_words`` reads them), where given, adds the masks of the words its
+    runs cover.  The adds are exact: one container a row, so (row, word,
+    bit) triples are unique and sums never carry across bits.  Row n_rows
+    is a scratch row for sentinel-padded entries.  This is B8's plain
+    version (``ops.kernels.row_build``).
     """
     dev = values.device
     flat = torch.zeros((n_rows + 1) * WORDS32, dtype=torch.int64, device=dev)
@@ -147,6 +177,9 @@ def densify_streams_impl(dense_words, dense_dest, values, val_counts, val_dest,
         rows = _value_rows(val_dest, val_counts, total_values)
         v = values.long()
         flat.index_add_(0, rows * WORDS32 + (v >> 5), 1 << (v & 31))
+    if runs is not None and runs[0].shape[0]:
+        at, mask = _run_words(*runs)
+        flat.index_add_(0, at, mask)
     out = fold_u32(flat).view(n_rows + 1, WORDS32)
     if dense_words.shape[0]:
         out[dense_dest.long()] = dense_words

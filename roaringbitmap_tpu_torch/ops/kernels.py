@@ -17,6 +17,7 @@ Each wrapper checks its tensors, then
 | B5     | ``megakernel.raw_call``     | ``megakernel.py`` ``_kernel`` (via ``_raw_call``)      |
 | B6     | ``fused_nibble_reduce``     | ``fused_nibble_reduce``                                |
 | B7     | ``stream_segmented_reduce`` | none: the counts layout's or/xor off its value stream  |
+| B8     | ``row_build``               | none: the dense image built once from the streams      |
 
 Rows are int32 views of u32[2048] words (``ops.words``).  Segment ids are
 sorted; id K (``num_segments``) marks padding rows, which no segment reads.
@@ -26,20 +27,22 @@ by the kernel's ``b*_launch_bytes`` function beside its wrapper (B5's is
 ``megakernel.stream_bytes``): the resident input read once, the heads and
 cardinalities written once.  Workspace, partial rows and segment metadata,
 which stay in L2 or are a few KiB, are left out (B7 counts its per-key
-offsets, which grow with the keys); padding rows or groups of
-id K, which the kernels skip, are counted, since only the shapes are read
-(a resident set pads fewer than 8 blocks).  While tracing is on the count
+offsets, which grow with the keys, and B8 its per-row plan); padding rows
+or groups of id K, which the kernels skip, are counted, since only the
+shapes are read (a resident set pads fewer than 8 blocks).  While tracing is on the count
 rides a ``kernel.launch`` event on the enclosing span.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from . import build, dense
 from .packing import CHUNK_VALUES
@@ -59,8 +62,10 @@ class CudaKernel:
     """One hand-written kernel: its source, C entry point and launch count."""
 
     def __init__(self, name: str, source: str, symbol: str, argtypes: list,
-                 replaces: str, label: str = ""):
+                 replaces: str, label: str = "", prepare: str | None = None):
         self.name = name
+        #: a C entry that readies the kernel once, at load, where it has one
+        self.prepare = prepare
         #: the kernel's name in the port's table (B1-B7)
         self.label = label
         self.source = source
@@ -74,6 +79,25 @@ class CudaKernel:
         self.variants: dict = {}
         self._fn = None
 
+    def load(self) -> tuple:
+        """The loaded library and C entry (building the libraries at first
+        use, ``build.load``), readied by the kernel's ``prepare`` entry."""
+        if self._fn is None:
+            lib = build.load(self.source)
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            if self.prepare is not None:
+                ready = getattr(lib, self.prepare)
+                ready.argtypes, ready.restype = [], ctypes.c_int
+                err = ready()
+                if err:
+                    raise KernelLaunchError(
+                        f"{self.name}: CUDA error {err} "
+                        f"({lib.rb_error_string(err).decode()})")
+            self._fn = (lib, fn)
+        return self._fn
+
     def launch(self, *args, nbytes, variant=None) -> None:
         """Launch the C entry with ``args`` and count the launch, and its
         ``variant`` where one is given.  ``nbytes`` is what the launch must
@@ -81,13 +105,7 @@ class CudaKernel:
         on); while tracing is on it is recorded as a ``kernel.launch``
         event (``kernel``, ``variant``, ``bytes``) on the enclosing span,
         with no wait on the card."""
-        if self._fn is None:
-            lib = build.load(self.source)
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = (lib, fn)
-        lib, fn = self._fn
+        lib, fn = self.load()
         err = fn(*args)
         if err:
             raise KernelLaunchError(
@@ -125,7 +143,11 @@ B7 = CudaKernel("stream_segmented_reduce", "stream_reduce.cu",
                 "rb_stream_reduce",
                 [_P] * 9 + [_I, _I, _I, ctypes.c_int64, _I, _P],
                 "none (no TPU kernel: the TPU streamed nibble counts)", "B7")
-KERNELS = (B1, B2, B3, B4, B5, B6, B7)
+B8 = CudaKernel("row_build", "row_build.cu", "rb_row_build",
+                [_P] * 7 + [_I, _P],
+                "none (no TPU kernel: XLA built the image by a scatter-add)",
+                "B8", prepare="rb_row_build_prepare")
+KERNELS = (B1, B2, B3, B4, B5, B6, B7, B8)
 
 #: the row widths B1 takes, in words: the full row, and the slices a mesh's
 #: "lanes" axis of 2, 4 or 8 devices hands each shard
@@ -895,3 +917,186 @@ def stream_segmented_reduce(op: str, dense_words, dense_dest, values,
                   _stream(),
                   nbytes=b7_launch_bytes(plan.values, plan.dense_rows, k))
     return heads, cards
+
+
+# ------------------------------------------------------- B8: row build
+#
+# B8 (csrc/row_build.cu) builds the dense int32[n_rows, 2048] image of a
+# set's compact streams once: block r builds row r in shared memory from the
+# row's dense-wire row, runs and values, and stores it whole.  What it reads
+# of a row is one contiguous range of the value and of the run stream, so
+# both must be sorted by destination row, as the packer emits them; the
+# ranges are planned from the sorted destinations (``row_build_plan``), on
+# the host by a resident set's build, on the device by the other callers.
+
+
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """B8's per-row metadata: ``voff`` and ``roff`` int64[n_rows + 1], each
+    row's range of the value and of the run stream; ``drow`` int32[n_rows],
+    the dense-wire row copied into each row (-1: none); ``values``, ``runs``
+    and ``dense_rows``, what the rows read in all."""
+
+    voff: torch.Tensor
+    roff: torch.Tensor
+    drow: torch.Tensor
+    values: int
+    runs: int
+    dense_rows: int
+
+    def to(self, device) -> "RowPlan":
+        return dataclasses.replace(
+            self, voff=self.voff.to(device), roff=self.roff.to(device),
+            drow=self.drow.to(device))
+
+
+def _row_offsets(counts: torch.Tensor, dest: torch.Tensor,
+                 n_rows: int) -> torch.Tensor:
+    """int64[n_rows + 1] offsets of each row's entries in a stream of
+    ``counts[i]`` entries to row ``dest[i]``, ``dest`` ascending; entries of
+    the scratch row ``n_rows`` lie past the last offset."""
+    ends = torch.zeros(counts.shape[0] + 1, dtype=torch.int64,
+                       device=counts.device)
+    torch.cumsum(counts.long(), 0, out=ends[1:])
+    rows = torch.arange(n_rows + 1, dtype=dest.dtype, device=dest.device)
+    return ends[torch.searchsorted(dest, rows)]
+
+
+def row_build_plan(val_counts: torch.Tensor, val_dest: torch.Tensor,
+                   dense_dest: torch.Tensor, n_rows: int,
+                   run_counts: torch.Tensor | None = None,
+                   run_dest: torch.Tensor | None = None) -> RowPlan:
+    """B8's plan of the streams' destinations (tensors on one device;
+    ``run_counts`` and ``run_dest`` where there is a run stream).  On the
+    CPU it raises ``ValueError`` for a value or run stream not sorted by
+    destination row; on the card it does not check."""
+    dev = val_dest.device
+    if run_counts is None:
+        run_counts, run_dest = val_counts[:0], val_dest[:0]
+    if dev.type == "cpu":
+        for name, d in (("val_dest", val_dest), ("run_dest", run_dest)):
+            if bool((d[1:] < d[:-1]).any()):
+                raise ValueError(f"B8 needs {name} sorted by row")
+    voff = _row_offsets(val_counts, val_dest, n_rows)
+    roff = _row_offsets(run_counts, run_dest, n_rows)
+    # padding rows of the stream go to the scratch slot n_rows, dropped
+    md = dense_dest.shape[0]
+    drow = torch.full((n_rows + 1,), -1, dtype=torch.int32, device=dev)
+    drow[dense_dest.long().clamp(0, n_rows)] = torch.arange(
+        md, dtype=torch.int32, device=dev)
+    return RowPlan(voff=voff, roff=roff, drow=drow[:n_rows].contiguous(),
+                   values=int(voff[-1]), runs=int(roff[-1]),
+                   dense_rows=int((drow[:n_rows] >= 0).sum()))
+
+
+def b8_launch_bytes(rows: int, values: int, run_pairs: int,
+                    dense_rows: int) -> int:
+    """Bytes the image's build needs to move, whatever builds it: the
+    ``rows`` image rows written once (8 KiB each), and the serialized
+    payload read once: 2 bytes a value (its u16), 4 a run pair, 8 KiB a
+    dense-wire row.  The kernel reads more, each value as an int32 and a
+    plan of 20 bytes a row, which this count leaves out: a share of the
+    bound is of the needed bytes."""
+    return (_ROW_BYTES * (rows + dense_rows) + 2 * values + 4 * run_pairs)
+
+
+class LaunchTimer:
+    """The device seconds of the launches made inside ``around()``, from a
+    pair of CUDA events recorded on the current stream around each.
+    ``observe`` reads them once the caller has synchronised the card, and
+    records each in ``rb_kernel_seconds{kernel}``: for a kernel that runs
+    outside any traced window, as a set's build does."""
+
+    def __init__(self, kernel: str):
+        self.kernel = kernel
+        self._events: list = []
+
+    @contextlib.contextmanager
+    def around(self):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self._events.append((start, end))
+
+    def observe(self) -> None:
+        for start, end in self._events:
+            obs_metrics.histogram("rb_kernel_seconds", kernel=self.kernel
+                                  ).observe(start.elapsed_time(end) / 1e3)
+        self._events.clear()
+
+
+def row_build(dense_words, dense_dest, values, val_counts, val_dest,
+              n_rows: int, total_values: int, runs=None,
+              plan: RowPlan | None = None,
+              timer: LaunchTimer | None = None) -> torch.Tensor:
+    """B8: compact streams (``dense_words`` int32[Md, 2048] to rows
+    ``dense_dest``; ``values`` int32[V] in ``val_counts`` pieces to rows
+    ``val_dest``; ``runs``, where given, the triple of int32[R] pairs as
+    ``dense._run_words`` reads them, runs per container and destination
+    rows) -> the int32[n_rows, 2048] image, one container a row.  Entries of
+    row ``n_rows`` (padding) are dropped.  On the card one launch writes
+    every row once into ``torch.empty``, under ``plan``
+    (``row_build_plan``, made here unless the caller made it) and inside
+    ``timer.around()`` where a timer is given; on the CPU (and on the
+    ``meta`` device, which has no kernels) the plain version
+    (``dense.densify_streams_impl``), which reads no plan."""
+    _check("dense_words", dense_words, 2, WORDS32)
+    _check("values", values, 1)
+    for name, t in (("dense_dest", dense_dest), ("val_counts", val_counts),
+                    ("val_dest", val_dest)):
+        _check(name, t, 1)
+    for name, t in zip(("runs", "run_counts", "run_dest"), runs or ()):
+        _check(name, t, 1)
+    if values.device.type == "meta" or not _on_cuda(
+            dense_words, values, val_dest, *(runs or ())):
+        return dense.densify_streams_impl(dense_words, dense_dest, values,
+                                          val_counts, val_dest, n_rows,
+                                          total_values, runs=runs)
+    if plan is None:
+        plan = row_build_plan(val_counts, val_dest, dense_dest, n_rows,
+                              *(runs or (None,))[1:])
+    if plan.voff.shape[0] != n_rows + 1:
+        raise ValueError("plan must hold n_rows + 1 offsets")
+    out = torch.empty((n_rows, WORDS32), dtype=torch.int32,
+                      device=values.device)
+    if n_rows:
+        run_ptr = runs[0].data_ptr() if runs is not None else 0
+        with timer.around() if timer is not None else contextlib.nullcontext():
+            B8.launch(dense_words.data_ptr(), plan.drow.data_ptr(),
+                      values.data_ptr(), plan.voff.data_ptr(), run_ptr,
+                      plan.roff.data_ptr(), out.data_ptr(), n_rows, _stream(),
+                      nbytes=b8_launch_bytes(n_rows, plan.values, plan.runs,
+                                             plan.dense_rows))
+    return out
+
+
+def row_build_emulated(dense_words, values, runs, plan: RowPlan,
+                       n_rows: int) -> torch.Tensor:
+    """B8's kernel walked on the host, block by block: a row with no values
+    and no runs is its dense-wire row or zeros, stored straight; any other
+    starts as that and takes each run's word masks (a word the run covers
+    whole stored, an edge word ORed) and each value's bit.  ``runs`` is the
+    int32 pair stream (or None).  Rows start as garbage, as the kernel's
+    ``torch.empty`` output does."""
+    out = torch.full((n_rows, WORDS32), 0x5A5A5A5A, dtype=torch.int32)
+    voff, roff, drow = (plan.voff.tolist(), plan.roff.tolist(),
+                        plan.drow.tolist())
+    for r in range(n_rows):
+        row = (dense_words[drow[r]].clone() if drow[r] >= 0
+               else torch.zeros(WORDS32, dtype=torch.int32))
+        acc = (row.long() & 0xFFFFFFFF).tolist()
+        for p in ([] if runs is None else runs[roff[r]:roff[r + 1]].tolist()):
+            p &= 0xFFFFFFFF
+            lo_bit, hi_bit = p & 0xFFFF, min((p & 0xFFFF) + (p >> 16), 65535)
+            for w in range(lo_bit >> 5, (hi_bit >> 5) + 1):
+                lo = max(lo_bit - 32 * w, 0)
+                hi = min(hi_bit - 32 * w, 31)
+                m = (0xFFFFFFFF >> (31 - hi)) & (0xFFFFFFFF << lo) & 0xFFFFFFFF
+                acc[w] = m if m == 0xFFFFFFFF else acc[w] | m
+        for v in values[voff[r]:voff[r + 1]].tolist():
+            v &= 0xFFFF
+            acc[v >> 5] |= 1 << (v & 31)
+        out[r] = fold_u32(torch.tensor(acc, dtype=torch.int64))
+    return out

@@ -17,6 +17,7 @@ array.  The device tensors are built from these arrays by the callers.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -157,9 +158,12 @@ def blocked_block_count(bitmaps: list, block: int = 8) -> int:
 #
 # Aggregate straight off the serialized layout without building per-container
 # objects (the reference's BufferFastAggregation).  The rotated batch splits
-# into two transfer-minimal streams:
+# into transfer-minimal streams:
 #   - dense containers (bitmap + large-run) ship their 8 KB wire image as-is,
-#   - sparse containers (array + small-run) ship raw u16 member values.
+#   - sparse containers (array + small-run) ship raw u16 member values,
+#   - with ``runs=True`` (the dense layout's build), every run container
+#     ships its (start, length - 1) u16 pairs as serialized instead, whatever
+#     its cardinality: no run is expanded or densified on the host.
 # The device builds the dense [rows, 2048] image from them.
 
 #: Run containers above this cardinality ship as dense wire images instead of
@@ -177,15 +181,27 @@ class CompactStreams:
     values: np.ndarray        # u16[V] concat member values (array / small-run)
     val_counts: np.ndarray    # i32[Mv] values per sparse container
     val_dest: np.ndarray      # i32[Mv] destination row per sparse container
+    # the run stream (``runs=True`` only; None otherwise)
+    runs: np.ndarray | None = None        # u16[2R] (start, length-1) pairs
+    run_counts: np.ndarray | None = None  # i32[Mr] runs per run container
+    run_dest: np.ndarray | None = None    # i32[Mr] destination row each
+    #: source containers by kind ({"array", "bitmap", "run"}: count), where
+    #: the packer counted them
+    kinds: dict | None = None
 
     @property
     def total_values(self) -> int:
         return int(self.values.size)
 
+    @property
+    def total_runs(self) -> int:
+        return 0 if self.runs is None else int(self.runs.size) // 2
+
     def transfer_bytes(self) -> int:
-        return (self.dense_words.nbytes + self.dense_dest.nbytes
-                + self.values.nbytes + self.val_counts.nbytes
-                + self.val_dest.nbytes)
+        return sum(a.nbytes for a in (
+            self.dense_words, self.dense_dest, self.values, self.val_counts,
+            self.val_dest, self.runs, self.run_counts, self.run_dest)
+            if a is not None)
 
 
 def _as_view(b):
@@ -212,10 +228,14 @@ def _keys_of(b) -> np.ndarray:
 def _view_table(view) -> tuple:
     """A SerializedView's per-container header as Python lists, so the
     per-container loop reads no NumPy scalars: (buffer, payload offsets,
-    kinds (0 array, 1 bitmap, 2 run), cardinalities)."""
+    kinds (0 array, 1 bitmap, 2 run), cardinalities, payload sizes)."""
     kinds = view.is_bitmap.astype(np.int8) + 2 * view.is_run.astype(np.int8)
     return (view.buf, view.payload_offsets.tolist(), kinds.tolist(),
-            view.cardinalities.tolist())
+            view.cardinalities.tolist(), view.payload_sizes.tolist())
+
+
+#: the kinds of ``_view_table`` by name, in its order
+KINDS = ("array", "bitmap", "run")
 
 
 def _check_increasing(values: np.ndarray, counts: list, conts: list) -> None:
@@ -233,17 +253,60 @@ def _check_increasing(values: np.ndarray, counts: list, conts: list) -> None:
             f"container {conts[k]}: array values not strictly increasing")
 
 
+def run_cardinalities(runs: np.ndarray, run_counts) -> np.ndarray:
+    """i64[Mr] values of each run container of a run stream (``runs`` the
+    u16 (start, length - 1) pairs, ``run_counts[j]`` pairs a container)."""
+    counts = np.asarray(run_counts, np.int64)
+    lens = np.asarray(runs)[1::2].astype(np.int64) + 1
+    return np.bincount(np.repeat(np.arange(counts.size), counts),
+                       weights=lens, minlength=counts.size).astype(np.int64)
+
+
+def _check_runs(runs: np.ndarray, run_counts: list, cards: list,
+                conts: list) -> None:
+    """``validate_runs``' guards over a whole run stream at once (``runs``
+    the u16 pairs of every run container, ``run_counts[j]`` pairs of
+    container ``conts[j]``, whose header declares ``cards[j]`` values):
+    runs sorted and not overlapping within a container, none past 65535,
+    and each container's run cardinality equal to its header's.  Each
+    failure raises ``InvalidRoaringFormat`` naming the first container at
+    fault, with ``validate_runs``' message."""
+    if not conts:
+        return
+    starts = runs[0::2].astype(np.int64)
+    ends = starts + runs[1::2].astype(np.int64)
+    counts = np.asarray(run_counts, np.int64)
+    cont_of = np.repeat(np.arange(counts.size), counts)
+    # each container's first failing guard, in validate_runs' order (4: none)
+    code = np.full(counts.size, 4, np.int8)
+    np.minimum.at(code, cont_of[ends > 0xFFFF], 1)
+    later = np.ones(starts.size, bool)
+    later[(np.cumsum(counts) - counts)[counts > 0]] = False
+    over = np.flatnonzero(later[1:] & (starts[1:] <= ends[:-1])) + 1
+    np.minimum.at(code, cont_of[over], 2)
+    card = run_cardinalities(runs, counts)
+    code[(code == 4) & (card != np.asarray(cards, np.int64))] = 3
+    if (code < 4).any():
+        j = int(np.argmax(code < 4))
+        why = {1: "run extends past 65535",
+               2: "overlapping/unsorted runs",
+               3: "run cardinality mismatch"}[int(code[j])]
+        raise InvalidRoaringFormat(f"container {conts[j]}: {why}")
+
+
 def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
-                            n_rows: int) -> CompactStreams:
+                            n_rows: int, runs: bool = False) -> CompactStreams:
     """Classify every container of the rotated batch into the dense or the
-    sparse stream, in ``order`` (rows sorted by segment), to rows ``dest``.
+    sparse stream, in ``order`` (rows sorted by segment), to rows ``dest``;
+    with ``runs``, every run container into the run stream.
 
     A byte-backed source streams its payloads off the buffer with the same
     corruption guards as ``SerializedView.container``, minus the bitmap
     popcount (a wrong declared bitmap cardinality cannot shift the stream,
     payloads are fixed 8 KB, and every device aggregate recomputes
     cardinalities exactly).  Its array payloads are checked for order
-    together, after the loop."""
+    together, after the loop, and so are the run stream's runs
+    (``_check_runs``)."""
     sizes = [_keys_of(s).size for s in sources]
     src_of = np.repeat(np.arange(len(sources)), sizes).tolist()
     idx_in_src = (np.concatenate([np.arange(k) for k in sizes]).tolist()
@@ -254,6 +317,11 @@ def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
     pieces: list[np.ndarray] = []       # sparse per-container value arrays
     piece_cont: list[int] = []          # the container index of each piece
     val_dest: list[int] = []
+    run_pieces: list[np.ndarray] = []   # each run container's u16 pairs
+    run_cont: list[int] = []            # the container index of each
+    run_cards: list[int] = []           # its declared cardinality
+    run_dest: list[int] = []
+    n_kind = [0, 0, 0]                  # containers by kind (``KINDS``)
     views = [_as_view(s) for s in sources]
     tables = [None if v is None else _view_table(v) for v in views]
     for pos, row in zip(np.asarray(order).tolist(),
@@ -261,8 +329,9 @@ def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
         s, i = src_of[pos], idx_in_src[pos]
         table = tables[s]
         if table is not None:
-            buf, offs, kinds, cards = table
+            buf, offs, kinds, cards, psizes = table
             kind = kinds[i]
+            n_kind[kind] += 1
             if kind == 1:
                 dense_rows.append(row)
                 dense_words.append(np.frombuffer(buf, "<u4", WORDS32,
@@ -270,26 +339,48 @@ def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
                 continue
             if kind == 0:
                 vals = np.frombuffer(buf, "<u2", cards[i], offs[i])
+            elif runs:
+                # the header scan sized the payload from its run count and
+                # raised for one that overruns the buffer
+                nruns = (psizes[i] - 2) >> 2
+                run_pieces.append(np.frombuffer(buf, "<u2", 2 * nruns,
+                                                offs[i] + 2))
+                run_cont.append(i)
+                run_cards.append(cards[i])
+                run_dest.append(row)
+                continue
             else:
                 payload = views[s].container_payload(i)
                 nruns = int(np.frombuffer(payload[:2], dtype="<u2")[0])
-                runs = np.frombuffer(payload[2:2 + 4 * nruns], dtype="<u2")
-                if runs.size != 2 * nruns:
+                pairs = np.frombuffer(payload[2:2 + 4 * nruns], dtype="<u2")
+                if pairs.size != 2 * nruns:
                     raise InvalidRoaringFormat(
                         f"container {i}: truncated run payload")
-                starts, ends = validate_runs(runs, i)
+                starts, ends = validate_runs(pairs, i)
                 if int((ends - starts + 1).sum()) != cards[i]:
                     raise InvalidRoaringFormat(
                         f"container {i}: run cardinality mismatch")
-                vals = C.runs_to_values(runs.astype(np.uint16))
+                vals = C.runs_to_values(pairs.astype(np.uint16))
         else:
             c = sources[s].containers[i]
             if isinstance(c, C.BitmapContainer):
+                n_kind[1] += 1
                 dense_rows.append(row)
                 dense_words.append(container_words_u32(c))
                 continue
-            vals = c.values() if not isinstance(c, C.RunContainer) \
-                else C.runs_to_values(c.runs)
+            if not isinstance(c, C.RunContainer):
+                n_kind[0] += 1
+                vals = c.values()
+            else:
+                n_kind[2] += 1
+                if runs:
+                    if c.runs.size:    # an empty run container: a zero row
+                        run_pieces.append(c.runs)
+                        run_cont.append(i)
+                        run_cards.append(c.cardinality)
+                        run_dest.append(row)
+                    continue
+                vals = C.runs_to_values(c.runs)
         if vals.size > RUN_DENSIFY_THRESHOLD:
             # dense is the smaller wire form past 4096 values
             dense_rows.append(row)
@@ -303,6 +394,15 @@ def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
     val_counts = [p.size for p in pieces]
     if any(t is not None for t in tables):
         _check_increasing(values, val_counts, piece_cont)
+    run_arrays = None
+    if runs:
+        pairs = (np.concatenate(run_pieces).astype(np.uint16) if run_pieces
+                 else np.empty(0, np.uint16))
+        run_counts = [p.size // 2 for p in run_pieces]
+        _check_runs(pairs, run_counts, run_cards, run_cont)
+        run_arrays = dict(runs=pairs,
+                          run_counts=np.array(run_counts, dtype=np.int32),
+                          run_dest=np.asarray(run_dest, dtype=np.int32))
     return CompactStreams(
         n_rows=n_rows,
         dense_words=(np.stack(dense_words).astype(np.uint32) if dense_words
@@ -310,14 +410,15 @@ def _emit_container_streams(sources: list, order: np.ndarray, dest: np.ndarray,
         dense_dest=np.asarray(dense_rows, dtype=np.int32),
         values=values,
         val_counts=np.array(val_counts, dtype=np.int32),
-        val_dest=np.asarray(val_dest, dtype=np.int32))
+        val_dest=np.asarray(val_dest, dtype=np.int32),
+        kinds=dict(zip(KINDS, n_kind)), **(run_arrays or {}))
 
 
 def pad_streams_pow2(s: CompactStreams) -> CompactStreams:
     """Pad stream array lengths to powers of two.  The padding lands in the
     densify scratch row (index n_rows): padded values carry value 0 under a
     sentinel count entry destined there; padded dense rows are zero rows
-    destined there too."""
+    destined there too.  A run stream is kept as it is."""
     v, mv, md = s.values.size, s.val_counts.size, s.dense_words.shape[0]
     vpad, mvpad, mdpad = next_pow2(v), next_pow2(mv + 1), next_pow2(md)
     values = np.zeros(vpad, np.uint16)
@@ -331,9 +432,9 @@ def pad_streams_pow2(s: CompactStreams) -> CompactStreams:
     dense_words[:md] = s.dense_words
     dense_dest = np.full(mdpad, s.n_rows, np.int32)
     dense_dest[:md] = s.dense_dest
-    return CompactStreams(n_rows=s.n_rows, dense_words=dense_words,
-                          dense_dest=dense_dest, values=values,
-                          val_counts=val_counts, val_dest=val_dest)
+    return dataclasses.replace(s, dense_words=dense_words,
+                               dense_dest=dense_dest, values=values,
+                               val_counts=val_counts, val_dest=val_dest)
 
 
 #: Values per densify chunk.  Each chunk belongs to exactly one destination
@@ -423,7 +524,8 @@ def choose_block(seg_sizes: np.ndarray, min_block: int = 8) -> int:
 def pack_blocked_compact(sources: list, block: int | None = None,
                          round_blocks: int = 8,
                          carry_slot: bool = True,
-                         min_block: int = 8) -> PackedBlockedCompact:
+                         min_block: int = 8,
+                         runs: bool = False) -> PackedBlockedCompact:
     """Group-by-key rotation emitting compact streams instead of a host-built
     dense tensor.  ``sources`` may mix RoaringBitmaps,
     ImmutableRoaringBitmaps, SerializedViews and raw serialized bytes; the
@@ -432,6 +534,10 @@ def pack_blocked_compact(sources: list, block: int | None = None,
     carry_slot guarantees segment 0 at least one zero padding row.
     round_blocks pads the block count to a multiple (not pow2: a resident
     set is built once, so tight padding saves device memory).
+    runs puts every run container into the run stream (the dense layout's
+    build, whose image the device makes from runs).  The C++ engine, which
+    serves inputs that are all ``bytes`` otherwise, emits no run stream, so
+    a pack with runs parses the buffers here instead.
     """
     if block is None and min_block < 8 and sources:
         _, counts = np.unique(
@@ -439,11 +545,12 @@ def pack_blocked_compact(sources: list, block: int | None = None,
             return_counts=True)
         block = choose_block(counts, min_block=min_block)
     # inputs that are all serialized bytes take the C++ ingest engine first
-    # (after the block-4 rung above, which the engine's ladder lacks)
+    # (after the block-4 rung above, which the engine's ladder lacks), unless
+    # runs are asked for: the engine expands them
     if sources and all(isinstance(s, (bytes, bytearray)) for s in sources):
         from .. import native
 
-        if native.enabled():
+        if native.enabled() and not runs:
             native.CALLS["native"] += 1
             packed = native.pack_blocked_compact(
                 [bytes(s) for s in sources], block, round_blocks, carry_slot)
@@ -471,7 +578,8 @@ def pack_blocked_compact(sources: list, block: int | None = None,
     nb_pad = -(-n_blocks // round_blocks) * round_blocks
     within = np.arange(m) - head[seg_sorted]
     dest = offs[seg_sorted] + within
-    streams = _emit_container_streams(sources, order, dest, nb_pad * block)
+    streams = _emit_container_streams(sources, order, dest, nb_pad * block,
+                                      runs)
     blk_seg = np.full(nb_pad, k, dtype=np.int32)
     blk_seg[:n_blocks] = np.repeat(np.arange(k, dtype=np.int32),
                                    (gp // block).astype(np.int64))

@@ -7,8 +7,9 @@ cardinalities.  The plan is the JAX package's:
 
 1. the host packs bitmaps (or serialized bytes) by key segment into compact
    streams or u32[2048] rows (``ops.packing``);
-2. the device densifies the streams (plain PyTorch, as XLA did) and runs the
-   segmented per-key reduce with a fused popcount (``ops.kernels``);
+2. the device densifies the streams (B8 on the card, which builds each row
+   once; plain PyTorch on the CPU, as XLA did) and runs the segmented
+   per-key reduce with a fused popcount (``ops.kernels``);
 3. ``packing.unpack_result`` turns the per-key words back into a bitmap.
 
 Engines: ``"cuda"`` runs the hand-written kernels, ``"torch"`` their plain
@@ -224,8 +225,9 @@ def _aggregate_ragged_device(op: str, bitmaps: list, eng: str, dev,
     blocked = packing.pack_blocked_compact(
         bitmaps, block=BLOCK, round_blocks=64, carry_slot=False)
     s = packing.pad_streams_pow2(blocked.streams)
-    words = dense.densify_streams(*_device_streams(s, dev), blocked.n_rows,
-                                  s.total_values)
+    build = (dense.densify_streams_impl if eng == "torch"
+             else kernels.row_build)
+    words = build(*_device_streams(s, dev), blocked.n_rows, s.total_values)
     k = blocked.keys.size
     if eng == "cuda":
         heads, cards = kernels.segmented_reduce_blocked(
@@ -446,8 +448,8 @@ def _densify_side(s: packing.CompactStreams, n_rows: int, device):
     """One operand side's compact streams -> int32[n_rows, 2048] on the
     device.  Eager PyTorch does not recompile per shape, so the streams are
     not padded to powers of two as in JAX."""
-    return dense.densify_streams(*_device_streams(s, device), n_rows,
-                                 s.total_values)
+    return kernels.row_build(*_device_streams(s, device), n_rows,
+                             s.total_values)
 
 
 def _unpack_pairs(keys: np.ndarray, heads: np.ndarray, words: torch.Tensor,
@@ -535,7 +537,7 @@ class DevicePairSet:
                                    owner=self)
 
     def _densify(self):
-        return tuple(dense.densify_streams(*s, self._n_rows, nv)
+        return tuple(kernels.row_build(*s, self._n_rows, nv)
                      for s, nv in (self._a, self._b))
 
     def _sides(self):
@@ -594,6 +596,9 @@ _STATE_COMMON = ("keys", "n", "block", "blk_seg", "n_blocks", "seg_sizes",
                  "seg_offsets")
 _STATE_STREAMS = ("dense_words", "dense_dest", "values", "val_counts",
                   "val_dest")
+#: the run stream, optional: where the dense image is built from the
+#: streams (the dense layout's own build), run containers may come as runs
+_STATE_RUNS = ("runs", "run_counts", "run_dest")
 _STATE_LAYOUT = {
     "dense": ("words",),
     "counts": ("counts", "grp_seg") + _STATE_STREAMS,
@@ -625,9 +630,10 @@ class _BuildClock:
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        with obs_trace.span("set.build." + name):
+        """Time the phase ``name``; yields its span, for tags."""
+        with obs_trace.span("set.build." + name) as sp:
             t = time.perf_counter()
-            yield
+            yield sp
             self.seconds[name] = time.perf_counter() - t
 
     def finish(self, ds: "DeviceBitmapSet") -> None:
@@ -651,7 +657,8 @@ class DeviceBitmapSet:
 
     layout (a device-memory / query-cost ladder):
       - "dense": the dense int32[rows, 2048] image is resident; or/xor run
-        the blocked reduce (B2) over it.
+        the blocked reduce (B2) over it.  Its build ships run containers
+        as runs and builds each row once on the card (B8).
       - "counts": per-group 4-bit occurrence counts (half the dense image)
         plus the compact streams; or/xor run one pass off the streams (B7)
         where that reads no more than one pass off the counts (B4), which
@@ -692,8 +699,11 @@ class DeviceBitmapSet:
                 raise ValueError(
                     f"{layout} layout requires block = {g} * 2^k, "
                     f"got {block}")
-            with clock.phase("pack"):
+            with clock.phase("pack") as sp:
                 state = _pack_state(bitmaps, block, layout)
+                kinds = state.get("container_kinds") or {}
+                sp.tag(run_containers=kinds.get("run"),
+                       runs=_run_pairs(state))
             self._load(state, layout, dev, clock)
             clock.finish(self)
 
@@ -709,7 +719,10 @@ class DeviceBitmapSet:
           ``dense_dest``, ``values``, ``val_counts``, ``val_dest``;
         - compact: ``chunk_vals`` and ``chunk_row``, plus the streams;
 
-        and optionally ``row_src`` (the JAX set's ``_packed.row_src``: the
+        and optionally the run stream ``runs`` (u16 (start, length - 1)
+        pairs as serialized), ``run_counts`` and ``run_dest``, which only a
+        dense image built from the streams reads (a state without them
+        loads as before), ``row_src`` (the JAX set's ``_packed.row_src``: the
         source bitmap of each row), which ``host_bitmaps`` and the batch
         engine need, and ``carry_row`` (``_packed.carry_row``, the spare
         segment-0 row the compact probe writes its carry to; by default
@@ -780,6 +793,16 @@ class DeviceBitmapSet:
         # what the card keeps, by attribute: host arrays (or tuples of
         # them) uploaded in one phase
         host = {"blk_seg": blk_seg, "seg_ids": seg_rows, "head_idx": head_idx}
+        self._runs = self._row_plan = None
+        runs = None
+        if state.get("runs") is not None and "words" not in state:
+            if layout != "dense":
+                raise ValueError(
+                    f"a run stream builds a dense image; the {layout} "
+                    f"layout reads values")
+            runs = (np.ascontiguousarray(state["runs"], np.uint16),
+                    np.asarray(state["run_counts"], np.int32),
+                    np.asarray(state["run_dest"], np.int32))
         if "words" in state:
             host["words"] = np.asarray(state["words"])
         else:
@@ -793,6 +816,17 @@ class DeviceBitmapSet:
             if layout != "dense":
                 s = _sort_streams(s)
                 host.update(self._compact_meta(s, blk_seg))
+            else:
+                if dev.type == "cuda":
+                    # B8's plan, from the sorted destinations
+                    host["_row_plan"] = kernels.row_build_plan(
+                        *(_host_i32(a) for a in (s.val_counts, s.val_dest,
+                                                 s.dense_dest)),
+                        self._n_rows,
+                        *(_host_i32(a) for a in (runs or ())[1:]))
+                if runs is not None:
+                    # the run pairs as one u32 each
+                    host["_runs"] = (runs[0].view(np.uint32), *runs[1:])
             host["_streams"] = (s.dense_words, s.dense_dest, s.values,
                                 s.val_counts, s.val_dest)
             self._total_values = s.total_values
@@ -809,24 +843,42 @@ class DeviceBitmapSet:
         with clock.phase("upload"):
             for name, a in host.items():
                 setattr(self, name, _to_device(a, dev))
+        timer = None
+        if layout == "dense" and self.words is None and dev.type == "cuda":
+            timer = kernels.LaunchTimer("b8")
+            # the kernel libraries' first load (with their nvcc build) is a
+            # program build of the process, not a phase of this set's
+            kernels.B8.load()
         with clock.phase("device"):
             if layout == "dense" and self.words is None:
-                self.words = dense.densify_streams(
-                    *self._streams, self._n_rows, self._total_values)
+                # B8 on the card, timed by CUDA events: a build runs
+                # outside any traced window
+                self.words = kernels.row_build(
+                    *self._streams, self._n_rows, self._total_values,
+                    runs=self._runs, plan=self._row_plan, timer=timer)
             if self._chunks is not None:
                 self._chunk_bounds = kernels.densify_chunk_bounds(
                     self._chunks[1], self._n_rows)
             if layout == "counts" and self.counts is None:
                 self._build_counts()
             if "values" in state:
+                # a run container counts as the value stream and the
+                # dense-wire rows counted it before it came as runs
                 base = (int(np.asarray(state["values"]).size) + 4096
-                        * int(np.asarray(state["dense_words"]).shape[0]))
+                        * int(np.asarray(state["dense_words"]).shape[0])
+                        + (0 if runs is None else int(np.minimum(
+                            packing.run_cardinalities(*runs[:2]),
+                            4096).sum())))
             else:
                 base = int(dense.popcount(self.words).sum(dtype=torch.int64))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+        if timer is not None:
+            timer.observe()
         if layout == "dense":
-            self._streams = None   # the image is the resident form
+            # the image is the resident form
+            self._streams = self._runs = self._row_plan = None
+        _count_ingest(state, layout, self._n_rows)
         self._init_mutation(base)
 
     def _init_mutation(self, base: int) -> None:
@@ -963,8 +1015,9 @@ class DeviceBitmapSet:
             if dense_words.shape[0]:
                 words[dense_dest.long()] = dense_words
             return words
-        return dense.densify_streams(*self._streams, self._n_rows,
-                                     self._total_values)
+        build = (dense.densify_streams_impl if eng == "torch"
+                 else kernels.row_build)
+        return build(*self._streams, self._n_rows, self._total_values)
 
     def _reduce_words(self, op: str, words: torch.Tensor, eng: str):
         """Wide or/xor over a blocked row image: B2, or the doubling pass
@@ -1252,11 +1305,13 @@ class DeviceBitmapSet:
 
 def _pack_state(bitmaps: list, block: int | None, layout: str) -> dict:
     """The packed state of ``bitmaps`` for ``layout``: the blocked
-    rotation's maps and compact streams, and for the stream layouts the
-    chunked value stream."""
+    rotation's maps and compact streams (for the dense layout with its run
+    containers as a run stream), the containers by kind where the packer
+    counted them, and for the stream layouts the chunked value stream."""
     packed = packing.pack_blocked_compact(
         bitmaps, block=block,
-        min_block=4 if (layout == "dense" and block is None) else 8)
+        min_block=4 if (layout == "dense" and block is None) else 8,
+        runs=layout == "dense")
     s = packed.streams   # rows in segment order: dense_dest ascends
     state = {"keys": packed.keys, "n": len(bitmaps),
              "block": packed.block, "blk_seg": packed.blk_seg,
@@ -1265,7 +1320,10 @@ def _pack_state(bitmaps: list, block: int | None, layout: str) -> dict:
              "carry_row": packed.carry_row,
              "dense_words": s.dense_words, "dense_dest": s.dense_dest,
              "values": s.values, "val_counts": s.val_counts,
-             "val_dest": s.val_dest}
+             "val_dest": s.val_dest, "container_kinds": s.kinds}
+    if s.runs is not None:
+        state.update(runs=s.runs, run_counts=s.run_counts,
+                     run_dest=s.run_dest)
     if layout != "dense":
         state["chunk_vals"], state["chunk_row"] = packing.chunk_value_stream(
             s.values, s.val_counts, s.val_dest, s.n_rows,
@@ -1273,12 +1331,39 @@ def _pack_state(bitmaps: list, block: int | None, layout: str) -> dict:
     return state
 
 
+def _run_pairs(state: dict) -> int:
+    """Run pairs in a state's run stream (0 without one)."""
+    runs = state.get("runs")
+    return 0 if runs is None else int(np.asarray(runs).size) // 2
+
+
+def _count_ingest(state: dict, layout: str, rows: int) -> None:
+    """What one build ingested, in the registry: the state's source
+    containers by kind where the packer counted them, the values of its
+    value stream, the pairs of its run stream, and the layout's rows."""
+    for kind, n in (state.get("container_kinds") or {}).items():
+        obs_metrics.counter("rb_ingest_containers_total", layout=layout,
+                            kind=kind).inc(n)
+    values = state.get("values")
+    obs_metrics.counter("rb_ingest_values_total", layout=layout).inc(
+        0 if values is None else int(np.asarray(values).size))
+    obs_metrics.counter("rb_ingest_run_pairs_total", layout=layout).inc(
+        _run_pairs(state))
+    obs_metrics.counter("rb_ingest_rows_total", layout=layout).inc(rows)
+
+
+def _host_i32(a) -> torch.Tensor:
+    """A host int32 tensor sharing a (writeable, contiguous) copy of
+    ``a`` where it must."""
+    return torch.from_numpy(np.require(a, np.int32, ("C", "W")))
+
+
 def _to_device(x, device):
     """A host array on ``device``, int32 (bool arrays as they are); a tuple
     of them element by element, with plain numbers left on the host."""
     if isinstance(x, tuple):
         return tuple(_to_device(v, device) for v in x)
-    if isinstance(x, kernels.StreamPlan):
+    if isinstance(x, (kernels.StreamPlan, kernels.RowPlan)):
         return x.to(device)
     if not isinstance(x, np.ndarray):
         return x

@@ -530,9 +530,10 @@ def _split_streams_by_shard(s: packing.CompactStreams, rows_per_shard: int,
 def shard_streams(mesh: Mesh, blocked: packing.PackedBlockedCompact,
                   row_axis: str = "rows", lane_axis: str = "lanes"):
     """Compact ingest: ship each row shard its compact streams and densify
-    them there (``dense.densify_streams_impl``), so the host never builds
-    the dense image.  Returns ({shard: int32[rows/R, W]}, {shard:
-    int32[rows/R]} segment ids, the padded block -> segment map)."""
+    them there (``kernels.row_build``: B8 on the card), so the host
+    never builds the dense image.  Returns ({shard: int32[rows/R, W]},
+    {shard: int32[rows/R]} segment ids, the padded block -> segment
+    map)."""
     d, _lanes, width = _axes(mesh, row_axis, lane_axis)
     block, k = blocked.block, blocked.keys.size
     nb = int(blocked.blk_seg.size)
@@ -552,7 +553,7 @@ def shard_streams(mesh: Mesh, blocked: packing.PackedBlockedCompact,
         img = images.get((r, dev))
         if img is None:
             dw, dd, v, vc, vd = (p[r] for p in parts)
-            img = images[(r, dev)] = dense.densify_streams_impl(
+            img = images[(r, dev)] = kernels.row_build(
                 as_i32(dw, dev), as_i32(dd, dev),
                 as_i32(v.astype(np.int32), dev), as_i32(vc, dev),
                 as_i32(vd, dev), rows_per_shard, total_values)

@@ -129,3 +129,58 @@ def uscensus_like_values(segments: int, keys: int = 600, attrs: int = 200,
         out += [np.concatenate(p) if p else np.array([(s * keys) << 16])
                 for p in per]
     return [np.unique(v).astype(np.uint32) for v in out]
+
+
+#: the run shapes of ``row_stream_case``
+ROW_CASES = ("one bit", "word edge", "many words", "whole row")
+
+
+def _case_runs(rng: np.random.Generator, case: str) -> np.ndarray:
+    """One run container's canonical (start, length - 1) u16 pairs of the
+    shape ``case``: runs of one bit; runs across a 32-bit word edge, with
+    the first and last words of the row covered whole; runs over many
+    words; one run over the whole 65,536-bit row."""
+    if case == "one bit":
+        s = np.sort(rng.choice(np.arange(0, 65536, 2), 40, replace=False))
+        ln = np.zeros_like(s)
+    elif case == "word edge":
+        w = np.sort(rng.choice(np.arange(4, 2040, 4), 30, replace=False))
+        a, b = rng.integers(1, 32, w.size), rng.integers(1, 32, w.size)
+        s = np.concatenate(([0], 32 * w - a, [65504]))
+        ln = np.concatenate(([31], a + b - 1, [31]))
+    elif case == "many words":
+        s = np.sort(rng.choice(np.arange(0, 65536, 8192), 6, replace=False))
+        ln = rng.integers(1000, 8000, s.size)
+    elif case == "whole row":
+        s, ln = np.array([0]), np.array([65535])
+    else:
+        raise ValueError(f"unknown case {case!r}")
+    return np.stack([s, ln], axis=1).ravel().astype(np.uint16)
+
+
+def row_stream_case(case: str, seed: int = 0) -> dict:
+    """Compact streams of 12 rows, one container a row, for the dense
+    image's build (B8) and its plain versions: rows 0, 4, 6 and 9 a run
+    container of the shape ``case`` (``ROW_CASES``), rows 1 and 5 array
+    containers (500 values, one value), rows 2 and 7 bitmap containers,
+    the rest empty; each stream ends with an entry for the scratch row
+    ``n_rows``, as padded streams have.  NumPy arrays under the names of
+    ``ops.packing.CompactStreams``, and ``n_rows``."""
+    rng = np.random.default_rng(seed)
+    n_rows = 12
+    runs = [_case_runs(rng, case) for _ in range(4)] + [_case_runs(
+        rng, "one bit")]
+    vals = [np.sort(rng.choice(1 << 16, 500, replace=False)),
+            np.array([65535]), np.arange(7)]
+    dense = rng.integers(0, 1 << 32, (3, 2048), dtype=np.uint32)
+    return {
+        "n_rows": n_rows,
+        "dense_words": dense,
+        "dense_dest": np.array([2, 7, n_rows], np.int32),
+        "values": np.concatenate(vals).astype(np.uint16),
+        "val_counts": np.array([v.size for v in vals], np.int32),
+        "val_dest": np.array([1, 5, n_rows], np.int32),
+        "runs": np.concatenate(runs),
+        "run_counts": np.array([r.size // 2 for r in runs], np.int32),
+        "run_dest": np.array([0, 4, 6, 9, n_rows], np.int32),
+    }

@@ -18,10 +18,11 @@ Two kinds of cases:
   Timings and the values of engine-name tags are exempt: the packages
   time different hardware and name their rungs differently.
   The port's set build and resident wide op spans, its kernels' launch
-  events and its build-phase histogram have no JAX counterpart: the
-  comparisons leave out exactly those names (``PORT_ONLY_SPANS``,
-  ``PORT_ONLY_EVENTS``, ``PORT_ONLY_FAMILIES``), and one case checks that
-  the port's dump holds them and the JAX package's does not.
+  events, its build-phase histogram and its ingest counters have no JAX
+  counterpart: the comparisons leave out exactly those names
+  (``PORT_ONLY_SPANS``, ``PORT_ONLY_EVENTS``, ``PORT_ONLY_FAMILIES``), and
+  one case checks that the port's dump holds them and the JAX package's
+  does not.
 
 Every port dump passes ``tools/check_trace.py``'s validator in plain mode.
 Each tracer is enabled with an explicit path; no case sets
@@ -189,11 +190,15 @@ def _shape(spans: list) -> dict:
             "events": events}
 
 
-#: the one family only a card has: the allocator's measured peak of a
-#: dispatch (the JAX package reads its compiler's analysis on the CPU too)
-CARD_ONLY = {"rb_hbm_measured_peak_bytes"}
-#: the one family only the port has: its set build's phases
-PORT_ONLY_FAMILIES = {"rb_ingest_phase_seconds"}
+#: the families only a card has: the allocator's measured peak of a
+#: dispatch (the JAX package reads its compiler's analysis on the CPU too),
+#: and the CUDA-event time of a kernel outside any traced window
+CARD_ONLY = {"rb_hbm_measured_peak_bytes", "rb_kernel_seconds"}
+#: the families only the port has: its set build's phases and what the
+#: build ingested
+PORT_ONLY_FAMILIES = {"rb_ingest_phase_seconds", "rb_ingest_containers_total",
+                      "rb_ingest_values_total", "rb_ingest_run_pairs_total",
+                      "rb_ingest_rows_total"}
 
 
 def _families(o) -> dict:

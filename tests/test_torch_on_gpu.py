@@ -12,12 +12,15 @@ import pytest
 import torch
 
 from roaringbitmap_tpu_torch import DeviceBitmapSet, RoaringBitmap, aggregation, obs
-from roaringbitmap_tpu_torch.ops import dense, kernels, megakernel, packing
+from roaringbitmap_tpu_torch.ops import (dense, kernels, megakernel, packing,
+                                         plain_rows)
 from roaringbitmap_tpu_torch.ops.words import as_i32, to_u32
 from roaringbitmap_tpu_torch.parallel.batch_engine import (BatchEngine,
                                                            random_query_pool)
 from roaringbitmap_tpu_torch.parallel.expr import random_expr_pool
-from roaringbitmap_tpu_torch.utils.datasets import (synthetic_bitmaps,
+from roaringbitmap_tpu_torch.utils.datasets import (ROW_CASES,
+                                                    row_stream_case,
+                                                    synthetic_bitmaps,
                                                     uscensus_like_values)
 
 pytestmark = pytest.mark.cuda
@@ -1341,3 +1344,78 @@ def test_b7_launch_records_its_bytes(dev, uscensus, tmp_path):
     assert ev["bytes"] == kernels.b7_launch_bytes(plan.values,
                                                   plan.dense_rows,
                                                   ds.keys.size)
+
+
+def _row_streams(c: dict, device):
+    """``row_stream_case``'s streams as int32 tensors on ``device``: the
+    five compact streams and the run triple."""
+    streams = tuple(as_i32(c[k].astype(np.int32) if k == "values" else c[k],
+                           device)
+                    for k in ("dense_words", "dense_dest", "values",
+                              "val_counts", "val_dest"))
+    runs = (as_i32(c["runs"].view(np.uint32), device),
+            as_i32(c["run_counts"], device), as_i32(c["run_dest"], device))
+    return streams, runs
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_b8_matches_plain(dev, case):
+    c = row_stream_case(case, seed=11)
+    n = c["n_rows"]
+    streams, runs = _row_streams(c, dev)
+    got = kernels.row_build(*streams, n, int(c["values"].size), runs=runs)
+    torch.cuda.synchronize()
+    assert kernels.B8.launches == 1
+    want = dense.densify_streams_impl(*streams, n, int(c["values"].size),
+                                      runs=runs)
+    assert torch.equal(got, want)
+    cpu_streams, cpu_runs = _row_streams(c, "cpu")
+    assert torch.equal(got.cpu(), plain_rows.build_rows(*cpu_streams, n,
+                                                        runs=cpu_runs))
+
+
+def _srt_segment_sources():
+    """One census1881_srt_like segment (200 bitmaps, ~2,700 containers,
+    ~1,400 of them runs), from the benchmark's generator."""
+    import json
+    from pathlib import Path
+
+    from cardbench import gen
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "cardbench" / "configs" /
+                      "census1881_srt_like.json").read_text())
+    cfg["segments"] = 1
+    return gen.dataset_bytes(cfg, 2**31 + 5)
+
+
+def test_b8_builds_a_full_srt_segment(dev):
+    sources = _srt_segment_sources()
+    p = packing.pack_blocked_compact(sources, runs=True)
+    s = p.streams
+    assert s.kinds["run"] > 1000 and s.dense_words.shape[0] == 0
+    c = {"dense_words": s.dense_words, "dense_dest": s.dense_dest,
+         "values": s.values, "val_counts": s.val_counts,
+         "val_dest": s.val_dest, "runs": s.runs, "run_counts": s.run_counts,
+         "run_dest": s.run_dest}
+    streams, runs = _row_streams(c, dev)
+    got = kernels.row_build(*streams, p.n_rows, s.total_values, runs=runs)
+    want = dense.densify_streams_impl(*streams, p.n_rows, s.total_values,
+                                      runs=runs)
+    assert torch.equal(got, want)
+    ds = DeviceBitmapSet(sources, device=dev)
+    assert ds.layout == "dense"
+    host = DeviceBitmapSet(sources, layout="dense", device="cpu")
+    for op in ("or", "xor"):
+        _same(ds.aggregate_device(op), tuple(
+            t.to(dev) for t in host.aggregate_device(op)))
+
+
+def test_dense_build_times_b8_once(dev):
+    obs.reset()
+    kernels.reset_launches()
+    ds = DeviceBitmapSet(_srt_segment_sources(), layout="dense", device=dev)
+    assert kernels.B8.launches == 1 and ds._streams is None
+    (row,) = [r for r in obs.snapshot()["histograms"]["rb_kernel_seconds"]
+              if r["labels"] == {"kernel": "b8"}]
+    assert row["count"] == 1 and row["sum"] > 0

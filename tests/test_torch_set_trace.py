@@ -17,6 +17,12 @@
   ``rb_ingest_build_seconds{layout}``.
 - A span's JSONL ``t_start`` and ``dur_ms`` are on the clock of its
   ``torch.profiler`` range.
+- A build counts what it ingested (``rb_ingest_containers_total{layout,
+  kind}``, ``rb_ingest_values_total``, ``rb_ingest_run_pairs_total``,
+  ``rb_ingest_rows_total``) and tags ``set.build.pack`` with its run
+  containers and runs; the dense layout's B8 launch records its bytes on
+  ``set.build.device``, and on the card its CUDA-event time as
+  ``rb_kernel_seconds{kernel="b8"}``.
 """
 
 import json
@@ -360,3 +366,109 @@ def test_span_is_on_its_profiler_range_clock(tmp_path, sets):
     assert abs(rec["t_start"] * 1e9 - ev.start_ns()) < 1e6
     assert abs(rec["dur_ms"] * 1e6 - (ev.end_ns() - ev.start_ns())) < 1e6
 
+
+
+# ------------------------------------------------------- what a build ingests
+
+def _run_sources(n: int = 10, seed: int = 4) -> list:
+    """Serialized views of run-optimized bitmaps: runs, arrays, bitmaps."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        vals = np.unique(rng.integers(0, 1 << 19, 300))
+        a = int(rng.integers(0, 1 << 19))
+        vals = np.union1d(vals, np.arange(a, a + 5000 + 700 * i))
+        if i % 3 == 0:
+            vals = np.union1d(vals, (9 << 16) + rng.choice(1 << 16, 6000,
+                                                           replace=False))
+        rb = RoaringBitmap.from_values(vals.astype(np.uint32))
+        rb.run_optimize()
+        out.append(memoryview(rb.serialize()))
+    return out
+
+
+def _counters(name: str) -> dict:
+    rows = obs.snapshot()["counters"].get(name, [])
+    return {tuple(sorted(r["labels"].items())): r["value"] for r in rows}
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_build_counts_what_it_ingested(tmp_path, layout):
+    from roaringbitmap_tpu_torch.ops import packing
+
+    sources = _run_sources()
+    want = packing.pack_blocked_compact(
+        sources, min_block=4 if layout == "dense" else 8,
+        runs=layout == "dense").streams
+    obs.enable(str(tmp_path / "t.jsonl"))
+    ds = DeviceBitmapSet(sources, layout=layout, device=CPU)
+    obs.disable()
+    assert want.kinds["run"] and want.kinds["bitmap"] and want.kinds["array"]
+    assert _counters("rb_ingest_containers_total") == {
+        (("kind", k), ("layout", layout)): float(n)
+        for k, n in want.kinds.items()}
+    lay = (("layout", layout),)
+    assert _counters("rb_ingest_values_total") == {lay: want.values.size}
+    assert _counters("rb_ingest_run_pairs_total") == {lay: want.total_runs}
+    assert _counters("rb_ingest_rows_total") == {lay: ds._n_rows}
+    assert (want.total_runs > 0) == (layout == "dense")
+    (pack,) = [s for s in _read(tmp_path / "t.jsonl")
+               if s["name"] == "set.build.pack"]
+    assert pack["tags"] == {"run_containers": want.kinds["run"],
+                            "runs": want.total_runs}
+
+
+def test_b8_launch_records_its_bytes_on_the_build(tmp_path, fake_card):
+    obs.enable(str(tmp_path / "t.jsonl"))
+    ds = DeviceBitmapSet(_run_sources(), layout="dense", device=CPU)
+    obs.disable()
+    assert kernels.B8.launches == 1
+    (dev,) = [s for s in _read(tmp_path / "t.jsonl")
+              if s["name"] == "set.build.device"]
+    (ev,) = [e for e in dev["events"] if e["name"] == "kernel.launch"]
+    from roaringbitmap_tpu_torch.ops import packing
+
+    s = packing.pack_blocked_compact(_run_sources(), min_block=4,
+                                     runs=True).streams
+    assert (ev["kernel"], ev["variant"]) == ("B8", None)
+    assert ev["bytes"] == kernels.b8_launch_bytes(
+        ds._n_rows, s.values.size, s.total_runs, s.dense_words.shape[0])
+    # a CPU set times nothing with CUDA events
+    assert "rb_kernel_seconds" not in obs.snapshot()["histograms"]
+    kernels.reset_launches()
+
+
+def test_b8_time_is_observed_from_its_events(monkeypatch, fake_card):
+    """One observation of ``rb_kernel_seconds{kernel="b8"}`` for the launch
+    inside the timer, from its events' elapsed milliseconds."""
+
+    class Event:
+        clock = iter((1.0, 3.5))
+
+        def __init__(self, enable_timing=False):
+            assert enable_timing
+
+        def record(self):
+            self.at = next(Event.clock)
+
+        def elapsed_time(self, end):
+            return end.at - self.at
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    from roaringbitmap_tpu_torch.utils.datasets import row_stream_case
+
+    c = row_stream_case("many words")
+    t = {k: as_i32(v.astype(np.int32) if k == "values" else
+                   (v.view(np.uint32) if k == "runs" else v), CPU)
+         for k, v in c.items() if k != "n_rows"}
+    timer = kernels.LaunchTimer("b8")
+    kernels.row_build(t["dense_words"], t["dense_dest"], t["values"],
+                      t["val_counts"], t["val_dest"], c["n_rows"],
+                      int(c["values"].size),
+                      runs=(t["runs"], t["run_counts"], t["run_dest"]),
+                      timer=timer)
+    timer.observe()
+    (row,) = obs.snapshot()["histograms"]["rb_kernel_seconds"]
+    assert row["labels"] == {"kernel": "b8"}
+    assert (row["count"], row["sum"]) == (1, pytest.approx(2.5e-3))
+    kernels.reset_launches()
