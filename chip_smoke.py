@@ -8,7 +8,8 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
 1. print the card's name and power limit, build the CUDA kernels with nvcc;
 2. dense resident set: ``synthetic_bitmaps(N=4096, universe=2^24,
    density=0.0025)``; or/xor/and on the "cuda" engine are bit-equal to the
-   "torch" engine, and a set of the first 512 bitmaps equals the host fold;
+   "torch" engine, or/xor one B7 launch (the set records the streams
+   path), and a set of the first 512 bitmaps equals the host fold;
 3. counts set (uscensus2000-shaped: 2N = 8,192 bitmaps of 4 containers of
    4 values on uniform keys): ``layout="auto"`` must choose counts and
    record B7's path; or/xor checked as in 2; a counts set forced over 64
@@ -342,7 +343,11 @@ Phases (each timed; any mismatch raises, so the script exits non-zero):
     time beside its bound from the bytes the build needs
     (``b8_launch_bytes``, the count of ``row_build_roofline.setup``) and
     from the bytes the kernel reads (each value as an int32, and its plan);
-    each a row of the kernels line.
+    each a row of the kernels line; then B7's run variant, as a dense set
+    of that shape runs its or/xor, bit-equal to the plain reduce and to B2
+    over B8's image, alone (one graph replay) beside its bound from the
+    bytes the op needs (2 bytes a value) and beside B2 alone, the slower of
+    or and xor a row each.
 
 Kernel launch counts are set to 0 just before each main-path call and read
 just after it; the ``kernels`` line reports their sums.  Each phase prints
@@ -693,6 +698,54 @@ def b7_and_b4_alone(torch, kernels, ds, label: str) -> tuple:
     return alone7, alone4
 
 
+def b7_runs_alone(torch, kernels, name: str, words, streams, runs, seg_ids,
+                  blk_seg, plan, k: int, block: int) -> dict:
+    """B7's run variant over a dense cell's streams (or and xor), bit-equal
+    to the plain reduce over the image ``words`` (``segmented_reduce_plain``,
+    B1's plain version) and to B2 over it, then each alone (one graph
+    replay), logged beside its bound from the bytes the op needs (2 bytes a
+    value, its u16; the int32 values the kernel reads in parentheses) and
+    beside B2 alone.  Returns the kernels line's row: the slower of or and
+    xor."""
+    b2 = {op: (lambda op=op: kernels.segmented_reduce_blocked(
+        op, words, blk_seg, k, block)) for op in ("or", "xor")}
+    b7 = {op: (lambda op=op: kernels.stream_segmented_reduce(
+        op, *streams, seg_ids, plan, k, runs=runs)) for op in ("or", "xor")}
+    plain = {op: (lambda op=op: kernels.segmented_reduce_plain(
+        op, words, seg_ids, k)) for op in ("or", "xor")}
+    for op in ("or", "xor"):
+        want = plain[op]()
+        require(max_abs_err(torch, b7[op](), want) == 0,
+                f"B7's run variant != the plain reduce over {name} ({op})")
+        require(max_abs_err(torch, b2[op](), want) == 0,
+                f"B2 != the plain reduce over {name} ({op})")
+        del want
+    torch.cuda.empty_cache()
+    read = kernels.b7_launch_bytes(plan.values, plan.dense_rows, k,
+                                   plan.runs)
+    # the values as their u16, 2 bytes each: the int32 copy is the port's
+    nbytes = read - 2 * plan.values
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    ms = {op: graph_ms(torch, b7[op], 20) for op in ("or", "xor")}
+    ms2 = graph_ms(torch, b2["xor"], 10)
+    plain_ms = max(timed_ms(torch, plain[op], 3) for op in ("or", "xor"))
+    slow = max(ms.values())
+    log(f"  B7 runs [{name}, K {k}, {plan.values} values, {plan.runs} runs, "
+        f"{plan.dense_rows} dense rows, {plan.pieces.shape[0]} pieces]: "
+        f"alone or {ms['or']:.4f} ms, xor {ms['xor']:.4f} ms (one graph "
+        f"replay each), bound {bound:.4f} ms ({nbytes} bytes needed), "
+        f"{bound / ms['or']:.1%} / {bound / ms['xor']:.1%} of it (of the "
+        f"{read} bytes the kernel reads and writes, "
+        f"{read / PEAK_BYTES_PER_S * 1e3 / ms['or']:.1%} / "
+        f"{read / PEAK_BYTES_PER_S * 1e3 / ms['xor']:.1%}); B2 xor over the "
+        f"image {ms2:.4f} ms, {ms2 / ms['xor']:.2f}x B7's; plain (the slower "
+        f"op) {plain_ms:.4f} ms")
+    return {"name": f"stream_segmented_reduce@{name}", "route": "cuda",
+            "source": "roaringbitmap_tpu_torch/ops/csrc/stream_reduce.cu",
+            "replaces": kernels.B7.replaces, "ms": slow, "bound_ms": bound,
+            "bytes": nbytes, "share": bound / slow, "plain_ms": plain_ms}
+
+
 def phase19(torch, kernels, packing, seed: int) -> list:
     """B8 at the benchmark's two dense configurations at full size: the
     dense layout's pack of each set, its streams on the card, B8 held
@@ -725,6 +778,12 @@ def phase19(torch, kernels, packing, seed: int) -> list:
             s.runs.view(np.uint32), s.run_counts, s.run_dest))
         plan = kernels.row_build_plan(streams[3], streams[4], streams[1], n,
                                       runs[1], runs[2])
+        k = p.keys.size
+        row_seg = np.repeat(p.blk_seg.astype(np.int32), p.block)
+        plan7 = kernels.stream_reduce_plan(
+            s.val_counts, s.val_dest, s.dense_dest, row_seg, k,
+            run_counts=s.run_counts, run_dest=s.run_dest).to("cuda")
+        seg_ids, blk_seg = as_i32(row_seg, "cuda"), as_i32(p.blk_seg, "cuda")
         del sources, s
 
         def run():
@@ -758,6 +817,8 @@ def phase19(torch, kernels, packing, seed: int) -> list:
                      "replaces": kernels.B8.replaces, "ms": alone,
                      "bound_ms": bound, "bytes": nbytes,
                      "share": bound / alone, "plain_ms": plain_ms})
+        rows.append(b7_runs_alone(torch, kernels, name, run(), streams, runs,
+                                  seg_ids, blk_seg, plan7, k, p.block))
         del streams, runs, plan
         torch.cuda.empty_cache()
     return rows
@@ -4423,6 +4484,11 @@ def main() -> int:
     log(f"  rows {ds.words.shape[0]}, bytes {ds.hbm_bytes()}, "
         f"block {ds.block}, K {ds.keys.size}")
     dense_times = check_set(smoke, "dense", ds, ("or", "xor", "and"), unpack)
+    require(ds.reduce_path == "streams",
+            f"dense set recorded {ds.reduce_path}, not streams (B7)")
+    smoke.main_path("dense xor", lambda: ds.aggregate_device("xor"))
+    require(smoke.last[kernels.B7.name] == 1 and smoke.last[kernels.B2.name]
+            == 0, f"dense xor: launches {smoke.last}, not one B7")
     shapes["segmented_reduce_blocked"] = (ds.words, ds.blk_seg,
                                           ds.keys.size, ds.block)
     sub = bms[:HOST_CHECK_N]

@@ -461,10 +461,11 @@ def resident_set_bytes(ds) -> dict:
     """Component breakdown {component: bytes} of a built DeviceBitmapSet:
     what ``DeviceBitmapSet.hbm_bytes()`` sums and the HBM ledger pulls.
     Components: ``meta`` (segment and head index tensors, on a compact or
-    counts set the fused compact reduce's maps, and on a counts set B7's
-    per-key plan), and per layout
+    counts set the fused compact reduce's maps, and on a counts set and a
+    dense set that keeps its streams B7's per-key plan), and per layout
     ``words`` (the dense image), ``streams`` and ``chunks`` (the compact
-    wire payloads and B3's chunk stream with its bounds), ``counts`` (the
+    wire payloads, on a dense set with its run stream where its or/xor
+    reads them, and B3's chunk stream with its bounds), ``counts`` (the
     nibble tensor).  The port keeps its streams as int32 tensors (u16
     values widened), so a compact or counts set counts 2 bytes a value
     more than the JAX package's."""
@@ -472,6 +473,11 @@ def resident_set_bytes(ds) -> dict:
                                             ds.head_idx))}
     if ds.words is not None:
         out["words"] = _nbytes(ds.words)
+        if ds._streams is not None:
+            # a dense set whose or/xor runs off its streams keeps them
+            out["streams"] = sum(_nbytes(t) for t in (*ds._streams,
+                                                      *(ds._runs or ())))
+            out["meta"] += ds._stream_plan.nbytes()
         return out
     out["meta"] += sum(_nbytes(t) for t in (
         ds._grp_seg, ds._dseg, ds._dseg_carry, *ds._dmeta[:2],
@@ -487,16 +493,19 @@ def resident_set_bytes(ds) -> dict:
 
 
 def predict_resident_bytes(sources: list, layout: str = "dense",
-                           block: int | None = None) -> dict:
+                           block: int | None = None,
+                           device: str = "cuda") -> dict:
     """Device-free prediction of ``DeviceBitmapSet(sources, layout,
-    block)``'s resident bytes, the components of
+    block, device=device)``'s resident bytes, the components of
     :func:`resident_set_bytes`, from the host pack alone (nothing touches
-    a device)."""
+    a device; the device's type decides whether a dense set keeps its
+    streams, ``kernels.DENSE_STREAM_DEVICES``)."""
     from ..ops import dense as _dense
 
     packed = packing.pack_blocked_compact(
         sources, block=block,
-        min_block=4 if (layout == "dense" and block is None) else 8)
+        min_block=4 if (layout == "dense" and block is None) else 8,
+        runs=layout == "dense")
     s = packed.streams
     k = packed.keys.size
     seg_rows, head_idx, _ = packing.blocked_ragged_meta(
@@ -505,6 +514,22 @@ def predict_resident_bytes(sources: list, layout: str = "dense",
                         + head_idx.size)}
     if layout == "dense":
         out["words"] = dense_rows_bytes(s.n_rows)
+        pairs = 0 if s.runs is None else s.runs.size // 2
+        image_rows = int((packed.blk_seg < k).sum()) * packed.block
+        if (str(device).split(":")[0] in kernels.DENSE_STREAM_DEVICES
+                and kernels.dense_streams_win(s.values.size, pairs,
+                                              s.dense_dest.size, image_rows)):
+            # the streams and B7's plan, kept for the or/xor
+            runs = (() if s.runs is None else (s.run_counts, s.run_dest))
+            out["streams"] = 4 * (s.dense_words.size + s.dense_dest.size
+                                  + s.values.size + s.val_counts.size
+                                  + s.val_dest.size + pairs
+                                  + sum(a.size for a in runs))
+            none = np.zeros(0, np.int32)
+            out["meta"] += kernels.stream_reduce_plan(
+                s.val_counts, s.val_dest, s.dense_dest, seg_rows, k,
+                run_counts=runs[0] if runs else none,
+                run_dest=runs[1] if runs else none).nbytes()
         return out
     n_groups = s.n_rows // _dense.NIBBLE_GROUP
     nd = s.dense_dest.size
@@ -519,9 +544,7 @@ def predict_resident_bytes(sources: list, layout: str = "dense",
                           + s.values.size + s.val_counts.size
                           + s.val_dest.size)
     if layout == "counts":
-        from ..ops import kernels as _kernels
-
-        out["meta"] += _kernels.stream_reduce_plan(
+        out["meta"] += kernels.stream_reduce_plan(
             s.val_counts, s.val_dest, s.dense_dest, seg_rows, k).nbytes()
         gps = packed.block // _dense.NIBBLE_GROUP
         g_all = n_groups + 1

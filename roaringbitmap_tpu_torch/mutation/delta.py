@@ -595,7 +595,10 @@ def _queue_escalation(ds, worker, adds, removes, reason, touched) -> None:
 def _patch_rows(ds, rows, add_m, rem_m) -> None:
     """The in-place row patch of the dense image, queued on the current
     stream, plus its journal entry.  A warmed rung stages the patch padded
-    and replays its program; a cold one runs the exact patch eagerly."""
+    and replays its program; a cold one runs the exact patch eagerly.  The
+    patch writes the image alone: a dense set that kept its streams for
+    its or/xor drops them and reads the image from here on."""
+    ds._drop_streams()
     prog = _patch_program(ds, _rung_of(ds, int(rows.size)), build=False)
     if prog is not None:
         prog.run(ds, rows, add_m, rem_m)

@@ -16,7 +16,7 @@ Each wrapper checks its tensors, then
 | B4     | ``counts_segmented_reduce`` | ``counts_segmented_reduce``                            |
 | B5     | ``megakernel.raw_call``     | ``megakernel.py`` ``_kernel`` (via ``_raw_call``)      |
 | B6     | ``fused_nibble_reduce``     | ``fused_nibble_reduce``                                |
-| B7     | ``stream_segmented_reduce`` | none: the counts layout's or/xor off its value stream  |
+| B7     | ``stream_segmented_reduce`` | none: a set's or/xor off its value and run streams    |
 | B8     | ``row_build``               | none: the dense image built once from the streams      |
 
 Rows are int32 views of u32[2048] words (``ops.words``).  Segment ids are
@@ -141,8 +141,9 @@ B6 = CudaKernel("fused_nibble_reduce", "counts_reduce.cu", "rb_nibble_reduce",
                 "roaringbitmap_tpu/ops/kernels.py:170", "B6")
 B7 = CudaKernel("stream_segmented_reduce", "stream_reduce.cu",
                 "rb_stream_reduce",
-                [_P] * 9 + [_I, _I, _I, ctypes.c_int64, _I, _P],
-                "none (no TPU kernel: the TPU streamed nibble counts)", "B7")
+                [_P] * 11 + [_I, _I, _I, ctypes.c_int64, _I, _P],
+                "none (no TPU kernel: the TPU streamed nibble counts or the "
+                "dense image)", "B7")
 B8 = CudaKernel("row_build", "row_build.cu", "rb_row_build",
                 [_P] * 7 + [_I, _P],
                 "none (no TPU kernel: XLA built the image by a scatter-add)",
@@ -700,17 +701,21 @@ def fused_nibble_reduce(op: str, counts: torch.Tensor,
 
 # ---------------------------------------------------- B7: stream reduce
 #
-# B7 (csrc/stream_reduce.cu) runs the counts layout's wide or/xor off the
-# compact streams the layout keeps resident: block b builds key k's head in
-# shared memory from the key's sparse values, folds in its dense-wire rows
-# and writes the head once.  What it reads of a key is one contiguous range
-# of each stream, so the streams must be sorted by destination row and the
-# rows must lie in key order, as the blocked layout puts them.  The ranges
-# are planned once, on the host, when a set is loaded: ``stream_reduce_plan``.
+# B7 (csrc/stream_reduce.cu) runs a resident set's wide or/xor off the
+# compact streams it keeps: block b builds key k's head in shared memory
+# from the key's sparse values (and, on the dense layout, its run pairs),
+# folds in its dense-wire rows and writes the head once.  What it reads of a
+# key is one contiguous range of each stream, so the streams must be sorted
+# by destination row and the rows must lie in key order, as the blocked
+# layout puts them.  The ranges are planned once, on the host, when a set is
+# loaded: ``stream_reduce_plan``.  A plan with run offsets (``roff``)
+# launches the kernel's run variant, which also reads the values 16 bytes at
+# a time; one without, the counts layout's.
 
-#: most bytes one B7 block reads for a key (4 a value, 8,192 a dense-wire
-#: row); a heavier key is cut into pieces of at most this many bytes each,
-#: and the last of its pieces to finish folds the others' partial heads
+#: most bytes one B7 block reads for a key (4 a value or a run pair, 8,192 a
+#: dense-wire row); a heavier key is cut into pieces of at most this many
+#: bytes each, and the last of its pieces to finish folds the others'
+#: partial heads
 B7_PIECE_BYTES = 1 << 18
 #: bytes of one dense-wire row
 _ROW_BYTES = 4 * WORDS32
@@ -718,6 +723,9 @@ _ROW_BYTES = 4 * WORDS32
 #: its dense-row range [d0, d1), the key's first piece, the key's piece
 #: count and the key's counter (csrc ``kPieceCols``)
 B7_PIECE_COLS = 8
+#: the run variant's piece table: the same columns, then the run range
+#: [r0, r1) (csrc ``kRunPieceCols``)
+B7_RUN_PIECE_COLS = 10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -726,7 +734,9 @@ class StreamPlan:
     each key's value and dense-row offsets into the streams; ``pieces``
     int64[P, B7_PIECE_COLS], the pieces of the keys that read more than
     ``piece_bytes`` (the first ``n_split`` keys' counters); ``values`` and
-    ``dense_rows``, what the keys read in all."""
+    ``dense_rows``, what the keys read in all.  A plan of a run stream also
+    holds ``roff`` int64[K + 1], each key's run-pair offsets, and ``runs``,
+    the pairs the keys read; its pieces have B7_RUN_PIECE_COLS columns."""
 
     voff: torch.Tensor
     doff: torch.Tensor
@@ -735,15 +745,19 @@ class StreamPlan:
     piece_bytes: int
     values: int
     dense_rows: int
+    roff: torch.Tensor | None = None
+    runs: int = 0
 
     def to(self, device) -> "StreamPlan":
         return dataclasses.replace(
             self, voff=self.voff.to(device), doff=self.doff.to(device),
-            pieces=self.pieces.to(device))
+            pieces=self.pieces.to(device),
+            roff=None if self.roff is None else self.roff.to(device))
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
-                   for t in (self.voff, self.doff, self.pieces))
+                   for t in (self.voff, self.doff, self.pieces, self.roff)
+                   if t is not None)
 
 
 def _key_offsets(dest: np.ndarray, row_seg: np.ndarray, k: int) -> np.ndarray:
@@ -758,67 +772,105 @@ def _key_offsets(dest: np.ndarray, row_seg: np.ndarray, k: int) -> np.ndarray:
     return np.searchsorted(seg, np.arange(k + 1)).astype(np.int64)
 
 
+def _entry_offsets(counts, dest, row_seg, k: int) -> np.ndarray:
+    """int64[K + 1] offsets of each key's entries in a stream of
+    ``counts[i]`` entries to row ``dest[i]``."""
+    ends = np.concatenate(([0], np.cumsum(np.asarray(counts, np.int64))))
+    return ends[_key_offsets(dest, row_seg, k)]
+
+
 def stream_reduce_plan(val_counts, val_dest, dense_dest, row_seg,
                        num_segments: int,
-                       piece_bytes: int = B7_PIECE_BYTES) -> StreamPlan:
+                       piece_bytes: int = B7_PIECE_BYTES,
+                       run_counts=None, run_dest=None) -> StreamPlan:
     """B7's plan of host NumPy streams (``val_counts`` / ``val_dest`` per
-    sparse container, ``dense_dest`` per dense-wire row) over rows whose key
-    is ``row_seg`` (K on padding rows): each key's value range (its
-    containers' values, in order) and dense-row range, and the pieces of
+    sparse container, ``dense_dest`` per dense-wire row, and where given
+    ``run_counts`` / ``run_dest`` per run container) over rows whose key is
+    ``row_seg`` (K on padding rows): each key's value range (its containers'
+    values, in order), dense-row range and run range, and the pieces of
     every key that reads more than ``piece_bytes``: value pieces of up to
-    ``piece_bytes // 4`` values, then dense pieces of up to ``piece_bytes //
-    8192`` rows (at least one each).  CPU tensors; ``StreamPlan.to`` moves
-    them."""
+    ``piece_bytes // 4`` values, then run pieces of up to ``piece_bytes //
+    4`` pairs, then dense pieces of up to ``piece_bytes // 8192`` rows (at
+    least one each).  CPU tensors; ``StreamPlan.to`` moves them."""
     k = num_segments
-    coff = _key_offsets(val_dest, row_seg, k)
-    ends = np.concatenate(([0], np.cumsum(np.asarray(val_counts, np.int64))))
-    voff = ends[coff]
+    voff = _entry_offsets(val_counts, val_dest, row_seg, k)
     doff = _key_offsets(dense_dest, row_seg, k)
-    work = 4 * np.diff(voff) + _ROW_BYTES * np.diff(doff)
+    with_runs = run_counts is not None
+    roff = (_entry_offsets(run_counts, run_dest, row_seg, k) if with_runs
+            else np.zeros(k + 1, np.int64))
+    work = 4 * np.diff(voff) + 4 * np.diff(roff) + _ROW_BYTES * np.diff(doff)
     per_v = max(1, piece_bytes // 4)
     per_d = max(1, piece_bytes // _ROW_BYTES)
     heavy = np.flatnonzero(work > piece_bytes)
     rows = []
     for c, key in enumerate(heavy.tolist()):
-        v0, v1, d0, d1 = (int(voff[key]), int(voff[key + 1]),
-                          int(doff[key]), int(doff[key + 1]))
-        cuts = ([(a, min(a + per_v, v1), d0, d0)
+        v0, v1, d0, d1, r0, r1 = (int(voff[key]), int(voff[key + 1]),
+                                  int(doff[key]), int(doff[key + 1]),
+                                  int(roff[key]), int(roff[key + 1]))
+        cuts = ([(a, min(a + per_v, v1), d0, d0, r0, r0)
                  for a in range(v0, v1, per_v)]
-                + [(v1, v1, a, min(a + per_d, d1))
+                + [(v1, v1, d0, d0, a, min(a + per_v, r1))
+                   for a in range(r0, r1, per_v)]
+                + [(v1, v1, a, min(a + per_d, d1), r1, r1)
                    for a in range(d0, d1, per_d)])
         first = len(rows)
-        rows += [(key, *cut, first, len(cuts), c) for cut in cuts]
-    pieces = np.array(rows, np.int64).reshape(-1, B7_PIECE_COLS)
+        rows += [(key, *cut[:4], first, len(cuts), c, *cut[4:])
+                 for cut in cuts]
+    cols = B7_RUN_PIECE_COLS if with_runs else B7_PIECE_COLS
+    pieces = np.array([r[:cols] for r in rows], np.int64).reshape(-1, cols)
     return StreamPlan(
         voff=torch.from_numpy(voff), doff=torch.from_numpy(doff.astype(
             np.int32)), pieces=torch.from_numpy(pieces),
         n_split=int(heavy.size), piece_bytes=int(piece_bytes),
-        values=int(voff[k]), dense_rows=int(doff[k]))
+        values=int(voff[k]), dense_rows=int(doff[k]),
+        roff=torch.from_numpy(roff) if with_runs else None,
+        runs=int(roff[k]))
+
+
+#: device types on which a dense set built from its streams keeps them,
+#: with B7's plan, for its or/xor where ``dense_streams_win``: the card,
+#: where the kernel engines run B7.  Elsewhere they run plain versions and
+#: "auto" resolves to "torch", which reads the image.
+DENSE_STREAM_DEVICES = ("cuda",)
+
+
+def dense_streams_win(values: int, run_pairs: int, dense_rows: int,
+                      image_rows: int) -> bool:
+    """The dense layout's choice of its or/xor: True where B7's run variant
+    reads at most half the bytes B2 reads of the image (both write the same
+    heads).  B7 reads 4 bytes a value and a run pair and 8 KiB a dense-wire
+    row; B2 8 KiB a row of the ``image_rows`` in blocks of a key (it skips
+    the padding blocks).  The half, not the whole: B7 scatters with shared
+    atomics and folds a key's dense rows in one block, B2 streams rows at
+    ~88% of HBM's bandwidth, and on an H100 B2 is the faster of the two
+    where B7 reads 0.81-1.0 of its bytes, B7 where it reads 0.49."""
+    return (2 * (4 * (values + run_pairs) + _ROW_BYTES * dense_rows)
+            <= _ROW_BYTES * image_rows)
 
 
 def stream_segmented_reduce_plain(op: str, dense_words, dense_dest, values,
                                   val_counts, val_dest, seg_ids,
-                                  num_segments: int):
+                                  num_segments: int, runs=None):
     """Plain version of B7: the streams densified into the row image
-    (``dense.densify_streams``), then B1's plain version over the rows'
-    segment ids."""
+    (``dense.densify_streams``, with the run triple ``runs`` where given),
+    then B1's plain version over the rows' segment ids."""
     words = dense.densify_streams(dense_words, dense_dest, values, val_counts,
                                   val_dest, seg_ids.shape[0],
-                                  values.shape[0])
+                                  values.shape[0], runs=runs)
     return segmented_reduce_plain(op, words, seg_ids, num_segments)
 
 
 def stream_segmented_reduce_emulated(op: str, values, dense_words,
                                      plan: StreamPlan, num_segments: int,
-                                     order=None):
+                                     order=None, runs=None):
     """B7's kernel walked on the host: blocks 0..P-1 take the pieces, block
     P + k takes key k unless the key reads more than ``plan.piece_bytes``,
     in ``order`` (a permutation of the blocks; on the card they run in no
     order).  A piece publishes its partial head and counts itself in; the
     last of a key's pieces folds the others' partials into its own.
-    Outputs start as garbage, as the kernel's ``torch.empty`` ones do.
-    Returns (heads, cards, counters): each counter ends at its key's piece
-    count."""
+    ``runs`` is the int32 pair stream of a plan with run offsets.  Outputs
+    start as garbage, as the kernel's ``torch.empty`` ones do.  Returns
+    (heads, cards, counters): each counter ends at its key's piece count."""
     fn = dense.OPS[op]
     k, p = num_segments, plan.pieces.shape[0]
     heads = torch.full((k, WORDS32), 0x5A5A5A5A, dtype=torch.int32)
@@ -826,15 +878,21 @@ def stream_segmented_reduce_emulated(op: str, values, dense_words,
     partials = torch.full((p, WORDS32), -1, dtype=torch.int32)
     counters = torch.zeros(plan.n_split, dtype=torch.int64)
     voff, doff = plan.voff.tolist(), plan.doff.tolist()
+    roff = [0] * (k + 1) if plan.roff is None else plan.roff.tolist()
     for b in (range(p + k) if order is None else order):
         if b < p:
-            key, v0, v1, d0, d1, first, count, ctr = plan.pieces[b].tolist()
+            key, v0, v1, d0, d1, first, count, ctr, *rr = \
+                plan.pieces[b].tolist()
+            r0, r1 = rr or (0, 0)
         else:
             key = b - p
             v0, v1, d0, d1 = voff[key], voff[key + 1], doff[key], doff[key + 1]
-            if 4 * (v1 - v0) + _ROW_BYTES * (d1 - d0) > plan.piece_bytes:
+            r0, r1 = roff[key], roff[key + 1]
+            if (4 * (v1 - v0) + 4 * (r1 - r0) + _ROW_BYTES * (d1 - d0)
+                    > plan.piece_bytes):
                 continue
-        acc = _b7_block_head(values[v0:v1], dense_words[d0:d1], fn)
+        acc = _b7_block_head(values[v0:v1], dense_words[d0:d1], fn,
+                             None if runs is None else runs[r0:r1])
         if b < p:
             partials[b] = acc
             counters[ctr] += 1
@@ -848,11 +906,19 @@ def stream_segmented_reduce_emulated(op: str, values, dense_words,
     return heads, cards, counters
 
 
-def _b7_block_head(values, dense_words, fn) -> torch.Tensor:
-    """One block's head of B7: the values' bits set (or) or toggled (xor) in
-    a zero row, then the dense rows folded in with ``fn``."""
+def _b7_block_head(values, dense_words, fn, runs=None) -> torch.Tensor:
+    """One block's head of B7: the runs' bits (int32 pairs ``runs``, where
+    given) and the values' bits set (or) or toggled (xor) in a zero row, then
+    the dense rows folded in with ``fn``."""
     bits = torch.zeros(WORDS32 * 32, dtype=torch.int64)
     v = values.long() & 0xFFFF
+    if runs is not None and runs.shape[0]:
+        r = runs.long() & 0xFFFFFFFF
+        start = r & 0xFFFF
+        lens = (r >> 16) + 1
+        at = torch.repeat_interleave(start - torch.cumsum(lens, 0) + lens,
+                                     lens) + torch.arange(int(lens.sum()))
+        v = torch.cat([at, v])
     if fn is torch.bitwise_xor:
         bits.index_add_(0, v, torch.ones_like(v))
         bits &= 1
@@ -865,42 +931,59 @@ def _b7_block_head(values, dense_words, fn) -> torch.Tensor:
     return acc
 
 
-def b7_launch_bytes(values: int, dense_rows: int, num_segments: int) -> int:
+def b7_launch_bytes(values: int, dense_rows: int, num_segments: int,
+                    runs: int | None = None) -> int:
     """Bytes one B7 launch must move: the keys' values (4 bytes each) and
     dense-wire rows (8 KiB each) read once, the per-key offsets (int64 value
     and int32 dense-row offsets, K + 1 each) read once, K heads and
-    cardinalities written once.  A heavy key's partial heads, in L2, are
-    left out."""
-    return (4 * values + _ROW_BYTES * dense_rows + 12 * (num_segments + 1)
-            + num_segments * HEAD_BYTES)
+    cardinalities written once; for the run variant (``runs`` given, 0
+    included) also the run pairs (4 bytes each) and the int64 run offsets.
+    A heavy key's partial heads, in L2, are left out."""
+    out = (4 * values + _ROW_BYTES * dense_rows + 12 * (num_segments + 1)
+           + num_segments * HEAD_BYTES)
+    if runs is not None:
+        out += 4 * runs + 8 * (num_segments + 1)
+    return out
 
 
 def stream_segmented_reduce(op: str, dense_words, dense_dest, values,
                             val_counts, val_dest, seg_ids,
-                            plan: StreamPlan, num_segments: int):
-    """B7, the counts layout's wide OR/XOR off its resident streams: the
+                            plan: StreamPlan, num_segments: int, runs=None):
+    """B7, a resident set's wide OR/XOR off its resident streams: the
     compact streams (``dense_words`` int32[Md, 2048], ``dense_dest``,
     ``values`` int32[V], ``val_counts``, ``val_dest``) sorted by
     destination row, the rows' sorted segment ids int32[n_rows] and their
-    ``stream_reduce_plan`` -> (int32[K, 2048], int32[K]).  On the card one
-    launch, which reads only the values, the dense-wire rows and the plan;
-    on the CPU the plain version, which reads the streams and not the
-    plan."""
+    ``stream_reduce_plan`` -> (int32[K, 2048], int32[K]).  A plan with run
+    offsets also reads ``runs``, the triple of int32[R] pairs, runs per
+    container and destination rows, sorted the same way.  On the card one
+    launch, which reads only the values, the run pairs, the dense-wire rows
+    and the plan; on the CPU the plain version, which reads the streams and
+    not the plan."""
     if op not in ("or", "xor"):
         raise ValueError(f"stream reduce supports or/xor only, got {op!r}")
-    # the kernel reads the values, the dense rows and the plan alone: the
-    # other streams are checked where the plain version reads them
+    # the kernel reads the values, the run pairs, the dense rows and the
+    # plan alone: the other streams are checked where the plain version
+    # reads them
     _check("values", values, 1)
     _check("dense_words", dense_words, 2, WORDS32)
     if plan.voff.shape[0] != num_segments + 1:
         raise ValueError("plan must hold K + 1 offsets")
-    if not _on_cuda(values, dense_words, plan.voff):
+    if plan.runs and runs is None:
+        raise ValueError("the plan reads a run stream; none was given")
+    if runs is not None:
+        _check("runs", runs[0], 1)
+    if not _on_cuda(values, dense_words, plan.voff, *(runs or ())[:1]):
         for name, t in (("dense_dest", dense_dest), ("val_counts", val_counts),
-                        ("val_dest", val_dest), ("seg_ids", seg_ids)):
+                        ("val_dest", val_dest), ("seg_ids", seg_ids),
+                        *zip(("run_counts", "run_dest"), (runs or ())[1:])):
             _check(name, t, 1)
         return stream_segmented_reduce_plain(
             op, dense_words, dense_dest, values, val_counts, val_dest,
-            seg_ids, num_segments)
+            seg_ids, num_segments, runs=runs)
+    with_runs = plan.roff is not None
+    if with_runs and values.data_ptr() % 16:
+        raise ValueError("the run variant reads values 16 bytes at a time: "
+                         "they must be 16-byte aligned")
     k, p = num_segments, plan.pieces.shape[0]
     head_words, part_words = k * WORDS32, p * WORDS32
     buf = values.new_empty(head_words + part_words + k + plan.n_split)
@@ -913,9 +996,12 @@ def stream_segmented_reduce(op: str, dense_words, dense_dest, values,
                   plan.pieces.data_ptr(), ptr, cards.data_ptr(),
                   ptr + 4 * head_words,
                   ptr + 4 * (head_words + part_words + k),
+                  runs[0].data_ptr() if runs is not None else None,
+                  plan.roff.data_ptr() if with_runs else None,
                   k, p, plan.n_split, plan.piece_bytes, _OPCODE[op],
                   _stream(),
-                  nbytes=b7_launch_bytes(plan.values, plan.dense_rows, k))
+                  nbytes=b7_launch_bytes(plan.values, plan.dense_rows, k,
+                                         plan.runs if with_runs else None))
     return heads, cards
 
 

@@ -656,9 +656,13 @@ class DeviceBitmapSet:
     Roaring64Bitmaps and Roaring64NavigableMaps.
 
     layout (a device-memory / query-cost ladder):
-      - "dense": the dense int32[rows, 2048] image is resident; or/xor run
-        the blocked reduce (B2) over it.  Its build ships run containers
-        as runs and builds each row once on the card (B8).
+      - "dense": the dense int32[rows, 2048] image is resident.  Its build
+        ships run containers as runs and builds each row once on the card
+        (B8).  On the card or/xor run one pass off the streams (B7's run
+        variant), which the set then keeps beside the image, where that
+        reads at most half what the blocked reduce (B2) reads of the image,
+        which runs otherwise (``reduce_path``); AND and the batch engines
+        read the image.
       - "counts": per-group 4-bit occurrence counts (half the dense image)
         plus the compact streams; or/xor run one pass off the streams (B7)
         where that reads no more than one pass off the counts (B4), which
@@ -713,7 +717,9 @@ class DeviceBitmapSet:
         holds, as NumPy arrays: ``keys``, ``n``, ``block``, ``blk_seg``,
         ``n_blocks``, ``seg_sizes``, ``seg_offsets``, and
 
-        - dense: ``words``;
+        - dense: ``words``, or the compact streams ``dense_words``,
+          ``dense_dest``, ``values``, ``val_counts``, ``val_dest`` alone
+          (the image is then built from them, as the set's own build does);
         - counts: ``counts`` and ``grp_seg`` (group axis padded as the JAX
           set pads it), plus the compact streams ``dense_words``,
           ``dense_dest``, ``values``, ``val_counts``, ``val_dest``;
@@ -728,19 +734,23 @@ class DeviceBitmapSet:
         segment-0 row the compact probe writes its carry to; by default
         ``seg_sizes[0]``, where the packer puts it).  The dense-wire rows
         may come in any order (the JAX native ingest does not sort them);
-        the compact and counts layouts sort them, and the chunk stream, by
-        destination row.  The layout follows from which arrays are present.
-        The set then answers the same queries as the set the arrays came
-        from."""
+        the set sorts them, the sparse containers and the run stream, and
+        the chunk stream, by destination row.  The layout follows from
+        which arrays are present.  The set then answers the same queries as
+        the set the arrays came from."""
         with _BuildClock() as clock:
             dev = resolve_device(device)
             layout = next((name for name, need in _STATE_LAYOUT.items()
                            if need[0] in state), None)
+            need = _STATE_LAYOUT.get(layout, ())
+            if layout is None and "dense_words" in state:
+                # the streams alone: the dense image built from them
+                layout, need = "dense", _STATE_STREAMS
             if layout is None:
                 raise ValueError(
-                    "state holds none of words / counts / chunk_vals")
-            missing = [k for k in _STATE_COMMON + _STATE_LAYOUT[layout]
-                       if k not in state]
+                    "state holds none of words / counts / chunk_vals / "
+                    "dense_words")
+            missing = [k for k in _STATE_COMMON + need if k not in state]
             if missing:
                 raise ValueError(f"{layout} state is missing {missing}")
             self = cls.__new__(cls)
@@ -789,7 +799,10 @@ class DeviceBitmapSet:
         self.carry_row = int(state.get(
             "carry_row", self._seg_sizes[0] if k else -1))
         self.words = self.counts = self._chunks = self._streams = None
-        self._chunk_bounds = None
+        self._chunk_bounds = self._stream_plan = None
+        #: the or/xor the kernel engines run, where a layout has a choice
+        #: (counts: "streams" or "counts"; dense: "streams" or "image")
+        self.reduce_path = None
         # what the card keeps, by attribute: host arrays (or tuples of
         # them) uploaded in one phase
         host = {"blk_seg": blk_seg, "seg_ids": seg_rows, "head_idx": head_idx}
@@ -805,6 +818,8 @@ class DeviceBitmapSet:
                     np.asarray(state["run_dest"], np.int32))
         if "words" in state:
             host["words"] = np.asarray(state["words"])
+            if layout == "dense":
+                self.reduce_path = "image"
         else:
             s = packing.CompactStreams(
                 n_rows=self._n_rows,
@@ -813,8 +828,8 @@ class DeviceBitmapSet:
                 values=np.asarray(state["values"]),
                 val_counts=np.asarray(state["val_counts"], np.int32),
                 val_dest=np.asarray(state["val_dest"], np.int32))
+            s, runs = _sort_streams(s, runs)
             if layout != "dense":
-                s = _sort_streams(s)
                 host.update(self._compact_meta(s, blk_seg))
             else:
                 if dev.type == "cuda":
@@ -827,6 +842,10 @@ class DeviceBitmapSet:
                 if runs is not None:
                     # the run pairs as one u32 each
                     host["_runs"] = (runs[0].view(np.uint32), *runs[1:])
+                if dev.type in kernels.DENSE_STREAM_DEVICES:
+                    host.update(self._dense_stream_meta(s, runs))
+                else:
+                    self.reduce_path = "image"
             host["_streams"] = (s.dense_words, s.dense_dest, s.values,
                                 s.val_counts, s.val_dest)
             self._total_values = s.total_values
@@ -875,9 +894,10 @@ class DeviceBitmapSet:
                 torch.cuda.synchronize(dev)
         if timer is not None:
             timer.observe()
-        if layout == "dense":
+        self._row_plan = None
+        if layout == "dense" and self.reduce_path != "streams":
             # the image is the resident form
-            self._streams = self._runs = self._row_plan = None
+            self._streams = self._runs = None
         _count_ingest(state, layout, self._n_rows)
         self._init_mutation(base)
 
@@ -903,12 +923,13 @@ class DeviceBitmapSet:
 
     def _register_residency(self) -> None:
         """Resident bytes in the HBM ledger, released when the set is
-        collected, recounted when the structure version moves; a repack
+        collected, recounted when the structure version or the reduce path
+        moves (a patch drops a dense set's streams); a repack
         (``mutation.delta``) registers the set again under its new
         layout."""
         self._ledger_handle = obs_memory.LEDGER.register(
             "bitmap_set", self.layout, DeviceBitmapSet.hbm_bytes, owner=self,
-            stamp=lambda s: (s.structure_version, s.layout))
+            stamp=lambda s: (s.structure_version, s.layout, s.reduce_path))
 
     def _compact_meta(self, s: packing.CompactStreams,
                       blk_seg: np.ndarray) -> dict:
@@ -980,6 +1001,35 @@ class DeviceBitmapSet:
                             * groups else "counts")
         return plan
 
+    def _dense_stream_meta(self, s: packing.CompactStreams, runs) -> dict:
+        """The reduce the kernel engines run on a dense set built from its
+        sorted streams (``reduce_path``): ``"streams"`` (B7's run variant,
+        off the streams the set keeps, with B7's per-key plan) where it
+        reads at most half the bytes B2 reads of the image
+        (``kernels.dense_streams_win``), else ``"image"`` (B2)."""
+        pairs = 0 if runs is None else runs[0].size // 2
+        image_rows = int((self.row_seg < self.keys.size).sum())
+        if not kernels.dense_streams_win(
+                s.values.size, pairs, s.dense_words.shape[0], image_rows):
+            self.reduce_path = "image"
+            return {}
+        self.reduce_path = "streams"
+        no_runs = np.zeros(0, np.int32)
+        return {"_stream_plan": kernels.stream_reduce_plan(
+            s.val_counts, s.val_dest, s.dense_dest, self.row_seg,
+            self.keys.size,
+            run_counts=no_runs if runs is None else runs[1],
+            run_dest=no_runs if runs is None else runs[2])}
+
+    def _drop_streams(self) -> None:
+        """Leave the image a dense set's only form: an in-place patch
+        (``mutation.delta``) writes the image and not the streams, which
+        are stale from then on, so or/xor read the image (B2) until a
+        repack builds the streams again."""
+        if self.layout == "dense" and self.reduce_path == "streams":
+            self._streams = self._runs = self._stream_plan = None
+            self.reduce_path = "image"
+
     def _build_counts(self) -> None:
         """The resident counts built once from the streams, padded with
         zero groups to the length of the groups' segment ids."""
@@ -1028,10 +1078,13 @@ class DeviceBitmapSet:
         return kernels.segmented_reduce_blocked(op, words, self.blk_seg,
                                                 self.keys.size, self.block)
 
-    def _counts_path(self, eng: str) -> str:
-        """The reduce a counts-layout or/xor runs under ``eng``: the path
-        recorded at load on the kernel engines, the counts under "torch"."""
-        return "counts" if eng == "torch" else self.reduce_path
+    def _wide_path(self, eng: str) -> str:
+        """The reduce a counts- or dense-layout or/xor runs under ``eng``:
+        the path recorded at load on the kernel engines; under "torch" the
+        reference pass over the counts or the image."""
+        if eng == "torch":
+            return "counts" if self.layout == "counts" else "image"
+        return self.reduce_path
 
     def _counts_reduce(self, op: str, eng: str):
         """Wide or/xor of the counts layout, counted in
@@ -1039,7 +1092,7 @@ class DeviceBitmapSet:
         or B4 off the counts (``reduce_path``), or per-group words and the
         group-level doubling pass under "torch"."""
         k = self.keys.size
-        path = self._counts_path(eng)
+        path = self._wide_path(eng)
         obs_metrics.counter("rb_wide_reduce_total", layout=self.layout,
                             path=path).inc()
         if path == "streams":
@@ -1066,9 +1119,25 @@ class DeviceBitmapSet:
             op, dense_words, *self._streams[2:], self._grp_seg, dseg, *meta,
             self._n_groups, self._total_values, self.keys.size)
 
+    def _dense_reduce(self, op: str, eng: str):
+        """Wide or/xor of the dense layout, counted in
+        ``rb_wide_reduce_total{layout, path}``: B7's run variant off the
+        kept streams or B2 off the image (``reduce_path``), or the doubling
+        pass over the image under "torch"."""
+        path = self._wide_path(eng)
+        obs_metrics.counter("rb_wide_reduce_total", layout=self.layout,
+                            path=path).inc()
+        if path == "streams":
+            return kernels.stream_segmented_reduce(
+                op, *self._streams, self.seg_ids, self._stream_plan,
+                self.keys.size, runs=self._runs)
+        return self._reduce_words(op, self.words, eng)
+
     def _aggregate_or_xor(self, op: str, eng: str):
         if self.counts is not None:
             return self._counts_reduce(op, eng)
+        if self.layout == "dense":
+            return self._dense_reduce(op, eng)
         if self.words is None and eng == "cuda-nibble":
             return self._fused_compact(op)
         return self._reduce_words(op, self._resident_words(eng), eng)
@@ -1086,8 +1155,9 @@ class DeviceBitmapSet:
 
         The call is the ``set.aggregate`` span (tags ``op``, ``layout``,
         ``engine``, ``keys`` and ``rows``, or ``groups`` on the counts
-        layout, where an or/xor also tags its ``path``: ``streams`` or
-        ``counts``), which never waits for the card: the kernels' launches
+        layout; an or/xor also tags its ``path``, on the counts layout
+        ``streams`` or ``counts``, on the dense layout ``streams`` or
+        ``image``), which never waits for the card: the kernels' launches
         record their bytes on it."""
         extent = ({"groups": int(self.counts.shape[0])}
                   if self.counts is not None else {"rows": self._n_rows})
@@ -1099,8 +1169,8 @@ class DeviceBitmapSet:
                 return self._and_words(self._resident_words(eng))
             if op not in ("or", "xor"):
                 raise ValueError(f"unsupported wide op {op!r}")
-            if self.counts is not None:
-                sp.tag(path=self._counts_path(eng))
+            if self.reduce_path is not None:
+                sp.tag(path=self._wide_path(eng))
             return self._aggregate_or_xor(op, eng)
 
     def _and_words(self, image: torch.Tensor):
@@ -1381,25 +1451,39 @@ def _sorted_by(key: np.ndarray, *arrays) -> tuple:
     return (key, *arrays)
 
 
-def _sort_streams(s: packing.CompactStreams) -> packing.CompactStreams:
-    """The dense-wire rows, and the sparse containers with their runs of
-    values, reordered by destination row where they do not ascend, so that
-    their segment ids ascend: the dense partial's doubling pass needs sorted
-    segments, and B7 reads each key's entries as one range of each stream.
-    The NumPy packer emits both sorted; the JAX native ingest may not."""
+def _sorted_entries(dest: np.ndarray, counts, entries):
+    """(entries, counts, dest) of a stream of ``counts[i]`` entries to row
+    ``dest[i]``, its containers reordered stably by ``dest``, each with its
+    entries, where ``dest`` does not ascend; else as they are."""
+    if dest.size and np.any(np.diff(dest) < 0):
+        order = np.argsort(dest, kind="stable")
+        c = np.asarray(counts, np.int64)
+        starts = np.concatenate(([0], np.cumsum(c)[:-1]))[order]
+        n = c[order]
+        at = np.repeat(starts - np.concatenate(([0], np.cumsum(n)[:-1])),
+                       n) + np.arange(int(n.sum()))
+        return entries[at], counts[order], dest[order]
+    return entries, counts, dest
+
+
+def _sort_streams(s: packing.CompactStreams, runs=None) -> tuple:
+    """The dense-wire rows, the sparse containers with their runs of values
+    and the run containers of ``runs`` (u16 pairs, pairs per container,
+    destination rows) with their pairs, reordered by destination row where
+    they do not ascend, so that their segment ids ascend: the dense
+    partial's doubling pass needs sorted segments, B7 reads each key's
+    entries as one range of each stream and B8 each row's.  The NumPy
+    packer emits all sorted; the JAX native ingest may not.  Returns
+    (streams, runs)."""
     dest, words = _sorted_by(s.dense_dest, s.dense_words)
-    s = dataclasses.replace(s, dense_words=words, dense_dest=dest)
-    vd, counts = s.val_dest, np.asarray(s.val_counts, np.int64)
-    if vd.size and np.any(np.diff(vd) < 0):
-        order = np.argsort(vd, kind="stable")
-        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))[order]
-        runs = counts[order]
-        at = np.repeat(starts - np.concatenate(([0], np.cumsum(runs)[:-1])),
-                       runs) + np.arange(int(runs.sum()))
-        s = dataclasses.replace(s, values=s.values[at],
-                                val_counts=s.val_counts[order],
-                                val_dest=vd[order])
-    return s
+    values, counts, vd = _sorted_entries(s.val_dest, s.val_counts, s.values)
+    s = dataclasses.replace(s, dense_words=words, dense_dest=dest,
+                            values=values, val_counts=counts, val_dest=vd)
+    if runs is not None:
+        pairs, rc, rd = _sorted_entries(runs[2], runs[1],
+                                        runs[0].view(np.uint32))
+        runs = (np.ascontiguousarray(pairs).view(np.uint16), rc, rd)
+    return s, runs
 
 
 def _fused_compact_run(op: str, dense_words, values, val_counts, val_dest,

@@ -198,7 +198,8 @@ class TestLedger:
 class TestFootprintModel:
     @pytest.mark.parametrize("layout", ["dense", "counts", "compact"])
     def test_predictor_matches_measured(self, bitmaps, layout):
-        predicted = insights.predict_resident_bytes(bitmaps, layout=layout)
+        predicted = insights.predict_resident_bytes(bitmaps, layout=layout,
+                                                    device=CPU)
         ds = DeviceBitmapSet(bitmaps, layout=layout, device=CPU)
         measured = insights.resident_set_bytes(ds)
         assert predicted == measured
@@ -207,16 +208,21 @@ class TestFootprintModel:
     @pytest.mark.parametrize("layout", ["dense", "counts", "compact"])
     def test_predictor_against_the_jax_model(self, vals, bitmaps, layout):
         """The same components as the JAX model; a dense set's bytes equal
-        it, a compact or counts set's streams count 2 bytes a value more
-        (int32 against u16) and its counts the nibble tensor alone; a counts
-        set's metadata holds B7's per-key plan besides, which the JAX
-        package has no kernel for."""
-        tp = insights.predict_resident_bytes(bitmaps, layout=layout)
+        it off the card, and on the card add the streams and B7's plan it
+        keeps where its or/xor reads them; a compact or counts set's
+        streams count 2 bytes a value more (int32 against u16) and its
+        counts the nibble tensor alone; a counts set's metadata holds B7's
+        per-key plan besides, which the JAX package has no kernel for."""
+        tp = insights.predict_resident_bytes(bitmaps, layout=layout,
+                                             device=CPU)
         jp = jins.predict_resident_bytes([JRB.from_values(v) for v in vals],
                                          layout=layout)
         assert set(tp) == set(jp)
         if layout == "dense":
             assert tp == jp
+            card = insights.predict_resident_bytes(bitmaps, layout=layout)
+            assert card["words"] == jp["words"]
+            assert card["streams"] > 0 and card["meta"] > jp["meta"]
             return
         n_values = sum(int(b.cardinality) for b in bitmaps)
         plan = (DeviceBitmapSet(bitmaps, layout="counts",

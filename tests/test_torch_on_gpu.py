@@ -1415,7 +1415,82 @@ def test_dense_build_times_b8_once(dev):
     obs.reset()
     kernels.reset_launches()
     ds = DeviceBitmapSet(_srt_segment_sources(), layout="dense", device=dev)
-    assert kernels.B8.launches == 1 and ds._streams is None
+    # the streams stay for the or/xor (B7's run variant); B8's plan goes
+    assert kernels.B8.launches == 1 and ds._row_plan is None
+    assert ds.reduce_path == "streams" and ds._streams is not None
     (row,) = [r for r in obs.snapshot()["histograms"]["rb_kernel_seconds"]
               if r["labels"] == {"kernel": "b8"}]
     assert row["count"] == 1 and row["sum"] > 0
+
+
+def _dense_cell_sources(name: str, segments: int = 3):
+    """``segments`` segments of a benchmark configuration of the dense
+    layout, from the benchmark's generator."""
+    import json
+    from pathlib import Path
+
+    from cardbench import gen
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "cardbench" / "configs" /
+                      f"{name}.json").read_text())
+    cfg["segments"] = segments
+    return cfg, gen.dataset_bytes(cfg, 2**31 + 11)
+
+
+@pytest.mark.parametrize("name", ["census1881_srt_like", "census1881_like"])
+@pytest.mark.parametrize("op", ["or", "xor"])
+def test_b7_runs_matches_b2(dev, name, op):
+    """B7's run variant, as the dense set runs it (one launch), and with
+    every key cut into pieces of a few entries (value, run and dense
+    pieces folded by the last to finish), bit-equal to the plain reduce
+    over the set's image, to B7's plain version over the streams and to B2
+    over the image."""
+    cfg, sources = _dense_cell_sources(name)
+    ds = DeviceBitmapSet(sources, layout=cfg["layout"], device=dev)
+    assert ds.layout == "dense" and ds.reduce_path == "streams"
+    k = ds.keys.size
+    kernels.reset_launches()
+    got = ds.aggregate_device(op)
+    torch.cuda.synchronize()
+    assert kernels.B7.launches == 1 and kernels.B2.launches == 0
+    want = kernels.segmented_reduce_plain(op, ds.words, ds.seg_ids, k)
+    _same(got, want)
+    s, r = ds._streams, ds._runs
+    _same(kernels.stream_segmented_reduce_plain(op, *s, ds.seg_ids, k,
+                                                runs=r), want)
+    _same(kernels.segmented_reduce_blocked(op, ds.words, ds.blk_seg, k,
+                                           ds.block), want)
+    plan = kernels.stream_reduce_plan(
+        *(t.cpu().numpy() for t in (s[3], s[4], s[1])), ds.row_seg, k,
+        piece_bytes=64,
+        run_counts=(r[1].cpu().numpy() if r is not None
+                    else np.zeros(0, np.int32)),
+        run_dest=(r[2].cpu().numpy() if r is not None
+                  else np.zeros(0, np.int32))).to(dev)
+    assert plan.n_split > k // 2
+    _same(kernels.stream_segmented_reduce(op, *s, ds.seg_ids, plan, k,
+                                          runs=r), want)
+    if name == "census1881_srt_like":
+        assert plan.runs > 0 and bool((plan.pieces[:, 9]
+                                       > plan.pieces[:, 8]).any())
+
+
+def test_b7_runs_after_a_patch_reads_the_image(dev, bitmaps):
+    """A patch drops a dense set's streams: the or/xor then launches B2
+    over the patched image, bit-equal to the set rebuilt from its host
+    copies."""
+    ds = DeviceBitmapSet(bitmaps, layout="dense", device=dev)
+    assert ds.reduce_path == "streams"
+    src = ds.host_bitmaps()[0]
+    key = int(src.keys[0])
+    ds.apply_delta(adds={0: [(key << 16) + 3, (key << 16) + 65535]},
+                   repack="never")
+    assert ds.reduce_path == "image"
+    kernels.reset_launches()
+    got = ds.aggregate_device("xor")
+    torch.cuda.synchronize()
+    assert kernels.B2.launches == 1 and kernels.B7.launches == 0
+    fresh = DeviceBitmapSet(ds.host_bitmaps(), layout="dense", device=dev)
+    assert fresh.reduce_path == "streams"
+    _same(got, fresh.aggregate_device("xor"))

@@ -7,10 +7,12 @@
   ``b*_launch_bytes``, the closed forms below), recorded as a
   ``kernel.launch`` event on the enclosing span while tracing is on.  The
   counts layout runs B7 where it reads no more than B4, and B4 otherwise:
-  ``"counts-b4"`` is a counts set over bitmap containers, which keeps B4.  The
-  CPU tests have no card, so the launches go to a library that does
-  nothing: the wrappers take the card's path up to the C call, and their
-  outputs are not read.
+  ``"counts-b4"`` is a counts set over bitmap containers, which keeps B4.
+  A dense set runs B2 off the card, and on the card B7's run variant where
+  it reads at most half of B2's bytes: ``"dense-b7"`` is a dense set built
+  as on the card, which keeps its streams.  The CPU tests have no card, so
+  the launches go to a library that does nothing: the wrappers take the
+  card's path up to the C call, and their outputs are not read.
 - A set build (``DeviceBitmapSet(...)``, ``from_numpy_state(...)``) times
   its phases once each: child spans of ``set.build`` and
   ``rb_ingest_phase_seconds{layout, phase}``, beside
@@ -39,11 +41,12 @@ from roaringbitmap_tpu_torch.parallel.aggregation import DeviceBitmapSet
 
 CPU = "cpu"
 LAYOUTS = ("dense", "counts", "compact")
-#: the sets the tests build (``_build``): one a layout, and "counts-b4"
-SETS = LAYOUTS + ("counts-b4",)
+#: the sets the tests build (``_build``): one a layout, "counts-b4" and
+#: "dense-b7"
+SETS = LAYOUTS + ("counts-b4", "dense-b7")
 #: (set, engine) -> the kernels one wide OR launches, in order
 LAUNCHES = {("dense", "cuda"): ["B2"], ("counts", "cuda"): ["B7"],
-            ("counts-b4", "cuda"): ["B4"],
+            ("counts-b4", "cuda"): ["B4"], ("dense-b7", "cuda"): ["B7"],
             ("compact", "cuda"): ["B3", "B2"],
             ("compact", "cuda-nibble"): ["B6"]}
 
@@ -82,7 +85,15 @@ def _build(name: str, n: int = 12) -> DeviceBitmapSet:
     """The set ``name`` of ``SETS``: a layout over ``_bitmaps(n)``, or
     "counts-b4", the counts layout over ``_container_bitmaps()``, whose
     dense-wire rows (8 KiB each, 64 a key) outweigh its count groups (32
-    KiB each, 12 a key with the padding), so that it keeps B4."""
+    KiB each, 12 a key with the padding), so that it keeps B4, or
+    "dense-b7", the dense layout over ``_bitmaps(n)`` built as on the card,
+    where it keeps its streams for B7."""
+    if name == "dense-b7":
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(kernels, "DENSE_STREAM_DEVICES", ("cuda", CPU))
+            ds = DeviceBitmapSet(_bitmaps(n), layout="dense", device=CPU)
+        assert ds.reduce_path == "streams"
+        return ds
     if name != "counts-b4":
         return DeviceBitmapSet(_bitmaps(n), layout=name, device=CPU)
     ds = DeviceBitmapSet(_container_bitmaps(), layout="counts", device=CPU)
@@ -136,8 +147,8 @@ def test_aggregate_is_one_span_a_call_under_the_caller(tmp_path, sets, name,
     extent = "groups" if layout == "counts" else "rows"
     for s in aggs:
         assert s["parent_id"] == outer.span_id
-        path = ({"path": "counts"} if layout == "counts" and op != "and"
-                else {})
+        path = ({"path": {"counts": "counts", "dense": "image"}[layout]}
+                if layout != "compact" and op != "and" else {})
         assert s["tags"] == {"op": op, "layout": layout, "engine": "torch",
                              "keys": int(ds.keys.size),
                              extent: (int(ds.counts.shape[0])
@@ -216,9 +227,11 @@ def _expected_bytes(ds, layout, engine) -> list:
         return [kernels.b2_launch_bytes(ds.words.shape[0], k)]
     if layout == "counts-b4":
         return [kernels.b4_launch_bytes(ds.counts.shape[0], k)]
-    if layout == "counts":
+    if layout in ("counts", "dense-b7"):
         plan = ds._stream_plan
-        return [kernels.b7_launch_bytes(plan.values, plan.dense_rows, k)]
+        runs = plan.runs if layout == "dense-b7" else None
+        return [kernels.b7_launch_bytes(plan.values, plan.dense_rows, k,
+                                        runs)]
     if engine == "cuda-nibble":
         return [kernels.b6_launch_bytes(ds._grp_seg.shape[0], k)]
     return [kernels.b3_launch_bytes(ds._chunks[0].shape[0], ds._n_rows),

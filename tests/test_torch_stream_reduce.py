@@ -430,4 +430,5 @@ def test_resident_bytes_count_the_plan():
     dense_set = tagg.DeviceBitmapSet(
         [TRB.from_values(v) for v in _bitmaps("full_array")], layout="dense",
         device=CPU)
-    assert not hasattr(dense_set, "_stream_plan")
+    # off the card a dense set keeps no plan of B7 (its or/xor read the image)
+    assert dense_set._stream_plan is None and dense_set.reduce_path == "image"
